@@ -1,0 +1,13 @@
+"""glint_word2vec_torch — the PyTorch/CUDA port of glint_word2vec_tpu.
+
+Skip-gram word2vec with a shared negative pool, trained on one NVIDIA GPU through a
+hand-written CUDA kernel (``csrc/sgns_shared.cu``), with the JAX package as the
+reference it is held against. The package imports torch and numpy, never jax.
+"""
+
+from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.data.vocab import Vocabulary
+from glint_word2vec_torch.models.estimator import Word2Vec
+from glint_word2vec_torch.models.word2vec import Word2VecModel
+
+__all__ = ["Word2Vec", "Word2VecConfig", "Word2VecModel", "Vocabulary"]

@@ -1,0 +1,1 @@
+"""Subpackage of glint_word2vec_torch; mirrors the layout of glint_word2vec_tpu."""
