@@ -3,16 +3,27 @@
 
     python3 chip_smoke.py [--seed N] [--out FILE]
 
-Phases, one line each; any failure exits non-zero:
+Phases, one line each (or a few); any failure exits non-zero:
   1. card      nvidia-smi name and power limit, torch/CUDA versions, TF32 off;
   2. build     every kernel in glint_word2vec_torch/csrc/, nvcc runs started together;
   3. kernel    the fused shared-pool SGNS step against its plain PyTorch version at the
                main shape (V=1,000,000, D=300 padded to 384, B=8192, P=256, Zipf
                duplicates, a masked tail, both sigmoid modes), then timed;
-  4. main      Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192)
-               .fit() on a synthetic Zipf corpus over a 1,000,000-word vocabulary,
-               with the kernel launch count read around the fit;
-  5. model     save -> verify -> load -> find_synonyms / analogy.
+  4. scatter   the row scatter-add kernel against its plain version (index_add_) and
+               both against a float64 sum, at the TPU probe's shape (H=2048, D=384,
+               B=65536 Zipf rows into a zeroed target) and at the per-pair syn1 shape
+               (49152 Zipf rows, a tenth of them dead, into V=1,000,000 x 384), timed;
+  5. steps     one full-width per-pair skip-gram step and one CBOW step (shared pool),
+               each run once through the scatter kernel and once through the plain
+               scatter on identical inputs, parameters compared;
+  6. fits      Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192)
+               .fit() on one synthetic Zipf corpus over one 1,000,000-word vocabulary,
+               four times: skip-gram with the shared pool (the fused kernel), per-pair
+               skip-gram (negative_pool=0), CBOW with the shared pool and per-example
+               CBOW (negative_pool=0) (the scatter kernel), every kernel's launch
+               count set to 0 just before each fit and read just after;
+  7. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
+               fit's model, right after that fit.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and the result
 line {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
 this file, it prints no result and exits 2.
@@ -34,15 +45,21 @@ from pathlib import Path
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
-V, D_REAL, B, N_NEG = 1_000_000, 300, 8192, 5
+V, D_REAL, D, B, N_NEG, WINDOW, P = 1_000_000, 300, 384, 8192, 5, 5, 256
 MASKED_TAIL = 1000
 # Kernel vs plain: |kernel - plain| <= 1e-4 on parameters of scale ~0.35 and 1e-4
-# relative on the loss. The kernel sums a row's duplicate updates with fp32 atomics in
-# a run-dependent order and its products in another order than cuBLAS; the hottest
-# row takes ~800 summed updates per step, whose reordering moves the sum by ~1e-5.
+# relative on the loss. The kernels sum a row's duplicate updates with fp32 atomics in
+# a run-dependent order (and the fused kernel its products in another order than
+# cuBLAS); the hottest row takes ~800 (fused step) to ~5000 (per-pair syn1) summed
+# updates per step, whose reordering moves the sum by ~1e-5 at most.
 PARAM_ATOL = 1e-4
 LOSS_RTOL = 1e-4
 TIMED_STEPS = 30
+SCATTER_RUNS = 25
+# Scatter vs float64: the standard bound of recursive f32 summation, (m - 1)·2^-24·Σ|x|
+# for a row that takes m updates, computed from each shape's own data (scatter_tol).
+EPS32 = 2.0 ** -24
+N_TOKENS = 1_200_000  # one corpus for every fit: >= 4 dispatch chunks on each path
 
 
 def log(phase: str, msg: str) -> None:
@@ -105,8 +122,6 @@ def time_steps(fn, steps: int, torch) -> float:
 
 
 def kernel_phase(seed: int, torch, sgns, fused) -> dict:
-    P = 256
-    D = 384
     gen = torch.Generator(device="cuda").manual_seed(seed)
     syn0 = torch.zeros((V, D), device="cuda")
     syn1 = torch.zeros((V, D), device="cuda")
@@ -164,6 +179,147 @@ def kernel_phase(seed: int, torch, sgns, fused) -> dict:
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
+def scatter_tol(target, idx, upd, torch) -> float:
+    """(max updates on one row)·2^-24·max over rows of (|target| + Σ|upd|)."""
+    mag = target.abs().double().index_add_(0, idx, upd.abs().double())
+    m = int(torch.bincount(idx).max()) + 1
+    return m * EPS32 * float(mag.abs().max())
+
+
+def scatter_case(name: str, target, idx, upd, live, torch, scat, probe) -> dict:
+    """Kernel vs plain vs float64 on one shape, then timed."""
+    want = target.double().index_add_(0, idx, upd.double())
+    tol = scatter_tol(target, idx, upd, torch)
+    got = scat.scatter_add_rows_(target.clone(), idx, upd, live)
+    plain = scat.scatter_add_rows_reference(target.clone(), idx, upd, live)
+    scat.check_errors()
+    torch.cuda.synchronize()
+    err_k = float((got.double() - want).abs().max())
+    err_p = float((plain.double() - want).abs().max())
+    err_kp = float((got - plain).abs().max())
+    del want, plain
+    out = target.clone()
+    ms = time_steps(lambda: scat.scatter_add_rows_(out, idx, upd, live), SCATTER_RUNS,
+                    torch)
+    lib_ms = time_steps(lambda: out.index_add_(0, idx, upd), SCATTER_RUNS, torch)
+    scat.check_errors()
+    bytes_ = probe.bound_bytes(idx, upd.shape[1], live)
+    bound_ms = 1e3 * bytes_ / PEAK_BYTES_PER_S
+    N = idx.numel()
+    log("scatter", f"{name}: N={N} rows of D={upd.shape[1]} into {target.shape[0]} "
+        f"(distinct targets {int(torch.unique(idx).numel())}, most updates on one row "
+        f"{int(torch.bincount(idx).max())}): max_abs_err kernel-plain {err_kp:.3e}, "
+        f"kernel-f64 {err_k:.3e}, plain-f64 {err_p:.3e} (tolerance {tol:.3e}); kernel "
+        f"{ms:.4f} ms (median of {SCATTER_RUNS}, {ms / N * 1e6:.3f} ns/row), "
+        f"index_add_ {lib_ms:.4f} ms ({lib_ms / N * 1e6:.3f} ns/row), bound "
+        f"{bound_ms * 1e3:.1f} us (bytes: {bytes_ / 1e6:.1f} MB, "
+        f"{bound_ms / N * 1e6:.3f} ns/row)")
+    if not (err_k <= tol and err_p <= tol):
+        raise AssertionError(f"scatter {name}: kernel or plain off the float64 sum "
+                             f"beyond the summation bound {tol:.3e}")
+    return {"max_abs_err": err_kp, "ms": ms, "plain_ms": lib_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "ns_per_row": ms / N * 1e6}
+
+
+def scatter_phase(seed: int, torch, scat, probe) -> dict:
+    """The TPU probe's shape, then the per-pair step's syn1 scatter at full width."""
+    idxs, x = probe.zipf_head_draw(2048, D, 65536, sets=1)
+    idx = torch.from_numpy(idxs[0]).cuda()
+    rec_probe = scatter_case("probe shape", torch.zeros((2048, D), device="cuda"), idx,
+                             torch.from_numpy(x).cuda(), None, torch, scat, probe)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    N = B * (1 + N_NEG)
+    target = torch.randn((V, D), generator=gen, device="cuda") * 0.35
+    idx = zipf_ids(gen, N, V, 1.1, torch)
+    live = (torch.rand(N, generator=gen, device="cuda") >= 0.1).float()
+    idx[live == 0] = 0                     # dead slots point at the hottest row
+    upd = torch.randn((N, D), generator=gen, device="cuda") * 1e-2 * live[:, None]
+    rec = scatter_case("per-pair syn1 shape", target, idx, upd, live, torch, scat,
+                       probe)
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec_probe["max_abs_err"])
+    rec["probe_shape"] = {k: rec_probe[k] for k in ("ms", "library_ms", "bound_ms",
+                                                     "ns_per_row", "max_abs_err")}
+    return rec
+
+
+def step_inputs(seed: int, torch, cbow: bool):
+    """Full-width parameters and one batch: Zipf centers/contexts, a masked tail, per
+    pair negatives [B, n] (skip-gram) or a pool of P (CBOW), negatives equal to
+    positives; CBOW windows with the legacy window's context counts."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2 + cbow)
+    syn0 = torch.zeros((V, D), device="cuda")
+    syn1 = torch.zeros((V, D), device="cuda")
+    syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    c = zipf_ids(gen, B, V, 1.1, torch)
+    mask = torch.ones(B, device="cuda")
+    mask[-MASKED_TAIL:] = 0.0
+    c[-MASKED_TAIL:] = 0
+    if not cbow:
+        x = zipf_ids(gen, B, V, 1.1, torch)
+        x[-MASKED_TAIL:] = 0
+        neg = zipf_ids(gen, B * N_NEG, V, 1.1, torch).view(B, N_NEG)
+        neg[:64, 0] = x[:64]
+        return (syn0, syn1), (c, x, mask, neg)
+    b = torch.randint(1, WINDOW, (B,), generator=gen, device="cuda")
+    nctx = 2 * b - 1                       # b + max(b - 1, 0), b >= 1
+    nctx[-MASKED_TAIL:] = 0
+    ctx_mask = (torch.arange(2 * WINDOW, device="cuda")[None, :]
+                < nctx[:, None]).float()
+    ctx = zipf_ids(gen, B * 2 * WINDOW, V, 1.1, torch).view(B, -1) * ctx_mask.long()
+    neg = zipf_ids(gen, P, V, 1.1, torch)
+    neg[:8] = c[:8]
+    return (syn0, syn1), (c, ctx, ctx_mask, mask, neg)
+
+
+def steps_phase(seed: int, torch, sgns, scat) -> float:
+    """One per-pair and one CBOW step through the kernel and through the plain
+    scatter, identical inputs; returns the largest parameter difference."""
+    worst = 0.0
+    for name, cbow in (("per-pair skip-gram", False), ("CBOW, shared pool", True)):
+        base, batch = step_inputs(seed, torch, cbow)
+        if cbow:
+            def run(p, scatter):
+                return sgns.cbow_step_shared_core(p, *batch, 0.025, N_NEG, "exact", True,
+                                                  scatter)
+        else:
+            def run(p, scatter):
+                return sgns.sgns_step_core(p, *batch, 0.025, "exact", scatter)
+        got = sgns.EmbeddingPair(base[0].clone(), base[1].clone())
+        before = scat.scatter_add_rows_.launches
+        gm = run(got, scat.scatter_add_rows_)
+        launched = scat.scatter_add_rows_.launches - before
+        want = sgns.EmbeddingPair(base[0].clone(), base[1].clone())
+        wm = run(want, scat.scatter_add_rows_reference)
+        scat.check_errors()
+        torch.cuda.synchronize()
+        err = max(float((got.syn0 - want.syn0).abs().max()),
+                  float((got.syn1 - want.syn1).abs().max()))
+        moved = max(float((want.syn0 - base[0]).abs().max()),
+                    float((want.syn1 - base[1]).abs().max()))
+        loss_rel = abs(float(gm.loss) - float(wm.loss)) / abs(float(wm.loss))
+        del want
+        p = sgns.EmbeddingPair(*base)
+        ms = time_steps(lambda: run(p, scat.scatter_add_rows_), TIMED_STEPS, torch)
+        plain_ms = time_steps(lambda: run(p, scat.scatter_add_rows_reference),
+                              TIMED_STEPS, torch)
+        log("steps", f"{name}: max_abs_err kernel-plain {err:.3e} (largest update "
+            f"{moved:.3e}), loss {float(gm.loss):.6f} vs {float(wm.loss):.6f}, "
+            f"pairs {float(gm.pairs):.0f}, scatter launches {launched}; step with the "
+            f"kernel {ms:.4f} ms, with index_add_ {plain_ms:.4f} ms (medians of "
+            f"{TIMED_STEPS})")
+        bad = [k for k, ok in (("params", err <= PARAM_ATOL), ("moved", moved > 1e-3),
+                               ("loss", loss_rel <= LOSS_RTOL),
+                               ("launches", launched == sgns.SCATTERS_PER_STEP),
+                               ("finite", math.isfinite(float(gm.loss)))) if not ok]
+        if bad:
+            raise AssertionError(f"{name} step with the scatter kernel disagrees with "
+                                 f"the plain scatter: {bad}; tolerance {PARAM_ATOL}")
+        worst = max(worst, err)
+        del got, p, base
+    return worst
+
+
 def synthetic_corpus(seed: int, n_tokens: int, np):
     """Words w0..w{V-1} with Zipf(1) counts, and sentences of 40 tokens drawn from
     that distribution."""
@@ -176,39 +332,56 @@ def synthetic_corpus(seed: int, n_tokens: int, np):
     return words, counts, sents
 
 
-def main_path_phase(seed: int, torch, np, fused):
-    from glint_word2vec_torch import Vocabulary, Word2Vec
+FITS = (  # (name, config knobs, pool the trainer must resolve)
+    ("shared", {}, 256),
+    ("per_pair", {"negative_pool": 0}, 0),
+    ("cbow", {"cbow": True}, 256),
+    ("cbow_per_example", {"cbow": True, "negative_pool": 0}, 0),
+)
 
-    t0 = time.perf_counter()
-    words, counts, sents = synthetic_corpus(seed, 400_000, np)
-    vocab = Vocabulary.from_words_and_counts(words, counts)
-    log("main", f"vocabulary {vocab.size} words, corpus {sum(map(len, sents))} tokens "
-        f"in {len(sents)} sentences ({time.perf_counter() - t0:.1f} s)")
-    est = Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192,
-                   min_count=1, heartbeat_every_steps=16, seed=seed, device="cuda")
+
+def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused,
+              scat, sgns):
+    """One fit through the estimator; the kernel counts are set to 0 just before it
+    and read just after. Returns (model, fused launches, scatter launches)."""
+    from glint_word2vec_torch import Word2Vec
+
+    vocab, sents = corpus
+    est = Word2Vec(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
+                   pairs_per_batch=B, min_count=1, heartbeat_every_steps=16, seed=seed,
+                   device="cuda", **knobs)
     fused.fused_sgns_shared_step.launches = 0
+    scat.scatter_add_rows_.launches = 0
     t0 = time.perf_counter()
     model = est.fit(sents, vocab=vocab)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused.fused_sgns_shared_step.launches
+    n_fused = fused.fused_sgns_shared_step.launches
+    n_scat = scat.scatter_add_rows_.launches
     tr = est.trainer
     hb = list(tr.heartbeats)
     loss = hb[-1].loss if hb else float("nan")
-    log("main", f"pool {tr.config.negative_pool}, subsample {tr.config.subsample_ratio:g}, "
-        f"steps {tr.global_step}, pairs {tr.pairs_trained:.0f}, kernel launches "
-        f"{launches}, fit wall {wall:.2f} s (setup included), heartbeat pairs/s "
-        f"{[round(h.pairs_per_sec) for h in hb]}, losses "
-        f"{[round(h.loss, 5) for h in hb]}")
-    checks = {"pool == 256": tr.config.negative_pool == 256,
-              "steps >= 64": tr.global_step >= 64,
-              "launches == steps": launches == tr.global_step,
+    unit = "examples" if tr.config.cbow else "pairs"
+    log("fit", f"{name}: pool {tr.config.negative_pool}, subsample "
+        f"{tr.config.subsample_ratio:g}, steps {tr.global_step} "
+        f"({-(-tr.global_step // tr.config.steps_per_dispatch)} chunks), {unit} "
+        f"{tr.pairs_trained:.0f}, launches: sgns_shared {n_fused}, scatter_rows {n_scat}; "
+        f"fit wall {wall:.2f} s (setup included), {unit}/s over the fit "
+        f"{tr.pairs_trained / wall:.0f}, heartbeat {unit}/s "
+        f"{[round(h.pairs_per_sec) for h in hb]}, losses {[round(h.loss, 5) for h in hb]}")
+    steps = tr.global_step
+    shared = name == "shared"
+    checks = {f"pool == {pool}": tr.config.negative_pool == pool,
+              "steps >= 4 chunks": steps > 3 * tr.config.steps_per_dispatch,
+              "sgns_shared launches": n_fused == (steps if shared else 0),
+              "scatter_rows launches": n_scat == (0 if shared
+                                                  else steps * sgns.SCATTERS_PER_STEP),
               "loss finite": math.isfinite(loss),
               "params finite": bool(torch.isfinite(model.syn0).all())}
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        raise AssertionError(f"main path failed: {bad}")
-    return model, launches
+        raise AssertionError(f"fit {name} failed: {bad}")
+    return model, n_fused, n_scat
 
 
 def model_phase(model, torch, np) -> None:
@@ -265,8 +438,11 @@ def main() -> int:
               "port on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(repo))
+    from glint_word2vec_torch import Vocabulary
+    from glint_word2vec_torch import scatterprobe as probe
     from glint_word2vec_torch.ops import fused_sgns as fused
     from glint_word2vec_torch.ops import kernels
+    from glint_word2vec_torch.ops import scatter as scat
     from glint_word2vec_torch.ops import sgns
 
     card = card_line()
@@ -279,13 +455,37 @@ def main() -> int:
     log("build", f"{kernels.sources()} built in {build_all(kernels):.1f} s "
         f"({' '.join(kernels.NVCC_FLAGS)})")
     rec = kernel_phase(args.seed, torch, sgns, fused)
-    model, launches = main_path_phase(args.seed, torch, np, fused)
-    model_phase(model, torch, np)
+    srec = scatter_phase(args.seed, torch, scat, probe)
+    srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
+                                                                  scat))
+    t0 = time.perf_counter()
+    words, counts, sents = synthetic_corpus(args.seed, N_TOKENS, np)
+    corpus = (Vocabulary.from_words_and_counts(words, counts), sents)
+    log("fit", f"vocabulary {corpus[0].size} words, corpus {N_TOKENS} tokens in "
+        f"{len(sents)} sentences ({time.perf_counter() - t0:.1f} s)")
+    launches = {}
+    for name, knobs, pool in FITS:
+        model, n_fused, n_scat = fit_phase(
+            name, knobs, pool, corpus, args.seed, torch, fused, scat, sgns)
+        launches[name] = {"sgns_shared_step": n_fused, "scatter_add_rows": n_scat}
+        if name == "shared":
+            model_phase(model, torch, np)
+        del model
+    by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
+               for k in ("sgns_shared_step", "scatter_add_rows")}
     kernels_line = {"kernels": [{
         "name": "sgns_shared_step", "route": "cuda", "source": fused.KERNEL_SOURCE,
-        "replaces": fused.REPLACES, "launches": launches,
+        "replaces": fused.REPLACES, "launches": sum(by_path["sgns_shared_step"].values()),
+        "launches_by_path": by_path["sgns_shared_step"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None}]}
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None}, {
+        "name": "scatter_add_rows", "route": "cuda", "source": scat.KERNEL_SOURCE,
+        "replaces": scat.REPLACES, "launches": sum(by_path["scatter_add_rows"].values()),
+        "launches_by_path": by_path["scatter_add_rows"],
+        "max_abs_err": srec["max_abs_err"], "ms": srec["ms"],
+        "plain_ms": srec["plain_ms"], "bound_ms": srec["bound_ms"],
+        "bound_by": srec["bound_by"], "library_ms": srec["library_ms"],
+        "ns_per_row": srec["ns_per_row"], "probe_shape": srec["probe_shape"]}]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "card": card}) + "\n")

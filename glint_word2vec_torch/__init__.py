@@ -1,8 +1,10 @@
 """glint_word2vec_torch — the PyTorch/CUDA port of glint_word2vec_tpu.
 
-Skip-gram word2vec with a shared negative pool, trained on one NVIDIA GPU through a
-hand-written CUDA kernel (``csrc/sgns_shared.cu``), with the JAX package as the
-reference it is held against. The package imports torch and numpy, never jax.
+Skip-gram and CBOW word2vec, with a shared negative pool or per-pair negatives, trained
+on one NVIDIA GPU through hand-written CUDA kernels (``csrc/sgns_shared.cu``, the fused
+shared-pool skip-gram step; ``csrc/scatter_rows.cu``, the row scatter-add of the other
+steps), with the JAX package as the reference it is held against. The package imports
+torch and numpy, never jax.
 """
 
 from glint_word2vec_torch.config import Word2VecConfig

@@ -5,8 +5,9 @@ package, because checkpoints of either package carry the config and must load in
 other. The field comments there hold the provenance of every default; this module
 repeats only what the port does differently.
 
-The port implements the single-device skip-gram step with a shared negative pool. A
-knob that would change the results of training and is not ported yet raises
+The port implements the single-device steps: skip-gram with a shared negative pool or
+with per-pair negatives (``negative_pool`` resolving to 0), and scatter CBOW with either.
+A knob that would change the results of training and is not ported yet raises
 :class:`NotImplementedError` naming it, at construction, when set off its default; it
 is never silently ignored. Knobs that only change wall clock in the JAX package
 (``producer_workers``, ``io_workers``, ``prefetch_chunks``: the JAX package guarantees
@@ -21,7 +22,7 @@ from typing import Optional, Tuple
 # Knobs not ported yet, refused off their default (ROADMAP queue A names the slice
 # each one lands in).
 _UNPORTED = (
-    "cbow", "cbow_update", "device_pairgen", "duplicate_scaling", "fused_logits",
+    "device_pairgen", "duplicate_scaling", "fused_logits",
     "bf16_chain", "hot_rows", "use_pallas", "param_dtype", "compute_dtype",
     "logits_dtype", "step_lowering", "sync_every", "num_model_shards",
     "num_data_shards", "embedding_partition", "sharded_checkpoint", "max_row_norm",
@@ -42,8 +43,8 @@ class Word2VecConfig:
 
     ``check_ported`` (init-only, not a field): False skips the refusal of unported
     knobs. Only checkpoint readers pass it, so that a model trained with a path the
-    port does not have yet (e.g. the per-pair step) can still be loaded for the
-    model ops, which do not depend on it.
+    port does not have yet (e.g. banded CBOW) can still be loaded for the model ops,
+    which do not depend on it.
     """
 
     # --- core hyperparameters (reference defaults) ---
@@ -172,6 +173,7 @@ class Word2VecConfig:
         if check_ported:
             self._refuse_unported()
         _validate_ranges(self)
+        _validate_cbow(self)
         # remembered so the Trainer may auto-lower an AUTO ratio (explicit values are
         # refused instead)
         self._auto_subsample = self.subsample_ratio == -1.0
@@ -200,12 +202,6 @@ class Word2VecConfig:
             raise ValueError(
                 f"negative_pool must be nonnegative (or -1 for auto) "
                 f"but got {self.negative_pool}")
-        if check_ported and self.negative_pool == 0:
-            raise NotImplementedError(
-                "negative_pool resolves to 0 (the per-pair step: pairs_per_batch < 4096 "
-                "with an AUTO pool, or negative_pool=0) and the per-pair step is not "
-                "ported to glint_word2vec_torch yet; set negative_pool > 0 or "
-                "pairs_per_batch >= 4096")
 
     def _refuse_unported(self) -> None:
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
@@ -219,6 +215,11 @@ class Word2VecConfig:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the port trains on one device; "
                 "multi-device meshes are not ported yet")
+        if self.cbow and self.cbow_update == "banded":
+            raise NotImplementedError(
+                "cbow_update='banded' is not ported to glint_word2vec_torch yet: it "
+                "needs the device CBOW window feed (ops/pairgen.device_cbow_windows, "
+                "ROADMAP.md queue A4); use cbow_update='scatter'")
         if self.nonfinite_policy == "rollback":
             raise NotImplementedError(
                 "nonfinite_policy='rollback' (snapshot ring + lattice re-seed) is not "
@@ -254,6 +255,53 @@ class Word2VecConfig:
             # the JAX package's normalization of old cbow+duplicate_scaling configs
             clean["negative_pool"] = 0
         return cls(**clean, check_ported=check_ported)
+
+
+def _validate_cbow(c: Word2VecConfig) -> None:
+    """The JAX package's CBOW update-path checks, copied as they stand. With
+    ``check_ported`` the port refuses banded CBOW, duplicate_scaling and use_pallas by
+    name before these run; checkpoint readers still get the JAX package's answer for a
+    config it would refuse."""
+    if c.cbow_update not in ("scatter", "banded"):
+        raise ValueError(
+            f"cbow_update must be 'scatter' or 'banded' but got {c.cbow_update!r}")
+    if c.cbow_update == "banded":
+        if not c.cbow:
+            raise ValueError(
+                "cbow_update='banded' requires cbow=True — the knob selects the CBOW "
+                "step formulation")
+        if c.duplicate_scaling:
+            raise ValueError(
+                "cbow_update='banded' does not support duplicate_scaling=True: "
+                "mean-update semantics are only implemented on the scatter path — use "
+                "cbow_update='scatter'")
+        if c.use_pallas:
+            raise ValueError(
+                "cbow_update='banded' is an XLA path; use_pallas=True (the fused SGNS "
+                "kernel) does not apply to CBOW")
+        if c.negative_pool == 0:
+            raise ValueError(
+                "cbow_update='banded' requires the shared-pool estimator "
+                "(negative_pool > 0, or -1 for auto); per-example negatives "
+                "(negative_pool=0) are scatter-path only")
+        if c.tokens_per_step:
+            raise ValueError(
+                "cbow_update='banded' derives its token-block size from "
+                "pairs_per_batch + window; tokens_per_step is the device_pairgen knob "
+                "— leave it 0")
+        if c.window < 2:
+            raise ValueError(
+                "cbow_update='banded' with window=1 emits no contexts at all under the "
+                "reference's legacy asymmetric window — use window >= 2")
+    if c.use_pallas and c.cbow:
+        raise ValueError(
+            "use_pallas=True is not implemented for CBOW — the fused kernel is "
+            "SGNS-only; use the CBOW paths (cbow_update='scatter'/'banded')")
+    if c.cbow and c.duplicate_scaling and c.negative_pool > 0:
+        raise ValueError(
+            "CBOW with duplicate_scaling=True implements mean semantics per-example "
+            "only; an explicit negative_pool > 0 would be silently ignored — set "
+            "negative_pool=0 (or -1 for auto, which resolves to 0 here)")
 
 
 def _validate_ranges(c: Word2VecConfig) -> None:

@@ -1,4 +1,5 @@
-"""Host-side pair feed: index -> subsample -> dynamic window -> fixed-shape pair batches.
+"""Host-side pair feed: index -> subsample -> dynamic window -> fixed-shape pair batches,
+and its CBOW twin (grouped context windows instead of flat pairs).
 
 Ported from the numpy backend of ``glint_word2vec_tpu/data/pipeline.py``; the stream is
 bit-identical to it (tested). Every random decision is position-keyed through
@@ -10,9 +11,10 @@ subsampling uses the intended float keep formula (the reference's integer divisi
 it a no-op), and the window keeps the reference's asymmetric shape by default
 (``legacy_asymmetric_window=True``: b words of left context, b-1 of right).
 
-Not ported: the native C++ pair generator and the thread-pool fan-out
-(``producer_workers``). Both yield the bit-identical stream, so the port runs the
-numpy generator serially whatever ``producer_workers`` says.
+Not ported: the native C++ pair generator, the thread-pool fan-out
+(``producer_workers``) and the banded-CBOW halo packer (``pack_halo_token_blocks``,
+which waits with banded CBOW). The first two yield the bit-identical stream, so the
+port runs the numpy generator serially whatever ``producer_workers`` says.
 """
 
 from __future__ import annotations
@@ -276,3 +278,143 @@ def epoch_batches(
         mask = (np.arange(pairs_per_batch) < n).astype(np.float32)
         words_seen = int(bclock[n - 1]) if n else words_seen
         yield PairBatch(bc, bx, mask, words_seen, n)
+
+
+# ---------------------------------------------------------------------------------------
+# CBOW variant (BASELINE.md config 5): grouped context windows instead of flat pairs.
+# ---------------------------------------------------------------------------------------
+
+
+def dynamic_window_cbow(
+    sentence: np.ndarray,
+    window: int,
+    rng: np.random.Generator,
+    legacy_asymmetric_window: bool = True,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-position padded context windows of one sentence: (centers [L], contexts
+    [L, C], ctx_mask [L, C]) with C = 2·window, positions with no context dropped. The
+    window draw is the per-sentence generator's (``rng``), not the hash lattice."""
+    L = sentence.shape[0]
+    C = 2 * window
+    if L == 0:
+        return (np.empty(0, np.int32), np.empty((0, C), np.int32),
+                np.empty((0, C), np.float32))
+    positions = np.arange(L, dtype=np.int64)
+    b = rng.integers(0, window, size=L)
+    left = np.minimum(b, positions)
+    right_extent = b if not legacy_asymmetric_window else b - 1
+    right = np.clip(np.minimum(right_extent, L - 1 - positions), 0, None)
+    total = left + right
+    num_pairs = int(total.sum())
+    contexts = np.zeros((L, C), dtype=np.int32)
+    ctx_mask = np.zeros((L, C), dtype=np.float32)
+    if num_pairs:
+        group_starts = np.cumsum(total) - total
+        offsets = np.arange(num_pairs, dtype=np.int64) - np.repeat(group_starts, total)
+        rows = np.repeat(positions, total)
+        left_rep = np.repeat(left, total)
+        ctx_pos = rows - left_rep + offsets + (offsets >= left_rep)
+        contexts[rows, offsets] = sentence[ctx_pos]
+        ctx_mask[rows, offsets] = 1.0
+    keep = total > 0
+    return (sentence[keep].astype(np.int32), contexts[keep], ctx_mask[keep])
+
+
+def _block_cbow(
+    tokens: np.ndarray,          # int32 [N] concatenated sentence tokens
+    lengths: np.ndarray,         # int64 [S] sentence lengths (sum == N)
+    keep: np.ndarray,            # float32 [V] per-word keep probability
+    window: int,
+    seed: int,
+    iteration: int,
+    shard: int,
+    token_base: int,
+    legacy_asymmetric_window: bool,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
+    """CBOW analog of :func:`_block_pairs`, with the same position-keyed draws.
+
+    Returns (centers [Nk], contexts [Nk, 2*window] left-packed, n_ctx [Nk],
+    center_word_index [Nk], words_kept); positions with no context are dropped."""
+    C = 2 * window
+    empty = (np.empty(0, np.int32), np.empty((0, C), np.int32),
+             np.empty(0, np.int32), np.empty(0, np.int64), 0)
+    prologue = _subsample_and_window(
+        tokens, lengths, keep, window, seed, iteration, shard, token_base,
+        legacy_asymmetric_window)
+    if prologue is None:
+        return empty
+    toks, left, total, Nk = prologue
+    j = np.arange(C, dtype=np.int64)[None, :]
+    ctx_pos = np.where(j < left[:, None],
+                       np.arange(Nk, dtype=np.int64)[:, None] - left[:, None] + j,
+                       np.arange(Nk, dtype=np.int64)[:, None] + j - left[:, None] + 1)
+    valid = j < total[:, None]
+    contexts = np.where(valid, toks[np.clip(ctx_pos, 0, Nk - 1)], 0).astype(np.int32)
+    has_ctx = total > 0
+    return (toks[has_ctx].astype(np.int32), contexts[has_ctx],
+            total[has_ctx].astype(np.int32),
+            np.flatnonzero(has_ctx) + 1, int(Nk))
+
+
+@dataclass
+class CbowBatch:
+    """One fixed-shape CBOW batch. Contexts are left-packed: an example's real slots
+    come first, and ``n_ctx`` counts them (``ctx_mask`` rebuilds the float mask)."""
+
+    centers: np.ndarray    # int32 [B]
+    contexts: np.ndarray   # int32 [B, C]
+    n_ctx: np.ndarray      # int32 [B]
+    mask: np.ndarray       # float32 [B]
+    words_seen: int
+    num_real: int
+
+    @property
+    def ctx_mask(self) -> np.ndarray:
+        C = self.contexts.shape[1]
+        return (np.arange(C)[None, :] < self.n_ctx[:, None]).astype(np.float32)
+
+
+def epoch_batches_cbow(
+    sentences: Sequence[np.ndarray],
+    vocab: Vocabulary,
+    *,
+    pairs_per_batch: int,
+    window: int,
+    subsample_ratio: float = 0.0,
+    seed: int = 0,
+    iteration: int = 1,
+    shuffle: bool = True,
+    legacy_asymmetric_window: bool = True,
+    block_words: int = 1_000_000,
+) -> Iterator[CbowBatch]:
+    """CBOW analog of :func:`epoch_batches` (the JAX package's shard 0 of 1):
+    fixed-shape [B, 2·window] context batches over the same position-keyed stream,
+    the last batch zero-padded and masked."""
+    B = int(pairs_per_batch)
+    shard = 0
+    rng = stream_rng(seed, iteration, shard)
+    keep = keep_probabilities(
+        vocab.counts, vocab.train_words_count, subsample_ratio).astype(np.float32)
+    order = np.arange(len(sentences))
+    if shuffle:
+        rng.shuffle(order)
+    batcher = PairBatcher(B, num_streams=4)
+    words_base = 0
+    words_seen = 0
+    token_base = 0
+    for block in iter_sentence_slabs(sentences, order, block_words):
+        tokens = np.concatenate(block) if len(block) > 1 else block[0]
+        lengths = np.fromiter((s.shape[0] for s in block), np.int64, len(block))
+        c, x, nc, clock, kept = _block_cbow(
+            tokens, lengths, keep, window, seed, iteration, shard, token_base,
+            legacy_asymmetric_window)
+        token_base += int(lengths.sum())
+        batcher.add(c, x, nc, words_base + clock)
+        words_base += kept
+        for bc, bx, bn, bclock, n in batcher.drain():
+            words_seen = int(bclock[n - 1])
+            yield CbowBatch(bc, bx, bn, np.ones(B, np.float32), words_seen, n)
+    for bc, bx, bn, bclock, n in batcher.drain(flush=True):
+        words_seen = int(bclock[n - 1]) if n else words_seen
+        yield CbowBatch(bc, bx, bn, (np.arange(B) < n).astype(np.float32),
+                        words_seen, n)

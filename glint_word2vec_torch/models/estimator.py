@@ -1,6 +1,7 @@
 """Estimator API, ported from ``glint_word2vec_tpu/models/estimator.py``:
 
     model = Word2Vec(vector_size=300, window=5, device="cuda").fit(sentences)
+    model = Word2Vec(vector_size=300, cbow=True, device="cuda").fit(sentences)
 
 vocabulary -> encoded corpus -> :class:`..train.trainer.Trainer` fit ->
 :class:`..models.word2vec.Word2VecModel`, on the card unless ``device="cpu"``.
@@ -22,7 +23,9 @@ logger = logging.getLogger("glint_word2vec_torch")
 
 
 class Word2Vec:
-    """Trains skip-gram word2vec with a shared negative pool."""
+    """Trains word2vec: skip-gram, or CBOW with ``cbow=True``, with a shared negative
+    pool or, with ``negative_pool=0`` (the AUTO pool below 4096 pairs per batch), with
+    the reference's negatives per pair."""
 
     def __init__(self, config: Optional[Word2VecConfig] = None, device="cuda",
                  **overrides):

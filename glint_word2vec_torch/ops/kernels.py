@@ -37,6 +37,12 @@ _SIGNATURES = {
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
             + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     },
+    "scatter_rows": {
+        "glint_scatter_rows": (
+            ctypes.c_int,
+            [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2),
+    },
 }
 
 

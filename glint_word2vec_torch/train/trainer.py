@@ -5,21 +5,27 @@ The control flow and bookkeeping are the JAX package's, so that a fit from the s
 parameters gives the same step count, pair count, alpha trace and (to f32 tolerance)
 parameters:
 
-- batches come from the numpy pair feed and are stacked ``steps_per_dispatch`` to a
-  chunk; a short last chunk is padded with masked dummy batches;
-- each batch's mask is rebuilt as a prefix mask from its real pair count;
-- one ``(K, P)`` pool of negatives is drawn per chunk from the hash PRNG at counter
-  ``global_step + 1``, so the negative stream is a pure function of (seed, step);
+- batches come from the numpy pair feed (or its CBOW twin) and are stacked
+  ``steps_per_dispatch`` to a chunk;
+- each batch's mask is rebuilt as a prefix mask from its real pair count, and a CBOW
+  batch's context mask from its context counts;
+- the negatives of a chunk are drawn at once from the hash PRNG at counter
+  ``global_step + 1``: one ``(K, P)`` pool on the shared-pool paths, ``(K, B, n)`` on
+  the per-example paths, so the negative stream is a pure function of (seed, step);
+- the step follows the JAX trainer's selection matrix: shared pool + skip-gram runs the
+  fused kernel, shared pool + CBOW ``cbow_step_shared_core``, a pool of 0
+  ``sgns_step_core`` or ``cbow_step_core`` (the last three scatter their rows through
+  the row-scatter kernel);
 - per-step alphas follow the words clock;
 - chunks no heartbeat will sample run the metrics-elided step (same parameters);
 - the AUTO pool is re-resolved for vocabularies past 500k words, and an AUTO
   subsample ratio is lowered out of the measured duplicate-overload region.
 
-Differences: the step updates the parameters in place (the fused wrapper), the feed
-runs on the calling thread (``prefetch_chunks``/``producer_workers`` change only wall
-clock in the JAX package), the masked dummy steps of a padded chunk are skipped (they
-are exact no-ops), and rollback/recovery, telemetry, statusd, profiling, stability
-advisories and the multi-process feeds are not ported yet.
+Differences: the steps update the parameters in place, the feed runs on the calling
+thread (``prefetch_chunks``/``producer_workers`` change only wall clock in the JAX
+package), a short last chunk is not padded with the JAX package's masked dummy steps
+(they are exact no-ops), and rollback/recovery, telemetry, statusd, profiling,
+stability advisories, banded CBOW and the multi-process feeds are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,13 +41,15 @@ import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
 from glint_word2vec_torch.data.pipeline import (
-    epoch_batches, expected_kept_words, keep_probabilities)
+    epoch_batches, epoch_batches_cbow, expected_kept_words, keep_probabilities)
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
+from glint_word2vec_torch.ops import scatter
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
 from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives_hash
 from glint_word2vec_torch.ops.sgns import (
-    EmbeddingPair, StepMetrics, alpha_schedule, init_embeddings)
+    EmbeddingPair, StepMetrics, alpha_schedule, cbow_step_core, cbow_step_shared_core,
+    init_embeddings, sgns_step_core)
 from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model
 
@@ -70,7 +78,8 @@ class HeartbeatRecord:
 
 
 class Trainer:
-    """Owns the embedding pair on one device and runs the synchronous SGNS loop."""
+    """Owns the embedding pair on one device and runs the synchronous SGNS/CBOW
+    loop."""
 
     # duplicate-overload channel (EVAL.md): ~300 expected top-word duplicates per
     # batch trained to NaN; AUTO lowering targets 250
@@ -209,78 +218,106 @@ class Trainer:
         return (self.global_step + max_steps - self._last_log_step
                 >= self.config.heartbeat_every_steps)
 
+    def _batch_stream(self, sentences: Sequence[np.ndarray],
+                      iteration: int) -> Iterator[tuple]:
+        """(arrays, real, words_seen) per batch: centers/contexts (and CBOW's n_ctx)
+        of the iteration's feed."""
+        cfg = self.config
+        common = dict(pairs_per_batch=cfg.pairs_per_batch, window=cfg.window,
+                      subsample_ratio=cfg.subsample_ratio, seed=cfg.seed,
+                      iteration=iteration, shuffle=cfg.shuffle)
+        if cfg.cbow:
+            for b in epoch_batches_cbow(sentences, self.vocab, **common):
+                yield ({"centers": b.centers, "contexts": b.contexts, "nctx": b.n_ctx},
+                       b.num_real, b.words_seen)
+        else:
+            for b in epoch_batches(sentences, self.vocab, **common):
+                yield ({"centers": b.centers, "contexts": b.contexts},
+                       b.num_real_pairs, b.words_seen)
+
     def _chunk_stream(self, sentences: Sequence[np.ndarray], total_words: float,
                       train_words: float) -> Iterator[dict]:
-        """Numpy chunk assembly: K-stacked pair batches, masked-dummy padding, the
-        alpha schedule and the resume skip."""
+        """Numpy chunk assembly: up to K stacked batches, the alpha schedule and the
+        resume skip."""
         cfg = self.config
         K = cfg.steps_per_dispatch
         start_iter = self.state.iteration
         skip_batches = self.state.batches_done if not self.state.finished else 0
         for k in range(start_iter, cfg.num_iterations + 1):
             prev_words = (k - 1) * train_words
-            pending: List[dict] = []
-            pending_words: List[float] = []
+            pending: List[tuple] = []
             batches_in_iter = skip_batches if k == start_iter else 0
             to_skip = batches_in_iter
 
             def flush() -> dict:
-                nonlocal pending, pending_words, batches_in_iter
+                nonlocal pending, batches_in_iter
                 real = len(pending)
-                while len(pending) < K:  # pad to the chunk length, masked out
-                    pending.append({"centers": np.zeros_like(pending[0]["centers"]),
-                                    "contexts": np.zeros_like(pending[0]["contexts"]),
-                                    "real": 0})
-                    pending_words.append(pending_words[-1])
-                pairs = np.empty((K, 2, pending[0]["centers"].shape[0]), np.int32)
-                for j, b in enumerate(pending):
-                    pairs[j, 0] = b["centers"]
-                    pairs[j, 1] = b["contexts"]
-                reals = np.asarray([b["real"] for b in pending], np.float32)
+                arrays = {name: np.stack([a[name] for a, _, _ in pending])
+                          for name in pending[0][0]}
+                reals = np.asarray([r for _, r, _ in pending], np.float32)
                 alphas = np.asarray([
                     alpha_schedule(float(w), total_words, cfg.learning_rate,
                                    cfg.min_alpha_factor)
-                    for w in pending_words], np.float32)
+                    for _, _, w in pending], np.float32)
                 batches_in_iter += real
-                chunk = dict(pairs=pairs, alphas=alphas, reals=reals, real=real,
-                             iteration=k, words_processed=int(pending_words[real - 1]),
+                chunk = dict(arrays=arrays, alphas=alphas, reals=reals, real=real,
+                             iteration=k, words_processed=int(pending[-1][2]),
                              batches_done=batches_in_iter, real_pairs=float(reals.sum()))
-                pending, pending_words = [], []
+                pending = []
                 return chunk
 
-            for b in epoch_batches(
-                    sentences, self.vocab, pairs_per_batch=cfg.pairs_per_batch,
-                    window=cfg.window, subsample_ratio=cfg.subsample_ratio,
-                    seed=cfg.seed, iteration=k, shuffle=cfg.shuffle):
+            for arrays, real, words_seen in self._batch_stream(sentences, k):
                 if to_skip:  # fast-forward already-trained batches (exact resume)
                     to_skip -= 1
                     continue
-                pending_words.append(prev_words + b.words_seen)
-                pending.append({"centers": b.centers, "contexts": b.contexts,
-                                "real": b.num_real_pairs})
+                pending.append((arrays, real, prev_words + words_seen))
                 if len(pending) == K:
                     yield flush()
             if pending:
                 yield flush()
 
-    def _run_chunk(self, chunk: dict) -> StepMetrics:
-        """Train the real steps of one chunk; returns the last step's metrics."""
+    def _step_fn(self) -> Callable:
+        """The step of this config, ``step(batch, negatives, alpha, with_metrics)``:
+        the JAX trainer's selection matrix without banded CBOW, pallas, shard_map and
+        hot rows (the config refuses those)."""
         cfg = self.config
-        K, _, B = chunk["pairs"].shape
-        pairs = torch.from_numpy(chunk["pairs"]).to(self.device).long()
+        p, n, mode = self.params, cfg.negatives, cfg.sigmoid_mode
+        if cfg.cbow and cfg.negative_pool > 0:
+            return lambda b, neg, alpha, wm: cbow_step_shared_core(
+                p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha, n,
+                mode, wm)
+        if cfg.cbow:
+            return lambda b, neg, alpha, wm: cbow_step_core(
+                p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha,
+                mode)
+        if cfg.negative_pool > 0:
+            return lambda b, neg, alpha, wm: fused_sgns_shared_step(
+                p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm)
+        return lambda b, neg, alpha, wm: sgns_step_core(
+            p, b["centers"], b["contexts"], b["mask"], neg, alpha, mode)
+
+    def _run_chunk(self, chunk: dict) -> StepMetrics:
+        """Train the steps of one chunk; returns the last step's metrics."""
+        cfg = self.config
+        arrays = {name: torch.from_numpy(a).to(self.device).long()
+                  for name, a in chunk["arrays"].items()}
+        K, B = cfg.steps_per_dispatch, arrays["centers"].shape[1]
+        shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
+                 else (K, cfg.negative_pool))
         negatives = sample_negatives_hash(
-            self._table_prob, self._table_alias, cfg.seed, self.global_step + 1,
-            (K, cfg.negative_pool))
+            self._table_prob, self._table_alias, cfg.seed, self.global_step + 1, shape)
         pos = torch.arange(B, device=self.device)
         with_metrics = self._with_metrics(chunk["real"])
+        step = self._step_fn()
         metrics = None
-        # the masked dummy steps that pad a short chunk are exact no-ops: skip them
         for k in range(chunk["real"]):
-            mask = (pos < int(chunk["reals"][k])).to(torch.float32)
-            metrics = fused_sgns_shared_step(
-                self.params, pairs[k, 0], pairs[k, 1], mask, negatives[k],
-                float(chunk["alphas"][k]), cfg.negatives, cfg.sigmoid_mode,
-                with_metrics)
+            batch = {name: a[k] for name, a in arrays.items()}
+            batch["mask"] = (pos < int(chunk["reals"][k])).to(torch.float32)
+            if cfg.cbow:
+                C = batch["contexts"].shape[1]
+                batch["ctx_mask"] = (torch.arange(C, device=self.device)[None, :]
+                                     < batch.pop("nctx")[:, None]).to(torch.float32)
+            metrics = step(batch, negatives[k], float(chunk["alphas"][k]), with_metrics)
         return metrics
 
     def fit(
@@ -306,6 +343,7 @@ class Trainer:
             metrics = self._run_chunk(chunk)
             self._finish_round(chunk, metrics, checkpoint_path, checkpoint_every_steps,
                                on_heartbeat)
+        scatter.check_errors()
         self.state = TrainState(
             iteration=cfg.num_iterations,
             words_processed=int(cfg.num_iterations * train_words),
@@ -334,6 +372,7 @@ class Trainer:
         if cfg.nonfinite_policy == "halt" and hb_due and not ckpt_due:
             self._nonfinite_guard()  # checkpoint rounds are guarded by the save
         if hb_due:
+            scatter.check_errors()
             now = time.perf_counter()
             rec = HeartbeatRecord(
                 words=self.state.words_processed,

@@ -27,7 +27,8 @@ def _port_files():
 
 def test_import_leaves_jax_out():
     code = ("import sys, glint_word2vec_torch, glint_word2vec_torch.ops.fused_sgns, "
-            "glint_word2vec_torch.interop\n"
+            "glint_word2vec_torch.ops.scatter, glint_word2vec_torch.scatterprobe, "
+            "glint_word2vec_torch.stepprof, glint_word2vec_torch.interop\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -69,25 +70,48 @@ def test_entry_points_default_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("cbow", True), ("use_pallas", True), ("param_dtype", "bfloat16"),
+    ("cbow_update", "banded"), ("use_pallas", True), ("param_dtype", "bfloat16"),
     ("hot_rows", 8), ("max_row_norm", 10.0), ("num_model_shards", 2),
     ("step_lowering", "shard_map"), ("telemetry_path", "/x"), ("norm_watch", "warn"),
     ("nonfinite_policy", "rollback"), ("serve_ann_quant", "pq"), ("mesh_shape", (2, 1)),
 ])
 def test_unported_knobs_are_refused_by_name(knob, value):
+    extra = {"cbow": True} if knob == "cbow_update" else {}  # banded needs CBOW
     with pytest.raises(NotImplementedError, match=knob):
-        Word2VecConfig(pairs_per_batch=8192, **{knob: value})
+        Word2VecConfig(pairs_per_batch=8192, **{knob: value}, **extra)
     d = Word2VecConfig(pairs_per_batch=8192).to_dict()
-    d[knob] = value
+    d.update({knob: value}, **extra)
     assert getattr(Word2VecConfig.from_dict(d, check_ported=False), knob) == value
 
 
-def test_per_pair_pool_is_refused():
-    with pytest.raises(NotImplementedError, match="per-pair"):
-        Word2VecConfig(pairs_per_batch=512)
-    with pytest.raises(NotImplementedError, match="per-pair"):
-        Word2VecConfig(pairs_per_batch=8192, negative_pool=0)
-    assert Word2VecConfig(pairs_per_batch=512, negative_pool=64).negative_pool == 64
+@pytest.mark.parametrize("kw", [
+    {"pairs_per_batch": 512}, {"pairs_per_batch": 8192, "negative_pool": 0},
+    {"pairs_per_batch": 512, "negative_pool": 64}, {"pairs_per_batch": 4096},
+    {"pairs_per_batch": 512, "cbow": True}, {"pairs_per_batch": 8192, "cbow": True},
+    {"pairs_per_batch": 8192, "cbow": True, "negative_pool": 0},
+    {"pairs_per_batch": 65536, "negatives": 10},
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_per_pair_pool_is_refused(kw):
+    """The per-pair and per-example paths are ported: a pool that resolves to 0 is
+    accepted now, and every pool resolves as the JAX package resolves it."""
+    from glint_word2vec_tpu.config import Word2VecConfig as JConfig
+    cfg = Word2VecConfig(**kw)
+    assert cfg.negative_pool == JConfig(**kw).negative_pool
+    assert cfg.to_dict() == JConfig(**kw).to_dict()
+
+
+@pytest.mark.parametrize("kw", [
+    {"cbow_update": "banded"}, {"cbow_update": "rows"},
+    {"cbow": True, "cbow_update": "banded", "negative_pool": 0},
+])
+def test_cbow_validation_matches_the_jax_package(kw):
+    """The JAX package's CBOW checks run in the port too: configs it refuses with a
+    ValueError are refused so here (checkpoint readers included)."""
+    from glint_word2vec_tpu.config import Word2VecConfig as JConfig
+    with pytest.raises(ValueError):
+        JConfig(**kw)
+    with pytest.raises(ValueError):
+        Word2VecConfig(**kw, check_ported=False)
 
 
 def test_config_key_set_matches_the_jax_package():

@@ -1,14 +1,17 @@
-"""The CUDA shared-pool step against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the fused
+shared-pool step and the row scatter-add.
 
-Marked ``cuda``: it needs an NVIDIA GPU and nvcc, and skips elsewhere (the kernel has
-no CPU mode; chip_smoke.py holds it against the plain version at the main shape).
-Tolerance: atol 1e-4 on parameters of scale ~0.5 — the kernel sums duplicate rows with
-fp32 atomics in a run-dependent order and its products in another order than cuBLAS."""
+Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the kernels have
+no CPU mode; chip_smoke.py holds them against the plain versions at the main shapes).
+Tolerance: atol 1e-4 on parameters of scale ~0.5 — the kernels sum duplicate rows with
+fp32 atomics in a run-dependent order, and the fused kernel its products in another
+order than cuBLAS."""
 
 import numpy as np
 import pytest
 import torch
 
+from glint_word2vec_torch.ops import scatter as tscatter
 from glint_word2vec_torch.ops import sgns as tsgns
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
 
@@ -45,3 +48,36 @@ def test_kernel_matches_plain(cuda, mode, B, P, D):
     torch.testing.assert_close(syn0, want.syn0, atol=1e-4, rtol=0)
     torch.testing.assert_close(syn1, want.syn1, atol=1e-4, rtol=0)
     torch.testing.assert_close(got.loss, wm.loss, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [384, 102])  # 102: rows not 16-byte aligned, scalar path
+@pytest.mark.parametrize("rows_per_block", [1, 32, 1024])
+def test_scatter_kernel_matches_plain(cuda, D, rows_per_block):
+    rng = np.random.default_rng(D + rows_per_block)
+    V, N = 4096, 20000
+    base = torch.from_numpy(rng.normal(0, 0.5, (V, D)).astype(np.float32)).to(cuda)
+    idx = torch.from_numpy((rng.zipf(1.2, N) - 1) % V).to(cuda)
+    live = torch.from_numpy((rng.random(N) > 0.3).astype(np.float32)).to(cuda)
+    upd = torch.from_numpy(rng.normal(0, 0.1, (N, D)).astype(np.float32)).to(cuda)
+    upd *= live[:, None]
+    idx[live == 0] = 0
+    want = tscatter.scatter_add_rows_reference(base.clone(), idx, upd)
+    before = tscatter.scatter_add_rows_.launches
+    got = tscatter.scatter_add_rows_(base.clone(), idx, upd, live,
+                                     rows_per_block=rows_per_block)
+    tscatter.check_errors()
+    torch.cuda.synchronize()
+    assert tscatter.scatter_add_rows_.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_refuses_out_of_range_rows(cuda):
+    mat = torch.zeros(64, 128, device=cuda)
+    idx = torch.tensor([3, 64, -1, 5], device=cuda)
+    tscatter.scatter_add_rows_(mat, idx, torch.ones(4, 128, device=cuda))
+    with pytest.raises(IndexError, match="outside"):
+        tscatter.check_errors()
+    assert mat[3].eq(1).all() and mat[5].eq(1).all() and mat.sum() == 2 * 128
+    tscatter.check_errors()  # the flag was cleared by the raise

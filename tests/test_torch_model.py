@@ -77,7 +77,8 @@ def test_checkpoints_cross_load(tmp_path):
 
 
 def test_jax_checkpoint_with_unported_knobs_still_loads(tmp_path):
-    """A per-pair-trained JAX model (pool resolves to 0) serves the model ops."""
+    """A per-pair-trained JAX model (pool resolves to 0) serves the model ops, and
+    its config now constructs in the port too."""
     words, counts, syn0, _ = _model_data()
     j = JModel(JVocab.from_words_and_counts(words, counts), syn0, None,
                config=JConfig(vector_size=32, pairs_per_batch=256))
@@ -86,8 +87,31 @@ def test_jax_checkpoint_with_unported_knobs_still_loads(tmp_path):
     assert t.config.negative_pool == 0 and t.syn1 is None
     assert [w for w, _ in t.find_synonyms("w3", 5)] == [
         w for w, _ in j.find_synonyms("w3", 5)]
-    with pytest.raises(NotImplementedError):
-        TConfig(vector_size=32, pairs_per_batch=256)
+    assert TConfig(vector_size=32, pairs_per_batch=256).negative_pool == 0
+
+
+@pytest.mark.parametrize("pool", [-1, 64, 0])
+def test_cbow_checkpoints_cross_load(tmp_path, pool):
+    """A CBOW model (AUTO, explicit or per-example pool) saved by either package loads
+    in the other with the same config, and the port can resume training from it."""
+    from glint_word2vec_torch.train.trainer import Trainer
+    words, counts, syn0, syn1 = _model_data(V=300, D=16)
+    knobs = dict(vector_size=16, pairs_per_batch=512, cbow=True, negative_pool=pool,
+                 window=3)
+    t, j = _pair(words, counts, syn0, syn1, knobs=knobs)
+    t.save(str(tmp_path / "from_torch"))
+    j.save(str(tmp_path / "from_jax"))
+    jj = JModel.load(str(tmp_path / "from_torch"))
+    tt = TModel.load(str(tmp_path / "from_jax"), device="cpu")
+    for m in (jj, tt):
+        np.testing.assert_array_equal(np.asarray(m.syn1), syn1)
+        assert m.config.cbow and m.config.negative_pool == (64 if pool == 64 else 0)
+    assert tt.config.to_dict() == jj.config.to_dict() == j.config.to_dict(
+        auto_markers=False)
+    data = tck.load_model(str(tmp_path / "from_jax"))  # the refusals apply: none fires
+    trainer = Trainer(data["config"], tt.vocab, params=(data["syn0"], data["syn1"]),
+                      device="cpu")
+    assert trainer.config.cbow and trainer.config.negative_pool == tt.config.negative_pool
 
 
 @pytest.mark.parametrize("num", [1, 10, 50])

@@ -1,6 +1,7 @@
 """The port's plain shared-pool step (and the fused wrapper's CPU path) against the
 JAX package's ``sgns_step_shared_core`` and, where their semantics coincide, its
-Pallas kernel in interpret mode.
+Pallas kernel in interpret mode; the port's in-place per-pair step against the JAX
+package's ``sgns_step_core``.
 
 Tolerance: atol 1e-5 on parameters and rtol 1e-5 on the loss. The two packages
 reassociate the f32 products and the duplicate-row scatter sums differently. The
@@ -134,6 +135,70 @@ def test_plain_step_matches_pallas_kernel_interpret(mode):
     np.testing.assert_allclose(new.syn1.numpy(), np.asarray(jparams.syn1), atol=ATOL,
                                rtol=0)
     np.testing.assert_allclose(float(tm.loss), float(jm.loss), rtol=LOSS_RTOL)
+
+
+def _per_pair_inputs(seed, Dreal, V=1024, D=128, B=512, n=N_NEG, masked=37):
+    """Zipf-duplicated centers, contexts and negatives (the negatives drawn from the
+    same head, so many repeat the centers' and contexts' rows), a few negatives equal
+    to their pair's context, a masked zero-index tail."""
+    rng = np.random.default_rng(seed)
+    syn0 = np.zeros((V, D), np.float32)
+    syn1 = np.zeros((V, D), np.float32)
+    syn0[:, :Dreal] = rng.normal(0, 0.5, (V, Dreal))
+    syn1[:, :Dreal] = rng.normal(0, 0.5, (V, Dreal))
+    centers = (rng.zipf(1.3, B) - 1) % V
+    contexts = (rng.zipf(1.3, B) - 1) % V
+    negatives = (rng.zipf(1.3, (B, n)) - 1) % V
+    negatives[:40, 0] = contexts[:40]
+    negatives[40:60, 2] = contexts[40:60]
+    mask = np.ones(B, np.float32)
+    mask[-masked:] = 0.0
+    centers[-masked:] = 0
+    contexts[-masked:] = 0
+    return (syn0, syn1, centers.astype(np.int32), contexts.astype(np.int32), mask,
+            negatives.astype(np.int32))
+
+
+@pytest.mark.parametrize("mode", ["exact", "clipped"])
+@pytest.mark.parametrize("Dreal", [128, 100])  # 100: lane-padded to 128, zero columns
+def test_per_pair_step_matches_jax(mode, Dreal):
+    inp = _per_pair_inputs(seed=Dreal + 1, Dreal=Dreal)
+    syn0, syn1, c, x, m, neg = inp
+    assert (neg == x[:, None]).sum() >= 60  # negatives equal to their context
+    jparams, jm = jsgns.sgns_step_core(
+        jsgns.EmbeddingPair(jnp.asarray(syn0), jnp.asarray(syn1)), jnp.asarray(c),
+        jnp.asarray(x), jnp.asarray(m), jnp.asarray(neg), jnp.float32(0.025), mode)
+    params = interop.params_from_numpy(syn0, syn1)
+    tm = tsgns.sgns_step_core(params, torch.from_numpy(c).long(),
+                              torch.from_numpy(x).long(), torch.from_numpy(m),
+                              torch.from_numpy(neg).long(), 0.025, mode)
+    np.testing.assert_allclose(params.syn0.numpy(), np.asarray(jparams.syn0),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(params.syn1.numpy(), np.asarray(jparams.syn1),
+                               atol=ATOL, rtol=0)
+    _close_metrics(tm, jm, True)
+    assert not params.syn0[:, Dreal:].any() and not params.syn1[:, Dreal:].any()
+    assert np.abs(params.syn1.numpy() - syn1).max() > 1e-3  # the step moved syn1
+
+
+def test_per_pair_step_reads_old_parameters():
+    """In place, yet every gather sees the parameters from before the step: the
+    result equals the step run on a private copy whose scatters land elsewhere."""
+    syn0, syn1, c, x, m, neg = _per_pair_inputs(seed=3, Dreal=128)
+    c[:20] = x[:20]  # a row that is both a center (syn0) and a context (syn1)
+    args = (torch.from_numpy(c).long(), torch.from_numpy(x).long(),
+            torch.from_numpy(m), torch.from_numpy(neg).long(), 0.03)
+    inplace = interop.params_from_numpy(syn0, syn1)
+    tsgns.sgns_step_core(inplace, *args)
+    src = interop.params_from_numpy(syn0, syn1)
+    out = interop.params_from_numpy(syn0, syn1)
+
+    def scatter_elsewhere(mat, idx, upd, live=None):
+        target = out.syn0 if mat is src.syn0 else out.syn1
+        return target.index_add_(0, idx, upd)
+
+    tsgns.sgns_step_core(src, *args, scatter=scatter_elsewhere)
+    assert torch.equal(inplace.syn0, out.syn0) and torch.equal(inplace.syn1, out.syn1)
 
 
 def test_alpha_schedule_matches():
