@@ -8,11 +8,19 @@ Phases, one line each (or a few); any failure exits non-zero:
   2. build     every kernel in glint_word2vec_torch/csrc/, nvcc runs started together;
   3. kernel    the fused shared-pool SGNS step against its plain PyTorch version at the
                main shape (V=1,000,000, D=300 padded to 384, B=8192, P=256, Zipf
-               duplicates, a masked tail, both sigmoid modes), then timed;
+               duplicates, a masked tail, both sigmoid modes), then a hot-row case (all
+               live centers on one row, the pool all one row) and a heavy draw (Zipf
+               1.3 over V=65536, parameters of scale 0.5), kernel and plain each against
+               a float64 step and the plain version against itself; timed per wrapper
+               call (CUDA events, the record's "ms"), and on the device per launch
+               (torch.profiler), warm (one batch) and L2-cold (a ring of independently
+               drawn batches whose rows exceed the 50 MB L2);
   4. scatter   the row scatter-add kernel against its plain version (index_add_) and
                both against a float64 sum, at the TPU probe's shape (H=2048, D=384,
-               B=65536 Zipf rows into a zeroed target) and at the per-pair syn1 shape
-               (49152 Zipf rows, a tenth of them dead, into V=1,000,000 x 384), timed;
+               B=65536 Zipf rows into a zeroed target), at the per-pair syn1 shape
+               (49152 Zipf rows, a tenth of them dead, into V=1,000,000 x 384) and at
+               the CBOW syn0 context shape (B*2*window = 81920 slots, about two thirds
+               dead, into V=1,000,000 x 384), timed;
   5. steps     one full-width per-pair skip-gram step and one CBOW step (shared pool),
                each run once through the scatter kernel and once through the plain
                scatter on identical inputs, parameters compared;
@@ -41,8 +49,9 @@ import time
 from pathlib import Path
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): fp32 on CUDA
-# cores and HBM3 bandwidth. The bound below is computed against them.
+# cores, TF32 on the tensor cores and HBM3 bandwidth. The bounds below use them.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 V, D_REAL, D, B, N_NEG, WINDOW, P = 1_000_000, 300, 384, 8192, 5, 5, 256
@@ -55,6 +64,9 @@ MASKED_TAIL = 1000
 PARAM_ATOL = 1e-4
 LOSS_RTOL = 1e-4
 TIMED_STEPS = 30
+L2_RING = 16  # independently drawn batches for the L2-cold timing (~10 MB of rows each)
+HOT_CENTER, HOT_POOL = 7, 11  # the hot-row case's rows
+HEAVY_V = 65536  # the heavy-draw case's vocabulary
 SCATTER_RUNS = 25
 # Scatter vs float64: the standard bound of recursive f32 summation, (m - 1)·2^-24·Σ|x|
 # for a row that takes m updates, computed from each shape's own data (scatter_tol).
@@ -91,18 +103,26 @@ def zipf_ids(gen, n: int, vocab: int, a: float, torch):
 
 def step_bound(c, x, neg, mask, D: int, torch) -> dict:
     """Least time for the step on these inputs: every touched row read once and
-    written once, indices and mask read once; 6·B_real·P·D flops for the three
-    products (E·Zᵀ, G·Z, Gᵀ·E) over the real pairs."""
+    written once, indices and mask read once, and the transposed copies that tf32
+    wgmma needs as K-major B operands (Zᵀ [D, P] and Gᵀ [P, B], each as TF32 big and
+    small parts) written once and read once; 6·B_real·P·D flops for the three
+    products (E·Zᵀ, G·Z, Gᵀ·E) over the real pairs. ``bound_ms`` takes them in fp32 on
+    CUDA cores (comparable with earlier runs), ``bound_tc_ms`` as three TF32 products
+    each (3xTF32) on the tensor cores."""
     real = mask > 0
     u0 = int(torch.unique(c[real]).numel())
     u1 = int(torch.unique(torch.cat([x[real], neg])).numel())
-    b_real, P = int(real.sum()), neg.numel()
-    bytes_ = 2 * (u0 + u1) * D * 4 + c.numel() * (8 + 8 + 4) + P * 8
+    b_real, B, P = int(real.sum()), c.numel(), neg.numel()
+    transposed = 2 * 2 * (D * P + P * B) * 4
+    bytes_ = 2 * (u0 + u1) * D * 4 + B * (8 + 8 + 4) + P * 8 + transposed
     flops = 6 * b_real * P * D
     t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    t_tc = 3 * flops / PEAK_TF32_FLOPS
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "bytes": bytes_, "flops": flops}
+            "bound_tc_ms": 1e3 * max(t_bytes, t_tc),
+            "bound_tc_by": "operations" if t_tc >= t_bytes else "bytes",
+            "bytes": bytes_, "transposed_bytes": transposed, "flops": flops}
 
 
 def time_steps(fn, steps: int, torch) -> float:
@@ -121,12 +141,9 @@ def time_steps(fn, steps: int, torch) -> float:
     return times[len(times) // 2]
 
 
-def kernel_phase(seed: int, torch, sgns, fused) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    syn0 = torch.zeros((V, D), device="cuda")
-    syn1 = torch.zeros((V, D), device="cuda")
-    syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
-    syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+def shared_batch(gen, torch):
+    """One skip-gram batch at the main shape: Zipf centers, contexts and pool, pool
+    entries equal to positives, a masked tail of index 0."""
     c = zipf_ids(gen, B, V, 1.1, torch)
     x = zipf_ids(gen, B, V, 1.1, torch)
     neg = zipf_ids(gen, P, V, 1.1, torch)
@@ -135,6 +152,91 @@ def kernel_phase(seed: int, torch, sgns, fused) -> dict:
     mask[-MASKED_TAIL:] = 0.0
     c[-MASKED_TAIL:] = 0
     x[-MASKED_TAIL:] = 0
+    return c, x, mask, neg
+
+
+def per_launch_us(fn, profile_call) -> dict:
+    """Mean device µs of one launch of each kernel that ``fn`` runs, from
+    torch.profiler over TIMED_STEPS calls (stepprof.profile_call)."""
+    return {k: v["us_total"] / max(v["count"], 1)
+            for k, v in profile_call(fn, TIMED_STEPS).items()}
+
+
+def f64_case(name: str, syn0, syn1, c, x, mask, neg, torch, sgns, fused) -> dict:
+    """One exact-sigmoid step through the kernel and through the plain version, each
+    against a float64 step, within the recursive-summation bound
+    depth·2^-24·max(|param| + Σ|terms|), depth = 2(B + P) fp32 additions into one
+    element (B pair updates, each a product of depth P, and the pool's B-long sums).
+    The plain version also runs a second time: its index_add_ sums duplicate rows with
+    atomics, so the two runs show how far its own order varies from run to run.
+    Returns the largest differences, over the touched rows of syn0 and syn1."""
+    alpha, B, P = 0.025, c.numel(), neg.numel()
+    pair = sgns.EmbeddingPair
+    want, wm = sgns.sgns_step_shared_core(pair(syn0, syn1), c, x, mask, neg, alpha,
+                                          N_NEG, "exact")
+    again, _ = sgns.sgns_step_shared_core(pair(syn0, syn1), c, x, mask, neg, alpha,
+                                          N_NEG, "exact")
+    got0, got1 = syn0.clone(), syn1.clone()
+    gm = fused.fused_sgns_shared_step(pair(got0, got1), c, x, mask, neg, alpha, N_NEG,
+                                      "exact")
+    rows0 = torch.unique(c)
+    rows1 = torch.unique(torch.cat([x, neg]))
+    s0, s1, m64 = syn0.double(), syn1.double(), mask.double()
+    ref, _ = sgns.sgns_step_shared_core(pair(s0, s1), c, x, m64, neg, alpha, N_NEG,
+                                        "exact")
+    e_in, e_pos, Z = s0[c], s1[x], s1[neg]
+    *_, g_pos, g_neg = sgns.shared_pool_coeffs(e_in, e_pos, Z, x, neg, m64, alpha, N_NEG,
+                                               "exact")
+    e_in, e_pos, Z, g_pos, g_neg = (t.abs() for t in (e_in, e_pos, Z, g_pos, g_neg))
+    mag0 = s0.abs().index_add_(0, c, g_pos[:, None] * e_pos + g_neg @ Z)[rows0]
+    mag1 = s1.abs().index_add_(0, x, g_pos[:, None] * e_in).index_add_(
+        0, neg, g_neg.T @ e_in)[rows1]
+    tol = 2 * (B + P) * EPS32 * float(max(mag0.max(), mag1.max()))
+    torch.cuda.synchronize()
+    errs = {}
+    for name_, k, p_, q, r, rows in (("syn0", got0, want.syn0, again.syn0, ref.syn0, rows0),
+                                     ("syn1", got1, want.syn1, again.syn1, ref.syn1, rows1)):
+        errs[name_] = {"kernel_f64": float((k[rows].double() - r[rows]).abs().max()),
+                       "plain_f64": float((p_[rows].double() - r[rows]).abs().max()),
+                       "kernel_plain": float((k[rows] - p_[rows]).abs().max()),
+                       "plain_plain": float((q[rows] - p_[rows]).abs().max())}
+    loss_rel = abs(float(gm.loss) - float(wm.loss)) / abs(float(wm.loss))
+    moved = max(float((got0[rows0] - syn0[rows0]).abs().max()),
+                float((got1[rows1] - syn1[rows1]).abs().max()))
+    log("kernel", "%s: max_abs_err %s; summation bound %.3e; loss_rel_err %.3e (kernel "
+        "moved a row by %.3e)" % (name, "; ".join(
+            f"{a} " + " ".join(f"{k.replace('_', '-')} {v:.3e}" for k, v in e.items())
+            for a, e in errs.items()), tol, loss_rel, moved))
+    bad = [k for k, ok in (("syn0", max(errs["syn0"]["kernel_f64"],
+                                        errs["syn0"]["plain_f64"]) <= tol),
+                           ("syn1", max(errs["syn1"]["kernel_f64"],
+                                        errs["syn1"]["plain_f64"]) <= tol),
+                           ("loss", loss_rel <= LOSS_RTOL), ("moved", moved > 1e-3),
+                           ("finite", math.isfinite(float(gm.loss)))) if not ok]
+    if bad:
+        raise AssertionError(f"{name}: off the float64 step beyond {tol:.3e}: {bad}")
+    return {k: max(errs["syn0"][k], errs["syn1"][k]) for k in errs["syn0"]}
+
+
+def heavy_draw(gen, mask, torch):
+    """A heavier draw than the main shape's: Zipf(1.3) indices over V=65536 and
+    parameters of scale 0.5, so the hottest rows take ~2000 large updates a step."""
+    syn0 = torch.randn((HEAVY_V, D), generator=gen, device="cuda") * 0.5
+    syn1 = torch.randn((HEAVY_V, D), generator=gen, device="cuda") * 0.5
+    c, x, neg = (zipf_ids(gen, n, HEAVY_V, 1.3, torch) for n in (B, B, P))
+    neg[:4] = x[:4]
+    c[mask == 0] = 0
+    x[mask == 0] = 0
+    return syn0, syn1, c, x, mask, neg
+
+
+def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    syn0 = torch.zeros((V, D), device="cuda")
+    syn1 = torch.zeros((V, D), device="cuda")
+    syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    c, x, mask, neg = shared_batch(gen, torch)
     alpha = 0.025
     worst = {"max_abs_err": 0.0}
     for mode in ("exact", "clipped"):
@@ -165,18 +267,59 @@ def kernel_phase(seed: int, torch, sgns, fused) -> dict:
                                  f"{LOSS_RTOL}")
         worst["max_abs_err"] = max(worst["max_abs_err"], err0, err1)
         del want, got0, got1
+    hot = f64_case(f"hot row (centers on row {HOT_CENTER}, pool on row {HOT_POOL})",
+                   syn0, syn1, torch.where(mask > 0, HOT_CENTER, 0).to(torch.int64), x,
+                   mask, torch.full((P,), HOT_POOL, dtype=torch.int64, device="cuda"),
+                   torch, sgns, fused)
+    heavy = f64_case(f"heavy draw (Zipf 1.3 over V={HEAVY_V}, parameters of scale 0.5)",
+                     *heavy_draw(gen, mask, torch), torch, sgns, fused)
     params = sgns.EmbeddingPair(syn0, syn1)
-    ms = time_steps(lambda: fused.fused_sgns_shared_step(
-        params, c, x, mask, neg, alpha, N_NEG, "exact"), TIMED_STEPS, torch)
+
+    def step():
+        fused.fused_sgns_shared_step(params, c, x, mask, neg, alpha, N_NEG, "exact")
+
+    call_ms = time_steps(step, TIMED_STEPS, torch)
     plain_ms = time_steps(lambda: sgns.sgns_step_shared_core(
         params, c, x, mask, neg, alpha, N_NEG, "exact"), TIMED_STEPS, torch)
+    warm = per_launch_us(step, profile_call)
+    ring = [shared_batch(gen, torch) for _ in range(L2_RING)]
+    rows = [torch.unique(torch.cat([b[0] for b in ring])).numel(),
+            torch.unique(torch.cat([torch.cat([b[1], b[3]]) for b in ring])).numel()]
+    ring_mb = (int(rows[0]) + int(rows[1])) * D * 4 / 1e6
+    turn = iter(range(10 ** 9))
+
+    def cold_step():
+        cb, xb, mb, nb = ring[next(turn) % L2_RING]
+        fused.fused_sgns_shared_step(params, cb, xb, mb, nb, alpha, N_NEG, "exact")
+
+    cold = per_launch_us(cold_step, profile_call)
     bound = step_bound(c, x, neg, mask, D, torch)
-    log("kernel", f"B={B} P={P} D={D} V={V}: kernel {ms:.4f} ms (median of "
-        f"{TIMED_STEPS}), plain {plain_ms:.4f} ms, bound {1e3 * bound['bound_ms']:.1f} us "
-        f"({bound['bound_by']}: {bound['flops'] / 1e9:.3f} GFLOP, "
-        f"{bound['bytes'] / 1e6:.1f} MB), library_ms: none")
-    return {"max_abs_err": worst["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+    ours = ("gather_kernel", "fneg_kernel", "update_kernel", "dz_scatter_kernel")
+    if any(k not in warm for k in ours):
+        raise AssertionError(f"the profile shows no launch of {ours}: {warm}")
+    # each of the four launches once per step
+    device_ms = sum(warm[k] for k in ours) / 1e3
+    cold_ms = sum(cold[k] for k in ours) / 1e3
+    log("kernel", f"B={B} P={P} D={D} V={V}: one wrapper call {call_ms:.4f} ms (CUDA "
+        f"events, median of {TIMED_STEPS}, host enqueue included); on the device "
+        f"{device_ms:.4f} ms per step warm (one batch; its four launches' mean times "
+        f"summed, torch.profiler over {TIMED_STEPS} steps), {cold_ms:.4f} ms L2-cold (a "
+        f"ring of {L2_RING} batches touching {ring_mb:.1f} MB of distinct rows); plain "
+        f"{plain_ms:.4f} ms; bound {1e3 * bound['bound_ms']:.1f} us ({bound['bound_by']}, "
+        f"fp32 CUDA cores), bound_tc {1e3 * bound['bound_tc_ms']:.1f} us "
+        f"({bound['bound_tc_by']}, 3xTF32 tensor cores): {bound['flops'] / 1e9:.3f} GFLOP, "
+        f"{bound['bytes'] / 1e6:.1f} MB ({bound['transposed_bytes'] / 1e6:.1f} MB of them "
+        f"the transposed B operands); library_ms: none")
+    log("kernel", "per launch, warm: %s; L2-cold: %s; other kernels, per launch %s" % (
+        ", ".join(f"{k} {warm[k]:.2f} us" for k in ours),
+        ", ".join(f"{k} {cold.get(k, 0.0):.2f} us" for k in ours),
+        {k: round(v, 2) for k, v in warm.items() if k not in ours}))
+    return {"max_abs_err": worst["max_abs_err"], "hot_row_max_abs_err": hot["kernel_plain"],
+            "heavy_draw": heavy, "ms": call_ms, "device_ms": device_ms,
+            "l2_cold_ms": cold_ms, "plain_ms": plain_ms,
+            "per_launch_us": {k: warm[k] for k in ours},
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound_tc_ms": bound["bound_tc_ms"], "bound_tc_by": bound["bound_tc_by"]}
 
 
 def scatter_tol(target, idx, upd, torch) -> float:
@@ -222,7 +365,8 @@ def scatter_case(name: str, target, idx, upd, live, torch, scat, probe) -> dict:
 
 
 def scatter_phase(seed: int, torch, scat, probe) -> dict:
-    """The TPU probe's shape, then the per-pair step's syn1 scatter at full width."""
+    """The TPU probe's shape, then the per-pair step's syn1 scatter and the CBOW
+    steps' syn0 context scatter at full width."""
     idxs, x = probe.zipf_head_draw(2048, D, 65536, sets=1)
     idx = torch.from_numpy(idxs[0]).cuda()
     rec_probe = scatter_case("probe shape", torch.zeros((2048, D), device="cuda"), idx,
@@ -236,9 +380,19 @@ def scatter_phase(seed: int, torch, scat, probe) -> dict:
     upd = torch.randn((N, D), generator=gen, device="cuda") * 1e-2 * live[:, None]
     rec = scatter_case("per-pair syn1 shape", target, idx, upd, live, torch, scat,
                        probe)
-    rec["max_abs_err"] = max(rec["max_abs_err"], rec_probe["max_abs_err"])
-    rec["probe_shape"] = {k: rec_probe[k] for k in ("ms", "library_ms", "bound_ms",
-                                                     "ns_per_row", "max_abs_err")}
+    del target, idx, upd, live
+    (syn0, _), (_, ctx, ctx_mask, mask, _) = step_inputs(seed, torch, cbow=True)
+    live = (ctx_mask * mask[:, None]).reshape(-1)  # dead slots carry index 0
+    idx = ctx.reshape(-1)
+    upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
+    rec_cbow = scatter_case("CBOW syn0 context shape", syn0, idx, upd, live, torch, scat,
+                            probe)
+    keys = ("ms", "library_ms", "bound_ms", "ns_per_row", "max_abs_err")
+    rec["max_abs_err"] = max(rec["max_abs_err"], rec_probe["max_abs_err"],
+                             rec_cbow["max_abs_err"])
+    rec["probe_shape"] = {k: rec_probe[k] for k in keys}
+    rec["cbow_syn0_shape"] = {**{k: rec_cbow[k] for k in keys},
+                              "dead_share": float(1.0 - live.mean())}
     return rec
 
 
@@ -444,6 +598,7 @@ def main() -> int:
     from glint_word2vec_torch.ops import kernels
     from glint_word2vec_torch.ops import scatter as scat
     from glint_word2vec_torch.ops import sgns
+    from glint_word2vec_torch.stepprof import profile_call
 
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -454,7 +609,7 @@ def main() -> int:
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     log("build", f"{kernels.sources()} built in {build_all(kernels):.1f} s "
         f"({' '.join(kernels.NVCC_FLAGS)})")
-    rec = kernel_phase(args.seed, torch, sgns, fused)
+    rec = kernel_phase(args.seed, torch, sgns, fused, profile_call)
     srec = scatter_phase(args.seed, torch, scat, probe)
     srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
                                                                   scat))
@@ -478,14 +633,20 @@ def main() -> int:
         "replaces": fused.REPLACES, "launches": sum(by_path["sgns_shared_step"].values()),
         "launches_by_path": by_path["sgns_shared_step"],
         "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None}, {
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+        "bound_tc_ms": rec["bound_tc_ms"], "bound_tc_by": rec["bound_tc_by"],
+        "device_ms": rec["device_ms"], "l2_cold_ms": rec["l2_cold_ms"],
+        "per_launch_us": rec["per_launch_us"],
+        "hot_row_max_abs_err": rec["hot_row_max_abs_err"],
+        "heavy_draw": rec["heavy_draw"]}, {
         "name": "scatter_add_rows", "route": "cuda", "source": scat.KERNEL_SOURCE,
         "replaces": scat.REPLACES, "launches": sum(by_path["scatter_add_rows"].values()),
         "launches_by_path": by_path["scatter_add_rows"],
         "max_abs_err": srec["max_abs_err"], "ms": srec["ms"],
         "plain_ms": srec["plain_ms"], "bound_ms": srec["bound_ms"],
         "bound_by": srec["bound_by"], "library_ms": srec["library_ms"],
-        "ns_per_row": srec["ns_per_row"], "probe_shape": srec["probe_shape"]}]}
+        "ns_per_row": srec["ns_per_row"], "probe_shape": srec["probe_shape"],
+        "cbow_syn0_shape": srec["cbow_syn0_shape"]}]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "card": card}) + "\n")

@@ -13,14 +13,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.ops.sgns import EmbeddingPair
 
 
-def params_from_numpy(syn0: np.ndarray, syn1: np.ndarray, device="cpu",
+def params_from_numpy(syn0: np.ndarray, syn1: np.ndarray, device="cuda",
                       padded_vocab: Optional[int] = None,
                       padded_dim: Optional[int] = None) -> EmbeddingPair:
-    """float32 tensors on ``device``, zero-padded to (padded_vocab, padded_dim) when
-    given (default: the arrays' own shape)."""
+    """float32 tensors on ``device`` (the card unless the caller asks for the CPU;
+    it raises without one), zero-padded to (padded_vocab, padded_dim) when given
+    (default: the arrays' own shape)."""
+    device = resolve_device(device)
     def place(a: np.ndarray) -> torch.Tensor:
         a = np.asarray(a, dtype=np.float32)
         V = padded_vocab or a.shape[0]

@@ -8,13 +8,15 @@ Pallas kernel writes in-tile duplicates last-wins), and it is the default shared
 step on CUDA. Its plain version is :func:`..ops.sgns.sgns_step_shared_core`.
 
 What bounds it on an H100: the three products E·Zᵀ, G·Z and Gᵀ·E are 6·B·P·D flops
-(4.8 GFLOP at B=8192, P=256, D=384) against ~80 MB of row traffic, so in fp32 it is
-bound by the CUDA cores (~72 µs at 67 TFLOP/s), not by memory (~23 µs at 3.35 TB/s).
-The design keeps all three products in full fp32 on CUDA cores with register-blocked
-64×64 shared-memory tiles and splits the batch-long Gᵀ·E reduction over blocks so it
-fills the card; every old-parameter read happens in the first of its three launches
-(rows copied to scratch), so the scatter-adds of the later launches cannot race a
-read. Tensor cores (wgmma) would need TF32 or bf16 inputs and are later work.
+(4.8 GFLOP at B=8192, P=256, D=384). In plain fp32 on CUDA cores that is ~72 µs at
+67 TFLOP/s; the kernel runs them on the tensor cores (wgmma) as 3xTF32, three TF32
+products per fp32 product (~29 µs at 495 TFLOP/s), which keeps fp32-level accuracy
+where plain TF32 would not (``ops/tf32.py`` is the plain emulation of that
+arithmetic). Operand tiles stream through a cp.async ring in shared memory, and the
+updates leave as float4 atomics. Every old-parameter read happens in the first of its
+four launches (rows copied to scratch), so the scatter-adds of the later launches
+cannot race a read; the batch-long Gᵀ·E reduction is split over blocks so it fills
+the card. The csrc file's header gives the design and its reasons.
 
 The wrapper updates the parameters IN PLACE on both devices (the JAX package's step is
 functional; in-place updates spare a copy of two [V, D] matrices per step).
@@ -91,7 +93,7 @@ def fused_sgns_shared_step(
     B, P, D = centers.shape[0], negatives.shape[0], syn0.shape[1]
     scratch = torch.empty(int(lib.glint_sgns_scratch_floats(B, P, D)),
                           dtype=torch.float32, device=syn0.device)
-    out = torch.zeros(2, dtype=torch.float32, device=syn0.device)
+    out = torch.empty(3, dtype=torch.float32, device=syn0.device)  # loss, f_pos, pairs
     stream = torch.cuda.current_stream(syn0.device).cuda_stream
     err = lib.glint_sgns_shared_step(
         syn0.data_ptr(), syn1.data_ptr(), centers.data_ptr(), contexts.data_ptr(),
@@ -101,10 +103,8 @@ def fused_sgns_shared_step(
     if err != 0:
         raise RuntimeError(f"sgns_shared kernel launch failed: cudaError {err}")
     fused_sgns_shared_step.launches += 1
-    pairs = mask.sum()
-    denom = torch.clamp(pairs, min=1.0)
-    return StepMetrics(out[0] / denom, out[1] / denom, pairs)
+    return StepMetrics(out[0], out[1], out[2])
 
 
-# Kernel launches (one per fused step on a CUDA tensor; each is three CUDA launches).
+# Kernel launches (one per fused step on a CUDA tensor; each is four CUDA launches).
 fused_sgns_shared_step.launches = 0

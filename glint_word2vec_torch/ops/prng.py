@@ -36,7 +36,7 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_bits(seed: int, stream: int, counter: int, shape: Tuple[int, ...],
-              device="cpu") -> torch.Tensor:
+              device) -> torch.Tensor:
     """int64 tensor of uint32 pseudo-random bits, a pure function of
     (seed, stream, counter, flat index). ``seed`` and ``counter`` are masked to 32
     bits, as the JAX package's uint32 casts do."""
@@ -53,13 +53,13 @@ def hash_bits(seed: int, stream: int, counter: int, shape: Tuple[int, ...],
 
 
 def uniform01(seed: int, stream: int, counter: int, shape: Tuple[int, ...],
-              device="cpu") -> torch.Tensor:
+              device) -> torch.Tensor:
     """float32 uniforms in [0, 1) with 24 bits of entropy (exactly representable)."""
     bits = hash_bits(seed, stream, counter, shape, device)
     return (bits >> 8).to(torch.float32) * (2.0 ** -24)
 
 
 def randint_mod(seed: int, stream: int, counter: int, shape: Tuple[int, ...],
-                bound: int, device="cpu") -> torch.Tensor:
+                bound: int, device) -> torch.Tensor:
     """int64 draws in [0, bound) via modulo (bias <= bound / 2^32)."""
     return hash_bits(seed, stream, counter, shape, device) % bound

@@ -45,6 +45,7 @@ MAX_EXP = 6.0  # the reference's sigmoid LUT clipping range
 SCATTERS_PER_STEP = 2
 
 Scatter = Callable[..., torch.Tensor]
+MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 class EmbeddingPair(NamedTuple):
@@ -98,11 +99,14 @@ def shared_pool_coeffs(
     alpha: float,
     num_negatives: int,
     sigmoid_mode: str,
+    *,
+    matmul: MatMul = torch.matmul,
 ) -> Tuple[torch.Tensor, ...]:
-    """The shared-pool logit chain: (f_pos, f_neg, neg_valid, g_pos, g_neg)."""
+    """The shared-pool logit chain: (f_pos, f_neg, neg_valid, g_pos, g_neg);
+    ``matmul`` computes f_neg."""
     P = negatives.shape[0]
     f_pos = torch.sum(e_in * e_pos, dim=-1)
-    f_neg = e_in @ Z.T                                               # [B, P]
+    f_neg = matmul(e_in, Z.T)                                        # [B, P]
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * mask
     neg_valid = (negatives[None, :] != contexts[:, None]).to(torch.float32) \
         * mask[:, None]
@@ -132,10 +136,14 @@ def sgns_step_shared_core(
     num_negatives: int,
     sigmoid_mode: str = "exact",
     with_metrics: bool = True,
+    *,
+    matmul: MatMul = torch.matmul,
 ) -> Tuple[EmbeddingPair, StepMetrics]:
     """One shared-pool SGNS step; returns NEW parameters (the inputs are untouched)
     and the step metrics. ``with_metrics=False`` skips the loss and mean_f_pos pass
-    (both 0) and keeps ``pairs`` exact, like the JAX package's elided twin."""
+    (both 0) and keeps ``pairs`` exact, like the JAX package's elided twin. The three
+    products E·Zᵀ, G·Z and Gᵀ·E go through ``matmul``: ``ops.tf32.matmul_3xtf32``
+    there emulates the fused kernel's tensor-core arithmetic."""
     syn0, syn1 = params
     centers = centers.long()
     contexts = contexts.long()
@@ -144,10 +152,11 @@ def sgns_step_shared_core(
     e_pos = syn1[contexts]
     Z = syn1[negatives]
     f_pos, f_neg, neg_valid, g_pos, g_neg = shared_pool_coeffs(
-        e_in, e_pos, Z, contexts, negatives, mask, alpha, num_negatives, sigmoid_mode)
-    d_in = g_pos[:, None] * e_pos + g_neg @ Z                        # [B, D]
+        e_in, e_pos, Z, contexts, negatives, mask, alpha, num_negatives, sigmoid_mode,
+        matmul=matmul)
+    d_in = g_pos[:, None] * e_pos + matmul(g_neg, Z)                 # [B, D]
     d_pos = g_pos[:, None] * e_in
-    d_Z = g_neg.T @ e_in                                             # [P, D]
+    d_Z = matmul(g_neg.T, e_in)                                      # [P, D]
     new_syn0 = syn0.clone().index_add_(0, centers, d_in)
     new_syn1 = syn1.clone().index_add_(0, contexts, d_pos)
     new_syn1.index_add_(0, negatives, d_Z)

@@ -58,7 +58,7 @@ def _short(name: str) -> str:
     return name.split("(")[0].split("<")[0]
 
 
-def _kernel_times(prof) -> dict:
+def kernel_times(prof) -> dict:
     """Device-side events only (kernels, memcpy, memset): the host-side op events
     carry their kernels' time too and would count it twice."""
     out = {}
@@ -112,17 +112,23 @@ def step_call(path: str, seed: int):
     return lambda: cbow_step_core(params, c, ctx, ctx_mask, mask, neg, 0.025)
 
 
-def profile_step(path: str, seed: int, steps: int = 20) -> dict:
-    step = step_call(path, seed)
+def profile_call(fn, steps: int) -> dict:
+    """:func:`kernel_times` of ``steps`` calls of ``fn`` under torch.profiler, after
+    three warm-up calls."""
     for _ in range(3):
-        step()
+        fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            step()
+            fn()
         torch.cuda.synchronize()
-    per_step = {k: v["us_total"] / steps for k, v in _kernel_times(prof).items()}
+    return kernel_times(prof)
+
+
+def profile_step(path: str, seed: int, steps: int = 20) -> dict:
+    kt = profile_call(step_call(path, seed), steps)
+    per_step = {k: v["us_total"] / steps for k, v in kt.items()}
     return {"steps": steps, "device_us_per_step": per_step,
             "total_device_us_per_step": sum(per_step.values())}
 
@@ -159,7 +165,7 @@ def profile_fit(path: str, seed: int, n_tokens: int) -> dict:
         trainer.fit(encoded)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    kt = _kernel_times(prof)
+    kt = kernel_times(prof)
     busy_s = sum(v["us_total"] for v in kt.values()) / 1e6
     top = sorted(kt.items(), key=lambda kv: -kv[1]["us_total"])[:10]
     return {"tokens": n_tokens, "pool": trainer.config.negative_pool, "steps": steps,

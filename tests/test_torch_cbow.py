@@ -59,7 +59,7 @@ def _inputs(seed, Dreal=128, V=1024, D=128, B=512, window=3, P=64, masked=29,
 
 def _torch_args(inp):
     syn0, syn1, c, ctx, cm, m, neg = inp
-    return (interop.params_from_numpy(syn0, syn1), torch.from_numpy(c).long(),
+    return (interop.params_from_numpy(syn0, syn1, device="cpu"), torch.from_numpy(c).long(),
             torch.from_numpy(ctx).long(), torch.from_numpy(cm), torch.from_numpy(m),
             torch.from_numpy(neg).long())
 

@@ -69,6 +69,28 @@ def test_entry_points_default_to_the_card(tmp_path):
         Word2VecModel.load(str(tmp_path / "m"))
 
 
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """Without ``device`` the interop helper places the parameters on the card, so
+    with no GPU visible it raises resolve_device's error instead of using the CPU."""
+    from glint_word2vec_torch import interop
+
+    a = np.ones((4, 8), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        interop.params_from_numpy(a, a)
+    assert interop.params_from_numpy(a, a, device="cpu").syn0.device.type == "cpu"
+
+
+def test_prng_helpers_take_no_default_device():
+    from glint_word2vec_torch.ops import prng
+
+    for fn, args in ((prng.hash_bits, (1, 0, 2, (3,))), (prng.uniform01, (1, 0, 2, (3,))),
+                     (prng.randint_mod, (1, 0, 2, (3,), 7))):
+        with pytest.raises(TypeError):
+            fn(*args)
+        assert fn(*args, "cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("knob,value", [
     ("cbow_update", "banded"), ("use_pallas", True), ("param_dtype", "bfloat16"),
     ("hot_rows", 8), ("max_row_norm", 10.0), ("num_model_shards", 2),

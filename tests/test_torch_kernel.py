@@ -24,20 +24,26 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["exact", "clipped"])
-@pytest.mark.parametrize("B,P,D", [(512, 64, 128), (300, 70, 100)])
-def test_kernel_matches_plain(cuda, mode, B, P, D):
-    rng = np.random.default_rng(B + P)
-    V = 2048
-    syn0 = torch.from_numpy(rng.normal(0, 0.5, (V, D)).astype(np.float32)).to(cuda)
-    syn1 = torch.from_numpy(rng.normal(0, 0.5, (V, D)).astype(np.float32)).to(cuda)
-    c = torch.from_numpy((rng.zipf(1.3, B) - 1) % V).to(cuda)
-    x = torch.from_numpy((rng.zipf(1.3, B) - 1) % V).to(cuda)
-    neg = torch.from_numpy((rng.zipf(1.3, P) - 1) % V).to(cuda)
+def _step_inputs(cuda, seed, B, P, D, V, a=1.3, scale=0.5):
+    """Zipf(a) centers, contexts and pool (a few pool entries equal to contexts), a
+    masked tail of index 0, params N(0, scale)."""
+    rng = np.random.default_rng(seed)
+    syn0 = torch.from_numpy(rng.normal(0, scale, (V, D)).astype(np.float32)).to(cuda)
+    syn1 = torch.from_numpy(rng.normal(0, scale, (V, D)).astype(np.float32)).to(cuda)
+    c = torch.from_numpy((rng.zipf(a, B) - 1) % V).to(cuda)
+    x = torch.from_numpy((rng.zipf(a, B) - 1) % V).to(cuda)
+    neg = torch.from_numpy((rng.zipf(a, P) - 1) % V).to(cuda)
     neg[:4] = x[:4]
     mask = torch.ones(B, device=cuda)
     mask[-17:] = 0
+    c[-17:] = 0
+    x[-17:] = 0
+    return syn0, syn1, c, x, mask, neg
+
+
+def _check_kernel(syn0, syn1, c, x, mask, neg, mode):
+    """One kernel step in place against the plain step: atol 1e-4 on the parameters,
+    rtol 1e-4 on the loss, exactly one launch."""
     want, wm = tsgns.sgns_step_shared_core(
         tsgns.EmbeddingPair(syn0, syn1), c, x, mask, neg, 0.025, 5, mode)
     before = fused_sgns_shared_step.launches
@@ -48,6 +54,57 @@ def test_kernel_matches_plain(cuda, mode, B, P, D):
     torch.testing.assert_close(syn0, want.syn0, atol=1e-4, rtol=0)
     torch.testing.assert_close(syn1, want.syn1, atol=1e-4, rtol=0)
     torch.testing.assert_close(got.loss, wm.loss, rtol=1e-4, atol=0)
+    torch.testing.assert_close(got.pairs, wm.pairs, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "clipped"])
+@pytest.mark.parametrize("B,P,D,V,a,scale", [
+    (512, 64, 128, 2048, 1.3, 0.5), (300, 70, 100, 2048, 1.3, 0.5),
+    # batch-sized cases draw as the main path's data (chip_smoke.py) does, Zipf(1.1) and
+    # params of scale 0.35. Under Zipf(1.3) and scale 0.5 the hottest rows take ~2000
+    # large updates, and the plain version itself lies farther than 1e-4 from a float64
+    # step there (chip_smoke.py's heavy-draw case): two fp32 summation orders cannot
+    # agree to 1e-4, so test_kernel_heavy_draw holds that draw against float64
+    (8191, 250, 300, 65536, 1.1, 0.35),   # ragged: every dimension pads to a tile
+    (8191, 250, 102, 65536, 1.1, 0.35),   # rows not 16-byte aligned: scalar atomics
+    (8192, 256, 384, 65536, 1.1, 0.35),   # the full width of the main path
+])
+def test_kernel_matches_plain(cuda, mode, B, P, D, V, a, scale):
+    _check_kernel(*_step_inputs(cuda, B + P + D, B, P, D, V, a, scale), mode)
+
+
+@pytest.mark.cuda
+def test_kernel_heavy_draw(cuda):
+    """Zipf(1.3) indices and params of scale 0.5 at the full width: kernel and plain
+    each against a float64 step. The kernel may be no farther from it than twice the
+    plain version's own distance (an fp32 sum in another order), on either matrix."""
+    syn0, syn1, c, x, mask, neg = _step_inputs(cuda, 13, 8192, 256, 384, 65536)
+    pair = tsgns.EmbeddingPair
+    ref, _ = tsgns.sgns_step_shared_core(pair(syn0.double(), syn1.double()), c, x,
+                                         mask.double(), neg, 0.025, 5, "exact")
+    want, wm = tsgns.sgns_step_shared_core(pair(syn0, syn1), c, x, mask, neg, 0.025, 5,
+                                           "exact")
+    before = fused_sgns_shared_step.launches
+    got = fused_sgns_shared_step(pair(syn0, syn1), c, x, mask, neg, 0.025, 5, "exact")
+    torch.cuda.synchronize()
+    assert fused_sgns_shared_step.launches == before + 1
+    for kernel, plain, exact in ((syn0, want.syn0, ref.syn0), (syn1, want.syn1, ref.syn1)):
+        err_kernel = float((kernel.double() - exact).abs().max())
+        err_plain = float((plain.double() - exact).abs().max())
+        assert err_kernel <= 2 * err_plain, (err_kernel, err_plain)
+    torch.testing.assert_close(got.loss, wm.loss, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["exact", "clipped"])
+def test_kernel_hot_row_matches_plain(cuda, mode):
+    """Every live center on one row and the whole pool on one row: thousands of
+    atomics on the same addresses, summed as the plain version sums them."""
+    syn0, syn1, c, x, mask, neg = _step_inputs(cuda, 11, 512, 64, 128, 2048)
+    c[mask > 0] = 7
+    neg[:] = 11
+    _check_kernel(syn0, syn1, c, x, mask, neg, mode)
 
 
 @pytest.mark.cuda

@@ -40,7 +40,7 @@ def test_hash_bits_identical(seed, counter):
     shape = (3, 37)
     want = np.asarray(jprng.hash_bits(np.uint32(seed & 0xFFFFFFFF), 1,
                                       jnp.uint32(counter), shape))
-    got = tprng.hash_bits(seed, 1, counter, shape)
+    got = tprng.hash_bits(seed, 1, counter, shape, "cpu")
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 

@@ -63,7 +63,7 @@ def _jax_step(inp, alpha, mode, with_metrics):
 
 def _torch_args(inp):
     syn0, syn1, c, x, m, neg = inp
-    return (interop.params_from_numpy(syn0, syn1), torch.from_numpy(c).long(),
+    return (interop.params_from_numpy(syn0, syn1, device="cpu"), torch.from_numpy(c).long(),
             torch.from_numpy(x).long(), torch.from_numpy(m), torch.from_numpy(neg).long())
 
 
@@ -168,7 +168,7 @@ def test_per_pair_step_matches_jax(mode, Dreal):
     jparams, jm = jsgns.sgns_step_core(
         jsgns.EmbeddingPair(jnp.asarray(syn0), jnp.asarray(syn1)), jnp.asarray(c),
         jnp.asarray(x), jnp.asarray(m), jnp.asarray(neg), jnp.float32(0.025), mode)
-    params = interop.params_from_numpy(syn0, syn1)
+    params = interop.params_from_numpy(syn0, syn1, device="cpu")
     tm = tsgns.sgns_step_core(params, torch.from_numpy(c).long(),
                               torch.from_numpy(x).long(), torch.from_numpy(m),
                               torch.from_numpy(neg).long(), 0.025, mode)
@@ -188,10 +188,10 @@ def test_per_pair_step_reads_old_parameters():
     c[:20] = x[:20]  # a row that is both a center (syn0) and a context (syn1)
     args = (torch.from_numpy(c).long(), torch.from_numpy(x).long(),
             torch.from_numpy(m), torch.from_numpy(neg).long(), 0.03)
-    inplace = interop.params_from_numpy(syn0, syn1)
+    inplace = interop.params_from_numpy(syn0, syn1, device="cpu")
     tsgns.sgns_step_core(inplace, *args)
-    src = interop.params_from_numpy(syn0, syn1)
-    out = interop.params_from_numpy(syn0, syn1)
+    src = interop.params_from_numpy(syn0, syn1, device="cpu")
+    out = interop.params_from_numpy(syn0, syn1, device="cpu")
 
     def scatter_elsewhere(mat, idx, upd, live=None):
         target = out.syn0 if mat is src.syn0 else out.syn1
