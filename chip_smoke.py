@@ -18,9 +18,14 @@ Phases, one line each (or a few); any failure exits non-zero:
   4. scatter   the row scatter-add kernel against its plain version (index_add_) and
                both against a float64 sum, at the TPU probe's shape (H=2048, D=384,
                B=65536 Zipf rows into a zeroed target), at the per-pair syn1 shape
-               (49152 Zipf rows, a tenth of them dead, into V=1,000,000 x 384) and at
+               (49152 Zipf rows, a tenth of them dead, into V=1,000,000 x 384), at
                the CBOW syn0 context shape (B*2*window = 81920 slots, about two thirds
-               dead, into V=1,000,000 x 384), timed;
+               dead, into V=1,000,000 x 384), and on the traffic a per-pair step
+               sends: syn1 with B Zipf contexts and B*n negatives from the port's alias
+               sampler (scatterprobe.step_syn1_draw), and syn0 with the centers of the
+               first batch of this corpus's per-pair feed (scatterprobe.feed_centers);
+               timed per wrapper call (events) and on the device (torch.profiler),
+               index_add_ the same two ways;
   5. steps     one full-width per-pair skip-gram step and one CBOW step (shared pool),
                each run once through the scatter kernel and once through the plain
                scatter on identical inputs, parameters compared;
@@ -322,17 +327,20 @@ def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
             "bound_tc_ms": bound["bound_tc_ms"], "bound_tc_by": bound["bound_tc_by"]}
 
 
-def scatter_tol(target, idx, upd, torch) -> float:
-    """(max updates on one row)·2^-24·max over rows of (|target| + Σ|upd|)."""
+def scatter_tol(target, idx, upd, live, torch) -> float:
+    """(1 + the most live updates on one row)·2^-24·max over rows of (|target| +
+    Σ|upd|)."""
     mag = target.abs().double().index_add_(0, idx, upd.abs().double())
-    m = int(torch.bincount(idx).max()) + 1
+    m = int(torch.bincount(idx if live is None else idx[live != 0]).max()) + 1
     return m * EPS32 * float(mag.abs().max())
 
 
-def scatter_case(name: str, target, idx, upd, live, torch, scat, probe) -> dict:
-    """Kernel vs plain vs float64 on one shape, then timed."""
+def scatter_case(name: str, target, idx, upd, live, torch, scat, probe,
+                 profile_call) -> dict:
+    """Kernel vs plain vs float64 on one shape, then timed: one wrapper call (events,
+    host enqueue included) and its launches' device time (torch.profiler)."""
     want = target.double().index_add_(0, idx, upd.double())
-    tol = scatter_tol(target, idx, upd, torch)
+    tol = scatter_tol(target, idx, upd, live, torch)
     got = scat.scatter_add_rows_(target.clone(), idx, upd, live)
     plain = scat.scatter_add_rows_reference(target.clone(), idx, upd, live)
     scat.check_errors()
@@ -345,32 +353,58 @@ def scatter_case(name: str, target, idx, upd, live, torch, scat, probe) -> dict:
     ms = time_steps(lambda: scat.scatter_add_rows_(out, idx, upd, live), SCATTER_RUNS,
                     torch)
     lib_ms = time_steps(lambda: out.index_add_(0, idx, upd), SCATTER_RUNS, torch)
+    launches = profile_call(lambda: scat.scatter_add_rows_(out, idx, upd, live),
+                            TIMED_STEPS)
+    device_ms = sum(v["us_total"] for v in launches.values()) / TIMED_STEPS / 1e3
+    cuda_launches = sum(v["count"] for v in launches.values()) / TIMED_STEPS
+    lib_launches = profile_call(lambda: out.index_add_(0, idx, upd), TIMED_STEPS)
+    lib_device_ms = sum(v["us_total"] for v in lib_launches.values()) / TIMED_STEPS / 1e3
     scat.check_errors()
     bytes_ = probe.bound_bytes(idx, upd.shape[1], live)
     bound_ms = 1e3 * bytes_ / PEAK_BYTES_PER_S
     N = idx.numel()
-    log("scatter", f"{name}: N={N} rows of D={upd.shape[1]} into {target.shape[0]} "
-        f"(distinct targets {int(torch.unique(idx).numel())}, most updates on one row "
-        f"{int(torch.bincount(idx).max())}): max_abs_err kernel-plain {err_kp:.3e}, "
-        f"kernel-f64 {err_k:.3e}, plain-f64 {err_p:.3e} (tolerance {tol:.3e}); kernel "
-        f"{ms:.4f} ms (median of {SCATTER_RUNS}, {ms / N * 1e6:.3f} ns/row), "
-        f"index_add_ {lib_ms:.4f} ms ({lib_ms / N * 1e6:.3f} ns/row), bound "
+    written = idx if live is None else idx[live != 0]
+    distinct = int(torch.unique(written).numel())
+    hottest = int(torch.bincount(written).max())
+    log("scatter", f"{name}: N={N} rows of D={upd.shape[1]} into {target.shape[0]}, "
+        f"{written.numel()} live (distinct live targets {distinct}, most live updates "
+        f"on one row {hottest}): max_abs_err kernel-plain {err_kp:.3e}, kernel-f64 "
+        f"{err_k:.3e}, plain-f64 {err_p:.3e} (tolerance {tol:.3e}); kernel {ms:.4f} ms "
+        f"per call (median of {SCATTER_RUNS}, {ms / N * 1e6:.3f} ns/row), on the device "
+        f"{device_ms:.4f} ms in {cuda_launches:g} CUDA launches per call "
+        f"(torch.profiler over {TIMED_STEPS} calls: " + ", ".join(
+            f"{k} {v['us_total'] / TIMED_STEPS:.2f} us" for k, v in launches.items())
+        + f"), index_add_ {lib_ms:.4f} ms per call ({lib_ms / N * 1e6:.3f} ns/row), "
+        f"{lib_device_ms:.4f} ms on the device, bound "
         f"{bound_ms * 1e3:.1f} us (bytes: {bytes_ / 1e6:.1f} MB, "
-        f"{bound_ms / N * 1e6:.3f} ns/row)")
+        f"{bound_ms / N * 1e6:.3f} ns/row; device time at {bound_ms / device_ms:.0%} "
+        f"of it)")
     if not (err_k <= tol and err_p <= tol):
         raise AssertionError(f"scatter {name}: kernel or plain off the float64 sum "
                              f"beyond the summation bound {tol:.3e}")
-    return {"max_abs_err": err_kp, "ms": ms, "plain_ms": lib_ms, "library_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": "bytes", "ns_per_row": ms / N * 1e6}
+    return {"max_abs_err": err_kp, "max_abs_err_f64": err_k, "tolerance": tol,
+            "ms": ms, "device_ms": device_ms, "cuda_launches_per_call": cuda_launches,
+            "plain_ms": lib_ms, "library_ms": lib_ms, "library_device_ms": lib_device_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes", "ns_per_row": ms / N * 1e6, "distinct": distinct,
+            "most_on_one_row": hottest}
 
 
-def scatter_phase(seed: int, torch, scat, probe) -> dict:
+def scatter_phase(seed: int, corpus, torch, scat, probe, profile_call) -> dict:
     """The TPU probe's shape, then the per-pair step's syn1 scatter and the CBOW
-    steps' syn0 context scatter at full width."""
+    steps' syn0 context scatter at full width; then the traffic a per-pair step really
+    sends: syn1 with its negatives from the port's alias sampler, and syn0 with the
+    centers of one batch of the smoke's own per-pair feed."""
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+
+    def case(name, target, idx, upd, live):
+        return scatter_case(name, target, idx, upd, live, torch, scat, probe,
+                            profile_call)
+
     idxs, x = probe.zipf_head_draw(2048, D, 65536, sets=1)
     idx = torch.from_numpy(idxs[0]).cuda()
-    rec_probe = scatter_case("probe shape", torch.zeros((2048, D), device="cuda"), idx,
-                             torch.from_numpy(x).cuda(), None, torch, scat, probe)
+    rec_probe = case("probe shape", torch.zeros((2048, D), device="cuda"), idx,
+                     torch.from_numpy(x).cuda(), None)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     N = B * (1 + N_NEG)
     target = torch.randn((V, D), generator=gen, device="cuda") * 0.35
@@ -378,21 +412,33 @@ def scatter_phase(seed: int, torch, scat, probe) -> dict:
     live = (torch.rand(N, generator=gen, device="cuda") >= 0.1).float()
     idx[live == 0] = 0                     # dead slots point at the hottest row
     upd = torch.randn((N, D), generator=gen, device="cuda") * 1e-2 * live[:, None]
-    rec = scatter_case("per-pair syn1 shape", target, idx, upd, live, torch, scat,
-                       probe)
-    del target, idx, upd, live
+    rec = case("per-pair syn1 shape", target, idx, upd, live)
+    del idx, upd, live
     (syn0, _), (_, ctx, ctx_mask, mask, _) = step_inputs(seed, torch, cbow=True)
     live = (ctx_mask * mask[:, None]).reshape(-1)  # dead slots carry index 0
     idx = ctx.reshape(-1)
     upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
-    rec_cbow = scatter_case("CBOW syn0 context shape", syn0, idx, upd, live, torch, scat,
-                            probe)
-    keys = ("ms", "library_ms", "bound_ms", "ns_per_row", "max_abs_err")
-    rec["max_abs_err"] = max(rec["max_abs_err"], rec_probe["max_abs_err"],
-                             rec_cbow["max_abs_err"])
-    rec["probe_shape"] = {k: rec_probe[k] for k in keys}
-    rec["cbow_syn0_shape"] = {**{k: rec_cbow[k] for k in keys},
-                              "dead_share": float(1.0 - live.mean())}
+    rec_cbow = case("CBOW syn0 context shape", syn0, idx, upd, live)
+    dead_share = float(1.0 - live.mean())
+    del syn0, idx, upd, live
+    vocab, sents = corpus
+    idx, live = probe.step_syn1_draw(gen, vocab.counts, seed)
+    upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
+    rec_step = case("per-pair syn1, step draw (alias negatives)", target, idx, upd, live)
+    encoded = encode_sentences(sents, vocab)
+    idx, live = probe.feed_centers(encoded, vocab, seed, "cuda")
+    upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
+    rec_centers = case("per-pair syn0 centers (one feed batch)", target, idx, upd, live)
+    del target
+    others = {"probe_shape": rec_probe, "cbow_syn0_shape": rec_cbow,
+              "step_syn1_shape": rec_step, "syn0_centers_shape": rec_centers}
+    keys = ("ms", "device_ms", "cuda_launches_per_call", "library_ms",
+            "library_device_ms", "bound_ms", "ns_per_row", "max_abs_err",
+            "max_abs_err_f64", "tolerance", "distinct", "most_on_one_row")
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in (rec, *others.values()))
+    for name, r in others.items():
+        rec[name] = {k: r[k] for k in keys}
+    rec["cbow_syn0_shape"]["dead_share"] = dead_share
     return rec
 
 
@@ -610,14 +656,14 @@ def main() -> int:
     log("build", f"{kernels.sources()} built in {build_all(kernels):.1f} s "
         f"({' '.join(kernels.NVCC_FLAGS)})")
     rec = kernel_phase(args.seed, torch, sgns, fused, profile_call)
-    srec = scatter_phase(args.seed, torch, scat, probe)
-    srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
-                                                                  scat))
     t0 = time.perf_counter()
     words, counts, sents = synthetic_corpus(args.seed, N_TOKENS, np)
     corpus = (Vocabulary.from_words_and_counts(words, counts), sents)
     log("fit", f"vocabulary {corpus[0].size} words, corpus {N_TOKENS} tokens in "
         f"{len(sents)} sentences ({time.perf_counter() - t0:.1f} s)")
+    srec = scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
+    srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
+                                                                  scat))
     launches = {}
     for name, knobs, pool in FITS:
         model, n_fused, n_scat = fit_phase(
@@ -645,8 +691,12 @@ def main() -> int:
         "max_abs_err": srec["max_abs_err"], "ms": srec["ms"],
         "plain_ms": srec["plain_ms"], "bound_ms": srec["bound_ms"],
         "bound_by": srec["bound_by"], "library_ms": srec["library_ms"],
-        "ns_per_row": srec["ns_per_row"], "probe_shape": srec["probe_shape"],
-        "cbow_syn0_shape": srec["cbow_syn0_shape"]}]}
+        "device_ms": srec["device_ms"], "library_device_ms": srec["library_device_ms"],
+        "ns_per_row": srec["ns_per_row"],
+        "cuda_launches_per_call": srec["cuda_launches_per_call"],
+        "distinct": srec["distinct"], "most_on_one_row": srec["most_on_one_row"],
+        **{k: srec[k] for k in ("probe_shape", "cbow_syn0_shape", "step_syn1_shape",
+                                "syn0_centers_shape")}}]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "card": card}) + "\n")

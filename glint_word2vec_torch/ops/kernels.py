@@ -41,7 +41,17 @@ _SIGNATURES = {
         "glint_scatter_rows": (
             ctypes.c_int,
             [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p] * 2),
+            + [ctypes.c_void_p] * 5),
+        "glint_scatter_scratch_bytes": (ctypes.c_int64, [ctypes.c_int64]),
+        "glint_scatter_flag_create": (ctypes.c_void_p, []),
+        "glint_scatter_flag_device": (ctypes.c_void_p, [ctypes.c_void_p]),
+    },
+    # scatterprobe.py --variants: not a kernel of the port, built only by that probe
+    "probes/scatter_bound": {
+        "glint_scatter_probe": (
+            ctypes.c_int,
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
+                                                      ctypes.c_void_p]),
     },
 }
 
@@ -61,7 +71,7 @@ def nvcc_path() -> str:
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    return BUILD_DIR / f"lib{name.replace('/', '_')}-{key}.so"
 
 
 def build_command(name: str, out: Path) -> List[str]:
@@ -120,5 +130,5 @@ def load(name: str, build: Optional[PendingBuild] = None) -> ctypes.CDLL:
 
 
 def sources() -> List[str]:
-    """Names of every kernel source in ``csrc/``."""
+    """Names of every kernel source in ``csrc/`` (not its ``probes/``)."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
