@@ -29,14 +29,25 @@ Phases, one line each (or a few); any failure exits non-zero:
   5. steps     one full-width per-pair skip-gram step and one CBOW step (shared pool),
                each run once through the scatter kernel and once through the plain
                scatter on identical inputs, parameters compared;
-  6. fits      Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192)
+  6. feed      the native pair generator built with g++ (the run fails if it does
+               not build); the smoke corpus's skip-gram pair stream from the native
+               generator against numpy's at producer_workers 1 and 4, and the CBOW
+               stream at 1 and 4, each held bit for bit by a digest of every batch;
+               one timed pass of each; the host's cores and the thread budget;
+  7. fits      Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192)
                .fit() on one synthetic Zipf corpus over one 1,000,000-word vocabulary,
-               four times: skip-gram with the shared pool (the fused kernel), per-pair
-               skip-gram (negative_pool=0), CBOW with the shared pool and per-example
-               CBOW (negative_pool=0) (the scatter kernel), every kernel's launch
-               count set to 0 just before each fit and read just after;
-  7. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
-               fit's model, right after that fit.
+               four times with the default feed (prefetch_chunks=8: a producer thread
+               assembles the chunks and stages their copies to the card):
+               skip-gram with the shared pool (the fused kernel), per-pair skip-gram
+               (negative_pool=0), CBOW with the shared pool and per-example CBOW
+               (negative_pool=0) (the scatter kernel), every kernel's launch count set
+               to 0 just before each fit and read just after; the skip-gram fits must
+               feed from the native generator, the CBOW fits from numpy (there is no
+               native CBOW generator);
+  8. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
+               fit's model, right after that fit; then the shared-pool fit once more
+               on the calling thread (prefetch_chunks=0) with the numpy generator:
+               the same step count, parameters within PARAM_ATOL.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and the result
 line {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
 this file, it prints no result and exits 2.
@@ -45,8 +56,10 @@ this file, it prints no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -532,6 +545,66 @@ def synthetic_corpus(seed: int, n_tokens: int, np):
     return words, counts, sents
 
 
+def feed_phase(corpus, seed: int, np) -> dict:
+    """The pair stream of every feed configuration, held bit for bit, and one timed
+    pass of each (the smoke's fits' subsample ratio, 1e-3)."""
+    from glint_word2vec_torch.data import native
+    from glint_word2vec_torch.data.pipeline import (
+        encode_sentences, epoch_batches, epoch_batches_cbow)
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native pair generator did not build (g++); the port "
+                             "feeds skip-gram from it by default")
+    build_s = time.perf_counter() - t0
+    vocab, sents = corpus
+    encoded = encode_sentences(sents, vocab)
+    kw = dict(pairs_per_batch=B, window=WINDOW, subsample_ratio=1e-3, seed=seed)
+    runs = [("skip-gram", "numpy", 1), ("skip-gram", "numpy", 4),
+            ("skip-gram", "native", 1), ("skip-gram", "native", 4),
+            ("cbow", "numpy", 1), ("cbow", "numpy", 4)]
+
+    def stream(kind, backend, workers):
+        if kind == "cbow":
+            return epoch_batches_cbow(encoded, vocab, producer_workers=workers, **kw)
+        return epoch_batches(encoded, vocab, backend=backend, producer_workers=workers,
+                             **kw)
+
+    out = {"cpu_count": os.cpu_count(), "native_threads": native.default_threads(),
+           "native_build_s": build_s, "library": native.loaded_library(), "runs": []}
+    digests = {}
+    for kind, backend, workers in runs:
+        t0 = time.perf_counter()
+        n = sum(1 for _ in stream(kind, backend, workers))
+        feed_s = time.perf_counter() - t0
+        h = hashlib.sha256()
+        for b in stream(kind, backend, workers):
+            arrays = ((b.centers, b.contexts, b.mask) if kind == "skip-gram" else
+                      (b.centers, b.contexts, b.n_ctx, b.mask))
+            for a in arrays:
+                h.update(np.ascontiguousarray(a).tobytes())
+            h.update(np.asarray([b.words_seen, len(b.centers)], np.int64).tobytes())
+        digests.setdefault(kind, set()).add(h.hexdigest())
+        per_call = native.threads_per_call(workers)
+        out["runs"].append({"feed": kind, "backend": backend,
+                            "producer_workers": workers, "batches": n,
+                            "feed_s": feed_s, "digest": h.hexdigest()[:16]})
+        log("feed", f"{kind} {backend} producer_workers={workers}: {n} batches in "
+            f"{feed_s:.4f} s, digest {h.hexdigest()[:16]}" + (
+                f"; C++ threads {per_call} per call x {workers} concurrent calls"
+                if backend == "native" else ""))
+    log("feed", f"os.cpu_count() {out['cpu_count']}, default_threads() "
+        f"{out['native_threads']} (GLINT_NATIVE_THREADS "
+        f"{os.environ.get('GLINT_NATIVE_THREADS', 'unset')}), native library "
+        f"{out['library']} ready in {build_s:.2f} s; a fit adds the producer thread and "
+        "the consumer to the feed's threads")
+    bad = [kind for kind, d in digests.items() if len(d) != 1]
+    if bad:
+        raise AssertionError(f"feed streams differ across backends or worker counts: "
+                             f"{bad}")
+    return out
+
+
 FITS = (  # (name, config knobs, pool the trainer must resolve)
     ("shared", {}, 256),
     ("per_pair", {"negative_pool": 0}, 0),
@@ -563,15 +636,20 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     loss = hb[-1].loss if hb else float("nan")
     unit = "examples" if tr.config.cbow else "pairs"
     log("fit", f"{name}: pool {tr.config.negative_pool}, subsample "
-        f"{tr.config.subsample_ratio:g}, steps {tr.global_step} "
+        f"{tr.config.subsample_ratio:g}, feed {tr.feed_backend} (prefetch_chunks "
+        f"{tr.config.prefetch_chunks}, producer_workers {tr.config.producer_workers}), "
+        f"steps {tr.global_step} "
         f"({-(-tr.global_step // tr.config.steps_per_dispatch)} chunks), {unit} "
         f"{tr.pairs_trained:.0f}, launches: sgns_shared {n_fused}, scatter_rows {n_scat}; "
         f"fit wall {wall:.2f} s (setup included), {unit}/s over the fit "
-        f"{tr.pairs_trained / wall:.0f}, heartbeat {unit}/s "
+        f"{tr.pairs_trained / wall:.0f}, host_wait_s {tr.host_wait_time:.4f}, "
+        f"dispatch_s {tr.dispatch_time:.4f}, heartbeat {unit}/s "
         f"{[round(h.pairs_per_sec) for h in hb]}, losses {[round(h.loss, 5) for h in hb]}")
     steps = tr.global_step
     shared = name == "shared"
+    want_feed = "numpy" if tr.config.cbow else "native"
     checks = {f"pool == {pool}": tr.config.negative_pool == pool,
+              f"feed_backend == {want_feed}": tr.feed_backend == want_feed,
               "steps >= 4 chunks": steps > 3 * tr.config.steps_per_dispatch,
               "sgns_shared launches": n_fused == (steps if shared else 0),
               "scatter_rows launches": n_scat == (0 if shared
@@ -582,6 +660,40 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     if bad:
         raise AssertionError(f"fit {name} failed: {bad}")
     return model, n_fused, n_scat
+
+
+def sync_numpy_fit(model, steps: int, corpus, seed: int, torch, fused) -> float:
+    """The shared-pool fit again with the producer off (prefetch_chunks=0) and the
+    numpy generator: the same steps, parameters within PARAM_ATOL of ``model``'s (the
+    kernel's fp32 atomics make the parameters on the card run-dependent). Returns the
+    largest parameter difference."""
+    from glint_word2vec_torch import Word2VecConfig
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    vocab, sents = corpus
+    cfg = Word2VecConfig(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
+                         pairs_per_batch=B, min_count=1, heartbeat_every_steps=16,
+                         seed=seed, prefetch_chunks=0)
+    tr = Trainer(cfg, vocab, device="cuda", feed_backend="numpy")
+    launched = fused.fused_sgns_shared_step.launches
+    t0 = time.perf_counter()
+    tr.fit(encode_sentences(sents, vocab))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = fused.fused_sgns_shared_step.launches - launched
+    p = tr.unpadded_params()
+    err = max(float((p.syn0 - model.syn0).abs().max()),
+              float((p.syn1 - model.syn1).abs().max()))
+    log("fit", f"shared, numpy feed on the calling thread (prefetch_chunks 0): steps "
+        f"{tr.global_step} (default feed: {steps}), sgns_shared launches {launched}, "
+        f"fit wall {wall:.2f} s, host_wait_s {tr.host_wait_time:.4f}, dispatch_s "
+        f"{tr.dispatch_time:.4f}; max_abs_err against the default fit's parameters "
+        f"{err:.3e} (tolerance {PARAM_ATOL})")
+    if not (tr.global_step == steps == launched and err <= PARAM_ATOL):
+        raise AssertionError("the fit on the calling thread with the numpy feed "
+                             "disagrees with the default fit")
+    return err
 
 
 def model_phase(model, torch, np) -> None:
@@ -664,6 +776,7 @@ def main() -> int:
     srec = scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
     srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
                                                                   scat))
+    feed = feed_phase(corpus, args.seed, np)
     launches = {}
     for name, knobs, pool in FITS:
         model, n_fused, n_scat = fit_phase(
@@ -671,6 +784,7 @@ def main() -> int:
         launches[name] = {"sgns_shared_step": n_fused, "scatter_add_rows": n_scat}
         if name == "shared":
             model_phase(model, torch, np)
+            sync_numpy_fit(model, n_fused, corpus, args.seed, torch, fused)
         del model
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows")}
@@ -699,7 +813,8 @@ def main() -> int:
                                 "syn0_centers_shape")}}]}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps({**kernels_line, "card": card}) + "\n")
+        Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,
+                                              "card": card}) + "\n")
     print(json.dumps(kernels_line))
     print(card)
     print(json.dumps({"ok": True, "device": {

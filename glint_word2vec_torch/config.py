@@ -9,9 +9,10 @@ The port implements the single-device steps: skip-gram with a shared negative po
 with per-pair negatives (``negative_pool`` resolving to 0), and scatter CBOW with either.
 A knob that would change the results of training and is not ported yet raises
 :class:`NotImplementedError` naming it, at construction, when set off its default; it
-is never silently ignored. Knobs that only change wall clock in the JAX package
-(``producer_workers``, ``io_workers``, ``prefetch_chunks``: the JAX package guarantees
-bit-identical results at any value) are accepted and run serially.
+is never silently ignored. The host data plane's knobs change wall clock only, in both
+packages (the results are bit-identical at any value): ``prefetch_chunks`` and
+``producer_workers`` mean what they mean in the JAX package, and ``io_workers`` reaches
+vocabulary counting only (the parallel checkpoint and export I/O is not ported yet).
 """
 
 from __future__ import annotations
@@ -98,16 +99,18 @@ class Word2VecConfig:
     decay_interval_words: int = 10_000
     steps_per_dispatch: int = 16
     heartbeat_every_steps: int = 100
-    prefetch_chunks: int = 8        # wall clock only: the port's feed is serial
+    prefetch_chunks: int = 8        # chunks a producer thread assembles (and, on the
+                                    # card, stages) ahead; 0 = on the calling thread
     profile_dir: str = ""
     feed_consistency_check: bool = False  # multi-process only: inert here
     shard_input: bool = True              # multi-process only: inert here
     device_pairgen: bool = False
     tokens_per_step: int = 0              # device_pairgen only: inert here
 
-    # --- host data plane (wall clock only; the port runs serially) ---
-    producer_workers: int = 1
-    io_workers: int = 1
+    # --- host data plane (wall clock only) ---
+    producer_workers: int = 1             # feed slabs generated on a thread pool
+    io_workers: int = 1                   # vocabulary counting threads (see
+                                          # data/vocab.parallel_counting_profitable)
     sharded_prefetch: bool = True         # multi-process only: inert here
 
     # --- fault tolerance ---

@@ -1,32 +1,95 @@
 """Host-side pair feed: index -> subsample -> dynamic window -> fixed-shape pair batches,
 and its CBOW twin (grouped context windows instead of flat pairs).
 
-Ported from the numpy backend of ``glint_word2vec_tpu/data/pipeline.py``; the stream is
-bit-identical to it (tested). Every random decision is position-keyed through
-:mod:`.hashrng`, so the stream is a pure function of (seed, iteration, shard) and of the
-sentence order.
+Ported from ``glint_word2vec_tpu/data/pipeline.py``; the stream is bit-identical to it
+(tested). Every random decision is position-keyed through :mod:`.hashrng`, so the
+stream is a pure function of (seed, iteration, shard) and of the sentence order.
 
 Two documented divergences from the reference survive unchanged from the JAX package:
 subsampling uses the intended float keep formula (the reference's integer division made
 it a no-op), and the window keeps the reference's asymmetric shape by default
 (``legacy_asymmetric_window=True``: b words of left context, b-1 of right).
 
-Not ported: the native C++ pair generator, the thread-pool fan-out
-(``producer_workers``) and the banded-CBOW halo packer (``pack_halo_token_blocks``,
-which waits with banded CBOW). The first two yield the bit-identical stream, so the
-port runs the numpy generator serially whatever ``producer_workers`` says.
+The skip-gram feed generates each slab's pairs with the multithreaded native C++
+generator (:mod:`.native`, ``native/pairgen.cpp``) when it is built
+(``backend="auto"``), else with numpy; ``producer_workers > 1`` fans the slabs of
+either feed over :func:`ordered_pool_map`. Every combination yields the same stream,
+bit for bit. There is no native CBOW generator, in either package. Not ported: the
+banded-CBOW halo packer (``pack_halo_token_blocks``, which waits with banded CBOW).
 """
 
 from __future__ import annotations
 
+import collections
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
+from glint_word2vec_torch.data import native
 from glint_word2vec_torch.data.hashrng import (
     STREAM_SUBSAMPLE, STREAM_WINDOW, hash_mod_at, hash_u01_at, stream_base)
 from glint_word2vec_torch.data.vocab import Vocabulary
+
+BACKENDS = ("auto", "numpy", "native")
+
+
+def ordered_pool_map(fn, jobs: Iterable, workers: int, ahead: int = 2):
+    """Map ``fn`` over ``jobs`` on a thread pool, yielding the results in job order.
+
+    Every job of the feeds is a pure function of its inputs (the draws are
+    position-keyed), so running them concurrently and consuming them in submission
+    order yields the same stream at any worker count. ``workers <= 1`` is a plain
+    serial loop (no pool, no thread). At most ``workers + ahead`` jobs are in flight,
+    so a slow consumer bounds memory. A job's exception is raised at its turn; when
+    the consumer stops early (an exception, or the generator closed), the pending jobs
+    are cancelled and the pool's threads are joined before this returns.
+    """
+    if workers <= 1:
+        for job in jobs:
+            yield fn(job)
+        return
+    pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="glint-feed-worker")
+    pending: "collections.deque" = collections.deque()
+    try:
+        cap = workers + ahead
+        for job in jobs:
+            pending.append(pool.submit(fn, job))
+            if len(pending) >= cap:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def resolve_backend(backend: str) -> str:
+    """The pair generator a feed runs, "native" or "numpy": "auto" takes the native
+    one when it is built, as the JAX package does."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS} but got {backend!r}")
+    if backend == "auto":
+        return "native" if native.native_available() else "numpy"
+    if backend == "native" and not native.native_available():
+        raise RuntimeError("backend 'native' but the native pair generator did not "
+                           "build (g++) or GLINT_DISABLE_NATIVE is set")
+    return backend
+
+
+def _slab_jobs(sentences: Sequence[np.ndarray], order: np.ndarray,
+               block_words: int) -> Iterator[Tuple[List[np.ndarray], int]]:
+    """(slab, token_base) per slab: ``token_base`` is the raw-token ordinal of the
+    slab's first token, the position key of its draws."""
+    token_base = 0
+    for block in iter_sentence_slabs(sentences, order, block_words):
+        yield block, token_base
+        token_base += sum(int(s.shape[0]) for s in block)
+
+
+def _slab_arrays(block: List[np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+    tokens = np.concatenate(block) if len(block) > 1 else block[0]
+    return tokens, np.fromiter((s.shape[0] for s in block), np.int64, len(block))
 
 
 def stream_rng(seed: int, iteration: int, shard: int) -> np.random.Generator:
@@ -245,10 +308,20 @@ def epoch_batches(
     shuffle: bool = True,
     legacy_asymmetric_window: bool = True,
     block_words: int = 1_000_000,
+    backend: str = "auto",
+    producer_workers: int = 1,
 ) -> Iterator[PairBatch]:
     """One iteration's stream of fixed-shape pair batches (the JAX package's shard 0
     of 1): sentences shuffled per (seed, iteration), processed in ~``block_words``-word
-    slabs, the last batch zero-padded and masked."""
+    slabs, the last batch zero-padded and masked.
+
+    ``backend``: "native" generates each slab's pairs with the C++ generator, "numpy"
+    with :func:`_block_pairs`, "auto" (the default) with the first when it is built.
+    ``producer_workers > 1`` generates the slabs on a thread pool
+    (:func:`ordered_pool_map`); the native generator's ``default_threads()`` budget is
+    then divided across the concurrent calls, so the pools compose instead of
+    multiplying. Only the batching and the clock below stay serial."""
+    use_native = resolve_backend(backend) == "native"
     shard = 0
     rng = stream_rng(seed, iteration, shard)
     keep = keep_probabilities(
@@ -256,17 +329,23 @@ def epoch_batches(
     order = np.arange(len(sentences))
     if shuffle:
         rng.shuffle(order)
+    native_threads = native.threads_per_call(producer_workers)
+
+    def run_slab(job):
+        block, token_base = job
+        tokens, lengths = _slab_arrays(block)
+        if use_native:
+            return native.block_pairs_native(
+                tokens, lengths, keep, window, seed, iteration, shard, token_base,
+                legacy_asymmetric_window, n_threads=native_threads)
+        return _block_pairs(tokens, lengths, keep, window, seed, iteration, shard,
+                            token_base, legacy_asymmetric_window)
+
     batcher = PairBatcher(pairs_per_batch, num_streams=3)
     words_base = 0   # kept words fully consumed in prior slabs
     words_seen = 0
-    token_base = 0   # raw tokens consumed in prior slabs (position-key base)
-    for block in iter_sentence_slabs(sentences, order, block_words):
-        tokens = np.concatenate(block) if len(block) > 1 else block[0]
-        lengths = np.fromiter((s.shape[0] for s in block), np.int64, len(block))
-        c, x, clock, kept = _block_pairs(
-            tokens, lengths, keep, window, seed, iteration, shard, token_base,
-            legacy_asymmetric_window)
-        token_base += int(lengths.sum())
+    for c, x, clock, kept in ordered_pool_map(
+            run_slab, _slab_jobs(sentences, order, block_words), producer_workers):
         # the clock credits words as their pairs are emitted, so alpha advances per
         # batch, not per slab
         batcher.add(c, x, words_base + clock)
@@ -386,10 +465,13 @@ def epoch_batches_cbow(
     shuffle: bool = True,
     legacy_asymmetric_window: bool = True,
     block_words: int = 1_000_000,
+    producer_workers: int = 1,
 ) -> Iterator[CbowBatch]:
     """CBOW analog of :func:`epoch_batches` (the JAX package's shard 0 of 1):
     fixed-shape [B, 2·window] context batches over the same position-keyed stream,
-    the last batch zero-padded and masked."""
+    the last batch zero-padded and masked. ``producer_workers``: the same slab pool
+    as :func:`epoch_batches`, over the numpy :func:`_block_cbow` (there is no native
+    CBOW generator)."""
     B = int(pairs_per_batch)
     shard = 0
     rng = stream_rng(seed, iteration, shard)
@@ -398,17 +480,18 @@ def epoch_batches_cbow(
     order = np.arange(len(sentences))
     if shuffle:
         rng.shuffle(order)
+
+    def run_slab(job):
+        block, token_base = job
+        tokens, lengths = _slab_arrays(block)
+        return _block_cbow(tokens, lengths, keep, window, seed, iteration, shard,
+                           token_base, legacy_asymmetric_window)
+
     batcher = PairBatcher(B, num_streams=4)
     words_base = 0
     words_seen = 0
-    token_base = 0
-    for block in iter_sentence_slabs(sentences, order, block_words):
-        tokens = np.concatenate(block) if len(block) > 1 else block[0]
-        lengths = np.fromiter((s.shape[0] for s in block), np.int64, len(block))
-        c, x, nc, clock, kept = _block_cbow(
-            tokens, lengths, keep, window, seed, iteration, shard, token_base,
-            legacy_asymmetric_window)
-        token_base += int(lengths.sum())
+    for c, x, nc, clock, kept in ordered_pool_map(
+            run_slab, _slab_jobs(sentences, order, block_words), producer_workers):
         batcher.add(c, x, nc, words_base + clock)
         words_base += kept
         for bc, bx, bn, bclock, n in batcher.drain():

@@ -2,21 +2,26 @@
 
     model = Word2Vec(vector_size=300, window=5, device="cuda").fit(sentences)
     model = Word2Vec(vector_size=300, cbow=True, device="cuda").fit(sentences)
+    model = Word2Vec.resume(checkpoint_path, sentences, encode_cache_dir=cache)
 
-vocabulary -> encoded corpus -> :class:`..train.trainer.Trainer` fit ->
-:class:`..models.word2vec.Word2VecModel`, on the card unless ``device="cpu"``.
+vocabulary -> encoded corpus (in RAM, or memory-mapped under ``encode_cache_dir``) ->
+:class:`..train.trainer.Trainer` fit -> :class:`..models.word2vec.Word2VecModel`, on the
+card unless ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Iterable, Optional, Sequence
 
 from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.data.corpus import EncodedCorpus, encode_corpus, vocab_fingerprint
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import Vocabulary, build_vocab
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.models.word2vec import Word2VecModel
+from glint_word2vec_torch.train.checkpoint import load_model, load_model_header
 from glint_word2vec_torch.train.trainer import Trainer
 
 logger = logging.getLogger("glint_word2vec_torch")
@@ -43,18 +48,26 @@ class Word2Vec:
         vocab: Optional[Vocabulary] = None,
         checkpoint_path: Optional[str] = None,
         checkpoint_every_steps: Optional[int] = None,
+        encode_cache_dir: Optional[str] = None,
     ) -> Word2VecModel:
-        """``sentences``: iterable of token sequences (one-shot generators are
-        materialized, since they are read twice). ``vocab`` skips the counting pass.
+        """``sentences``: iterable of token sequences. Re-iterables (lists,
+        :class:`..data.corpus.TokenFileCorpus`) are streamed twice (vocabulary pass and
+        encode pass); one-shot generators are materialized first. ``vocab`` skips the
+        counting pass. ``encode_cache_dir``: write the encoded corpus there and train
+        from memory-mapped files (bounded host RAM); without it, encoding is in RAM.
         The fitted :class:`Trainer` stays on ``self.trainer``."""
         cfg = self.config
         if iter(sentences) is sentences:
             sentences = list(sentences)
         if vocab is None:
-            vocab = build_vocab(sentences, cfg.min_count)
+            vocab = build_vocab(sentences, cfg.min_count, workers=cfg.io_workers)
         logger.info("vocabSize = %d, trainWordsCount = %d",
                     vocab.size, vocab.train_words_count)
-        encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
+        if encode_cache_dir is not None:
+            encoded = encode_corpus(sentences, vocab, encode_cache_dir,
+                                    cfg.max_sentence_length)
+        else:
+            encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
         self.trainer = Trainer(cfg, vocab, device=self.device)
         self.trainer.fit(encoded, checkpoint_path=checkpoint_path,
                          checkpoint_every_steps=checkpoint_every_steps)
@@ -62,3 +75,73 @@ class Word2Vec:
         return Word2VecModel(vocab=vocab, syn0=params.syn0, syn1=params.syn1,
                              config=self.trainer.config,
                              train_state=self.trainer.state, device=self.device)
+
+    @staticmethod
+    def resume(
+        checkpoint_path: str,
+        sentences: Iterable[Sequence[str]],
+        checkpoint_every_steps: Optional[int] = None,
+        encode_cache_dir: Optional[str] = None,
+        allow_unstable: Optional[bool] = None,
+        config_overrides: Optional[dict] = None,
+        device="cuda",
+    ) -> Word2VecModel:
+        """Resume an interrupted run from a mid-training checkpoint of either package.
+        Resume is exact-step: the checkpoint records the batch stream's position
+        (``TrainState.batches_done``), so the interrupted iteration's trained batches
+        are skipped, not replayed.
+
+        ``sentences`` may be token sequences or an :class:`EncodedCorpus`. If
+        ``encode_cache_dir`` already holds an encoded corpus, it is reused when its
+        vocabulary fingerprint is the checkpoint's and refused otherwise; an empty
+        ``encode_cache_dir`` is filled from ``sentences``. ``allow_unstable`` and
+        ``config_overrides`` replace fields of the checkpoint's config (which pins the
+        resolved subsample ratio) for the resumed run; a knob that changes the batch
+        stream shifts what the recorded position means."""
+        device = resolve_device(device)
+        header = load_model_header(checkpoint_path)
+        if header["vocab_lineage"]:
+            raise NotImplementedError(
+                f"checkpoint {checkpoint_path!r} carries a vocab_lineage chain (a "
+                "vocabulary grown by continual training); continual training is not "
+                "ported to glint_word2vec_torch yet (ROADMAP.md queue A8)")
+        cfg: Word2VecConfig = header["config"]
+        if config_overrides:
+            cfg = cfg.replace(**config_overrides)
+        if allow_unstable is not None:
+            cfg = cfg.replace(allow_unstable=allow_unstable)
+        state = header["train_state"]
+        vocab = Vocabulary.from_words_and_counts(header["words"], header["counts"])
+        data = load_model(checkpoint_path, header=header)
+        if data["syn1"] is None:
+            raise ValueError("checkpoint has no syn1; cannot resume training")
+        if isinstance(sentences, EncodedCorpus):
+            encoded = sentences
+        elif encode_cache_dir is not None:
+            if os.path.exists(os.path.join(encode_cache_dir, "meta.json")):
+                encoded = EncodedCorpus(encode_cache_dir)
+                want = vocab_fingerprint(vocab)
+                got = encoded.meta.get("vocab_fingerprint")
+                if got != want:
+                    raise ValueError(
+                        f"encode_cache_dir {encode_cache_dir!r} was encoded under a "
+                        f"different vocabulary (fingerprint {got} != the checkpoint's "
+                        f"{want}); its ids would map to the wrong words. Point resume "
+                        "at the cache of the interrupted run, or at an empty directory")
+            else:
+                encoded = encode_corpus(sentences, vocab, encode_cache_dir,
+                                        cfg.max_sentence_length)
+        else:
+            if iter(sentences) is sentences:
+                sentences = list(sentences)
+            encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
+        trainer = Trainer(cfg, vocab, params=(data["syn0"], data["syn1"]),
+                          train_state=state, device=device)
+        if not state.finished:
+            # the cadence is a fit() argument, not stored in the checkpoint
+            trainer.fit(encoded, checkpoint_path=checkpoint_path,
+                        checkpoint_every_steps=checkpoint_every_steps)
+        out = trainer.unpadded_params()
+        return Word2VecModel(vocab=vocab, syn0=out.syn0, syn1=out.syn1,
+                             config=trainer.config, train_state=trainer.state,
+                             device=device)

@@ -1,6 +1,7 @@
 """Where the time of one of the port's training paths goes, on one NVIDIA GPU.
 
-    python -m glint_word2vec_torch.stepprof [--path PATH] [--seed N] [--tokens N]
+    python -m glint_word2vec_torch.stepprof [--path PATH] [--feed numpy,native]
+        [--prefetch 8,0] [--rounds R] [--switch-interval S] [--seed N] [--tokens N]
         [--out FILE]
 
 ``--path`` picks the step: ``shared`` (skip-gram, shared pool: the fused kernel, the
@@ -13,10 +14,21 @@ P=256 at this vocabulary), printed as one JSON line:
 - ``step``: device time of each CUDA kernel of one step (torch.profiler, mean over the
   profiled steps), on random parameters and Zipf indices;
 - ``fit``: ``Trainer.fit`` over a synthetic Zipf corpus, twice from fresh trainers:
-  once plain (wall time, steps, pairs/s) and once under torch.profiler (the device's
-  busy time, the sum of device-side event times on its one stream, and its idle share
-  of that fit's wall time); beside them, the time one pass of the numpy feed (pairs
-  or CBOW windows) alone takes over the same corpus.
+  once plain (wall time, steps, pairs/s, and the trainer's ``host_wait_s`` and
+  ``dispatch_s``) and once under torch.profiler (the device's busy time, the sum of
+  device-side event times, and its idle share of that fit's wall time; the host ops'
+  self time per thread); beside them, ``feed_only_s``, the time one pass of the feed
+  that ran (``feed_backend``, at the config's ``producer_workers``) alone takes over
+  the same corpus.
+
+``--feed`` picks the skip-gram pair generator (default: the trainer's choice, native
+when it is built; CBOW has only numpy), ``--prefetch`` the config's
+``prefetch_chunks`` (default 8; 0 assembles and copies the chunks on the calling
+thread). Both take comma-separated lists; the profile runs the first of each, and
+``--rounds R`` adds ``ab``: plain fits of every pair, R rounds in turns (the order
+reversed each round), with their medians and one feed-alone pass per round.
+``--switch-interval`` sets the interpreter's GIL switch interval for the run, to test
+whether the producer thread's cost is the consumer waiting for the GIL.
 
 It needs a CUDA device and exits 2 without one.
 """
@@ -32,6 +44,7 @@ import numpy as np
 import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.data import native
 from glint_word2vec_torch.data.pipeline import (
     encode_sentences, epoch_batches, epoch_batches_cbow)
 from glint_word2vec_torch.data.vocab import Vocabulary
@@ -71,10 +84,31 @@ def kernel_times(prof) -> dict:
     return out
 
 
-def path_config(path: str, seed: int) -> Word2VecConfig:
+def host_times(prof, top: int = 12) -> dict:
+    """Self host time of the profiled ops, per thread (the consumer, and the producer
+    when it runs): the ``top`` ops of each by total µs, with their call counts."""
+    per = {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        ops = per.setdefault(evt.thread, {})
+        entry = ops.setdefault(evt.name, [0.0, 0])
+        entry[0] += float(evt.self_cpu_time_total)
+        entry[1] += 1
+    out = {}
+    for thread, ops in per.items():
+        total = sum(v[0] for v in ops.values())
+        ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
+        out[str(thread)] = {"self_us_total": total, "top": {
+            name: {"us_total": us, "count": n} for name, (us, n) in ranked}}
+    return out
+
+
+def path_config(path: str, seed: int, prefetch: int = 8) -> Word2VecConfig:
     """The model at full width on one path."""
     knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
-                 min_count=1, heartbeat_every_steps=16, seed=seed)
+                 min_count=1, heartbeat_every_steps=16, seed=seed,
+                 prefetch_chunks=prefetch)
     if path in ("per_pair", "cbow_per_example"):
         knobs["negative_pool"] = 0
     return Word2VecConfig(cbow=path.startswith("cbow"), **knobs)
@@ -133,7 +167,9 @@ def profile_step(path: str, seed: int, steps: int = 20) -> dict:
             "total_device_us_per_step": sum(per_step.values())}
 
 
-def profile_fit(path: str, seed: int, n_tokens: int) -> dict:
+def fit_corpus(seed: int, n_tokens: int):
+    """A Zipf(1) vocabulary of V words and ``n_tokens`` tokens drawn from it, in
+    40-token sentences, encoded."""
     rng = np.random.default_rng(seed)
     counts = (1e9 / np.arange(1, V + 1)).astype(np.int64) + 1
     words = [f"w{i}" for i in range(V)]
@@ -141,23 +177,47 @@ def profile_fit(path: str, seed: int, n_tokens: int) -> dict:
     toks = [words[i] for i in ids]
     sents = [toks[i:i + 40] for i in range(0, n_tokens, 40)]
     vocab = Vocabulary.from_words_and_counts(words, counts)
-    encoded = encode_sentences(sents, vocab)
-    cfg = path_config(path, seed)
-    trainer = Trainer(cfg, vocab, device="cuda")
-    feed = epoch_batches_cbow if cfg.cbow else epoch_batches
+    return vocab, encode_sentences(sents, vocab)
+
+
+def feed_pass(trainer: Trainer, encoded) -> tuple:
+    """(batches, seconds) of one pass of the trainer's feed alone, at its config's
+    backend and ``producer_workers``."""
+    cfg = trainer.config
+    kw = dict(pairs_per_batch=B, window=WINDOW, seed=cfg.seed,
+              subsample_ratio=cfg.subsample_ratio, producer_workers=cfg.producer_workers)
+    if not cfg.cbow:
+        kw["backend"] = trainer.feed_backend
     t0 = time.perf_counter()
-    n_batches = sum(1 for _ in feed(
-        encoded, vocab, pairs_per_batch=B, window=WINDOW,
-        subsample_ratio=trainer.config.subsample_ratio, seed=seed))
-    feed_s = time.perf_counter() - t0
+    n = sum(1 for _ in (epoch_batches_cbow if cfg.cbow else epoch_batches)(
+        encoded, trainer.vocab, **kw))
+    return n, time.perf_counter() - t0
+
+
+def timed_fit(trainer: Trainer, encoded) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     trainer.fit(encoded)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    steps, pairs = trainer.global_step, trainer.pairs_trained
+    return {"feed_backend": trainer.feed_backend,
+            "prefetch_chunks": trainer.config.prefetch_chunks, "steps": trainer.global_step,
+            "pairs": trainer.pairs_trained, "fit_wall_s": wall,
+            "pairs_per_s": trainer.pairs_trained / wall,
+            "host_wait_s": trainer.host_wait_time, "dispatch_s": trainer.dispatch_time}
+
+
+def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
+                prefetch: int = 8) -> dict:
+    """The process's first fit (wall, counters), the feed alone, and a second fit
+    under torch.profiler (device busy time and idle share)."""
+    vocab, encoded = corpus
+    cfg = path_config(path, seed, prefetch)
+    trainer = Trainer(cfg, vocab, device="cuda", feed_backend=feed)
+    n_batches, feed_s = feed_pass(trainer, encoded)
+    rec = timed_fit(trainer, encoded)
     del trainer
-    trainer = Trainer(cfg, vocab, device="cuda")
+    trainer = Trainer(cfg, vocab, device="cuda", feed_backend=feed)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -168,28 +228,80 @@ def profile_fit(path: str, seed: int, n_tokens: int) -> dict:
     kt = kernel_times(prof)
     busy_s = sum(v["us_total"] for v in kt.values()) / 1e6
     top = sorted(kt.items(), key=lambda kv: -kv[1]["us_total"])[:10]
-    return {"tokens": n_tokens, "pool": trainer.config.negative_pool, "steps": steps,
-            "batches": n_batches, "pairs": pairs,
-            "fit_wall_s": wall, "pairs_per_s": pairs / wall, "feed_only_s": feed_s,
+    return {"tokens": int(sum(s.shape[0] for s in encoded)),
+            "pool": trainer.config.negative_pool, "batches": n_batches, **rec,
+            "producer_workers": cfg.producer_workers, "feed_only_s": feed_s,
             "profiled_fit_wall_s": prof_wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / prof_wall,
-            "top_device_us": {k: v for k, v in top}}
+            "top_device_us": {k: v for k, v in top},
+            "host_us_by_thread": host_times(prof)}
+
+
+def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int) -> dict:
+    """Plain fits of every (feed, prefetch) pair, ``rounds`` times, in turns: the
+    order reverses each round (A B B A ...), so that drift over the process hits every
+    pair alike. Beside each round, one pass of each backend's feed alone."""
+    vocab, encoded = corpus
+    pairs = [(f, p) for f in feeds for p in prefetches]
+    runs, feed_s = [], {}
+    for r in range(rounds):
+        for feed, prefetch in (pairs if r % 2 == 0 else pairs[::-1]):
+            trainer = Trainer(path_config(path, seed, prefetch), vocab, device="cuda",
+                              feed_backend=feed)
+            if prefetch == prefetches[0]:
+                feed_s.setdefault(trainer.feed_backend, []).append(
+                    feed_pass(trainer, encoded)[1])
+            runs.append({"round": r, **timed_fit(trainer, encoded)})
+            del trainer
+    summary = {}
+    for feed, prefetch in pairs:
+        mine = [x for x in runs if x["prefetch_chunks"] == prefetch
+                and (feed == "auto" or x["feed_backend"] == feed)]
+        summary[f"{mine[0]['feed_backend']}/prefetch={prefetch}"] = {
+            k: float(np.median([x[k] for x in mine]))
+            for k in ("fit_wall_s", "pairs_per_s", "host_wait_s", "dispatch_s")} | {
+            "fit_wall_s_all": [x["fit_wall_s"] for x in mine]}
+    return {"rounds": rounds, "runs": runs, "median": summary,
+            "feed_only_s": feed_s}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=PATHS, default="shared")
+    ap.add_argument("--feed", default="auto",
+                    help="numpy or native, or both comma-separated (default: native "
+                         "when it is built)")
+    ap.add_argument("--prefetch", default="8",
+                    help="prefetch_chunks, or several comma-separated (default 8)")
+    ap.add_argument("--rounds", type=int, default=0,
+                    help="after the profile, plain fits of every feed/prefetch pair in "
+                         "turns, this many rounds")
+    ap.add_argument("--switch-interval", type=float, default=0.0,
+                    help="sys.setswitchinterval for the run, in seconds (default: "
+                         "the interpreter's, 0.005): how long a thread that wants "
+                         "the GIL waits before the holder is asked to drop it")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tokens", type=int, default=2_000_000)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
+    if args.switch_interval:
+        sys.setswitchinterval(args.switch_interval)
+    feeds = args.feed.split(",")
+    prefetches = [int(p) for p in args.prefetch.split(",")]
+    if any(f not in ("auto", "numpy", "native") for f in feeds):
+        ap.error(f"--feed: numpy or native, not {args.feed!r}")
     if not torch.cuda.is_available():
         print("stepprof: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
+    corpus = fit_corpus(args.seed, args.tokens)
     rec = {"device": torch.cuda.get_device_name(0), "path": args.path,
+           "switch_interval_s": sys.getswitchinterval(),
+           "native_threads": native.default_threads(),
            "step": profile_step(args.path, args.seed),
-           "fit": profile_fit(args.path, args.seed, args.tokens)}
+           "fit": profile_fit(args.path, args.seed, corpus, feeds[0], prefetches[0])}
+    if args.rounds:
+        rec["ab"] = ab_fits(args.path, args.seed, corpus, feeds, prefetches, args.rounds)
     line = json.dumps(rec)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:

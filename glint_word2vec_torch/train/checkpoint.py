@@ -290,6 +290,7 @@ def load_model_header(path: str, check_ported: bool = True) -> Dict[str, Any]:
         "vector_size": meta.get("vector_size"),
         "config": Word2VecConfig.from_dict(meta["config"], check_ported=check_ported),
         "train_state": TrainState.from_dict(meta.get("train_state", {})),
+        "vocab_lineage": meta.get("vocab_lineage", []),
     }
 
 

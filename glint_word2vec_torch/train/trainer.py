@@ -5,8 +5,15 @@ The control flow and bookkeeping are the JAX package's, so that a fit from the s
 parameters gives the same step count, pair count, alpha trace and (to f32 tolerance)
 parameters:
 
-- batches come from the numpy pair feed (or its CBOW twin) and are stacked
-  ``steps_per_dispatch`` to a chunk;
+- batches come from the pair feed (native C++ or numpy, ``feed_backend``) or its CBOW
+  twin, slabs fanned over ``producer_workers`` threads, and are assembled
+  ``steps_per_dispatch`` to a chunk, filled in place;
+- with ``prefetch_chunks > 0`` the chunks are assembled on a producer thread, at most
+  that many ahead; on the card that thread also stages each chunk: a copy into pinned
+  host memory, asynchronous copies to the card on a stream of their own, and an event
+  the consumer's stream waits on before the chunk's first use. The thread only copies:
+  every kernel is launched by the consumer. ``prefetch_chunks=0`` assembles and copies
+  on the calling thread;
 - each batch's mask is rebuilt as a prefix mask from its real pair count, and a CBOW
   batch's context mask from its context counts;
 - the negatives of a chunk are drawn at once from the hash PRNG at counter
@@ -21,16 +28,22 @@ parameters:
 - the AUTO pool is re-resolved for vocabularies past 500k words, and an AUTO
   subsample ratio is lowered out of the measured duplicate-overload region.
 
-Differences: the steps update the parameters in place, the feed runs on the calling
-thread (``prefetch_chunks``/``producer_workers`` change only wall clock in the JAX
-package), a short last chunk is not padded with the JAX package's masked dummy steps
-(they are exact no-ops), and rollback/recovery, telemetry, statusd, profiling,
-stability advisories, banded CBOW and the multi-process feeds are not ported yet.
+``host_wait_time`` counts the seconds ``fit`` waited for the next chunk (its assembly,
+and its staging when the producer is on); ``dispatch_time`` the seconds spent issuing
+its steps (with the copy to the card when the producer is off).
+
+Differences: the steps update the parameters in place, the feed ships int32 indices
+(widened to int64 on the card, where the JAX package ships uint16 below 65536 words), a
+short last chunk is not padded with the JAX package's masked dummy steps (they are exact
+no-ops), and rollback/recovery, telemetry, statusd, profiling, stability advisories,
+banded CBOW and the multi-process feeds are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import queue
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass
@@ -41,7 +54,8 @@ import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
 from glint_word2vec_torch.data.pipeline import (
-    epoch_batches, epoch_batches_cbow, expected_kept_words, keep_probabilities)
+    epoch_batches, epoch_batches_cbow, expected_kept_words, keep_probabilities,
+    resolve_backend)
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.ops import scatter
@@ -65,6 +79,80 @@ def _pairs_per_kept_token(window: int) -> float:
     clipping ignored, so it overestimates slightly), floored at 1e-3."""
     b = np.arange(window, dtype=np.float64)
     return max(float(b.mean() + np.clip(b - 1, 0, None).mean()), 1e-3)
+
+
+class _threaded_iter:
+    """Run a generator on a background thread with a bounded buffer (the JAX
+    package's producer).
+
+    An exception of the generator is raised at the consumer's ``next()``. ``close()``
+    (also run on garbage collection) stops the producer even when it is blocked on a
+    full buffer, and joins it; the producer closes the generator on its own thread, so
+    the generator's cleanup (the feed's worker pool) runs before the thread ends.
+    """
+
+    _DONE = object()
+
+    def __init__(self, gen: Iterator, maxsize: int):
+        self._q: "queue.Queue" = queue.Queue(maxsize=maxsize)
+        self._stop = threading.Event()
+
+        def put_checked(item) -> bool:
+            """A bounded put that gives up once the consumer signals stop: every put
+            (the terminal one too) must be preemptible, or an abandoned iterator leaks
+            a blocked producer."""
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def run():
+            try:
+                for item in gen:
+                    if not put_checked(item):
+                        return
+                put_checked(self._DONE)
+            except BaseException as e:  # relayed to the consumer
+                put_checked(e)
+            finally:
+                gen.close()
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="glint-batch-producer")
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        item = self._q.get()
+        if item is self._DONE:
+            self._stop.set()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._stop.set()
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        try:  # unblock a producer waiting on a full queue
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=30.0)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
 
 
 @dataclass
@@ -97,10 +185,15 @@ class Trainer:
         params: Optional[EmbeddingPair] = None,
         train_state: Optional[TrainState] = None,
         device="cuda",
+        feed_backend: str = "auto",
     ):
+        """``feed_backend``: the skip-gram pair generator, "native", "numpy" or
+        "auto" (native when it is built, as the JAX package chooses); CBOW has only
+        the numpy generator. The resolved choice is ``self.feed_backend``."""
         self.device = resolve_device(device)
         self.config = config
         self.vocab = vocab
+        self.feed_backend = self._resolve_feed(feed_backend)
         self._resolve_vocab_scaled_pool()
         config = self.config
         self.padded_vocab = pad_vocab_for_sharding(vocab.size)
@@ -119,8 +212,18 @@ class Trainer:
         self.global_step = self.state.global_step
         self.pairs_trained = 0.0  # real (unmasked) pairs trained over this trainer
         self.heartbeats: "deque[HeartbeatRecord]" = deque(maxlen=config.heartbeat_ring)
+        self.host_wait_time = 0.0
+        self.dispatch_time = 0.0
 
     # -- setup -----------------------------------------------------------------------
+
+    def _resolve_feed(self, backend: str) -> str:
+        if not self.config.cbow:
+            return resolve_backend(backend)
+        if backend == "native":
+            raise ValueError("feed_backend='native': there is no native CBOW generator; "
+                             "CBOW feeds run numpy")
+        return resolve_backend("numpy" if backend == "auto" else backend)
 
     def _place_params(self, params) -> EmbeddingPair:
         """Copy (numpy or torch) parameters into zero-padded [Vp, Dp] float32 tensors
@@ -225,56 +328,99 @@ class Trainer:
         cfg = self.config
         common = dict(pairs_per_batch=cfg.pairs_per_batch, window=cfg.window,
                       subsample_ratio=cfg.subsample_ratio, seed=cfg.seed,
-                      iteration=iteration, shuffle=cfg.shuffle)
+                      iteration=iteration, shuffle=cfg.shuffle,
+                      producer_workers=cfg.producer_workers)
         if cfg.cbow:
             for b in epoch_batches_cbow(sentences, self.vocab, **common):
                 yield ({"centers": b.centers, "contexts": b.contexts, "nctx": b.n_ctx},
                        b.num_real, b.words_seen)
         else:
-            for b in epoch_batches(sentences, self.vocab, **common):
+            for b in epoch_batches(sentences, self.vocab, backend=self.feed_backend,
+                                   **common):
                 yield ({"centers": b.centers, "contexts": b.contexts},
                        b.num_real_pairs, b.words_seen)
 
     def _chunk_stream(self, sentences: Sequence[np.ndarray], total_words: float,
                       train_words: float) -> Iterator[dict]:
-        """Numpy chunk assembly: up to K stacked batches, the alpha schedule and the
-        resume skip."""
+        """Numpy chunk assembly: up to K batches filled in place, the alpha schedule
+        and the resume skip. No torch call, so it may run on the producer thread; the
+        resume position is read here, before the consumer advances ``self.state``."""
         cfg = self.config
         K = cfg.steps_per_dispatch
         start_iter = self.state.iteration
         skip_batches = self.state.batches_done if not self.state.finished else 0
-        for k in range(start_iter, cfg.num_iterations + 1):
-            prev_words = (k - 1) * train_words
-            pending: List[tuple] = []
-            batches_in_iter = skip_batches if k == start_iter else 0
-            to_skip = batches_in_iter
 
-            def flush() -> dict:
-                nonlocal pending, batches_in_iter
-                real = len(pending)
-                arrays = {name: np.stack([a[name] for a, _, _ in pending])
-                          for name in pending[0][0]}
-                reals = np.asarray([r for _, r, _ in pending], np.float32)
-                alphas = np.asarray([
-                    alpha_schedule(float(w), total_words, cfg.learning_rate,
-                                   cfg.min_alpha_factor)
-                    for _, _, w in pending], np.float32)
-                batches_in_iter += real
-                chunk = dict(arrays=arrays, alphas=alphas, reals=reals, real=real,
-                             iteration=k, words_processed=int(pending[-1][2]),
-                             batches_done=batches_in_iter, real_pairs=float(reals.sum()))
-                pending = []
-                return chunk
+        def chunks() -> Iterator[dict]:
+            for k in range(start_iter, cfg.num_iterations + 1):
+                prev_words = (k - 1) * train_words
+                pending: List[tuple] = []
+                batches_in_iter = skip_batches if k == start_iter else 0
+                to_skip = batches_in_iter
 
-            for arrays, real, words_seen in self._batch_stream(sentences, k):
-                if to_skip:  # fast-forward already-trained batches (exact resume)
-                    to_skip -= 1
-                    continue
-                pending.append((arrays, real, prev_words + words_seen))
-                if len(pending) == K:
+                def flush() -> dict:
+                    nonlocal pending, batches_in_iter
+                    real = len(pending)
+                    arrays = {name: np.empty((real, *a.shape), a.dtype)
+                              for name, a in pending[0][0].items()}
+                    for j, (batch, _, _) in enumerate(pending):
+                        for name, a in batch.items():
+                            arrays[name][j] = a
+                    reals = np.asarray([r for _, r, _ in pending], np.float32)
+                    alphas = np.asarray([
+                        alpha_schedule(float(w), total_words, cfg.learning_rate,
+                                       cfg.min_alpha_factor)
+                        for _, _, w in pending], np.float32)
+                    batches_in_iter += real
+                    chunk = dict(arrays=arrays, alphas=alphas, reals=reals, real=real,
+                                 iteration=k, words_processed=int(pending[-1][2]),
+                                 batches_done=batches_in_iter,
+                                 real_pairs=float(reals.sum()))
+                    pending = []
+                    return chunk
+
+                for arrays, real, words_seen in self._batch_stream(sentences, k):
+                    if to_skip:  # fast-forward already-trained batches (exact resume)
+                        to_skip -= 1
+                        continue
+                    pending.append((arrays, real, prev_words + words_seen))
+                    if len(pending) == K:
+                        yield flush()
+                if pending:
                     yield flush()
-            if pending:
-                yield flush()
+
+        return chunks()
+
+    def _stage(self, chunks: Iterator[dict]) -> Iterator[dict]:
+        """Send each chunk's arrays to the card from the producer thread: a copy into
+        pinned host memory, non-blocking copies on a stream of their own, and an event
+        recorded after them (``chunk["staged"]``). The pinned tensors ride with the
+        chunk, so they outlive their copies. Only copies are issued here."""
+        stream = torch.cuda.Stream(device=self.device)
+        for chunk in chunks:
+            pinned = {name: torch.from_numpy(a).pin_memory()
+                      for name, a in chunk["arrays"].items()}
+            with torch.cuda.stream(stream):
+                arrays = {name: t.to(self.device, non_blocking=True)
+                          for name, t in pinned.items()}
+                done = torch.cuda.Event()
+                done.record(stream)
+            chunk.update(arrays=arrays, pinned=pinned, staged=done)
+            yield chunk
+
+    def _device_arrays(self, chunk: dict) -> dict:
+        """The chunk's index arrays on the device, widened to int64. A staged chunk's
+        tensors were allocated on the copy stream: the consumer's stream waits for
+        their copies, and ``record_stream`` keeps the allocator from reusing them
+        before the consumer's work on them is done."""
+        done = chunk.get("staged")
+        if done is None:
+            return {name: torch.from_numpy(a).to(self.device).long()
+                    for name, a in chunk["arrays"].items()}
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(done)
+        for t in chunk["arrays"].values():
+            t.record_stream(stream)
+        return {name: t.long() for name, t in chunk["arrays"].items()}
 
     def _step_fn(self) -> Callable:
         """The step of this config, ``step(batch, negatives, alpha, with_metrics)``:
@@ -299,8 +445,7 @@ class Trainer:
     def _run_chunk(self, chunk: dict) -> StepMetrics:
         """Train the steps of one chunk; returns the last step's metrics."""
         cfg = self.config
-        arrays = {name: torch.from_numpy(a).to(self.device).long()
-                  for name, a in chunk["arrays"].items()}
+        arrays = self._device_arrays(chunk)
         K, B = cfg.steps_per_dispatch, arrays["centers"].shape[1]
         shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
                  else (K, cfg.negative_pool))
@@ -339,10 +484,27 @@ class Trainer:
         self._last_log_time = time.perf_counter()
         self._last_log_step = self.global_step
         self._pairs_since_log = 0.0
-        for chunk in self._chunk_stream(sentences, total_words, float(train_words)):
-            metrics = self._run_chunk(chunk)
-            self._finish_round(chunk, metrics, checkpoint_path, checkpoint_every_steps,
-                               on_heartbeat)
+        self.host_wait_time = 0.0
+        self.dispatch_time = 0.0
+        chunks = self._chunk_stream(sentences, total_words, float(train_words))
+        if cfg.prefetch_chunks > 0:
+            if self.device.type == "cuda":
+                chunks = self._stage(chunks)
+            chunks = _threaded_iter(chunks, cfg.prefetch_chunks)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                chunk = next(chunks, None)
+                self.host_wait_time += time.perf_counter() - t0
+                if chunk is None:
+                    break
+                t0 = time.perf_counter()
+                metrics = self._run_chunk(chunk)
+                self.dispatch_time += time.perf_counter() - t0
+                self._finish_round(chunk, metrics, checkpoint_path,
+                                   checkpoint_every_steps, on_heartbeat)
+        finally:
+            chunks.close()
         scatter.check_errors()
         self.state = TrainState(
             iteration=cfg.num_iterations,

@@ -28,7 +28,9 @@ def _port_files():
 def test_import_leaves_jax_out():
     code = ("import sys, glint_word2vec_torch, glint_word2vec_torch.ops.fused_sgns, "
             "glint_word2vec_torch.ops.scatter, glint_word2vec_torch.scatterprobe, "
-            "glint_word2vec_torch.stepprof, glint_word2vec_torch.interop\n"
+            "glint_word2vec_torch.stepprof, glint_word2vec_torch.interop, "
+            "glint_word2vec_torch.data.native, glint_word2vec_torch.data.corpus, "
+            "glint_word2vec_torch.data.ingest_native, glint_word2vec_torch.train.faults\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -37,6 +39,30 @@ def test_import_leaves_jax_out():
     r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                        text=True, timeout=120, cwd=str(REPO))
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_native_code_is_the_ports_own():
+    """The port builds its C++ from its own sources into its own ``_build/``, and a
+    process that loads both libraries maps nothing of the JAX package."""
+    code = ("from glint_word2vec_torch.data import native, ingest_native\n"
+            "assert native.native_available() and ingest_native.ingest_available()\n"
+            "print(native.loaded_library())\n"
+            "print(ingest_native.loaded_library())\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "print('glint_word2vec_tpu' in maps)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=300, cwd=str(REPO))
+    assert r.returncode == 0, r.stdout + r.stderr
+    *libs, mapped = r.stdout.split()
+    port = REPO / "glint_word2vec_torch"
+    for lib in libs:
+        assert Path(lib).parent == port / "_build", lib
+    assert mapped == "False"
+    from glint_word2vec_torch.data import ingest_native, native
+    for src in (native._SRC, ingest_native._SRC):
+        assert src.parent == port / "native" and src.exists()
+        assert native.library_path(src, "c++17").parent == port / "_build"
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)

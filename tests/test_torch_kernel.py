@@ -276,3 +276,42 @@ def test_scatter_kernel_call_after_a_refused_index(cuda, path):
     got = _kernel_call(base.clone(), idx, upd, live)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     assert mat[3].eq(2).all() and mat.sum() == 2 * 128
+
+
+@pytest.mark.cuda
+def test_staged_feed_trains_as_the_calling_thread(cuda):
+    """The trainer's producer thread stages each chunk on the card (pinned copies on a
+    stream of their own, an event the consumer waits on): the same steps and pairs as
+    the synchronous feed, parameters within 1e-4 (the kernel's fp32 atomics), and no
+    feed thread left behind."""
+    import threading
+
+    from glint_word2vec_torch.config import Word2VecConfig
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.data.vocab import build_vocab
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    rng = np.random.default_rng(4)
+    words = [f"w{i}" for i in range(300)]
+    p = 1.0 / np.arange(1, 301)
+    p /= p.sum()
+    sents = [[words[j] for j in rng.choice(300, size=20, p=p)] for _ in range(600)]
+    vocab = build_vocab(sents, 1)
+    enc = encode_sentences(sents, vocab)
+    base = dict(vector_size=64, pairs_per_batch=512, negative_pool=128,
+                steps_per_dispatch=4, num_iterations=2, subsample_ratio=1e-3,
+                allow_unstable=True, min_count=1, seed=3)
+    runs = []
+    for prefetch, workers in ((0, 1), (8, 1), (8, 4)):
+        t = Trainer(Word2VecConfig(prefetch_chunks=prefetch, producer_workers=workers,
+                                   **base), vocab, device=cuda)
+        t.fit(enc)
+        runs.append(t)
+    for t in runs[1:]:
+        assert (t.global_step, t.pairs_trained) == (runs[0].global_step,
+                                                     runs[0].pairs_trained)
+        for a, b in zip(t.params, runs[0].params):
+            assert float((a - b).abs().max()) <= 1e-4
+    assert runs[0].global_step >= 8
+    assert not [th.name for th in threading.enumerate()
+                if th.name.startswith(("glint-batch-producer", "glint-feed-worker"))]
