@@ -34,20 +34,35 @@ Phases, one line each (or a few); any failure exits non-zero:
                generator against numpy's at producer_workers 1 and 4, and the CBOW
                stream at 1 and 4, each held bit for bit by a digest of every batch;
                one timed pass of each; the host's cores and the thread budget;
-  7. fits      Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192)
+  7. pairgen   the device pair generator (ops/pairgen.py, plain torch ops) on the
+               first chunk of the smoke corpus's device feed (16 blocks of the
+               trainer's tokens_per_step kept tokens), on the card and on the CPU, in
+               the trainer's mode and in the subsampling one: every output
+               bit-identical; one batched call timed on the card;
+  8. fits      Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192)
                .fit() on one synthetic Zipf corpus over one 1,000,000-word vocabulary,
-               four times with the default feed (prefetch_chunks=8: a producer thread
+               five times with the default feed (prefetch_chunks=8: a producer thread
                assembles the chunks and stages their copies to the card):
                skip-gram with the shared pool (the fused kernel), per-pair skip-gram
                (negative_pool=0), CBOW with the shared pool and per-example CBOW
-               (negative_pool=0) (the scatter kernel), every kernel's launch count set
-               to 0 just before each fit and read just after; the skip-gram fits must
-               feed from the native generator, the CBOW fits from numpy (there is no
-               native CBOW generator);
-  8. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
-               fit's model, right after that fit; then the shared-pool fit once more
-               on the calling thread (prefetch_chunks=0) with the numpy generator:
-               the same step count, parameters within PARAM_ATOL.
+               (negative_pool=0) (the scatter kernel), and skip-gram with the shared
+               pool fed by the device pair generator (device_pairgen=True, the fused
+               kernel), every kernel's launch count set to 0 just before each fit and
+               read just after; the host-fed skip-gram fits must feed from the native
+               generator, the CBOW fits from numpy (there is no native CBOW
+               generator), the device-fed one from the device; its pairs trained and
+               dropped must equal a numpy replay of its token stream through the host
+               pair generator, its drops stay under 2%;
+  9. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
+               fit's model, right after that fit; transform_sentences, pull and
+               multiply against float64 on the host; a binary word2vec export of the
+               whole 1,000,000-row model (file size and sampled rows read back), a
+               text export of its first 20,000 rows (rows read back), and
+               load_latest(reclaim=False) on a directory holding save debris (the
+               torn swap's predecessor wins, nothing is touched); then the
+               shared-pool fit once more on the calling thread (prefetch_chunks=0)
+               with the numpy generator: the same step count, parameters within
+               PARAM_ATOL.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and the result
 line {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
 this file, it prints no result and exits 2.
@@ -610,11 +625,98 @@ FITS = (  # (name, config knobs, pool the trainer must resolve)
     ("per_pair", {"negative_pool": 0}, 0),
     ("cbow", {"cbow": True}, 256),
     ("cbow_per_example", {"cbow": True, "negative_pool": 0}, 0),
+    ("shared_devpairs", {"device_pairgen": True}, 256),
 )
+DROP_LIMIT = 0.02  # the device feed's overflow drops, as a share of pairs trained
+
+
+def pairgen_phase(corpus, seed: int, torch, np) -> dict:
+    """The device generator on the card and on the CPU, on the first chunk of the smoke
+    corpus's device feed: every output bit-identical."""
+    from glint_word2vec_torch import Word2VecConfig
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.ops.pairgen import device_block_pairs
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    vocab, sents = corpus
+    cfg = Word2VecConfig(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
+                         pairs_per_batch=B, min_count=1, seed=seed, device_pairgen=True)
+    tr = Trainer(cfg, vocab, device="cpu")
+    chunk = next(iter(tr._token_chunk_stream(encode_sentences(sents, vocab), 1.0, 1.0)))
+    keep = tr._keep_prob_dev
+
+    def run(dev, presubsampled=True):
+        a = {k: torch.from_numpy(v).to(dev).long() for k, v in chunk["arrays"].items()}
+        return lambda: device_block_pairs(
+            a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0], a["obase"][:, 1],
+            keep.to(dev), chunk["sub_base"], chunk["win_base"], WINDOW, B,
+            presubsampled=presubsampled)
+
+    bad = []
+    for presubsampled in (True, False):  # the trainer's mode, then the subsampling one
+        got = run("cuda", presubsampled)()
+        want = run("cpu", presubsampled)()
+        bad += [f"{name} (presubsampled={presubsampled})"
+                for name, x, y in zip(got._fields, got, want)
+                if not torch.equal(x.cpu(), y)]
+        if presubsampled:
+            on_cpu = want
+    card_ms = time_steps(run("cuda"), TIMED_STEPS, torch)
+    t0 = time.perf_counter()
+    run("cpu")()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    pairs = int(on_cpu.mask.sum())
+    log("pairgen", f"first chunk: {chunk['real']} blocks of {tr._tokens_per_step} token "
+        f"slots, {pairs} pairs ({pairs / (chunk['real'] * B):.4f} of the slots), "
+        f"{int(on_cpu.dropped_pairs.sum())} dropped; card vs CPU, every output of both "
+        f"modes identical: {not bad} {bad}; one batched call {card_ms:.4f} ms on the "
+        f"card (events, median of {TIMED_STEPS}), {cpu_ms:.1f} ms on the CPU")
+    if bad or pairs == 0:
+        raise AssertionError(f"the device generator differs between card and CPU: {bad}")
+    return {"blocks": chunk["real"], "tokens_per_step": tr._tokens_per_step,
+            "pairs": pairs, "card_ms": card_ms}
+
+
+def replay_device_feed(tr, sents, np) -> tuple:
+    """(trained, dropped) of the device feed's stream replayed on the host: the
+    corpus in the shuffled order, subsampled by the hashrng draws on raw ordinals, the
+    kept stream cut every tokens_per_step tokens, and each block expanded by the host
+    pair generator (``_block_pairs``, keep 1, windows keyed by kept ordinals), of which
+    a step trains the first B pairs."""
+    from glint_word2vec_torch.data.hashrng import STREAM_SUBSAMPLE, hash_u01_at, stream_base
+    from glint_word2vec_torch.data.pipeline import (
+        _block_pairs, encode_sentences, keep_probabilities, stream_rng)
+
+    cfg, vocab, T = tr.config, tr.vocab, tr._tokens_per_step
+    encoded = encode_sentences(sents, vocab)
+    keep = keep_probabilities(vocab.counts, vocab.train_words_count,
+                              cfg.subsample_ratio).astype(np.float32)
+    ones = np.ones(vocab.size, np.float32)
+    trained = dropped = 0
+    for it in range(1, cfg.num_iterations + 1):
+        order = np.arange(len(encoded))
+        stream_rng(cfg.seed, it, 0).shuffle(order)
+        flat = np.concatenate([encoded[i] for i in order])
+        sid = np.repeat(np.arange(len(order)), [encoded[i].shape[0] for i in order])
+        u = hash_u01_at(stream_base(cfg.seed, STREAM_SUBSAMPLE, it, 0),
+                        np.arange(flat.shape[0], dtype=np.uint64))
+        m = u <= keep[flat]
+        tokens, sid = flat[m], sid[m]
+        starts = np.ones(tokens.shape[0], bool)
+        starts[1:] = sid[1:] != sid[:-1]
+        for i in range(0, tokens.shape[0], T):
+            st = starts[i:i + T].copy()
+            st[0] = True
+            lens = np.diff(np.append(np.flatnonzero(st), st.shape[0]))
+            n = _block_pairs(tokens[i:i + T], lens, ones, cfg.window, cfg.seed, it, 0, i,
+                             True)[0].shape[0]
+            trained += min(n, cfg.pairs_per_batch)
+            dropped += max(n - cfg.pairs_per_batch, 0)
+    return trained, dropped
 
 
 def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused,
-              scat, sgns):
+              scat, sgns, np):
     """One fit through the estimator; the kernel counts are set to 0 just before it
     and read just after. Returns (model, fused launches, scatter launches)."""
     from glint_word2vec_torch import Word2Vec
@@ -635,6 +737,7 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     hb = list(tr.heartbeats)
     loss = hb[-1].loss if hb else float("nan")
     unit = "examples" if tr.config.cbow else "pairs"
+    device_feed = tr.config.device_pairgen
     log("fit", f"{name}: pool {tr.config.negative_pool}, subsample "
         f"{tr.config.subsample_ratio:g}, feed {tr.feed_backend} (prefetch_chunks "
         f"{tr.config.prefetch_chunks}, producer_workers {tr.config.producer_workers}), "
@@ -644,10 +747,12 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
         f"fit wall {wall:.2f} s (setup included), {unit}/s over the fit "
         f"{tr.pairs_trained / wall:.0f}, host_wait_s {tr.host_wait_time:.4f}, "
         f"dispatch_s {tr.dispatch_time:.4f}, heartbeat {unit}/s "
-        f"{[round(h.pairs_per_sec) for h in hb]}, losses {[round(h.loss, 5) for h in hb]}")
+        f"{[round(h.pairs_per_sec) for h in hb]}, losses {[round(h.loss, 5) for h in hb]}"
+        + (f"; tokens_per_step {tr._tokens_per_step}, dropped pairs {tr.dropped_pairs}"
+           if device_feed else ""))
     steps = tr.global_step
-    shared = name == "shared"
-    want_feed = "numpy" if tr.config.cbow else "native"
+    shared = tr.config.negative_pool > 0 and not tr.config.cbow
+    want_feed = "device" if device_feed else "numpy" if tr.config.cbow else "native"
     checks = {f"pool == {pool}": tr.config.negative_pool == pool,
               f"feed_backend == {want_feed}": tr.feed_backend == want_feed,
               "steps >= 4 chunks": steps > 3 * tr.config.steps_per_dispatch,
@@ -656,6 +761,16 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
                                                   else steps * sgns.SCATTERS_PER_STEP),
               "loss finite": math.isfinite(loss),
               "params finite": bool(torch.isfinite(model.syn0).all())}
+    if device_feed:
+        t0 = time.perf_counter()
+        trained, dropped = replay_device_feed(tr, sents, np)
+        log("fit", f"{name}: host replay of the token stream: {trained} pairs trained, "
+            f"{dropped} dropped ({time.perf_counter() - t0:.1f} s); the fit: "
+            f"{tr.pairs_trained:.0f} and {tr.dropped_pairs}")
+        checks.update({
+            "pairs_trained == host replay": abs(tr.pairs_trained - trained) < 0.5,
+            "dropped == host replay": tr.dropped_pairs == dropped,
+            f"dropped < {DROP_LIMIT:.0%}": dropped < DROP_LIMIT * trained})
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"fit {name} failed: {bad}")
@@ -696,7 +811,94 @@ def sync_numpy_fit(model, steps: int, corpus, seed: int, torch, fused) -> float:
     return err
 
 
-def model_phase(model, torch, np) -> None:
+def surface_phase(model, m, sents, torch, np) -> dict:
+    """The model surface after fit on the 1M-row model: transform_sentences, pull and
+    multiply against float64 on the host (``m``, the model's syn0 in float64); the
+    word2vec exports read back; load_latest(reclaim=False) on a directory with
+    debris. Returns the timings (seconds)."""
+    from glint_word2vec_torch import Word2VecModel
+    from glint_word2vec_torch.data.vocab import Vocabulary
+    from glint_word2vec_torch.train import checkpoint as ckpt
+
+    out = {}
+    vocab = model.vocab
+    sample = sents[:30000]
+    t0 = time.perf_counter()
+    means = model.transform_sentences(sample)
+    out["transform_sentences_s"] = time.perf_counter() - t0
+    want = np.stack([m[[vocab.get(w) for w in s]].mean(0) for s in sample[:500]])
+    err_ts = float(np.abs(means[:500] - want).max())
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, vocab.size, 1000)
+    f32 = model.syn0.cpu().numpy()
+    pull_ok = np.array_equal(model.pull(ids), f32[ids])
+    v = rng.normal(0, 1, m.shape[1]).astype(np.float32)
+    t0 = time.perf_counter()
+    got = model.multiply(v)
+    out["multiply_s"] = time.perf_counter() - t0
+    want_mv = m @ v.astype(np.float64)
+    # recursive f32 summation over D terms
+    tol_mv = m.shape[1] * EPS32 * (np.abs(m) @ np.abs(v.astype(np.float64)))
+    mv_ok = bool((np.abs(got - want_mv) <= tol_mv + 1e-12).all())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        model.export_word2vec(str(tmp / "full.bin"), binary=True)
+        out["export_binary_s"] = time.perf_counter() - t0
+        header = f"{vocab.size} {model.vector_size}\n".encode()
+        rec = np.asarray([len(w.encode()) + 2 + 4 * model.vector_size
+                          for w in vocab.words], np.int64)
+        size = (tmp / "full.bin").stat().st_size
+        size_ok = size == len(header) + int(rec.sum())
+        offs = len(header) + np.concatenate([[0], np.cumsum(rec)[:-1]])
+        rows_ok = True
+        with open(tmp / "full.bin", "rb") as f:
+            for i in rng.integers(0, vocab.size, 64).tolist() + [0, vocab.size - 1]:
+                f.seek(int(offs[i]))
+                word = vocab.words[i].encode() + b" "
+                raw = f.read(int(rec[i]))
+                rows_ok &= raw[:len(word)] == word and raw[-1:] == b"\n" and np.array_equal(
+                    np.frombuffer(raw[len(word):-1], "<f4"), f32[i])
+        n = min(20000, vocab.size)
+        small = Word2VecModel(Vocabulary.from_words_and_counts(
+            vocab.words[:n], vocab.counts[:n]), f32[:n], device="cuda")
+        t0 = time.perf_counter()
+        small.export_word2vec(str(tmp / "small.txt"))
+        out["export_text_20k_s"] = time.perf_counter() - t0
+        lines = (tmp / "small.txt").read_text().splitlines()
+        text_ok = lines[0] == f"{n} {model.vector_size}" and len(lines) == n + 1
+        for i in (0, 1, n - 1):
+            word, *vals = lines[i + 1].split(" ")
+            text_ok &= word == vocab.words[i] and np.array_equal(
+                np.asarray(vals, np.float64).astype(np.float32), f32[i])
+        ck_dir = tmp / "ckpts"
+        for step, name in ((5, "ck"), (9, "ck2.old-7")):
+            ckpt.save_model(str(ck_dir / name), small.vocab.words, small.vocab.counts,
+                            f32[:n] + step, None, small.config,
+                            ckpt.TrainState(global_step=step))
+        (ck_dir / ".ck.tmp-3").mkdir()
+        before = sorted(p.name for p in ck_dir.iterdir())
+        t0 = time.perf_counter()
+        latest = Word2VecModel.load_latest(str(ck_dir), device="cuda")
+        out["load_latest_20k_s"] = time.perf_counter() - t0
+        latest_ok = (sorted(p.name for p in ck_dir.iterdir()) == before
+                     and np.array_equal(latest.syn0.cpu().numpy(), f32[:n] + 9))
+    log("model", f"transform_sentences of {len(sample)} sentences "
+        f"{out['transform_sentences_s']:.3f} s (max |err| vs float64 {err_ts:.2e}); "
+        f"pull of 1000 rows exact {pull_ok}; multiply {out['multiply_s'] * 1e3:.1f} ms "
+        f"within the f32 summation bound {mv_ok}; binary export of {vocab.size} rows "
+        f"{out['export_binary_s']:.2f} s, "
+        f"{size} bytes (expected size {size_ok}, 66 rows read back {rows_ok}); text "
+        f"export of {n} rows {out['export_text_20k_s']:.2f} s (read back {text_ok}); "
+        f"load_latest(reclaim=False) {out['load_latest_20k_s']:.2f} s, the debris's "
+        f"predecessor, nothing touched {latest_ok}")
+    if not (err_ts <= 1e-6 and pull_ok and mv_ok and size_ok and rows_ok and text_ok
+            and latest_ok):
+        raise AssertionError("the model surface returned wrong results")
+    return out
+
+
+def model_phase(model, corpus, torch, np) -> dict:
     from glint_word2vec_torch import Word2VecModel
     from glint_word2vec_torch.train.checkpoint import verify_checkpoint
 
@@ -731,6 +933,8 @@ def model_phase(model, torch, np) -> None:
           and len(ana) == 5 and abs(syn[0][1] - cos[best]) < 1e-5)
     if not ok:
         raise AssertionError("model ops returned wrong results")
+    return {"save_s": t_save, "verify_load_s": t_load, "find_synonyms_s": t_syn,
+            **surface_phase(back, m, corpus[1], torch, np)}
 
 
 def main() -> int:
@@ -777,13 +981,14 @@ def main() -> int:
     srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
                                                                   scat))
     feed = feed_phase(corpus, args.seed, np)
+    gen = pairgen_phase(corpus, args.seed, torch, np)
     launches = {}
     for name, knobs, pool in FITS:
         model, n_fused, n_scat = fit_phase(
-            name, knobs, pool, corpus, args.seed, torch, fused, scat, sgns)
+            name, knobs, pool, corpus, args.seed, torch, fused, scat, sgns, np)
         launches[name] = {"sgns_shared_step": n_fused, "scatter_add_rows": n_scat}
         if name == "shared":
-            model_phase(model, torch, np)
+            surface = model_phase(model, corpus, torch, np)
             sync_numpy_fit(model, n_fused, corpus, args.seed, torch, fused)
         del model
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
@@ -814,6 +1019,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,
+                                              "pairgen": gen, "model": surface,
                                               "card": card}) + "\n")
     print(json.dumps(kernels_line))
     print(card)

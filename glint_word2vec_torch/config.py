@@ -6,13 +6,14 @@ other. The field comments there hold the provenance of every default; this modul
 repeats only what the port does differently.
 
 The port implements the single-device steps: skip-gram with a shared negative pool or
-with per-pair negatives (``negative_pool`` resolving to 0), and scatter CBOW with either.
-A knob that would change the results of training and is not ported yet raises
-:class:`NotImplementedError` naming it, at construction, when set off its default; it
-is never silently ignored. The host data plane's knobs change wall clock only, in both
-packages (the results are bit-identical at any value): ``prefetch_chunks`` and
-``producer_workers`` mean what they mean in the JAX package, and ``io_workers`` reaches
-vocabulary counting only (the parallel checkpoint and export I/O is not ported yet).
+with per-pair negatives (``negative_pool`` resolving to 0), fed by host pairs or, with
+``device_pairgen``, by token blocks the card expands into pairs; and scatter CBOW with
+either pool. A knob that would change the results of training and is not ported yet
+raises :class:`NotImplementedError` naming it, at construction, when set off its
+default; it is never silently ignored. The host data plane's knobs change wall clock
+only, in both packages (the results are bit-identical at any value):
+``prefetch_chunks``, ``producer_workers`` and ``io_workers`` (vocabulary counting,
+checkpoint and export I/O) mean what they mean in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Optional, Tuple
 # Knobs not ported yet, refused off their default (ROADMAP queue A names the slice
 # each one lands in).
 _UNPORTED = (
-    "device_pairgen", "duplicate_scaling", "fused_logits",
+    "duplicate_scaling", "fused_logits",
     "bf16_chain", "hot_rows", "use_pallas", "param_dtype", "compute_dtype",
     "logits_dtype", "step_lowering", "sync_every", "num_model_shards",
     "num_data_shards", "embedding_partition", "sharded_checkpoint", "max_row_norm",
@@ -104,13 +105,14 @@ class Word2VecConfig:
     profile_dir: str = ""
     feed_consistency_check: bool = False  # multi-process only: inert here
     shard_input: bool = True              # multi-process only: inert here
-    device_pairgen: bool = False
-    tokens_per_step: int = 0              # device_pairgen only: inert here
+    device_pairgen: bool = False          # the card expands token blocks into pairs
+    tokens_per_step: int = 0              # device_pairgen: token slots per step; 0 =
+                                          # sized by the Trainer for ~93% pair fill
 
     # --- host data plane (wall clock only) ---
     producer_workers: int = 1             # feed slabs generated on a thread pool
-    io_workers: int = 1                   # vocabulary counting threads (see
-                                          # data/vocab.parallel_counting_profitable)
+    io_workers: int = 1                   # vocabulary counting, checkpoint and
+                                          # export I/O threads
     sharded_prefetch: bool = True         # multi-process only: inert here
 
     # --- fault tolerance ---
@@ -173,6 +175,9 @@ class Word2VecConfig:
     check_ported: dataclasses.InitVar[bool] = True
 
     def __post_init__(self, check_ported: bool) -> None:
+        # before the unported knobs, so that device_pairgen with use_pallas gets the
+        # JAX package's answer
+        _validate_device_pairgen(self)
         if check_ported:
             self._refuse_unported()
         _validate_ranges(self)
@@ -305,6 +310,32 @@ def _validate_cbow(c: Word2VecConfig) -> None:
             "CBOW with duplicate_scaling=True implements mean semantics per-example "
             "only; an explicit negative_pool > 0 would be silently ignored — set "
             "negative_pool=0 (or -1 for auto, which resolves to 0 here)")
+
+
+def _validate_device_pairgen(c: Word2VecConfig) -> None:
+    """The JAX package's four device_pairgen refusals, copied as they stand. The
+    port's prefix sums are exact at any size, but it refuses the same 2^24 bound so
+    that both packages accept the same configs."""
+    if not c.device_pairgen:
+        return
+    if c.cbow:
+        raise ValueError(
+            "device_pairgen is skip-gram only (CBOW batches are grouped windows the "
+            "device generator does not produce)")
+    if c.use_pallas:
+        raise ValueError(
+            "device_pairgen is not supported with use_pallas — the fused kernel owns "
+            "the whole step and consumes host pairs; drop one")
+    if c.window == 1:
+        raise ValueError(
+            "device_pairgen with window=1 emits no pairs at all under the reference's "
+            "legacy asymmetric window (b = nextInt(1) = 0 always, and the right bound "
+            "is exclusive) — use window >= 2")
+    if c.tokens_per_step > 0 and c.tokens_per_step * (2 * c.window - 1) >= 1 << 24:
+        raise ValueError(
+            f"tokens_per_step={c.tokens_per_step} with window={c.window} overflows the "
+            f"device generator's exact-f32 prefix-sum bound (T * (2*window - 1) must "
+            f"stay below 2^24); lower tokens_per_step or split the batch")
 
 
 def _validate_ranges(c: Word2VecConfig) -> None:

@@ -2,6 +2,7 @@
 
     model = Word2Vec(vector_size=300, window=5, device="cuda").fit(sentences)
     model = Word2Vec(vector_size=300, cbow=True, device="cuda").fit(sentences)
+    model = Word2Vec(vector_size=300, device_pairgen=True).fit(sentences)
     model = Word2Vec.resume(checkpoint_path, sentences, encode_cache_dir=cache)
 
 vocabulary -> encoded corpus (in RAM, or memory-mapped under ``encode_cache_dir``) ->
@@ -20,7 +21,7 @@ from glint_word2vec_torch.data.corpus import EncodedCorpus, encode_corpus, vocab
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import Vocabulary, build_vocab
 from glint_word2vec_torch.device import resolve_device
-from glint_word2vec_torch.models.word2vec import Word2VecModel
+from glint_word2vec_torch.models.word2vec import Word2VecModel, refuse_plan
 from glint_word2vec_torch.train.checkpoint import load_model, load_model_header
 from glint_word2vec_torch.train.trainer import Trainer
 
@@ -49,13 +50,18 @@ class Word2Vec:
         checkpoint_path: Optional[str] = None,
         checkpoint_every_steps: Optional[int] = None,
         encode_cache_dir: Optional[str] = None,
+        plan=None,
     ) -> Word2VecModel:
         """``sentences``: iterable of token sequences. Re-iterables (lists,
         :class:`..data.corpus.TokenFileCorpus`) are streamed twice (vocabulary pass and
         encode pass); one-shot generators are materialized first. ``vocab`` skips the
         counting pass. ``encode_cache_dir``: write the encoded corpus there and train
         from memory-mapped files (bounded host RAM); without it, encoding is in RAM.
-        The fitted :class:`Trainer` stays on ``self.trainer``."""
+        The fitted :class:`Trainer` stays on ``self.trainer``. With
+        ``device_pairgen=True`` the trainer feeds token blocks and the device expands
+        them into pairs. ``plan`` (a multi-device mesh) is refused: the port trains on
+        one device."""
+        refuse_plan(plan)
         cfg = self.config
         if iter(sentences) is sentences:
             sentences = list(sentences)
@@ -85,6 +91,7 @@ class Word2Vec:
         allow_unstable: Optional[bool] = None,
         config_overrides: Optional[dict] = None,
         device="cuda",
+        plan=None,
     ) -> Word2VecModel:
         """Resume an interrupted run from a mid-training checkpoint of either package.
         Resume is exact-step: the checkpoint records the batch stream's position
@@ -97,7 +104,10 @@ class Word2Vec:
         ``encode_cache_dir`` is filled from ``sentences``. ``allow_unstable`` and
         ``config_overrides`` replace fields of the checkpoint's config (which pins the
         resolved subsample ratio) for the resumed run; a knob that changes the batch
-        stream shifts what the recorded position means."""
+        stream shifts what the recorded position means. A dense or row-shards
+        checkpoint loads onto the one device; its reads use the resumed config's
+        ``io_workers``."""
+        refuse_plan(plan)
         device = resolve_device(device)
         header = load_model_header(checkpoint_path)
         if header["vocab_lineage"]:
@@ -112,7 +122,7 @@ class Word2Vec:
             cfg = cfg.replace(allow_unstable=allow_unstable)
         state = header["train_state"]
         vocab = Vocabulary.from_words_and_counts(header["words"], header["counts"])
-        data = load_model(checkpoint_path, header=header)
+        data = load_model(checkpoint_path, header=header, io_workers=cfg.io_workers)
         if data["syn1"] is None:
             raise ValueError("checkpoint has no syn1; cannot resume training")
         if isinstance(sentences, EncodedCorpus):

@@ -1,6 +1,13 @@
-"""Word2Vec model ops, ported from ``glint_word2vec_tpu/models/word2vec.py``:
-``transform``, ``transform_words``, ``norms``, ``find_synonyms`` (the exact arm),
-``analogy``, ``save`` and ``load``.
+"""Word2Vec model ops, ported from ``glint_word2vec_tpu/models/word2vec.py``: word and
+sentence transforms, ``pull``, ``norms``, ``multiply``, ``find_synonyms`` (the exact
+arm), ``analogy``, the exports (``get_vectors``, ``iter_vectors``, ``to_local``,
+``export_word2vec`` in word2vec.c's text and binary formats), ``save``, ``load`` of
+either checkpoint layout, ``load_latest`` and ``stop``. Every op runs on the model's
+device (the card unless ``device="cpu"``); after ``stop`` each raises.
+
+Not ported: the serving tier's ANN index (``attach_ann`` and ``ann=True``, ROADMAP
+queue A7), and ``plan=``, which retargets a model onto a multi-device mesh (A9); both
+are refused by name.
 
 The cosine scores are one matrix product on the device (the JAX package leaves it to
 XLA; here it is ``torch.matmul``). The top-k keeps ``lax.top_k``'s order, which
@@ -10,15 +17,26 @@ row index first. Word queries exclude the query word itself; vector queries do n
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator, List, Optional, Sequence, Tuple, Union
+import io
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.data.pipeline import ordered_pool_map
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.train import checkpoint as ckpt
+
+
+def refuse_plan(plan) -> None:
+    """Refuse a multi-device placement by name: the port runs on one device."""
+    if plan is not None:
+        raise NotImplementedError(
+            "plan= places a model on a multi-device mesh; glint_word2vec_torch runs on "
+            "one device, and multi-device placement is not ported yet (ROADMAP.md "
+            "queue A9); pass plan=None")
 
 
 class Word2VecModel:
@@ -46,17 +64,36 @@ class Word2VecModel:
         self.vocab = vocab
         self.config = config or Word2VecConfig(vector_size=int(syn0.shape[1]))
         self.train_state = train_state
-        self.syn0 = syn0
-        self.syn1 = place(syn1) if syn1 is not None else None
+        self._syn0: Optional[torch.Tensor] = syn0
+        self._syn1 = place(syn1) if syn1 is not None else None
         self._norms: Optional[torch.Tensor] = None
+        self._dim = int(syn0.shape[1])
+        self._stopped = False
+
+    @property
+    def syn0(self) -> torch.Tensor:
+        """Input embeddings [vocab_size, D] on the model's device."""
+        self._check_alive()
+        return self._syn0
+
+    @property
+    def syn1(self) -> Optional[torch.Tensor]:
+        if self._syn1 is None:
+            return None
+        self._check_alive()
+        return self._syn1
 
     @property
     def vector_size(self) -> int:
-        return int(self.syn0.shape[1])
+        return self._dim
 
     @property
     def num_words(self) -> int:
         return self.vocab.size
+
+    def _check_alive(self) -> None:
+        if self._stopped:
+            raise RuntimeError("model has been stopped; its buffers were released")
 
     def _index(self, word: str) -> int:
         idx = self.vocab.get(word)
@@ -73,6 +110,7 @@ class Word2VecModel:
     def transform_words(self, words: Iterable[str], batch_size: int = 10_000
                         ) -> Iterator[np.ndarray]:
         """Batched word -> vector stream (one gather per ``batch_size`` words)."""
+        self._check_alive()
         buf: List[int] = []
         for w in words:
             buf.append(self._index(w))
@@ -82,12 +120,55 @@ class Word2VecModel:
         if buf:
             yield from self.syn0[torch.as_tensor(buf, device=self.device)].cpu().numpy()
 
+    def transform_sentences(self, sentences: Sequence[Sequence[str]],
+                            batch_size: int = 10_000) -> np.ndarray:
+        """Sentence -> mean of its in-vocabulary word vectors, float32 [S, D]: the
+        ML transform. OOV words are dropped; a sentence with none maps to the zero
+        vector. Segment sums in f32 over batches of ``batch_size`` sentences, one
+        gather and one ``index_add_`` each."""
+        syn0 = self.syn0
+        out = np.zeros((len(sentences), self.vector_size), dtype=np.float32)
+        for lo in range(0, len(sentences), batch_size):
+            flat: List[int] = []
+            seg: List[int] = []
+            part = sentences[lo:lo + batch_size]
+            for local, sent in enumerate(part):
+                for w in sent:
+                    i = self.vocab.get(w)
+                    if i >= 0:
+                        flat.append(i)
+                        seg.append(local)
+            if not flat:
+                continue
+            idx = torch.as_tensor(flat, dtype=torch.int64, device=self.device)
+            seg_t = torch.as_tensor(seg, dtype=torch.int64, device=self.device)
+            sums = torch.zeros((len(part), self.vector_size), dtype=torch.float32,
+                               device=self.device).index_add_(0, seg_t, syn0[idx])
+            counts = torch.bincount(seg_t, minlength=len(part)).to(torch.float32)
+            means = sums / torch.clamp(counts, min=1.0)[:, None]
+            out[lo:lo + len(part)] = means.cpu().numpy()
+        return out
+
+    # -- pull / norms / multiply -------------------------------------------------------
+
+    def pull(self, indices: Sequence[int]) -> np.ndarray:
+        """Rows by index (the parameter server's ``pull``)."""
+        idx = torch.as_tensor(np.asarray(indices, np.int64), device=self.device)
+        return self.syn0[idx].cpu().numpy()
+
     @property
     def norms(self) -> torch.Tensor:
         """Per-row Euclidean norms, computed once and cached."""
+        self._check_alive()
         if self._norms is None:
-            self._norms = torch.linalg.vector_norm(self.syn0, dim=1)
+            self._norms = torch.linalg.vector_norm(self._syn0, dim=1)
         return self._norms
+
+    def multiply(self, vector: np.ndarray) -> np.ndarray:
+        """syn0 @ v, one matrix-vector product on the device (the parameter
+        server's ``multiply``)."""
+        v = torch.as_tensor(np.asarray(vector, np.float32), device=self.device)
+        return (self.syn0 @ v).cpu().numpy()
 
     # -- synonym / analogy search ----------------------------------------------------------
 
@@ -96,13 +177,21 @@ class Word2VecModel:
         """Top-``num`` cosine-similar words. A word query excludes itself."""
         return self.find_synonyms_batch([query], num)[0]
 
+    find_synonyms_array = find_synonyms  # the ML layer's name
+
     def find_synonyms_batch(
         self,
         queries: Sequence[Union[str, np.ndarray]],
         num: int,
         chunk: int = 128,
+        ann: bool = False,
     ) -> List[List[Tuple[str, float]]]:
-        """Batched :meth:`find_synonyms`: one cosine matrix per ``chunk`` queries."""
+        """Batched :meth:`find_synonyms`: one cosine matrix per ``chunk`` queries.
+        ``ann=True`` (the serving tier's approximate arm) is not ported."""
+        if ann:
+            raise NotImplementedError(
+                "ann=True needs the serving tier's IVF index (attach_ann), not ported "
+                "to glint_word2vec_torch yet (ROADMAP.md queue A7)")
         norms = self.norms
         k = min(num + 1, self.num_words)
         out: List[List[Tuple[str, float]]] = []
@@ -131,24 +220,113 @@ class Word2VecModel:
         res = self.find_synonyms(vb - va + vc, num + 3)
         return [(w, s) for w, s in res if w not in (a, b, c)][:num]
 
+    # -- exports -----------------------------------------------------------------------
+
+    def get_vectors(self) -> Dict[str, np.ndarray]:
+        """word -> vector for the whole vocabulary, on the host."""
+        mat = self.syn0.cpu().numpy()
+        return {w: mat[i] for i, w in enumerate(self.vocab.words)}
+
+    def iter_vectors(self, batch_size: int = 10_000
+                     ) -> Iterator[Tuple[str, np.ndarray]]:
+        """(word, vector) pairs in row order, copied to the host ``batch_size`` rows
+        at a time."""
+        self._check_alive()
+        for start in range(0, self.num_words, batch_size):
+            stop = min(start + batch_size, self.num_words)
+            block = self.syn0[start:stop].cpu().numpy()
+            for i in range(stop - start):
+                yield self.vocab.words[start + i], block[i]
+
+    def to_local(self) -> Tuple[List[str], np.ndarray]:
+        """(words, matrix) on the host."""
+        return list(self.vocab.words), self.syn0.cpu().numpy()
+
+    def export_word2vec(self, path: str, binary: bool = False, batch_size: int = 65536,
+                        io_workers: Optional[int] = None) -> None:
+        """Write word2vec.c's vectors file: ``"<vocab> <dim>\\n"``, then per word the
+        word, a space, and either the space-joined ``repr(float(x))`` decimals and a
+        newline (text) or dim little-endian float32s and a newline (binary). Rows come
+        to the host ``batch_size`` at a time, on the calling thread; the bytes of
+        ~4k-row sub-chunks are formatted on ``io_workers`` threads (default
+        ``config.io_workers``) and written in order, so the file is the same at any
+        worker count, and the same as the JAX package writes for the same matrix."""
+        self._check_alive()
+        if io_workers is None:
+            io_workers = self.config.io_workers
+        sub = max(1, min(batch_size, 4096))
+        words = self.vocab.words
+
+        def jobs():
+            for start in range(0, self.num_words, batch_size):
+                stop = min(start + batch_size, self.num_words)
+                block = self.syn0[start:stop].cpu().numpy()
+                for lo in range(start, stop, sub):
+                    yield lo, block[lo - start:min(lo + sub, stop) - start]
+
+        def format_chunk(job) -> bytes:
+            lo, rows = job
+            buf = io.BytesIO()
+            if binary:
+                raw = rows.astype("<f4")
+                for i in range(rows.shape[0]):
+                    buf.write(words[lo + i].encode())
+                    buf.write(b" ")
+                    buf.write(raw[i].tobytes())
+                    buf.write(b"\n")
+            else:
+                for i in range(rows.shape[0]):
+                    vec = " ".join(repr(float(x)) for x in rows[i])
+                    buf.write(f"{words[lo + i]} {vec}\n".encode())
+            return buf.getvalue()
+
+        with open(path, "wb") as f:
+            f.write(f"{self.num_words} {self.vector_size}\n".encode())
+            for data in ordered_pool_map(format_chunk, jobs(), io_workers):
+                f.write(data)
+
     # -- persistence ---------------------------------------------------------------------
 
     def save(self, path: str) -> None:
+        syn1 = self.syn1
         ckpt.save_model(
             path, self.vocab.words, self.vocab.counts, self.syn0.cpu().numpy(),
-            self.syn1.cpu().numpy() if self.syn1 is not None else None,
+            syn1.cpu().numpy() if syn1 is not None else None,
             self.config, self.train_state)
 
     @classmethod
-    def load(cls, path: str, verify: bool = True, device="cuda") -> "Word2VecModel":
-        """Load a dense checkpoint written by either package (digests verified unless
-        ``verify=False``). The config may carry knobs the port does not train with
+    def load(cls, path: str, plan=None, verify: bool = True,
+             io_workers: Optional[int] = None, device="cuda") -> "Word2VecModel":
+        """Load a checkpoint written by either package, in the dense or the
+        row-shards layout, onto one device (digests verified unless
+        ``verify=False``; ``io_workers`` threads for hashing and reads, default the
+        saved config's). The config may carry knobs the port does not train with
         yet; they do not affect the model ops."""
-        data = ckpt.load_model(path, verify=verify, check_ported=False)
+        refuse_plan(plan)
+        device = resolve_device(device)
+        data = ckpt.load_model(path, verify=verify, check_ported=False,
+                               io_workers=io_workers)
         vocab = Vocabulary.from_words_and_counts(data["words"], data["counts"])
         return cls(vocab=vocab, syn0=data["syn0"], syn1=data["syn1"],
                    config=data["config"], train_state=data["train_state"],
                    device=device)
+
+    @classmethod
+    def load_latest(cls, directory: str, plan=None, reclaim: bool = False,
+                    device="cuda") -> "Word2VecModel":
+        """Load the newest checkpoint under ``directory`` that verifies. By default
+        nothing in the directory is touched (safe beside a trainer that may still be
+        saving; a torn swap's predecessor loads from its ``*.old-*`` path);
+        ``reclaim=True``, when the writer is known dead, also cleans up the debris.
+        The scan verified the winner, so the load does not hash it again."""
+        refuse_plan(plan)
+        return cls.load(ckpt.load_latest_valid(directory, reclaim=reclaim),
+                        verify=False, device=device)
+
+    def stop(self) -> None:
+        """Release the device buffers. Idempotent; every op raises afterwards."""
+        self._syn0 = self._syn1 = self._norms = None
+        self._stopped = True
 
 
 def cosine_topk(syn0: torch.Tensor, norms: torch.Tensor, queries: torch.Tensor,

@@ -7,9 +7,12 @@
 ``--path`` picks the step: ``shared`` (skip-gram, shared pool: the fused kernel, the
 default), ``per_pair`` (skip-gram, ``negative_pool=0``), ``cbow`` (scatter CBOW, shared
 pool) or ``cbow_per_example`` (scatter CBOW, ``negative_pool=0``); the last three
-scatter their rows through the row-scatter kernel. Two measurements at the model's
-full width (V=1,000,000, D=300 padded to 384, B=8192, n=5; the AUTO pool resolves to
-P=256 at this vocabulary), printed as one JSON line:
+scatter their rows through the row-scatter kernel. ``shared_devpairs`` and
+``per_pair_devpairs`` are the two skip-gram steps fed by the device pair generator
+(``device_pairgen=True``): the host ships token blocks and the card expands them.
+Two measurements at the model's full width (V=1,000,000, D=300 padded to 384,
+B=8192, n=5; the AUTO pool resolves to P=256 at this vocabulary), printed as one JSON
+line:
 
 - ``step``: device time of each CUDA kernel of one step (torch.profiler, mean over the
   profiled steps), on random parameters and Zipf indices;
@@ -19,12 +22,14 @@ P=256 at this vocabulary), printed as one JSON line:
   device-side event times, and its idle share of that fit's wall time; the host ops'
   self time per thread); beside them, ``feed_only_s``, the time one pass of the feed
   that ran (``feed_backend``, at the config's ``producer_workers``) alone takes over
-  the same corpus.
+  the same corpus. On the device-feed paths it adds ``tokens_per_step``,
+  ``dropped_pairs`` and ``generator``: the device time of the pair generator on the
+  fit's first chunk (one batched call for its K steps; torch.profiler, per step).
 
 ``--feed`` picks the skip-gram pair generator (default: the trainer's choice, native
-when it is built; CBOW has only numpy), ``--prefetch`` the config's
-``prefetch_chunks`` (default 8; 0 assembles and copies the chunks on the calling
-thread). Both take comma-separated lists; the profile runs the first of each, and
+when it is built; CBOW has only numpy; ``device`` runs the path's device-feed twin),
+``--prefetch`` the config's ``prefetch_chunks`` (default 8; 0 assembles and copies the
+chunks on the calling thread). Both take comma-separated lists; the profile runs the first of each, and
 ``--rounds R`` adds ``ab``: plain fits of every pair, R rounds in turns (the order
 reversed each round), with their medians and one feed-alone pass per round.
 ``--switch-interval`` sets the interpreter's GIL switch interval for the run, to test
@@ -49,12 +54,15 @@ from glint_word2vec_torch.data.pipeline import (
     encode_sentences, epoch_batches, epoch_batches_cbow)
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
+from glint_word2vec_torch.ops.pairgen import device_block_pairs
 from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, cbow_step_core, cbow_step_shared_core, sgns_step_core)
 from glint_word2vec_torch.train.trainer import Trainer
 
 V, D_REAL, D, B, P, N_NEG, WINDOW = 1_000_000, 300, 384, 8192, 256, 5, 5
-PATHS = ("shared", "per_pair", "cbow", "cbow_per_example")
+PATHS = ("shared", "per_pair", "cbow", "cbow_per_example", "shared_devpairs",
+         "per_pair_devpairs")
+DEVPAIRS = "_devpairs"
 
 
 def _device_us(evt) -> float:
@@ -108,14 +116,16 @@ def path_config(path: str, seed: int, prefetch: int = 8) -> Word2VecConfig:
     """The model at full width on one path."""
     knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
                  min_count=1, heartbeat_every_steps=16, seed=seed,
-                 prefetch_chunks=prefetch)
-    if path in ("per_pair", "cbow_per_example"):
+                 prefetch_chunks=prefetch, device_pairgen=path.endswith(DEVPAIRS))
+    if path.removesuffix(DEVPAIRS) in ("per_pair", "cbow_per_example"):
         knobs["negative_pool"] = 0
     return Word2VecConfig(cbow=path.startswith("cbow"), **knobs)
 
 
 def step_call(path: str, seed: int):
-    """One metrics-off step of ``path`` on random parameters and Zipf indices."""
+    """One metrics-off step of ``path`` on random parameters and Zipf indices (a
+    device-feed path's step is its host-fed twin's)."""
+    path = path.removesuffix(DEVPAIRS)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     rng = np.random.default_rng(seed)
     syn0 = torch.zeros((V, D), device="cuda")
@@ -182,8 +192,12 @@ def fit_corpus(seed: int, n_tokens: int):
 
 def feed_pass(trainer: Trainer, encoded) -> tuple:
     """(batches, seconds) of one pass of the trainer's feed alone, at its config's
-    backend and ``producer_workers``."""
+    backend and ``producer_workers`` (the token-block chunks on the device feed)."""
     cfg = trainer.config
+    if cfg.device_pairgen:
+        t0 = time.perf_counter()
+        n = sum(c["real"] for c in trainer._token_chunk_stream(encoded, 1.0, 1.0))
+        return n, time.perf_counter() - t0
     kw = dict(pairs_per_batch=B, window=WINDOW, seed=cfg.seed,
               subsample_ratio=cfg.subsample_ratio, producer_workers=cfg.producer_workers)
     if not cfg.cbow:
@@ -204,7 +218,45 @@ def timed_fit(trainer: Trainer, encoded) -> dict:
             "prefetch_chunks": trainer.config.prefetch_chunks, "steps": trainer.global_step,
             "pairs": trainer.pairs_trained, "fit_wall_s": wall,
             "pairs_per_s": trainer.pairs_trained / wall,
-            "host_wait_s": trainer.host_wait_time, "dispatch_s": trainer.dispatch_time}
+            "host_wait_s": trainer.host_wait_time, "dispatch_s": trainer.dispatch_time,
+            **({"tokens_per_step": trainer._tokens_per_step,
+                "dropped_pairs": trainer.dropped_pairs}
+               if trainer.config.device_pairgen else {})}
+
+
+def profile_generator(trainer: Trainer, encoded, calls: int = 20) -> dict:
+    """Device time of the pair generator on the first chunk of the trainer's feed:
+    one batched call expands its K blocks; the record gives the chunk's and one
+    step's share."""
+    cfg = trainer.config
+    chunk = next(iter(trainer._token_chunk_stream(encoded, 1.0, 1.0)))
+    a = {k: torch.from_numpy(v).cuda().long() for k, v in chunk["arrays"].items()}
+
+    def call():
+        return device_block_pairs(
+            a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0], a["obase"][:, 1],
+            trainer._keep_prob_dev, chunk["sub_base"], chunk["win_base"], cfg.window,
+            cfg.pairs_per_batch, presubsampled=True)
+
+    kt = profile_call(call, calls)
+    per_chunk = sum(v["us_total"] for v in kt.values()) / calls
+    return {"steps_per_call": chunk["real"], "tokens_per_step": trainer._tokens_per_step,
+            "device_us_per_chunk": per_chunk,
+            "device_us_per_step": per_chunk / chunk["real"],
+            "kernels_per_call": sum(v["count"] for v in kt.values()) / calls}
+
+
+def make_trainer(path: str, seed: int, prefetch: int, feed: str, vocab) -> Trainer:
+    """A fresh trainer of ``path``; ``feed="device"`` runs a skip-gram path on the
+    device pair generator (its ``_devpairs`` twin), a host feed on the host-fed
+    twin."""
+    base = path.removesuffix(DEVPAIRS)
+    if feed == "device":
+        path = base + DEVPAIRS
+    elif feed != "auto":
+        path = base
+    return Trainer(path_config(path, seed, prefetch), vocab, device="cuda",
+                   feed_backend=feed)
 
 
 def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
@@ -212,12 +264,12 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
     """The process's first fit (wall, counters), the feed alone, and a second fit
     under torch.profiler (device busy time and idle share)."""
     vocab, encoded = corpus
-    cfg = path_config(path, seed, prefetch)
-    trainer = Trainer(cfg, vocab, device="cuda", feed_backend=feed)
+    trainer = make_trainer(path, seed, prefetch, feed, vocab)
+    cfg = trainer.config
     n_batches, feed_s = feed_pass(trainer, encoded)
     rec = timed_fit(trainer, encoded)
     del trainer
-    trainer = Trainer(cfg, vocab, device="cuda", feed_backend=feed)
+    trainer = make_trainer(path, seed, prefetch, feed, vocab)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -228,6 +280,8 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
     kt = kernel_times(prof)
     busy_s = sum(v["us_total"] for v in kt.values()) / 1e6
     top = sorted(kt.items(), key=lambda kv: -kv[1]["us_total"])[:10]
+    if cfg.device_pairgen:
+        rec["generator"] = profile_generator(trainer, encoded)
     return {"tokens": int(sum(s.shape[0] for s in encoded)),
             "pool": trainer.config.negative_pool, "batches": n_batches, **rec,
             "producer_workers": cfg.producer_workers, "feed_only_s": feed_s,
@@ -246,8 +300,7 @@ def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int) -> dic
     runs, feed_s = [], {}
     for r in range(rounds):
         for feed, prefetch in (pairs if r % 2 == 0 else pairs[::-1]):
-            trainer = Trainer(path_config(path, seed, prefetch), vocab, device="cuda",
-                              feed_backend=feed)
+            trainer = make_trainer(path, seed, prefetch, feed, vocab)
             if prefetch == prefetches[0]:
                 feed_s.setdefault(trainer.feed_backend, []).append(
                     feed_pass(trainer, encoded)[1])
@@ -269,8 +322,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=PATHS, default="shared")
     ap.add_argument("--feed", default="auto",
-                    help="numpy or native, or both comma-separated (default: native "
-                         "when it is built)")
+                    help="numpy, native or device (skip-gram on the device pair "
+                         "generator), or several comma-separated (default: the "
+                         "path's own: native when it is built)")
     ap.add_argument("--prefetch", default="8",
                     help="prefetch_chunks, or several comma-separated (default 8)")
     ap.add_argument("--rounds", type=int, default=0,
@@ -288,8 +342,8 @@ def main() -> int:
         sys.setswitchinterval(args.switch_interval)
     feeds = args.feed.split(",")
     prefetches = [int(p) for p in args.prefetch.split(",")]
-    if any(f not in ("auto", "numpy", "native") for f in feeds):
-        ap.error(f"--feed: numpy or native, not {args.feed!r}")
+    if any(f not in ("auto", "numpy", "native", "device") for f in feeds):
+        ap.error(f"--feed: numpy, native or device, not {args.feed!r}")
     if not torch.cuda.is_available():
         print("stepprof: no CUDA device", file=sys.stderr)
         return 2

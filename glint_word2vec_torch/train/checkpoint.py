@@ -11,9 +11,15 @@ other:
       metadata.json  format version, framework, sizes, config, train_state, and the
                      SHA-256 digest of every data file
 
+or, in the JAX package's row-shards layout (written by its multi-device runs),
+``syn0.shards/rows-<start>-<stop>.npy`` and ``syn1.shards/...`` in place of the two
+``.npy`` matrices, padded as they were sharded, the real sizes in ``metadata.json``.
+
 Saves are atomic (staged in a sibling temp directory, then swapped in); readers verify
-the digests. The row-shards layout of the JAX package is read-compatible in its
-metadata but not ported (multi-device work, ROADMAP queue A).
+the digests. The port writes the dense layout and reads both, onto one device: the
+row-shards writer belongs to the multi-device work (ROADMAP queue A9). File writes,
+digest checks and shard reads fan out over ``io_workers`` threads; the bytes written
+and the arrays read are the same at any worker count.
 """
 
 from __future__ import annotations
@@ -27,12 +33,17 @@ import shutil
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.data.pipeline import ordered_pool_map
 
 logger = logging.getLogger("glint_word2vec_torch")
 
 DENSE_FORMAT_VERSION = 1
+# a checkpoint whose train state carries shard_progress stamps 3, so that readers
+# that would drop the field refuse it instead (the JAX package's rule)
+SHARD_PROGRESS_FORMAT_VERSION = 3
 _READABLE_VERSIONS = (1, 2, 3)
 FRAMEWORK = "glint_word2vec_torch"
 
@@ -83,13 +94,22 @@ def _save_words_hashed(path: str, words: List[str]) -> str:
     return w.sha.hexdigest()
 
 
+def _run_io(tasks, workers: int) -> list:
+    """Run independent no-argument I/O callables, their results in task order;
+    ``workers <= 1`` runs them on the calling thread."""
+    tasks = list(tasks)
+    return list(ordered_pool_map(lambda t: t(), tasks, min(workers, len(tasks))))
+
+
 @dataclasses.dataclass
 class TrainState:
     """Mid-training progress: iteration, lr-clock words, ``global_step`` (the hash-PRNG
     counter, so resume does not redraw the opening negatives) and ``batches_done`` in
     the current iteration (exact-step resume). ``shard_progress``/``shard_feed``
-    belong to the JAX package's multi-process feeds; the port carries them through
-    and refuses to resume from them."""
+    index the JAX package's sharded streams: per process for ``"pairs"``, per data
+    segment for ``"tokens"`` (every device-feed run writes them, the port's too, so
+    that either package can resume the other's checkpoint); the port resumes a
+    device-feed checkpoint from ``batches_done`` and refuses the rest."""
 
     iteration: int = 1
     words_processed: int = 0
@@ -117,7 +137,9 @@ def save_model(
     config: Word2VecConfig,
     train_state: Optional[TrainState] = None,
 ) -> None:
-    """Atomic dense save with per-file SHA-256 digests in ``metadata.json``."""
+    """Atomic dense save with per-file SHA-256 digests in ``metadata.json``, each
+    digest taken in its file's write pass; the file writes fan out over
+    ``config.io_workers`` threads."""
     bad = [w for w in words if (not w) or ("\n" in w)]
     if bad:
         raise ValueError(
@@ -130,26 +152,33 @@ def save_model(
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     try:
+        def stage(name: str) -> str:
+            return os.path.join(tmp, name)
+
         syn0 = np.asarray(syn0, dtype=np.float32)
-        digests = {
-            "words": _save_words_hashed(os.path.join(tmp, "words"), words),
-            "counts.npy": _save_npy_hashed(os.path.join(tmp, "counts.npy"),
-                                           np.asarray(counts, dtype=np.int64)),
-            "syn0.npy": _save_npy_hashed(os.path.join(tmp, "syn0.npy"), syn0),
-        }
+        tasks = [lambda: _save_words_hashed(stage("words"), words),
+                 lambda: _save_npy_hashed(stage("counts.npy"),
+                                          np.asarray(counts, dtype=np.int64)),
+                 lambda: _save_npy_hashed(stage("syn0.npy"), syn0)]
+        names = ["words", "counts.npy", "syn0.npy"]
         if syn1 is not None:
-            digests["syn1.npy"] = _save_npy_hashed(
-                os.path.join(tmp, "syn1.npy"), np.asarray(syn1, dtype=np.float32))
+            tasks.append(lambda: _save_npy_hashed(stage("syn1.npy"),
+                                                  np.asarray(syn1, dtype=np.float32)))
+            names.append("syn1.npy")
+        digests = dict(zip(names, _run_io(tasks, config.io_workers)))
+        train_state = train_state or TrainState(finished=True)
         meta = {
-            "format_version": DENSE_FORMAT_VERSION,
+            "format_version": (SHARD_PROGRESS_FORMAT_VERSION
+                               if train_state.shard_progress is not None
+                               else DENSE_FORMAT_VERSION),
             "framework": FRAMEWORK,
             "vocab_size": int(syn0.shape[0]),
             "vector_size": int(syn0.shape[1]),
             "config": config.to_dict(auto_markers=False),
-            "train_state": (train_state or TrainState(finished=True)).to_dict(),
+            "train_state": train_state.to_dict(),
             "digests": digests,
         }
-        with open(os.path.join(tmp, "metadata.json"), "w", encoding="utf-8") as f:
+        with open(stage("metadata.json"), "w", encoding="utf-8") as f:
             json.dump(meta, f, indent=2)
         old = None
         if os.path.exists(path):
@@ -163,26 +192,104 @@ def save_model(
         raise
 
 
-def _verify_digests(path: str, meta: Dict[str, Any]) -> None:
+class ShardedMatrixReader:
+    """Memory-mapped reader over a ``*.shards/`` directory of the row-shards layout:
+    row ranges and scattered rows without assembling the whole matrix.
+
+    A bf16 run's shards hold numpy's raw 2-byte void ``|V2`` (numpy has no bfloat16);
+    their bytes are read as int16, viewed as ``torch.bfloat16`` and widened to
+    float32, exactly the values the JAX package's reader returns as bfloat16."""
+
+    _VOID2 = np.dtype("V2")
+
+    @classmethod
+    def _undo_void(cls, arr: np.ndarray) -> np.ndarray:
+        if arr.dtype != cls._VOID2:
+            return arr
+        bits = torch.from_numpy(np.array(arr).view(np.int16))  # a writable copy
+        return bits.view(torch.bfloat16).to(torch.float32).numpy()
+
+    def __init__(self, dirpath: str):
+        self.dirpath = dirpath
+        self._mmap_cache: Optional[List[tuple]] = None
+        self._spans: List[tuple] = []
+        for fname in sorted(os.listdir(dirpath)):
+            if not fname.startswith("rows-"):
+                continue
+            start, stop = (int(x) for x in fname[len("rows-"):-len(".npy")].split("-"))
+            self._spans.append((start, stop, fname))
+        if not self._spans:
+            raise FileNotFoundError(f"no shard files under {dirpath!r}")
+        self._spans.sort()
+        self.rows = self._spans[-1][1]
+        probe = self._load(self._spans[0][2])
+        self.cols = probe.shape[1]
+        self.dtype = np.dtype(np.float32) if probe.dtype == self._VOID2 else probe.dtype
+        prev = 0
+        for start, stop, _ in self._spans:
+            if start != prev:
+                raise ValueError(f"shard gap/overlap at row {prev} (next shard starts "
+                                 f"{start}) under {dirpath!r}")
+            prev = stop
+
+    def _load(self, fname: str) -> np.ndarray:
+        return np.load(os.path.join(self.dirpath, fname), mmap_mode="r")
+
+    def read(self, start: int, stop: int, workers: int = 1) -> np.ndarray:
+        """Rows [start, stop) from the overlapping shard files (only their pages are
+        read); ``workers`` copies the shards' ranges concurrently into disjoint
+        slices."""
+        out = np.empty((stop - start, self.cols), dtype=self.dtype)
+
+        def copy_span(span):
+            s, e, fname = span
+            lo, hi = max(start, s), min(stop, e)
+            if lo < hi:
+                out[lo - start:hi - start] = self._undo_void(
+                    self._load(fname)[lo - s:hi - s])
+
+        _run_io([lambda sp=sp: copy_span(sp) for sp in self._spans], workers)
+        return out
+
+    def read_all(self, workers: int = 1) -> np.ndarray:
+        return self.read(0, self.rows, workers=workers)
+
+    def gather(self, ids: np.ndarray) -> np.ndarray:
+        """Rows by id, in ``ids`` order, through per-shard mmap handles opened once."""
+        ids = np.asarray(ids)
+        if self._mmap_cache is None:
+            self._mmap_cache = [(s, e, self._load(fname)) for s, e, fname in self._spans]
+        out = np.empty((ids.size, self.cols), dtype=self.dtype)
+        for s, e, m in self._mmap_cache:
+            sel = (ids >= s) & (ids < e)
+            if sel.any():
+                out[sel] = self._undo_void(m[ids[sel] - s])
+        return out
+
+
+def _verify_digests(path: str, meta: Dict[str, Any], workers: int = 1) -> None:
     """Check every recorded SHA-256 digest against the bytes on disk (checkpoints
-    without a digest map pass vacuously)."""
-    for rel, want in sorted((meta.get("digests") or {}).items()):
-        fp = os.path.join(path, rel.replace("/", os.sep))
-        if not os.path.exists(fp):
+    without a digest map pass vacuously); ``workers`` hashes files concurrently, and
+    failures are reported in sorted-name order either way."""
+    items = sorted((meta.get("digests") or {}).items())
+    for rel, _ in items:
+        if not os.path.exists(os.path.join(path, rel.replace("/", os.sep))):
             raise CheckpointCorruptError(
                 f"checkpoint {path!r}: {rel!r} is recorded in the digest map but "
                 f"missing on disk — torn or partially deleted checkpoint")
-        got = _sha256_file(fp)
+    got_all = _run_io([lambda rel=rel: _sha256_file(os.path.join(
+        path, rel.replace("/", os.sep))) for rel, _ in items], workers)
+    for (rel, want), got in zip(items, got_all):
         if got != want:
             raise CheckpointCorruptError(
                 f"checkpoint {path!r}: {rel!r} content digest {got[:12]}… does not "
                 f"match the recorded {want[:12]}… — corrupt; refusing to load it")
 
 
-def verify_checkpoint(path: str) -> Dict[str, Any]:
+def verify_checkpoint(path: str, io_workers: int = 1) -> Dict[str, Any]:
     """Integrity audit without loading the matrices: metadata parses, the format
-    version is readable, the layout's files exist, and every digest matches.
-    Returns the parsed metadata."""
+    version is readable, the layout's files exist (shard spans gapless), and every
+    digest matches. Returns the parsed metadata."""
     meta_path = os.path.join(path, "metadata.json")
     if not os.path.exists(meta_path):
         raise FileNotFoundError(f"no metadata.json under {path!r}")
@@ -197,24 +304,35 @@ def verify_checkpoint(path: str) -> Dict[str, Any]:
         raise CheckpointCorruptError(
             f"checkpoint {path!r}: unsupported format_version {version}")
     required = ["words", "counts.npy"]
-    if meta.get("layout", "dense") == "dense":
+    if meta.get("layout") == "row-shards":
+        for dirname in ("syn0.shards", "syn1.shards"):
+            if dirname == "syn1.shards" and not os.path.isdir(os.path.join(path, dirname)):
+                continue
+            try:
+                ShardedMatrixReader(os.path.join(path, dirname))
+            except (OSError, ValueError) as e:
+                raise CheckpointCorruptError(
+                    f"checkpoint {path!r}: {dirname} unreadable ({e})") from e
+    else:
         required.append("syn0.npy")
     for name in required:
         if not os.path.exists(os.path.join(path, name)):
             raise CheckpointCorruptError(
                 f"checkpoint {path!r}: required file {name!r} missing — partial or "
                 f"torn checkpoint")
-    _verify_digests(path, meta)
+    _verify_digests(path, meta, workers=io_workers)
     return meta
 
 
-def load_latest_valid(directory: str) -> str:
+def load_latest_valid(directory: str, reclaim: bool = True) -> str:
     """Path of the newest checkpoint under ``directory`` that verifies, ordered by
     (global_step, words_processed, normal before swap debris, mtime).
 
-    A recovery after a dead writer (it must not race a live saver): staging
-    directories (``.*.tmp-*``) are deleted, a winning ``*.old-*`` swap leftover is
-    renamed back to its base name, and superseded ones are deleted."""
+    With ``reclaim=True`` this is the recovery after a dead writer (it must not race a
+    live saver): staging directories (``.*.tmp-*``) are deleted, a winning
+    ``*.old-*`` swap leftover is renamed back to its base name, and superseded ones
+    are deleted. ``reclaim=False`` touches nothing, for readers that may overlap a
+    running trainer: a winning ``*.old-*`` is returned at its debris path."""
     try:
         entries = sorted(os.listdir(directory))
     except OSError as e:
@@ -226,8 +344,9 @@ def load_latest_valid(directory: str) -> str:
         if not os.path.isdir(p):
             continue
         if ".tmp-" in name:
-            logger.info("reclaiming interrupted-save staging dir %s", p)
-            shutil.rmtree(p, ignore_errors=True)
+            if reclaim:
+                logger.info("reclaiming interrupted-save staging dir %s", p)
+                shutil.rmtree(p, ignore_errors=True)
             continue
         candidates.append(("old" if ".old-" in name else "normal", name, p))
     best = None  # (sort key, kind, name, path)
@@ -247,6 +366,8 @@ def load_latest_valid(directory: str) -> str:
             f"no verifiable checkpoint under {directory!r} "
             f"({len(candidates)} candidate(s) scanned)")
     _, kind, name, p = best
+    if not reclaim:
+        return p
     if kind == "old":
         base = os.path.join(directory, name.split(".old-")[0])
         if os.path.exists(base):
@@ -295,21 +416,37 @@ def load_model_header(path: str, check_ported: bool = True) -> Dict[str, Any]:
 
 
 def load_model(path: str, header: Optional[Dict[str, Any]] = None,
-               verify: bool = True, check_ported: bool = True) -> Dict[str, Any]:
-    """Read a dense checkpoint into host arrays: words, counts, syn0, syn1 (None if not
-    saved), config, train_state. ``verify`` checks the SHA-256 digests first."""
+               verify: bool = True, check_ported: bool = True,
+               io_workers: Optional[int] = None) -> Dict[str, Any]:
+    """Read a checkpoint of either layout into host arrays: words, counts, syn0,
+    syn1 (None if not saved), config, train_state. A row-shards checkpoint is sliced
+    to its real (vocab_size, vector_size). ``verify`` checks the SHA-256 digests
+    first. ``io_workers`` (default: the saved config's) fans the digest hashing, the
+    matrix loads and the shard copies over threads."""
     if header is None:
         header = load_model_header(path, check_ported=check_ported)
-    if header["layout"] != "dense":
-        raise NotImplementedError(
-            f"checkpoint {path!r} uses the {header['layout']!r} layout; the port reads "
-            "the dense layout only (row-shards are multi-device work, not ported yet)")
+    if io_workers is None:
+        io_workers = header["config"].io_workers
     if verify:
         with open(os.path.join(path, "metadata.json"), "r", encoding="utf-8") as f:
-            _verify_digests(path, json.load(f))
-    syn0 = np.load(os.path.join(path, "syn0.npy"))
-    syn1_path = os.path.join(path, "syn1.npy")
-    syn1 = np.load(syn1_path) if os.path.exists(syn1_path) else None
+            _verify_digests(path, json.load(f), workers=io_workers)
+    if header["layout"] == "row-shards":
+        V, Dr = header["vocab_size"], header["vector_size"]
+        per = max(1, io_workers // 2)  # each matrix fans its own shard copies
+
+        def read(name: str):
+            d = os.path.join(path, f"{name}.shards")
+            if not os.path.isdir(d):
+                return None
+            return ShardedMatrixReader(d).read(0, V, workers=per)[:, :Dr]
+
+        syn0, syn1 = _run_io([lambda: read("syn0"), lambda: read("syn1")], io_workers)
+    else:
+        syn1_path = os.path.join(path, "syn1.npy")
+        syn0, syn1 = _run_io(
+            [lambda: np.load(os.path.join(path, "syn0.npy")),
+             lambda: np.load(syn1_path) if os.path.exists(syn1_path) else None],
+            io_workers)
     if syn0.shape[0] != len(header["words"]):
         raise ValueError(f"words sidecar has {len(header['words'])} entries but syn0 "
                          f"has {syn0.shape[0]} rows")

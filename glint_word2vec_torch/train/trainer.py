@@ -8,6 +8,13 @@ parameters:
 - batches come from the pair feed (native C++ or numpy, ``feed_backend``) or its CBOW
   twin, slabs fanned over ``producer_workers`` threads, and are assembled
   ``steps_per_dispatch`` to a chunk, filled in place;
+- with ``device_pairgen`` (``feed_backend == "device"``) the chunks carry token blocks
+  instead: the host subsamples (the same hashrng draws), cuts the kept stream into
+  ``tokens_per_step``-token blocks and ships them with their sentence-start bits and
+  ordinal bases; the device expands a chunk's blocks into its steps' pairs in one
+  batched call (``ops/pairgen.device_block_pairs``) before the steps. The lr clock
+  advances by the kept tokens; heartbeats count the analytic pair estimate, and the
+  exact trained and dropped totals stay on the device until the end of the fit;
 - with ``prefetch_chunks > 0`` the chunks are assembled on a producer thread, at most
   that many ahead; on the card that thread also stages each chunk: a copy into pinned
   host memory, asynchronous copies to the card on a stream of their own, and an event
@@ -35,8 +42,10 @@ its steps (with the copy to the card when the producer is off).
 Differences: the steps update the parameters in place, the feed ships int32 indices
 (widened to int64 on the card, where the JAX package ships uint16 below 65536 words), a
 short last chunk is not padded with the JAX package's masked dummy steps (they are exact
-no-ops), and rollback/recovery, telemetry, statusd, profiling, stability advisories,
-banded CBOW and the multi-process feeds are not ported yet.
+no-ops), the device feed has one data segment (a checkpoint that holds only
+per-segment positions is refused), and rollback/recovery, telemetry, statusd,
+profiling, stability advisories, banded CBOW and the multi-process feeds are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -53,13 +62,16 @@ import numpy as np
 import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.data.hashrng import (
+    STREAM_SUBSAMPLE, STREAM_WINDOW, hash_u01_at, stream_base)
 from glint_word2vec_torch.data.pipeline import (
-    epoch_batches, epoch_batches_cbow, expected_kept_words, keep_probabilities,
-    resolve_backend)
+    epoch_batches, epoch_batches_cbow, expected_kept_words, iter_sentence_slabs,
+    keep_probabilities, ordered_pool_map, resolve_backend, stream_rng)
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.ops import scatter
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
+from glint_word2vec_torch.ops.pairgen import device_block_pairs
 from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives_hash
 from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, StepMetrics, alpha_schedule, cbow_step_core, cbow_step_shared_core,
@@ -189,7 +201,8 @@ class Trainer:
     ):
         """``feed_backend``: the skip-gram pair generator, "native", "numpy" or
         "auto" (native when it is built, as the JAX package chooses); CBOW has only
-        the numpy generator. The resolved choice is ``self.feed_backend``."""
+        the numpy generator, and ``device_pairgen`` only "device" (which "auto"
+        resolves to). The resolved choice is ``self.feed_backend``."""
         self.device = resolve_device(device)
         self.config = config
         self.vocab = vocab
@@ -208,16 +221,26 @@ class Trainer:
         self.params = self._place_params(params)
         self.state = train_state or TrainState()
         self._resolve_duplicate_channel()
+        self._tokens_per_step = 0
+        if self.config.device_pairgen:
+            self._init_token_block_feed(
+                self.config.tokens_per_step or self._auto_tokens_per_step())
         # resume continues the (seed, counter) negative lattice where it left off
         self.global_step = self.state.global_step
         self.pairs_trained = 0.0  # real (unmasked) pairs trained over this trainer
         self.heartbeats: "deque[HeartbeatRecord]" = deque(maxlen=config.heartbeat_ring)
+        self.dropped_pairs = 0  # device_pairgen: pairs past the B slots, this trainer
         self.host_wait_time = 0.0
         self.dispatch_time = 0.0
 
     # -- setup -----------------------------------------------------------------------
 
     def _resolve_feed(self, backend: str) -> str:
+        if self.config.device_pairgen:
+            if backend not in ("auto", "device"):
+                raise ValueError(f"feed_backend={backend!r}: with device_pairgen the "
+                                 "pairs are generated on the device")
+            return "device"
         if not self.config.cbow:
             return resolve_backend(backend)
         if backend == "native":
@@ -313,6 +336,32 @@ class Trainer:
         new_cfg._auto_pool = True  # still AUTO: geometry changes re-derive
         self.config = new_cfg
 
+    def _init_token_block_feed(self, tokens_per_step: int) -> None:
+        """The device feed's setup: the keep table on the device (from the subsample
+        ratio the duplicate channel resolved), T, and the JAX package's 2^24 bound for
+        a T the Trainer sized (the config checks an explicit one)."""
+        cfg = self.config
+        keep = keep_probabilities(self.vocab.counts, self.vocab.train_words_count,
+                                  cfg.subsample_ratio).astype(np.float32)
+        self._keep_host = keep
+        kp = np.zeros(self.padded_vocab, np.float32)
+        kp[:self.vocab.size] = keep
+        self._keep_prob_dev = torch.from_numpy(kp).to(self.device)
+        self._tokens_per_step = tokens_per_step
+        if tokens_per_step * (2 * cfg.window - 1) >= 1 << 24:
+            raise ValueError(
+                f"tokens_per_step={tokens_per_step} with window={cfg.window} overflows "
+                f"the device generator's exact-f32 prefix-sum bound (T * (2*window - 1) "
+                f"must stay below 2^24); lower tokens_per_step or split the batch")
+
+    def _auto_tokens_per_step(self) -> int:
+        """Token slots per step for ~93% pair-slot fill from the analytic pairs per
+        kept token (sentence-edge clipping ignored, so the fill lands below target
+        rather than overflowing)."""
+        cfg = self.config
+        T = int(np.ceil(0.93 * cfg.pairs_per_batch / _pairs_per_kept_token(cfg.window)))
+        return max(T, 64)
+
     # -- training --------------------------------------------------------------------
 
     def _with_metrics(self, max_steps: int) -> bool:
@@ -390,6 +439,136 @@ class Trainer:
 
         return chunks()
 
+    def _device_seg_blocks(self, sentences: Sequence[np.ndarray], k: int,
+                           workers: Optional[int] = None) -> Iterator[tuple]:
+        """[T]-token blocks of iteration k for the device pair generator, subsampled on
+        the host (the feed's hashrng draws on raw ordinals, vectorised over ~1M-token
+        slabs fanned over ``workers`` threads, so the stream is the same at any worker
+        count), so the wire carries only kept tokens and the lr clock is exact. The
+        kept stream is cut at T boundaries: a sentence straddling a cut loses its
+        cross-cut windows, as the reference's maxSentenceLength chunking does. Yields
+        (tokens int32 [T], start bits uint8 [ceil(T/8)], n_valid, kept-ordinal base,
+        kept count). One data segment: the multi-process feed waits with the
+        multi-device work."""
+        cfg = self.config
+        workers = cfg.producer_workers if workers is None else workers
+        T = self._tokens_per_step
+        keep = self._keep_host
+        order = np.arange(len(sentences))
+        if cfg.shuffle:
+            stream_rng(cfg.seed, k, 0).shuffle(order)
+        sub_base = stream_base(cfg.seed, STREAM_SUBSAMPLE, k, 0)
+
+        def slab_jobs():
+            raw_ord = 0
+            for slab in iter_sentence_slabs(sentences, order):
+                yield slab, raw_ord
+                raw_ord += sum(int(x.shape[0]) for x in slab)
+
+        def run_slab(job):
+            """(kept tokens, sentence-start flags) of one slab, a pure function of
+            (slab, raw ordinal base); None when every token was dropped."""
+            slab, raw_ord = job
+            tokens = np.concatenate(slab) if len(slab) > 1 else slab[0]
+            lens = np.fromiter((x.shape[0] for x in slab), np.int64, len(slab))
+            sids = np.repeat(np.arange(len(slab)), lens)
+            if cfg.subsample_ratio > 0:
+                u = hash_u01_at(sub_base, np.arange(
+                    raw_ord, raw_ord + tokens.shape[0], dtype=np.uint64))
+                m = u <= keep[tokens]
+                tokens, sids = tokens[m], sids[m]
+            if tokens.shape[0] == 0:
+                return None
+            starts = np.empty(tokens.shape[0], bool)
+            starts[0] = True
+            starts[1:] = sids[1:] != sids[:-1]
+            return tokens.astype(np.int32), starts
+
+        base = 0
+        rest_tok = np.empty(0, np.int32)
+        rest_start = np.empty(0, bool)
+
+        def emit(toks, starts):
+            n = toks.shape[0]
+            buf = np.zeros(T, np.int32)
+            buf[:n] = toks
+            bits = np.packbits(np.pad(starts, (0, T - n)), bitorder="little")
+            return buf, bits, n, base, float(n)
+
+        for res in ordered_pool_map(run_slab, slab_jobs(), workers):
+            if res is None:
+                continue
+            rest_tok = np.concatenate([rest_tok, res[0]])
+            rest_start = np.concatenate([rest_start, res[1]])
+            while rest_tok.shape[0] >= T:
+                yield emit(rest_tok[:T], rest_start[:T])
+                base += T
+                # views of the concatenations above, which nothing else holds, so
+                # the tail is not copied (a copy per block is quadratic in the slab)
+                rest_tok = rest_tok[T:]
+                rest_start = rest_start[T:]
+                if rest_start.shape[0]:
+                    rest_start[0] = True  # the cut tail opens a sentence
+        if rest_tok.shape[0]:
+            yield emit(rest_tok, rest_start)
+
+    def _token_chunk_stream(self, sentences: Sequence[np.ndarray], total_words: float,
+                            train_words: float) -> Iterator[dict]:
+        """The device feed's chunks: up to K step rows, their alphas on the words
+        clock (advanced by each block's kept tokens), and the analytic pair estimate
+        the heartbeats read (the exact count stays on the device until the end). No
+        torch call, so it may run on the producer thread."""
+        cfg = self.config
+        K, T = cfg.steps_per_dispatch, self._tokens_per_step
+        start_iter = self.state.iteration
+        skip_steps = self.state.batches_done if not self.state.finished else 0
+        rate = _pairs_per_kept_token(cfg.window)
+
+        def chunks() -> Iterator[dict]:
+            for k in range(start_iter, cfg.num_iterations + 1):
+                prev_words = (k - 1) * train_words
+                to_skip = skip_steps if k == start_iter else 0
+                steps_in_iter, clock = to_skip, 0.0
+                pending: List[tuple] = []
+
+                def flush() -> dict:
+                    nonlocal pending, steps_in_iter
+                    real = len(pending)
+                    arrays = {
+                        "tokens": np.stack([p[0] for p in pending]),
+                        "starts": np.stack([p[1] for p in pending]),
+                        "nvalid": np.asarray([p[2] for p in pending], np.int64),
+                        "obase": np.asarray([[p[3] & 0xFFFFFFFF, p[3] >> 32]
+                                             for p in pending], np.int64)}
+                    alphas = np.asarray([
+                        alpha_schedule(p[5], total_words, cfg.learning_rate,
+                                       cfg.min_alpha_factor)
+                        for p in pending], np.float32)
+                    steps_in_iter += real
+                    chunk = dict(
+                        arrays=arrays, alphas=alphas, real=real, iteration=k,
+                        words_processed=int(pending[-1][5]), batches_done=steps_in_iter,
+                        real_pairs=sum(p[4] for p in pending) * rate,
+                        shard_progress=[[k, steps_in_iter]], shard_feed="tokens",
+                        sub_base=int(stream_base(cfg.seed, STREAM_SUBSAMPLE, k, 0)),
+                        win_base=int(stream_base(cfg.seed, STREAM_WINDOW, k, 0)))
+                    pending = []
+                    return chunk
+
+                # one data segment, so a step row is one block
+                for row in self._device_seg_blocks(sentences, k):
+                    clock += row[4]
+                    if to_skip:  # already trained (exact resume); the clock advances
+                        to_skip -= 1
+                        continue
+                    pending.append((*row, prev_words + clock))
+                    if len(pending) == K:
+                        yield flush()
+                if pending:
+                    yield flush()
+
+        return chunks()
+
     def _stage(self, chunks: Iterator[dict]) -> Iterator[dict]:
         """Send each chunk's arrays to the card from the producer thread: a copy into
         pinned host memory, non-blocking copies on a stream of their own, and an event
@@ -442,10 +621,26 @@ class Trainer:
         return lambda b, neg, alpha, wm: sgns_step_core(
             p, b["centers"], b["contexts"], b["mask"], neg, alpha, mode)
 
+    def _device_pairs(self, arrays: dict, chunk: dict) -> dict:
+        """The chunk's pairs from its token blocks, in one batched call of the device
+        generator; the exact pair and drop counts accumulate on the device."""
+        cfg = self.config
+        obase = arrays["obase"]
+        pairs = device_block_pairs(
+            arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
+            obase[:, 1], self._keep_prob_dev, chunk["sub_base"], chunk["win_base"],
+            cfg.window, cfg.pairs_per_batch, presubsampled=True)
+        self._exact_pairs += pairs.mask.sum(dim=1).long().sum()  # each row <= B, exact
+        self._dropped += pairs.dropped_pairs.sum()
+        return {"centers": pairs.centers, "contexts": pairs.contexts,
+                "mask": pairs.mask}
+
     def _run_chunk(self, chunk: dict) -> StepMetrics:
         """Train the steps of one chunk; returns the last step's metrics."""
         cfg = self.config
         arrays = self._device_arrays(chunk)
+        if cfg.device_pairgen:
+            arrays = self._device_pairs(arrays, chunk)
         K, B = cfg.steps_per_dispatch, arrays["centers"].shape[1]
         shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
                  else (K, cfg.negative_pool))
@@ -457,7 +652,8 @@ class Trainer:
         metrics = None
         for k in range(chunk["real"]):
             batch = {name: a[k] for name, a in arrays.items()}
-            batch["mask"] = (pos < int(chunk["reals"][k])).to(torch.float32)
+            if "mask" not in batch:
+                batch["mask"] = (pos < int(chunk["reals"][k])).to(torch.float32)
             if cfg.cbow:
                 C = batch["contexts"].shape[1]
                 batch["ctx_mask"] = (torch.arange(C, device=self.device)[None, :]
@@ -475,9 +671,7 @@ class Trainer:
         """Run the remaining iterations over encoded sentences (int32 index arrays,
         OOV-filtered and chunked). Resumes from ``self.state``."""
         cfg = self.config
-        if self.state.shard_progress is not None and not self.state.finished:
-            raise ValueError("checkpoint was written by a multi-process or token-feed "
-                             "run; the port resumes single-process host-feed runs only")
+        self._check_resume_position()
         train_words = expected_kept_words(
             self.vocab.counts, self.vocab.train_words_count, cfg.subsample_ratio)
         total_words = float(cfg.num_iterations * train_words + 1)
@@ -486,7 +680,13 @@ class Trainer:
         self._pairs_since_log = 0.0
         self.host_wait_time = 0.0
         self.dispatch_time = 0.0
-        chunks = self._chunk_stream(sentences, total_words, float(train_words))
+        if cfg.device_pairgen:
+            self._exact_pairs = torch.zeros((), dtype=torch.int64, device=self.device)
+            self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+            est_total = 0.0
+            chunks = self._token_chunk_stream(sentences, total_words, float(train_words))
+        else:
+            chunks = self._chunk_stream(sentences, total_words, float(train_words))
         if cfg.prefetch_chunks > 0:
             if self.device.type == "cuda":
                 chunks = self._stage(chunks)
@@ -501,11 +701,15 @@ class Trainer:
                 t0 = time.perf_counter()
                 metrics = self._run_chunk(chunk)
                 self.dispatch_time += time.perf_counter() - t0
+                if cfg.device_pairgen:
+                    est_total += chunk["real_pairs"]
                 self._finish_round(chunk, metrics, checkpoint_path,
                                    checkpoint_every_steps, on_heartbeat)
         finally:
             chunks.close()
         scatter.check_errors()
+        if cfg.device_pairgen:
+            self._settle_device_pairgen_books(est_total)
         self.state = TrainState(
             iteration=cfg.num_iterations,
             words_processed=int(cfg.num_iterations * train_words),
@@ -513,6 +717,56 @@ class Trainer:
         if checkpoint_path:
             self.save_checkpoint(checkpoint_path)
         return self.params
+
+    def _check_resume_position(self) -> None:
+        """Refuse a checkpoint whose recorded position indexes another feed's stream.
+        A device-feed checkpoint carries its position twice: ``batches_done`` (the
+        step rows of this process's stream, what this trainer skips, as the JAX
+        package's single-process device feed does) and ``shard_progress`` (per data
+        segment); one without ``batches_done`` needs the per-segment resume."""
+        st, cfg = self.state, self.config
+        if st.shard_progress is None or st.finished:
+            return
+        if cfg.device_pairgen:
+            if st.shard_feed != "tokens":
+                raise ValueError(
+                    "checkpoint was written by a host-feed sharded-input run (its "
+                    "positions index per-process pair streams); resume it with the "
+                    "same process count and device_pairgen=False")
+            if st.batches_done == 0:
+                raise NotImplementedError(
+                    "checkpoint records per-segment device-feed positions only "
+                    "(shard_progress, from a multi-process run or an elastic resume); "
+                    "the per-segment resume is multi-device work, not ported to "
+                    "glint_word2vec_torch yet (ROADMAP.md queue A9)")
+            return
+        if st.shard_feed == "tokens":
+            raise ValueError(
+                "checkpoint was written by a token-block-feed run (its positions index "
+                "per-segment token streams); resume it with the same feed — "
+                "device_pairgen=True")
+        raise ValueError(
+            f"checkpoint was written by a sharded-input multi-process run "
+            f"({len(st.shard_progress)} shards); the port resumes single-process runs "
+            "only (ROADMAP.md queue A9)")
+
+    def _settle_device_pairgen_books(self, est_total: float) -> None:
+        """End of a device-feed run: the heartbeats ran on the analytic pair estimate;
+        settle the books against the exact trained and dropped totals, read from the
+        device once."""
+        exact = float(self._exact_pairs)
+        dropped = int(self._dropped)
+        self.dropped_pairs += dropped
+        self.pairs_trained += exact - est_total
+        self._pairs_since_log = max(self._pairs_since_log + exact - est_total, 0.0)
+        if dropped > 0.02 * max(exact, 1.0):
+            logger.warning(
+                "device pairgen dropped %.0f pairs (%.1f%% of %.0f trained) to overflow "
+                "— raise tokens_per_step (or lower pairs_per_batch fill pressure)",
+                dropped, 100.0 * dropped / max(exact, 1.0), exact)
+        elif dropped:
+            logger.info("device pairgen: %.0f overflow pairs dropped (%.3f%%)",
+                        dropped, 100.0 * dropped / max(exact, 1.0))
 
     def _finish_round(self, chunk: dict, metrics: StepMetrics,
                       checkpoint_path: Optional[str],
@@ -527,7 +781,9 @@ class Trainer:
         self.pairs_trained += chunk["real_pairs"]
         self.state = TrainState(
             iteration=chunk["iteration"], words_processed=chunk["words_processed"],
-            batches_done=chunk["batches_done"], global_step=self.global_step)
+            batches_done=chunk["batches_done"], global_step=self.global_step,
+            shard_progress=chunk.get("shard_progress"),
+            shard_feed=chunk.get("shard_feed"))
         ckpt_due = bool(checkpoint_path and checkpoint_every_steps
                         and self.global_step % checkpoint_every_steps < real)
         hb_due = self.global_step - self._last_log_step >= cfg.heartbeat_every_steps

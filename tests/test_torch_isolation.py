@@ -30,7 +30,8 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.ops.scatter, glint_word2vec_torch.scatterprobe, "
             "glint_word2vec_torch.stepprof, glint_word2vec_torch.interop, "
             "glint_word2vec_torch.data.native, glint_word2vec_torch.data.corpus, "
-            "glint_word2vec_torch.data.ingest_native, glint_word2vec_torch.train.faults\n"
+            "glint_word2vec_torch.data.ingest_native, glint_word2vec_torch.train.faults, "
+            "glint_word2vec_torch.ops.pairgen, glint_word2vec_torch.models.compat\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
