@@ -29,6 +29,19 @@ Phases, one line each (or a few); any failure exits non-zero:
   5. steps     one full-width per-pair skip-gram step and one CBOW step (shared pool),
                each run once through the scatter kernel and once through the plain
                scatter on identical inputs, parameters compared;
+ 5b. banded    one full-width banded CBOW step (T = 8192 + 2*window token slots in
+               sentences of 5 to 60 tokens, a padded tail, block 0's wrapped ordinal
+               base, P=256 Zipf pool, window 5; its window geometry from the device
+               window generator) through the scatter kernel, against its plain version
+               on the card and both against a float64 plain step; timed per call
+               (events) and per launch (torch.profiler), and its endpoint delta in
+               both forms;
+ 5c. stabilizers
+               one full-width step of each of the five step functions (per-pair and
+               shared-pool skip-gram, the latter in its scatter form, scatter CBOW with
+               each pool, banded CBOW) with max_row_norm=5, update_clip=0.05,
+               row_l2=1e-3, and the per-pair and per-example CBOW steps with
+               duplicate_scaling, kernel against plain on identical inputs;
   6. feed      the native pair generator built with g++ (the run fails if it does
                not build); the smoke corpus's skip-gram pair stream from the native
                generator against numpy's at producer_workers 1 and 4, and the CBOW
@@ -47,12 +60,17 @@ Phases, one line each (or a few); any failure exits non-zero:
                (negative_pool=0), CBOW with the shared pool and per-example CBOW
                (negative_pool=0) (the scatter kernel), and skip-gram with the shared
                pool fed by the device pair generator (device_pairgen=True, the fused
-               kernel), every kernel's launch count set to 0 just before each fit and
-               read just after; the host-fed skip-gram fits must feed from the native
-               generator, the CBOW fits from numpy (there is no native CBOW
-               generator), the device-fed one from the device; its pairs trained and
-               dropped must equal a numpy replay of its token stream through the host
-               pair generator, its drops stay under 2%;
+               kernel); then banded CBOW (cbow_update="banded", the scatter kernel
+               three times a step) and shared-pool skip-gram with the three
+               stabilizers on (the scatter form: the fused kernel never, the scatter
+               kernel twice a step); every kernel's launch count set to 0 just before
+               each fit and read just after; the host-fed skip-gram fits must feed from
+               the native generator, the scatter CBOW fits from numpy (there is no
+               native CBOW generator), the device-fed and banded ones from the token
+               blocks; the device-fed fit's pairs trained and dropped must equal a
+               numpy replay of its token stream through the host pair generator, its
+               drops stay under 2%; the banded fit's steps and examples a numpy replay
+               through the halo packer and the host window draw;
   9. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
                fit's model, right after that fit; transform_sentences, pull and
                multiply against float64 on the host; a binary word2vec export of the
@@ -100,6 +118,9 @@ TIMED_STEPS = 30
 L2_RING = 16  # independently drawn batches for the L2-cold timing (~10 MB of rows each)
 HOT_CENTER, HOT_POOL = 7, 11  # the hot-row case's rows
 HEAVY_V = 65536  # the heavy-draw case's vocabulary
+STAB = {"max_row_norm": 5.0, "update_clip": 0.05, "row_l2": 1e-3}  # the JAX suite's
+T_BANDED = B + 2 * WINDOW  # a banded step's token slots
+BANDED_PAD = 100  # its padded tail
 SCATTER_RUNS = 25
 # Scatter vs float64: the standard bound of recursive f32 summation, (m - 1)·2^-24·Σ|x|
 # for a row that takes m updates, computed from each shape's own data (scatter_tol).
@@ -548,6 +569,226 @@ def steps_phase(seed: int, torch, sgns, scat) -> float:
     return worst
 
 
+def banded_block(gen, torch, np):
+    """One banded step's block on the card: T_BANDED Zipf tokens in sentences of 5 to
+    60 tokens, a zero tail of BANDED_PAD slots, the window geometry of block 0 (ordinal
+    base −window wrapped to 64 bits, core slots [window, T − window)), and a Zipf pool.
+    Returns (tokens, band, negatives)."""
+    from glint_word2vec_torch.ops.pairgen import device_cbow_windows
+
+    n_valid = T_BANDED - BANDED_PAD
+    tokens = zipf_ids(gen, T_BANDED, V, 1.1, torch)
+    tokens[n_valid:] = 0
+    lens = torch.randint(5, 61, (T_BANDED,), generator=gen, device="cuda").cpu().numpy()
+    cuts = np.cumsum(np.concatenate([[0], lens]))
+    starts = np.zeros(T_BANDED, bool)
+    starts[cuts[cuts < n_valid]] = True
+    bits = torch.from_numpy(np.packbits(starts, bitorder="little")).cuda()
+    base = (-WINDOW) & 0xFFFFFFFFFFFFFFFF
+    band = device_cbow_windows(tokens, bits, n_valid, base & 0xFFFFFFFF, base >> 32,
+                               0x5BD1E995, WINDOW, WINDOW)
+    neg = zipf_ids(gen, P, V, 1.1, torch)
+    neg[:8] = tokens[WINDOW:WINDOW + 8]      # pool entries equal to centers
+    return tokens, band, neg
+
+
+def full_params(gen, torch, scale=0.35):
+    """Full-width parameters, N(0, scale) in the real columns, zero in the padding."""
+    syn0 = torch.zeros((V, D), device="cuda")
+    syn1 = torch.zeros((V, D), device="cuda")
+    syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * scale
+    syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * scale
+    return syn0, syn1
+
+
+def banded_bound(tokens, band, neg, torch) -> dict:
+    """Least time of one banded step: the touched rows of syn0 (the valid slots) and of
+    syn1 (the live centers and the pool) read and written once, the indices, masks and
+    extents read once; 6·T·P·D flops for its three products (hidden·Zᵀ, G·Z, Gᵀ·hidden)
+    in fp32."""
+    valid = band.token > 0
+    live = (band.center > 0) & ((band.left + band.right) > 0)
+    u0 = int(torch.unique(tokens[valid]).numel())
+    u1 = int(torch.unique(torch.cat([tokens[live], neg])).numel())
+    T = tokens.numel()
+    bytes_ = 2 * (u0 + u1) * D * 4 + T * (8 * 3 + 4 * 2) + neg.numel() * 8
+    flops = 6 * T * neg.numel() * D
+    t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": bytes_, "flops": flops}
+
+
+def banded_phase(seed: int, torch, np, sgns, scat, profile_call) -> dict:
+    """One full-width banded step through the kernel, against its plain version on
+    the card, both against a float64 plain step; timed; the endpoint delta in both
+    forms."""
+    from glint_word2vec_torch.ops import cbow_banded as banded
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    syn0, syn1 = full_params(gen, torch)
+    tokens, band, neg = banded_block(gen, torch, np)
+    args = (tokens, band.left, band.right, band.center, band.token, neg, 0.025, N_NEG,
+            WINDOW)
+
+    def run(p, scatter, **kw):
+        return banded.cbow_step_banded_core(p, *args, "exact", True, scatter, **kw)
+
+    got = sgns.EmbeddingPair(syn0.clone(), syn1.clone())
+    before = scat.scatter_add_rows_.launches
+    gm = run(got, scat.scatter_add_rows_)
+    launched = scat.scatter_add_rows_.launches - before
+    want = sgns.EmbeddingPair(syn0.clone(), syn1.clone())
+    wm = run(want, scat.scatter_add_rows_reference)
+    scat.check_errors()
+    torch.cuda.synchronize()
+    err = max(float((got.syn0 - want.syn0).abs().max()),
+              float((got.syn1 - want.syn1).abs().max()))
+    moved = max(float((want.syn0 - syn0).abs().max()),
+                float((want.syn1 - syn1).abs().max()))
+    ref = sgns.EmbeddingPair(syn0.double(), syn1.double())
+    rm = run(ref, scat.scatter_add_rows_reference)
+    err64 = {}
+    for name, p_ in (("kernel", got), ("plain", want)):
+        err64[name] = max(float((p_.syn0.double() - ref.syn0).abs().max()),
+                          float((p_.syn1.double() - ref.syn1).abs().max()))
+    del ref
+    loss_rel = abs(float(gm.loss) - float(wm.loss)) / abs(float(wm.loss))
+    loss_rel64 = max(abs(float(m.loss) - float(rm.loss)) / abs(float(rm.loss))
+                     for m in (gm, wm))
+    examples = int(float(gm.pairs))
+    p = sgns.EmbeddingPair(syn0, syn1)
+    ms = time_steps(lambda: run(p, scat.scatter_add_rows_), TIMED_STEPS, torch)
+    plain_ms = time_steps(lambda: run(p, scat.scatter_add_rows_reference), TIMED_STEPS,
+                          torch)
+    kt = profile_call(lambda: run(p, scat.scatter_add_rows_), TIMED_STEPS)
+    launches = {k: v["us_total"] / TIMED_STEPS for k, v in kt.items()}  # µs per step
+    device_ms = sum(launches.values()) / 1e3
+    g_row = torch.randn((T_BANDED, D), generator=gen, device="cuda") * 1e-3
+    live = band.center * ((band.left + band.right) > 0).float()
+    g_row *= live[:, None]
+    endpoint = {}
+    for form in ("scatter", "shift"):
+        def delta(form=form):
+            return banded._band_endpoint_delta(g_row, band.left, band.right, WINDOW, form,
+                                               scat.scatter_add_rows_, live)
+        kt = profile_call(delta, TIMED_STEPS)
+        endpoint[form] = {"ms": time_steps(delta, TIMED_STEPS, torch),
+                          "device_ms": sum(v["us_total"] for v in kt.values())
+                          / TIMED_STEPS / 1e3,
+                          "cuda_launches": sum(v["count"] for v in kt.values())
+                          / TIMED_STEPS}
+    shift, scat_form = (banded._band_endpoint_delta(g_row, band.left, band.right, WINDOW,
+                                                    f, scat.scatter_add_rows_reference)
+                        for f in ("shift", "scatter"))
+    endpoint_err = float((shift - scat_form).abs().max())
+    bound = banded_bound(tokens, band, neg, torch)
+    log("banded", f"T={T_BANDED} P={P} D={D} V={V} window {WINDOW}: {examples} examples, "
+        f"max_abs_err kernel-plain {err:.3e} (largest update {moved:.3e}), kernel-f64 "
+        f"{err64['kernel']:.3e}, plain-f64 {err64['plain']:.3e}; loss "
+        f"{float(gm.loss):.6f} vs plain {float(wm.loss):.6f} (rel {loss_rel:.3e}; vs "
+        f"f64 {loss_rel64:.3e}); scatter launches {launched}; step {ms:.4f} ms per call "
+        f"(events, median of {TIMED_STEPS}), plain {plain_ms:.4f} ms; on the device "
+        f"{device_ms:.4f} ms per step ({len(launches)} kernels, us per step: " + ", ".join(
+            f"{k} {v:.1f} us" for k, v in sorted(launches.items(),
+                                                  key=lambda kv: -kv[1])[:8])
+        + f"); bound {1e3 * bound['bound_ms']:.1f} us ({bound['bound_by']}: "
+        f"{bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.1f} MB); endpoint "
+        f"delta: " + "; ".join(f"{k} {v['ms']:.4f} ms per call, {v['device_ms']:.4f} ms "
+                               f"on the device in {v['cuda_launches']:g} launches"
+                               for k, v in endpoint.items())
+        + f" (forms differ by {endpoint_err:.3e})")
+    bad = [k for k, ok in (
+        ("params", err <= PARAM_ATOL), ("kernel_f64", err64["kernel"] <= PARAM_ATOL),
+        ("plain_f64", err64["plain"] <= PARAM_ATOL), ("loss", loss_rel <= LOSS_RTOL),
+        ("loss_f64", loss_rel64 <= LOSS_RTOL), ("moved", moved > 1e-3),
+        ("launches", launched == 3), ("examples", examples > T_BANDED // 2),
+        ("endpoint forms", endpoint_err <= 1e-6),
+        ("finite", math.isfinite(float(gm.loss)))) if not ok]
+    if bad:
+        raise AssertionError(f"banded step: {bad}; tolerance {PARAM_ATOL}, loss rtol "
+                             f"{LOSS_RTOL}")
+    return {"max_abs_err": err, "max_abs_err_f64": err64, "loss_rel_err": loss_rel,
+            "examples": examples, "ms": ms, "plain_ms": plain_ms,
+            "device_ms": device_ms, "us_per_step_by_kernel": launches,
+            "endpoint": endpoint,
+            **bound}
+
+
+def stabilizers_phase(seed: int, torch, np, sgns, scat) -> dict:
+    """One full-width step of each step function with the three stabilizers (and the
+    per-pair and per-example CBOW steps with duplicate_scaling), kernel against plain
+    on identical inputs; the clamp must hold every touched row to max_row_norm."""
+    from glint_word2vec_torch.ops import cbow_banded as banded
+
+    stab = sgns.Stabilizers(**STAB)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    base_sg, (c, x, mask, neg_pp) = step_inputs(seed, torch, cbow=False)
+    pool = zipf_ids(gen, P, V, 1.1, torch)
+    pool[:16] = x[:16]
+    base_cb, (cc, ctx, cm, cmask, cpool) = step_inputs(seed, torch, cbow=True)
+    neg_cb = zipf_ids(gen, B * N_NEG, V, 1.1, torch).view(B, N_NEG)
+    tokens, band, bneg = banded_block(gen, torch, np)
+    cases = {
+        "per_pair": (base_sg, lambda p, sc, **kw: sgns.sgns_step_core(
+            p, c, x, mask, neg_pp, 0.025, "exact", sc, **kw), 2),
+        "shared_scatter": (base_sg, lambda p, sc, **kw: sgns.sgns_step_shared_scatter_(
+            p, c, x, mask, pool, 0.025, N_NEG, "exact", True, sc, **kw), 2),
+        "cbow": (base_cb, lambda p, sc, **kw: sgns.cbow_step_shared_core(
+            p, cc, ctx, cm, cmask, cpool, 0.025, N_NEG, "exact", True, sc, **kw), 2),
+        "cbow_per_example": (base_cb, lambda p, sc, **kw: sgns.cbow_step_core(
+            p, cc, ctx, cm, cmask, neg_cb, 0.025, "exact", sc, **kw), 2),
+        "cbow_banded": (base_cb, lambda p, sc, **kw: banded.cbow_step_banded_core(
+            p, tokens, band.left, band.right, band.center, band.token, bneg, 0.025,
+            N_NEG, WINDOW, "exact", True, sc, **kw), 3),
+    }
+    runs = [(name, "stabilizers", {"stabilizers": stab}) for name in cases]
+    runs += [(name, "duplicate_scaling", {"duplicate_scaling": True})
+             for name in ("per_pair", "cbow_per_example")]
+    out = {}
+    for name, knob, kw in runs:
+        base, fn, want_launches = cases[name]
+        got = sgns.EmbeddingPair(base[0].clone(), base[1].clone())
+        before = scat.scatter_add_rows_.launches
+        gm = fn(got, scat.scatter_add_rows_, **kw)
+        launched = scat.scatter_add_rows_.launches - before
+        want = sgns.EmbeddingPair(base[0].clone(), base[1].clone())
+        wm = fn(want, scat.scatter_add_rows_reference, **kw)
+        scat.check_errors()
+        torch.cuda.synchronize()
+        err = max(float((got.syn0 - want.syn0).abs().max()),
+                  float((got.syn1 - want.syn1).abs().max()))
+        moved0 = (want.syn0 != base[0]).any(1)
+        moved1 = (want.syn1 != base[1]).any(1)
+        top_norm = max(float(got.syn0[moved0].norm(dim=1).max()),
+                       float(got.syn1[moved1].norm(dim=1).max()))
+        loss_rel = abs(float(gm.loss) - float(wm.loss)) / abs(float(wm.loss))
+        del want
+        p = sgns.EmbeddingPair(base[0].clone(), base[1].clone())
+        ms = time_steps(lambda: fn(p, scat.scatter_add_rows_, **kw), 10, torch)
+        plain_ms = time_steps(lambda: fn(p, scat.scatter_add_rows_reference, **kw), 10,
+                              torch)
+        del p, got
+        key = f"{name}+{knob}"
+        out[key] = {"max_abs_err": err, "loss_rel_err": loss_rel, "launches": launched,
+                    "rows_moved": int(moved0.sum()) + int(moved1.sum()),
+                    "largest_touched_norm": top_norm, "ms": ms, "plain_ms": plain_ms}
+        log("stab", f"{key}: max_abs_err kernel-plain {err:.3e}, loss {float(gm.loss):.6f} "
+            f"(rel {loss_rel:.3e}), scatter launches {launched}, rows moved "
+            f"{out[key]['rows_moved']}, largest touched row norm {top_norm:.4f}; step "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms (medians of 10)")
+        checks = [("params", err <= PARAM_ATOL), ("loss", loss_rel <= LOSS_RTOL),
+                  ("launches", launched == want_launches),
+                  ("moved", out[key]["rows_moved"] > 0),
+                  ("finite", math.isfinite(float(gm.loss)))]
+        if knob == "stabilizers":
+            checks.append(("max_row_norm", top_norm <= STAB["max_row_norm"] * (1 + 1e-5)))
+        bad = [k for k, ok in checks if not ok]
+        if bad:
+            raise AssertionError(f"stabilized step {key}: {bad}; tolerance {PARAM_ATOL}")
+    return out
+
+
 def synthetic_corpus(seed: int, n_tokens: int, np):
     """Words w0..w{V-1} with Zipf(1) counts, and sentences of 40 tokens drawn from
     that distribution."""
@@ -626,6 +867,8 @@ FITS = (  # (name, config knobs, pool the trainer must resolve)
     ("cbow", {"cbow": True}, 256),
     ("cbow_per_example", {"cbow": True, "negative_pool": 0}, 0),
     ("shared_devpairs", {"device_pairgen": True}, 256),
+    ("cbow_banded", {"cbow": True, "cbow_update": "banded"}, 256),
+    ("shared_stab", STAB, 256),
 )
 DROP_LIMIT = 0.02  # the device feed's overflow drops, as a share of pairs trained
 
@@ -715,11 +958,49 @@ def replay_device_feed(tr, sents, np) -> tuple:
     return trained, dropped
 
 
+def replay_banded_feed(tr, sents, np) -> tuple:
+    """(steps, examples) of the banded feed's stream replayed on the host: the corpus
+    in the shuffled order, subsampled by the hashrng draws on raw ordinals, the kept
+    stream cut by the halo packer (its blocks are the steps), and every kept token's
+    window drawn by the host feed on the whole kept stream (keep 1, kept ordinals): a
+    token with a context is an example."""
+    from glint_word2vec_torch.data.hashrng import STREAM_SUBSAMPLE, hash_u01_at, stream_base
+    from glint_word2vec_torch.data.pipeline import (
+        _subsample_and_window, encode_sentences, keep_probabilities,
+        pack_halo_token_blocks, stream_rng)
+
+    cfg, vocab = tr.config, tr.vocab
+    encoded = encode_sentences(sents, vocab)
+    keep = keep_probabilities(vocab.counts, vocab.train_words_count,
+                              cfg.subsample_ratio).astype(np.float32)
+    ones = np.ones(vocab.size, np.float32)
+    steps = examples = 0
+    for it in range(1, cfg.num_iterations + 1):
+        order = np.arange(len(encoded))
+        stream_rng(cfg.seed, it, 0).shuffle(order)
+        flat = np.concatenate([encoded[i] for i in order])
+        sid = np.repeat(np.arange(len(order)), [encoded[i].shape[0] for i in order])
+        u = hash_u01_at(stream_base(cfg.seed, STREAM_SUBSAMPLE, it, 0),
+                        np.arange(flat.shape[0], dtype=np.uint64))
+        m = u <= keep[flat]
+        tokens, sid = flat[m], sid[m]
+        starts = np.ones(tokens.shape[0], bool)
+        starts[1:] = sid[1:] != sid[:-1]
+        steps += sum(1 for _ in pack_halo_token_blocks(
+            [(tokens, starts)], tr._tokens_per_step, cfg.window))
+        lens = np.diff(np.append(np.flatnonzero(starts), tokens.shape[0]))
+        total = _subsample_and_window(tokens, lens, ones, cfg.window, cfg.seed, it, 0, 0,
+                                      True)[2]
+        examples += int((total > 0).sum())
+    return steps, examples
+
+
 def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused,
               scat, sgns, np):
     """One fit through the estimator; the kernel counts are set to 0 just before it
     and read just after. Returns (model, fused launches, scatter launches)."""
     from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.ops import cbow_banded
 
     vocab, sents = corpus
     est = Word2Vec(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
@@ -738,6 +1019,7 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     loss = hb[-1].loss if hb else float("nan")
     unit = "examples" if tr.config.cbow else "pairs"
     device_feed = tr.config.device_pairgen
+    token_feed = tr.feed_backend == "device"
     log("fit", f"{name}: pool {tr.config.negative_pool}, subsample "
         f"{tr.config.subsample_ratio:g}, feed {tr.feed_backend} (prefetch_chunks "
         f"{tr.config.prefetch_chunks}, producer_workers {tr.config.producer_workers}), "
@@ -749,18 +1031,32 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
         f"dispatch_s {tr.dispatch_time:.4f}, heartbeat {unit}/s "
         f"{[round(h.pairs_per_sec) for h in hb]}, losses {[round(h.loss, 5) for h in hb]}"
         + (f"; tokens_per_step {tr._tokens_per_step}, dropped pairs {tr.dropped_pairs}"
-           if device_feed else ""))
+           if token_feed else ""))
     steps = tr.global_step
-    shared = tr.config.negative_pool > 0 and not tr.config.cbow
-    want_feed = "device" if device_feed else "numpy" if tr.config.cbow else "native"
+    fused_path = (tr.config.negative_pool > 0 and not tr.config.cbow
+                  and not tr._stabilizers.enabled and not tr.config.duplicate_scaling)
+    banded = tr._banded_cbow
+    # the banded step's third scatter is its endpoint delta (ops/cbow_banded)
+    per_step = sgns.SCATTERS_PER_STEP + (banded and cbow_banded.CUDA_ENDPOINT == "scatter")
+    want_feed = ("device" if device_feed or banded else "numpy" if tr.config.cbow
+                 else "native")
     checks = {f"pool == {pool}": tr.config.negative_pool == pool,
               f"feed_backend == {want_feed}": tr.feed_backend == want_feed,
               "steps >= 4 chunks": steps > 3 * tr.config.steps_per_dispatch,
-              "sgns_shared launches": n_fused == (steps if shared else 0),
-              "scatter_rows launches": n_scat == (0 if shared
-                                                  else steps * sgns.SCATTERS_PER_STEP),
+              "sgns_shared launches": n_fused == (steps if fused_path else 0),
+              "scatter_rows launches": n_scat == (0 if fused_path else steps * per_step),
               "loss finite": math.isfinite(loss),
               "params finite": bool(torch.isfinite(model.syn0).all())}
+    if knobs.get("max_row_norm"):
+        checks["stabilizers on"] = tr._stabilizers == sgns.Stabilizers(**STAB)
+    if banded:
+        t0 = time.perf_counter()
+        want_steps, examples = replay_banded_feed(tr, sents, np)
+        log("fit", f"{name}: host replay of the halo token stream: {want_steps} steps, "
+            f"{examples} examples ({time.perf_counter() - t0:.1f} s); the fit: "
+            f"{steps} and {tr.pairs_trained:.0f}")
+        checks.update({"steps == host replay": steps == want_steps,
+                       "examples == host replay": abs(tr.pairs_trained - examples) < 0.5})
     if device_feed:
         t0 = time.perf_counter()
         trained, dropped = replay_device_feed(tr, sents, np)
@@ -980,6 +1276,10 @@ def main() -> int:
     srec = scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
     srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
                                                                   scat))
+    brec = banded_phase(args.seed, torch, np, sgns, scat, profile_call)
+    stab_rec = stabilizers_phase(args.seed, torch, np, sgns, scat)
+    srec["max_abs_err"] = max(srec["max_abs_err"], brec["max_abs_err"],
+                              *(r["max_abs_err"] for r in stab_rec.values()))
     feed = feed_phase(corpus, args.seed, np)
     gen = pairgen_phase(corpus, args.seed, torch, np)
     launches = {}
@@ -1020,6 +1320,8 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,
                                               "pairgen": gen, "model": surface,
+                                              "banded": brec, "stabilizers": stab_rec,
+                                              "launches_by_fit": launches,
                                               "card": card}) + "\n")
     print(json.dumps(kernels_line))
     print(card)

@@ -7,9 +7,11 @@ repeats only what the port does differently.
 
 The port implements the single-device steps: skip-gram with a shared negative pool or
 with per-pair negatives (``negative_pool`` resolving to 0), fed by host pairs or, with
-``device_pairgen``, by token blocks the card expands into pairs; and scatter CBOW with
-either pool. A knob that would change the results of training and is not ported yet
-raises :class:`NotImplementedError` naming it, at construction, when set off its
+``device_pairgen``, by token blocks the card expands into pairs; scatter CBOW with
+either pool, and banded CBOW (``cbow_update="banded"``) on halo-overlapped token
+blocks; each with the in-step stabilizers (``max_row_norm``, ``update_clip``,
+``row_l2``) and, where the JAX package has it, ``duplicate_scaling``. A knob that would
+change the results of training and is not ported yet raises :class:`NotImplementedError` naming it, at construction, when set off its
 default; it is never silently ignored. The host data plane's knobs change wall clock
 only, in both packages (the results are bit-identical at any value):
 ``prefetch_chunks``, ``producer_workers`` and ``io_workers`` (vocabulary counting,
@@ -24,11 +26,11 @@ from typing import Optional, Tuple
 # Knobs not ported yet, refused off their default (ROADMAP queue A names the slice
 # each one lands in).
 _UNPORTED = (
-    "duplicate_scaling", "fused_logits",
+    "fused_logits",
     "bf16_chain", "hot_rows", "use_pallas", "param_dtype", "compute_dtype",
     "logits_dtype", "step_lowering", "sync_every", "num_model_shards",
-    "num_data_shards", "embedding_partition", "sharded_checkpoint", "max_row_norm",
-    "update_clip", "row_l2", "norm_watch", "telemetry_path", "profile_dir",
+    "num_data_shards", "embedding_partition", "sharded_checkpoint",
+    "norm_watch", "telemetry_path", "profile_dir",
     "status_port", "checkpoint_on_preempt", "peer_beacon_s",
     "serve_max_batch", "serve_max_delay_ms", "serve_queue_depth",
     "serve_ann_centroids", "serve_ann_nprobe", "serve_ann_quant", "serve_ann_pq_m",
@@ -45,8 +47,8 @@ class Word2VecConfig:
 
     ``check_ported`` (init-only, not a field): False skips the refusal of unported
     knobs. Only checkpoint readers pass it, so that a model trained with a path the
-    port does not have yet (e.g. banded CBOW) can still be loaded for the model ops,
-    which do not depend on it.
+    port does not have yet (e.g. bf16 parameters) can still be loaded for the model
+    ops, which do not depend on it.
     """
 
     # --- core hyperparameters (reference defaults) ---
@@ -175,13 +177,14 @@ class Word2VecConfig:
     check_ported: dataclasses.InitVar[bool] = True
 
     def __post_init__(self, check_ported: bool) -> None:
-        # before the unported knobs, so that device_pairgen with use_pallas gets the
-        # JAX package's answer
+        # before the unported knobs, so that their combinations with use_pallas get
+        # the JAX package's answer
         _validate_device_pairgen(self)
+        _validate_cbow(self)
+        _validate_stabilizers(self)
         if check_ported:
             self._refuse_unported()
         _validate_ranges(self)
-        _validate_cbow(self)
         # remembered so the Trainer may auto-lower an AUTO ratio (explicit values are
         # refused instead)
         self._auto_subsample = self.subsample_ratio == -1.0
@@ -223,11 +226,6 @@ class Word2VecConfig:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the port trains on one device; "
                 "multi-device meshes are not ported yet")
-        if self.cbow and self.cbow_update == "banded":
-            raise NotImplementedError(
-                "cbow_update='banded' is not ported to glint_word2vec_torch yet: it "
-                "needs the device CBOW window feed (ops/pairgen.device_cbow_windows, "
-                "ROADMAP.md queue A4); use cbow_update='scatter'")
         if self.nonfinite_policy == "rollback":
             raise NotImplementedError(
                 "nonfinite_policy='rollback' (snapshot ring + lattice re-seed) is not "
@@ -266,50 +264,80 @@ class Word2VecConfig:
 
 
 def _validate_cbow(c: Word2VecConfig) -> None:
-    """The JAX package's CBOW update-path checks, copied as they stand. With
-    ``check_ported`` the port refuses banded CBOW, duplicate_scaling and use_pallas by
-    name before these run; checkpoint readers still get the JAX package's answer for a
-    config it would refuse."""
+    """The JAX package's CBOW update-path checks, copied as they stand."""
     if c.cbow_update not in ("scatter", "banded"):
         raise ValueError(
-            f"cbow_update must be 'scatter' or 'banded' but got {c.cbow_update!r}")
+            f"cbow_update must be 'scatter' or 'banded' "
+            f"but got {c.cbow_update!r}")
     if c.cbow_update == "banded":
         if not c.cbow:
             raise ValueError(
-                "cbow_update='banded' requires cbow=True — the knob selects the CBOW "
-                "step formulation")
+                "cbow_update='banded' requires cbow=True — the knob "
+                "selects the CBOW step formulation")
         if c.duplicate_scaling:
             raise ValueError(
-                "cbow_update='banded' does not support duplicate_scaling=True: "
-                "mean-update semantics are only implemented on the scatter path — use "
+                "cbow_update='banded' does not support "
+                "duplicate_scaling=True: mean-update semantics are only "
+                "implemented on the scatter path (its per-context-set "
+                "occurrence counts have no banded form) — use "
                 "cbow_update='scatter'")
         if c.use_pallas:
             raise ValueError(
-                "cbow_update='banded' is an XLA path; use_pallas=True (the fused SGNS "
-                "kernel) does not apply to CBOW")
+                "cbow_update='banded' is an XLA path; use_pallas=True "
+                "(the fused SGNS kernel) does not apply to CBOW")
         if c.negative_pool == 0:
             raise ValueError(
                 "cbow_update='banded' requires the shared-pool estimator "
-                "(negative_pool > 0, or -1 for auto); per-example negatives "
-                "(negative_pool=0) are scatter-path only")
+                "(negative_pool > 0, or -1 for auto); per-example "
+                "negatives (negative_pool=0) are scatter-path only")
         if c.tokens_per_step:
             raise ValueError(
                 "cbow_update='banded' derives its token-block size from "
-                "pairs_per_batch + window; tokens_per_step is the device_pairgen knob "
-                "— leave it 0")
+                "pairs_per_batch + window; tokens_per_step is the "
+                "device_pairgen knob — leave it 0")
         if c.window < 2:
             raise ValueError(
-                "cbow_update='banded' with window=1 emits no contexts at all under the "
-                "reference's legacy asymmetric window — use window >= 2")
+                "cbow_update='banded' with window=1 emits no contexts at "
+                "all under the reference's legacy asymmetric window "
+                "(b = nextInt(1) = 0 always) — use window >= 2")
     if c.use_pallas and c.cbow:
         raise ValueError(
-            "use_pallas=True is not implemented for CBOW — the fused kernel is "
-            "SGNS-only; use the CBOW paths (cbow_update='scatter'/'banded')")
+            "use_pallas=True is not implemented for CBOW — the fused "
+            "kernel is SGNS-only; use the XLA CBOW paths "
+            "(cbow_update='scatter'/'banded')")
     if c.cbow and c.duplicate_scaling and c.negative_pool > 0:
         raise ValueError(
-            "CBOW with duplicate_scaling=True implements mean semantics per-example "
-            "only; an explicit negative_pool > 0 would be silently ignored — set "
-            "negative_pool=0 (or -1 for auto, which resolves to 0 here)")
+            "CBOW with duplicate_scaling=True implements mean semantics "
+            "per-example only; an explicit negative_pool > 0 would be "
+            "silently ignored — set negative_pool=0 (or -1 for auto, "
+            "which resolves to 0 here)")
+
+
+def _validate_stabilizers(c: Word2VecConfig) -> None:
+    """The JAX package's refusals of the stabilizers and ``duplicate_scaling`` beside
+    ``use_pallas``, and its ranges of the stabilizers, copied as they stand."""
+    if c.use_pallas:
+        if c.duplicate_scaling:
+            raise ValueError(
+                "duplicate_scaling is not implemented for use_pallas=True "
+                "— the fused kernel applies sum semantics only; use the "
+                "XLA path or bound the row loads via "
+                "negative_pool/subsample_ratio instead")
+        if c.max_row_norm or c.update_clip or c.row_l2:
+            raise ValueError(
+                "the in-step stabilizers (max_row_norm/update_clip/"
+                "row_l2) are not implemented for use_pallas=True — the "
+                "fused kernel owns its own update math; use the XLA "
+                "paths, which compile the stabilizers into every "
+                "lowering (ops/sgns.py)")
+    if c.max_row_norm < 0:
+        raise ValueError(
+            f"max_row_norm must be nonnegative (0 = off) but got {c.max_row_norm}")
+    if c.update_clip < 0:
+        raise ValueError(
+            f"update_clip must be nonnegative (0 = off) but got {c.update_clip}")
+    if not (0 <= c.row_l2 < 1):
+        raise ValueError(f"row_l2 must be in [0, 1) (0 = off) but got {c.row_l2}")
 
 
 def _validate_device_pairgen(c: Word2VecConfig) -> None:

@@ -14,8 +14,9 @@ The skip-gram feed generates each slab's pairs with the multithreaded native C++
 generator (:mod:`.native`, ``native/pairgen.cpp``) when it is built
 (``backend="auto"``), else with numpy; ``producer_workers > 1`` fans the slabs of
 either feed over :func:`ordered_pool_map`. Every combination yields the same stream,
-bit for bit. There is no native CBOW generator, in either package. Not ported: the
-banded-CBOW halo packer (``pack_halo_token_blocks``, which waits with banded CBOW).
+bit for bit. There is no native CBOW generator, in either package.
+:func:`pack_halo_token_blocks` cuts the kept-token stream into the overlapping blocks
+that banded CBOW trains on.
 """
 
 from __future__ import annotations
@@ -433,6 +434,59 @@ def _block_cbow(
     return (toks[has_ctx].astype(np.int32), contexts[has_ctx],
             total[has_ctx].astype(np.int32),
             np.flatnonzero(has_ctx) + 1, int(Nk))
+
+
+def pack_halo_token_blocks(
+    slabs: Iterable[Tuple[np.ndarray, np.ndarray]],
+    T: int,
+    halo: int,
+    tok_dtype=np.int32,
+) -> Iterator[Tuple[np.ndarray, np.ndarray, int, int, int]]:
+    """Sentence-contiguous [T]-slot blocks of the kept-token stream with a ±``halo``
+    overlap, the feed of banded CBOW; the blocks are the JAX function's.
+
+    ``slabs`` yields (kept tokens, start flags) pieces of the stream (the first token
+    carries a flag). Blocks advance by the core width ``Tc = T − 2·halo``: block k holds
+    stream positions ``[k·Tc − halo, k·Tc − halo + T)``, so every kept token is a core
+    slot (``[halo, T − halo)``) of exactly one block. No start bit is set at a cut: the
+    overlap makes windows across it exact. Block 0's ``halo`` pre-stream slots are zero
+    tokens with no start bit (never centers, never contexts). The last blocks are
+    emitted while a token has not been a core slot.
+
+    Yields ``(tokens [T], start bits, n_valid, ordinal base, n_core)``: the valid slot
+    prefix, the kept-token ordinal of slot 0 (wrapped to 64 bits: block 0's is −halo)
+    and the new core tokens of the block (the lr clock's increment). The unconsumed
+    tail is kept as views of the last concatenation, not copied at every cut."""
+    if halo <= 0:
+        raise ValueError(f"halo must be positive, got {halo}")
+    Tc = T - 2 * halo
+    if Tc <= 0:
+        raise ValueError(f"T={T} leaves no core slots at halo={halo}")
+    buf_tok = np.zeros(halo, tok_dtype)   # block 0's pre-stream slots
+    buf_start = np.zeros(halo, bool)
+    bpos = -halo                          # stream position of buf[0]
+
+    def emit(n_core: int):
+        n = min(buf_tok.shape[0], T)
+        tokens = np.zeros(T, tok_dtype)
+        tokens[:n] = buf_tok[:n]
+        bits = np.packbits(np.pad(buf_start[:n], (0, T - n)), bitorder="little")
+        return tokens, bits, n, bpos & 0xFFFFFFFFFFFFFFFF, n_core
+
+    for ktoks, kstart in slabs:
+        if ktoks.shape[0] == 0:
+            continue
+        buf_tok = np.concatenate([buf_tok, ktoks.astype(tok_dtype)])
+        buf_start = np.concatenate([buf_start, kstart])
+        while buf_tok.shape[0] >= T:
+            yield emit(Tc)
+            buf_tok, buf_start = buf_tok[Tc:], buf_start[Tc:]
+            bpos += Tc
+    # a stream position >= bpos + halo that has not been a core slot remains
+    while buf_tok.shape[0] > halo:
+        yield emit(min(buf_tok.shape[0] - halo, Tc))
+        buf_tok, buf_start = buf_tok[Tc:], buf_start[Tc:]
+        bpos += Tc
 
 
 @dataclass

@@ -26,6 +26,10 @@ Differences from the JAX function, none of which changes a value:
   (``scatter_add_``, exact on integers).
 - Centers and contexts come back as int64 (the steps index with them); kept_words and
   dropped_pairs as int64 tensors of shape [K] (0-d for a 1-D block).
+
+:func:`device_cbow_windows` (banded CBOW's window geometry over halo-overlapped blocks)
+is batched the same way, ``[K, T] -> [K, T]``; its left and right extents come back as
+int64.
 """
 
 from __future__ import annotations
@@ -186,6 +190,75 @@ def device_block_pairs(
         dropped_pairs=torch.clamp(total_pairs[:, 0] - B, min=0))
     if squeeze:
         out = DevicePairs(*(x[0] for x in out))
+    return out
+
+
+class CbowBand(NamedTuple):
+    """Per-slot CBOW window geometry of sentence-contiguous token blocks, the input of
+    the banded step (``ops/cbow_banded.py``)."""
+
+    left: torch.Tensor    # int64 [K, T]: context extent to the left of each slot
+    right: torch.Tensor   # int64 [K, T]: context extent to the right
+    center: torch.Tensor  # float32 [K, T]: 1.0 where the slot is a core center
+    token: torch.Tensor   # float32 [K, T]: 1.0 for valid token slots
+
+
+def device_cbow_windows(
+    tokens: torch.Tensor,      # int [K, T] or [T]: kept tokens, sentence-contiguous,
+                               # +-halo overlap at the block edges
+    start_bits: torch.Tensor,  # uint8 [K, ceil(T/8)]: bit t set iff a sentence
+                               # starts at slot t
+    n_valid,                   # [K] or scalar: real token slots (a prefix)
+    ord_lo,                    # [K] or scalar: kept-token ordinal of slot 0, low bits
+    ord_hi,                    # [K] or scalar: high 32 bits
+    win_base,                  # scalar or [K]: hashrng base of STREAM_WINDOW
+    window: int,
+    halo: int,                 # core slots are [halo, T - halo); needs halo >= window
+    legacy_asymmetric_window: bool = True,
+) -> CbowBand:
+    """Each slot's window extents from the hash lattice, the JAX function's stages:
+    the draw ``b = hash % window`` keyed by the kept-token ordinal (``ord_base + t``,
+    so a token draws the same window in every block that holds it), ``left = min(b,
+    pos)`` with pos counted from the last in-block sentence start (slot 0 as the implicit
+    base), ``right`` clamped by the next in-block start bit or ``n_valid``. With ``halo
+    >= window`` both clamps are exact for every core slot. Row k equals the JAX function
+    on block k; block 0's base is −halo wrapped to 64 bits, whose carry into the high
+    word is exact."""
+    squeeze = tokens.dim() == 1
+    if squeeze:
+        tokens, start_bits = tokens[None], start_bits.reshape(1, -1)
+    dev = tokens.device
+    K, T = tokens.shape
+    t = torch.arange(T, dtype=torch.int64, device=dev)[None, :]        # [1, T]
+    nv = _col(n_valid, K, dev)
+    valid = (t < nv).expand(K, T)
+    lo0, hi0 = _col(ord_lo, K, dev), _col(ord_hi, K, dev)
+    lo = (lo0 + t) & _M32
+    hi = (hi0 + (lo < lo0).to(torch.int64)) & _M32
+
+    bits = start_bits.to(torch.int64).index_select(1, t[0] >> 3)
+    is_start = ((bits >> (t & 7)) & 1).bool() & valid
+    seg_base = torch.cummax(torch.where(is_start, t, 0), dim=1).values
+    pos = t - seg_base
+    ns = torch.where(is_start, t, T)
+    ns_next = torch.cat(
+        [ns[:, 1:], torch.full((K, 1), T, dtype=torch.int64, device=dev)], 1)
+    seg_end = torch.flip(torch.cummin(torch.flip(ns_next, [1]), dim=1).values, [1])
+    seg_end = torch.minimum(seg_end, nv) if isinstance(nv, torch.Tensor) \
+        else torch.clamp(seg_end, max=nv)
+    right_avail = seg_end - 1 - t
+
+    b = hash_mod_at(_col(win_base, K, dev), lo, hi, window)
+    left = torch.minimum(b, pos)
+    right_extent = b - 1 if legacy_asymmetric_window else b
+    right = torch.clamp(torch.minimum(right_extent, right_avail), min=0)
+    left = torch.where(valid, left, 0)
+    right = torch.where(valid, right, 0)
+    core = (t >= halo) & (t < T - halo) & valid
+    out = CbowBand(left=left, right=right, center=core.to(torch.float32),
+                   token=valid.to(torch.float32))
+    if squeeze:
+        out = CbowBand(*(x[0] for x in out))
     return out
 
 

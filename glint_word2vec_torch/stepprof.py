@@ -1,8 +1,8 @@
 """Where the time of one of the port's training paths goes, on one NVIDIA GPU.
 
     python -m glint_word2vec_torch.stepprof [--path PATH] [--feed numpy,native]
-        [--prefetch 8,0] [--rounds R] [--switch-interval S] [--seed N] [--tokens N]
-        [--out FILE]
+        [--prefetch 8,0] [--stab] [--endpoint scatter,shift] [--rounds R]
+        [--switch-interval S] [--seed N] [--tokens N] [--out FILE]
 
 ``--path`` picks the step: ``shared`` (skip-gram, shared pool: the fused kernel, the
 default), ``per_pair`` (skip-gram, ``negative_pool=0``), ``cbow`` (scatter CBOW, shared
@@ -10,12 +10,20 @@ pool) or ``cbow_per_example`` (scatter CBOW, ``negative_pool=0``); the last thre
 scatter their rows through the row-scatter kernel. ``shared_devpairs`` and
 ``per_pair_devpairs`` are the two skip-gram steps fed by the device pair generator
 (``device_pairgen=True``): the host ships token blocks and the card expands them.
+``cbow_banded`` is banded CBOW (``cbow_update="banded"``) on its token-block feed
+(``feed_backend`` "device"): T = B + 2·window slots per step. ``--stab`` turns the three
+stabilizers on (``max_row_norm=5, update_clip=0.05, row_l2=1e-3``) on any path; the
+shared path then runs ``sgns_step_shared_scatter_`` instead of the fused kernel.
 Two measurements at the model's full width (V=1,000,000, D=300 padded to 384,
 B=8192, n=5; the AUTO pool resolves to P=256 at this vocabulary), printed as one JSON
 line:
 
 - ``step``: device time of each CUDA kernel of one step (torch.profiler, mean over the
-  profiled steps), on random parameters and Zipf indices;
+  profiled steps), on random parameters and Zipf indices; on ``cbow_banded`` also
+  ``parts``: the device µs of the step's gathers, prefix sums, endpoint delta (each
+  form), products and scatters, each part's ops profiled alone at the step's shapes,
+  and ``by_endpoint``: the whole step's device µs and host µs per call (the calls'
+  enqueue time, before the device finishes) with each endpoint form;
 - ``fit``: ``Trainer.fit`` over a synthetic Zipf corpus, twice from fresh trainers:
   once plain (wall time, steps, pairs/s, and the trainer's ``host_wait_s`` and
   ``dispatch_s``) and once under torch.profiler (the device's busy time, the sum of
@@ -33,7 +41,10 @@ chunks on the calling thread). Both take comma-separated lists; the profile runs
 ``--rounds R`` adds ``ab``: plain fits of every pair, R rounds in turns (the order
 reversed each round), with their medians and one feed-alone pass per round.
 ``--switch-interval`` sets the interpreter's GIL switch interval for the run, to test
-whether the producer thread's cost is the consumer waiting for the GIL.
+whether the producer thread's cost is the consumer waiting for the GIL. ``--endpoint``
+(``cbow_banded``): the banded step's endpoint form on the card
+(``ops.cbow_banded.CUDA_ENDPOINT``), or several, which ``--rounds`` then also takes in
+turns.
 
 It needs a CUDA device and exits 2 without one.
 """
@@ -53,16 +64,21 @@ from glint_word2vec_torch.data import native
 from glint_word2vec_torch.data.pipeline import (
     encode_sentences, epoch_batches, epoch_batches_cbow)
 from glint_word2vec_torch.data.vocab import Vocabulary
+from glint_word2vec_torch.ops import cbow_banded
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
-from glint_word2vec_torch.ops.pairgen import device_block_pairs
+from glint_word2vec_torch.ops.pairgen import device_block_pairs, device_cbow_windows
+from glint_word2vec_torch.ops.scatter import scatter_add_rows_
 from glint_word2vec_torch.ops.sgns import (
-    EmbeddingPair, cbow_step_core, cbow_step_shared_core, sgns_step_core)
+    EmbeddingPair, Stabilizers, cbow_step_core, cbow_step_shared_core, sgns_step_core,
+    sgns_step_shared_scatter_)
 from glint_word2vec_torch.train.trainer import Trainer
 
 V, D_REAL, D, B, P, N_NEG, WINDOW = 1_000_000, 300, 384, 8192, 256, 5, 5
 PATHS = ("shared", "per_pair", "cbow", "cbow_per_example", "shared_devpairs",
-         "per_pair_devpairs")
+         "per_pair_devpairs", "cbow_banded")
 DEVPAIRS = "_devpairs"
+# --stab: the JAX stabilizer suite's combined case (tests/test_stabilizers.py)
+STAB_KNOBS = {"max_row_norm": 5.0, "update_clip": 0.05, "row_l2": 1e-3}
 
 
 def _device_us(evt) -> float:
@@ -112,69 +128,213 @@ def host_times(prof, top: int = 12) -> dict:
     return out
 
 
-def path_config(path: str, seed: int, prefetch: int = 8) -> Word2VecConfig:
-    """The model at full width on one path."""
+def path_config(path: str, seed: int, prefetch: int = 8,
+                stab: bool = False) -> Word2VecConfig:
+    """The model at full width on one path (``stab``: with the three stabilizers)."""
     knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
                  min_count=1, heartbeat_every_steps=16, seed=seed,
-                 prefetch_chunks=prefetch, device_pairgen=path.endswith(DEVPAIRS))
+                 prefetch_chunks=prefetch, device_pairgen=path.endswith(DEVPAIRS),
+                 **(STAB_KNOBS if stab else {}))
     if path.removesuffix(DEVPAIRS) in ("per_pair", "cbow_per_example"):
         knobs["negative_pool"] = 0
+    if path == "cbow_banded":
+        knobs["cbow_update"] = "banded"
     return Word2VecConfig(cbow=path.startswith("cbow"), **knobs)
 
 
-def step_call(path: str, seed: int):
-    """One metrics-off step of ``path`` on random parameters and Zipf indices (a
-    device-feed path's step is its host-fed twin's)."""
-    path = path.removesuffix(DEVPAIRS)
+def _zipf(rng, shape):
+    return torch.from_numpy((rng.zipf(1.1, shape) - 1) % V).cuda()
+
+
+def _random_params(seed: int) -> EmbeddingPair:
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rng = np.random.default_rng(seed)
     syn0 = torch.zeros((V, D), device="cuda")
     syn1 = torch.zeros((V, D), device="cuda")
     syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
     syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
-    params = EmbeddingPair(syn0, syn1)
+    return EmbeddingPair(syn0, syn1)
 
-    def zipf(shape):
-        return torch.from_numpy((rng.zipf(1.1, shape) - 1) % V).cuda()
 
-    c, x, mask = zipf(B), zipf(B), torch.ones(B, device="cuda")
-    neg = zipf(P) if path in ("shared", "cbow") else zipf((B, N_NEG))
+def banded_block(seed: int, T: int = B + 2 * WINDOW, window: int = WINDOW,
+                 device: str = "cuda"):
+    """One banded step's block on the card: T Zipf tokens in 40-token sentences with a
+    padded tail of 100 slots, its window geometry from ``device_cbow_windows`` (kept
+    ordinals from 0, as a block past the first), and a Zipf pool of P. Returns
+    (tokens, band, negatives)."""
+    rng = np.random.default_rng(seed)
+    n_valid = T - 100
+    tokens = _zipf(rng, T).to(device)
+    tokens[n_valid:] = 0
+    starts = np.zeros(T, bool)
+    starts[0:n_valid:40] = True
+    bits = torch.from_numpy(np.packbits(starts, bitorder="little")).to(device)
+    band = device_cbow_windows(tokens, bits, n_valid, 0, 0, 0x2545F491, window, window)
+    return tokens, band, _zipf(rng, P).to(device)
+
+
+def step_call(path: str, seed: int, stab: bool = False):
+    """One metrics-off step of ``path`` on random parameters and Zipf indices (a
+    device-feed path's step is its host-fed twin's); ``stab``: with the stabilizers,
+    the shared path in its scatter form as the trainer runs it."""
+    path = path.removesuffix(DEVPAIRS)
+    rng = np.random.default_rng(seed)
+    params = _random_params(seed)
+    st = Stabilizers(**STAB_KNOBS) if stab else None
+    if path == "cbow_banded":
+        tokens, band, neg = banded_block(seed)
+        return lambda: cbow_banded.cbow_step_banded_core(
+            params, tokens, band.left, band.right, band.center, band.token, neg, 0.025,
+            N_NEG, WINDOW, "exact", False, stabilizers=st)
+    c, x, mask = _zipf(rng, B), _zipf(rng, B), torch.ones(B, device="cuda")
+    neg = _zipf(rng, P) if path in ("shared", "cbow") else _zipf(rng, (B, N_NEG))
+    if path == "shared" and stab:
+        return lambda: sgns_step_shared_scatter_(params, c, x, mask, neg, 0.025, N_NEG,
+                                                 "exact", False, stabilizers=st)
     if path == "shared":
         return lambda: fused_sgns_shared_step(params, c, x, mask, neg, 0.025, N_NEG,
                                               "exact", False)
     if path == "per_pair":
-        return lambda: sgns_step_core(params, c, x, mask, neg, 0.025)
+        return lambda: sgns_step_core(params, c, x, mask, neg, 0.025, stabilizers=st)
     # the legacy window's context counts: b + max(b - 1, 0) for b in 1..window-1
     b = rng.integers(1, WINDOW, B)
     nctx = torch.from_numpy(2 * b - 1).cuda()
     C = 2 * WINDOW
     ctx_mask = (torch.arange(C, device="cuda")[None, :] < nctx[:, None]).float()
-    ctx = zipf((B, C)) * ctx_mask.long()
+    ctx = _zipf(rng, (B, C)) * ctx_mask.long()
     if path == "cbow":
         return lambda: cbow_step_shared_core(params, c, ctx, ctx_mask, mask, neg, 0.025,
-                                             N_NEG, "exact", False)
-    return lambda: cbow_step_core(params, c, ctx, ctx_mask, mask, neg, 0.025)
+                                             N_NEG, "exact", False, stabilizers=st)
+    return lambda: cbow_step_core(params, c, ctx, ctx_mask, mask, neg, 0.025,
+                                  stabilizers=st)
 
 
-def profile_call(fn, steps: int) -> dict:
+def profile_call(fn, steps: int, attempts: int = 3) -> dict:
     """:func:`kernel_times` of ``steps`` calls of ``fn`` under torch.profiler, after
-    three warm-up calls."""
+    three warm-up calls. A window in which the profiler recorded no device event at all
+    (seen once on an H100 with torch 2.11) is profiled again, up to ``attempts`` windows;
+    then it raises."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    return kernel_times(prof)
+    for _ in range(attempts):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        kt = kernel_times(prof)
+        if kt:
+            return kt
+    raise RuntimeError(f"torch.profiler recorded no device event in {attempts} windows "
+                       f"of {steps} calls")
 
 
-def profile_step(path: str, seed: int, steps: int = 20) -> dict:
-    kt = profile_call(step_call(path, seed), steps)
+def _device_us_per_call(fn, calls: int) -> float:
+    return sum(v["us_total"] for v in profile_call(fn, calls).values()) / calls
+
+
+def host_us_per_call(fn, calls: int) -> float:
+    """Host µs to enqueue one call of ``fn`` (perf_counter around ``calls`` calls, the
+    device synchronised before and not inside), after three warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
+
+
+def banded_parts(seed: int, calls: int = 20) -> dict:
+    """Device µs of the banded step's parts at its shapes (T = B + 2·window, P, D),
+    each part's ops profiled alone: the gathers (syn0 and syn1 at the tokens, the pool,
+    the two prefix rows per slot), the two prefix sums (``cumsum_rows``; beside it
+    other chunk sizes, torch's scan along dim 0, the scan of the transpose and the JAX
+    package's triangular-product form), the
+    endpoint delta in each form, the three products and the two row scatters (the
+    kernel). Their sum leaves out the step's elementwise passes (coefficients, masks,
+    casts)."""
+    params = _random_params(seed)
+    tokens, band, neg = banded_block(seed)
+    T = tokens.shape[0]
+    t = torch.arange(T, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    S = torch.randn((T + 1, D), generator=gen, device="cuda")
+    h = torch.randn((T, D), generator=gen, device="cuda") * 0.1
+    g = torch.randn((T, P), generator=gen, device="cuda") * 1e-3
+    live = band.center * ((band.left + band.right) > 0).float()
+    g_row = torch.randn((T, D), generator=gen, device="cuda") * 1e-3 * live[:, None]
+    Z = params.syn1[neg]
+    upd1 = torch.randn((T + P, D), generator=gen, device="cuda") * 1e-3
+    idx1 = torch.cat([tokens, neg])
+    live1 = torch.cat([live, torch.ones(P, device="cuda")])
+
+    def gathers():
+        params.syn0[tokens], params.syn1[tokens], params.syn1[neg]
+        S[t + band.right + 1], S[t - band.left]
+
+    def prefix_sums(chunk=None):
+        cbow_banded.cumsum_rows(h, chunk), cbow_banded.cumsum_rows(g_row, chunk)
+
+    def prefix_sums_dim0():  # the first design: torch's scan along dim 0
+        torch.cumsum(h, dim=0), torch.cumsum(g_row, dim=0)
+
+    def prefix_sums_transposed():  # a scan along dim 1 of the transpose
+        for x in (h, g_row):
+            torch.cumsum(x.t().contiguous(), dim=1).t().contiguous()
+
+    def prefix_sums_matmul():  # the JAX package's form: 128-row triangular products
+        tri = torch.tril(torch.ones((128, 128), device="cuda"))
+        for x in (h, g_row):
+            rows = -(-T // 128)
+            xp = torch.nn.functional.pad(x, (0, 0, 0, rows * 128 - T)).view(rows, 128, D)
+            within = tri @ xp
+            totals = within[:, -1]
+            (within + (torch.cumsum(totals, 0) - totals)[:, None]).view(-1, D)[:T]
+
+    def products():
+        h @ Z.T, g @ Z, g.T @ h
+
+    def scatters():
+        scatter_add_rows_(params.syn0, tokens, g_row, band.token)
+        scatter_add_rows_(params.syn1, idx1, upd1, live1)
+
+    parts = {"gathers": gathers, "prefix_sums": prefix_sums,
+             "prefix_sums_dim0": prefix_sums_dim0,
+             "prefix_sums_transposed": prefix_sums_transposed,
+             "prefix_sums_matmul": prefix_sums_matmul, "products": products,
+             "scatters": scatters}
+    for chunk in (32, 128, 256):
+        parts[f"prefix_sums_chunk{chunk}"] = lambda chunk=chunk: prefix_sums(chunk)
+    for form in ("scatter", "shift"):
+        parts[f"endpoint_{form}"] = (
+            lambda form=form: cbow_banded._band_endpoint_delta(
+                g_row, band.left, band.right, WINDOW, form, scatter_add_rows_, live))
+    out = {k: _device_us_per_call(fn, calls) for k, fn in parts.items()}
+    out["endpoint_shift_kernels"] = sum(
+        v["count"] for v in profile_call(parts["endpoint_shift"], 1).values())
+    return out
+
+
+def profile_step(path: str, seed: int, steps: int = 20, stab: bool = False) -> dict:
+    fn = step_call(path, seed, stab)
+    kt = profile_call(fn, steps)
     per_step = {k: v["us_total"] / steps for k, v in kt.items()}
-    return {"steps": steps, "device_us_per_step": per_step,
-            "total_device_us_per_step": sum(per_step.values())}
+    rec = {"steps": steps, "stab": stab, "device_us_per_step": per_step,
+           "total_device_us_per_step": sum(per_step.values())}
+    if path == "cbow_banded":
+        rec["parts"] = banded_parts(seed)
+        rec["by_endpoint"] = {}
+        for form in ("scatter", "shift"):
+            cbow_banded.CUDA_ENDPOINT = form
+            rec["by_endpoint"][form] = {
+                "device_us": _device_us_per_call(fn, steps),
+                "host_us": host_us_per_call(fn, steps)}
+        cbow_banded.CUDA_ENDPOINT = "scatter"
+    return rec
 
 
 def fit_corpus(seed: int, n_tokens: int):
@@ -194,7 +354,7 @@ def feed_pass(trainer: Trainer, encoded) -> tuple:
     """(batches, seconds) of one pass of the trainer's feed alone, at its config's
     backend and ``producer_workers`` (the token-block chunks on the device feed)."""
     cfg = trainer.config
-    if cfg.device_pairgen:
+    if trainer.feed_backend == "device":
         t0 = time.perf_counter()
         n = sum(c["real"] for c in trainer._token_chunk_stream(encoded, 1.0, 1.0))
         return n, time.perf_counter() - t0
@@ -221,18 +381,22 @@ def timed_fit(trainer: Trainer, encoded) -> dict:
             "host_wait_s": trainer.host_wait_time, "dispatch_s": trainer.dispatch_time,
             **({"tokens_per_step": trainer._tokens_per_step,
                 "dropped_pairs": trainer.dropped_pairs}
-               if trainer.config.device_pairgen else {})}
+               if trainer.feed_backend == "device" else {})}
 
 
 def profile_generator(trainer: Trainer, encoded, calls: int = 20) -> dict:
-    """Device time of the pair generator on the first chunk of the trainer's feed:
-    one batched call expands its K blocks; the record gives the chunk's and one
-    step's share."""
+    """Device time of the pair generator (banded CBOW: the window generator) on the
+    first chunk of the trainer's feed: one batched call covers its K blocks; the record
+    gives the chunk's and one step's share."""
     cfg = trainer.config
     chunk = next(iter(trainer._token_chunk_stream(encoded, 1.0, 1.0)))
     a = {k: torch.from_numpy(v).cuda().long() for k, v in chunk["arrays"].items()}
 
     def call():
+        if trainer._banded_cbow:
+            return device_cbow_windows(
+                a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0],
+                a["obase"][:, 1], chunk["win_base"], cfg.window, trainer._block_halo)
         return device_block_pairs(
             a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0], a["obase"][:, 1],
             trainer._keep_prob_dev, chunk["sub_base"], chunk["win_base"], cfg.window,
@@ -246,30 +410,31 @@ def profile_generator(trainer: Trainer, encoded, calls: int = 20) -> dict:
             "kernels_per_call": sum(v["count"] for v in kt.values()) / calls}
 
 
-def make_trainer(path: str, seed: int, prefetch: int, feed: str, vocab) -> Trainer:
+def make_trainer(path: str, seed: int, prefetch: int, feed: str, vocab,
+                 stab: bool = False) -> Trainer:
     """A fresh trainer of ``path``; ``feed="device"`` runs a skip-gram path on the
     device pair generator (its ``_devpairs`` twin), a host feed on the host-fed
-    twin."""
+    twin; banded CBOW has only the token feed."""
     base = path.removesuffix(DEVPAIRS)
-    if feed == "device":
+    if feed == "device" and path != "cbow_banded":
         path = base + DEVPAIRS
-    elif feed != "auto":
+    elif feed not in ("auto", "device"):
         path = base
-    return Trainer(path_config(path, seed, prefetch), vocab, device="cuda",
+    return Trainer(path_config(path, seed, prefetch, stab), vocab, device="cuda",
                    feed_backend=feed)
 
 
 def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
-                prefetch: int = 8) -> dict:
+                prefetch: int = 8, stab: bool = False) -> dict:
     """The process's first fit (wall, counters), the feed alone, and a second fit
     under torch.profiler (device busy time and idle share)."""
     vocab, encoded = corpus
-    trainer = make_trainer(path, seed, prefetch, feed, vocab)
+    trainer = make_trainer(path, seed, prefetch, feed, vocab, stab)
     cfg = trainer.config
     n_batches, feed_s = feed_pass(trainer, encoded)
     rec = timed_fit(trainer, encoded)
     del trainer
-    trainer = make_trainer(path, seed, prefetch, feed, vocab)
+    trainer = make_trainer(path, seed, prefetch, feed, vocab, stab)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -280,7 +445,7 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
     kt = kernel_times(prof)
     busy_s = sum(v["us_total"] for v in kt.values()) / 1e6
     top = sorted(kt.items(), key=lambda kv: -kv[1]["us_total"])[:10]
-    if cfg.device_pairgen:
+    if trainer.feed_backend == "device":
         rec["generator"] = profile_generator(trainer, encoded)
     return {"tokens": int(sum(s.shape[0] for s in encoded)),
             "pool": trainer.config.negative_pool, "batches": n_batches, **rec,
@@ -291,26 +456,31 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
             "host_us_by_thread": host_times(prof)}
 
 
-def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int) -> dict:
-    """Plain fits of every (feed, prefetch) pair, ``rounds`` times, in turns: the
-    order reverses each round (A B B A ...), so that drift over the process hits every
-    pair alike. Beside each round, one pass of each backend's feed alone."""
+def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int,
+            stab: bool = False, endpoints=("scatter",)) -> dict:
+    """Plain fits of every (feed, prefetch, endpoint form) arm, ``rounds`` times, in
+    turns: the order reverses each round (A B B A ...), so that drift over the process
+    hits every arm alike. Beside each round, one pass of each backend's feed alone."""
     vocab, encoded = corpus
-    pairs = [(f, p) for f in feeds for p in prefetches]
+    arms = [(f, p, e) for f in feeds for p in prefetches for e in endpoints]
     runs, feed_s = [], {}
     for r in range(rounds):
-        for feed, prefetch in (pairs if r % 2 == 0 else pairs[::-1]):
-            trainer = make_trainer(path, seed, prefetch, feed, vocab)
-            if prefetch == prefetches[0]:
+        for feed, prefetch, form in (arms if r % 2 == 0 else arms[::-1]):
+            cbow_banded.CUDA_ENDPOINT = form
+            trainer = make_trainer(path, seed, prefetch, feed, vocab, stab)
+            if prefetch == prefetches[0] and form == endpoints[0]:
                 feed_s.setdefault(trainer.feed_backend, []).append(
                     feed_pass(trainer, encoded)[1])
-            runs.append({"round": r, **timed_fit(trainer, encoded)})
+            runs.append({"round": r, "endpoint": form, **timed_fit(trainer, encoded)})
             del trainer
+    cbow_banded.CUDA_ENDPOINT = "scatter"
     summary = {}
-    for feed, prefetch in pairs:
+    for feed, prefetch, form in arms:
         mine = [x for x in runs if x["prefetch_chunks"] == prefetch
+                and x["endpoint"] == form
                 and (feed == "auto" or x["feed_backend"] == feed)]
-        summary[f"{mine[0]['feed_backend']}/prefetch={prefetch}"] = {
+        name = f"{mine[0]['feed_backend']}/prefetch={prefetch}"
+        summary[name + (f"/endpoint={form}" if len(endpoints) > 1 else "")] = {
             k: float(np.median([x[k] for x in mine]))
             for k in ("fit_wall_s", "pairs_per_s", "host_wait_s", "dispatch_s")} | {
             "fit_wall_s_all": [x["fit_wall_s"] for x in mine]}
@@ -330,6 +500,12 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=0,
                     help="after the profile, plain fits of every feed/prefetch pair in "
                          "turns, this many rounds")
+    ap.add_argument("--stab", action="store_true",
+                    help="the three stabilizers on (max_row_norm=5, update_clip=0.05, "
+                         "row_l2=1e-3)")
+    ap.add_argument("--endpoint", default="scatter",
+                    help="cbow_banded: the endpoint form on the card, scatter or shift, "
+                         "or both comma-separated (taken in turns by --rounds)")
     ap.add_argument("--switch-interval", type=float, default=0.0,
                     help="sys.setswitchinterval for the run, in seconds (default: "
                          "the interpreter's, 0.005): how long a thread that wants "
@@ -342,20 +518,27 @@ def main() -> int:
         sys.setswitchinterval(args.switch_interval)
     feeds = args.feed.split(",")
     prefetches = [int(p) for p in args.prefetch.split(",")]
+    endpoints = args.endpoint.split(",")
     if any(f not in ("auto", "numpy", "native", "device") for f in feeds):
         ap.error(f"--feed: numpy, native or device, not {args.feed!r}")
+    if any(e not in ("scatter", "shift") for e in endpoints):
+        ap.error(f"--endpoint: scatter or shift, not {args.endpoint!r}")
     if not torch.cuda.is_available():
         print("stepprof: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     corpus = fit_corpus(args.seed, args.tokens)
     rec = {"device": torch.cuda.get_device_name(0), "path": args.path,
-           "switch_interval_s": sys.getswitchinterval(),
+           "stab": args.stab, "switch_interval_s": sys.getswitchinterval(),
            "native_threads": native.default_threads(),
-           "step": profile_step(args.path, args.seed),
-           "fit": profile_fit(args.path, args.seed, corpus, feeds[0], prefetches[0])}
+           "step": profile_step(args.path, args.seed, stab=args.stab)}
+    cbow_banded.CUDA_ENDPOINT = endpoints[0]
+    rec["fit"] = profile_fit(args.path, args.seed, corpus, feeds[0], prefetches[0],
+                             args.stab)
+    rec["fit"]["endpoint"] = endpoints[0]
     if args.rounds:
-        rec["ab"] = ab_fits(args.path, args.seed, corpus, feeds, prefetches, args.rounds)
+        rec["ab"] = ab_fits(args.path, args.seed, corpus, feeds, prefetches, args.rounds,
+                            args.stab, endpoints)
     line = json.dumps(rec)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:

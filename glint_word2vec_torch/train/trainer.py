@@ -15,6 +15,11 @@ parameters:
   batched call (``ops/pairgen.device_block_pairs``) before the steps. The lr clock
   advances by the kept tokens; heartbeats count the analytic pair estimate, and the
   exact trained and dropped totals stay on the device until the end of the fit;
+- banded CBOW (``cbow_update="banded"``) rides the same token-block feed, cut with a
+  ±window halo overlap (``data/pipeline.pack_halo_token_blocks``): the card derives a
+  chunk's window extents in one batched call (``ops/pairgen.device_cbow_windows``) and
+  each step applies ``ops/cbow_banded.cbow_step_banded_core``; the lr clock advances by
+  each block's new core tokens;
 - with ``prefetch_chunks > 0`` the chunks are assembled on a producer thread, at most
   that many ahead; on the card that thread also stages each chunk: a copy into pinned
   host memory, asynchronous copies to the card on a stream of their own, and an event
@@ -27,9 +32,13 @@ parameters:
   ``global_step + 1``: one ``(K, P)`` pool on the shared-pool paths, ``(K, B, n)`` on
   the per-example paths, so the negative stream is a pure function of (seed, step);
 - the step follows the JAX trainer's selection matrix: shared pool + skip-gram runs the
-  fused kernel, shared pool + CBOW ``cbow_step_shared_core``, a pool of 0
-  ``sgns_step_core`` or ``cbow_step_core`` (the last three scatter their rows through
-  the row-scatter kernel);
+  fused kernel, or, with a stabilizer or ``duplicate_scaling`` on (which the kernel does
+  not implement, as the JAX package's Pallas kernel does not),
+  ``sgns_step_shared_scatter_``; shared pool + CBOW ``cbow_step_shared_core``, banded
+  CBOW ``cbow_step_banded_core``, a pool of 0 ``sgns_step_core`` or ``cbow_step_core``
+  (all but the fused kernel scatter their rows through the row-scatter kernel), each
+  with the config's stabilizers (``self._stabilizers``; all zero runs none of their
+  ops);
 - per-step alphas follow the words clock;
 - chunks no heartbeat will sample run the metrics-elided step (same parameters);
 - the AUTO pool is re-resolved for vocabularies past 500k words, and an AUTO
@@ -44,8 +53,8 @@ Differences: the steps update the parameters in place, the feed ships int32 indi
 short last chunk is not padded with the JAX package's masked dummy steps (they are exact
 no-ops), the device feed has one data segment (a checkpoint that holds only
 per-segment positions is refused), and rollback/recovery, telemetry, statusd,
-profiling, stability advisories, banded CBOW and the multi-process feeds are not ported
-yet.
+profiling, stability advisories, ``norm_watch`` (and its recovery ladder) and the
+multi-process feeds are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,20 +75,26 @@ from glint_word2vec_torch.data.hashrng import (
     STREAM_SUBSAMPLE, STREAM_WINDOW, hash_u01_at, stream_base)
 from glint_word2vec_torch.data.pipeline import (
     epoch_batches, epoch_batches_cbow, expected_kept_words, iter_sentence_slabs,
-    keep_probabilities, ordered_pool_map, resolve_backend, stream_rng)
+    keep_probabilities, ordered_pool_map, pack_halo_token_blocks, resolve_backend,
+    stream_rng)
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.ops import scatter
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
-from glint_word2vec_torch.ops.pairgen import device_block_pairs
+from glint_word2vec_torch.ops.cbow_banded import cbow_step_banded_core
+from glint_word2vec_torch.ops.pairgen import device_block_pairs, device_cbow_windows
 from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives_hash
 from glint_word2vec_torch.ops.sgns import (
-    EmbeddingPair, StepMetrics, alpha_schedule, cbow_step_core, cbow_step_shared_core,
-    init_embeddings, sgns_step_core)
+    EmbeddingPair, Stabilizers, StepMetrics, alpha_schedule, cbow_step_core,
+    cbow_step_shared_core, init_embeddings, sgns_step_core, sgns_step_shared_scatter_)
 from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model
 
 logger = logging.getLogger("glint_word2vec_torch")
+
+
+def _is_banded(cfg: Word2VecConfig) -> bool:
+    return bool(cfg.cbow and cfg.cbow_update == "banded")
 
 
 class NonFiniteParamsError(RuntimeError):
@@ -91,6 +106,13 @@ def _pairs_per_kept_token(window: int) -> float:
     clipping ignored, so it overestimates slightly), floored at 1e-3."""
     b = np.arange(window, dtype=np.float64)
     return max(float(b.mean() + np.clip(b - 1, 0, None).mean()), 1e-3)
+
+
+def _cbow_examples_per_kept_token(window: int) -> float:
+    """P[a kept token trains a CBOW example] under the legacy asymmetric window: the
+    draw b = 0 gives no context, hence (window - 1)/window (sentence edges ignored;
+    heartbeats only), floored at 1e-3."""
+    return max((window - 1) / window, 1e-3)
 
 
 class _threaded_iter:
@@ -201,8 +223,9 @@ class Trainer:
     ):
         """``feed_backend``: the skip-gram pair generator, "native", "numpy" or
         "auto" (native when it is built, as the JAX package chooses); CBOW has only
-        the numpy generator, and ``device_pairgen`` only "device" (which "auto"
-        resolves to). The resolved choice is ``self.feed_backend``."""
+        the numpy generator, and ``device_pairgen`` and banded CBOW only "device" (the
+        token-block feed, which "auto" resolves to). The resolved choice is
+        ``self.feed_backend``."""
         self.device = resolve_device(device)
         self.config = config
         self.vocab = vocab
@@ -225,6 +248,17 @@ class Trainer:
         if self.config.device_pairgen:
             self._init_token_block_feed(
                 self.config.tokens_per_step or self._auto_tokens_per_step())
+        # banded CBOW: the token-block feed with a +-window halo at the block cuts, so
+        # windows across a cut are exact; the core slots of a block are one step's
+        # examples
+        self._banded_cbow = _is_banded(self.config)
+        self._block_halo = self.config.window if self._banded_cbow else 0
+        if self._banded_cbow:
+            self._init_token_block_feed(self.config.pairs_per_batch + 2 * self._block_halo)
+        # from the config; all zero runs no stabilizer op
+        self._stabilizers = Stabilizers(max_row_norm=self.config.max_row_norm,
+                                        update_clip=self.config.update_clip,
+                                        row_l2=self.config.row_l2)
         # resume continues the (seed, counter) negative lattice where it left off
         self.global_step = self.state.global_step
         self.pairs_trained = 0.0  # real (unmasked) pairs trained over this trainer
@@ -236,10 +270,11 @@ class Trainer:
     # -- setup -----------------------------------------------------------------------
 
     def _resolve_feed(self, backend: str) -> str:
-        if self.config.device_pairgen:
+        if self.config.device_pairgen or _is_banded(self.config):
             if backend not in ("auto", "device"):
-                raise ValueError(f"feed_backend={backend!r}: with device_pairgen the "
-                                 "pairs are generated on the device")
+                raise ValueError(f"feed_backend={backend!r}: with device_pairgen or "
+                                 "banded CBOW the host ships token blocks and the "
+                                 "device derives the pairs or windows")
             return "device"
         if not self.config.cbow:
             return resolve_backend(backend)
@@ -337,9 +372,10 @@ class Trainer:
         self.config = new_cfg
 
     def _init_token_block_feed(self, tokens_per_step: int) -> None:
-        """The device feed's setup: the keep table on the device (from the subsample
-        ratio the duplicate channel resolved), T, and the JAX package's 2^24 bound for
-        a T the Trainer sized (the config checks an explicit one)."""
+        """The token-block feed's setup: the keep table on the device (from the
+        subsample ratio the duplicate channel resolved), T, and, with
+        ``device_pairgen``, the JAX package's 2^24 bound for a T the Trainer sized (the
+        config checks an explicit one)."""
         cfg = self.config
         keep = keep_probabilities(self.vocab.counts, self.vocab.train_words_count,
                                   cfg.subsample_ratio).astype(np.float32)
@@ -348,7 +384,7 @@ class Trainer:
         kp[:self.vocab.size] = keep
         self._keep_prob_dev = torch.from_numpy(kp).to(self.device)
         self._tokens_per_step = tokens_per_step
-        if tokens_per_step * (2 * cfg.window - 1) >= 1 << 24:
+        if cfg.device_pairgen and tokens_per_step * (2 * cfg.window - 1) >= 1 << 24:
             raise ValueError(
                 f"tokens_per_step={tokens_per_step} with window={cfg.window} overflows "
                 f"the device generator's exact-f32 prefix-sum bound (T * (2*window - 1) "
@@ -448,8 +484,10 @@ class Trainer:
         kept stream is cut at T boundaries: a sentence straddling a cut loses its
         cross-cut windows, as the reference's maxSentenceLength chunking does. Yields
         (tokens int32 [T], start bits uint8 [ceil(T/8)], n_valid, kept-ordinal base,
-        kept count). One data segment: the multi-process feed waits with the
-        multi-device work."""
+        kept count). Banded CBOW (``self._block_halo > 0``) cuts the same kept stream
+        with a ±halo overlap instead (``pack_halo_token_blocks``), and the count is the
+        block's new core tokens. One data segment: the multi-process feed waits with
+        the multi-device work."""
         cfg = self.config
         workers = cfg.producer_workers if workers is None else workers
         T = self._tokens_per_step
@@ -484,6 +522,11 @@ class Trainer:
             starts[1:] = sids[1:] != sids[:-1]
             return tokens.astype(np.int32), starts
 
+        kept = (res for res in ordered_pool_map(run_slab, slab_jobs(), workers)
+                if res is not None)
+        if self._block_halo:
+            yield from pack_halo_token_blocks(kept, T, self._block_halo)
+            return
         base = 0
         rest_tok = np.empty(0, np.int32)
         rest_start = np.empty(0, bool)
@@ -495,11 +538,9 @@ class Trainer:
             bits = np.packbits(np.pad(starts, (0, T - n)), bitorder="little")
             return buf, bits, n, base, float(n)
 
-        for res in ordered_pool_map(run_slab, slab_jobs(), workers):
-            if res is None:
-                continue
-            rest_tok = np.concatenate([rest_tok, res[0]])
-            rest_start = np.concatenate([rest_start, res[1]])
+        for ktoks, kstart in kept:
+            rest_tok = np.concatenate([rest_tok, ktoks])
+            rest_start = np.concatenate([rest_start, kstart])
             while rest_tok.shape[0] >= T:
                 yield emit(rest_tok[:T], rest_start[:T])
                 base += T
@@ -514,15 +555,17 @@ class Trainer:
 
     def _token_chunk_stream(self, sentences: Sequence[np.ndarray], total_words: float,
                             train_words: float) -> Iterator[dict]:
-        """The device feed's chunks: up to K step rows, their alphas on the words
-        clock (advanced by each block's kept tokens), and the analytic pair estimate
-        the heartbeats read (the exact count stays on the device until the end). No
-        torch call, so it may run on the producer thread."""
+        """The token feed's chunks: up to K step rows, their alphas on the words
+        clock (advanced by each block's kept or new core tokens), and the analytic
+        pair (or CBOW example) estimate the heartbeats read (the exact count stays on
+        the device until the end). No torch call, so it may run on the producer
+        thread."""
         cfg = self.config
         K, T = cfg.steps_per_dispatch, self._tokens_per_step
         start_iter = self.state.iteration
         skip_steps = self.state.batches_done if not self.state.finished else 0
-        rate = _pairs_per_kept_token(cfg.window)
+        rate = (_cbow_examples_per_kept_token(cfg.window) if self._banded_cbow
+                else _pairs_per_kept_token(cfg.window))
 
         def chunks() -> Iterator[dict]:
             for k in range(start_iter, cfg.num_iterations + 1):
@@ -603,23 +646,31 @@ class Trainer:
 
     def _step_fn(self) -> Callable:
         """The step of this config, ``step(batch, negatives, alpha, with_metrics)``:
-        the JAX trainer's selection matrix without banded CBOW, pallas, shard_map and
-        hot rows (the config refuses those)."""
+        the JAX trainer's single-device selection matrix on the pair feeds (banded CBOW
+        runs in ``_run_banded_chunk``; pallas, shard_map and hot rows are refused by
+        the config)."""
         cfg = self.config
         p, n, mode = self.params, cfg.negatives, cfg.sigmoid_mode
+        stab, dup = self._stabilizers, cfg.duplicate_scaling
         if cfg.cbow and cfg.negative_pool > 0:
             return lambda b, neg, alpha, wm: cbow_step_shared_core(
                 p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha, n,
-                mode, wm)
+                mode, wm, stabilizers=stab)
         if cfg.cbow:
             return lambda b, neg, alpha, wm: cbow_step_core(
                 p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha,
-                mode)
+                mode, duplicate_scaling=dup, stabilizers=stab)
+        if cfg.negative_pool > 0 and (stab.enabled or dup):
+            # the fused kernel has neither (the JAX package's pallas step neither)
+            return lambda b, neg, alpha, wm: sgns_step_shared_scatter_(
+                p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm,
+                duplicate_scaling=dup, stabilizers=stab)
         if cfg.negative_pool > 0:
             return lambda b, neg, alpha, wm: fused_sgns_shared_step(
                 p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm)
         return lambda b, neg, alpha, wm: sgns_step_core(
-            p, b["centers"], b["contexts"], b["mask"], neg, alpha, mode)
+            p, b["centers"], b["contexts"], b["mask"], neg, alpha, mode,
+            duplicate_scaling=dup, stabilizers=stab)
 
     def _device_pairs(self, arrays: dict, chunk: dict) -> dict:
         """The chunk's pairs from its token blocks, in one batched call of the device
@@ -635,10 +686,35 @@ class Trainer:
         return {"centers": pairs.centers, "contexts": pairs.contexts,
                 "mask": pairs.mask}
 
+    def _run_banded_chunk(self, arrays: dict, chunk: dict) -> StepMetrics:
+        """Banded CBOW: the window extents of the chunk's K blocks in one batched call,
+        then one banded step per block; the exact example count accumulates on the
+        device. Returns the last step's metrics."""
+        cfg = self.config
+        obase = arrays["obase"]
+        band = device_cbow_windows(
+            arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
+            obase[:, 1], chunk["win_base"], cfg.window, self._block_halo)
+        self._exact_pairs += ((band.center > 0) & (band.left + band.right > 0)).sum()
+        negatives = sample_negatives_hash(
+            self._table_prob, self._table_alias, cfg.seed, self.global_step + 1,
+            (cfg.steps_per_dispatch, cfg.negative_pool))
+        with_metrics = self._with_metrics(chunk["real"])
+        metrics = None
+        for k in range(chunk["real"]):
+            metrics = cbow_step_banded_core(
+                self.params, arrays["tokens"][k], band.left[k], band.right[k],
+                band.center[k], band.token[k], negatives[k], float(chunk["alphas"][k]),
+                cfg.negatives, cfg.window, cfg.sigmoid_mode, with_metrics,
+                stabilizers=self._stabilizers)
+        return metrics
+
     def _run_chunk(self, chunk: dict) -> StepMetrics:
         """Train the steps of one chunk; returns the last step's metrics."""
         cfg = self.config
         arrays = self._device_arrays(chunk)
+        if self._banded_cbow:
+            return self._run_banded_chunk(arrays, chunk)
         if cfg.device_pairgen:
             arrays = self._device_pairs(arrays, chunk)
         K, B = cfg.steps_per_dispatch, arrays["centers"].shape[1]
@@ -680,7 +756,8 @@ class Trainer:
         self._pairs_since_log = 0.0
         self.host_wait_time = 0.0
         self.dispatch_time = 0.0
-        if cfg.device_pairgen:
+        token_feed = cfg.device_pairgen or self._banded_cbow
+        if token_feed:
             self._exact_pairs = torch.zeros((), dtype=torch.int64, device=self.device)
             self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
             est_total = 0.0
@@ -701,14 +778,14 @@ class Trainer:
                 t0 = time.perf_counter()
                 metrics = self._run_chunk(chunk)
                 self.dispatch_time += time.perf_counter() - t0
-                if cfg.device_pairgen:
+                if token_feed:
                     est_total += chunk["real_pairs"]
                 self._finish_round(chunk, metrics, checkpoint_path,
                                    checkpoint_every_steps, on_heartbeat)
         finally:
             chunks.close()
         scatter.check_errors()
-        if cfg.device_pairgen:
+        if token_feed:
             self._settle_device_pairgen_books(est_total)
         self.state = TrainState(
             iteration=cfg.num_iterations,
@@ -720,14 +797,15 @@ class Trainer:
 
     def _check_resume_position(self) -> None:
         """Refuse a checkpoint whose recorded position indexes another feed's stream.
-        A device-feed checkpoint carries its position twice: ``batches_done`` (the
-        step rows of this process's stream, what this trainer skips, as the JAX
-        package's single-process device feed does) and ``shard_progress`` (per data
-        segment); one without ``batches_done`` needs the per-segment resume."""
+        A token-feed checkpoint (device pairs or banded CBOW) carries its position
+        twice: ``batches_done`` (the step rows of this process's stream, what this
+        trainer skips, as the JAX package's single-process device feed does) and
+        ``shard_progress`` (per data segment); one without ``batches_done`` needs the
+        per-segment resume."""
         st, cfg = self.state, self.config
         if st.shard_progress is None or st.finished:
             return
-        if cfg.device_pairgen:
+        if cfg.device_pairgen or self._banded_cbow:
             if st.shard_feed != "tokens":
                 raise ValueError(
                     "checkpoint was written by a host-feed sharded-input run (its "
@@ -744,7 +822,8 @@ class Trainer:
             raise ValueError(
                 "checkpoint was written by a token-block-feed run (its positions index "
                 "per-segment token streams); resume it with the same feed — "
-                "device_pairgen=True")
+                "device_pairgen=True, or cbow_update='banded' if it was a banded-CBOW "
+                "run")
         raise ValueError(
             f"checkpoint was written by a sharded-input multi-process run "
             f"({len(st.shard_progress)} shards); the port resumes single-process runs "

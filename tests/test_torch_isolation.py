@@ -31,7 +31,8 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.stepprof, glint_word2vec_torch.interop, "
             "glint_word2vec_torch.data.native, glint_word2vec_torch.data.corpus, "
             "glint_word2vec_torch.data.ingest_native, glint_word2vec_torch.train.faults, "
-            "glint_word2vec_torch.ops.pairgen, glint_word2vec_torch.models.compat\n"
+            "glint_word2vec_torch.ops.pairgen, glint_word2vec_torch.models.compat, "
+            "glint_word2vec_torch.ops.cbow_banded\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -119,18 +120,29 @@ def test_prng_helpers_take_no_default_device():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("cbow_update", "banded"), ("use_pallas", True), ("param_dtype", "bfloat16"),
-    ("hot_rows", 8), ("max_row_norm", 10.0), ("num_model_shards", 2),
+    ("fused_logits", True), ("use_pallas", True), ("param_dtype", "bfloat16"),
+    ("hot_rows", 8), ("logits_dtype", "bfloat16"), ("num_model_shards", 2),
     ("step_lowering", "shard_map"), ("telemetry_path", "/x"), ("norm_watch", "warn"),
     ("nonfinite_policy", "rollback"), ("serve_ann_quant", "pq"), ("mesh_shape", (2, 1)),
 ])
 def test_unported_knobs_are_refused_by_name(knob, value):
-    extra = {"cbow": True} if knob == "cbow_update" else {}  # banded needs CBOW
     with pytest.raises(NotImplementedError, match=knob):
-        Word2VecConfig(pairs_per_batch=8192, **{knob: value}, **extra)
+        Word2VecConfig(pairs_per_batch=8192, **{knob: value})
     d = Word2VecConfig(pairs_per_batch=8192).to_dict()
-    d.update({knob: value}, **extra)
+    d.update({knob: value})
     assert getattr(Word2VecConfig.from_dict(d, check_ported=False), knob) == value
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("cbow_update", "banded"), ("max_row_norm", 10.0), ("update_clip", 0.5),
+    ("row_l2", 1e-4), ("duplicate_scaling", True),
+])
+def test_ported_knobs_are_accepted(knob, value):
+    """Banded CBOW, the stabilizers and duplicate scaling are ported: accepted by the
+    config and carried through to_dict/from_dict with the port's checks on."""
+    extra = {"cbow": True} if knob == "cbow_update" else {}  # banded needs CBOW
+    cfg = Word2VecConfig(pairs_per_batch=8192, **{knob: value}, **extra)
+    assert getattr(Word2VecConfig.from_dict(cfg.to_dict()), knob) == value
 
 
 @pytest.mark.parametrize("kw", [

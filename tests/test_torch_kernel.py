@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the fused
-shared-pool step and the row scatter-add.
+shared-pool step and the row scatter-add (alone, and inside the banded CBOW step and the
+stabilized steps).
 
 Marked ``cuda``: they need an NVIDIA GPU and nvcc, and skip elsewhere (the kernels have
 no CPU mode; chip_smoke.py holds them against the plain versions at the main shapes).
@@ -315,3 +316,127 @@ def test_staged_feed_trains_as_the_calling_thread(cuda):
     assert runs[0].global_step >= 8
     assert not [th.name for th in threading.enumerate()
                 if th.name.startswith(("glint-batch-producer", "glint-feed-worker"))]
+
+
+def _banded_case(cuda, seed, V=5000, D=128, T=600, P=64, W=5):
+    """A banded block on the card: Zipf tokens in sentences of 3 to 30, a padded
+    tail, block 0's wrapped base, a Zipf pool; params N(0, 0.5)."""
+    from glint_word2vec_torch.ops.pairgen import device_cbow_windows
+
+    rng = np.random.default_rng(seed)
+    syn0 = torch.from_numpy(rng.normal(0, 0.5, (V, D)).astype(np.float32)).to(cuda)
+    syn1 = torch.from_numpy(rng.normal(0, 0.5, (V, D)).astype(np.float32)).to(cuda)
+    n_valid = T - 37
+    tokens = torch.from_numpy((rng.zipf(1.2, T) - 1) % V).to(cuda)
+    tokens[n_valid:] = 0
+    cuts = np.cumsum(np.concatenate([[0], rng.integers(3, 31, T)]))
+    starts = np.zeros(T, bool)
+    starts[cuts[cuts < n_valid]] = True
+    bits = torch.from_numpy(np.packbits(starts, bitorder="little")).to(cuda)
+    base = (-W) & 0xFFFFFFFFFFFFFFFF
+    band = device_cbow_windows(tokens, bits, n_valid, base & 0xFFFFFFFF, base >> 32, 77,
+                               W, W)
+    neg = torch.from_numpy((rng.zipf(1.2, P) - 1) % V).to(cuda)
+    return syn0, syn1, tokens, band, neg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("endpoint", ["auto", "shift"])
+@pytest.mark.parametrize("stab", [False, True])
+def test_banded_step_kernel_matches_plain(cuda, endpoint, stab):
+    """The banded step through the scatter kernel (three launches with the scatter
+    endpoint form, two with the shifted adds) against the same step through the plain
+    scatter, and the window geometry on the card against the CPU's."""
+    from glint_word2vec_torch.ops import cbow_banded
+
+    syn0, syn1, tokens, band, neg = _banded_case(cuda, 3)
+    st = tsgns.Stabilizers(max_row_norm=5.0, update_clip=0.05, row_l2=1e-3) if stab \
+        else None
+    runs = []
+    for scatter in (tscatter.scatter_add_rows_, tscatter.scatter_add_rows_reference):
+        p = tsgns.EmbeddingPair(syn0.clone(), syn1.clone())
+        before = tscatter.scatter_add_rows_.launches
+        m = cbow_banded.cbow_step_banded_core(
+            p, tokens, band.left, band.right, band.center, band.token, neg, 0.025, 5, 5,
+            "exact", True, scatter, stabilizers=st, endpoint=endpoint)
+        runs.append((p, m, tscatter.scatter_add_rows_.launches - before))
+    tscatter.check_errors()
+    (got, gm, launched), (want, wm, _) = runs
+    assert launched == (3 if endpoint == "auto" else 2)
+    torch.testing.assert_close(got.syn0, want.syn0, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.syn1, want.syn1, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gm.loss, wm.loss, rtol=1e-4, atol=0)
+    assert float(gm.pairs) == float(wm.pairs) > 300
+    assert float((want.syn0 - syn0).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_device_cbow_windows_card_equals_cpu(cuda):
+    from glint_word2vec_torch.ops.pairgen import device_cbow_windows
+
+    _, _, tokens, band, _ = _banded_case(cuda, 4)
+    rng = np.random.default_rng(4)
+    assert band.center.sum() > 0
+    for K in (1, 3):
+        toks = torch.stack([tokens.roll(k) for k in range(K)])
+        bits = torch.from_numpy(rng.integers(0, 256, (K, (toks.shape[1] + 7) // 8),
+                                             dtype=np.uint8)).to(cuda)
+        nv = torch.tensor([toks.shape[1] - 5 * k for k in range(K)], device=cuda)
+        lo = torch.tensor([0xFFFFFFFB, 7, 0xFFFFFF00][:K], device=cuda)
+        hi = torch.tensor([0xFFFFFFFF, 0, 3][:K], device=cuda)
+        got = device_cbow_windows(toks, bits, nv, lo, hi, 99, 5, 5)
+        want = device_cbow_windows(toks.cpu(), bits.cpu(), nv.cpu(), lo.cpu(), hi.cpu(),
+                                   99, 5, 5)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step,knob", [
+    (step, "stabilizers") for step in ("per_pair", "shared_scatter", "cbow",
+                                       "cbow_per_example")] + [
+    (step, "duplicate_scaling") for step in ("per_pair", "shared_scatter",
+                                             "cbow_per_example")])
+def test_stabilized_steps_kernel_matches_plain(cuda, step, knob):
+    """Each in-place step with the stabilizers (or duplicate scaling, where the step
+    has it) through the scatter kernel against the plain scatter: two launches, atol
+    1e-4, and the clamp holding every moved row to max_row_norm."""
+    rng = np.random.default_rng(6)
+    V, D, B, P, C, n = 4096, 128, 512, 64, 8, 5
+    syn0, syn1, c, x, mask, pool = _step_inputs(cuda, 6, B, P, D, V)
+    neg = torch.from_numpy((rng.zipf(1.3, (B, n)) - 1) % V).to(cuda)
+    nctx = torch.from_numpy(rng.integers(0, C + 1, B)).to(cuda)
+    cm = (torch.arange(C, device=cuda)[None, :] < nctx[:, None]).float()
+    ctx = torch.from_numpy((rng.zipf(1.3, (B, C)) - 1) % V).to(cuda) * cm.long()
+    kw = ({"stabilizers": tsgns.Stabilizers(max_row_norm=5.0, update_clip=0.05,
+                                            row_l2=1e-3)}
+          if knob == "stabilizers" else {"duplicate_scaling": True})
+
+    def run(p, scatter):
+        if step == "per_pair":
+            return tsgns.sgns_step_core(p, c, x, mask, neg, 0.025, "exact", scatter, **kw)
+        if step == "shared_scatter":
+            return tsgns.sgns_step_shared_scatter_(p, c, x, mask, pool, 0.025, 5, "exact",
+                                                   True, scatter, **kw)
+        if step == "cbow":
+            return tsgns.cbow_step_shared_core(p, c, ctx, cm, mask, pool, 0.025, 5,
+                                               "exact", True, scatter, **kw)
+        return tsgns.cbow_step_core(p, c, ctx, cm, mask, neg, 0.025, "exact", scatter,
+                                    **kw)
+
+    runs = []
+    for scatter in (tscatter.scatter_add_rows_, tscatter.scatter_add_rows_reference):
+        p = tsgns.EmbeddingPair(syn0.clone(), syn1.clone())
+        before = tscatter.scatter_add_rows_.launches
+        m = run(p, scatter)
+        runs.append((p, m, tscatter.scatter_add_rows_.launches - before))
+    tscatter.check_errors()
+    (got, gm, launched), (want, wm, _) = runs
+    assert launched == 2
+    torch.testing.assert_close(got.syn0, want.syn0, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.syn1, want.syn1, atol=1e-4, rtol=0)
+    torch.testing.assert_close(gm.loss, wm.loss, rtol=1e-4, atol=0)
+    if knob == "stabilizers":
+        for new, old in zip(got, (syn0, syn1)):
+            moved = (new != old).any(1)
+            assert moved.any() and float(new[moved].norm(dim=1).max()) <= 5.0 * (1 + 1e-5)
