@@ -15,6 +15,19 @@ Phases, one line each (or a few); any failure exits non-zero:
                call (CUDA events, the record's "ms"), and on the device per launch
                (torch.profiler), warm (one batch) and L2-cold (a ring of independently
                drawn batches whose rows exceed the 50 MB L2);
+ 3b. kernel_bf16
+               the fused step's bf16 forms at the main shape: bf16 parameters, compute
+               and logits; the same with fused_logits and bf16_chain; f32 parameters
+               with bf16 compute. Each through the kernel (its bf16 updates applied by
+               the scatter kernel's bf16 path) against the plain step with the same
+               dtypes and against a float64 step, elementwise on the touched rows within
+               2^-7 |row| (bf16 rows) + 2^-4 of the element's summed update terms;
+               and its update rows (bf16 parameters: d_in, d_pos, dZ before the
+               scatters; f32 parameters: the rows' deltas) against the plain step's:
+               at most 2% of the elements differ, at most 0.2% by more than one bf16
+               ulp, and the f32 kernel (the flags cleared) must break that limit
+               (ops/bf16_check); timed per call and on the device, with its fp32, bf16
+               tensor-core and byte bounds;
   4. scatter   the row scatter-add kernel against its plain version (index_add_) and
                both against a float64 sum, at the TPU probe's shape (H=2048, D=384,
                B=65536 Zipf rows into a zeroed target), at the per-pair syn1 shape
@@ -26,6 +39,13 @@ Phases, one line each (or a few); any failure exits non-zero:
                first batch of this corpus's per-pair feed (scatterprobe.feed_centers);
                timed per wrapper call (events) and on the device (torch.profiler),
                index_add_ the same two ways;
+ 4b. scatter_bf16
+               the same five shapes with bf16 target and updates: kernel and plain
+               (each row's updates summed in f32, the row rounded once) against the
+               float64 sum within half a bf16 ulp plus the f32 summation bound, untouched
+               rows bit for bit, torch's bf16 index_add_ beside them (it rounds after
+               every add: another function); 1000 updates of bf16(1e-3) to one row of
+               1.0 (the kernel must give 2.0); timed as in phase 4, byte bound at 2 B;
   5. steps     one full-width per-pair skip-gram step and one CBOW step (shared pool),
                each run once through the scatter kernel and once through the plain
                scatter on identical inputs, parameters compared;
@@ -70,12 +90,21 @@ Phases, one line each (or a few); any failure exits non-zero:
                blocks; the device-fed fit's pairs trained and dropped must equal a
                numpy replay of its token stream through the host pair generator, its
                drops stay under 2%; the banded fit's steps and examples a numpy replay
-               through the halo packer and the host window draw;
+               through the halo packer and the host window draw; then shared-pool
+               skip-gram in bf16 with fused_logits and bf16_chain (the fused kernel and
+               two bf16 scatters a step), shared-pool and per-pair skip-gram with
+               hot_rows=4096 (the scatter form, four scatters a step) and banded CBOW in
+               bf16, the host-fed ones held to a numpy replay of their feed (steps and
+               pairs); last a bf16 fit at V=200,000 (the TPU step bench's vocabulary)
+               with the TPU bench's batch, pool, dispatch and subsample (B=65536, pool
+               512, 32 steps a dispatch, 1e-4) and the device pair generator, on a
+               4.5M-token corpus of the end-to-end bench's Zipf shape, held to the host
+               replay of its token stream;
   9. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
                fit's model, right after that fit; transform_sentences, pull and
                multiply against float64 on the host; a binary word2vec export of the
                whole 1,000,000-row model (file size and sampled rows read back), a
-               text export of its first 20,000 rows (rows read back), and
+               text export of its first 2,000 rows (rows read back), and
                load_latest(reclaim=False) on a directory holding save debris (the
                torn swap's predecessor wins, nothing is touched); then the
                shared-pool fit once more on the calling thread (prefetch_chunks=0)
@@ -125,11 +154,16 @@ SCATTER_RUNS = 25
 # Scatter vs float64: the standard bound of recursive f32 summation, (m - 1)·2^-24·Σ|x|
 # for a row that takes m updates, computed from each shape's own data (scatter_tol).
 EPS32 = 2.0 ** -24
-N_TOKENS = 1_200_000  # one corpus for every fit: >= 4 dispatch chunks on each path
+N_TOKENS = 750_000  # one corpus for every V=1M fit: >= 4 dispatch chunks on each path
+TEXT_ROWS = 2_000  # the text export's rows (the binary export writes all 1M)
+
+
+_T0 = time.perf_counter()
 
 
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the run, after the seconds since the script started."""
+    print(f"[{phase} {time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -439,21 +473,17 @@ def scatter_case(name: str, target, idx, upd, live, torch, scat, probe,
             "most_on_one_row": hottest}
 
 
-def scatter_phase(seed: int, corpus, torch, scat, probe, profile_call) -> dict:
-    """The TPU probe's shape, then the per-pair step's syn1 scatter and the CBOW
-    steps' syn0 context scatter at full width; then the traffic a per-pair step really
-    sends: syn1 with its negatives from the port's alias sampler, and syn0 with the
-    centers of one batch of the smoke's own per-pair feed."""
+def scatter_shapes(seed: int, corpus, torch, probe):
+    """The scatter's five shapes, as (key, name, target, idx, upd, live): the TPU
+    probe's shape, then the per-pair step's syn1 scatter and the CBOW steps' syn0
+    context scatter at full width; then the traffic a per-pair step really sends: syn1
+    with its negatives from the port's alias sampler, and syn0 with the centers of one
+    batch of the smoke's own per-pair feed. Each draw is made when it is reached."""
     from glint_word2vec_torch.data.pipeline import encode_sentences
 
-    def case(name, target, idx, upd, live):
-        return scatter_case(name, target, idx, upd, live, torch, scat, probe,
-                            profile_call)
-
     idxs, x = probe.zipf_head_draw(2048, D, 65536, sets=1)
-    idx = torch.from_numpy(idxs[0]).cuda()
-    rec_probe = case("probe shape", torch.zeros((2048, D), device="cuda"), idx,
-                     torch.from_numpy(x).cuda(), None)
+    yield ("probe_shape", "probe shape", torch.zeros((2048, D), device="cuda"),
+           torch.from_numpy(idxs[0]).cuda(), torch.from_numpy(x).cuda(), None)
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     N = B * (1 + N_NEG)
     target = torch.randn((V, D), generator=gen, device="cuda") * 0.35
@@ -461,34 +491,241 @@ def scatter_phase(seed: int, corpus, torch, scat, probe, profile_call) -> dict:
     live = (torch.rand(N, generator=gen, device="cuda") >= 0.1).float()
     idx[live == 0] = 0                     # dead slots point at the hottest row
     upd = torch.randn((N, D), generator=gen, device="cuda") * 1e-2 * live[:, None]
-    rec = case("per-pair syn1 shape", target, idx, upd, live)
-    del idx, upd, live
+    yield "main", "per-pair syn1 shape", target, idx, upd, live
     (syn0, _), (_, ctx, ctx_mask, mask, _) = step_inputs(seed, torch, cbow=True)
     live = (ctx_mask * mask[:, None]).reshape(-1)  # dead slots carry index 0
     idx = ctx.reshape(-1)
     upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
-    rec_cbow = case("CBOW syn0 context shape", syn0, idx, upd, live)
-    dead_share = float(1.0 - live.mean())
-    del syn0, idx, upd, live
+    yield "cbow_syn0_shape", "CBOW syn0 context shape", syn0, idx, upd, live
+    del syn0
     vocab, sents = corpus
     idx, live = probe.step_syn1_draw(gen, vocab.counts, seed)
     upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
-    rec_step = case("per-pair syn1, step draw (alias negatives)", target, idx, upd, live)
-    encoded = encode_sentences(sents, vocab)
-    idx, live = probe.feed_centers(encoded, vocab, seed, "cuda")
+    yield ("step_syn1_shape", "per-pair syn1, step draw (alias negatives)", target, idx,
+           upd, live)
+    idx, live = probe.feed_centers(encode_sentences(sents, vocab), vocab, seed, "cuda")
     upd = torch.randn((idx.numel(), D), generator=gen, device="cuda") * 1e-2 * live[:, None]
-    rec_centers = case("per-pair syn0 centers (one feed batch)", target, idx, upd, live)
-    del target
-    others = {"probe_shape": rec_probe, "cbow_syn0_shape": rec_cbow,
-              "step_syn1_shape": rec_step, "syn0_centers_shape": rec_centers}
+    yield ("syn0_centers_shape", "per-pair syn0 centers (one feed batch)", target, idx,
+           upd, live)
+
+
+def scatter_phase(seed: int, corpus, torch, scat, probe, profile_call) -> dict:
+    """The five shapes of ``scatter_shapes`` in f32; the record is the per-pair syn1
+    shape's, with the others beside it."""
+    recs = {}
+    for key, name, target, idx, upd, live in scatter_shapes(seed, corpus, torch, probe):
+        recs[key] = scatter_case(name, target, idx, upd, live, torch, scat, probe,
+                                 profile_call)
+        if key == "cbow_syn0_shape":
+            recs[key]["dead_share"] = float(1.0 - live.mean())
+    rec = recs.pop("main")
     keys = ("ms", "device_ms", "cuda_launches_per_call", "library_ms",
             "library_device_ms", "bound_ms", "ns_per_row", "max_abs_err",
             "max_abs_err_f64", "tolerance", "distinct", "most_on_one_row")
-    rec["max_abs_err"] = max(r["max_abs_err"] for r in (rec, *others.values()))
-    for name, r in others.items():
-        rec[name] = {k: r[k] for k in keys}
-    rec["cbow_syn0_shape"]["dead_share"] = dead_share
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in (rec, *recs.values()))
+    for name, r in recs.items():
+        rec[name] = {k: r[k] for k in keys + (("dead_share",) if "dead_share" in r else ())}
     return rec
+
+
+# bf16 forms. The bf16 scatter rounds each row once from an f32 sum: against the float64
+# sum it is within half an ulp (<= 2^-8 |x|) plus the f32 summation bound, and so is the
+# plain version (another f32 order); kernel and plain are within twice that of each other.
+BF16_HALF_ULP = 2.0 ** -8
+PEAK_BF16_FLOPS = 989e12  # H100 SXM bf16 tensor cores, dense (the 700 W data sheet)
+ONE_ROW_CASE = (1000, 1e-3)  # updates of bf16(1e-3) to one row of 1.0: exact 1.9995
+
+
+def bf16_scatter_case(name: str, target, idx, upd, live, torch, scat, probe,
+                      profile_call) -> dict:
+    """The bf16 scatter on one shape (target and updates cast to bf16): kernel and plain
+    against the float64 sum and each other, elementwise, on the live rows; untouched
+    rows bit for bit; torch's bf16 index_add_ beside them (it rounds after every add, on
+    the card as on the CPU: another function). Then timed as the f32 case."""
+    target, upd = target.to(torch.bfloat16), upd.to(torch.bfloat16)
+    keep = live != 0 if live is not None else torch.ones_like(idx, dtype=torch.bool)
+    rows, inv = torch.unique(idx[keep], return_inverse=True)
+    want = target[rows].double().index_add_(0, inv, upd[keep].double())
+    mag = target[rows].abs().double().index_add_(0, inv, upd[keep].abs().double())
+    m = torch.bincount(inv, minlength=rows.numel()).double()[:, None] + 1
+    f32_term = m * EPS32 * mag
+    got = scat.scatter_add_rows_(target.clone(), idx, upd, live)
+    plain = scat.scatter_add_rows_reference(target.clone(), idx, upd, live)
+    lib = target.clone().index_add_(0, idx, upd)
+    scat.check_errors()
+    torch.cuda.synchronize()
+    k, p_, l_ = got[rows].double(), plain[rows].double(), lib[rows].double()
+    # rounding the f32 sum s: half an ulp of s <= 2^-8 (|x| + f32_term)
+    tol = BF16_HALF_ULP * want.abs() + (1 + BF16_HALF_ULP) * f32_term
+    ratio_k = float(((k - want).abs() / tol).max())
+    ratio_p = float(((p_ - want).abs() / tol).max())
+    ratio_kp = float(((k - p_).abs() / (2 * tol)).max())
+    untouched = torch.ones(target.shape[0], dtype=torch.bool, device="cuda")
+    untouched[rows] = False
+    same = bool(torch.equal(got[untouched], target[untouched]))
+    err_kp = float((k - p_).abs().max())
+    err_k = float((k - want).abs().max())
+    err_lib = float((l_ - want).abs().max())
+    del want, mag, f32_term, tol, plain, lib
+    out = target.clone()
+    ms = time_steps(lambda: scat.scatter_add_rows_(out, idx, upd, live), SCATTER_RUNS,
+                    torch)
+    lib_ms = time_steps(lambda: out.index_add_(0, idx, upd), SCATTER_RUNS, torch)
+    plain_ms = time_steps(lambda: scat.scatter_add_rows_reference(out, idx, upd, live),
+                          SCATTER_RUNS, torch)
+    launches = profile_call(lambda: scat.scatter_add_rows_(out, idx, upd, live),
+                            TIMED_STEPS)
+    device_ms = sum(v["us_total"] for v in launches.values()) / TIMED_STEPS / 1e3
+    cuda_launches = sum(v["count"] for v in launches.values()) / TIMED_STEPS
+    lib_launches = profile_call(lambda: out.index_add_(0, idx, upd), TIMED_STEPS)
+    lib_device_ms = sum(v["us_total"] for v in lib_launches.values()) / TIMED_STEPS / 1e3
+    scat.check_errors()
+    bytes_ = probe.bound_bytes(idx, upd.shape[1], live, elem=2)
+    bound_ms = 1e3 * bytes_ / PEAK_BYTES_PER_S
+    N = idx.numel()
+    log("scatter_bf16", f"{name}: N={N} bf16 rows of D={upd.shape[1]} into "
+        f"{target.shape[0]}, {int(keep.sum())} live, {rows.numel()} distinct live "
+        f"targets: max_abs_err kernel-plain {err_kp:.3e}, kernel-f64 {err_k:.3e}; "
+        f"largest share of the stated bound: kernel-f64 {ratio_k:.3f}, plain-f64 "
+        f"{ratio_p:.3f}, kernel-plain {ratio_kp:.3f}; untouched rows bit for bit {same}; "
+        f"index_add_ (bf16, per-add rounding) max_abs_err vs f64 {err_lib:.3e}; kernel "
+        f"{ms:.4f} ms per call (median of {SCATTER_RUNS}), on the device "
+        f"{device_ms:.4f} ms in {cuda_launches:g} CUDA launches per call (" + ", ".join(
+            f"{k} {v['us_total'] / TIMED_STEPS:.2f} us" for k, v in launches.items())
+        + f"), plain {plain_ms:.4f} ms per call, index_add_ bf16 {lib_ms:.4f} ms per "
+        f"call, {lib_device_ms:.4f} ms on the "
+        f"device; bound {bound_ms * 1e3:.1f} us (bytes at 2 B an element: "
+        f"{bytes_ / 1e6:.1f} MB; device time at {bound_ms / device_ms:.0%} of it)")
+    if not (ratio_k <= 1 and ratio_p <= 1 and ratio_kp <= 1 and same):
+        raise AssertionError(f"bf16 scatter {name}: beyond the stated bound (kernel-f64 "
+                             f"{ratio_k:.3f}, plain-f64 {ratio_p:.3f}, kernel-plain "
+                             f"{ratio_kp:.3f} of it) or untouched rows moved ({not same})")
+    return {"max_abs_err": err_kp, "max_abs_err_f64": err_k,
+            "bound_share_kernel_f64": ratio_k, "bound_share_kernel_plain": ratio_kp,
+            "index_add_bf16_max_abs_err_f64": err_lib, "ms": ms, "device_ms": device_ms,
+            "cuda_launches_per_call": cuda_launches, "plain_ms": plain_ms,
+            "library_ms": lib_ms,
+            "library_device_ms": lib_device_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "distinct": int(rows.numel())}
+
+
+def bf16_scatter_phase(seed: int, corpus, torch, scat, probe, profile_call) -> dict:
+    """The five shapes of ``scatter_shapes`` in bf16, then the one-row case: 1000
+    updates of bf16(1e-3) to a row of 1.0 through the kernel (one rounding: 2.0) and
+    through torch's bf16 index_add_ on the card."""
+    recs = {key: bf16_scatter_case(name, target, idx, upd, live, torch, scat, probe,
+                                   profile_call)
+            for key, name, target, idx, upd, live in scatter_shapes(seed, corpus, torch,
+                                                                    probe)}
+    n, u = ONE_ROW_CASE
+    mat = torch.ones((4, D), dtype=torch.bfloat16, device="cuda")
+    idx = torch.full((n,), 1, dtype=torch.int64, device="cuda")
+    upd = torch.full((n, D), u, device="cuda").to(torch.bfloat16)
+    kernel = float(scat.scatter_add_rows_(mat.clone(), idx, upd)[1, 0])
+    lib = float(mat.clone().index_add_(0, idx, upd)[1, 0])
+    exact = 1.0 + n * float(upd[0, 0])
+    log("scatter_bf16", f"one row of 1.0 plus {n} updates of bf16({u}) = "
+        f"{float(upd[0, 0]):.8f}: exact {exact:.6f}, the kernel {kernel}, torch's bf16 "
+        f"index_add_ on the card {lib}")
+    if kernel != 2.0:
+        raise AssertionError(f"the bf16 scatter rounded the one-row case to {kernel}")
+    rec = recs.pop("main")
+    rec["max_abs_err"] = max(r["max_abs_err"] for r in (rec, *recs.values()))
+    rec.update(recs)
+    rec["one_row_case"] = {"exact": exact, "kernel": kernel, "index_add_bf16": lib}
+    return rec
+
+
+def bf16_step_bound(c, x, neg, mask, elem: int, torch) -> dict:
+    """The bf16 step's three bounds: 6·B_real·P·D flops at the fp32 CUDA-core rate and
+    at the bf16 tensor-core rate; the touched rows read and written once at ``elem``
+    bytes an element with the indices and mask; and those bytes plus the f32 scratch
+    this design writes and reads (E, Pc; Z and Zᵀ split; G and Gᵀ split; the dZ
+    partials; the bf16 update rows, when the parameters are bf16)."""
+    real = mask > 0
+    u0 = int(torch.unique(c[real]).numel())
+    u1 = int(torch.unique(torch.cat([x[real], neg])).numel())
+    b_real, Bn, Pn = int(real.sum()), c.numel(), neg.numel()
+    pad = lambda n: -(-n // 128) * 128  # noqa: E731
+    Bp, Pp, Dp = pad(Bn), pad(Pn), pad(D)
+    rows = 2 * (u0 + u1) * D * elem + Bn * (8 + 8 + 4) + Pn * 8
+    scratch = 2 * 4 * (2 * Bp * Dp + 4 * Pp * Dp + 3 * Bp * Pp
+                       + -(-Bp // 1024) * Pp * Dp)
+    if elem == 2:
+        scratch += 2 * 2 * (2 * Bn + Pn) * D
+    flops = 6 * b_real * Pn * D
+    t_rows = rows / PEAK_BYTES_PER_S
+    t_bf16 = flops / PEAK_BF16_FLOPS
+    return {"bound_ms": 1e3 * max(t_rows, t_bf16),
+            "bound_by": "operations" if t_bf16 >= t_rows else "bytes",
+            "bound_fp32_ms": 1e3 * flops / PEAK_FP32_FLOPS,
+            "bound_bf16_tc_ms": 1e3 * t_bf16, "bound_bytes_ms": 1e3 * t_rows,
+            "bound_design_bytes_ms": 1e3 * (rows + scratch) / PEAK_BYTES_PER_S,
+            "flops": flops, "row_bytes": rows, "scratch_bytes": scratch}
+
+
+def bf16_kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
+    """The fused step's three bf16 forms at the main shape, each held to both limits of
+    ``ops/bf16_check.check_form`` (the touched rows against the plain step and a
+    float64 step; the update rows against the plain step's, with the f32 kernel as the
+    control that must break that limit); then timed per wrapper call (events), on the
+    device (torch.profiler: the four fused launches, and every launch of the call) and
+    the plain step per call."""
+    from glint_word2vec_torch.ops import bf16_check
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    base0 = torch.zeros((V, D), device="cuda")
+    base1 = torch.zeros((V, D), device="cuda")
+    base0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    base1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    c, x, mask, neg = shared_batch(gen, torch)
+    alpha, pair = 0.025, sgns.EmbeddingPair
+    ours = ("gather_kernel", "fneg_kernel", "update_kernel", "dz_scatter_kernel")
+    out = {}
+    for name, (pd, cd, ld, fz, ch) in bf16_check.FORMS.items():
+        res = bf16_check.check_form(base0, base1, c, x, mask, neg, name, alpha, N_NEG)
+        pd, cd, ld = (getattr(torch, t) for t in (pd, cd, ld))
+        kw = dict(compute_dtype=cd, logits_dtype=ld, fused=fz, bf16_chain=ch)
+        q = pair(base0.to(pd), base1.to(pd))
+
+        def step(q=q, kw=kw):
+            fused.fused_sgns_shared_step(q, c, x, mask, neg, alpha, N_NEG, "exact", **kw)
+
+        call_ms = time_steps(step, TIMED_STEPS, torch)
+        plain_ms = time_steps(lambda q=q, kw=kw: sgns.sgns_step_shared_core(
+            q, c, x, mask, neg, alpha, N_NEG, "exact", **kw), TIMED_STEPS, torch)
+        launches = profile_call(step, TIMED_STEPS)
+        device_ms = sum(v["us_total"] for v in launches.values()) / TIMED_STEPS / 1e3
+        fused_ms = sum(launches[k]["us_total"] for k in ours if k in launches) \
+            / TIMED_STEPS / 1e3
+        bound = bf16_step_bound(c, x, neg, mask, 2 if pd == torch.bfloat16 else 4, torch)
+        upd, ctl = res["updates"], res["control"]
+        log("kernel_bf16", f"{name}: rows: max_abs_err {res['errs']}, largest share of "
+            f"the stated bound {res['bound_share']}; update rows against the plain "
+            f"step's ({upd['compared']} elements): differ {upd['differ_share']:.3e}, "
+            f"beyond one bf16 ulp {upd['beyond_share']:.3e}, largest {upd['max_ulps']:g} "
+            f"ulps (limits {bf16_check.DIFFER_SHARE:g} and {bf16_check.BEYOND_SHARE:g}); "
+            f"the control (the f32 kernel): differ {ctl['differ_share']:.3e}, beyond "
+            f"{ctl['beyond_share']:.3e}, largest {ctl['max_ulps']:g} ulps; loss_rel_err "
+            f"{res['loss_rel_err']:.3e} (the kernel moved a row by {res['moved']:.3e}); "
+            f"one wrapper call {call_ms:.4f} ms (events, median of {TIMED_STEPS}), on "
+            f"the device {device_ms:.4f} ms per step (all launches of the call; the four "
+            f"fused launches {fused_ms:.4f} ms), plain {plain_ms:.4f} ms; bounds: fp32 "
+            f"{1e3 * bound['bound_fp32_ms']:.1f} us, bf16 tensor cores "
+            f"{1e3 * bound['bound_bf16_tc_ms']:.2f} us, bytes of the touched rows "
+            f"{1e3 * bound['bound_bytes_ms']:.1f} us, with this design's scratch "
+            f"{1e3 * bound['bound_design_bytes_ms']:.1f} us; per launch " + ", ".join(
+                f"{k} {v['us_total'] / TIMED_STEPS:.2f} us" for k, v in launches.items())
+            + "; library_ms: none")
+        if res["failures"]:
+            raise AssertionError(f"bf16 fused step {name}: {res['failures']}")
+        out[name] = {**{k: res[k] for k in ("max_abs_err", "max_abs_err_f64",
+                                            "bound_share", "updates", "control",
+                                            "loss_rel_err")},
+                     "ms": call_ms, "device_ms": device_ms, "fused_device_ms": fused_ms,
+                     "plain_ms": plain_ms, **bound}
+        del q
+    return out
 
 
 def step_inputs(seed: int, torch, cbow: bool):
@@ -789,13 +1026,15 @@ def stabilizers_phase(seed: int, torch, np, sgns, scat) -> dict:
     return out
 
 
-def synthetic_corpus(seed: int, n_tokens: int, np):
-    """Words w0..w{V-1} with Zipf(1) counts, and sentences of 40 tokens drawn from
-    that distribution."""
+def synthetic_corpus(seed: int, n_tokens: int, np, vocab_size: int = V,
+                     shift: float = 1.0, power: float = 1.0):
+    """Words w0..w{vocab_size-1} with Zipf counts 1e9 / (rank + shift)^power (rank
+    from 0; the defaults are Zipf(1)), and sentences of 40 tokens drawn from that
+    distribution."""
     rng = np.random.default_rng(seed)
-    counts = (1e9 / np.arange(1, V + 1)).astype(np.int64) + 1
-    words = [f"w{i}" for i in range(V)]
-    ids = rng.choice(V, size=n_tokens, p=counts / counts.sum())
+    counts = (1e9 / (np.arange(vocab_size) + shift) ** power).astype(np.int64) + 1
+    words = [f"w{i}" for i in range(vocab_size)]
+    ids = rng.choice(vocab_size, size=n_tokens, p=counts / counts.sum())
     toks = [words[i] for i in ids]
     sents = [toks[i:i + 40] for i in range(0, n_tokens, 40)]
     return words, counts, sents
@@ -861,6 +1100,17 @@ def feed_phase(corpus, seed: int, np) -> dict:
     return out
 
 
+BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16",
+        "logits_dtype": "bfloat16"}
+# V=200,000 in bf16 with the TPU bench's batch, pool, dispatch and subsample (bench.py:55,
+# 423-427: B=65536, pool 512, 32 steps a dispatch, 1e-4) and the device pair generator,
+# on a corpus of the end-to-end bench's Zipf shape (counts ~ 1/(rank + 10)^1.05). Not
+# the end-to-end bench's own fit: that draws 4M tokens over 50,000 words and keeps those
+# of min_count 5 (bench.py:395-405); V=200,000 is the step bench's vocabulary.
+BENCH_V, BENCH_TOKENS, BENCH_SHIFT, BENCH_POWER = 200_000, 4_500_000, 10.0, 1.05
+BENCH_KNOBS = {"pairs_per_batch": 65536, "negative_pool": 512, "steps_per_dispatch": 32,
+               "subsample_ratio": 1e-4, "device_pairgen": True, **BF16}
+HOT_ROWS = 4096  # tools/eval_quality.py's default
 FITS = (  # (name, config knobs, pool the trainer must resolve)
     ("shared", {}, 256),
     ("per_pair", {"negative_pool": 0}, 0),
@@ -869,7 +1119,14 @@ FITS = (  # (name, config knobs, pool the trainer must resolve)
     ("shared_devpairs", {"device_pairgen": True}, 256),
     ("cbow_banded", {"cbow": True, "cbow_update": "banded"}, 256),
     ("shared_stab", STAB, 256),
+    ("shared_bf16_fused_chain", {**BF16, "fused_logits": True, "bf16_chain": True}, 256),
+    ("shared_hot", {"hot_rows": HOT_ROWS}, 256),
+    ("per_pair_hot", {"negative_pool": 0, "hot_rows": HOT_ROWS}, 0),
+    ("cbow_banded_bf16", {"cbow": True, "cbow_update": "banded", **BF16}, 256),
 )
+BENCH_FIT = ("v200k_bench_batch_bf16_devpairs", BENCH_KNOBS, 512)
+# host-fed fits whose steps and pairs are held to a numpy replay of the feed
+HOST_REPLAY = ("shared_bf16_fused_chain", "shared_hot", "per_pair_hot")
 DROP_LIMIT = 0.02  # the device feed's overflow drops, as a share of pairs trained
 
 
@@ -995,25 +1252,48 @@ def replay_banded_feed(tr, sents, np) -> tuple:
     return steps, examples
 
 
+def replay_host_feed(tr, sents, np) -> tuple:
+    """(steps, pairs) of the host skip-gram feed replayed by the numpy generator: one
+    batch a step, its real pairs."""
+    from glint_word2vec_torch.data.pipeline import encode_sentences, epoch_batches
+
+    cfg = tr.config
+    encoded = encode_sentences(sents, tr.vocab)
+    steps = pairs = 0
+    for it in range(1, cfg.num_iterations + 1):
+        for b in epoch_batches(encoded, tr.vocab, pairs_per_batch=cfg.pairs_per_batch,
+                               window=cfg.window, subsample_ratio=cfg.subsample_ratio,
+                               seed=cfg.seed, iteration=it, shuffle=cfg.shuffle,
+                               backend="numpy"):
+            steps += 1
+            pairs += int(b.num_real_pairs)
+    return steps, pairs
+
+
 def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused,
               scat, sgns, np):
     """One fit through the estimator; the kernel counts are set to 0 just before it
-    and read just after. Returns (model, fused launches, scatter launches)."""
+    and read just after. Returns (model, fused launches, scatter launches, and those
+    of both in a bf16 form)."""
     from glint_word2vec_torch import Word2Vec
     from glint_word2vec_torch.ops import cbow_banded
 
     vocab, sents = corpus
-    est = Word2Vec(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
-                   pairs_per_batch=B, min_count=1, heartbeat_every_steps=16, seed=seed,
-                   device="cuda", **knobs)
+    est = Word2Vec(**{**dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
+                             pairs_per_batch=B, min_count=1, heartbeat_every_steps=16,
+                             seed=seed, device="cuda"), **knobs})
     fused.fused_sgns_shared_step.launches = 0
+    fused.fused_sgns_shared_step.bf16_launches = 0
     scat.scatter_add_rows_.launches = 0
+    scat.scatter_add_rows_.bf16_launches = 0
     t0 = time.perf_counter()
     model = est.fit(sents, vocab=vocab)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_fused = fused.fused_sgns_shared_step.launches
     n_scat = scat.scatter_add_rows_.launches
+    n_fused_bf16 = fused.fused_sgns_shared_step.bf16_launches
+    n_scat_bf16 = scat.scatter_add_rows_.bf16_launches
     tr = est.trainer
     hb = list(tr.heartbeats)
     loss = hb[-1].loss if hb else float("nan")
@@ -1025,7 +1305,10 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
         f"{tr.config.prefetch_chunks}, producer_workers {tr.config.producer_workers}), "
         f"steps {tr.global_step} "
         f"({-(-tr.global_step // tr.config.steps_per_dispatch)} chunks), {unit} "
-        f"{tr.pairs_trained:.0f}, launches: sgns_shared {n_fused}, scatter_rows {n_scat}; "
+        f"{tr.pairs_trained:.0f}, params {tr.config.param_dtype}, compute "
+        f"{tr.config.compute_dtype}, logits {tr.config.logits_dtype}, hot_rows "
+        f"{tr._hot_rows}, launches: sgns_shared {n_fused} ({n_fused_bf16} bf16), "
+        f"scatter_rows {n_scat} ({n_scat_bf16} bf16); "
         f"fit wall {wall:.2f} s (setup included), {unit}/s over the fit "
         f"{tr.pairs_trained / wall:.0f}, host_wait_s {tr.host_wait_time:.4f}, "
         f"dispatch_s {tr.dispatch_time:.4f}, heartbeat {unit}/s "
@@ -1033,22 +1316,44 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
         + (f"; tokens_per_step {tr._tokens_per_step}, dropped pairs {tr.dropped_pairs}"
            if token_feed else ""))
     steps = tr.global_step
-    fused_path = (tr.config.negative_pool > 0 and not tr.config.cbow
+    hot = tr._hot_rows > 0
+    fused_path = (tr.config.negative_pool > 0 and not tr.config.cbow and not hot
                   and not tr._stabilizers.enabled and not tr.config.duplicate_scaling)
     banded = tr._banded_cbow
-    # the banded step's third scatter is its endpoint delta (ops/cbow_banded)
-    per_step = sgns.SCATTERS_PER_STEP + (banded and cbow_banded.CUDA_ENDPOINT == "scatter")
+    bf16 = tr.config.param_dtype == "bfloat16"
+    # the banded step's third scatter is its endpoint delta (ops/cbow_banded, f32); the
+    # hot rows split each scatter in two; the fused kernel on bf16 parameters applies
+    # its rows with two bf16 scatters
+    per_step = sgns.SCATTERS_PER_STEP * (1 + hot) + (
+        banded and cbow_banded.CUDA_ENDPOINT == "scatter")
+    scat_want = (sgns.SCATTERS_PER_STEP * bf16 if fused_path else per_step) * steps
+    scat_bf16_want = sgns.SCATTERS_PER_STEP * steps * bf16
     want_feed = ("device" if device_feed or banded else "numpy" if tr.config.cbow
                  else "native")
     checks = {f"pool == {pool}": tr.config.negative_pool == pool,
               f"feed_backend == {want_feed}": tr.feed_backend == want_feed,
               "steps >= 4 chunks": steps > 3 * tr.config.steps_per_dispatch,
               "sgns_shared launches": n_fused == (steps if fused_path else 0),
-              "scatter_rows launches": n_scat == (0 if fused_path else steps * per_step),
+              "sgns_shared bf16 launches": n_fused_bf16 == (
+                  steps if fused_path and bf16 else 0),
+              "scatter_rows launches": n_scat == scat_want,
+              "scatter_rows bf16 launches": n_scat_bf16 == scat_bf16_want,
+              "param dtype": tr.params.syn0.dtype == getattr(torch, tr.config.param_dtype),
               "loss finite": math.isfinite(loss),
               "params finite": bool(torch.isfinite(model.syn0).all())}
     if knobs.get("max_row_norm"):
         checks["stabilizers on"] = tr._stabilizers == sgns.Stabilizers(**STAB)
+    if hot:
+        checks[f"hot rows {HOT_ROWS}"] = tr._hot_rows == HOT_ROWS
+        checks["slabs flushed"] = not any(bool(t.any()) for t in tr._slabs)
+    if name in HOST_REPLAY:
+        t0 = time.perf_counter()
+        want_steps, pairs = replay_host_feed(tr, sents, np)
+        log("fit", f"{name}: numpy replay of the host feed: {want_steps} steps, {pairs} "
+            f"pairs ({time.perf_counter() - t0:.1f} s); the fit: {steps} and "
+            f"{tr.pairs_trained:.0f}")
+        checks.update({"steps == host replay": steps == want_steps,
+                       "pairs == host replay": abs(tr.pairs_trained - pairs) < 0.5})
     if banded:
         t0 = time.perf_counter()
         want_steps, examples = replay_banded_feed(tr, sents, np)
@@ -1070,7 +1375,7 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"fit {name} failed: {bad}")
-    return model, n_fused, n_scat
+    return model, n_fused, n_scat, n_fused_bf16, n_scat_bf16
 
 
 def sync_numpy_fit(model, steps: int, corpus, seed: int, torch, fused) -> float:
@@ -1155,12 +1460,12 @@ def surface_phase(model, m, sents, torch, np) -> dict:
                 raw = f.read(int(rec[i]))
                 rows_ok &= raw[:len(word)] == word and raw[-1:] == b"\n" and np.array_equal(
                     np.frombuffer(raw[len(word):-1], "<f4"), f32[i])
-        n = min(20000, vocab.size)
+        n = min(TEXT_ROWS, vocab.size)
         small = Word2VecModel(Vocabulary.from_words_and_counts(
             vocab.words[:n], vocab.counts[:n]), f32[:n], device="cuda")
         t0 = time.perf_counter()
         small.export_word2vec(str(tmp / "small.txt"))
-        out["export_text_20k_s"] = time.perf_counter() - t0
+        out["export_text_s"] = time.perf_counter() - t0
         lines = (tmp / "small.txt").read_text().splitlines()
         text_ok = lines[0] == f"{n} {model.vector_size}" and len(lines) == n + 1
         for i in (0, 1, n - 1):
@@ -1185,7 +1490,7 @@ def surface_phase(model, m, sents, torch, np) -> dict:
         f"within the f32 summation bound {mv_ok}; binary export of {vocab.size} rows "
         f"{out['export_binary_s']:.2f} s, "
         f"{size} bytes (expected size {size_ok}, 66 rows read back {rows_ok}); text "
-        f"export of {n} rows {out['export_text_20k_s']:.2f} s (read back {text_ok}); "
+        f"export of {n} rows {out['export_text_s']:.2f} s (read back {text_ok}); "
         f"load_latest(reclaim=False) {out['load_latest_20k_s']:.2f} s, the debris's "
         f"predecessor, nothing touched {latest_ok}")
     if not (err_ts <= 1e-6 and pull_ok and mv_ok and size_ok and rows_ok and text_ok
@@ -1268,12 +1573,14 @@ def main() -> int:
     log("build", f"{kernels.sources()} built in {build_all(kernels):.1f} s "
         f"({' '.join(kernels.NVCC_FLAGS)})")
     rec = kernel_phase(args.seed, torch, sgns, fused, profile_call)
+    bf16_rec = bf16_kernel_phase(args.seed, torch, sgns, fused, profile_call)
     t0 = time.perf_counter()
     words, counts, sents = synthetic_corpus(args.seed, N_TOKENS, np)
     corpus = (Vocabulary.from_words_and_counts(words, counts), sents)
     log("fit", f"vocabulary {corpus[0].size} words, corpus {N_TOKENS} tokens in "
         f"{len(sents)} sentences ({time.perf_counter() - t0:.1f} s)")
     srec = scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
+    sbf_rec = bf16_scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
     srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
                                                                   scat))
     brec = banded_phase(args.seed, torch, np, sgns, scat, profile_call)
@@ -1283,16 +1590,31 @@ def main() -> int:
     feed = feed_phase(corpus, args.seed, np)
     gen = pairgen_phase(corpus, args.seed, torch, np)
     launches = {}
-    for name, knobs, pool in FITS:
-        model, n_fused, n_scat = fit_phase(
-            name, knobs, pool, corpus, args.seed, torch, fused, scat, sgns, np)
-        launches[name] = {"sgns_shared_step": n_fused, "scatter_add_rows": n_scat}
+    t0 = time.perf_counter()
+    words, counts, bench_sents = synthetic_corpus(args.seed, BENCH_TOKENS, np, BENCH_V,
+                                                  BENCH_SHIFT, BENCH_POWER)
+    bench_corpus = (Vocabulary.from_words_and_counts(words, counts), bench_sents)
+    log("fit", f"V=200k vocabulary {BENCH_V} words, corpus {BENCH_TOKENS} tokens "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for name, knobs, pool in FITS + (BENCH_FIT,):
+        model, *counts_ = fit_phase(name, knobs, pool,
+                                    bench_corpus if knobs is BENCH_KNOBS else corpus,
+                                    args.seed, torch, fused, scat, sgns, np)
+        launches[name] = dict(zip(("sgns_shared_step", "scatter_add_rows",
+                                   "sgns_shared_step_bf16", "scatter_add_rows_bf16"),
+                                  counts_))
         if name == "shared":
             surface = model_phase(model, corpus, torch, np)
-            sync_numpy_fit(model, n_fused, corpus, args.seed, torch, fused)
+            sync_numpy_fit(model, counts_[0], corpus, args.seed, torch, fused)
         del model
+    del bench_corpus, bench_sents
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
-               for k in ("sgns_shared_step", "scatter_add_rows")}
+               for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
+                         "scatter_add_rows_bf16")}
+    for k in ("sgns_shared_step", "scatter_add_rows"):  # the f32 forms' own counts
+        by_path[k] = {name: n - launches[name][k + "_bf16"] for name, n in by_path[k].items()
+                      if n - launches[name][k + "_bf16"]}
+    trio = bf16_rec["trio"]
     kernels_line = {"kernels": [{
         "name": "sgns_shared_step", "route": "cuda", "source": fused.KERNEL_SOURCE,
         "replaces": fused.REPLACES, "launches": sum(by_path["sgns_shared_step"].values()),
@@ -1315,7 +1637,24 @@ def main() -> int:
         "cuda_launches_per_call": srec["cuda_launches_per_call"],
         "distinct": srec["distinct"], "most_on_one_row": srec["most_on_one_row"],
         **{k: srec[k] for k in ("probe_shape", "cbow_syn0_shape", "step_syn1_shape",
-                                "syn0_centers_shape")}}]}
+                                "syn0_centers_shape")}}, {
+        "name": "sgns_shared_step_bf16", "route": "cuda", "source": fused.KERNEL_SOURCE,
+        "replaces": fused.REPLACES,
+        "launches": sum(by_path["sgns_shared_step_bf16"].values()),
+        "launches_by_path": by_path["sgns_shared_step_bf16"],
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_rec.values()),
+        "ms": trio["ms"], "plain_ms": trio["plain_ms"], "bound_ms": trio["bound_ms"],
+        "bound_by": trio["bound_by"], "library_ms": None,
+        "device_ms": trio["device_ms"], "forms": bf16_rec}, {
+        "name": "scatter_add_rows_bf16", "route": "cuda", "source": scat.KERNEL_SOURCE,
+        "replaces": scat.REPLACES,
+        "launches": sum(by_path["scatter_add_rows_bf16"].values()),
+        "launches_by_path": by_path["scatter_add_rows_bf16"],
+        **sbf_rec,
+        "library_note": "index_add_ on bf16 rounds after every add: another function"}]}
+    for k in kernels_line["kernels"]:
+        if k["launches"] == 0:
+            raise AssertionError(f"{k['name']}: no launch on the main path's fits")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,

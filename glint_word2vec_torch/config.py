@@ -10,7 +10,10 @@ with per-pair negatives (``negative_pool`` resolving to 0), fed by host pairs or
 ``device_pairgen``, by token blocks the card expands into pairs; scatter CBOW with
 either pool, and banded CBOW (``cbow_update="banded"``) on halo-overlapped token
 blocks; each with the in-step stabilizers (``max_row_norm``, ``update_clip``,
-``row_l2``) and, where the JAX package has it, ``duplicate_scaling``. A knob that would
+``row_l2``) and, where the JAX package has it, ``duplicate_scaling``; each in float32
+or bfloat16 (``param_dtype``, ``compute_dtype``, ``logits_dtype``), and the skip-gram
+steps with the step restructurings ``fused_logits``, ``bf16_chain`` and ``hot_rows``
+(the JAX package's selection matrix, copied by :func:`_validate_restructurings`). A knob that would
 change the results of training and is not ported yet raises :class:`NotImplementedError` naming it, at construction, when set off its
 default; it is never silently ignored. The host data plane's knobs change wall clock
 only, in both packages (the results are bit-identical at any value):
@@ -26,9 +29,7 @@ from typing import Optional, Tuple
 # Knobs not ported yet, refused off their default (ROADMAP queue A names the slice
 # each one lands in).
 _UNPORTED = (
-    "fused_logits",
-    "bf16_chain", "hot_rows", "use_pallas", "param_dtype", "compute_dtype",
-    "logits_dtype", "step_lowering", "sync_every", "num_model_shards",
+    "use_pallas", "step_lowering", "sync_every", "num_model_shards",
     "num_data_shards", "embedding_partition", "sharded_checkpoint",
     "norm_watch", "telemetry_path", "profile_dir",
     "status_port", "checkpoint_on_preempt", "peer_beacon_s",
@@ -47,7 +48,7 @@ class Word2VecConfig:
 
     ``check_ported`` (init-only, not a field): False skips the refusal of unported
     knobs. Only checkpoint readers pass it, so that a model trained with a path the
-    port does not have yet (e.g. bf16 parameters) can still be loaded for the model
+    port does not have yet (e.g. a multi-device mesh) can still be loaded for the model
     ops, which do not depend on it.
     """
 
@@ -182,9 +183,7 @@ class Word2VecConfig:
         _validate_device_pairgen(self)
         _validate_cbow(self)
         _validate_stabilizers(self)
-        if check_ported:
-            self._refuse_unported()
-        _validate_ranges(self)
+        _validate_dtypes(self)
         # remembered so the Trainer may auto-lower an AUTO ratio (explicit values are
         # refused instead)
         self._auto_subsample = self.subsample_ratio == -1.0
@@ -213,6 +212,11 @@ class Word2VecConfig:
             raise ValueError(
                 f"negative_pool must be nonnegative (or -1 for auto) "
                 f"but got {self.negative_pool}")
+        # after the pool resolves (bf16_chain reads it), before the unported knobs
+        _validate_restructurings(self)
+        if check_ported:
+            self._refuse_unported()
+        _validate_ranges(self)
 
     def _refuse_unported(self) -> None:
         defaults = {f.name: f.default for f in dataclasses.fields(self)}
@@ -338,6 +342,132 @@ def _validate_stabilizers(c: Word2VecConfig) -> None:
             f"update_clip must be nonnegative (0 = off) but got {c.update_clip}")
     if not (0 <= c.row_l2 < 1):
         raise ValueError(f"row_l2 must be in [0, 1) (0 = off) but got {c.row_l2}")
+
+
+def _validate_dtypes(c: Word2VecConfig) -> None:
+    """The JAX package's dtype string checks, copied as they stand."""
+    for name in ("param_dtype", "compute_dtype", "logits_dtype"):
+        value = getattr(c, name)
+        if value not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"{name} must be 'float32' or 'bfloat16' but got {value!r}")
+
+
+def _validate_restructurings(c: Word2VecConfig) -> None:
+    """The JAX package's step-restructuring selection matrix (``fused_logits``,
+    ``bf16_chain``, ``hot_rows`` against CBOW, ``use_pallas``, ``duplicate_scaling``,
+    the stabilizers, ``norm_watch="recover"``, shard_map, the column layout and
+    multi-shard meshes; ``hot_flush_every`` dividing ``steps_per_dispatch``), copied
+    as it stands, classes and messages included. Runs on the resolved pool."""
+    if c.fused_logits:
+        if c.use_pallas:
+            raise ValueError(
+                "fused_logits=True is an XLA-chain restructuring; "
+                "use_pallas=True owns the whole step — drop one")
+        if c.cbow:
+            raise ValueError(
+                "fused_logits=True is implemented for the SGNS logit "
+                "chains only (per-pair and shared-pool); CBOW keeps the "
+                "classic chain — set fused_logits=False")
+        if c.duplicate_scaling:
+            raise ValueError(
+                "fused_logits=True does not support duplicate_scaling="
+                "True: mean-update semantics read the per-pair "
+                "coefficient arrays the fused chain eliminates — use "
+                "the classic chain")
+    if c.bf16_chain:
+        if c.use_pallas:
+            raise ValueError(
+                "bf16_chain=True is an XLA-chain restructuring; "
+                "use_pallas=True owns the whole step — drop one")
+        if c.cbow:
+            raise ValueError(
+                "bf16_chain=True is implemented for the SGNS paths "
+                "only; CBOW keeps the classic chain — set "
+                "bf16_chain=False")
+        if c.compute_dtype != "bfloat16":
+            raise ValueError(
+                "bf16_chain=True requires compute_dtype='bfloat16' — "
+                "with float32 compute there is no reduced-precision "
+                "chain to carry end-to-end")
+        if c.negative_pool != 0 and c.logits_dtype != "bfloat16":
+            raise ValueError(
+                "bf16_chain=True with a shared negative pool requires "
+                "logits_dtype='bfloat16': a float32 [B, pool] logit "
+                "chain would silently keep the dense traffic the knob "
+                "exists to remove")
+    if c.hot_rows < 0:
+        raise ValueError(
+            f"hot_rows must be nonnegative (0 = off) "
+            f"but got {c.hot_rows}")
+    if c.hot_flush_every < 0:
+        raise ValueError(
+            f"hot_flush_every must be nonnegative (0 = auto: once per "
+            f"dispatch chunk) but got {c.hot_flush_every}")
+    if not c.hot_rows:
+        return
+    if c.use_pallas:
+        raise ValueError(
+            "hot_rows is not implemented for use_pallas=True — the "
+            "fused kernel owns its own update math; use the XLA "
+            "SGNS paths")
+    if c.cbow:
+        raise ValueError(
+            "hot_rows is implemented for the SGNS paths only; CBOW "
+            "keeps the classic per-step scatters — set hot_rows=0")
+    if c.duplicate_scaling:
+        raise ValueError(
+            "hot_rows does not support duplicate_scaling=True: "
+            "mean-update scaling and cross-step slab accumulation "
+            "compose into semantics nothing has EVAL evidence for — "
+            "use one or the other")
+    if c.step_lowering == "shard_map":
+        raise ValueError(
+            "hot_rows has no shard_map form: the hot slab is the "
+            "global index prefix [0, K), which under the rows "
+            "layout lives entirely on model shard 0 — owner-local "
+            "accumulation would serialize every hot update onto one "
+            "shard (documented refusal, docs/sharding.md); use "
+            "step_lowering='gspmd' on a single device")
+    if c.embedding_partition == "cols":
+        raise ValueError(
+            "hot_rows requires the rows layout (the slab is a "
+            "whole-row prefix block); embedding_partition='cols' "
+            "owns columns — use 'rows'")
+    if c.num_model_shards > 1 or c.num_data_shards > 1:
+        raise ValueError(
+            "hot_rows is the single-chip step restructuring "
+            "(PERF.md §11); multi-shard meshes keep the classic "
+            "scatters — set hot_rows=0 or use a 1x1 mesh")
+    if c.mesh_shape is not None and tuple(c.mesh_shape) != (1, 1):
+        raise ValueError(
+            "hot_rows is the single-chip step restructuring "
+            f"(PERF.md §11); mesh_shape={c.mesh_shape} keeps the "
+            "classic scatters — set hot_rows=0 or use (1, 1)")
+    if c.max_row_norm or c.update_clip or c.row_l2:
+        raise ValueError(
+            "hot_rows is incompatible with the in-step stabilizers "
+            "(max_row_norm/update_clip/row_l2): the post-scatter "
+            "touched-row pass would measure hot rows missing their "
+            "pending slab deltas — clamping a partial row is the "
+            "silent-distortion class the stabilizers exist to "
+            "prevent; use one or the other")
+    if c.norm_watch == "recover":
+        raise ValueError(
+            "hot_rows is incompatible with norm_watch='recover' "
+            "(the recovery ladder auto-engages max_row_norm, which "
+            "has no hot-row form); use norm_watch='warn'/'halt' or "
+            "hot_rows=0")
+    if c.hot_flush_every and (
+            c.hot_flush_every > c.steps_per_dispatch
+            or c.steps_per_dispatch % c.hot_flush_every):
+        raise ValueError(
+            f"hot_flush_every={c.hot_flush_every} must divide "
+            f"steps_per_dispatch={c.steps_per_dispatch}: the hot "
+            f"slab lives in the dispatch chunk's scan carry and "
+            f"every chunk flushes at its end, so the cadence cannot "
+            f"exceed or straddle the chunk (0 = auto: once per "
+            f"chunk)")
 
 
 def _validate_device_pairgen(c: Word2VecConfig) -> None:

@@ -84,7 +84,25 @@
 //
 // A scalar path (T = float) serves a row width that is not a multiple of 4 or a base
 // that is not 16-byte aligned.
+//
+// bf16 storage (mat and upd bf16, the port's bf16 parameters). The function is then:
+// for each target row, the f32 sum of its live update rows is added to the row widened
+// to f32, and the result is rounded to bf16 ONCE. Per-add rounding (bf16 atomics, or a
+// loop of bf16 adds) would lose exactly the small updates of the hot rows. So a bf16
+// call always takes the grouped path, whatever the slots per row: a row with one owner
+// reads its bf16 values, adds its f32 sum and stores the rounded row; a row cut into
+// several chunks has its chunks' f32 sums added with f32 atomics into an accumulator
+// row (`acc`, f32 [n, d], indexed by the row's first work item, zero before and after
+// every call), and a fifth launch (finish_kernel) adds each such accumulator to its
+// row, rounds once and clears it. The sums are taken in f32 in an order that varies
+// with the atomics, so the kernel and the plain version (ops/scatter.py) may round to
+// neighbouring bf16 values where the f32 sum lies near a rounding boundary.
+//
+// Its byte bound is the f32 one at half the bytes (2 bytes per element of the target
+// rows and the updates), and the grouping's launches are a fixed cost of 10-17 us at
+// 50k-80k slots (above), which the one-launch path avoids in f32 only.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -101,7 +119,9 @@ constexpr int HEAD = 16;  // ints at the head of the scratch: the counters below
 // counters: ints 0-1 are one 64-bit cursor (low word: work items, high word: slots),
 // advanced by B; int 2 is the work items of this call (C -> D)
 enum { CURSOR = 0, WORK_ITEMS = 2 };
-enum { FIRST_CHUNK = 1, SHARED_ROW = 2 };  // work item flags
+// work item flags; bits 2 and up hold the chunk's number q within its row, so a chunk's
+// row accumulator (bf16 calls) is that of item w - q
+enum { FIRST_CHUNK = 1, SHARED_ROW = 2, CHUNK_SHIFT = 2 };
 
 __global__ void __launch_bounds__(GROUP)
 rank_kernel(const int64_t* __restrict__ idx, const float* __restrict__ live, int n,
@@ -232,7 +252,8 @@ plan_kernel(const int64_t* __restrict__ idx, const int* __restrict__ rank, int n
     const int q = k - (s_cend[lo] - cm);
     work[base.y + k] = make_int4(s_row[lo], s_start[lo] + q * chunk,
                                  min(chunk, s_m[lo] - q * chunk),
-                                 (cm > 1 ? SHARED_ROW : 0) | (q == 0 ? FIRST_CHUNK : 0));
+                                 (cm > 1 ? SHARED_ROW : 0) | (q == 0 ? FIRST_CHUNK : 0) |
+                                     (q << CHUNK_SHIFT));
   }
 }
 
@@ -261,6 +282,38 @@ template <> __device__ __forceinline__ float4 zero<float4>() {
 }
 template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 
+// Storage of one T: f32 rows hold T itself, bf16 rows 4 (float4) or 1 (float) bf16
+// values; widen() and narrow() convert, narrow() rounding to nearest even.
+template <bool BF, typename T> struct Stored;
+template <> struct Stored<false, float4> { using V = float4; };
+template <> struct Stored<false, float> { using V = float; };
+template <> struct Stored<true, float4> { using V = uint2; };
+template <> struct Stored<true, float> { using V = unsigned short; };
+
+__device__ __forceinline__ float4 widen(float4 v) { return v; }
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ float4 widen(uint2 v) {
+  return make_float4(bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y));
+}
+__device__ __forceinline__ float widen(unsigned short v) {
+  return __uint_as_float((unsigned)v << 16);
+}
+__device__ __forceinline__ unsigned bf_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+template <typename V> __device__ __forceinline__ V narrow(float4 x);
+template <> __device__ __forceinline__ float4 narrow<float4>(float4 x) { return x; }
+template <> __device__ __forceinline__ uint2 narrow<uint2>(float4 x) {
+  return make_uint2(bf_bits(x.x) | (bf_bits(x.y) << 16), bf_bits(x.z) | (bf_bits(x.w) << 16));
+}
+template <typename V> __device__ __forceinline__ V narrow(float x);
+template <> __device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <> __device__ __forceinline__ unsigned short narrow<unsigned short>(float x) {
+  return (unsigned short)bf_bits(x);
+}
+
 template <typename T, int U>
 __device__ __forceinline__ void add_row(float* mat, int row, int cols, int c0,
                                         const T (&acc)[U]) {
@@ -271,16 +324,19 @@ __device__ __forceinline__ void add_row(float* mat, int row, int cols, int c0,
   }
 }
 
-// T = float4 (cols = d / 4) or float (cols = d); U = columns of T per lane per pass.
-template <typename T, int U>
+// T = float4 (cols = d / 4) or float (cols = d); U = columns of T per lane per pass;
+// BF: mat and upd hold bf16 (a shared row's chunks then add into acc, f32 [n, d]).
+template <bool BF, typename T, int U>
 __global__ void __launch_bounds__(THREADS)
-reduce_kernel(float* __restrict__ mat, const float* __restrict__ upd,
+reduce_kernel(void* __restrict__ mat, const void* __restrict__ upd,
               const int* __restrict__ perm, const int4* __restrict__ work,
-              int* __restrict__ pos, const int* __restrict__ counters, int cols) {
+              int* __restrict__ pos, const int* __restrict__ counters, int cols,
+              float* __restrict__ acc_rows) {
+  using V = typename Stored<BF, T>::V;
   const int lane = threadIdx.x & 31;
   const int items = counters[WORK_ITEMS];
   const int stride = gridDim.x * WARPS;
-  const T* src = reinterpret_cast<const T*>(upd);
+  const V* src = reinterpret_cast<const V*>(upd);
   int w = blockIdx.x * WARPS + (threadIdx.x >> 5);
   int4 it = w < items ? work[w] : make_int4(0, 0, 0, 0);
   while (w < items) {
@@ -288,7 +344,10 @@ reduce_kernel(float* __restrict__ mat, const float* __restrict__ upd,
     const int row = it.x, start = it.y, len = it.z, flags = it.w;
     const bool shared = flags & SHARED_ROW;
     if ((flags & FIRST_CHUNK) && lane == 0) pos[row] = 0;
-    T* dst = reinterpret_cast<T*>(mat) + (int64_t)row * cols;
+    V* dst = reinterpret_cast<V*>(mat) + (int64_t)row * cols;
+    // a bf16 shared row's chunk adds into its accumulator row, never into the row
+    T* adst = reinterpret_cast<T*>(acc_rows) +
+              (int64_t)(w - (flags >> CHUNK_SHIFT)) * cols;
     for (int base = 0; base < cols; base += 32 * U) {  // warp-uniform: shuffles inside
       const int c0 = base + lane;
       T acc[U], old[U];
@@ -296,7 +355,7 @@ reduce_kernel(float* __restrict__ mat, const float* __restrict__ upd,
       for (int u = 0; u < U; ++u) {
         acc[u] = zero<T>();
         // the sole owner of a row reads it while the updates are in flight
-        if (!shared && c0 + 32 * u < cols) old[u] = dst[c0 + 32 * u];
+        if (!shared && c0 + 32 * u < cols) old[u] = widen(dst[c0 + 32 * u]);
       }
       for (int s0 = 0; s0 < len; s0 += 32) {
         const int mine = s0 + lane < len ? perm[start + s0 + lane] : 0;
@@ -307,12 +366,12 @@ reduce_kernel(float* __restrict__ mat, const float* __restrict__ upd,
           for (int j = 0; j < IN_FLIGHT; ++j) {
             const int slot = __shfl_sync(FULL, mine, (t + j) & 31);
             if (t + j < cnt) {
-              const T* r = src + (int64_t)slot * cols + c0;
+              const V* r = src + (int64_t)slot * cols + c0;
 #pragma unroll
               for (int u = 0; u < U; ++u) {
                 // read once: evict-first, so the stream does not push the [V]
                 // tables and the target rows out of L2
-                if (c0 + 32 * u < cols) x[j][u] = __ldcs(r + 32 * u);
+                if (c0 + 32 * u < cols) x[j][u] = widen(__ldcs(r + 32 * u));
               }
             }
           }
@@ -332,16 +391,39 @@ reduce_kernel(float* __restrict__ mat, const float* __restrict__ upd,
         const int col = c0 + 32 * u;
         if (col >= cols) continue;
         if (shared) {
-          atomicAdd(dst + col, acc[u]);
+          atomicAdd((BF ? adst : reinterpret_cast<T*>(dst)) + col, acc[u]);
         } else {
           // evict-first: the row is written back during this launch, not while
           // the next call's grouping waits on L2 misses behind it
-          __stcs(dst + col, add(old[u], acc[u]));
+          __stcs(dst + col, narrow<V>(add(old[u], acc[u])));
         }
       }
     }
     it = next;
     w += stride;
+  }
+}
+
+// E (bf16 calls): after every chunk's atomic, each shared row's accumulator (at its
+// first work item) is added to the row widened to f32, rounded once and stored, and
+// the accumulator is cleared for the next call. One warp per work item.
+template <typename T, int U>
+__global__ void __launch_bounds__(THREADS)
+finish_kernel(void* __restrict__ mat, const int4* __restrict__ work,
+              const int* __restrict__ counters, int cols, float* __restrict__ acc_rows) {
+  using V = typename Stored<true, T>::V;
+  const int lane = threadIdx.x & 31;
+  const int items = counters[WORK_ITEMS];
+  for (int w = blockIdx.x * WARPS + (threadIdx.x >> 5); w < items;
+       w += gridDim.x * WARPS) {
+    const int4 it = work[w];
+    if ((it.w & (SHARED_ROW | FIRST_CHUNK)) != (SHARED_ROW | FIRST_CHUNK)) continue;
+    V* dst = reinterpret_cast<V*>(mat) + (int64_t)it.x * cols;
+    T* a = reinterpret_cast<T*>(acc_rows) + (int64_t)w * cols;
+    for (int col = lane; col < cols; col += 32) {
+      dst[col] = narrow<V>(add(widen(dst[col]), a[col]));
+      a[col] = zero<T>();
+    }
   }
 }
 
@@ -431,23 +513,59 @@ int64_t work_offset(int64_t n) { return (HEAD + 2 * n + 3) & ~int64_t(3); }
 
 struct Occupancy {
   int sms = 0;
-  int blocks[2][4] = {};  // [vec][U - 1]: resident blocks of reduce_kernel per SM
+  int blocks[2][2][4] = {};  // [bf16][vec][U - 1]: resident reduce blocks per SM
 };
 Occupancy occupancy[64];
 
-template <typename T, int U>
+template <bool BF, typename T, int U>
 int reduce_blocks(int sms) {
   int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reduce_kernel<T, U>, THREADS, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, reduce_kernel<BF, T, U>, THREADS,
+                                                0);
   return per_sm * sms;
 }
 
-template <typename T, int U>
-void launch_reduce(int blocks, cudaStream_t s, float* mat, const float* upd,
-                   const int* perm, const int4* work, int* pos, const int* counters,
-                   int cols) {
-  reduce_kernel<T, U><<<blocks, THREADS, 0, s>>>(mat, upd, perm, work, pos, counters,
-                                                  cols);
+template <bool BF>
+void fill_occupancy(Occupancy& occ) {
+  occ.blocks[BF][1][0] = reduce_blocks<BF, float4, 1>(occ.sms);
+  occ.blocks[BF][1][1] = reduce_blocks<BF, float4, 2>(occ.sms);
+  occ.blocks[BF][1][2] = reduce_blocks<BF, float4, 3>(occ.sms);
+  occ.blocks[BF][1][3] = reduce_blocks<BF, float4, 4>(occ.sms);
+  occ.blocks[BF][0][3] = reduce_blocks<BF, float, 4>(occ.sms);
+}
+
+struct ReduceArgs {
+  void* mat;
+  const void* upd;
+  const int* perm;
+  const int4* work;
+  int* pos;
+  const int* counters;
+  int cols;
+  float* acc;
+};
+
+template <bool BF, typename T, int U>
+void launch_reduce(int blocks, cudaStream_t s, const ReduceArgs& r) {
+  reduce_kernel<BF, T, U><<<blocks, THREADS, 0, s>>>(r.mat, r.upd, r.perm, r.work, r.pos,
+                                                      r.counters, r.cols, r.acc);
+  if (BF) finish_kernel<T, U><<<blocks, THREADS, 0, s>>>(r.mat, r.work, r.counters, r.cols,
+                                                          r.acc);
+}
+
+template <bool BF>
+void launch_reduce_for(bool vec, int U, int blocks, cudaStream_t s, const ReduceArgs& r) {
+  if (!vec) {
+    launch_reduce<BF, float, 4>(blocks, s, r);
+  } else if (U == 1) {
+    launch_reduce<BF, float4, 1>(blocks, s, r);
+  } else if (U == 2) {
+    launch_reduce<BF, float4, 2>(blocks, s, r);
+  } else if (U == 3) {
+    launch_reduce<BF, float4, 3>(blocks, s, r);
+  } else {
+    launch_reduce<BF, float4, 4>(blocks, s, r);
+  }
 }
 
 }  // namespace
@@ -466,14 +584,21 @@ int64_t glint_scatter_scratch_bytes(int64_t n) { return 4 * (work_offset(n) + 4 
 // least v entries, all zero, and are left so, and scratch holds
 // glint_scatter_scratch_bytes(n) bytes, 16-byte aligned; the one-launch path uses none
 // of the three (they may be null). chunk is the most slots one owner sums. n < 2^31,
-// v <= 2^31. Returns the first CUDA error of the enqueue (0 = launched).
+// v <= 2^31. With bf16 set, mat and upd hold bf16 and the call must be grouped; acc is
+// then f32 [n, d], zero, 16-byte aligned, and is left zero (five launches: the
+// grouping's three, the reduce and the finish). Returns the first CUDA error of the
+// enqueue (0 = launched).
 int glint_scatter_rows(void* mat, const void* idx, const void* upd, const void* live,
-                       int64_t n, int64_t v, int d, int chunk, int grouped, void* count,
-                       void* pos, void* scratch, void* err, void* stream) {
+                       int64_t n, int64_t v, int d, int chunk, int grouped, int bf16,
+                       void* count, void* pos, void* scratch, void* acc, void* err,
+                       void* stream) {
   if (n <= 0) return 0;
-  if (chunk <= 0 || d <= 0 || n >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(mat) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(upd) % 16 == 0;
+  if (chunk <= 0 || d <= 0 || n >= (int64_t(1) << 31) || (bf16 && (!grouped || !acc)))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t align = bf16 ? 8 : 16;  // one T of storage: 4 values
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(mat) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(upd) % align == 0 &&
+                   reinterpret_cast<uintptr_t>(acc) % 16 == 0;
   const int cols = vec ? d / 4 : d;
   const int lanes_u = (cols + 31) / 32;
   const int U = lanes_u < 4 ? lanes_u : 4;
@@ -507,11 +632,8 @@ int glint_scatter_rows(void* mat, const void* idx, const void* upd, const void* 
   if (occ.sms == 0) {
     e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    occ.blocks[1][0] = reduce_blocks<float4, 1>(occ.sms);
-    occ.blocks[1][1] = reduce_blocks<float4, 2>(occ.sms);
-    occ.blocks[1][2] = reduce_blocks<float4, 3>(occ.sms);
-    occ.blocks[1][3] = reduce_blocks<float4, 4>(occ.sms);
-    occ.blocks[0][3] = reduce_blocks<float, 4>(occ.sms);
+    fill_occupancy<false>(occ);
+    fill_occupancy<true>(occ);
   }
   int* head = static_cast<int*>(scratch);
   int* rank = head + HEAD;
@@ -530,21 +652,15 @@ int glint_scatter_rows(void* mat, const void* idx, const void* upd, const void* 
   place_kernel<<<slot_blocks, THREADS, 0, s>>>(ix, rank, ps, perm, ni, head);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
-  int blocks = vec ? occ.blocks[1][U - 1] : occ.blocks[0][3];
+  int blocks = occ.blocks[bf16 ? 1 : 0][vec ? 1 : 0][vec ? U - 1 : 3];
   const int64_t want = (n + WARPS - 1) / WARPS;  // one warp per slot at most
   if (blocks > want) blocks = (int)want;
   if (blocks < 1) blocks = 1;
-  if (!vec) {
-    launch_reduce<float, 4>(blocks, s, m, u, perm, work, ps, head, cols);
-  } else if (U == 1) {
-    launch_reduce<float4, 1>(blocks, s, m, u, perm, work, ps, head, cols);
-  } else if (U == 2) {
-    launch_reduce<float4, 2>(blocks, s, m, u, perm, work, ps, head, cols);
-  } else if (U == 3) {
-    launch_reduce<float4, 3>(blocks, s, m, u, perm, work, ps, head, cols);
-  } else {
-    launch_reduce<float4, 4>(blocks, s, m, u, perm, work, ps, head, cols);
-  }
+  const ReduceArgs r{mat, upd, perm, work, ps, head, cols, static_cast<float*>(acc)};
+  if (bf16)
+    launch_reduce_for<true>(vec, U, blocks, s, r);
+  else
+    launch_reduce_for<false>(vec, U, blocks, s, r);
   return (int)cudaGetLastError();
 }
 

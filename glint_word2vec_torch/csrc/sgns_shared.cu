@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel glint_word2vec_tpu/ops/pallas/sgns_kernel.py:_sgns_tile_kernel
 // and computes what glint_word2vec_tpu/ops/sgns.py:sgns_step_shared_core computes
-// (its plain PyTorch twin is glint_word2vec_torch/ops/sgns.py), for f32 parameters:
+// (its plain PyTorch twin is glint_word2vec_torch/ops/sgns.py), for f32 parameters
+// (the bf16 forms are described below the design):
 //
 //   e = syn0[c], p = syn1[x], Z = syn1[neg]          (old values, gathered first)
 //   f_pos = e.p                 g_pos = (1 - sig(f_pos)) * alpha * mask
@@ -84,7 +85,34 @@
 // At B=8192, P=256, D=384 the fneg grid is 2 x 128 = 256 blocks (one wave at two per
 // SM on 132 SMs), the update grid 96 dZ blocks (32 k-slices each) then 384 d_in
 // blocks (8 k-slices each), and the dZ scatter 96 blocks of 256 threads.
+//
+// bf16 forms (the JAX step's param_dtype, compute_dtype and logits_dtype; flags below).
+// The kernel rounds to bf16 where the JAX step casts (glint_word2vec_tpu/ops/sgns.py,
+// sgns_step_shared_core and shared_pool_coeffs), so the plain version with the same
+// dtypes is its twin:
+//   * compute bf16: launch 1 rounds the gathered E, Pc and Z to bf16, and f_pos is the
+//     f32 sum of the bf16-rounded products, rounded to bf16 (with bf16_chain: the f32
+//     sum of the exact products, unrounded). f_neg is rounded to bf16 (the bf16
+//     product's output), G and G^T are rounded to bf16 before the products, and the
+//     epilogues round G Z, g_pos * Pc, d_in, d_pos and dZ to bf16 as the bf16 ops of
+//     the JAX step do. A bf16 value is exact in TF32, so the 3xTF32 split's small parts
+//     are zero: the products run as ONE TF32 wgmma term, which gives exactly the bf16
+//     products with f32 accumulation that a bf16 wgmma (k16) would.
+//   * logits bf16: f_neg is rounded to bf16 and the coefficient chain rounds after each
+//     of its bf16 operations, classic ((0 - sig) * alpha * valid * n/P) or fused
+//     (sig * bf16(alpha * -n/P)).
+//   * bf16 storage: the gathers widen bf16 rows, and no update goes to a parameter row
+//     from this kernel. Launch 3 writes d_in and d_pos, launch 4 dZ, each rounded to
+//     bf16, to bf16 scratch ([B, D] and [B + P, D], the pool rows after the pairs'),
+//     and the wrapper applies them with the row-scatter kernel's bf16 path
+//     (csrc/scatter_rows.cu): each row's updates summed in f32 and the row rounded
+//     once. bf16 atomics would round after every add and lose exactly the small updates
+//     of the hot rows. This also makes the d_pos / dZ ordering of launch 4 moot.
+// The bf16 forms keep the f32 design; their products' bound is 4.2 GFLOP at the card's
+// bf16 tensor-core rate (~4.3 us at 989 TFLOP/s) where the single TF32 term runs at
+// half that rate, and their bytes are the touched rows at 2 bytes plus the f32 scratch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -120,10 +148,14 @@ static_assert(PAD % BM == 0 && PAD % BN == 0 && PAD % BK == 0 && DZ_KCHUNK % BK 
               "padding must cover whole tiles");
 
 enum Mode { FNEG = 0, DZ = 1, DIN = 2 };
+// flags of glint_sgns_shared_step
+enum Flags { STORE_BF16 = 1, COMPUTE_BF16 = 2, LOGITS_BF16 = 4, FUSED = 8, BF16_CHAIN = 16 };
 
 struct StepArgs {
-  float* syn0;             // [V, D]
-  float* syn1;             // [V, D]
+  void* syn0;              // [V, D] f32, or bf16 with STORE_BF16
+  void* syn1;              // [V, D]
+  unsigned short* upd0;    // STORE_BF16: [B, D] bf16 out: d_in
+  unsigned short* upd1;    // STORE_BF16: [B + P, D] bf16 out: d_pos, then dZ
   const int64_t* centers;  // [B]
   const int64_t* contexts; // [B]
   const float* mask;       // [B]
@@ -152,7 +184,29 @@ struct StepArgs {
   float ratio;             // num_negatives / P
   int clipped;
   int with_metrics;
+  int flags;
 };
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+// The kernels are instantiated twice: X = false is the f32 step with no flag set, whose
+// code the flags must not touch (they are the constant 0 there); X = true reads them.
+template <bool X>
+__device__ __forceinline__ int flags_of(const StepArgs& a) { return X ? a.flags : 0; }
+// Element i of a parameter matrix, widened to f32.
+__device__ __forceinline__ float param_at(int flags, const void* m, int64_t i) {
+  return (flags & STORE_BF16)
+             ? __uint_as_float((unsigned)static_cast<const unsigned short*>(m)[i] << 16)
+             : static_cast<const float*>(m)[i];
+}
+// A gathered value as the step computes with it.
+__device__ __forceinline__ float compute_value(int flags, float v) {
+  return (flags & COMPUTE_BF16) ? bf16r(v) : v;
+}
 
 // sig(f) without branches (fast exp and divide, a few ulp: far inside the step's f32
 // tolerance), so the epilogues' unrolled element loops interleave; "clipped" saturates to
@@ -196,9 +250,11 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
 // Launch 1. Blocks [0, pool_blocks) copy the pool rows Z = syn1[negatives], pre-split,
 // as stored [Pp][Dp] and transposed [Dp][Pp]: one warp per 32 x 32 tile, transposed
 // through shared memory. The other blocks take one pair per warp: E, Pc, f_pos, g_pos.
+template <bool X>
 __global__ void __launch_bounds__(GATHER_WARPS * 32) gather_kernel(StepArgs a,
                                                                    int pool_blocks) {
   __shared__ float tile[GATHER_WARPS][32][33];
+  const int flags = flags_of<X>(a);
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int D = a.D, Dp = a.Dp;
   if ((int)blockIdx.x < pool_blocks) {
@@ -207,7 +263,10 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32) gather_kernel(StepArgs a,
     const int q0 = (task / dt) * 32, d0 = (task % dt) * 32, d = d0 + lane;
     for (int i = 0; i < 32; ++i) {
       const int q = q0 + i;
-      const float v = (q < a.P && d < D) ? a.syn1[a.negatives[q] * (int64_t)D + d] : 0.0f;
+      const float v = (q < a.P && d < D)
+                          ? compute_value(flags, param_at(flags, a.syn1,
+                                                          a.negatives[q] * (int64_t)D + d))
+                          : 0.0f;
       uint32_t big, small;
       split_tf32(v, big, small);
       a.Zb[(int64_t)q * Dp + d] = __uint_as_float(big);
@@ -233,16 +292,20 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32) gather_kernel(StepArgs a,
     if (lane == 0) a.gpos[b] = 0.0f;
     return;
   }
-  const float* e = a.syn0 + a.centers[b] * (int64_t)D;
-  const float* p = a.syn1 + a.contexts[b] * (int64_t)D;
+  const int64_t e = a.centers[b] * (int64_t)D;
+  const int64_t p = a.contexts[b] * (int64_t)D;
+  // compute bf16 without bf16_chain: the bf16 product of each element, summed in f32
+  const bool round_products = (flags & (COMPUTE_BF16 | BF16_CHAIN)) == COMPUTE_BF16;
   float dot = 0.0f;
   for (int d = lane; d < Dp; d += 32) {
-    const float ev = d < D ? e[d] : 0.0f, pv = d < D ? p[d] : 0.0f;
+    const float ev = d < D ? compute_value(flags, param_at(flags, a.syn0, e + d)) : 0.0f;
+    const float pv = d < D ? compute_value(flags, param_at(flags, a.syn1, p + d)) : 0.0f;
     eo[d] = ev;
     po[d] = pv;
-    dot = fmaf(ev, pv, dot);
+    dot = round_products ? dot + bf16r(ev * pv) : fmaf(ev, pv, dot);
   }
   for (int off = 16; off; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+  if (round_products) dot = bf16r(dot);
   if (lane == 0) {
     const float m = a.mask[b];
     a.gpos[b] = (1.0f - sigmoid_f(dot, a.clipped)) * a.alpha * m;
@@ -383,7 +446,8 @@ __device__ __forceinline__ float a_elem(const float* sA, int r, int k) {
 // steps x 3 wgmma (B's big and small parts staged as they are) into a zeroed
 // accumulator t, and acc += t.
 template <int MODE>
-__device__ __forceinline__ void compute_slice(const uint8_t* st, float acc[64], float t[64]) {
+__device__ __forceinline__ void compute_slice(const uint8_t* st, float acc[64], float t[64],
+                                              bool one_term) {
   const float* sA = reinterpret_cast<const float*>(st + 2 * B_TILE_BYTES);
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
@@ -399,11 +463,16 @@ __device__ __forceinline__ void compute_slice(const uint8_t* st, float acc[64], 
   }
   const uint32_t big = smem_u32(st), small = big + B_TILE_BYTES;
   wgmma_fence();
+  if (one_term) {  // bf16-valued operands: the small parts are zero
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wgmma_tf32(t, as[kk], sw128_desc(big + kk * 32), kk > 0);
-    wgmma_tf32(t, ab[kk], sw128_desc(small + kk * 32), 1);
-    wgmma_tf32(t, ab[kk], sw128_desc(big + kk * 32), 1);
+    for (int kk = 0; kk < 4; ++kk) wgmma_tf32(t, ab[kk], sw128_desc(big + kk * 32), kk > 0);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_tf32(t, as[kk], sw128_desc(big + kk * 32), kk > 0);
+      wgmma_tf32(t, ab[kk], sw128_desc(small + kk * 32), 1);
+      wgmma_tf32(t, ab[kk], sw128_desc(big + kk * 32), 1);
+    }
   }
   wgmma_commit();
   wgmma_wait_all();
@@ -422,10 +491,12 @@ __device__ __forceinline__ void compute_slice(const uint8_t* st, float acc[64], 
 }
 
 // One BM x BN output tile of C = A B over k in [k_begin, k_end) (a multiple of BK),
-// accumulated into acc, through the cp.async ring. Ends with the ring free.
+// accumulated into acc, through the cp.async ring. Ends with the ring free. one_term:
+// the operands are bf16-valued (one TF32 term per product).
 template <int MODE>
 __device__ __forceinline__ void gemm_tile(const StepArgs& a, int m0, int n0, int k_begin,
-                                          int k_end, uint8_t* smem, float acc[64]) {
+                                          int k_end, uint8_t* smem, float acc[64],
+                                          bool one_term) {
   float t[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) t[i] = 0.0f;
@@ -443,7 +514,7 @@ __device__ __forceinline__ void gemm_tile(const StepArgs& a, int m0, int n0, int
     if (nk < n_k)
       load_stage<MODE>(a, smem + (nk % STAGES) * STAGE_BYTES, m0, n0, k_begin + nk * BK);
     cp_async_commit();
-    compute_slice<MODE>(smem + (kt % STAGES) * STAGE_BYTES, acc, t);
+    compute_slice<MODE>(smem + (kt % STAGES) * STAGE_BYTES, acc, t, one_term);
   }
   cp_async_wait<0>();
   __syncthreads();
@@ -471,8 +542,41 @@ __device__ __forceinline__ void add_cols(float* row, int d, int D, float4 v) {
   }
 }
 
-template <bool METRICS>
+// row[d..d+3] = v rounded to bf16 (the columns below D): one 8-byte store or up to
+// four 2-byte ones.
+template <bool VEC>
+__device__ __forceinline__ void store_bf16_cols(unsigned short* row, int d, int D, float4 v) {
+  if (d >= D) return;
+  if (VEC) {
+    *reinterpret_cast<uint2*>(row + d) = make_uint2(bf16_bits(v.x) | (bf16_bits(v.y) << 16),
+                                                    bf16_bits(v.z) | (bf16_bits(v.w) << 16));
+  } else {
+    row[d] = (unsigned short)bf16_bits(v.x);
+    if (d + 1 < D) row[d + 1] = (unsigned short)bf16_bits(v.y);
+    if (d + 2 < D) row[d + 2] = (unsigned short)bf16_bits(v.z);
+    if (d + 3 < D) row[d + 3] = (unsigned short)bf16_bits(v.w);
+  }
+}
+
+// g_neg of one (pair, pool) entry from its logit f (already rounded as the step's f_neg)
+// and its validity (the pair's mask, or 0): the classic chain or the fused select, in
+// f32 or rounding after each bf16 operation as the JAX step's bf16 chain does.
+__device__ __forceinline__ float neg_coeff(const StepArgs& a, int flags, float f,
+                                           float valid) {
+  const float s = sigmoid_f(f, a.clipped);
+  if (!(flags & LOGITS_BF16)) {
+    if (flags & FUSED) return valid != 0.0f ? s * (a.alpha * (0.0f - a.ratio)) : 0.0f;
+    return (0.0f - s) * a.alpha * valid * a.ratio;
+  }
+  const float sb = bf16r(s);
+  if (flags & FUSED)
+    return valid != 0.0f ? bf16r(sb * bf16r(a.alpha * (0.0f - a.ratio))) : 0.0f;
+  return bf16r(bf16r(bf16r((0.0f - sb) * bf16r(a.alpha)) * valid) * bf16r(a.ratio));
+}
+
+template <bool METRICS, bool X>
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) fneg_kernel(StepArgs a) {
+  const int flags = flags_of<X>(a);
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ float red[NT / 32];
   // the tile's pool ids and its pairs' contexts and masks, read once up front so the
@@ -493,7 +597,8 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) fneg_kernel(StepArgs a) {
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-  gemm_tile<FNEG>(a, m0, n0, 0, a.Dp, smem, acc);  // its barriers publish s_*
+  gemm_tile<FNEG>(a, m0, n0, 0, a.Dp, smem, acc,  // its barriers publish s_*
+                  (flags & COMPUTE_BF16) != 0);
   // acc[4i + 2h + j] is C(row r0 + 8h, col 8i + 2tq + j). The coefficients go to shared
   // memory twice, as [pair][pool] and as [pool][pair], then out as whole rows of G and
   // G^T.
@@ -510,10 +615,12 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) fneg_kernel(StepArgs a) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int r = r0 + 8 * h, c = 8 * i + 2 * tq + j;
-        const float f = acc[4 * i + 2 * h + j];
+        const float f0 = acc[4 * i + 2 * h + j];
+        const float f = (flags & (COMPUTE_BF16 | LOGITS_BF16)) ? bf16r(f0) : f0;
         const int64_t ng = s_neg[c];
         const float valid = (ng >= 0 && s_ctx[r] != ng) ? s_mask[r] : 0.0f;
-        const float gv = (0.0f - sigmoid_f(f, a.clipped)) * a.alpha * valid * a.ratio;
+        const float g = neg_coeff(a, flags, f, valid);
+        const float gv = (flags & COMPUTE_BF16) ? bf16r(g) : g;  // G in compute dtype
         if (METRICS) lsum += softplus_f(f) * valid;
         sG[r * LD + c] = gv;
         sGt[c * LDT + r] = gv;
@@ -546,8 +653,9 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) fneg_kernel(StepArgs a) {
 
 // Blocks [0, n_dz) take dZ^T tiles (D tile x pool tile x batch chunk), the rest take
 // d_in/d_pos tiles (pair tile x D tile). Block 0 also reduces the loss partials.
-template <bool VEC>
+template <bool VEC, bool X>
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) update_kernel(StepArgs a, int n_dz) {
+  const int flags = flags_of<X>(a);
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ float red[NT / 32];
   // per output row, read once up front: the target row of syn1 (dZ: the pool id), or of
@@ -567,7 +675,8 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) update_kernel(StepArgs a, i
     m0 = (id % (a.Dp / BM)) * BM;  // D
     n0 = (id / (a.Dp / BM)) * BN;  // pool
     const int k_begin = kc * DZ_KCHUNK;
-    gemm_tile<DZ>(a, m0, n0, k_begin, min(a.Bp, k_begin + DZ_KCHUNK), smem, acc);
+    gemm_tile<DZ>(a, m0, n0, k_begin, min(a.Bp, k_begin + DZ_KCHUNK), smem, acc,
+                  (flags & COMPUTE_BF16) != 0);
   } else {
     id -= n_dz;
     n0 = (id % (a.Dp / BN)) * BN;  // D
@@ -579,7 +688,8 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) update_kernel(StepArgs a, i
       s_row1[i] = live ? a.contexts[b] : -1;
       s_gp[i] = live ? a.gpos[b] : 0.0f;
     }
-    gemm_tile<DIN>(a, m0, n0, 0, a.Pp, smem, acc);  // its barriers publish s_*
+    gemm_tile<DIN>(a, m0, n0, 0, a.Pp, smem, acc,  // its barriers publish s_*
+                   (flags & COMPUTE_BF16) != 0);
   }
   // Stage the accumulator tile in the (free) ring as [pair or pool row][D column]:
   // dZ^T transposed back (128 pool rows x 64 columns), or d_in (64 pair rows x 128
@@ -628,20 +738,34 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) update_kernel(StepArgs a, i
       const float4 e = *reinterpret_cast<const float4*>(a.E + off);
       float4* c = reinterpret_cast<float4*>(sC + r * ld + 4 * q);
       const float4 v = *c;
-      *c = make_float4(fmaf(gp, pc.x, v.x), fmaf(gp, pc.y, v.y), fmaf(gp, pc.z, v.z),
-                       fmaf(gp, pc.w, v.w));
-      *reinterpret_cast<float4*>(sP + r * ld + 4 * q) =
-          make_float4(gp * e.x, gp * e.y, gp * e.z, gp * e.w);
+      if (flags & COMPUTE_BF16) {  // bf16(bf16(g_pos * Pc) + bf16(G Z)), bf16(g_pos * E)
+        const float g = bf16r(gp);
+        *c = make_float4(bf16r(bf16r(g * pc.x) + bf16r(v.x)), bf16r(bf16r(g * pc.y) + bf16r(v.y)),
+                         bf16r(bf16r(g * pc.z) + bf16r(v.z)), bf16r(bf16r(g * pc.w) + bf16r(v.w)));
+        *reinterpret_cast<float4*>(sP + r * ld + 4 * q) =
+            make_float4(bf16r(g * e.x), bf16r(g * e.y), bf16r(g * e.z), bf16r(g * e.w));
+      } else {
+        *c = make_float4(fmaf(gp, pc.x, v.x), fmaf(gp, pc.y, v.y), fmaf(gp, pc.z, v.z),
+                         fmaf(gp, pc.w, v.w));
+        *reinterpret_cast<float4*>(sP + r * ld + 4 * q) =
+            make_float4(gp * e.x, gp * e.y, gp * e.z, gp * e.w);
+      }
     }
     __syncthreads();
+    const bool to_scratch = flags & STORE_BF16;
     for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NT) {
       const int r = idx / c4, q = idx % c4;
       if (s_row0[r] < 0) continue;
       const int d = n0 + 4 * q;
-      add_cols<VEC>(a.syn0 + s_row0[r] * (int64_t)a.D, d, a.D,
-                    *reinterpret_cast<const float4*>(sC + r * ld + 4 * q));
-      add_cols<VEC>(a.syn1 + s_row1[r] * (int64_t)a.D, d, a.D,
-                    *reinterpret_cast<const float4*>(sP + r * ld + 4 * q));
+      const float4 din = *reinterpret_cast<const float4*>(sC + r * ld + 4 * q);
+      const float4 dpos = *reinterpret_cast<const float4*>(sP + r * ld + 4 * q);
+      if (to_scratch) {  // bf16 rows: the row-scatter kernel applies them
+        store_bf16_cols<VEC>(a.upd0 + (int64_t)(m0 + r) * a.D, d, a.D, din);
+        store_bf16_cols<VEC>(a.upd1 + (int64_t)(m0 + r) * a.D, d, a.D, dpos);
+      } else {
+        add_cols<VEC>(static_cast<float*>(a.syn0) + s_row0[r] * (int64_t)a.D, d, a.D, din);
+        add_cols<VEC>(static_cast<float*>(a.syn1) + s_row1[r] * (int64_t)a.D, d, a.D, dpos);
+      }
     }
   }
   if (blockIdx.x == 0) {  // the step's metrics, each sum in a fixed order
@@ -672,8 +796,9 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) update_kernel(StepArgs a, i
 // partial sums added in chunk order. It runs after every d_pos atomic of launch 3, so
 // a hot syn1 row takes its many small d_pos updates first and its few large dZ ones
 // last, the order of the plain version's two index_add_ calls.
-template <bool VEC>
+template <bool VEC, bool X>
 __global__ void __launch_bounds__(DZ_THREADS) dz_scatter_kernel(StepArgs a) {
+  const int flags = flags_of<X>(a);
   const int64_t t = (int64_t)blockIdx.x * DZ_THREADS + threadIdx.x;
   const int p = (int)(t / (a.Dp / 4)), d = (int)(t % (a.Dp / 4)) * 4;
   if (p >= a.P || d >= a.D) return;
@@ -683,7 +808,12 @@ __global__ void __launch_bounds__(DZ_THREADS) dz_scatter_kernel(StepArgs a) {
     const float4 u = *reinterpret_cast<const float4*>(src + (int64_t)k * a.Pp * a.Dp);
     v = make_float4(v.x + u.x, v.y + u.y, v.z + u.z, v.w + u.w);
   }
-  add_cols<VEC>(a.syn1 + a.negatives[p] * (int64_t)a.D, d, a.D, v);
+  if (flags & STORE_BF16) {  // rounded by the store; the row-scatter kernel applies it
+    store_bf16_cols<VEC>(a.upd1 + (int64_t)(a.B + p) * a.D, d, a.D, v);
+    return;
+  }
+  if (flags & COMPUTE_BF16) v = make_float4(bf16r(v.x), bf16r(v.y), bf16r(v.z), bf16r(v.w));
+  add_cols<VEC>(static_cast<float*>(a.syn1) + a.negatives[p] * (int64_t)a.D, d, a.D, v);
 }
 
 inline int64_t cdiv(int64_t x, int64_t y) { return (x + y - 1) / y; }
@@ -696,8 +826,11 @@ cudaError_t allow_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= 0 && dev < 64 && done[dev]) return cudaSuccess;
-  const void* fns[] = {(const void*)fneg_kernel<false>, (const void*)fneg_kernel<true>,
-                       (const void*)update_kernel<false>, (const void*)update_kernel<true>};
+  const void* fns[] = {
+      (const void*)fneg_kernel<false, false>, (const void*)fneg_kernel<true, false>,
+      (const void*)fneg_kernel<false, true>, (const void*)fneg_kernel<true, true>,
+      (const void*)update_kernel<false, false>, (const void*)update_kernel<true, false>,
+      (const void*)update_kernel<false, true>, (const void*)update_kernel<true, true>};
   for (const void* fn : fns) {
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
@@ -705,6 +838,40 @@ cudaError_t allow_smem() {
   }
   if (dev >= 0 && dev < 64) done[dev] = true;
   return cudaSuccess;
+}
+
+// The step's four launches in order on `st`; returns the first CUDA error.
+template <bool X>
+cudaError_t launch_step(const StepArgs& a, cudaStream_t st, bool with_metrics, bool vec) {
+  const int pool_blocks = (int)cdiv((a.Pp / 32) * (a.Dp / 32), GATHER_WARPS);
+  gather_kernel<X><<<(unsigned)(pool_blocks + cdiv(a.Bp, GATHER_WARPS)), GATHER_WARPS * 32,
+                     0, st>>>(a, pool_blocks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const dim3 fgrid((unsigned)(a.Pp / BN), (unsigned)(a.Bp / BM));
+  if (with_metrics)
+    fneg_kernel<true, X><<<fgrid, NT, SMEM_BYTES, st>>>(a);
+  else
+    fneg_kernel<false, X><<<fgrid, NT, SMEM_BYTES, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int n_dz = (a.Pp / BN) * (a.Dp / BM) * a.k_chunks;
+  const int n_din = (a.Bp / BM) * (a.Dp / BN);
+  if (vec)
+    update_kernel<true, X><<<(unsigned)(n_dz + n_din), NT, SMEM_BYTES, st>>>(a, n_dz);
+  else
+    update_kernel<false, X><<<(unsigned)(n_dz + n_din), NT, SMEM_BYTES, st>>>(a, n_dz);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const unsigned dz_blocks = (unsigned)cdiv((int64_t)a.P * (a.Dp / 4), DZ_THREADS);
+  if (vec)
+    dz_scatter_kernel<true, X><<<dz_blocks, DZ_THREADS, 0, st>>>(a);
+  else
+    dz_scatter_kernel<false, X><<<dz_blocks, DZ_THREADS, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -720,18 +887,26 @@ int64_t glint_sgns_scratch_floats(int B, int P, int D) {
          n_neg_part;
 }
 
-// One fused step, in place on syn0/syn1. Returns cudaGetLastError() after the
-// launches (0 = launched); the launches are asynchronous on `stream`.
+// One fused step, in place on f32 syn0/syn1; with STORE_BF16 in `flags` (bf16 syn0 and
+// syn1) the updates go instead to upd0 ([B, D] bf16: d_in) and upd1 ([B + P, D] bf16:
+// d_pos, then dZ), which the caller applies (the masked pairs' rows of upd0 and upd1 are
+// not written). Returns cudaGetLastError() after the launches (0 = launched); the
+// launches are asynchronous on `stream`.
 int glint_sgns_shared_step(void* syn0, void* syn1, const void* centers,
                            const void* contexts, const void* mask,
                            const void* negatives, void* scratch, void* metrics,
-                           int B, int P, int D, float alpha, float ratio, int clipped,
-                           int with_metrics, void* stream) {
+                           void* upd0, void* upd1, int B, int P, int D, float alpha,
+                           float ratio, int clipped, int with_metrics, int flags,
+                           void* stream) {
   cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
   StepArgs a;
-  a.syn0 = static_cast<float*>(syn0);
-  a.syn1 = static_cast<float*>(syn1);
+  if ((flags & STORE_BF16) && (!upd0 || !upd1)) return (int)cudaErrorInvalidValue;
+  a.syn0 = syn0;
+  a.syn1 = syn1;
+  a.upd0 = static_cast<unsigned short*>(upd0);
+  a.upd1 = static_cast<unsigned short*>(upd1);
+  a.flags = flags;
   a.centers = static_cast<const int64_t*>(centers);
   a.contexts = static_cast<const int64_t*>(contexts);
   a.mask = static_cast<const float*>(mask);
@@ -777,40 +952,17 @@ int glint_sgns_shared_step(void* syn0, void* syn1, const void* centers,
   a.ratio = ratio;
   a.clipped = clipped;
   a.with_metrics = with_metrics;
-  // float4 atomics need 16-byte aligned rows
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(syn0) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(syn1) % 16 == 0;
+  // float4 atomics need 16-byte aligned rows, the bf16 scratch stores 8-byte ones
+  const bool vec = D % 4 == 0 &&
+                   ((flags & STORE_BF16)
+                        ? reinterpret_cast<uintptr_t>(upd0) % 8 == 0 &&
+                              reinterpret_cast<uintptr_t>(upd1) % 8 == 0
+                        : reinterpret_cast<uintptr_t>(syn0) % 16 == 0 &&
+                              reinterpret_cast<uintptr_t>(syn1) % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  const int pool_blocks = (int)cdiv((a.Pp / 32) * (a.Dp / 32), GATHER_WARPS);
-  gather_kernel<<<(unsigned)(pool_blocks + cdiv(a.Bp, GATHER_WARPS)), GATHER_WARPS * 32, 0,
-                  st>>>(a, pool_blocks);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 fgrid((unsigned)(a.Pp / BN), (unsigned)(a.Bp / BM));
-  if (with_metrics)
-    fneg_kernel<true><<<fgrid, NT, SMEM_BYTES, st>>>(a);
-  else
-    fneg_kernel<false><<<fgrid, NT, SMEM_BYTES, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int n_dz = (a.Pp / BN) * (a.Dp / BM) * a.k_chunks;
-  const int n_din = (a.Bp / BM) * (a.Dp / BN);
-  if (vec)
-    update_kernel<true><<<(unsigned)(n_dz + n_din), NT, SMEM_BYTES, st>>>(a, n_dz);
-  else
-    update_kernel<false><<<(unsigned)(n_dz + n_din), NT, SMEM_BYTES, st>>>(a, n_dz);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const unsigned dz_blocks = (unsigned)cdiv((int64_t)a.P * (a.Dp / 4), DZ_THREADS);
-  if (vec)
-    dz_scatter_kernel<true><<<dz_blocks, DZ_THREADS, 0, st>>>(a);
-  else
-    dz_scatter_kernel<false><<<dz_blocks, DZ_THREADS, 0, st>>>(a);
-  return (int)cudaGetLastError();
+  return (int)(flags ? launch_step<true>(a, st, with_metrics, vec)
+                     : launch_step<false>(a, st, with_metrics, vec));
 }
 
 }  // extern "C"

@@ -19,10 +19,13 @@ from glint_word2vec_torch.ops.sgns import EmbeddingPair
 
 def params_from_numpy(syn0: np.ndarray, syn1: np.ndarray, device="cuda",
                       padded_vocab: Optional[int] = None,
-                      padded_dim: Optional[int] = None) -> EmbeddingPair:
-    """float32 tensors on ``device`` (the card unless the caller asks for the CPU;
-    it raises without one), zero-padded to (padded_vocab, padded_dim) when given
-    (default: the arrays' own shape)."""
+                      padded_dim: Optional[int] = None,
+                      dtype: torch.dtype = torch.float32) -> EmbeddingPair:
+    """Tensors of ``dtype`` (float32 or bfloat16) on ``device`` (the card unless the
+    caller asks for the CPU; it raises without one), zero-padded to (padded_vocab,
+    padded_dim) when given (default: the arrays' own shape). A JAX bf16 array arrives
+    widened to float32 (``np.asarray(a, np.float32)``, exact) and is cast back to
+    ``torch.bfloat16`` exactly, so both packages start a bf16 run from the same bits."""
     device = resolve_device(device)
     def place(a: np.ndarray) -> torch.Tensor:
         a = np.asarray(a, dtype=np.float32)
@@ -32,12 +35,12 @@ def params_from_numpy(syn0: np.ndarray, syn1: np.ndarray, device="cuda",
             raise ValueError(f"array {a.shape} is larger than the padded shape {(V, D)}")
         out = np.zeros((V, D), np.float32)
         out[:a.shape[0], :a.shape[1]] = a
-        return torch.from_numpy(out).to(device)
+        return torch.from_numpy(out).to(device, dtype)
 
     return EmbeddingPair(place(syn0), place(syn1))
 
 
 def params_to_numpy(params: EmbeddingPair) -> Tuple[np.ndarray, np.ndarray]:
-    """(syn0, syn1) as host float32 arrays."""
-    return (params.syn0.detach().cpu().numpy().astype(np.float32),
-            params.syn1.detach().cpu().numpy().astype(np.float32))
+    """(syn0, syn1) as host float32 arrays (bf16 widens exactly)."""
+    return (params.syn0.detach().float().cpu().numpy(),
+            params.syn1.detach().float().cpu().numpy())

@@ -42,7 +42,7 @@ import torch
 from glint_word2vec_torch.ops.scatter import scatter_add_rows_
 from glint_word2vec_torch.ops.sgns import (
     _OFF, EmbeddingPair, Scatter, StepMetrics, Stabilizers, _log_sigmoid,
-    _mask_sentinel, _sigmoid, clip_update_rows, stabilize_rows_)
+    _mask_sentinel, _scalar, _sigmoid, _wide, clip_update_rows, stabilize_rows_)
 
 # above this window the unrolled shifted adds (2·window [T, D] terms) lose to one
 # 2T-row scatter-add (the JAX package's rule for its CPU and TPU path)
@@ -138,6 +138,8 @@ def cbow_step_banded_core(
     *,
     stabilizers: Optional[Stabilizers] = None,
     endpoint: str = "auto",
+    compute_dtype: Optional[torch.dtype] = None,
+    logits_dtype: Optional[torch.dtype] = None,
 ) -> StepMetrics:
     """One banded CBOW step, in place on ``params``: the shared-pool scatter CBOW step
     (``ops/sgns.cbow_step_shared_core``) on the examples {b : center_mask_b = 1,
@@ -153,7 +155,9 @@ def cbow_step_banded_core(
     ``stabilizers``: ``update_clip`` caps d_hidden (before the spread) and d_out, never
     dZ; the touched rows are syn0 at every valid slot (a context-less token too: the
     one touched-set difference from the scatter step, as in the JAX package), syn1 at
-    the live centers and the whole pool."""
+    the live centers and the whole pool. ``compute_dtype`` and ``logits_dtype`` as in
+    the JAX function (default: the parameters' dtype and its f32-wide type); the prefix
+    sums stay in ``promote_types(param dtype, float32)``."""
     if endpoint not in ENDPOINT_FORMS:
         raise ValueError(f"endpoint must be one of {ENDPOINT_FORMS}, got {endpoint!r}")
     syn0, syn1 = params
@@ -162,6 +166,8 @@ def cbow_step_banded_core(
     dev = syn0.device
     t = torch.arange(T, dtype=torch.int64, device=dev)
     pf = torch.promote_types(syn0.dtype, torch.float32)  # prefix accumulation dtype
+    cd = compute_dtype or syn0.dtype
+    ld = logits_dtype or _wide(cd)
 
     ctx_n_i = left + right
     has_ctx = (ctx_n_i > 0).to(torch.float32)
@@ -174,21 +180,22 @@ def cbow_step_banded_core(
     Spad = torch.cat([torch.zeros((1, S.shape[1]), dtype=pf, device=dev), S])
     ctx_sum = Spad[t + right + 1] - Spad[t - left] - ep
     ctx_n = torch.clamp(ctx_n_i, min=1).to(pf)
-    hidden = (ctx_sum / ctx_n[:, None]).to(syn0.dtype)               # [T, D]
+    hidden = (ctx_sum / ctx_n[:, None]).to(cd)                       # [T, D]
 
     # the shared-pool chain of the scatter step
-    e_out = syn1[tokens]                                             # [T, D]
-    Z = syn1[negatives]                                              # [P, D]
-    f_pos = torch.sum(hidden * e_out, dim=-1)
-    f_neg = hidden @ Z.T                                             # [T, P]
-    neg_valid = (negatives[None, :] != tokens[:, None]).to(torch.float32) \
-        * center_mask[:, None]
+    e_out = syn1[tokens].to(cd)                                      # [T, D]
+    Z = syn1[negatives].to(cd)                                       # [P, D]
+    f_pos = torch.sum(hidden * e_out, dim=-1).to(_wide(cd))
+    f_neg = (hidden @ Z.T).to(ld)                                    # [T, P]
+    neg_valid = (negatives[None, :] != tokens[:, None]).to(ld) \
+        * center_mask[:, None].to(ld)
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
-    g_neg = ((0.0 - _sigmoid(f_neg, sigmoid_mode)) * alpha * neg_valid
-             * has_ctx[:, None] * (num_negatives / P))
-    d_hidden = g_pos[:, None] * e_out + g_neg @ Z                    # [T, D]
-    d_out = g_pos[:, None] * hidden
-    d_Z = g_neg.T @ hidden                                           # [P, D]
+    g_neg = ((0.0 - _sigmoid(f_neg, sigmoid_mode)) * _scalar(alpha, ld) * neg_valid
+             * has_ctx[:, None].to(ld) * _scalar(num_negatives / P, ld))
+    gp, gn = g_pos[:, None].to(cd), g_neg.to(cd)
+    d_hidden = gp * e_out + gn @ Z                                   # [T, D]
+    d_out = gp * hidden
+    d_Z = gn.T @ hidden                                              # [P, D]
     if (stabilizers or _OFF).update_clip:
         # before the spread: the quantity the scatter step clips
         d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
@@ -203,7 +210,7 @@ def cbow_step_banded_core(
     d_ctx = (cumsum_rows(delta) - g_row) * token_mask[:, None].to(pf)
 
     scatter(syn0, tokens, d_ctx.to(syn0.dtype), token_mask)
-    scatter(syn1, torch.cat([tokens, negatives]), torch.cat([d_out, d_Z]),
+    scatter(syn1, torch.cat([tokens, negatives]), torch.cat([d_out, d_Z]).to(syn1.dtype),
             torch.cat([live, torch.ones(P, dtype=live.dtype, device=dev)]))
     if (stabilizers or _OFF).post_pass:
         V = syn0.shape[0]
@@ -218,6 +225,7 @@ def cbow_step_banded_core(
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         return StepMetrics(zero, zero, pairs)
     denom = torch.clamp(pairs, min=1.0)
-    neg_term = torch.sum(_log_sigmoid(-f_neg) * neg_valid * has_ctx[:, None], dim=-1)
+    neg_term = torch.sum(_log_sigmoid(-f_neg) * neg_valid * has_ctx[:, None].to(ld),
+                         dim=-1, dtype=_wide(ld))
     loss = (-_log_sigmoid(f_pos) * live - neg_term * (num_negatives / P)).sum() / denom
     return StepMetrics(loss, (f_pos * live).sum() / denom, pairs)

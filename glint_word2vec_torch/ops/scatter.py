@@ -23,6 +23,15 @@ in one launch that groups only each warp's 32 slots and adds each group's sum wi
 atomics. The source's header gives the design and the measurements.
 :func:`scatter_add_rows_grouped` is the grouped path's arithmetic in plain torch.
 
+bf16 storage (``mat`` and ``upd`` bf16, the port's bf16 parameters): each target row's
+live updates are summed in f32, added to the row widened to f32, and the result is
+rounded to bf16 once. The JAX package's ``.at[].add`` on a bf16 matrix rounds after
+every add on the CPU (1000 updates of 1e-3 to a row of 1.0 leave it at 1.0, where the
+exact sum is 1.9995), and so would torch's bf16 ``index_add_`` on the card (per-element
+atomics); the port takes the one rounding on both devices, in the kernel and in the
+plain version (:func:`scatter_add_rows_reference`, which never calls a bf16
+``index_add_``). A bf16 call always takes the grouped path: see the source's header.
+
 Rows with ``live == 0`` are skipped: the steps' padded slots (the masked tail, CBOW's
 empty context slots) all carry index 0, the most frequent word, with an update of
 exactly zero. Skipping differs from the JAX step only where the update is not finite
@@ -51,7 +60,7 @@ import torch
 
 from glint_word2vec_torch.ops import kernels
 
-_F32, _I64 = torch.float32, torch.int64
+_F32, _BF16, _I64 = torch.float32, torch.bfloat16, torch.int64
 
 KERNEL_SOURCE = "glint_word2vec_torch/csrc/scatter_rows.cu"
 REPLACES = "tools/pallas_vmem_scatter.py:58"
@@ -64,9 +73,17 @@ GROUP_RATIO = 2
 
 def scatter_add_rows_reference(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
                                live: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain version: ``mat.index_add_(0, idx, upd)``. ``live`` is accepted and
-    ignored: a row the kernel skips carries an update of zero."""
-    return mat.index_add_(0, idx, upd)
+    """The plain version: ``mat.index_add_(0, idx, upd)`` in f32. On a bf16 ``mat``:
+    the distinct rows, each one's updates summed by an f32 ``index_add_`` into a zero
+    f32 buffer, added to the row widened to f32 and rounded once. ``live`` is accepted
+    and ignored: a row the kernel skips carries an update of zero."""
+    if mat.dtype != _BF16:
+        return mat.index_add_(0, idx, upd)
+    rows, inverse = torch.unique(idx, return_inverse=True)
+    acc = torch.zeros((rows.shape[0], mat.shape[1]), dtype=_F32, device=mat.device)
+    acc.index_add_(0, inverse, upd.to(_F32))
+    mat[rows] = (mat[rows].to(_F32) + acc).to(_BF16)
+    return mat
 
 
 def _live_in_range(mat: torch.Tensor, idx: torch.Tensor,
@@ -121,6 +138,7 @@ class _Stream:
 
     def __init__(self, device: torch.device, lib: ctypes.CDLL):
         self.device = device
+        self.acc = None  # bf16 calls: the zeroed f32 [n, d] row accumulators
         self.lib = lib
         with torch.cuda.device(device):
             host = lib.glint_scatter_flag_create()
@@ -151,6 +169,13 @@ class _Stream:
                      self.scratch.data_ptr())
         return self.ptrs
 
+    def accumulators(self, N: int, D: int) -> int:
+        """Device pointer of the zeroed f32 accumulator rows a bf16 call over N slots
+        of width D needs (every call leaves them zeroed), grown first if too small."""
+        if self.acc is None or self.acc.numel() < N * D:
+            self.acc = torch.zeros(N * D, dtype=_F32, device=self.device)
+        return self.acc.data_ptr()
+
     def raise_if_set(self) -> None:
         """Raise ``IndexError`` (once) if a launch that has run found an index
         outside ``[0, V)``."""
@@ -174,14 +199,16 @@ def check_errors() -> None:
 def _check(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
            live: Optional[torch.Tensor]) -> None:
     N, dev = idx.shape[0] if idx.dim() == 1 else -1, mat.device
-    if (mat.dtype is _F32 and upd.dtype is _F32 and idx.dtype is _I64
+    if ((mat.dtype is _F32 or mat.dtype is _BF16) and upd.dtype is mat.dtype
+            and idx.dtype is _I64
             and idx.device == dev and upd.device == dev and mat.dim() == 2
             and mat.is_contiguous() and idx.is_contiguous() and upd.is_contiguous()
             and upd.shape == (N, mat.shape[1])
             and (live is None or (live.dtype is _F32 and live.device == dev
                                   and live.is_contiguous() and live.shape == (N,)))):
         return  # the common case, in one expression: the wrapper's host time counts
-    for name, t, dtype in (("mat", mat, _F32), ("idx", idx, _I64), ("upd", upd, _F32),
+    store = mat.dtype if mat.dtype in (_F32, _BF16) else _F32
+    for name, t, dtype in (("mat", mat, store), ("idx", idx, _I64), ("upd", upd, store),
                            ("live", live, _F32)):
         if t is None:
             continue
@@ -202,9 +229,10 @@ def _check(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
 def scatter_add_rows_(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
                       live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``mat[idx[i]] += upd[i]`` in place for every ``i`` with ``live[i] != 0`` (every
-    ``i`` without ``live``), duplicates summed; returns ``mat``. ``mat`` f32 [V, D],
-    ``idx`` int64 [N], ``upd`` f32 [N, D], ``live`` f32 [N], all contiguous, on one
-    device; V and N below 2^31.
+    ``i`` without ``live``), duplicates summed; returns ``mat``. ``mat`` f32 or bf16
+    [V, D], ``idx`` int64 [N], ``upd`` [N, D] of ``mat``'s dtype, ``live`` f32 [N], all
+    contiguous, on one device; V and N below 2^31. bf16: each row's updates summed in
+    f32 and rounded into the row once.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel on the current
     stream, and a build or launch failure raises: there is no fallback."""
@@ -228,19 +256,24 @@ def scatter_add_rows_(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
     if state is None:
         state = _streams[key] = _Stream(mat.device, kernels.load("scatter_rows"))
     state.raise_if_set()
-    grouped = N >= GROUP_RATIO * V
+    bf16 = mat.dtype is _BF16
+    grouped = bf16 or N >= GROUP_RATIO * V  # bf16 rounds each row once: grouped
     count, pos, scratch = state.fit(V, N) if grouped else (None, None, None)
+    acc = state.accumulators(N, D) if bf16 else None
     err = state.lib.glint_scatter_rows(
         mat.data_ptr(), idx.data_ptr(), upd.data_ptr(),
-        None if live is None else live.data_ptr(), N, V, D, CHUNK, grouped, count,
-        pos, scratch, state.flag_dev, stream)
+        None if live is None else live.data_ptr(), N, V, D, CHUNK, grouped, bf16,
+        count, pos, scratch, acc, state.flag_dev, stream)
     if err != 0:
         del _streams[key]  # a launch that did not run may have left the tables dirty
         raise RuntimeError(f"scatter_rows kernel launch failed: cudaError {err}")
     scatter_add_rows_.launches += 1
+    scatter_add_rows_.bf16_launches += bf16
     return mat
 
 
 # Wrapper calls that launched the kernel (one per call on CUDA tensors; each call
-# enqueues one CUDA launch, or four when grouped: rank, plan, place, reduce).
+# enqueues one CUDA launch, or four when grouped: rank, plan, place, reduce, and a
+# fifth, finish, on bf16), and those of them on bf16 storage.
 scatter_add_rows_.launches = 0
+scatter_add_rows_.bf16_launches = 0

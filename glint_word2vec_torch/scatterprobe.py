@@ -70,14 +70,17 @@ def zipf_head_draw(H: int, D: int, B: int, sets: int = 8, seed: int = 0):
     return idxs, x
 
 
-def bound_bytes(idx: torch.Tensor, D: int, live: Optional[torch.Tensor] = None) -> int:
+def bound_bytes(idx: torch.Tensor, D: int, live: Optional[torch.Tensor] = None,
+                elem: int = 4) -> int:
     """Bytes the scatter must move: the live update rows and their indices in, each
-    distinct live target row in and out, the live mask (when there is one) in."""
+    distinct live target row in and out, the live mask (when there is one) in; rows
+    and updates of ``elem`` bytes an element (4: f32, 2: bf16)."""
     if live is None:
-        return idx.numel() * (8 + D * 4) + 2 * int(torch.unique(idx).numel()) * D * 4
+        return (idx.numel() * (8 + D * elem)
+                + 2 * int(torch.unique(idx).numel()) * D * elem)
     keep = live != 0
     n_live, u = int(keep.sum()), int(torch.unique(idx[keep]).numel())
-    return idx.numel() * 4 + n_live * (8 + D * 4) + 2 * u * D * 4
+    return idx.numel() * 4 + n_live * (8 + D * elem) + 2 * u * D * elem
 
 
 def zipf_ids(gen: torch.Generator, n: int, vocab: int, a: float) -> torch.Tensor:

@@ -1,8 +1,10 @@
 """Where the time of one of the port's training paths goes, on one NVIDIA GPU.
 
     python -m glint_word2vec_torch.stepprof [--path PATH] [--feed numpy,native]
-        [--prefetch 8,0] [--stab] [--endpoint scatter,shift] [--rounds R]
-        [--switch-interval S] [--seed N] [--tokens N] [--out FILE]
+        [--prefetch 8,0] [--stab] [--dtype f32|bf16] [--fused-chain] [--hot-rows K]
+        [--geometry config3|bench]
+        [--endpoint scatter,shift] [--rounds R] [--switch-interval S] [--seed N]
+        [--tokens N] [--out FILE]
 
 ``--path`` picks the step: ``shared`` (skip-gram, shared pool: the fused kernel, the
 default), ``per_pair`` (skip-gram, ``negative_pool=0``), ``cbow`` (scatter CBOW, shared
@@ -14,7 +16,17 @@ scatter their rows through the row-scatter kernel. ``shared_devpairs`` and
 (``feed_backend`` "device"): T = B + 2·window slots per step. ``--stab`` turns the three
 stabilizers on (``max_row_norm=5, update_clip=0.05, row_l2=1e-3``) on any path; the
 shared path then runs ``sgns_step_shared_scatter_`` instead of the fused kernel.
-Two measurements at the model's full width (V=1,000,000, D=300 padded to 384,
+``--dtype bf16`` runs the path in bfloat16 (``param_dtype``, ``compute_dtype`` and
+``logits_dtype``; the parameters of the step profile are bf16 too), ``--fused-chain``
+with ``fused_logits`` and ``bf16_chain`` (skip-gram; the chain needs ``--dtype bf16``),
+``--hot-rows K``
+with the cross-step hot rows (skip-gram paths: the shared path then runs
+``sgns_step_shared_scatter_`` with the slabs; the step profile leaves the flush to the
+fit). ``--geometry bench`` (skip-gram paths) takes V=200,000 (the TPU step bench's
+vocabulary) with the TPU bench's batch, pool, dispatch and subsample instead
+(``bench.py``: B=65536, pool 512, 32 steps a dispatch, 1e-4), on a corpus of the
+end-to-end bench's Zipf shape (counts ~ 1/(rank + 10)^1.05); not the end-to-end bench's
+own corpus, which keeps the min_count-5 words of 4M tokens over 50,000. Two measurements at the model's full width (V=1,000,000, D=300 padded to 384,
 B=8192, n=5; the AUTO pool resolves to P=256 at this vocabulary), printed as one JSON
 line:
 
@@ -30,7 +42,7 @@ line:
   device-side event times, and its idle share of that fit's wall time; the host ops'
   self time per thread); beside them, ``feed_only_s``, the time one pass of the feed
   that ran (``feed_backend``, at the config's ``producer_workers``) alone takes over
-  the same corpus. On the device-feed paths it adds ``tokens_per_step``,
+  the same corpus, and ``trainer_setup_s``, the first trainer's construction. On the device-feed paths it adds ``tokens_per_step``,
   ``dropped_pairs`` and ``generator``: the device time of the pair generator on the
   fit's first chunk (one batched call for its K steps; torch.profiler, per step).
 
@@ -55,6 +67,7 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,16 +82,35 @@ from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
 from glint_word2vec_torch.ops.pairgen import device_block_pairs, device_cbow_windows
 from glint_word2vec_torch.ops.scatter import scatter_add_rows_
 from glint_word2vec_torch.ops.sgns import (
-    EmbeddingPair, Stabilizers, cbow_step_core, cbow_step_shared_core, sgns_step_core,
-    sgns_step_shared_scatter_)
+    EmbeddingPair, Stabilizers, cbow_step_core, cbow_step_shared_core, hot_slabs,
+    sgns_step_core, sgns_step_shared_scatter_)
 from glint_word2vec_torch.train.trainer import Trainer
 
 V, D_REAL, D, B, P, N_NEG, WINDOW = 1_000_000, 300, 384, 8192, 256, 5, 5
+# --geometry bench: V=200,000 (the step bench's, bench.py:55) with the bench's batch,
+# pool, dispatch and subsample (bench.py:423-427), on a corpus of the end-to-end bench's
+# shape, counts ~ 1e9 / (rank + 10)^1.05 (bench.py e2e_corpus)
+BENCH_SHAPE = {"V": 200_000, "B": 65536, "P": 512}
+BENCH_KNOBS = {"negative_pool": 512, "steps_per_dispatch": 32, "subsample_ratio": 1e-4}
+CORPUS_SHAPE = {"config3": (1.0, 1.0), "bench": (10.0, 1.05)}  # (shift, power)
+GEOMETRY = "config3"
 PATHS = ("shared", "per_pair", "cbow", "cbow_per_example", "shared_devpairs",
          "per_pair_devpairs", "cbow_banded")
 DEVPAIRS = "_devpairs"
 # --stab: the JAX stabilizer suite's combined case (tests/test_stabilizers.py)
 STAB_KNOBS = {"max_row_norm": 5.0, "update_clip": 0.05, "row_l2": 1e-3}
+# --dtype bf16: the JAX bench's bf16 rows (bench.py)
+BF16_KNOBS = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16",
+              "logits_dtype": "bfloat16"}
+
+
+def variant_knobs(stab: bool = False, dtype: str = "f32", hot_rows: int = 0,
+                  fused_chain: bool = False) -> dict:
+    """The config knobs of a variant of a path: the stabilizers, bf16, hot rows, the
+    fused and bf16 logit chains."""
+    return {**(STAB_KNOBS if stab else {}), **(BF16_KNOBS if dtype == "bf16" else {}),
+            **({"hot_rows": hot_rows} if hot_rows else {}),
+            **({"fused_logits": True, "bf16_chain": True} if fused_chain else {})}
 
 
 def _device_us(evt) -> float:
@@ -129,12 +161,13 @@ def host_times(prof, top: int = 12) -> dict:
 
 
 def path_config(path: str, seed: int, prefetch: int = 8,
-                stab: bool = False) -> Word2VecConfig:
-    """The model at full width on one path (``stab``: with the three stabilizers)."""
+                variant: Optional[dict] = None) -> Word2VecConfig:
+    """The model at full width on one path, with the knobs of ``variant``
+    (:func:`variant_knobs`)."""
     knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
                  min_count=1, heartbeat_every_steps=16, seed=seed,
                  prefetch_chunks=prefetch, device_pairgen=path.endswith(DEVPAIRS),
-                 **(STAB_KNOBS if stab else {}))
+                 **(BENCH_KNOBS if GEOMETRY == "bench" else {}), **(variant or {}))
     if path.removesuffix(DEVPAIRS) in ("per_pair", "cbow_per_example"):
         knobs["negative_pool"] = 0
     if path == "cbow_banded":
@@ -146,10 +179,10 @@ def _zipf(rng, shape):
     return torch.from_numpy((rng.zipf(1.1, shape) - 1) % V).cuda()
 
 
-def _random_params(seed: int) -> EmbeddingPair:
+def _random_params(seed: int, dtype: torch.dtype = torch.float32) -> EmbeddingPair:
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    syn0 = torch.zeros((V, D), device="cuda")
-    syn1 = torch.zeros((V, D), device="cuda")
+    syn0 = torch.zeros((V, D), device="cuda", dtype=dtype)
+    syn1 = torch.zeros((V, D), device="cuda", dtype=dtype)
     syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
     syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
     return EmbeddingPair(syn0, syn1)
@@ -172,29 +205,42 @@ def banded_block(seed: int, T: int = B + 2 * WINDOW, window: int = WINDOW,
     return tokens, band, _zipf(rng, P).to(device)
 
 
-def step_call(path: str, seed: int, stab: bool = False):
+def step_call(path: str, seed: int, variant: Optional[dict] = None):
     """One metrics-off step of ``path`` on random parameters and Zipf indices (a
-    device-feed path's step is its host-fed twin's); ``stab``: with the stabilizers,
-    the shared path in its scatter form as the trainer runs it."""
+    device-feed path's step is its host-fed twin's), with the knobs of ``variant``:
+    the stabilizers or the hot rows run the shared path in its scatter form, as the
+    trainer runs it."""
     path = path.removesuffix(DEVPAIRS)
+    variant = variant or {}
     rng = np.random.default_rng(seed)
-    params = _random_params(seed)
-    st = Stabilizers(**STAB_KNOBS) if stab else None
+    cd = getattr(torch, variant.get("compute_dtype", "float32"))
+    ld = getattr(torch, variant.get("logits_dtype", "float32"))
+    chain = {k: variant.get(v, False) for k, v in (("fused", "fused_logits"),
+                                                   ("bf16_chain", "bf16_chain"))}
+    params = _random_params(seed, getattr(torch, variant.get("param_dtype", "float32")))
+    st = Stabilizers(**{k: variant[k] for k in STAB_KNOBS if k in variant}) or None
+    st = st if st is not None and st.enabled else None
+    slabs = (hot_slabs(variant["hot_rows"], D, params.syn0.dtype, "cuda")
+             if variant.get("hot_rows") else None)
     if path == "cbow_banded":
         tokens, band, neg = banded_block(seed)
         return lambda: cbow_banded.cbow_step_banded_core(
             params, tokens, band.left, band.right, band.center, band.token, neg, 0.025,
-            N_NEG, WINDOW, "exact", False, stabilizers=st)
+            N_NEG, WINDOW, "exact", False, stabilizers=st, compute_dtype=cd,
+            logits_dtype=ld)
     c, x, mask = _zipf(rng, B), _zipf(rng, B), torch.ones(B, device="cuda")
     neg = _zipf(rng, P) if path in ("shared", "cbow") else _zipf(rng, (B, N_NEG))
-    if path == "shared" and stab:
-        return lambda: sgns_step_shared_scatter_(params, c, x, mask, neg, 0.025, N_NEG,
-                                                 "exact", False, stabilizers=st)
+    if path == "shared" and (st is not None or slabs is not None):
+        return lambda: sgns_step_shared_scatter_(
+            params, c, x, mask, neg, 0.025, N_NEG, "exact", False, stabilizers=st,
+            compute_dtype=cd, logits_dtype=ld, hot_slabs=slabs, **chain)
     if path == "shared":
         return lambda: fused_sgns_shared_step(params, c, x, mask, neg, 0.025, N_NEG,
-                                              "exact", False)
+                                              "exact", False, compute_dtype=cd,
+                                              logits_dtype=ld, **chain)
     if path == "per_pair":
-        return lambda: sgns_step_core(params, c, x, mask, neg, 0.025, stabilizers=st)
+        return lambda: sgns_step_core(params, c, x, mask, neg, 0.025, stabilizers=st,
+                                      compute_dtype=cd, hot_slabs=slabs, **chain)
     # the legacy window's context counts: b + max(b - 1, 0) for b in 1..window-1
     b = rng.integers(1, WINDOW, B)
     nctx = torch.from_numpy(2 * b - 1).cuda()
@@ -203,20 +249,23 @@ def step_call(path: str, seed: int, stab: bool = False):
     ctx = _zipf(rng, (B, C)) * ctx_mask.long()
     if path == "cbow":
         return lambda: cbow_step_shared_core(params, c, ctx, ctx_mask, mask, neg, 0.025,
-                                             N_NEG, "exact", False, stabilizers=st)
+                                             N_NEG, "exact", False, stabilizers=st,
+                                             compute_dtype=cd, logits_dtype=ld)
     return lambda: cbow_step_core(params, c, ctx, ctx_mask, mask, neg, 0.025,
-                                  stabilizers=st)
+                                  stabilizers=st, compute_dtype=cd)
 
 
-def profile_call(fn, steps: int, attempts: int = 3) -> dict:
+def profile_call(fn, steps: int, attempts: int = 5) -> dict:
     """:func:`kernel_times` of ``steps`` calls of ``fn`` under torch.profiler, after
     three warm-up calls. A window in which the profiler recorded no device event at all
-    (seen once on an H100 with torch 2.11) is profiled again, up to ``attempts`` windows;
-    then it raises."""
+    (seen on an H100 with torch 2.11, up to three windows in a row) is profiled again
+    after a pause, up to ``attempts`` windows; then it raises."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(attempts):
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(0.5 * attempt)
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CPU,
                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -319,11 +368,12 @@ def banded_parts(seed: int, calls: int = 20) -> dict:
     return out
 
 
-def profile_step(path: str, seed: int, steps: int = 20, stab: bool = False) -> dict:
-    fn = step_call(path, seed, stab)
+def profile_step(path: str, seed: int, steps: int = 20,
+                 variant: Optional[dict] = None) -> dict:
+    fn = step_call(path, seed, variant)
     kt = profile_call(fn, steps)
     per_step = {k: v["us_total"] / steps for k, v in kt.items()}
-    rec = {"steps": steps, "stab": stab, "device_us_per_step": per_step,
+    rec = {"steps": steps, "variant": variant or {}, "device_us_per_step": per_step,
            "total_device_us_per_step": sum(per_step.values())}
     if path == "cbow_banded":
         rec["parts"] = banded_parts(seed)
@@ -338,10 +388,11 @@ def profile_step(path: str, seed: int, steps: int = 20, stab: bool = False) -> d
 
 
 def fit_corpus(seed: int, n_tokens: int):
-    """A Zipf(1) vocabulary of V words and ``n_tokens`` tokens drawn from it, in
-    40-token sentences, encoded."""
+    """A Zipf vocabulary of V words (the geometry's shape: Zipf(1) for config 3) and
+    ``n_tokens`` tokens drawn from it, in 40-token sentences, encoded."""
     rng = np.random.default_rng(seed)
-    counts = (1e9 / np.arange(1, V + 1)).astype(np.int64) + 1
+    shift, power = CORPUS_SHAPE[GEOMETRY]
+    counts = (1e9 / (np.arange(V) + shift) ** power).astype(np.int64) + 1
     words = [f"w{i}" for i in range(V)]
     ids = rng.choice(V, size=n_tokens, p=counts / counts.sum())
     toks = [words[i] for i in ids]
@@ -411,7 +462,7 @@ def profile_generator(trainer: Trainer, encoded, calls: int = 20) -> dict:
 
 
 def make_trainer(path: str, seed: int, prefetch: int, feed: str, vocab,
-                 stab: bool = False) -> Trainer:
+                 variant: Optional[dict] = None) -> Trainer:
     """A fresh trainer of ``path``; ``feed="device"`` runs a skip-gram path on the
     device pair generator (its ``_devpairs`` twin), a host feed on the host-fed
     twin; banded CBOW has only the token feed."""
@@ -420,21 +471,26 @@ def make_trainer(path: str, seed: int, prefetch: int, feed: str, vocab,
         path = base + DEVPAIRS
     elif feed not in ("auto", "device"):
         path = base
-    return Trainer(path_config(path, seed, prefetch, stab), vocab, device="cuda",
+    return Trainer(path_config(path, seed, prefetch, variant), vocab, device="cuda",
                    feed_backend=feed)
 
 
 def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
-                prefetch: int = 8, stab: bool = False) -> dict:
-    """The process's first fit (wall, counters), the feed alone, and a second fit
-    under torch.profiler (device busy time and idle share)."""
+                prefetch: int = 8, variant: Optional[dict] = None) -> dict:
+    """The trainer's construction (``trainer_setup_s``: vocabulary tables, the init
+    and its copy to the card, all outside a fit's wall), the process's first fit (wall,
+    counters), the feed alone, and a second fit under torch.profiler (device busy time
+    and idle share)."""
     vocab, encoded = corpus
-    trainer = make_trainer(path, seed, prefetch, feed, vocab, stab)
+    t0 = time.perf_counter()
+    trainer = make_trainer(path, seed, prefetch, feed, vocab, variant)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
     cfg = trainer.config
     n_batches, feed_s = feed_pass(trainer, encoded)
     rec = timed_fit(trainer, encoded)
     del trainer
-    trainer = make_trainer(path, seed, prefetch, feed, vocab, stab)
+    trainer = make_trainer(path, seed, prefetch, feed, vocab, variant)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -450,6 +506,7 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
     return {"tokens": int(sum(s.shape[0] for s in encoded)),
             "pool": trainer.config.negative_pool, "batches": n_batches, **rec,
             "producer_workers": cfg.producer_workers, "feed_only_s": feed_s,
+            "trainer_setup_s": setup_s,
             "profiled_fit_wall_s": prof_wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / prof_wall,
             "top_device_us": {k: v for k, v in top},
@@ -457,7 +514,7 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
 
 
 def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int,
-            stab: bool = False, endpoints=("scatter",)) -> dict:
+            variant: Optional[dict] = None, endpoints=("scatter",)) -> dict:
     """Plain fits of every (feed, prefetch, endpoint form) arm, ``rounds`` times, in
     turns: the order reverses each round (A B B A ...), so that drift over the process
     hits every arm alike. Beside each round, one pass of each backend's feed alone."""
@@ -467,7 +524,7 @@ def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int,
     for r in range(rounds):
         for feed, prefetch, form in (arms if r % 2 == 0 else arms[::-1]):
             cbow_banded.CUDA_ENDPOINT = form
-            trainer = make_trainer(path, seed, prefetch, feed, vocab, stab)
+            trainer = make_trainer(path, seed, prefetch, feed, vocab, variant)
             if prefetch == prefetches[0] and form == endpoints[0]:
                 feed_s.setdefault(trainer.feed_backend, []).append(
                     feed_pass(trainer, encoded)[1])
@@ -488,6 +545,13 @@ def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int,
             "feed_only_s": feed_s}
 
 
+def use_geometry(name: str) -> None:
+    """Set the module's shapes to a geometry (``config3``, the default, or ``bench``)."""
+    global V, B, P, GEOMETRY
+    shape = BENCH_SHAPE if name == "bench" else {"V": 1_000_000, "B": 8192, "P": 256}
+    V, B, P, GEOMETRY = shape["V"], shape["B"], shape["P"], name
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=PATHS, default="shared")
@@ -503,6 +567,15 @@ def main() -> int:
     ap.add_argument("--stab", action="store_true",
                     help="the three stabilizers on (max_row_norm=5, update_clip=0.05, "
                          "row_l2=1e-3)")
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="bf16: param_dtype, compute_dtype and logits_dtype bfloat16")
+    ap.add_argument("--fused-chain", action="store_true",
+                    help="fused_logits and bf16_chain (skip-gram; with --dtype bf16)")
+    ap.add_argument("--hot-rows", type=int, default=0,
+                    help="the cross-step hot rows of the skip-gram paths (hot_rows=K)")
+    ap.add_argument("--geometry", choices=tuple(CORPUS_SHAPE), default="config3",
+                    help="bench: V=200k with the TPU bench's batch, pool and dispatch "
+                         "(skip-gram paths)")
     ap.add_argument("--endpoint", default="scatter",
                     help="cbow_banded: the endpoint form on the card, scatter or shift, "
                          "or both comma-separated (taken in turns by --rounds)")
@@ -526,19 +599,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("stepprof: no CUDA device", file=sys.stderr)
         return 2
+    if (args.hot_rows or args.fused_chain) and args.path.startswith("cbow"):
+        ap.error("--hot-rows and --fused-chain are skip-gram restructurings")
+    if args.geometry == "bench":
+        if args.path.startswith("cbow"):
+            ap.error("--geometry bench: the bench's geometry is skip-gram's")
+        use_geometry("bench")
     torch.backends.cuda.matmul.allow_tf32 = False
+    variant = variant_knobs(args.stab, args.dtype, args.hot_rows, args.fused_chain)
     corpus = fit_corpus(args.seed, args.tokens)
     rec = {"device": torch.cuda.get_device_name(0), "path": args.path,
-           "stab": args.stab, "switch_interval_s": sys.getswitchinterval(),
+           "stab": args.stab, "dtype": args.dtype, "hot_rows": args.hot_rows,
+           "fused_chain": args.fused_chain, "geometry": args.geometry,
+           "switch_interval_s": sys.getswitchinterval(),
            "native_threads": native.default_threads(),
-           "step": profile_step(args.path, args.seed, stab=args.stab)}
+           "step": profile_step(args.path, args.seed, variant=variant)}
     cbow_banded.CUDA_ENDPOINT = endpoints[0]
     rec["fit"] = profile_fit(args.path, args.seed, corpus, feeds[0], prefetches[0],
-                             args.stab)
+                             variant)
     rec["fit"]["endpoint"] = endpoints[0]
     if args.rounds:
         rec["ab"] = ab_fits(args.path, args.seed, corpus, feeds, prefetches, args.rounds,
-                            args.stab, endpoints)
+                            variant, endpoints)
     line = json.dumps(rec)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:

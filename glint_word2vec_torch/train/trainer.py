@@ -39,6 +39,14 @@ parameters:
   (all but the fused kernel scatter their rows through the row-scatter kernel), each
   with the config's stabilizers (``self._stabilizers``; all zero runs none of their
   ops);
+- the parameters live in ``param_dtype``; every step computes in ``compute_dtype`` with
+  its shared-pool logit chain in ``logits_dtype``, as the JAX steps cast (on bf16
+  parameters each scatter rounds a row once per step, ``ops/scatter``);
+- ``fused_logits`` and ``bf16_chain`` reach every skip-gram step (the fused kernel as
+  flags); with ``hot_rows`` the skip-gram steps carry the first K rows' updates in f32
+  slabs (``sgns_step_shared_scatter_`` on the shared pool: the fused kernel has no
+  slab), flushed every ``hot_flush_every`` steps and at every chunk's end, so
+  checkpoints and heartbeats never see a pending slab;
 - per-step alphas follow the words clock;
 - chunks no heartbeat will sample run the metrics-elided step (same parameters);
 - the AUTO pool is re-resolved for vocabularies past 500k words, and an AUTO
@@ -86,7 +94,8 @@ from glint_word2vec_torch.ops.pairgen import device_block_pairs, device_cbow_win
 from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives_hash
 from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, Stabilizers, StepMetrics, alpha_schedule, cbow_step_core,
-    cbow_step_shared_core, init_embeddings, sgns_step_core, sgns_step_shared_scatter_)
+    cbow_step_shared_core, hot_flush, hot_slabs, init_embeddings, sgns_step_core,
+    sgns_step_shared_scatter_)
 from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model
 
@@ -238,9 +247,13 @@ class Trainer:
         self._table_prob = torch.from_numpy(self.table.prob).to(self.device)
         self._table_alias = torch.from_numpy(
             self.table.alias.astype(np.int64)).to(self.device)
+        self.param_dtype = getattr(torch, config.param_dtype)
+        self.compute_dtype = getattr(torch, config.compute_dtype)
+        self.logits_dtype = getattr(torch, config.logits_dtype)
         if params is None:
             gen = torch.Generator().manual_seed(config.seed & 0xFFFFFFFFFFFFFFFF)
-            params = init_embeddings(self.padded_vocab, config.vector_size, gen)
+            params = init_embeddings(self.padded_vocab, config.vector_size, gen,
+                                     self.param_dtype)
         self.params = self._place_params(params)
         self.state = train_state or TrainState()
         self._resolve_duplicate_channel()
@@ -259,6 +272,13 @@ class Trainer:
         self._stabilizers = Stabilizers(max_row_norm=self.config.max_row_norm,
                                         update_clip=self.config.update_clip,
                                         row_l2=self.config.row_l2)
+        # cross-step hot rows: K clamped to the real vocabulary (the padding rows are
+        # never touched), flushed every hot_flush_every steps (0: once per chunk)
+        self._hot_rows = int(min(self.config.hot_rows, vocab.size))
+        self._hot_flush = self.config.hot_flush_every or self.config.steps_per_dispatch
+        self._slabs = (hot_slabs(self._hot_rows, self.padded_dim, self.param_dtype,
+                                 self.device) if self._hot_rows else None)
+        self._warn_logits_dtype()
         # resume continues the (seed, counter) negative lattice where it left off
         self.global_step = self.state.global_step
         self.pairs_trained = 0.0  # real (unmasked) pairs trained over this trainer
@@ -284,19 +304,32 @@ class Trainer:
         return resolve_backend("numpy" if backend == "auto" else backend)
 
     def _place_params(self, params) -> EmbeddingPair:
-        """Copy (numpy or torch) parameters into zero-padded [Vp, Dp] float32 tensors
-        on the device; the trainer owns and updates its copy."""
+        """Copy (numpy or torch) parameters into zero-padded [Vp, Dp] tensors of
+        ``param_dtype`` on the device (a float32 source is rounded to bf16 once); the
+        trainer owns and updates its copy."""
         def pad(a) -> torch.Tensor:
             t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
             if t.dim() != 2 or t.shape[0] > self.padded_vocab or t.shape[1] > self.padded_dim:
                 raise ValueError(f"parameter shape {tuple(t.shape)} does not fit the "
                                  f"padded geometry ({self.padded_vocab}, {self.padded_dim})")
-            out = torch.zeros((self.padded_vocab, self.padded_dim), dtype=torch.float32,
+            out = torch.zeros((self.padded_vocab, self.padded_dim), dtype=self.param_dtype,
                               device=self.device)
-            out[:t.shape[0], :t.shape[1]] = t.to(self.device, torch.float32)
+            out[:t.shape[0], :t.shape[1]] = t.to(self.device, self.param_dtype)
             return out
 
         return EmbeddingPair(pad(params[0]), pad(params[1]))
+
+    def _warn_logits_dtype(self) -> None:
+        """The JAX trainer's warning: ``logits_dtype`` applies to the shared-pool paths
+        only (the per-pair and per-example chains stay float32)."""
+        cfg = self.config
+        if cfg.logits_dtype != "float32" and not (
+                cfg.negative_pool > 0 and not cfg.use_pallas
+                and not (cfg.cbow and cfg.duplicate_scaling)):
+            logger.warning(
+                "logits_dtype=%s only applies to the shared-pool XLA paths "
+                "(negative_pool > 0, no pallas, no CBOW+duplicate_scaling); this "
+                "configuration keeps the float32 logit chain", cfg.logits_dtype)
 
     def _duplicate_load(self, subsample_ratio: float) -> float:
         """Expected in-batch duplicates of the most frequent word."""
@@ -647,30 +680,42 @@ class Trainer:
     def _step_fn(self) -> Callable:
         """The step of this config, ``step(batch, negatives, alpha, with_metrics)``:
         the JAX trainer's single-device selection matrix on the pair feeds (banded CBOW
-        runs in ``_run_banded_chunk``; pallas, shard_map and hot rows are refused by
-        the config)."""
+        runs in ``_run_banded_chunk``; pallas and shard_map are refused by the config).
+        The hot slabs ride in ``self._slabs``; the caller flushes them."""
         cfg = self.config
         p, n, mode = self.params, cfg.negatives, cfg.sigmoid_mode
         stab, dup = self._stabilizers, cfg.duplicate_scaling
+        cd, ld, slabs = self.compute_dtype, self.logits_dtype, self._slabs
+        chain = dict(fused=cfg.fused_logits, bf16_chain=cfg.bf16_chain)
         if cfg.cbow and cfg.negative_pool > 0:
             return lambda b, neg, alpha, wm: cbow_step_shared_core(
                 p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha, n,
-                mode, wm, stabilizers=stab)
+                mode, wm, stabilizers=stab, compute_dtype=cd, logits_dtype=ld)
         if cfg.cbow:
             return lambda b, neg, alpha, wm: cbow_step_core(
                 p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha,
-                mode, duplicate_scaling=dup, stabilizers=stab)
-        if cfg.negative_pool > 0 and (stab.enabled or dup):
-            # the fused kernel has neither (the JAX package's pallas step neither)
+                mode, duplicate_scaling=dup, stabilizers=stab, compute_dtype=cd)
+        if cfg.negative_pool > 0 and (stab.enabled or dup or slabs is not None):
+            # the fused kernel has none of the three (the JAX package's pallas step
+            # neither)
             return lambda b, neg, alpha, wm: sgns_step_shared_scatter_(
                 p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm,
-                duplicate_scaling=dup, stabilizers=stab)
+                duplicate_scaling=dup, stabilizers=stab, compute_dtype=cd,
+                logits_dtype=ld, hot_slabs=slabs, **chain)
         if cfg.negative_pool > 0:
             return lambda b, neg, alpha, wm: fused_sgns_shared_step(
-                p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm)
+                p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm,
+                compute_dtype=cd, logits_dtype=ld, **chain)
         return lambda b, neg, alpha, wm: sgns_step_core(
             p, b["centers"], b["contexts"], b["mask"], neg, alpha, mode,
-            duplicate_scaling=dup, stabilizers=stab)
+            duplicate_scaling=dup, stabilizers=stab, compute_dtype=cd, hot_slabs=slabs,
+            **chain)
+
+    def _flush_hot(self) -> None:
+        """Apply the pending hot-row deltas to the parameters and zero the slabs."""
+        if self._slabs is not None:
+            hot_flush(self.params.syn0, self._slabs[0])
+            hot_flush(self.params.syn1, self._slabs[1])
 
     def _device_pairs(self, arrays: dict, chunk: dict) -> dict:
         """The chunk's pairs from its token blocks, in one batched call of the device
@@ -706,11 +751,14 @@ class Trainer:
                 self.params, arrays["tokens"][k], band.left[k], band.right[k],
                 band.center[k], band.token[k], negatives[k], float(chunk["alphas"][k]),
                 cfg.negatives, cfg.window, cfg.sigmoid_mode, with_metrics,
-                stabilizers=self._stabilizers)
+                stabilizers=self._stabilizers, compute_dtype=self.compute_dtype,
+                logits_dtype=self.logits_dtype)
         return metrics
 
     def _run_chunk(self, chunk: dict) -> StepMetrics:
-        """Train the steps of one chunk; returns the last step's metrics."""
+        """Train the steps of one chunk; returns the last step's metrics. The hot slabs
+        (zero at the chunk's start) are flushed every ``hot_flush_every`` steps and
+        after the chunk's last step."""
         cfg = self.config
         arrays = self._device_arrays(chunk)
         if self._banded_cbow:
@@ -735,6 +783,10 @@ class Trainer:
                 batch["ctx_mask"] = (torch.arange(C, device=self.device)[None, :]
                                      < batch.pop("nctx")[:, None]).to(torch.float32)
             metrics = step(batch, negatives[k], float(chunk["alphas"][k]), with_metrics)
+            if (k + 1) % self._hot_flush == 0:
+                self._flush_hot()
+        if chunk["real"] % self._hot_flush:
+            self._flush_hot()
         return metrics
 
     def fit(
@@ -914,7 +966,8 @@ class Trainer:
     def save_checkpoint(self, path: str) -> None:
         if self.config.nonfinite_policy == "halt":
             self._nonfinite_guard()  # never replace a good checkpoint with NaNs
-        p = self.unpadded_params()
+        p = self.unpadded_params()  # dense saves are float32 (bf16 widens exactly)
         save_model(path, self.vocab.words, self.vocab.counts,
-                   p.syn0.cpu().numpy(), p.syn1.cpu().numpy(), self.config, self.state)
+                   p.syn0.float().cpu().numpy(), p.syn1.float().cpu().numpy(),
+                   self.config, self.state)
         logger.info("checkpoint saved to %s at step %d", path, self.global_step)

@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, its entry points
-run on the card unless told otherwise (and never fall back silently), and knobs it has
-not implemented are refused by name."""
+"""The port stands alone: it imports neither jax, the JAX package nor ml_dtypes, its
+entry points run on the card unless told otherwise (and never fall back silently), and
+knobs it has not implemented are refused by name."""
 
 import ast
 import os
@@ -17,7 +17,8 @@ from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.train.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "glint_word2vec_tpu")
+# the card's machine has no ml_dtypes: bf16 crosses as float32 (exact), cast by torch
+FORBIDDEN = ("jax", "jaxlib", "glint_word2vec_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -120,8 +121,8 @@ def test_prng_helpers_take_no_default_device():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fused_logits", True), ("use_pallas", True), ("param_dtype", "bfloat16"),
-    ("hot_rows", 8), ("logits_dtype", "bfloat16"), ("num_model_shards", 2),
+    ("sync_every", 2), ("use_pallas", True), ("embedding_partition", "cols"),
+    ("sharded_checkpoint", True), ("profile_dir", "/x"), ("num_model_shards", 2),
     ("step_lowering", "shard_map"), ("telemetry_path", "/x"), ("norm_watch", "warn"),
     ("nonfinite_policy", "rollback"), ("serve_ann_quant", "pq"), ("mesh_shape", (2, 1)),
 ])
@@ -135,11 +136,14 @@ def test_unported_knobs_are_refused_by_name(knob, value):
 
 @pytest.mark.parametrize("knob,value", [
     ("cbow_update", "banded"), ("max_row_norm", 10.0), ("update_clip", 0.5),
-    ("row_l2", 1e-4), ("duplicate_scaling", True),
+    ("row_l2", 1e-4), ("duplicate_scaling", True), ("fused_logits", True),
+    ("param_dtype", "bfloat16"), ("compute_dtype", "bfloat16"),
+    ("logits_dtype", "bfloat16"), ("hot_rows", 8),
 ])
 def test_ported_knobs_are_accepted(knob, value):
-    """Banded CBOW, the stabilizers and duplicate scaling are ported: accepted by the
-    config and carried through to_dict/from_dict with the port's checks on."""
+    """Banded CBOW, the stabilizers, duplicate scaling, the bf16 dtypes and the step
+    restructurings are ported: accepted by the config and carried through
+    to_dict/from_dict with the port's checks on."""
     extra = {"cbow": True} if knob == "cbow_update" else {}  # banded needs CBOW
     cfg = Word2VecConfig(pairs_per_batch=8192, **{knob: value}, **extra)
     assert getattr(Word2VecConfig.from_dict(cfg.to_dict()), knob) == value

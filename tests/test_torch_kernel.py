@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from glint_word2vec_torch import scatterprobe
+from glint_word2vec_torch.ops import bf16_check
 from glint_word2vec_torch.ops import scatter as tscatter
 from glint_word2vec_torch.ops import sgns as tsgns
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
@@ -440,3 +441,67 @@ def test_stabilized_steps_kernel_matches_plain(cuda, step, knob):
         for new, old in zip(got, (syn0, syn1)):
             moved = (new != old).any(1)
             assert moved.any() and float(new[moved].norm(dim=1).max()) <= 5.0 * (1 + 1e-5)
+
+
+# -- bf16 forms --------------------------------------------------------------------------
+#
+# The bf16 scatter sums each row's updates in f32 and rounds the row once, in the kernel
+# and in the plain version; their f32 sums differ only in order, so after the one
+# rounding they agree within one bf16 ulp of the row (<= 2^-7 |row|) plus twice the
+# recursive-summation bound of the f32 sums.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_scatter_tol(base, idx, upd, live):
+    """Elementwise: 2^-7·|row| + 2·m·2^-24·(|row| + Σ|upd|), m the live updates of the
+    row plus one."""
+    keep = live != 0
+    mag = base.abs().double().index_add_(0, idx[keep], upd[keep].abs().double())
+    m = torch.bincount(idx[keep], minlength=base.shape[0]).double()[:, None] + 1
+    return 2.0 ** -7 * base.abs().double().maximum(mag) + 2 * m * 2.0 ** -24 * mag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [384, 102])  # 102: the scalar path
+@pytest.mark.parametrize("chunk", [tscatter.CHUNK, 1])  # 1: every repeated row shared
+def test_bf16_scatter_kernel_matches_plain(cuda, monkeypatch, D, chunk):
+    monkeypatch.setattr(tscatter, "CHUNK", chunk)
+    base, idx, upd, live = _scatter_draw(cuda, 21, 4096, 20000, D)
+    base, upd = base.to(BF16), upd.to(BF16)
+    want = tscatter.scatter_add_rows_reference(base.clone(), idx, upd)
+    got = _kernel_call(base.clone(), idx, upd, live)
+    tol = _bf16_scatter_tol(base, idx, upd, live)
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+    untouched = torch.ones(base.shape[0], dtype=torch.bool, device=cuda)
+    untouched[idx[live != 0]] = False
+    assert torch.equal(got[untouched], base[untouched])
+    state = next(iter(tscatter._streams.values()))
+    assert not state.acc.any()  # the accumulator rows come back zeroed
+
+
+@pytest.mark.cuda
+def test_bf16_scatter_kernel_rounds_each_row_once(cuda):
+    """1000 updates of bf16(1e-3) to one row of 1.0: the f32 sum 0.99945... added once
+    gives 2.0, where rounding after every add would leave the row at 1.0."""
+    mat = torch.ones((4, 128), dtype=BF16, device=cuda)
+    idx = torch.full((1000,), 2, dtype=torch.int64, device=cuda)
+    upd = torch.full((1000, 128), 1e-3, device=cuda).to(BF16)
+    got = _kernel_call(mat, idx, upd, torch.ones(1000, device=cuda))
+    assert got[2].eq(2.0).all() and got[[0, 1, 3]].eq(1.0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", list(bf16_check.FORMS))
+@pytest.mark.parametrize("B,P,D,V", [(8192, 256, 384, 65536), (300, 70, 100, 2048)])
+def test_bf16_fused_kernel_matches_plain(cuda, form, B, P, D, V):
+    """The kernel's bf16 forms against the plain step with the same dtypes, by
+    ``ops/bf16_check.check_form``: the touched rows within 2^-7·|row| (bf16 storage)
+    plus 2^-4·Σ|terms|, kernel, plain and float64 each against the others; the update
+    rows, kernel against plain, differing in at most 2% of the elements and by more
+    than one bf16 ulp in at most 0.2%, while the f32 kernel (the flags cleared) breaks
+    that limit; the loss within 1e-2, the pairs equal, one fused launch and two bf16
+    scatters (bf16 storage)."""
+    syn0, syn1, c, x, mask, neg = _step_inputs(cuda, B + P + D, B, P, D, V, 1.1, 0.35)
+    res = bf16_check.check_form(syn0, syn1, c, x, mask, neg, form)
+    assert not res["failures"], res

@@ -596,6 +596,11 @@ REFUSED = [
     dict(update_clip=-0.5),
     dict(row_l2=1.0),
     dict(row_l2=-1e-3),
+    # hot_rows and fused_logits are ported: their refusals beside the stabilizers and
+    # duplicate scaling are the JAX package's
+    dict(hot_rows=8, max_row_norm=1.0),
+    dict(fused_logits=True, duplicate_scaling=True),
+    dict(hot_rows=8, duplicate_scaling=True),
 ]
 
 
@@ -614,10 +619,10 @@ def test_refusal_matrix_matches_jax(kw):
 
 
 @pytest.mark.parametrize("kw,knob", [
-    (dict(hot_rows=8, max_row_norm=1.0), "hot_rows"),
-    (dict(fused_logits=True, duplicate_scaling=True), "fused_logits"),
+    (dict(step_lowering="shard_map", cbow=True), "step_lowering"),
+    (dict(step_lowering="shard_map", negative_pool=0), "step_lowering"),
     (dict(step_lowering="shard_map", duplicate_scaling=True), "step_lowering"),
-    (dict(hot_rows=8, duplicate_scaling=True), "hot_rows"),
+    (dict(step_lowering="shard_map", embedding_partition="cols"), "step_lowering"),
 ])
 def test_unported_partners_stay_refused_by_name(kw, knob):
     """Combinations whose other knob is not ported yet stay refused through that knob."""
