@@ -110,6 +110,28 @@ Phases, one line each (or a few); any failure exits non-zero:
                shared-pool fit once more on the calling thread (prefetch_chunks=0)
                with the numpy generator: the same step count, parameters within
                PARAM_ATOL.
+ 10. runtime  the runtime layer on the main path (V=1,000,000, D=300 padded to 384,
+               B=8192, P=256, f32, the fits' 750,000-token corpus), four fits:
+               (a) telemetry_path, status_port and norm_watch="warn": a thread polls
+               /status.json and /metrics during the fit (HTTP 200, global_step
+               rising), the run log validates, the trace loads, and the last
+               heartbeat's probe channels are held against a float64 NumPy
+               computation on the parameters that probe read (max and mean within
+               1e-5 relative, frac_over and the p99 bucket equal, one row or bucket
+               allowed only for a norm within 1e-6 of the threshold or an edge);
+               then the probe's and one snapshot's device time beside their byte
+               bounds, and the fit's wall beside the layer-off "shared" fit of phase 8;
+               (b) nonfinite_policy="rollback" with NaN injected at the round reaching
+               step 40: one rollback, global_step past 2^22, finite parameters, the
+               fused kernel launching before and after the rollback; (c)
+               norm_watch="recover" with the parameters scaled x1e6 there: one
+               recovery record, lr_scale 0.5, max_row_norm engaged at 100, the fused
+               kernel before the recovery and the scatter kernel (its scatter form)
+               after, finite and below the threshold at the end; (d) a child process
+               fits at V=200,000 with telemetry and checkpoint_on_preempt and gets
+               SIGTERM after its first heartbeat: it dies of the signal, its emergency
+               checkpoint passes load_latest_valid and verify_checkpoint, its log has
+               the preempt record and its blackbox dump validates.
 Then one JSON line with the kernels' numbers, the nvidia-smi line, and the result
 line {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
 this file, it prints no result and exits 2.
@@ -1128,6 +1150,12 @@ BENCH_FIT = ("v200k_bench_batch_bf16_devpairs", BENCH_KNOBS, 512)
 # host-fed fits whose steps and pairs are held to a numpy replay of the feed
 HOST_REPLAY = ("shared_bf16_fused_chain", "shared_hot", "per_pair_hot")
 DROP_LIMIT = 0.02  # the device feed's overflow drops, as a share of pairs trained
+FIT_WALL = {}  # fit name -> wall seconds (setup included), for the runtime phase
+# the runtime phase (10): the fault steps (the round reaching it; 16 steps a chunk),
+# the watchdog's threshold, the child's vocabulary
+INJECT_STEP = 40
+NORM_THRESHOLD = 100.0
+CHILD_V = 200_000
 
 
 def pairgen_phase(corpus, seed: int, torch, np) -> dict:
@@ -1290,6 +1318,7 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     model = est.fit(sents, vocab=vocab)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    FIT_WALL[name] = wall
     n_fused = fused.fused_sgns_shared_step.launches
     n_scat = scat.scatter_add_rows_.launches
     n_fused_bf16 = fused.fused_sgns_shared_step.bf16_launches
@@ -1538,6 +1567,341 @@ def model_phase(model, corpus, torch, np) -> dict:
             **surface_phase(back, m, corpus[1], torch, np)}
 
 
+def _poll_status(port: int, stop, seen: list) -> None:
+    """Poll /status.json and /metrics until ``stop``: (codes, global_step, status)."""
+    import urllib.request
+
+    while not stop.is_set():
+        try:
+            got = []
+            for route in ("/status.json", "/metrics"):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                            timeout=5) as r:
+                    got.append((r.status, r.read().decode()))
+            snap = json.loads(got[0][1])
+            seen.append((got[0][0], got[1][0], snap["global_step"], snap["status"],
+                         "glint_global_step" in got[1][1]))
+        except OSError:
+            pass
+        time.sleep(0.02)
+
+
+def probe_oracle(m, vocab_size: int, threshold: float, np, rows: int = 100_000) -> dict:
+    """The probe's channels of one matrix in float64 NumPy, on the host, in row blocks:
+    max, mean, rows over the threshold, the p99 bucket, and the distance of the
+    norms within 1e-6 relative of the threshold and of a bucket edge (the clamped
+    norms below 2^-12, zero rows among them, sit in bucket 0 exactly), for the tie
+    rule."""
+    norms = np.concatenate([
+        np.sqrt((m[i:i + rows].double().cpu().numpy() ** 2).sum(1))
+        for i in range(0, vocab_size, rows)])[:vocab_size]
+    pos = (np.log2(np.maximum(norms, 2.0 ** -12)) + 12) * 4
+    idx = np.clip(np.floor(pos), 0, 127).astype(np.int64)
+    k = int(np.argmax(np.cumsum(np.bincount(idx, minlength=128)) >= -(-vocab_size * 99 // 100)))
+    return {"max_norm": float(norms.max()), "mean_norm": float(norms.mean()),
+            "over": int((norms > threshold).sum()), "bucket": k,
+            "finite": bool(np.isfinite(norms).all()),
+            "near_threshold": int((np.abs(norms / threshold - 1) < 1e-6).sum()),
+            "near_edge": int(((np.abs(pos - np.round(pos)) < 4e-6 / np.log(2))
+                              & (norms > 2.0 ** -12)).sum())}
+
+
+def _hold_channels(ch: dict, want: dict, vocab_size: int) -> list:
+    """What disagrees between a heartbeat's channels of one matrix and its float64
+    oracle: max and mean within 1e-5 relative; frac_over and the p99 bucket equal,
+    one row or one bucket allowed only where a norm sits within 1e-6 of the threshold
+    or of a bucket edge."""
+    bad = []
+    for k in ("max_norm", "mean_norm"):
+        if not abs(ch[k] - want[k]) <= 1e-5 * abs(want[k]):
+            bad.append(f"{k} {ch[k]!r} vs {want[k]!r}")
+    over = round(ch["frac_over"] * vocab_size)
+    if abs(over - want["over"]) > (1 if want["near_threshold"] else 0):
+        bad.append(f"frac_over rows {over} vs {want['over']}")
+    bucket = round(math.log2(ch["p99_norm"]) * 4) - 1 + 48  # edge 2^((k+1)/4 - 12)
+    if abs(bucket - want["bucket"]) > (1 if want["near_edge"] else 0):
+        bad.append(f"p99 bucket {bucket} vs {want['bucket']}")
+    return bad
+
+
+def _records(path: str) -> list:
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f]
+
+
+CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from glint_word2vec_torch import Vocabulary, Word2Vec
+vocab_size, out = int(sys.argv[2]), sys.argv[3]
+rng = np.random.default_rng(int(sys.argv[4]))
+counts = (1e9 / (np.arange(vocab_size) + 1.0)).astype(np.int64) + 1
+words = [f"w{i}" for i in range(vocab_size)]
+ids = rng.choice(vocab_size, size=750_000, p=counts / counts.sum())
+toks = [words[i] for i in ids]
+sents = [toks[i:i + 40] for i in range(0, len(toks), 40)]
+Word2Vec(vector_size=300, window=5, negatives=5, pairs_per_batch=8192, min_count=1,
+         heartbeat_every_steps=16, num_iterations=100, seed=1, device="cuda",
+         telemetry_path=out + "/child.jsonl", checkpoint_on_preempt=True).fit(
+    sents, vocab=Vocabulary.from_words_and_counts(words, counts),
+    checkpoint_path=out + "/ck", checkpoint_every_steps=10_000)
+print("FIT FINISHED: the SIGTERM did not land", flush=True)
+"""
+
+
+def preempt_child(tmp: str, seed: int, np) -> dict:
+    """Fit (d): a child process fits at V=CHILD_V with telemetry and
+    checkpoint_on_preempt; once its run log holds a heartbeat the parent sends
+    SIGTERM. The child must die of the signal after an emergency checkpoint that
+    load_latest_valid and verify_checkpoint accept, a preempt record, run_end
+    "preempted", and a blackbox dump that validates."""
+    import signal
+
+    from glint_word2vec_torch.obs.schema import validate_blackbox_file, validate_file
+    from glint_word2vec_torch.train.checkpoint import (
+        load_latest_valid, load_model, verify_checkpoint)
+
+    out = os.path.join(tmp, "child")
+    os.makedirs(out)
+    log_path = os.path.join(out, "child.jsonl")
+    repo = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "child.out"), "w") as sink:
+        child = subprocess.Popen([sys.executable, "-c", CHILD, repo, str(CHILD_V), out,
+                                  str(seed)], stdout=sink, stderr=subprocess.STDOUT)
+        try:
+            while child.poll() is None and time.perf_counter() - t0 < 300:
+                if os.path.exists(log_path) and any(
+                        r["kind"] == "heartbeat" for r in _records(log_path)):
+                    break
+                time.sleep(0.05)
+            t_term = time.perf_counter() - t0
+            child.send_signal(signal.SIGTERM)
+            rc = child.wait(timeout=300)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    tail = open(os.path.join(tmp, "child.out")).read()[-2000:]
+    recs = _records(log_path) if os.path.exists(log_path) else []
+    pre = [r for r in recs if r["kind"] == "preempt"]
+    ends = [r["status"] for r in recs if r["kind"] == "run_end"]
+    checks = {"rc == -SIGTERM": rc == -signal.SIGTERM,
+              "one preempt record, saved": len(pre) == 1 and pre[0]["saved"],
+              "run_end preempted": ends == ["preempted"],
+              "run log validates": bool(recs) and validate_file(log_path)["ok"],
+              "blackbox validates": validate_blackbox_file(
+                  log_path + ".blackbox.json")["ok"]}
+    ck = load_latest_valid(out) if checks["one preempt record, saved"] else ""
+    if ck:
+        verify_checkpoint(ck)
+        state = load_model(ck, verify=False)["train_state"]
+        checks["checkpoint at the preempt step"] = (
+            state.global_step == pre[0]["step"] and not state.finished)
+    bad = [k for k, ok in checks.items() if not ok]
+    log("runtime", f"(d) child at V={CHILD_V}: SIGTERM {t_term:.1f} s after its start, "
+        f"rc {rc}, preempt {pre}, run_end {ends}, checkpoint {ck!r}; checks {checks}")
+    if bad:
+        raise AssertionError(f"runtime (d) failed: {bad}; child output: {tail}")
+    return {"rc": rc, "preempt": pre[0], "sigterm_after_s": t_term}
+
+
+def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tuple:
+    """Phase 10: the runtime layer on the main path at V=1M, four fits (see the module
+    docstring); returns (record, launches by fit)."""
+    import tempfile
+    import threading
+
+    from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.obs.probe import health_stats, probe_tensor
+    from glint_word2vec_torch.obs.schema import validate_file
+    from glint_word2vec_torch.stepprof import free_port
+    from glint_word2vec_torch.train import faults
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    vocab, sents = corpus
+    base = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
+                min_count=1, heartbeat_every_steps=16, seed=seed, device="cuda")
+    rec, launches = {}, {}
+    restores, probed = [], {}
+    real_restore, real_probe = Trainer._restore_snapshot, Trainer._health_stats
+
+    def restore(self):  # the kernels' counts at the rollback or the recovery
+        restores.append((fused.fused_sgns_shared_step.launches,
+                         scat.scatter_add_rows_.launches, self.global_step))
+        return real_restore(self)
+
+    def probe(self):  # the parameters each probe read (the last one is held below)
+        ch = real_probe(self)
+        for name, m in zip(("syn0", "syn1"), self.params):
+            if name not in probed:
+                probed[name] = torch.empty_like(m)
+            probed[name].copy_(m)
+        return ch
+
+    def fit(name, knobs, plan=None):
+        faults.reset()
+        if plan:
+            faults.configure(**plan)
+        est = Word2Vec(**{**base, **knobs})
+        fused.fused_sgns_shared_step.launches = 0
+        scat.scatter_add_rows_.launches = 0
+        fused.fused_sgns_shared_step.bf16_launches = 0
+        scat.scatter_add_rows_.bf16_launches = 0
+        t0 = time.perf_counter()
+        try:
+            est.fit(sents, vocab=vocab)
+            torch.cuda.synchronize()
+        finally:
+            faults.reset()
+        wall = time.perf_counter() - t0
+        launches[name] = {"sgns_shared_step": fused.fused_sgns_shared_step.launches,
+                          "scatter_add_rows": scat.scatter_add_rows_.launches,
+                          "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
+        return est.trainer, wall
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) telemetry, the status endpoint, norm_watch="warn"
+        port, stop, seen = free_port(), threading.Event(), []
+        log_a = os.path.join(tmp, "a.jsonl")
+        poller = threading.Thread(target=_poll_status, args=(port, stop, seen),
+                                  daemon=True)
+        poller.start()
+        Trainer._health_stats = probe
+        try:
+            tr, wall = fit("runtime_a_telemetry", dict(
+                telemetry_path=log_a, status_port=port, norm_watch="warn"))
+        finally:
+            Trainer._health_stats = real_probe
+            stop.set()
+            poller.join(timeout=30)
+        summary = validate_file(log_a)
+        recs = _records(log_a)
+        trace = json.load(open(log_a + ".trace.json"))
+        last = [r for r in recs if r["kind"] == "heartbeat"][-1]["norms"]
+        oracle = {name: probe_oracle(probed[name], vocab.size, NORM_THRESHOLD, np)
+                  for name in ("syn0", "syn1")}
+        running = [s for s in seen if s[3] == "running"]
+        steps = [s[2] for s in running]
+        bad = [f"{name}: {b}" for name in ("syn0", "syn1")
+               for b in _hold_channels(last[name], oracle[name], vocab.size)]
+        checks = {
+            "status polled while running, HTTP 200": bool(running) and all(
+                s[0] == s[1] == 200 and s[4] for s in running),
+            "global_step rose": len(set(steps)) > 1 and steps == sorted(steps),
+            "run log validates": summary["ok"],
+            "kinds": set(summary["kinds"]) >= {"run_start", "heartbeat", "run_end"},
+            "trace loads": len(trace["traceEvents"]) > 0,
+            "finite": last["finite"] is True and all(o["finite"] for o in oracle.values()),
+            "probe vs float64": not bad,
+            "no watchdog firing": tr.norm_watchdog.fires == 0}
+        # the probe's and a snapshot's device time at V=1M, beside their byte bounds
+        p = tr.params
+        nbytes = sum(m.numel() * m.element_size() for m in p)
+        slot = [torch.empty_like(m) for m in p]
+        calls = {"probe": lambda: probe_tensor(p, vocab.size, NORM_THRESHOLD),
+                 "snapshot": lambda: [d.copy_(m) for d, m in zip(slot, p)]}
+        probe_rec, snap_rec = ({
+            "ms": time_steps(fn, 20, torch), "bytes": k * nbytes,
+            "device_ms": sum(v["us_total"] for v in profile_call(fn, 20).values())
+            / 20 / 1e3, "bound_ms": k * nbytes / PEAK_BYTES_PER_S * 1e3}
+            for fn, k in ((calls["probe"], 1), (calls["snapshot"], 2)))
+        del slot, calls
+        rec["a"] = {"wall_s": wall, "layer_off_wall_s": FIT_WALL.get("shared"),
+                    "steps": tr.global_step, "heartbeats": len(tr.heartbeats),
+                    "kinds": summary["kinds"], "polls": len(seen),
+                    "spans": recs[-1].get("spans"), "probe": probe_rec,
+                    "snapshot": snap_rec, "oracle": oracle, "last_norms": last}
+        log("runtime", f"(a) telemetry + status + norm_watch=warn: {tr.global_step} "
+            f"steps, fit wall {wall:.3f} s against the layer-off 'shared' fit's "
+            f"{FIT_WALL.get('shared', float('nan')):.3f} s (both with set-up; (a) also "
+            f"copies the parameters at each probe for the check), {len(seen)} polls "
+            f"({len(running)} while running, steps {steps[:1]}..{steps[-1:]}), log "
+            f"{summary['kinds']}, {len(trace['traceEvents'])} trace events, spans "
+            f"{recs[-1].get('spans')}")
+        log("runtime", f"(a) last heartbeat's norms {last}; float64 oracle {oracle}; "
+            f"disagreements {bad}")
+        log("runtime", f"probe at V={vocab.size}: device {probe_rec['device_ms']:.4f} ms "
+            f"(torch.profiler, 20 calls), call {probe_rec['ms']:.4f} ms (events, host "
+            f"enqueue included) beside its byte bound {probe_rec['bound_ms']:.4f} ms "
+            f"({nbytes / 1e9:.3f} GB read at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+        log("runtime", f"snapshot at V={vocab.size} (copy_ of both matrices): device "
+            f"{snap_rec['device_ms']:.4f} ms, call {snap_rec['ms']:.4f} ms beside its byte "
+            f"bound {snap_rec['bound_ms']:.4f} ms ({2 * nbytes / 1e9:.3f} GB moved)")
+        del tr, p
+        if not all(checks.values()):
+            raise AssertionError(f"runtime (a) failed: {checks}; {bad}")
+
+        # (b) nonfinite_policy="rollback", NaN injected
+        restores.clear()
+        Trainer._restore_snapshot = restore
+        try:
+            tr, wall = fit("runtime_b_rollback", {"nonfinite_policy": "rollback"},
+                           {"nan_at_step": INJECT_STEP})
+        finally:
+            Trainer._restore_snapshot = real_restore
+        n = launches["runtime_b_rollback"]["sgns_shared_step"]
+        finite = all(bool(torch.isfinite(m).all()) for m in tr.params)
+        checks = {"one rollback": tr.rollbacks_performed == 1 and len(restores) == 1,
+                  "global_step past 2^22": tr.global_step > 1 << 22,
+                  "params finite": finite,
+                  "fused before and after": bool(restores) and 0 < restores[0][0] < n}
+        rec["b"] = {"wall_s": wall, "steps": tr.global_step,
+                    "fused_before": restores[0][0] if restores else None,
+                    "fused_after": n - restores[0][0] if restores else None}
+        log("runtime", f"(b) rollback: NaN at the round reaching step {INJECT_STEP}, "
+            f"rollbacks {tr.rollbacks_performed}, final global_step {tr.global_step}, "
+            f"sgns_shared launches {rec['b']['fused_before']} before the rollback and "
+            f"{rec['b']['fused_after']} after, params finite {finite}, wall {wall:.3f} s")
+        del tr
+        if not all(checks.values()):
+            raise AssertionError(f"runtime (b) failed: {checks}")
+
+        # (c) norm_watch="recover", a finite blowup injected
+        restores.clear()
+        log_c = os.path.join(tmp, "c.jsonl")
+        Trainer._restore_snapshot = restore
+        try:
+            tr, wall = fit("runtime_c_recover", {"norm_watch": "recover",
+                                                 "telemetry_path": log_c},
+                           {"scale_params_at_step": INJECT_STEP})
+        finally:
+            Trainer._restore_snapshot = real_restore
+        nf = launches["runtime_c_recover"]["sgns_shared_step"]
+        ns = launches["runtime_c_recover"]["scatter_add_rows"]
+        recovery = [r for r in _records(log_c) if r["kind"] == "recovery"]
+        final = health_stats(tr.params, vocab.size, NORM_THRESHOLD)
+        top = max(final.syn0.max_norm, final.syn1.max_norm)
+        fb, sb = restores[0][:2] if restores else (None, None)
+        checks = {"one recovery record": len(recovery) == 1
+                  and recovery[0]["action"] == "rollback",
+                  "lr_scale 0.5": tr._lr_scale == 0.5,
+                  "max_row_norm engaged": tr._stabilizers.max_row_norm == NORM_THRESHOLD,
+                  "fused before, none after": bool(restores) and fb > 0 and nf == fb,
+                  "scatter after, none before": sb == 0 and ns > 0,
+                  "log validates": validate_file(log_c)["ok"],
+                  "finite, below the threshold": final.finite
+                  and top <= NORM_THRESHOLD * (1 + 1e-5)}
+        rec["c"] = {"wall_s": wall, "steps": tr.global_step, "fused_before": fb,
+                    "fused_after": nf - (fb or 0), "scatter_before": sb,
+                    "scatter_after": ns - (sb or 0), "final_max_norm": top,
+                    "recovery": recovery}
+        log("runtime", f"(c) recover: blowup x1e6 at the round reaching step "
+            f"{INJECT_STEP}, recoveries {tr.recoveries_performed}, lr_scale "
+            f"{tr._lr_scale}, max_row_norm {tr._stabilizers.max_row_norm}, launches: "
+            f"sgns_shared {fb} before the recovery and {nf - (fb or 0)} after, "
+            f"scatter_rows {sb} before and {ns - (sb or 0)} after; final max row norm "
+            f"{top:.4f}, finite {final.finite}, wall {wall:.3f} s")
+        del tr
+        if not all(checks.values()):
+            raise AssertionError(f"runtime (c) failed: {checks}")
+
+        # (d) SIGTERM to a child process under checkpoint_on_preempt
+        rec["d"] = preempt_child(tmp, seed, np)
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1608,6 +1972,9 @@ def main() -> int:
             sync_numpy_fit(model, counts_[0], corpus, args.seed, torch, fused)
         del model
     del bench_corpus, bench_sents
+    runtime, runtime_launches = runtime_phase(corpus, args.seed, torch, np, fused, scat,
+                                              profile_call)
+    launches.update(runtime_launches)
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -1660,6 +2027,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,
                                               "pairgen": gen, "model": surface,
                                               "banded": brec, "stabilizers": stab_rec,
+                                              "runtime": runtime,
                                               "launches_by_fit": launches,
                                               "card": card}) + "\n")
     print(json.dumps(kernels_line))

@@ -18,7 +18,11 @@ change the results of training and is not ported yet raises :class:`NotImplement
 default; it is never silently ignored. The host data plane's knobs change wall clock
 only, in both packages (the results are bit-identical at any value):
 ``prefetch_chunks``, ``producer_workers`` and ``io_workers`` (vocabulary counting,
-checkpoint and export I/O) mean what they mean in the JAX package.
+checkpoint and export I/O) mean what they mean in the JAX package. So do the runtime
+layer's knobs (``nonfinite_policy`` with ``rollback``, ``norm_watch`` and its recovery
+ladder, ``telemetry_path``, ``status_port``, ``checkpoint_on_preempt``), with
+``profile_dir`` recording a ``torch.profiler`` trace where the JAX package records a
+``jax.profiler`` one; ``peer_beacon_s`` belongs to multi-process fits and is refused.
 """
 
 from __future__ import annotations
@@ -30,9 +34,7 @@ from typing import Optional, Tuple
 # each one lands in).
 _UNPORTED = (
     "use_pallas", "step_lowering", "sync_every", "num_model_shards",
-    "num_data_shards", "embedding_partition", "sharded_checkpoint",
-    "norm_watch", "telemetry_path", "profile_dir",
-    "status_port", "checkpoint_on_preempt", "peer_beacon_s",
+    "num_data_shards", "embedding_partition", "sharded_checkpoint", "peer_beacon_s",
     "serve_max_batch", "serve_max_delay_ms", "serve_queue_depth",
     "serve_ann_centroids", "serve_ann_nprobe", "serve_ann_quant", "serve_ann_pq_m",
     "serve_ann_rerank", "serve_ann_recall_floor", "serve_ann_max_densify_bytes",
@@ -105,7 +107,7 @@ class Word2VecConfig:
     heartbeat_every_steps: int = 100
     prefetch_chunks: int = 8        # chunks a producer thread assembles (and, on the
                                     # card, stages) ahead; 0 = on the calling thread
-    profile_dir: str = ""
+    profile_dir: str = ""           # torch.profiler's Chrome trace goes here
     feed_consistency_check: bool = False  # multi-process only: inert here
     shard_input: bool = True              # multi-process only: inert here
     device_pairgen: bool = False          # the card expands token blocks into pairs
@@ -119,11 +121,11 @@ class Word2VecConfig:
     sharded_prefetch: bool = True         # multi-process only: inert here
 
     # --- fault tolerance ---
-    nonfinite_policy: str = "halt"  # "halt" and "none" are ported, "rollback" is not
+    nonfinite_policy: str = "halt"
     rollback_history: int = 2
     max_rollbacks: int = 8
 
-    # --- run telemetry ---
+    # --- run telemetry (glint_word2vec_torch/obs; snapshots stay on the device) ---
     telemetry_path: str = ""
     telemetry_rotate_bytes: int = 64 << 20
     heartbeat_ring: int = 512
@@ -141,7 +143,7 @@ class Word2VecConfig:
     blackbox_ring: int = 256
 
     # --- preemption and supervisor (supervisor_* are read by the supervisor
-    # process only) ---
+    # process only, which is not ported; peer_beacon_s waits for multi-process fits) ---
     checkpoint_on_preempt: bool = False
     preempt_deadline_s: float = 30.0
     peer_beacon_s: float = 0.0
@@ -230,10 +232,6 @@ class Word2VecConfig:
             raise NotImplementedError(
                 f"mesh_shape={self.mesh_shape!r}: the port trains on one device; "
                 "multi-device meshes are not ported yet")
-        if self.nonfinite_policy == "rollback":
-            raise NotImplementedError(
-                "nonfinite_policy='rollback' (snapshot ring + lattice re-seed) is not "
-                "ported to glint_word2vec_torch yet; use 'halt' or 'none'")
 
     def replace(self, **kwargs) -> "Word2VecConfig":
         # keep AUTO-ness: a resolved AUTO value must re-derive on the new config
@@ -334,6 +332,12 @@ def _validate_stabilizers(c: Word2VecConfig) -> None:
                 "fused kernel owns its own update math; use the XLA "
                 "paths, which compile the stabilizers into every "
                 "lowering (ops/sgns.py)")
+        if c.norm_watch == "recover":
+            raise ValueError(
+                "norm_watch='recover' auto-engages max_row_norm, which "
+                "the fused pallas kernel does not implement — use "
+                "norm_watch='warn'/'halt' with use_pallas=True, or the "
+                "XLA paths for auto-recovery")
     if c.max_row_norm < 0:
         raise ValueError(
             f"max_row_norm must be nonnegative (0 = off) but got {c.max_row_norm}")
@@ -521,3 +525,44 @@ def _validate_ranges(c: Word2VecConfig) -> None:
         raise ValueError(
             f"nonfinite_policy must be 'halt', 'rollback', or 'none' "
             f"but got {c.nonfinite_policy!r}")
+    _validate_runtime(c)
+
+
+def _validate_runtime(c: Word2VecConfig) -> None:
+    """The JAX package's range checks of the runtime layer's knobs, copied as they
+    stand."""
+    if c.norm_watch not in ("off", "warn", "recover", "halt"):
+        raise ValueError(
+            f"norm_watch must be 'off', 'warn', 'recover', or 'halt' "
+            f"but got {c.norm_watch!r}")
+    if not (0 < c.recover_lr_backoff <= 1):
+        raise ValueError(
+            f"recover_lr_backoff must be in (0, 1] but got {c.recover_lr_backoff}")
+    if c.max_recoveries < 0:
+        raise ValueError(
+            f"max_recoveries must be nonnegative but got {c.max_recoveries}")
+    if c.norm_watch_threshold <= 0:
+        raise ValueError(
+            f"norm_watch_threshold must be positive but got {c.norm_watch_threshold}")
+    if c.norm_watch_max <= 0:
+        raise ValueError(f"norm_watch_max must be positive but got {c.norm_watch_max}")
+    if not (0 < c.norm_watch_frac <= 1):
+        raise ValueError(
+            f"norm_watch_frac must be in (0, 1] but got {c.norm_watch_frac}")
+    if c.telemetry_rotate_bytes <= 0:
+        raise ValueError(
+            f"telemetry_rotate_bytes must be positive "
+            f"but got {c.telemetry_rotate_bytes}")
+    if c.profile_steps < 0:
+        raise ValueError(f"profile_steps must be nonnegative but got {c.profile_steps}")
+    if not (0 <= c.status_port <= 65535):
+        raise ValueError(
+            f"status_port must be in [0, 65535] (0 = off) but got {c.status_port}")
+    if c.blackbox_ring <= 0:
+        raise ValueError(f"blackbox_ring must be positive but got {c.blackbox_ring}")
+    if c.preempt_deadline_s <= 0:
+        raise ValueError(
+            f"preempt_deadline_s must be positive but got {c.preempt_deadline_s}")
+    if c.peer_beacon_s < 0:
+        raise ValueError(
+            f"peer_beacon_s must be nonnegative (0 = off) but got {c.peer_beacon_s}")

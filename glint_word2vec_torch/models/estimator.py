@@ -42,6 +42,7 @@ class Word2Vec:
             config = config.replace(**overrides)
         self.config = config
         self.trainer: Optional[Trainer] = None
+        self.last_run_stats: Optional[dict] = None  # Trainer.last_run_stats of the fit
 
     def fit(
         self,
@@ -60,7 +61,8 @@ class Word2Vec:
         The fitted :class:`Trainer` stays on ``self.trainer``. With
         ``device_pairgen=True`` the trainer feeds token blocks and the device expands
         them into pairs. ``plan`` (a multi-device mesh) is refused: the port trains on
-        one device."""
+        one device. The runtime outcome (watchdog firings, rollbacks, recoveries, the
+        final lr scale and engaged stabilizers) is ``self.last_run_stats``."""
         refuse_plan(plan)
         cfg = self.config
         if iter(sentences) is sentences:
@@ -77,6 +79,7 @@ class Word2Vec:
         self.trainer = Trainer(cfg, vocab, device=self.device)
         self.trainer.fit(encoded, checkpoint_path=checkpoint_path,
                          checkpoint_every_steps=checkpoint_every_steps)
+        self.last_run_stats = self.trainer.last_run_stats
         params = self.trainer.unpadded_params()
         return Word2VecModel(vocab=vocab, syn0=params.syn0, syn1=params.syn1,
                              config=self.trainer.config,

@@ -1,0 +1,38 @@
+"""The in-process runtime layer, ported from ``glint_word2vec_tpu/obs/``; every layer
+is off by default and free when off:
+
+- :mod:`.probe`: the health probe (finiteness and per-matrix row-norm channels);
+- :mod:`.watch`: the finite-blowup watchdog (``config.norm_watch``);
+- :mod:`.sink` and :mod:`.schema`: the schema-versioned JSONL run log and its
+  validators (one catalogue with the JAX package's);
+- :mod:`.spans`: host trace spans, exported as Chrome-trace JSON;
+- :mod:`.phases`: per-phase log2 duration histograms;
+- :mod:`.blackbox`: the flight recorder, dumped on fit death;
+- :mod:`.statusd`: the read-only live status endpoint (``config.status_port``).
+
+The fleet plane (``trace``, ``slo``, ``collect``) and the serving renderers wait for
+the serving tier.
+"""
+
+from glint_word2vec_torch.obs.blackbox import FlightRecorder
+from glint_word2vec_torch.obs.phases import PhaseAccumulator
+from glint_word2vec_torch.obs.probe import HealthStats, health_stats, stats_to_channels
+from glint_word2vec_torch.obs.schema import (
+    SCHEMA_VERSION,
+    validate_blackbox,
+    validate_blackbox_file,
+    validate_file,
+    validate_record,
+)
+from glint_word2vec_torch.obs.sink import TelemetrySink
+from glint_word2vec_torch.obs.spans import Tracer, default_tracer
+from glint_word2vec_torch.obs.statusd import StatusServer, prometheus_text
+from glint_word2vec_torch.obs.watch import NormWatchdog
+
+__all__ = [
+    "HealthStats", "health_stats", "stats_to_channels",
+    "SCHEMA_VERSION", "validate_file", "validate_record",
+    "validate_blackbox", "validate_blackbox_file",
+    "TelemetrySink", "Tracer", "default_tracer", "NormWatchdog",
+    "FlightRecorder", "PhaseAccumulator", "StatusServer", "prometheus_text",
+]

@@ -1,0 +1,512 @@
+"""The telemetry JSONL schema, ported from ``glint_word2vec_tpu/obs/schema.py``: one
+versioned catalogue and its validators, copied as they stand (the same
+:data:`SCHEMA_VERSION`, kinds, required and optional fields), so that a run log or a
+flight-recorder dump written by either package validates under both.
+
+Every record carries ``schema`` (:data:`SCHEMA_VERSION`), ``kind`` (one of
+:data:`KINDS`) and ``t`` (unix seconds). Additive fields are free (consumers ignore
+unknown keys); renaming or removing a required field, or changing its type, needs a
+version bump. The serving, fleet, continual and supervisor kinds are in the catalogue
+too: one catalogue validates every artifact.
+
+As a CLI::
+
+    python -m glint_word2vec_torch.obs.schema run.jsonl [more.jsonl ...]
+
+prints one JSON summary line and exits 0 iff every record of every file validates;
+paths ending ``.blackbox.json`` are validated as flight-recorder dumps.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, List, Optional
+
+SCHEMA_VERSION = 1
+
+# null is legal wherever a number is: the sink writes non-finite measured
+# values (NaN loss in a diverging run) as null to keep every line strict
+# RFC-8259 JSON (obs/sink.py _sanitize)
+_NUM = (int, float, type(None))
+
+# kind -> {field: allowed python types}. These are the REQUIRED fields; extra
+# keys are always allowed (additive evolution).
+KINDS: Dict[str, Dict[str, tuple]] = {
+    "run_start": {
+        "run_id": (str,),
+        "vocab_size": (int,),
+        "mesh": (list,),
+        "config": (dict,),       # the stability-relevant knob subset
+    },
+    "heartbeat": {
+        "step": (int,),
+        "words": (int,),
+        "alpha": _NUM,
+        "loss": _NUM,
+        "mean_f_pos": _NUM,
+        "pairs_per_sec": _NUM,
+        "host_wait_s": _NUM,     # host-side wait since the previous heartbeat
+        "dispatch_s": _NUM,      # dispatch time since the previous heartbeat
+        # optional fields (see KINDS_OPTIONAL): "norms", "phases",
+        # "recoveries", "lr_scale"
+    },
+    "watchdog": {
+        "step": (int,),
+        "policy": (str,),        # "warn" | "recover" | "halt"
+        "reason": (str,),
+        "channels": (dict,),     # the probe channels the decision was made on
+    },
+    # one per norm_watch="recover" ladder action (ADDITIVE under the schema
+    # evolution rule: a brand-new kind; no existing field moved). Emitted
+    # BEFORE the rollback mutates any state, so even a crash mid-recovery
+    # leaves the evidence in the run log — and the budget-exhaustion record
+    # (action="halt") lands before the NormBlowupError raise, the same
+    # record-before-raise contract as the watchdog-halt path.
+    "recovery": {
+        "step": (int,),          # global step the firing probe observed
+        "action": (str,),        # "rollback" | "halt" (budget exhausted)
+        "reason": (str,),        # the watchdog firing reason
+        "snapshot_step": (int,), # restore point (-1 when action="halt")
+        "recoveries_performed": (int,),  # AFTER this action
+        "max_recoveries": (int,),
+        "lr_scale": _NUM,        # effective lr multiplier AFTER this action
+        "max_row_norm": _NUM,    # engaged clamp AFTER this action (0 = off)
+        "channels": (dict,),
+    },
+    "run_end": {
+        "run_id": (str,),
+        "status": (str,),        # "ok" | "error" | "preempted" (emergency-
+                                 # checkpoint exit — train/supervisor.py)
+        "steps": (int,),
+        "pairs_trained": _NUM,
+        "host_wait_s_total": _NUM,
+        "dispatch_s_total": _NUM,
+        "watchdog_fires": (int,),
+    },
+    # --- serving-tier record kinds (serve/service.py; ADDITIVE under the
+    # schema evolution rule, like "recovery": brand-new kinds, no existing
+    # field moved — archived v1 training logs keep validating) ---
+    "serve_start": {
+        "checkpoint": (str,),    # path served ("<in-memory>" for model=)
+        "vocab_size": (int,),
+        "vector_size": (int,),
+        # optional: "ann" (the built index's stats dict incl. recall)
+    },
+    "serve_reload": {
+        "vocab_size": (int,),    # of the NEWLY installed model
+        "reloads": (int,),       # total hot-reloads AFTER this one
+        "load_seconds": _NUM,    # background load + index build wall time
+    },
+    "serve_stats": {
+        "submitted": (int,),
+        "refused": (int,),       # 429-style backpressure refusals
+        "batches": (int,),
+        "queue_depth": (int,),
+        "reloads": (int,),
+        # optional: "latency_ms", "occupancy_mean", "ann"
+    },
+    "serve_end": {
+        "submitted": (int,),
+        "refused": (int,),
+        "reloads": (int,),
+    },
+    # --- serving-fleet record kinds (serve/fleet.py; ADDITIVE under the
+    # schema evolution rule, like the serve_* tier: brand-new kinds, no
+    # existing field moved — archived v1 logs keep validating) ---
+    "fleet_start": {
+        "replicas": (int,),      # fleet size behind the router
+        "checkpoint": (str,),    # publish path ("<in-memory>" for adopted)
+    },
+    "fleet_breaker": {
+        "replica": (str,),       # replica name (r0, r1, ...)
+        "from_state": (str,),    # "closed" | "open" | "half-open"
+        "to_state": (str,),
+        "reason": (str,),        # bounded human diagnostic
+    },
+    "fleet_reload": {
+        "publishes": (int,),     # rolling-reload rounds AFTER this one
+        "min_serving": (int,),   # lowest serving count during the round
+                                 # (the N-1 capacity-floor assertion)
+        "replicas": (int,),
+        "seconds": _NUM,         # whole-round wall time
+    },
+    "fleet_stats": {
+        "queries": (int,),
+        "failures": (int,),      # requests that exhausted the deadline
+        "retries": (int,),       # failed attempts retried elsewhere
+        "hedges": (int,),        # duplicate sends past the hedge delay
+        "hedge_wins": (int,),    # hedges whose SECOND replica answered first
+        "shed": (int,),          # bulk + single refusals (FleetOverloaded)
+        "healthy": (int,),       # alive replicas with CLOSED breakers
+        "degraded": (int,),      # serving a stale publish generation
+    },
+    "fleet_end": {
+        "queries": (int,),
+        "failures": (int,),
+    },
+    # --- fleet-observability record kinds (obs/trace.py, obs/slo.py;
+    # ADDITIVE under the schema evolution rule: brand-new kinds,
+    # no existing field moved, archived v1 logs keep validating) ---
+    # one measured region of one fleet query, in whichever PROCESS measured
+    # it: the router's per-query root + per-attempt children, the replica
+    # batcher's queue_wait/batch_service children, the service's ANN-probe
+    # child. mono_ns is the process's monotonic clock; the collector maps it
+    # to fleet wall time via the clock anchor its file's *_start record
+    # carries (obs/collect.py).
+    "trace_span": {
+        "trace_id": (str,),      # one per client query (root of the tree)
+        "span": (str,),          # this span's id
+        "name": (str,),          # fleet_query | attempt | queue_wait |
+                                 # batch_service | ann_probe | exact_scan
+        "mono_ns": (int,),       # start, process-local monotonic clock
+        "dur_ns": (int,),
+        # optional: "parent" (absent on roots), "process", "replica",
+        # "outcome" (ok|win|abandoned|failed|saturated|shed), "op"
+    },
+    # the publish-side correlation record: the trainer / ContinualRunner
+    # emits one after a completed checkpoint save, keyed by the SAME
+    # publish_sig string the watcher and fleet router compare — save ->
+    # detect -> per-replica drain+reload becomes one collector-joinable
+    # causal chain (obs/trace.emit_publish)
+    "publish": {
+        "publish_sig": (str,),   # mtime_ns-inode-size of metadata.json
+        "checkpoint": (str,),
+        "step": (int,),
+    },
+    # periodic SLO snapshot (obs/slo.py flatten_burn): availability over
+    # the router's per-query samples + multi-window burn rates; null burn =
+    # no budget math possible yet (no samples)
+    "fleet_slo": {
+        "objective": _NUM,       # availability objective (e.g. 0.999)
+        "availability": _NUM,    # measured, tracker lifetime
+        "samples": (int,),
+        "burn_short": _NUM,      # short-window availability burn rate
+        "burn_long": _NUM,
+    },
+    # --- continual-training record kinds (continual/loop.py; ADDITIVE under
+    # the schema evolution rule, like the serve_* tier: brand-new kinds, no
+    # existing field moved — archived v1 logs keep validating) ---
+    "continual_extend": {
+        "old_vocab_size": (int,),
+        "new_vocab_size": (int,),
+        "new_words": (int,),     # promoted past min_count this migration
+    },
+    "continual_increment": {
+        "increment": (int,),     # 0 = the bootstrap base fit
+        "segments": (int,),      # new tail segments trained this increment
+        "vocab_size": (int,),    # AFTER any extension
+        "new_words": (int,),
+        "words": (int,),         # tail tokens trained
+        "train_seconds": _NUM,
+    },
+    # --- training-supervisor record kinds (train/supervisor.py,
+    # docs/robustness.md; ADDITIVE under the schema evolution rule) ---
+    # the trainer's own last word under a preemption: emitted by
+    # _preempt_exit right before run_end status="preempted", carrying
+    # whether the emergency save made the deadline and how many steps
+    # separate the carry from the last published checkpoint (the
+    # progress-lost-since-last-save the supervisor and run_report report)
+    "preempt": {
+        "step": (int,),
+        "saved": (bool,),        # emergency checkpoint published + verified
+        "checkpoint": (str,),
+        "deadline_s": _NUM,      # config.preempt_deadline_s
+        "steps_since_save": (int,),  # 0 when saved — nothing was lost
+    },
+    # supervisor lifecycle: one sink per supervisor, distinct from the
+    # child fits' sinks (each attempt writes its own run_* bracket)
+    "supervisor_start": {
+        "commands": (int,),      # gang size (1 = single-process fit)
+        "max_restarts": (int,),
+        "stall_s": _NUM,
+    },
+    "supervisor_exit": {         # one per child-process death, any cause
+        "attempt": (int,),
+        "rc": (int,),            # negative = killed by that signal
+        "cls": (str,),           # ok|preempt|stall|crash|peer-death
+        "step": (int,),          # last observed telemetry step
+    },
+    "supervisor_restart": {
+        "attempt": (int,),       # the attempt ABOUT to start
+        "backoff_s": _NUM,       # decorrelated-jitter sleep taken first
+        "resume_step": (int,),   # step of the checkpoint resumed from
+    },
+    "supervisor_stall": {
+        "attempt": (int,),
+        "last_step": (int,),
+        "stalled_s": _NUM,       # silence observed when the watchdog fired
+    },
+    "supervisor_quarantine": {
+        "signature": (str,),     # the repeated (cls, step-bucket) signature
+        "attempts": (int,),
+        "ladder_stage": (int,),  # 1 = mitigations engaged, 2 = halted
+    },
+    "supervisor_end": {
+        "status": (str,),        # ok | quarantined | gave-up
+        "attempts": (int,),
+        "final_step": (int,),
+    },
+}
+
+_COMMON = {"schema": (int,), "kind": (str,), "t": _NUM}
+
+# OPTIONAL fields: type-checked when present, never required — this is what
+# "additive fields are free" means in practice. The heartbeat's
+# recoveries/lr_scale/phases are here, NOT in the required table: every new
+# writer emits them on every heartbeat (tests pin that), but archived v1
+# logs (CI artifacts, old remote-run JSONLs) must keep validating — making
+# a new field REQUIRED under an unchanged version number would retroactively
+# invalidate every file the previous release wrote.
+#
+# The CLOCK ANCHORS are here too: every run_start /
+# serve_start / fleet_start a new writer emits carries one simultaneous
+# (wall_ns, mono_ns) clock reading (obs/trace.clock_anchor) so the
+# collector can align cross-process monotonic timestamps — optional, not
+# required, for exactly the archived-log reason above.
+KINDS_OPTIONAL: Dict[str, Dict[str, tuple]] = {
+    "run_start": {
+        "wall_ns": (int,),       # time.time_ns() at the same instant as...
+        "mono_ns": (int,),       # ...time.monotonic_ns() (the anchor pair)
+    },
+    "heartbeat": {
+        "norms": (dict,),        # probe channels, when the probe ran
+        "recoveries": (int,),    # recoveries performed so far this fit
+        "lr_scale": _NUM,        # effective lr multiplier the heartbeat's
+                                 # chunk actually DISPATCHED under
+        "phases": (dict,),       # per-phase log2 duration histograms over
+                                 # this heartbeat window (obs/phases.py)
+    },
+    "run_end": {
+        "phases": (dict,),       # cumulative per-phase rollup
+        "spans": (dict,),        # tracer span summary
+    },
+    "serve_start": {
+        "ann": (dict,),          # IVF build stats (centroids, nprobe,
+                                 # recall_at_10, build_seconds)
+        "wall_ns": (int,),       # clock anchor (see run_start)
+        "mono_ns": (int,),
+        "process": (str,),       # fleet-timeline track label
+        "publish_sig": (str,),   # the publish generation first served
+    },
+    "serve_reload": {
+        "ann": (dict,),
+        "vocab_grew_from": (int,),  # previous generation's V, present only
+                                    # when the publish changed the vocab
+                                    # size (continual growth)
+        "publish_sig": (str,),   # the generation this reload installed —
+                                 # joins the trainer's publish record
+    },
+    "serve_stats": {
+        "latency_ms": (dict,),   # p50/p95/p99 over the recent-latency ring
+        "occupancy_mean": _NUM,  # mean requests per dispatched batch
+        "ann": (dict,),
+    },
+    "fleet_start": {
+        "wall_ns": (int,),       # clock anchor (see run_start)
+        "mono_ns": (int,),
+        "process": (str,),
+    },
+    "fleet_reload": {
+        "publish_sig": (str,),   # the generation the rolling round rolled to
+    },
+    "fleet_stats": {
+        "latency_ms": (dict,),   # router-side end-to-end quantiles
+        "slo": (dict,),          # obs/slo.py flatten_burn snapshot
+    },
+    "trace_span": {
+        "parent": (str,),        # absent on root spans
+        "process": (str,),
+        "replica": (str,),       # attempt spans: which replica answered
+        "outcome": (str,),       # ok|win|abandoned|failed|saturated|shed
+        "op": (str,),
+    },
+    "publish": {
+        "publisher": (str,),     # trainer | continual
+    },
+    "fleet_slo": {
+        "latency_good_fraction": _NUM,
+        "latency_burn_short": _NUM,
+    },
+}
+
+# The flight-recorder dump (obs/blackbox.py, `<telemetry_path>.blackbox.json`)
+# is ONE JSON document, not JSONL — its ring entries reuse the record kinds
+# above, so the same catalogue validates both artifacts. Top-level required
+# fields; `cause.kind` enumerates the terminal-record variants.
+BLACKBOX_FIELDS: Dict[str, tuple] = {
+    "run_id": (str,),
+    "cause": (dict,),
+    "heartbeats": (list,),
+    "events": (list,),
+    "dispatches": (list,),
+}
+_CAUSE_KINDS = ("exception", "signal", "none")
+_DISPATCH_FIELDS: Dict[str, tuple] = {
+    "t": _NUM, "step": (int,), "real": (int,),
+    "dispatch_s": _NUM, "wait_s": _NUM,
+}
+
+
+def validate_record(rec: Any) -> List[str]:
+    """Errors for one parsed record; empty list = valid."""
+    if not isinstance(rec, dict):
+        return [f"record is {type(rec).__name__}, not an object"]
+    errs: List[str] = []
+    for field, types in _COMMON.items():
+        if field not in rec:
+            errs.append(f"missing common field {field!r}")
+        elif not isinstance(rec[field], types) or isinstance(rec[field], bool):
+            errs.append(f"{field!r} has type {type(rec[field]).__name__}")
+    if errs:
+        return errs
+    if rec["schema"] != SCHEMA_VERSION:
+        return [f"schema version {rec['schema']} != {SCHEMA_VERSION} "
+                f"(drift: bump the catalogue, not just the writer)"]
+    kind = rec["kind"]
+    if kind not in KINDS:
+        return [f"unknown kind {kind!r}"]
+    for field, types in KINDS[kind].items():
+        if field not in rec:
+            errs.append(f"{kind}: missing field {field!r}")
+        elif not isinstance(rec[field], types) or (
+                isinstance(rec[field], bool) and bool not in types):
+            errs.append(f"{kind}.{field} has type {type(rec[field]).__name__}, "
+                        f"expected {'/'.join(t.__name__ for t in types)}")
+    for field, types in KINDS_OPTIONAL.get(kind, {}).items():
+        if field in rec and rec[field] is not None and (
+                not isinstance(rec[field], types)
+                or (isinstance(rec[field], bool) and bool not in types)):
+            errs.append(f"{kind}.{field} has type {type(rec[field]).__name__}, "
+                        f"expected {'/'.join(t.__name__ for t in types)} "
+                        f"(optional field: absent is fine, wrong type is not)")
+    return errs
+
+
+def validate_blackbox(doc: Any) -> List[str]:
+    """Errors for one parsed blackbox dump document; empty list = valid.
+    Ring entries are validated against the record catalogue above (they are
+    the same records the sink wrote), dispatch records against their own
+    field table, and the terminal ``cause`` against the variant enum."""
+    if not isinstance(doc, dict):
+        return [f"document is {type(doc).__name__}, not an object"]
+    errs: List[str] = []
+    if doc.get("kind") != "blackbox":
+        errs.append(f"kind is {doc.get('kind')!r}, expected 'blackbox'")
+    if doc.get("schema") != SCHEMA_VERSION:
+        errs.append(f"schema version {doc.get('schema')!r} != "
+                    f"{SCHEMA_VERSION}")
+    for field, types in BLACKBOX_FIELDS.items():
+        if field not in doc:
+            errs.append(f"missing field {field!r}")
+        elif not isinstance(doc[field], types):
+            errs.append(f"{field!r} has type {type(doc[field]).__name__}")
+    if errs:
+        return errs
+    cause = doc["cause"]
+    ck = cause.get("kind")
+    if ck not in _CAUSE_KINDS:
+        errs.append(f"cause.kind {ck!r} not in {_CAUSE_KINDS}")
+    elif ck == "exception" and not (
+            isinstance(cause.get("type"), str)
+            and isinstance(cause.get("message"), str)):
+        errs.append("exception cause needs string 'type' and 'message'")
+    elif ck == "signal" and not isinstance(cause.get("signal"), str):
+        errs.append("signal cause needs a string 'signal' name")
+    for i, rec in enumerate(doc["heartbeats"]):
+        for e in validate_record(rec):
+            errs.append(f"heartbeats[{i}]: {e}")
+        if isinstance(rec, dict) and rec.get("kind") != "heartbeat":
+            errs.append(f"heartbeats[{i}]: kind {rec.get('kind')!r}")
+    for i, rec in enumerate(doc["events"]):
+        for e in validate_record(rec):
+            errs.append(f"events[{i}]: {e}")
+    for i, rec in enumerate(doc["dispatches"]):
+        if not isinstance(rec, dict):
+            errs.append(f"dispatches[{i}]: not an object")
+            continue
+        for field, types in _DISPATCH_FIELDS.items():
+            if field not in rec:
+                errs.append(f"dispatches[{i}]: missing {field!r}")
+            elif not isinstance(rec[field], types) or isinstance(
+                    rec[field], bool):
+                errs.append(f"dispatches[{i}].{field} has type "
+                            f"{type(rec[field]).__name__}")
+    return errs
+
+
+def validate_blackbox_file(path: str, max_errors: int = 20) -> Dict[str, Any]:
+    """Validate one ``.blackbox.json`` dump; same summary shape as
+    :func:`validate_file` so the CLI handles both artifact kinds."""
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        return {"path": path, "records": 0, "kinds": {}, "ok": False,
+                "errors": [f"{path}: unreadable ({e})"]}
+    errors = [f"{path}: {e}" for e in validate_blackbox(doc)]
+    kinds = {}
+    if not errors:
+        kinds = {"blackbox": 1,
+                 "heartbeat": len(doc["heartbeats"]),
+                 "event": len(doc["events"]),
+                 "dispatch": len(doc["dispatches"])}
+    return {"path": path, "records": 1 if not errors else 0, "kinds": kinds,
+            "ok": not errors, "errors": errors[:max_errors]}
+
+
+def validate_file(path: str, max_errors: int = 20,
+                  tolerate_torn_tail: bool = False) -> Dict[str, Any]:
+    """Validate every line of a telemetry JSONL file (rotated segments are
+    just more files — pass each). Returns a summary dict with per-kind counts
+    and the first ``max_errors`` error strings. A SIGKILLed process can leave
+    a half-written FINAL line; ``tolerate_torn_tail=True`` reports that one
+    as ``"torn_tail": true`` instead of an error — mid-file garbage still
+    fails either way."""
+    counts: Dict[str, int] = {}
+    errors: List[str] = []
+    n = 0
+    tail_err: Optional[str] = None
+    with open(path, "r", encoding="utf-8") as f:
+        for lineno, line in enumerate(f, 1):
+            line = line.strip()
+            if not line:
+                continue
+            n += 1
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError as e:
+                tail_err = f"{path}:{lineno}: not JSON ({e})"
+                errors.append(tail_err)
+                continue
+            tail_err = None
+            errs = validate_record(rec)
+            if errs:
+                errors.extend(f"{path}:{lineno}: {e}" for e in errs)
+            else:
+                counts[rec["kind"]] = counts.get(rec["kind"], 0) + 1
+    torn = False
+    if tolerate_torn_tail and tail_err is not None:
+        errors.remove(tail_err)
+        torn = True
+    return {"path": path, "records": n, "kinds": counts, "torn_tail": torn,
+            "ok": not errors, "errors": errors[:max_errors]}
+
+
+def main(argv: List[str]) -> int:
+    if not argv:
+        print(json.dumps({"ok": False,
+                          "errors": ["usage: python -m "
+                                     "glint_word2vec_torch.obs.schema "
+                                     "FILE.jsonl [...]"]}))
+        return 2
+    results = [validate_blackbox_file(p) if p.endswith(".blackbox.json")
+               else validate_file(p) for p in argv]
+    ok = all(r["ok"] for r in results) and all(
+        r["records"] > 0 for r in results)
+    print(json.dumps({"ok": ok, "schema": SCHEMA_VERSION, "files": results}))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    import sys
+    sys.exit(main(sys.argv[1:]))

@@ -3,8 +3,8 @@
     python -m glint_word2vec_torch.stepprof [--path PATH] [--feed numpy,native]
         [--prefetch 8,0] [--stab] [--dtype f32|bf16] [--fused-chain] [--hot-rows K]
         [--geometry config3|bench]
-        [--endpoint scatter,shift] [--rounds R] [--switch-interval S] [--seed N]
-        [--tokens N] [--out FILE]
+        [--endpoint scatter,shift] [--rounds R] [--telemetry] [--switch-interval S]
+        [--seed N] [--tokens N] [--out FILE]
 
 ``--path`` picks the step: ``shared`` (skip-gram, shared pool: the fused kernel, the
 default), ``per_pair`` (skip-gram, ``negative_pool=0``), ``cbow`` (scatter CBOW, shared
@@ -52,6 +52,11 @@ when it is built; CBOW has only numpy; ``device`` runs the path's device-feed tw
 chunks on the calling thread). Both take comma-separated lists; the profile runs the first of each, and
 ``--rounds R`` adds ``ab``: plain fits of every pair, R rounds in turns (the order
 reversed each round), with their medians and one feed-alone pass per round.
+``--telemetry`` replaces ``ab`` with ``telemetry``: fits of the first feed and
+prefetch with the runtime layer off, in parts and on (``log``: ``telemetry_path`` in a
+temporary directory and ``norm_watch="warn"``; ``status``: ``status_port`` on a free
+port; ``on``: both), ``--rounds`` rounds (at least one) in turns, the order reversed
+each round, with their medians and the logged fits' probe and span totals.
 ``--switch-interval`` sets the interpreter's GIL switch interval for the run, to test
 whether the producer thread's cost is the consumer waiting for the GIL. ``--endpoint``
 (``cbow_banded``): the banded step's endpoint form on the card
@@ -545,6 +550,56 @@ def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int,
             "feed_only_s": feed_s}
 
 
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (for a status endpoint)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def telemetry_ab(path: str, seed: int, corpus, feed: str, prefetch: int, rounds: int,
+                 variant: Optional[dict] = None) -> dict:
+    """Fits with the runtime layer off, with its parts (``log``: the run log and
+    ``norm_watch="warn"``; ``status``: the status endpoint) and on (both), ``rounds``
+    rounds in turns (the arms' order reversed each round), each from a fresh trainer;
+    the fits with the log report their heartbeats and the span totals of the probe and
+    of the device waits."""
+    import tempfile
+
+    vocab, encoded = corpus
+    runs = []
+    arms = ("off", "log", "status", "on")
+    with tempfile.TemporaryDirectory() as tmp:
+        for r in range(rounds):
+            for arm in (arms if r % 2 == 0 else arms[::-1]):
+                knobs = dict(variant or {})
+                if arm in ("log", "on"):
+                    knobs.update(telemetry_path=f"{tmp}/run-{r}-{arm}.jsonl",
+                                 norm_watch="warn")
+                if arm in ("status", "on"):
+                    knobs.update(status_port=free_port())
+                trainer = make_trainer(path, seed, prefetch, feed, vocab, knobs)
+                run = {"round": r, "arm": arm, **timed_fit(trainer, encoded)}
+                if arm in ("log", "on"):
+                    spans = trainer._tracer.span_summary()
+                    run.update(heartbeats=len(trainer.heartbeats),
+                               spans={k: spans[k] for k in
+                                      ("health_probe", "device_block", "dispatch")
+                                      if k in spans})
+                runs.append(run)
+                del trainer
+    median = {}
+    for arm in arms:
+        mine = [x for x in runs if x["arm"] == arm]
+        median[arm] = {
+            k: float(np.median([x[k] for x in mine]))
+            for k in ("fit_wall_s", "pairs_per_s", "host_wait_s", "dispatch_s")} | {
+            "fit_wall_s_all": [x["fit_wall_s"] for x in mine]}
+    return {"rounds": rounds, "runs": runs, "median": median}
+
+
 def use_geometry(name: str) -> None:
     """Set the module's shapes to a geometry (``config3``, the default, or ``bench``)."""
     global V, B, P, GEOMETRY
@@ -576,6 +631,9 @@ def main() -> int:
     ap.add_argument("--geometry", choices=tuple(CORPUS_SHAPE), default="config3",
                     help="bench: V=200k with the TPU bench's batch, pool and dispatch "
                          "(skip-gram paths)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="fits with the runtime layer off, in parts and on, in turns, "
+                         "--rounds rounds (in place of the feed/prefetch A/B)")
     ap.add_argument("--endpoint", default="scatter",
                     help="cbow_banded: the endpoint form on the card, scatter or shift, "
                          "or both comma-separated (taken in turns by --rounds)")
@@ -618,7 +676,10 @@ def main() -> int:
     rec["fit"] = profile_fit(args.path, args.seed, corpus, feeds[0], prefetches[0],
                              variant)
     rec["fit"]["endpoint"] = endpoints[0]
-    if args.rounds:
+    if args.telemetry:
+        rec["telemetry"] = telemetry_ab(args.path, args.seed, corpus, feeds[0],
+                                        prefetches[0], max(args.rounds, 1), variant)
+    elif args.rounds:
         rec["ab"] = ab_fits(args.path, args.seed, corpus, feeds, prefetches, args.rounds,
                             variant, endpoints)
     line = json.dumps(rec)

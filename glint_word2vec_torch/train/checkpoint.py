@@ -37,6 +37,8 @@ import torch
 
 from glint_word2vec_torch.config import Word2VecConfig
 from glint_word2vec_torch.data.pipeline import ordered_pool_map
+from glint_word2vec_torch.obs.spans import default_tracer
+from glint_word2vec_torch.train import faults
 
 logger = logging.getLogger("glint_word2vec_torch")
 
@@ -139,7 +141,17 @@ def save_model(
 ) -> None:
     """Atomic dense save with per-file SHA-256 digests in ``metadata.json``, each
     digest taken in its file's write pass; the file writes fan out over
-    ``config.io_workers`` threads."""
+    ``config.io_workers`` threads. The fault plan's crash points ``save:arrays-written``,
+    ``save:staged`` and ``save:swap`` (the torn window: ``path`` absent while its
+    ``.old-*`` predecessor and the ``.tmp-*`` staging directory are live) sit where the
+    JAX package has them, and ``corrupt_checkpoint`` runs after the save; the save is a
+    ``checkpoint_save`` span of the process-wide tracer."""
+    with default_tracer().span("checkpoint_save"):
+        _save_model(path, words, counts, syn0, syn1, config, train_state)
+    faults.corrupt_checkpoint(path)
+
+
+def _save_model(path, words, counts, syn0, syn1, config, train_state) -> None:
     bad = [w for w in words if (not w) or ("\n" in w)]
     if bad:
         raise ValueError(
@@ -166,6 +178,7 @@ def save_model(
                                                   np.asarray(syn1, dtype=np.float32)))
             names.append("syn1.npy")
         digests = dict(zip(names, _run_io(tasks, config.io_workers)))
+        faults.crash_point("save:arrays-written")
         train_state = train_state or TrainState(finished=True)
         meta = {
             "format_version": (SHARD_PROGRESS_FORMAT_VERSION
@@ -180,10 +193,12 @@ def save_model(
         }
         with open(stage("metadata.json"), "w", encoding="utf-8") as f:
             json.dump(meta, f, indent=2)
+        faults.crash_point("save:staged")
         old = None
         if os.path.exists(path):
             old = path + f".old-{os.getpid()}"
             os.rename(path, old)
+        faults.crash_point("save:swap")  # the torn window: path absent, old and tmp live
         os.rename(tmp, path)
         if old is not None:
             shutil.rmtree(old)

@@ -56,24 +56,52 @@ parameters:
 and its staging when the producer is on); ``dispatch_time`` the seconds spent issuing
 its steps (with the copy to the card when the producer is off).
 
+The runtime layer (``glint_word2vec_torch/obs``), as the JAX trainer runs it:
+
+- one health probe per probing round (a heartbeat with a guard, a watchdog or telemetry
+  on; checkpoint rounds are probed inside ``save_checkpoint``) feeds the non-finite
+  guard, the snapshot ring and the norm watchdog, and the heartbeat's ``norms``;
+- ``nonfinite_policy="rollback"`` and ``norm_watch="recover"`` arm a ring of
+  ``rollback_history`` parameter snapshots on the device (seeded with the starting
+  parameters; a dropped slot is reused with ``copy_``); a rollback or a recovery pops
+  the newest and jumps ``global_step`` by 2^22, so the retried stretch draws fresh
+  negatives from the hash lattice;
+- a recovery backs the lr off (``_lr_scale``, applied to the chunk's alphas at one point
+  for every feed) and engages ``max_row_norm`` at ``norm_watch_threshold``; the next
+  chunk's step is then built with it (on the shared pool: ``sgns_step_shared_scatter_``
+  in place of the fused kernel);
+- with ``telemetry_path`` the run log gets ``run_start``, ``heartbeat``, ``watchdog``,
+  ``recovery``, ``preempt`` and ``run_end`` (with the span summary), the trace goes to
+  ``<telemetry_path>.trace.json``, and the flight recorder dumps
+  ``<telemetry_path>.blackbox.json`` when the fit dies; ``status_port`` serves the live
+  snapshot; ``profile_dir`` records a ``torch.profiler`` trace of the first
+  ``profile_steps`` steps;
+- with the recorder or ``checkpoint_on_preempt``, a SIGTERM during the fit dumps and
+  arms ``preempt_deadline_s``; the round's end drains it through the normal guarded
+  save (after a ``torch.cuda.synchronize()``), records ``preempt`` and re-raises the
+  signal under the prior handler;
+- the fault plan's hooks (``train/faults.py``) run at the end of every round.
+
 Differences: the steps update the parameters in place, the feed ships int32 indices
 (widened to int64 on the card, where the JAX package ships uint16 below 65536 words), a
 short last chunk is not padded with the JAX package's masked dummy steps (they are exact
 no-ops), the device feed has one data segment (a checkpoint that holds only
-per-segment positions is refused), and rollback/recovery, telemetry, statusd,
-profiling, stability advisories, ``norm_watch`` (and its recovery ladder) and the
-multi-process feeds are not ported yet.
+per-segment positions is refused), the ``publish`` record of a save waits for the
+serving tier, and stability advisories and the multi-process feeds (with
+``peer_beacon_s``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
+import signal
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional, Sequence
+from dataclasses import dataclass, replace as dc_replace
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -87,6 +115,13 @@ from glint_word2vec_torch.data.pipeline import (
     stream_rng)
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
+from glint_word2vec_torch.obs.blackbox import FlightRecorder
+from glint_word2vec_torch.obs.phases import PhaseAccumulator
+from glint_word2vec_torch.obs.probe import health_stats, stats_to_channels
+from glint_word2vec_torch.obs.sink import TelemetrySink
+from glint_word2vec_torch.obs.spans import clock_anchor, default_tracer
+from glint_word2vec_torch.obs.statusd import StatusServer
+from glint_word2vec_torch.obs.watch import NormWatchdog
 from glint_word2vec_torch.ops import scatter
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
 from glint_word2vec_torch.ops.cbow_banded import cbow_step_banded_core
@@ -97,17 +132,15 @@ from glint_word2vec_torch.ops.sgns import (
     cbow_step_shared_core, hot_flush, hot_slabs, init_embeddings, sgns_step_core,
     sgns_step_shared_scatter_)
 from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
+from glint_word2vec_torch.train import faults
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model
+from glint_word2vec_torch.train.faults import NonFiniteParamsError, NormBlowupError
 
 logger = logging.getLogger("glint_word2vec_torch")
 
 
 def _is_banded(cfg: Word2VecConfig) -> bool:
     return bool(cfg.cbow and cfg.cbow_update == "banded")
-
-
-class NonFiniteParamsError(RuntimeError):
-    """The parameters went non-finite under ``nonfinite_policy='halt'``."""
 
 
 def _pairs_per_kept_token(window: int) -> float:
@@ -200,12 +233,26 @@ class _threaded_iter:
 
 @dataclass
 class HeartbeatRecord:
+    """One heartbeat, the JAX package's fields: ``alpha`` is the effective lr (the
+    schedule's alpha times the ``lr_scale`` the chunk was dispatched under), ``norms``
+    the probe's channels when it ran that round, ``phases`` the phase histograms of the
+    window when attribution is on; ``sync_every`` and ``merge_round`` carry their
+    one-device values."""
+
     words: int
     alpha: float
     loss: float
     mean_f_pos: float
     pairs_per_sec: float
     global_step: int = -1
+    host_wait_s: float = 0.0       # host wait since the previous heartbeat
+    dispatch_s: float = 0.0        # dispatch time since the previous heartbeat
+    norms: Optional[dict] = None
+    recoveries: int = 0            # recoveries performed so far this fit
+    lr_scale: float = 1.0
+    phases: Optional[dict] = None
+    sync_every: int = 1
+    merge_round: int = -1
 
 
 class Trainer:
@@ -268,7 +315,8 @@ class Trainer:
         self._block_halo = self.config.window if self._banded_cbow else 0
         if self._banded_cbow:
             self._init_token_block_feed(self.config.pairs_per_batch + 2 * self._block_halo)
-        # from the config; all zero runs no stabilizer op
+        # from the config, then trainer state (a recovery may engage max_row_norm);
+        # all zero runs no stabilizer op
         self._stabilizers = Stabilizers(max_row_norm=self.config.max_row_norm,
                                         update_clip=self.config.update_clip,
                                         row_l2=self.config.row_l2)
@@ -286,6 +334,44 @@ class Trainer:
         self.dropped_pairs = 0  # device_pairgen: pairs past the B slots, this trainer
         self.host_wait_time = 0.0
         self.dispatch_time = 0.0
+        self._init_runtime()
+
+    def _init_runtime(self) -> None:
+        """The runtime layer's state: the snapshot ring (filled only under
+        ``rollback``/``recover``), the recovery's lr scale (it outlives a fit; the
+        budgets reset per fit), and the observers, each None or disabled when its knob
+        is off."""
+        cfg = self.config
+        self._snapshot_ring: "deque" = deque(maxlen=cfg.rollback_history)
+        self._spare_params: List[EmbeddingPair] = []  # slots to copy_ a snapshot into
+        self.rollbacks_performed = 0
+        self.recoveries_performed = 0
+        self._lr_scale = 1.0
+        self._probed: Optional[dict] = None  # this round's probe, until its end
+        self._last_probe_channels: Optional[dict] = None
+        self.norm_watchdog = NormWatchdog(cfg.norm_watch, cfg.norm_watch_threshold,
+                                          cfg.norm_watch_max, cfg.norm_watch_frac)
+        self._tracer = default_tracer()
+        self._telemetry = (TelemetrySink(cfg.telemetry_path,
+                                         rotate_bytes=cfg.telemetry_rotate_bytes)
+                           if cfg.telemetry_path else None)
+        self._blackbox = (FlightRecorder(cfg.telemetry_path + ".blackbox.json",
+                                         cfg.blackbox_ring)
+                          if self._telemetry is not None else None)
+        observing = self._telemetry is not None or cfg.status_port > 0
+        self._phases = PhaseAccumulator(enabled=observing)
+        # armed (or disarmed) here, not at fit: the feed iterators are built first
+        self._tracer.configure(enabled=observing)
+        self._tracer.attach_phases(self._phases if observing else None)
+        self._statusd: Optional[StatusServer] = None  # fit-scoped
+        self._prev_sigterm = None
+        self._sigterm_installed = False
+        self._profiler = None
+        self._run_id = ""
+        self._run_ended = True
+        self._preempt_deadline: Optional[float] = None
+        self._preempt_signum = 0
+        self._active_checkpoint_path: Optional[str] = None
 
     # -- setup -----------------------------------------------------------------------
 
@@ -648,17 +734,19 @@ class Trainer:
     def _stage(self, chunks: Iterator[dict]) -> Iterator[dict]:
         """Send each chunk's arrays to the card from the producer thread: a copy into
         pinned host memory, non-blocking copies on a stream of their own, and an event
-        recorded after them (``chunk["staged"]``). The pinned tensors ride with the
-        chunk, so they outlive their copies. Only copies are issued here."""
+        recorded after them (``chunk["staged"]``), in a ``stage_put`` span. The pinned
+        tensors ride with the chunk, so they outlive their copies. Only copies are
+        enqueued here."""
         stream = torch.cuda.Stream(device=self.device)
         for chunk in chunks:
-            pinned = {name: torch.from_numpy(a).pin_memory()
-                      for name, a in chunk["arrays"].items()}
-            with torch.cuda.stream(stream):
-                arrays = {name: t.to(self.device, non_blocking=True)
-                          for name, t in pinned.items()}
-                done = torch.cuda.Event()
-                done.record(stream)
+            with self._tracer.span("stage_put"):
+                pinned = {name: torch.from_numpy(a).pin_memory()
+                          for name, a in chunk["arrays"].items()}
+                with torch.cuda.stream(stream):
+                    arrays = {name: t.to(self.device, non_blocking=True)
+                              for name, t in pinned.items()}
+                    done = torch.cuda.Event()
+                    done.record(stream)
             chunk.update(arrays=arrays, pinned=pinned, staged=done)
             yield chunk
 
@@ -681,7 +769,10 @@ class Trainer:
         """The step of this config, ``step(batch, negatives, alpha, with_metrics)``:
         the JAX trainer's single-device selection matrix on the pair feeds (banded CBOW
         runs in ``_run_banded_chunk``; pallas and shard_map are refused by the config).
-        The hot slabs ride in ``self._slabs``; the caller flushes them."""
+        Built for every chunk from the trainer's state: ``self.params`` (a restore
+        swaps the pair) and ``self._stabilizers`` (a recovery may engage
+        ``max_row_norm``, which moves the shared pool to the scatter form). The hot
+        slabs ride in ``self._slabs``; the caller flushes them."""
         cfg = self.config
         p, n, mode = self.params, cfg.negatives, cfg.sigmoid_mode
         stab, dup = self._stabilizers, cfg.duplicate_scaling
@@ -731,6 +822,14 @@ class Trainer:
         return {"centers": pairs.centers, "contexts": pairs.contexts,
                 "mask": pairs.mask}
 
+    def _alphas(self, chunk: dict) -> np.ndarray:
+        """The chunk's alphas as dispatched: the schedule's, times the recovery's lr
+        scale in float32 (the one point every feed goes through; the producer's array
+        is not changed)."""
+        if self._lr_scale == 1.0:
+            return chunk["alphas"]
+        return chunk["alphas"] * np.float32(self._lr_scale)
+
     def _run_banded_chunk(self, arrays: dict, chunk: dict) -> StepMetrics:
         """Banded CBOW: the window extents of the chunk's K blocks in one batched call,
         then one banded step per block; the exact example count accumulates on the
@@ -745,11 +844,12 @@ class Trainer:
             self._table_prob, self._table_alias, cfg.seed, self.global_step + 1,
             (cfg.steps_per_dispatch, cfg.negative_pool))
         with_metrics = self._with_metrics(chunk["real"])
+        alphas = self._alphas(chunk)
         metrics = None
         for k in range(chunk["real"]):
             metrics = cbow_step_banded_core(
                 self.params, arrays["tokens"][k], band.left[k], band.right[k],
-                band.center[k], band.token[k], negatives[k], float(chunk["alphas"][k]),
+                band.center[k], band.token[k], negatives[k], float(alphas[k]),
                 cfg.negatives, cfg.window, cfg.sigmoid_mode, with_metrics,
                 stabilizers=self._stabilizers, compute_dtype=self.compute_dtype,
                 logits_dtype=self.logits_dtype)
@@ -772,6 +872,7 @@ class Trainer:
             self._table_prob, self._table_alias, cfg.seed, self.global_step + 1, shape)
         pos = torch.arange(B, device=self.device)
         with_metrics = self._with_metrics(chunk["real"])
+        alphas = self._alphas(chunk)
         step = self._step_fn()
         metrics = None
         for k in range(chunk["real"]):
@@ -782,7 +883,7 @@ class Trainer:
                 C = batch["contexts"].shape[1]
                 batch["ctx_mask"] = (torch.arange(C, device=self.device)[None, :]
                                      < batch.pop("nctx")[:, None]).to(torch.float32)
-            metrics = step(batch, negatives[k], float(chunk["alphas"][k]), with_metrics)
+            metrics = step(batch, negatives[k], float(alphas[k]), with_metrics)
             if (k + 1) % self._hot_flush == 0:
                 self._flush_hot()
         if chunk["real"] % self._hot_flush:
@@ -797,17 +898,16 @@ class Trainer:
         on_heartbeat: Optional[Callable[[HeartbeatRecord], None]] = None,
     ) -> EmbeddingPair:
         """Run the remaining iterations over encoded sentences (int32 index arrays,
-        OOV-filtered and chunked). Resumes from ``self.state``."""
+        OOV-filtered and chunked). Resumes from ``self.state``. A fit that raises
+        records ``run_end`` with status "error" and dumps the flight recorder before
+        the exception propagates."""
         cfg = self.config
         self._check_resume_position()
+        # the SIGTERM hook drains its emergency save here
+        self._active_checkpoint_path = checkpoint_path
         train_words = expected_kept_words(
             self.vocab.counts, self.vocab.train_words_count, cfg.subsample_ratio)
         total_words = float(cfg.num_iterations * train_words + 1)
-        self._last_log_time = time.perf_counter()
-        self._last_log_step = self.global_step
-        self._pairs_since_log = 0.0
-        self.host_wait_time = 0.0
-        self.dispatch_time = 0.0
         token_feed = cfg.device_pairgen or self._banded_cbow
         if token_feed:
             self._exact_pairs = torch.zeros((), dtype=torch.int64, device=self.device)
@@ -816,35 +916,47 @@ class Trainer:
             chunks = self._token_chunk_stream(sentences, total_words, float(train_words))
         else:
             chunks = self._chunk_stream(sentences, total_words, float(train_words))
+        # each next() of the assembly is a "producer" span, on the thread that runs it
+        chunks = self._tracer.wrap_iter("producer", chunks)
         if cfg.prefetch_chunks > 0:
             if self.device.type == "cuda":
                 chunks = self._stage(chunks)
             chunks = _threaded_iter(chunks, cfg.prefetch_chunks)
+        self._start_run_bookkeeping()
         try:
-            while True:
-                t0 = time.perf_counter()
-                chunk = next(chunks, None)
-                self.host_wait_time += time.perf_counter() - t0
-                if chunk is None:
-                    break
-                t0 = time.perf_counter()
-                metrics = self._run_chunk(chunk)
-                self.dispatch_time += time.perf_counter() - t0
-                if token_feed:
-                    est_total += chunk["real_pairs"]
-                self._finish_round(chunk, metrics, checkpoint_path,
-                                   checkpoint_every_steps, on_heartbeat)
-        finally:
-            chunks.close()
-        scatter.check_errors()
-        if token_feed:
-            self._settle_device_pairgen_books(est_total)
-        self.state = TrainState(
-            iteration=cfg.num_iterations,
-            words_processed=int(cfg.num_iterations * train_words),
-            finished=True, global_step=self.global_step)
-        if checkpoint_path:
-            self.save_checkpoint(checkpoint_path)
+            try:
+                while True:
+                    t0 = time.perf_counter()
+                    chunk = next(chunks, None)
+                    wait = time.perf_counter() - t0
+                    self.host_wait_time += wait
+                    self._phases.add("producer_wait", wait)
+                    if chunk is None:
+                        break
+                    t0 = time.perf_counter()
+                    with self._tracer.span("dispatch"):
+                        metrics = self._run_chunk(chunk)
+                    self.dispatch_time += time.perf_counter() - t0
+                    if token_feed:
+                        est_total += chunk["real_pairs"]
+                    self._finish_round(chunk, metrics, checkpoint_path,
+                                       checkpoint_every_steps, on_heartbeat)
+            finally:
+                self._stop_profiler()
+                chunks.close()
+            scatter.check_errors()
+            if token_feed:
+                self._settle_device_pairgen_books(est_total)
+            self.state = TrainState(
+                iteration=cfg.num_iterations,
+                words_processed=int(cfg.num_iterations * train_words),
+                finished=True, global_step=self.global_step)
+            if checkpoint_path:
+                self.save_checkpoint(checkpoint_path)
+        except BaseException:
+            self._abort_run()
+            raise
+        self._end_run("ok")
         return self.params
 
     def _check_resume_position(self) -> None:
@@ -903,8 +1015,11 @@ class Trainer:
                       checkpoint_path: Optional[str],
                       checkpoint_every_steps: Optional[int],
                       on_heartbeat: Optional[Callable[[HeartbeatRecord], None]]) -> None:
-        """Progress counters, the heartbeat (with the non-finite check at its
-        cadence) and periodic checkpoints."""
+        """After a chunk's dispatch, the JAX trainer's order: progress counters, the
+        flight recorder's dispatch record, the fault hooks, the profiler window, one
+        health probe on a probing round (feeding the non-finite guard, the snapshot
+        ring and the norm watchdog), the heartbeat, a periodic checkpoint, and the
+        drain of an armed preemption deadline."""
         cfg = self.config
         real = chunk["real"]
         self.global_step += real
@@ -915,47 +1030,535 @@ class Trainer:
             batches_done=chunk["batches_done"], global_step=self.global_step,
             shard_progress=chunk.get("shard_progress"),
             shard_feed=chunk.get("shard_feed"))
+        # the scale this chunk ran under: a recovery below changes the next chunk's
+        lr_scale_at_dispatch = self._lr_scale
+        if self._blackbox is not None:
+            self._blackbox.note_dispatch(self.global_step, real,
+                                         self.dispatch_time - self._bb_disp_mark,
+                                         self.host_wait_time - self._bb_wait_mark)
+            self._bb_disp_mark, self._bb_wait_mark = self.dispatch_time, self.host_wait_time
+
+        if faults.take_nan_injection(self.global_step):
+            self.params.syn0[0, 0] = float("nan")
+        scale = faults.take_scale_injection(self.global_step)
+        if scale:
+            for m in self.params:
+                m.mul_(scale)
+        faults.crash_at_step(self.global_step)
+        faults.maybe_stall(self.global_step)
+
+        if (self._profiler is not None and cfg.profile_steps
+                and self.global_step - self._profile_start_step >= cfg.profile_steps):
+            self._stop_profiler()
+
         ckpt_due = bool(checkpoint_path and checkpoint_every_steps
                         and self.global_step % checkpoint_every_steps < real)
         hb_due = self.global_step - self._last_log_step >= cfg.heartbeat_every_steps
-        if cfg.nonfinite_policy == "halt" and hb_due and not ckpt_due:
-            self._nonfinite_guard()  # checkpoint rounds are guarded by the save
+        channels: Optional[dict] = None
+        if hb_due and (cfg.nonfinite_policy != "none" or cfg.norm_watch != "off"
+                       or self._telemetry is not None):
+            channels = self._health_stats()
+        self._probed = channels
+        if cfg.nonfinite_policy != "none" and hb_due and not ckpt_due:
+            self._nonfinite_guard(channels)  # checkpoint rounds: inside the save
+        elif channels is not None and channels["finite"] and cfg.nonfinite_policy == "none":
+            self._maybe_snapshot(channels)  # the recovery ladder's ring
+        if channels is not None and channels["finite"]:
+            # a non-finite carry is the guard's (inf rows trip every norm channel)
+            self._watchdog_check(channels)
+
         if hb_due:
             scatter.check_errors()
             now = time.perf_counter()
+            pps = self._pairs_since_log / max(now - self._last_log_time, 1e-9)
+            self._pairs_since_log = 0.0
+            with self._tracer.span("device_block"):
+                loss, fpos = torch.stack([metrics.loss.double(),
+                                          metrics.mean_f_pos.double()]).cpu().tolist()
+            phases_window = None
+            if self._phases.enabled:
+                phases_window = self._phases.delta(self._last_hb_phases) or None
+                self._last_hb_phases = self._phases.raw_snapshot()
             rec = HeartbeatRecord(
                 words=self.state.words_processed,
-                alpha=float(chunk["alphas"][real - 1]),
-                loss=float(metrics.loss), mean_f_pos=float(metrics.mean_f_pos),
-                pairs_per_sec=self._pairs_since_log / max(now - self._last_log_time, 1e-9),
-                global_step=self.global_step)
-            self._pairs_since_log = 0.0
+                alpha=float(chunk["alphas"][real - 1]) * lr_scale_at_dispatch,
+                loss=loss, mean_f_pos=fpos, pairs_per_sec=pps,
+                global_step=self.global_step,
+                host_wait_s=self.host_wait_time - self._last_hb_host_wait,
+                dispatch_s=self.dispatch_time - self._last_hb_dispatch,
+                norms=channels, recoveries=self.recoveries_performed,
+                lr_scale=lr_scale_at_dispatch, phases=phases_window,
+                sync_every=int(cfg.sync_every), merge_round=-1)
+            self._last_hb_host_wait = self.host_wait_time
+            self._last_hb_dispatch = self.dispatch_time
             self.heartbeats.append(rec)
             logger.info("wordCount = %d, alpha = %.6f, loss = %.4f, fPlus = %.4f, "
                         "pairs/s = %.0f", rec.words, rec.alpha, rec.loss,
                         rec.mean_f_pos, rec.pairs_per_sec)
+            if self._telemetry is not None:
+                self._emit(
+                    "heartbeat", step=rec.global_step, words=rec.words, alpha=rec.alpha,
+                    loss=rec.loss, mean_f_pos=rec.mean_f_pos,
+                    pairs_per_sec=round(rec.pairs_per_sec, 3),
+                    host_wait_s=round(rec.host_wait_s, 6),
+                    dispatch_s=round(rec.dispatch_s, 6),
+                    recoveries=int(rec.recoveries),
+                    lr_scale=round(float(rec.lr_scale), 9),
+                    **({"norms": channels} if channels is not None else {}),
+                    **({"phases": phases_window} if phases_window else {}))
             if on_heartbeat is not None:
                 on_heartbeat(rec)
             self._last_log_time, self._last_log_step = now, self.global_step
-        if ckpt_due:
-            self.save_checkpoint(checkpoint_path)
 
-    def _nonfinite_guard(self) -> None:
-        """Raise if a parameter is NaN or infinite. One read pass per matrix
-        (``aminmax`` propagates NaN and keeps infinities); the per-entry count for the
-        diagnostic is only taken on failure."""
-        if all(bool(torch.isfinite(torch.stack(torch.aminmax(m))).all())
-               for m in self.params):
+        if ckpt_due:
+            self.save_checkpoint(checkpoint_path)  # shares this round's probe
+        if self._preempt_deadline is not None:
+            self._preempt_exit(checkpoint_path)  # never returns
+        self._probed = None
+
+    # -- the runtime layer -------------------------------------------------------------
+
+    @property
+    def _needs_snapshot_ring(self) -> bool:
+        """Whether a consumer of the snapshot ring is on: the non-finite rollback or
+        the watchdog's recovery ladder."""
+        return (self.config.nonfinite_policy == "rollback"
+                or self.config.norm_watch == "recover")
+
+    # the rollback re-seed: the negatives are a pure function of (seed, global step),
+    # so a jump far past any step a run reaches gives the retried stretch a fresh
+    # sample path; repeated rollbacks jump again, so paths never overlap
+    _ROLLBACK_STEP_JUMP = 1 << 22
+
+    def _start_run_bookkeeping(self) -> None:
+        """Per-fit state: the budgets, the ring's seed, the timers, the profiler, the
+        observers (tracer cleared, phases, flight recorder, status endpoint, SIGTERM
+        hook) and the ``run_start`` record."""
+        cfg = self.config
+        self.rollbacks_performed = 0  # per-fit budgets
+        self.recoveries_performed = 0
+        if self._needs_snapshot_ring and not self._snapshot_ring:
+            # a restore point even for a blowup inside the first heartbeat window
+            self._push_snapshot()
+        self.host_wait_time = 0.0
+        self.dispatch_time = 0.0
+        self._last_log_time = time.perf_counter()
+        self._last_log_step = self.global_step
+        self._pairs_since_log = 0.0
+        self._last_hb_host_wait = 0.0
+        self._last_hb_dispatch = 0.0
+        self._bb_wait_mark = 0.0
+        self._bb_disp_mark = 0.0
+        self._run_ended = False
+        self._probed = None
+        self._preempt_deadline = None
+        self._preempt_signum = 0
+        self._last_save_step = int(self.global_step)
+        self._run_id = f"{os.getpid()}-{int(time.time())}-{self.global_step}"
+        self._profile_start_step = self.global_step
+        if cfg.profile_dir:
+            self._start_profiler()
+        observing = self._telemetry is not None or cfg.status_port > 0
+        self._tracer.configure(enabled=observing)
+        self._phases.clear()
+        self._tracer.attach_phases(self._phases if observing else None)
+        self._last_hb_phases = self._phases.raw_snapshot()
+        if self._blackbox is not None:
+            self._blackbox.begin_run(self._run_id)
+        self._install_run_signals()
+        if cfg.status_port and self._statusd is None:
+            self._statusd = StatusServer(cfg.status_port, self.status_snapshot).start()
+        if self._telemetry is not None:
+            self._tracer.clear()
+            self._emit(
+                "run_start", run_id=self._run_id, vocab_size=self.vocab.size,
+                **clock_anchor(), mesh=[1, 1],
+                config={k: getattr(cfg, k) for k in (
+                    "vector_size", "learning_rate", "pairs_per_batch", "negatives",
+                    "negative_pool", "subsample_ratio", "param_dtype", "compute_dtype",
+                    "logits_dtype", "cbow", "step_lowering", "device_pairgen",
+                    "nonfinite_policy", "norm_watch", "norm_watch_threshold",
+                    "norm_watch_max", "norm_watch_frac", "heartbeat_every_steps",
+                    "max_row_norm", "update_clip", "row_l2", "recover_lr_backoff",
+                    "max_recoveries")})
+
+    def _start_profiler(self) -> None:
+        """``torch.profiler`` over the fit (the card's activity too on CUDA), stopped
+        after ``profile_steps`` steps or at the fit's end."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+        logger.info("torch.profiler trace -> %s", self.config.profile_dir)
+
+    def _stop_profiler(self) -> None:
+        """Stop the profiler and write its Chrome trace into ``profile_dir`` as
+        ``trace-<run_id>.json``."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
             return
+        prof.stop()
+        path = os.path.join(self.config.profile_dir, f"trace-{self._run_id}.json")
+        prof.export_chrome_trace(path)
+        logger.info("torch.profiler window closed after %d steps: %s",
+                    self.global_step - self._profile_start_step, path)
+
+    def _health_stats(self) -> dict:
+        """Run the health probe (obs/probe.py) and return its channel dict, with
+        ``update_mag`` (the change of the mean norms since the previous probe). On the
+        card the queued steps drain first, in a ``device_block`` span, so the
+        ``health_probe`` span times the probe and its one fetch."""
+        if self.device.type == "cuda":
+            with self._tracer.span("device_block"):
+                torch.cuda.synchronize(self.device)
+        with self._tracer.span("health_probe"):
+            channels = stats_to_channels(health_stats(
+                self.params, self.vocab.size, self.config.norm_watch_threshold))
+        prev = self._last_probe_channels
+        if prev is not None:
+            channels["update_mag"] = round(
+                abs(channels["syn0"]["mean_norm"] - prev["syn0"]["mean_norm"])
+                + abs(channels["syn1"]["mean_norm"] - prev["syn1"]["mean_norm"]), 9)
+        self._last_probe_channels = channels
+        return channels
+
+    def _copy_params(self) -> EmbeddingPair:
+        """A copy of the live parameters on their device, into a spare slot (one the
+        ring dropped or a restore freed) when there is one: a snapshot allocates only
+        until the ring is full."""
+        if self._spare_params:
+            slot = self._spare_params.pop()
+            slot.syn0.copy_(self.params.syn0)
+            slot.syn1.copy_(self.params.syn1)
+            return slot
+        return EmbeddingPair(self.params.syn0.clone(), self.params.syn1.clone())
+
+    def _push_snapshot(self) -> None:
+        if len(self._snapshot_ring) == self._snapshot_ring.maxlen:
+            self._spare_params.append(self._snapshot_ring.popleft()[0])
+        self._snapshot_ring.append((self._copy_params(), self.global_step))
+
+    def _nonfinite_diagnostic(self) -> str:
         bad0 = int((~torch.isfinite(self.params.syn0)).sum())
         bad1 = int((~torch.isfinite(self.params.syn1)).sum())
-        if bad0 or bad1:
+        return (
+            f"non-finite parameters at global step {self.global_step}: {bad0} entries "
+            f"in syn0, {bad1} in syn1 (of {self.padded_vocab}x{self.padded_dim} each). "
+            f"Likely causes, in measured order (EVAL.md): pool-row overload (grow "
+            f"negative_pool), duplicate-overload (lower subsample_ratio ~1e-4 or set "
+            f"duplicate_scaling=True), or learning rate too high for "
+            f"{self.config.param_dtype}. Set nonfinite_policy='rollback' to "
+            f"auto-recover from the last good snapshot instead of halting")
+
+    def _nonfinite_guard(self, channels: Optional[dict] = None) -> None:
+        """The non-finite guard on the probe's ``finite`` bit (``channels``: this
+        round's probe, or None to probe now). A finite state is snapshotted (when a
+        consumer needs the ring); a non-finite one raises under ``halt`` and, under
+        ``rollback``, pops and restores the newest snapshot and jumps the negative
+        lattice, until ``max_rollbacks`` is spent or the ring is empty."""
+        cfg = self.config
+        if channels is None:
+            channels = self._health_stats()
+        if channels["finite"]:
+            self._maybe_snapshot(channels)
+            return
+        if cfg.nonfinite_policy == "halt":
+            raise NonFiniteParamsError(self._nonfinite_diagnostic())
+        if not self._snapshot_ring:
+            if self.rollbacks_performed:
+                raise NonFiniteParamsError(
+                    f"rollback ring exhausted after {self.rollbacks_performed} "
+                    f"rollback(s) — repeated divergence consumed every good snapshot; "
+                    f"this needs a config change, not retries. "
+                    + self._nonfinite_diagnostic())
             raise NonFiniteParamsError(
-                f"non-finite parameters at global step {self.global_step}: {bad0} "
-                f"entries in syn0, {bad1} in syn1 (of {self.padded_vocab}x"
-                f"{self.padded_dim} each). Likely causes (EVAL.md): pool-row overload "
-                f"(grow negative_pool), duplicate overload (lower subsample_ratio), or "
-                f"a learning rate too high")
+                self._nonfinite_diagnostic()
+                + " (rollback requested but no good snapshot was taken yet — blowup "
+                  "before the first probe)")
+        if self.rollbacks_performed >= cfg.max_rollbacks:
+            raise NonFiniteParamsError(
+                f"giving up after {self.rollbacks_performed} rollbacks — the run keeps "
+                f"diverging; this needs a config change, not retries. "
+                + self._nonfinite_diagnostic())
+        snap_step, old_step = self._restore_snapshot()
+        self.rollbacks_performed += 1
+        logger.warning(
+            "non-finite params at step %d: rolled back to the snapshot from step %d "
+            "and re-seeded the negative-sample lattice (counter -> %d; rollback %d/%d)",
+            old_step, snap_step, self.global_step, self.rollbacks_performed,
+            cfg.max_rollbacks)
+
+    def _restore_snapshot(self) -> Tuple[int, int]:
+        """Pop the newest ring entry and make it the live parameters (the blown pair
+        becomes a spare slot), then jump ``global_step`` to
+        ``max(global_step, snapshot step) + 2^22``. Popping makes the older entries
+        reachable: a retry that blows up again steps further back. The one owner for
+        both consumers. Returns (snapshot step, step before the restore)."""
+        params, snap_step = self._snapshot_ring.pop()
+        self._spare_params.append(self.params)
+        self.params = params
+        old_step = self.global_step
+        self.global_step = max(self.global_step, snap_step) + self._ROLLBACK_STEP_JUMP
+        self.state = dc_replace(self.state, global_step=self.global_step)
+        return int(snap_step), old_step
+
+    def _maybe_snapshot(self, channels: dict) -> None:
+        """Append the live parameters to the ring when a consumer needs it and the
+        probed state is worth restoring: finite, and not one the watchdog would
+        flag."""
+        if not self._needs_snapshot_ring or not channels["finite"]:
+            return
+        if self.norm_watchdog.policy != "off" and self.norm_watchdog.would_fire(channels):
+            return
+        self._push_snapshot()
+
+    def _watchdog_check(self, channels: dict) -> None:
+        """Feed one probe to the watchdog and record a firing (under ``halt`` before
+        the raise); under ``recover`` a firing runs the recovery."""
+        try:
+            reason = self.norm_watchdog.check(channels, self.global_step)
+        except NormBlowupError:
+            if self._telemetry is not None:
+                self._emit("watchdog", step=self.global_step, policy="halt",
+                           reason=self.norm_watchdog.last_reason or "",
+                           channels=channels)
+            raise
+        if reason and self._telemetry is not None:
+            self._emit("watchdog", step=self.global_step, policy=self.config.norm_watch,
+                       reason=reason, channels=channels)
+        if reason and self.config.norm_watch == "recover":
+            self._perform_recovery(reason, channels)
+
+    def _perform_recovery(self, reason: str, channels: dict) -> None:
+        """The recovery ladder, once per firing probe under ``norm_watch="recover"``:
+        the ``recovery`` record first (before any state changes), then the rollback
+        and the lattice jump, then ``lr_scale *= recover_lr_backoff``, then
+        ``max_row_norm`` engaged at ``norm_watch_threshold`` if it was off (the next
+        chunk's step is built with it). Past ``max_recoveries``, or with the ring
+        empty, it records ``halt`` and raises :class:`NormBlowupError`."""
+        cfg = self.config
+
+        def emit(action: str, snap_step: int, lr_scale: float, clamp: float) -> None:
+            if self._telemetry is not None:
+                self._emit(
+                    "recovery", step=self.global_step, action=action, reason=reason,
+                    snapshot_step=snap_step,
+                    recoveries_performed=self.recoveries_performed
+                    + (1 if action == "rollback" else 0),
+                    max_recoveries=cfg.max_recoveries, lr_scale=round(lr_scale, 9),
+                    max_row_norm=clamp, channels=channels)
+
+        if self.recoveries_performed >= cfg.max_recoveries:
+            emit("halt", -1, self._lr_scale, self._stabilizers.max_row_norm)
+            raise NormBlowupError(
+                f"recovery budget exhausted after {self.recoveries_performed} "
+                f"recoveries (max_recoveries={cfg.max_recoveries}) — the run keeps "
+                f"re-entering the blowup region under lr_scale={self._lr_scale:g} and "
+                f"max_row_norm={self._stabilizers.max_row_norm:g}; this needs a config "
+                f"change (negative_pool/subsample_ratio/learning_rate — EVAL.md), not "
+                f"more retries. Last firing: {reason}")
+        if not self._snapshot_ring:
+            emit("halt", -1, self._lr_scale, self._stabilizers.max_row_norm)
+            raise NormBlowupError(
+                f"norm_watch='recover' fired with no good snapshot left "
+                f"({self.recoveries_performed} recovery(ies) already consumed the "
+                f"ring) — repeated blowups before any finite healthy probe; this needs "
+                f"a config change, not retries. Last firing: {reason}")
+        new_scale = self._lr_scale * cfg.recover_lr_backoff
+        engage_clamp = not self._stabilizers.max_row_norm
+        clamp_after = (cfg.norm_watch_threshold if engage_clamp
+                       else self._stabilizers.max_row_norm)
+        emit("rollback", int(self._snapshot_ring[-1][1]), new_scale, clamp_after)
+        snap_step, old_step = self._restore_snapshot()
+        self.recoveries_performed += 1
+        self._lr_scale = new_scale
+        if engage_clamp:
+            # the threshold the firing measured health by; the step of the next chunk
+            # (Trainer._step_fn) takes the clamp: on the shared pool the scatter form
+            self._stabilizers = self._stabilizers._replace(
+                max_row_norm=float(cfg.norm_watch_threshold))
+        logger.warning(
+            "norm watchdog recovery %d/%d at step %d: rolled back to the snapshot from "
+            "step %d, re-seeded the sample lattice (counter -> %d), lr backed off to "
+            "x%g%s — firing: %s", self.recoveries_performed, cfg.max_recoveries,
+            old_step, snap_step, self.global_step, self._lr_scale,
+            (f", engaged max_row_norm={self._stabilizers.max_row_norm:g}"
+             if engage_clamp else ""), reason)
+
+    def _emit(self, kind: str, **fields) -> None:
+        """One record to the sink and to the flight recorder's ring."""
+        if self._telemetry is not None:
+            self._telemetry.emit(kind, **fields)
+        if self._blackbox is not None:
+            self._blackbox.observe(kind, fields)
+
+    def _install_run_signals(self) -> None:
+        """Hook SIGTERM for the fit when the flight recorder or
+        ``checkpoint_on_preempt`` is on (main thread only; the teardown restores the
+        prior handler)."""
+        if self._blackbox is None and not self.config.checkpoint_on_preempt:
+            return
+        try:
+            self._prev_sigterm = signal.signal(signal.SIGTERM, self._on_sigterm)
+            self._sigterm_installed = True
+        except ValueError:
+            self._sigterm_installed = False  # not the main thread: no hook
+
+    def _on_sigterm(self, signum, frame) -> None:
+        """Dump, and with ``checkpoint_on_preempt`` only arm the deadline: the round in
+        flight finishes and ``_finish_round``'s tail drains it (the handler may have
+        interrupted a dispatch or the producer's staged copy). Without it, end the run
+        and re-raise the signal under the prior handler."""
+        if self._blackbox is not None:
+            self._blackbox.dump(FlightRecorder.signal_cause(signum),
+                                extra=self._dump_context())
+        if (self.config.checkpoint_on_preempt and not self._run_ended
+                and self._active_checkpoint_path):
+            if self._preempt_deadline is None:  # the first signal wins
+                self._preempt_deadline = time.monotonic() + self.config.preempt_deadline_s
+                self._preempt_signum = int(signum)
+                logger.warning("SIGTERM at step %d: preemption deadline armed (%.1fs) — "
+                               "finishing in-flight dispatch, then emergency checkpoint",
+                               self.global_step, self.config.preempt_deadline_s)
+            return
+        self._end_run("error")
+        os.kill(os.getpid(), signum)
+
+    def _teardown_run_inspection(self) -> None:
+        """Stop the status endpoint and restore the SIGTERM disposition (idempotent)."""
+        if self._statusd is not None:
+            self._statusd.stop()
+            self._statusd = None
+        if self._sigterm_installed:
+            self._sigterm_installed = False
+            signal.signal(signal.SIGTERM, self._prev_sigterm
+                          if self._prev_sigterm is not None else signal.SIG_DFL)
+            self._prev_sigterm = None
+
+    def _dump_context(self) -> dict:
+        return {"phases": self._phases.summary(), "spans": self._tracer.span_summary(),
+                "status": self.status_snapshot()}
+
+    def status_snapshot(self) -> dict:
+        """The live gauges (``/status.json``; ``/metrics`` renders them). Reads only
+        host attributes and bounded rings the trainer already fetched, never a tensor
+        on the card."""
+        hb = self.heartbeats[-1] if self.heartbeats else None
+        return {
+            "run_id": self._run_id,
+            "status": "idle" if self._run_ended else "running",
+            "global_step": int(self.global_step),
+            "words": int(self.state.words_processed),
+            "pairs_trained": float(self.pairs_trained),
+            "pairs_per_sec": float(hb.pairs_per_sec) if hb else None,
+            "alpha": float(hb.alpha) if hb else None,
+            "lr_scale": float(self._lr_scale),
+            "recoveries": int(self.recoveries_performed),
+            "rollbacks": int(self.rollbacks_performed),
+            "watchdog_fires": int(self.norm_watchdog.fires),
+            "heartbeats": len(self.heartbeats),
+            "host_wait_s_total": round(self.host_wait_time, 3),
+            "dispatch_s_total": round(self.dispatch_time, 3),
+            "norms": self._last_probe_channels,
+            "phases": self._phases.summary(),
+        }
+
+    @property
+    def last_run_stats(self) -> dict:
+        """The last fit's runtime outcome (and the phase rollup when attribution is
+        on)."""
+        stats = {
+            "watchdog_fires": int(self.norm_watchdog.fires),
+            "rollbacks_performed": int(self.rollbacks_performed),
+            "recoveries_performed": int(self.recoveries_performed),
+            "lr_scale_final": float(self._lr_scale),
+            "engaged_max_row_norm": float(self._stabilizers.max_row_norm),
+            "engaged_update_clip": float(self._stabilizers.update_clip),
+            "engaged_row_l2": float(self._stabilizers.row_l2),
+        }
+        phases = self._phases.summary()
+        if phases:
+            stats["phases"] = phases
+        return stats
+
+    def _end_run(self, status: str) -> None:
+        """The run's end (once per fit): tear down the endpoint and the hook, record
+        ``run_end`` with the span summary, and export the trace to
+        ``<telemetry_path>.trace.json``."""
+        self._teardown_run_inspection()
+        if self._run_ended:
+            return
+        self._run_ended = True
+        if self._telemetry is not None:
+            self._emit(
+                "run_end", run_id=self._run_id, status=status,
+                steps=int(self.global_step), pairs_trained=float(self.pairs_trained),
+                host_wait_s_total=round(self.host_wait_time, 3),
+                dispatch_s_total=round(self.dispatch_time, 3),
+                watchdog_fires=int(self.norm_watchdog.fires),
+                rollbacks=int(self.rollbacks_performed),
+                recoveries=int(self.recoveries_performed),
+                lr_scale=round(float(self._lr_scale), 9),
+                phases=self._phases.summary(), spans=self._tracer.span_summary())
+            try:
+                self.export_trace(self.config.telemetry_path + ".trace.json")
+            except OSError as e:  # never mask the training exception being unwound
+                logger.warning("trace export failed: %s", e)
+
+    def export_trace(self, path: str) -> int:
+        """Write the collected host spans as Chrome-trace JSON; returns the event
+        count."""
+        return self._tracer.export_chrome_trace(path)
+
+    def _abort_run(self) -> None:
+        """In the fit's ``except BaseException`` clause: ``run_end`` with status
+        "error", then the flight recorder's dump (whose ring then holds run_end)."""
+        import sys
+
+        exc = sys.exc_info()[1]
+        self._end_run("error")
+        if self._blackbox is not None:
+            self._blackbox.dump(
+                FlightRecorder.exception_cause(exc) if exc is not None else None,
+                extra=self._dump_context())
+
+    def _preempt_exit(self, checkpoint_path: Optional[str]) -> None:
+        """The deferred half of a preemption: within the deadline, synchronise the card
+        and save through the normal guarded save (never a torn or unguarded save: the
+        atomic swap keeps the previous checkpoint on any failure); record ``preempt``,
+        ``run_end`` with status "preempted", dump, and re-raise the signal under the
+        restored handler. Never returns."""
+        signum = self._preempt_signum or signal.SIGTERM
+        remaining = self._preempt_deadline - time.monotonic()
+        steps_since_save = int(self.global_step) - int(self._last_save_step)
+        saved = False
+        if checkpoint_path and steps_since_save == 0:
+            saved = True  # this round's periodic save already holds this step
+        elif checkpoint_path and remaining > 0:
+            try:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.save_checkpoint(checkpoint_path)
+                saved = True
+            except BaseException as e:  # the guard refusing, or the disk dying
+                logger.warning("emergency checkpoint failed (%s); falling back to "
+                               "blackbox-only exit", e)
+        else:
+            logger.warning("preempt deadline missed by %.1fs — blackbox-only exit",
+                           max(-remaining, 0.0))
+        self._emit("preempt", step=int(self.global_step), saved=saved,
+                   checkpoint=checkpoint_path or "",
+                   deadline_s=float(self.config.preempt_deadline_s),
+                   steps_since_save=0 if saved else steps_since_save)
+        self._end_run("preempted")
+        if self._blackbox is not None:
+            self._blackbox.dump(FlightRecorder.signal_cause(signum),
+                                extra=self._dump_context())
+        os.kill(os.getpid(), signum)
 
     # -- export / persistence ----------------------------------------------------------
 
@@ -964,10 +1567,16 @@ class Trainer:
         return EmbeddingPair(self.params.syn0[:V, :D], self.params.syn1[:V, :D])
 
     def save_checkpoint(self, path: str) -> None:
-        if self.config.nonfinite_policy == "halt":
-            self._nonfinite_guard()  # never replace a good checkpoint with NaNs
+        """The guarded save: under a policy other than "none" the non-finite guard runs
+        first (on this round's probe when ``_finish_round`` took one), so ``halt``
+        never replaces a good checkpoint with NaNs and ``rollback`` saves the restored
+        snapshot. Hot-row slabs are flushed at every chunk's end, so a save never sees
+        a pending slab."""
+        if self.config.nonfinite_policy != "none":
+            self._nonfinite_guard(self._probed)
         p = self.unpadded_params()  # dense saves are float32 (bf16 widens exactly)
         save_model(path, self.vocab.words, self.vocab.counts,
                    p.syn0.float().cpu().numpy(), p.syn1.float().cpu().numpy(),
                    self.config, self.state)
         logger.info("checkpoint saved to %s at step %d", path, self.global_step)
+        self._last_save_step = int(self.global_step)

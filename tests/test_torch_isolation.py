@@ -33,7 +33,11 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.data.native, glint_word2vec_torch.data.corpus, "
             "glint_word2vec_torch.data.ingest_native, glint_word2vec_torch.train.faults, "
             "glint_word2vec_torch.ops.pairgen, glint_word2vec_torch.models.compat, "
-            "glint_word2vec_torch.ops.cbow_banded\n"
+            "glint_word2vec_torch.ops.cbow_banded, glint_word2vec_torch.obs, "
+            "glint_word2vec_torch.obs.probe, glint_word2vec_torch.obs.watch, "
+            "glint_word2vec_torch.obs.schema, glint_word2vec_torch.obs.sink, "
+            "glint_word2vec_torch.obs.spans, glint_word2vec_torch.obs.phases, "
+            "glint_word2vec_torch.obs.blackbox, glint_word2vec_torch.obs.statusd\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -122,9 +126,9 @@ def test_prng_helpers_take_no_default_device():
 
 @pytest.mark.parametrize("knob,value", [
     ("sync_every", 2), ("use_pallas", True), ("embedding_partition", "cols"),
-    ("sharded_checkpoint", True), ("profile_dir", "/x"), ("num_model_shards", 2),
-    ("step_lowering", "shard_map"), ("telemetry_path", "/x"), ("norm_watch", "warn"),
-    ("nonfinite_policy", "rollback"), ("serve_ann_quant", "pq"), ("mesh_shape", (2, 1)),
+    ("sharded_checkpoint", True), ("peer_beacon_s", 1.0), ("num_model_shards", 2),
+    ("step_lowering", "shard_map"), ("num_data_shards", 2), ("serve_max_batch", 8),
+    ("serve_fleet_replicas", 2), ("serve_ann_quant", "pq"), ("mesh_shape", (2, 1)),
 ])
 def test_unported_knobs_are_refused_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
@@ -138,12 +142,15 @@ def test_unported_knobs_are_refused_by_name(knob, value):
     ("cbow_update", "banded"), ("max_row_norm", 10.0), ("update_clip", 0.5),
     ("row_l2", 1e-4), ("duplicate_scaling", True), ("fused_logits", True),
     ("param_dtype", "bfloat16"), ("compute_dtype", "bfloat16"),
-    ("logits_dtype", "bfloat16"), ("hot_rows", 8),
+    ("logits_dtype", "bfloat16"), ("hot_rows", 8), ("profile_dir", "/x"),
+    ("telemetry_path", "/x"), ("norm_watch", "warn"), ("norm_watch", "recover"),
+    ("norm_watch", "halt"), ("nonfinite_policy", "rollback"), ("status_port", 8123),
+    ("checkpoint_on_preempt", True),
 ])
 def test_ported_knobs_are_accepted(knob, value):
-    """Banded CBOW, the stabilizers, duplicate scaling, the bf16 dtypes and the step
-    restructurings are ported: accepted by the config and carried through
-    to_dict/from_dict with the port's checks on."""
+    """Banded CBOW, the stabilizers, duplicate scaling, the bf16 dtypes, the step
+    restructurings and the runtime layer's knobs are ported: accepted by the config and
+    carried through to_dict/from_dict with the port's checks on."""
     extra = {"cbow": True} if knob == "cbow_update" else {}  # banded needs CBOW
     cfg = Word2VecConfig(pairs_per_batch=8192, **{knob: value}, **extra)
     assert getattr(Word2VecConfig.from_dict(cfg.to_dict()), knob) == value

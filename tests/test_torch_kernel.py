@@ -505,3 +505,100 @@ def test_bf16_fused_kernel_matches_plain(cuda, form, B, P, D, V):
     syn0, syn1, c, x, mask, neg = _step_inputs(cuda, B + P + D, B, P, D, V, 1.1, 0.35)
     res = bf16_check.check_form(syn0, syn1, c, x, mask, neg, form)
     assert not res["failures"], res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+def test_probe_on_the_card_matches_the_cpu(cuda, dtype):
+    """The health probe on the card against its CPU run at V=200,000 (D=384, padding
+    rows, a blown-up twentieth of syn0): max and mean within 1e-6 relative, frac_over,
+    the p99 bucket and the finite bit equal; one fetch."""
+    from glint_word2vec_torch.obs.probe import health_stats, stats_to_channels
+    rng = np.random.default_rng(5)
+    V, Vp, D = 200_000, 200_008, 384
+    mats = [rng.normal(0, s, (Vp, D)).astype(np.float32) for s in (0.05, 0.02)]
+    for m in mats:
+        m[V:] = 0
+    mats[0][rng.choice(V, V // 20, replace=False)] *= 4000.0
+    host = [torch.from_numpy(m).to(dtype) for m in mats]
+    card = [m.to(cuda) for m in host]
+    for thr in (1.0, 100.0):
+        want = stats_to_channels(health_stats(host, V, thr))
+        got = stats_to_channels(health_stats(card, V, thr))
+        assert got["finite"] == want["finite"] is True
+        for name in ("syn0", "syn1"):
+            for k in ("max_norm", "mean_norm"):
+                assert got[name][k] == pytest.approx(want[name][k], rel=1e-6)
+            for k in ("frac_over", "p99_norm"):
+                assert got[name][k] == want[name][k]
+
+
+def _runtime_fit(cuda, plan, **knobs):
+    """A small shared-pool fit on the card (V=5000, D=64, B=4096, P=128, 16 steps a
+    chunk) under a fault plan; returns the trainer and the fused and scatter launch
+    counts at its one restore and at its end."""
+    from glint_word2vec_torch import Vocabulary
+    from glint_word2vec_torch.config import Word2VecConfig
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.train import faults
+    from glint_word2vec_torch.train.trainer import Trainer
+    rng = np.random.default_rng(2)
+    V = 5000
+    counts = (1e7 / np.arange(1, V + 1)).astype(np.int64) + 1
+    vocab = Vocabulary.from_words_and_counts([f"w{i}" for i in range(V)], counts)
+    ids = rng.choice(V, size=200_000, p=counts / counts.sum()).astype(np.int32)
+    enc = encode_sentences([[f"w{i}" for i in ids[j:j + 40]]
+                            for j in range(0, ids.size, 40)], vocab)
+    cfg = Word2VecConfig(vector_size=64, pairs_per_batch=4096, min_count=1,
+                         heartbeat_every_steps=16, subsample_ratio=1e-4, seed=3,
+                         allow_unstable=True, **knobs)
+    tr = Trainer(cfg, vocab, device="cuda")
+    assert tr.config.negative_pool == 128
+    at_restore = []
+    real = tr._restore_snapshot
+
+    def restore():
+        at_restore.append((fused_sgns_shared_step.launches,
+                           tscatter.scatter_add_rows_.launches))
+        return real()
+
+    tr._restore_snapshot = restore
+    fused_sgns_shared_step.launches = tscatter.scatter_add_rows_.launches = 0
+    faults.configure(**plan)
+    try:
+        tr.fit(enc)
+    finally:
+        faults.reset()
+    torch.cuda.synchronize()
+    assert len(at_restore) == 1
+    end = (fused_sgns_shared_step.launches, tscatter.scatter_add_rows_.launches)
+    return tr, at_restore[0], end
+
+
+@pytest.mark.cuda
+def test_rollback_fit_on_the_card(cuda):
+    """NaN at step 40 under nonfinite_policy="rollback": one rollback, the counter past
+    2^22, finite parameters, and the fused kernel launching before and after."""
+    tr, before, end = _runtime_fit(cuda, {"nan_at_step": 40},
+                                   nonfinite_policy="rollback")
+    assert tr.rollbacks_performed == 1 and tr.global_step > 1 << 22
+    assert all(bool(torch.isfinite(m).all()) for m in tr.params)
+    assert 0 < before[0] < end[0] and end[1] == 0
+
+
+@pytest.mark.cuda
+def test_recovery_fit_on_the_card(cuda):
+    """A x1e6 blowup at step 40 under norm_watch="recover": one recovery, lr_scale 0.5,
+    max_row_norm engaged at the threshold; the fused kernel before the recovery and
+    never after, the scatter kernel (two a step) only after; finite and under the
+    threshold at the end."""
+    from glint_word2vec_torch.obs.probe import health_stats
+    tr, before, end = _runtime_fit(cuda, {"scale_params_at_step": 40},
+                                   norm_watch="recover")
+    assert tr.recoveries_performed == 1 and tr._lr_scale == 0.5
+    assert tr._stabilizers.max_row_norm == tr.config.norm_watch_threshold
+    assert before[0] > 0 and end[0] == before[0]
+    assert before[1] == 0 and end[1] > 0 and end[1] % 2 == 0
+    stats = health_stats(tr.params, tr.vocab.size, 100.0)
+    assert stats.finite
+    assert max(stats.syn0.max_norm, stats.syn1.max_norm) <= 100.0 * (1 + 1e-5)
