@@ -11,7 +11,9 @@ Phases, one line each (or a few); any failure exits non-zero:
                duplicates, a masked tail, both sigmoid modes), then a hot-row case (all
                live centers on one row, the pool all one row) and a heavy draw (Zipf
                1.3 over V=65536, parameters of scale 0.5), kernel and plain each against
-               a float64 step and the plain version against itself; timed per wrapper
+               a float64 step and the plain version against itself; the kernel takes
+               alpha in the trainer's form (a one-element float32 tensor on the card,
+               read at run time), the plain step the Python float; timed per wrapper
                call (CUDA events, the record's "ms"), and on the device per launch
                (torch.profiler), warm (one batch) and L2-cold (a ring of independently
                drawn batches whose rows exceed the 50 MB L2);
@@ -21,7 +23,8 @@ Phases, one line each (or a few); any failure exits non-zero:
                with bf16 compute. Each through the kernel (its bf16 updates applied by
                the scatter kernel's bf16 path) against the plain step with the same
                dtypes and against a float64 step, elementwise on the touched rows within
-               2^-7 |row| (bf16 rows) + 2^-4 of the element's summed update terms;
+               2^-7 |row| (bf16 rows) + 2^-4 of the element's summed update terms
+               (alpha in the trainer's form for the kernel, as in phase 3);
                and its update rows (bf16 parameters: d_in, d_pos, dZ before the
                scatters; f32 parameters: the rows' deltas) against the plain step's:
                at most 2% of the elements differ, at most 0.2% by more than one bf16
@@ -99,7 +102,18 @@ Phases, one line each (or a few); any failure exits non-zero:
                with the TPU bench's batch, pool, dispatch and subsample (B=65536, pool
                512, 32 steps a dispatch, 1e-4) and the device pair generator, on a
                4.5M-token corpus of the end-to-end bench's Zipf shape, held to the host
-               replay of its token stream;
+               replay of its token stream. Every fit runs through the trainer's CUDA
+               graphs (one replay a chunk, one or two captures; the launch counts are
+               those of the steps the card ran: K a replay and K a capture's warm-up),
+               under torch.profiler (the card's activity only): the idle share is the
+               share of Trainer.fit's wall outside the union of the kernels'
+               intervals. Each fit must have trained: both matrices moved from the
+               parameters it started from, and a held batch's skip-gram loss fell below
+               theirs. Each V=1M fit is then followed by its eager control (the
+               trainer's private _eager_chunks; not profiled) from the same parameters
+               and corpus, held to it at PARAM_ATOL and LOSS_RTOL (f32) or by
+               ops/bf16_check's limits on the parameter deltas and its LOSS_RTOL (bf16);
+               each prints its captures, replays, dispatch_s and idle share;
   9. model     save -> verify -> load -> find_synonyms / analogy on the shared-pool
                fit's model, right after that fit; transform_sentences, pull and
                multiply against float64 on the host; a binary word2vec export of the
@@ -123,17 +137,20 @@ Phases, one line each (or a few); any failure exits non-zero:
                bounds, and the fit's wall beside the layer-off "shared" fit of phase 8;
                (b) nonfinite_policy="rollback" with NaN injected at the round reaching
                step 40: one rollback, global_step past 2^22, finite parameters, the
-               fused kernel launching before and after the rollback; (c)
+               fused kernel launching before and after the rollback, the graphs
+               captured anew after it and one replay a chunk; (c)
                norm_watch="recover" with the parameters scaled x1e6 there: one
                recovery record, lr_scale 0.5, max_row_norm engaged at 100, the fused
                kernel before the recovery and the scatter kernel (its scatter form)
-               after, finite and below the threshold at the end; (d) a child process
+               after, captured anew after it, finite and below the threshold at the
+               end; (d) a child process
                fits at V=200,000 with telemetry and checkpoint_on_preempt and gets
                SIGTERM after its first heartbeat: it dies of the signal, its emergency
                checkpoint passes load_latest_valid and verify_checkpoint, its log has
                the preempt record and its blackbox dump validates.
-Then one JSON line with the kernels' numbers, the nvidia-smi line, and the result
-line {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
+Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
+JSON line with the kernels' numbers, the nvidia-smi line, and the result line
+{"ok": true, "device": {...}}. With no CUDA device, or without the package beside
 this file, it prints no result and exits 2.
 """
 
@@ -287,8 +304,8 @@ def f64_case(name: str, syn0, syn1, c, x, mask, neg, torch, sgns, fused) -> dict
     again, _ = sgns.sgns_step_shared_core(pair(syn0, syn1), c, x, mask, neg, alpha,
                                           N_NEG, "exact")
     got0, got1 = syn0.clone(), syn1.clone()
-    gm = fused.fused_sgns_shared_step(pair(got0, got1), c, x, mask, neg, alpha, N_NEG,
-                                      "exact")
+    gm = fused.fused_sgns_shared_step(pair(got0, got1), c, x, mask, neg,
+                                      fused.alpha_on_card(alpha, "cuda"), N_NEG, "exact")
     rows0 = torch.unique(c)
     rows1 = torch.unique(torch.cat([x, neg]))
     s0, s1, m64 = syn0.double(), syn1.double(), mask.double()
@@ -347,14 +364,16 @@ def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
     syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
     syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
     c, x, mask, neg = shared_batch(gen, torch)
+    # the plain step takes the Python float, the kernel the trainer's form of it
     alpha = 0.025
+    alpha_t = fused.alpha_on_card(alpha, "cuda")
     worst = {"max_abs_err": 0.0}
     for mode in ("exact", "clipped"):
         want, wm = sgns.sgns_step_shared_core(
             sgns.EmbeddingPair(syn0, syn1), c, x, mask, neg, alpha, N_NEG, mode)
         got0, got1 = syn0.clone(), syn1.clone()
         gm = fused.fused_sgns_shared_step(sgns.EmbeddingPair(got0, got1), c, x, mask,
-                                          neg, alpha, N_NEG, mode)
+                                          neg, alpha_t, N_NEG, mode)
         torch.cuda.synchronize()
         err0 = float((got0 - want.syn0).abs().max())
         err1 = float((got1 - want.syn1).abs().max())
@@ -386,7 +405,7 @@ def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
     params = sgns.EmbeddingPair(syn0, syn1)
 
     def step():
-        fused.fused_sgns_shared_step(params, c, x, mask, neg, alpha, N_NEG, "exact")
+        fused.fused_sgns_shared_step(params, c, x, mask, neg, alpha_t, N_NEG, "exact")
 
     call_ms = time_steps(step, TIMED_STEPS, torch)
     plain_ms = time_steps(lambda: sgns.sgns_step_shared_core(
@@ -400,7 +419,7 @@ def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
 
     def cold_step():
         cb, xb, mb, nb = ring[next(turn) % L2_RING]
-        fused.fused_sgns_shared_step(params, cb, xb, mb, nb, alpha, N_NEG, "exact")
+        fused.fused_sgns_shared_step(params, cb, xb, mb, nb, alpha_t, N_NEG, "exact")
 
     cold = per_launch_us(cold_step, profile_call)
     bound = step_bound(c, x, neg, mask, D, torch)
@@ -702,6 +721,7 @@ def bf16_kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
     base1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
     c, x, mask, neg = shared_batch(gen, torch)
     alpha, pair = 0.025, sgns.EmbeddingPair
+    alpha_t = fused.alpha_on_card(alpha, "cuda")
     ours = ("gather_kernel", "fneg_kernel", "update_kernel", "dz_scatter_kernel")
     out = {}
     for name, (pd, cd, ld, fz, ch) in bf16_check.FORMS.items():
@@ -711,7 +731,8 @@ def bf16_kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
         q = pair(base0.to(pd), base1.to(pd))
 
         def step(q=q, kw=kw):
-            fused.fused_sgns_shared_step(q, c, x, mask, neg, alpha, N_NEG, "exact", **kw)
+            fused.fused_sgns_shared_step(q, c, x, mask, neg, alpha_t, N_NEG, "exact",
+                                         **kw)
 
         call_ms = time_steps(step, TIMED_STEPS, torch)
         plain_ms = time_steps(lambda q=q, kw=kw: sgns.sgns_step_shared_core(
@@ -1151,6 +1172,7 @@ BENCH_FIT = ("v200k_bench_batch_bf16_devpairs", BENCH_KNOBS, 512)
 HOST_REPLAY = ("shared_bf16_fused_chain", "shared_hot", "per_pair_hot")
 DROP_LIMIT = 0.02  # the device feed's overflow drops, as a share of pairs trained
 FIT_WALL = {}  # fit name -> wall seconds (setup included), for the runtime phase
+GRAPHS = {}  # fit name -> its graphs, dispatch and idle share (and its eager control)
 # the runtime phase (10): the fault steps (the round reaching it; 16 steps a chunk),
 # the watchdog's threshold, the child's vocabulary
 INJECT_STEP = 40
@@ -1298,11 +1320,147 @@ def replay_host_feed(tr, sents, np) -> tuple:
     return steps, pairs
 
 
+def reset_counts(fused, scat) -> None:
+    fused.fused_sgns_shared_step.launches = 0
+    fused.fused_sgns_shared_step.bf16_launches = 0
+    scat.scatter_add_rows_.launches = 0
+    scat.scatter_add_rows_.bf16_launches = 0
+
+
+def profiled(fn, torch):
+    """``fn()`` under torch.profiler, the card's activity only (the host ops' events
+    would cost seconds a fit). Returns its result, the seconds in which a kernel ran on
+    the card (stepprof.kernel_busy_s: the union of the kernels' intervals) and the
+    seconds the trace took to collect and read after ``fn``."""
+    from glint_word2vec_torch.stepprof import kernel_busy_s
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+    busy = kernel_busy_s(prof)
+    return out, busy, time.perf_counter() - t0
+
+
+START = {}  # (padded vocabulary, width, seed) -> a trainer's initial parameters
+ENCODED = {}  # id of a corpus -> (its encoded sentences, a held batch for the loss)
+
+
+def start_params(tr, torch):
+    """The parameters a trainer of ``tr``'s geometry and seed starts from, drawn as
+    ``Trainer`` draws them (``init_embeddings`` from the config's seed), float32 on
+    the card and unpadded in width; a bf16 trainer rounds them as it places them."""
+    from glint_word2vec_torch.ops.sgns import EmbeddingPair, init_embeddings
+
+    cfg = tr.config
+    key = (tr.padded_vocab, cfg.vector_size, cfg.seed)
+    if key not in START:
+        gen = torch.Generator().manual_seed(cfg.seed & 0xFFFFFFFFFFFFFFFF)
+        START[key] = EmbeddingPair(*(m.cuda() for m in init_embeddings(
+            tr.padded_vocab, cfg.vector_size, gen)))
+    return START[key]
+
+
+def encoded_corpus(tr, corpus, torch, np) -> tuple:
+    """The corpus encoded as the estimator encodes it, and a held batch: the host
+    feed's first batch of skip-gram pairs (centers, contexts, mask) with N_NEG
+    negatives a pair drawn from the unigram^0.75 distribution, on the card."""
+    from glint_word2vec_torch.data.pipeline import encode_sentences, epoch_batches
+
+    if id(corpus) not in ENCODED:
+        vocab, sents = corpus
+        cfg = tr.config
+        enc = encode_sentences(sents, vocab, cfg.max_sentence_length)
+        b = next(iter(epoch_batches(enc, vocab, pairs_per_batch=B, window=cfg.window,
+                                    subsample_ratio=cfg.subsample_ratio, seed=cfg.seed,
+                                    backend="numpy")))
+        probs = torch.from_numpy(vocab.counts.astype(np.float64) ** 0.75).cuda()
+        gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
+        neg = torch.multinomial(probs, B * N_NEG, replacement=True,
+                                generator=gen).view(B, N_NEG)
+        held = tuple(torch.from_numpy(a).cuda() for a in (
+            b.centers.astype(np.int64), b.contexts.astype(np.int64), b.mask)) + (neg,)
+        ENCODED[id(corpus)] = (enc, held)
+    return ENCODED[id(corpus)]
+
+
+def held_loss(syn0, syn1, held, torch) -> float:
+    """The skip-gram loss of (syn0, syn1) on the held batch, per live pair:
+    softplus(-e.p) plus the negatives' softplus(e.z), summed in float32."""
+    c, x, m, neg = held
+    e = syn0[c].float()
+    pos = (e * syn1[x].float()).sum(-1)
+    negl = torch.einsum("bd,bkd->bk", e, syn1[neg].float())
+    per = torch.nn.functional.softplus(-pos) + torch.nn.functional.softplus(negl).sum(-1)
+    return float((per * m).sum() / m.sum())
+
+
+def steps_run(tr) -> int:
+    """The steps the card ran in the trainer's last fit: K a replay and K a capture's
+    warm-up (a short chunk padded) through graphs; the real steps on the eager path."""
+    if tr.graph_replays:
+        return tr.config.steps_per_dispatch * (tr.graph_replays + tr.graph_captures)
+    return tr.global_step
+
+
+def control_fit(name: str, tr, start, encoded, torch) -> dict:
+    """The fit again from the same parameters (``start``: ``start_params``) and
+    encoded corpus on the eager path (``_eager_chunks``), the trainer's one switch off
+    the graphs, held to the graph fit: f32 parameters within PARAM_ATOL and heartbeat
+    losses within LOSS_RTOL; bf16 ones by ops/bf16_check's limits on the parameter
+    deltas (at most 2% of the touched elements differ, 0.2% by more than one bf16 ulp)
+    and its LOSS_RTOL. Not profiled: its ``fit_time`` is a plain wall."""
+    from glint_word2vec_torch.ops import bf16_check
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    ctl = Trainer(tr.config, tr.vocab, params=start, device="cuda",
+                  feed_backend=tr.feed_backend)
+    ctl._eager_chunks = True
+    placed = [m.clone() for m in ctl.params]
+    ctl.fit(encoded)
+    bf16 = tr.params.syn0.dtype == torch.bfloat16
+    if bf16:
+        agree = [bf16_check.update_agreement(g.float() - s.float(), e.float() - s.float(),
+                                             bf16_check.bf16_ulp(e))
+                 for g, e, s in zip(tr.params, ctl.params, placed)]
+        params_ok = all(bf16_check.passes(a) for a in agree)
+        err = {"syn0": agree[0], "syn1": agree[1]}
+    else:
+        err = max(float((g - e).abs().max()) for g, e in zip(tr.params, ctl.params))
+        params_ok = err <= PARAM_ATOL
+    rtol = bf16_check.LOSS_RTOL if bf16 else LOSS_RTOL
+    lg, le = [h.loss for h in tr.heartbeats], [h.loss for h in ctl.heartbeats]
+    losses_ok = len(lg) == len(le) and all(
+        math.isclose(a, b, rel_tol=rtol) for a, b in zip(lg, le))
+    rec = {"fit_time_s": ctl.fit_time, "steps": ctl.global_step,
+           "dispatch_s": ctl.dispatch_time, "host_wait_s": ctl.host_wait_time,
+           "agreement": err,
+           "loss_max_rel": max((abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lg, le)),
+                               default=0.0)}
+    log("fit", f"{name}: eager control from the same parameters: steps "
+        f"{ctl.global_step}, Trainer.fit {ctl.fit_time:.3f} s (not profiled), "
+        f"dispatch_s {ctl.dispatch_time:.4f}, host_wait_s {ctl.host_wait_time:.4f}; "
+        "graph fit against it: "
+        + (f"bf16 deltas {err}" if bf16 else f"max abs err {err:.3e} (limit {PARAM_ATOL})")
+        + f", heartbeat losses max rel {rec['loss_max_rel']:.2e} (limit {rtol})")
+    if not (params_ok and losses_ok and ctl.global_step == tr.global_step
+            and ctl.graph_replays == 0):
+        raise AssertionError(f"fit {name}: the graph fit disagrees with its eager "
+                             f"control: params {params_ok}, losses {losses_ok}")
+    del ctl, placed
+    return rec
+
+
 def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused,
-              scat, sgns, np):
-    """One fit through the estimator; the kernel counts are set to 0 just before it
-    and read just after. Returns (model, fused launches, scatter launches, and those
-    of both in a bf16 form)."""
+              scat, sgns, np, control: bool = True):
+    """One fit through the estimator, through the trainer's graphs, under the
+    profiler (the card's activity only) for the device's idle share over its
+    ``Trainer.fit``; the kernel counts are set to 0 just before it and read just after.
+    The fit must have trained: both matrices moved from the parameters it started from
+    (``start_params``), and the held batch's loss fell below theirs. Then
+    (``control``) its eager control fit. Returns (model, fused launches, scatter
+    launches, and those of both in a bf16 form)."""
     from glint_word2vec_torch import Word2Vec
     from glint_word2vec_torch.ops import cbow_banded
 
@@ -1310,20 +1468,33 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     est = Word2Vec(**{**dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
                              pairs_per_batch=B, min_count=1, heartbeat_every_steps=16,
                              seed=seed, device="cuda"), **knobs})
-    fused.fused_sgns_shared_step.launches = 0
-    fused.fused_sgns_shared_step.bf16_launches = 0
-    scat.scatter_add_rows_.launches = 0
-    scat.scatter_add_rows_.bf16_launches = 0
+    reset_counts(fused, scat)
     t0 = time.perf_counter()
-    model = est.fit(sents, vocab=vocab)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    model, busy, trace_s = profiled(lambda: est.fit(sents, vocab=vocab), torch)
+    wall = time.perf_counter() - t0 - trace_s
     FIT_WALL[name] = wall
     n_fused = fused.fused_sgns_shared_step.launches
     n_scat = scat.scatter_add_rows_.launches
     n_fused_bf16 = fused.fused_sgns_shared_step.bf16_launches
     n_scat_bf16 = scat.scatter_add_rows_.bf16_launches
     tr = est.trainer
+    idle = 1.0 - busy / tr.fit_time
+    log("fit", f"{name}: graphs: {tr.graph_captures} captures, {tr.graph_replays} "
+        f"replays for {tr.chunks_run} chunks of {tr.config.steps_per_dispatch} steps; "
+        f"dispatch_s {tr.dispatch_time:.4f} (prologues {tr.prologue_time:.4f}); kernels "
+        f"ran {busy:.4f} s of the {tr.fit_time:.4f} s Trainer.fit (torch.profiler on, "
+        f"the union of the kernels' intervals; its trace took {trace_s:.2f} s after the "
+        f"fit): idle share {idle:.1%}")
+    start = start_params(tr, torch)
+    encoded, held = encoded_corpus(tr, corpus, torch, np)
+    V_ = vocab.size
+    s0, s1 = (m[:V_].to(tr.params.syn0.dtype).float() for m in start)
+    moved = [float((model.syn0 - s0).abs().max()), float((model.syn1 - s1).abs().max())]
+    loss0, loss1 = held_loss(s0, s1, held, torch), held_loss(model.syn0, model.syn1,
+                                                             held, torch)
+    del s0, s1
+    log("fit", f"{name}: trained from its start: largest change syn0 {moved[0]:.3e}, "
+        f"syn1 {moved[1]:.3e}; held batch's loss {loss0:.6f} -> {loss1:.6f}")
     hb = list(tr.heartbeats)
     loss = hb[-1].loss if hb else float("nan")
     unit = "examples" if tr.config.cbow else "pairs"
@@ -1345,6 +1516,7 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
         + (f"; tokens_per_step {tr._tokens_per_step}, dropped pairs {tr.dropped_pairs}"
            if token_feed else ""))
     steps = tr.global_step
+    ran = steps_run(tr)  # the steps the kernels ran: padded and warm-up steps too
     hot = tr._hot_rows > 0
     fused_path = (tr.config.negative_pool > 0 and not tr.config.cbow and not hot
                   and not tr._stabilizers.enabled and not tr.config.duplicate_scaling)
@@ -1355,16 +1527,20 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     # its rows with two bf16 scatters
     per_step = sgns.SCATTERS_PER_STEP * (1 + hot) + (
         banded and cbow_banded.CUDA_ENDPOINT == "scatter")
-    scat_want = (sgns.SCATTERS_PER_STEP * bf16 if fused_path else per_step) * steps
-    scat_bf16_want = sgns.SCATTERS_PER_STEP * steps * bf16
+    scat_want = (sgns.SCATTERS_PER_STEP * bf16 if fused_path else per_step) * ran
+    scat_bf16_want = sgns.SCATTERS_PER_STEP * ran * bf16
     want_feed = ("device" if device_feed or banded else "numpy" if tr.config.cbow
                  else "native")
     checks = {f"pool == {pool}": tr.config.negative_pool == pool,
               f"feed_backend == {want_feed}": tr.feed_backend == want_feed,
               "steps >= 4 chunks": steps > 3 * tr.config.steps_per_dispatch,
-              "sgns_shared launches": n_fused == (steps if fused_path else 0),
+              "one replay a chunk": tr.graph_replays == tr.chunks_run > 0,
+              "params moved": min(moved) > 0.0,
+              "held loss fell": loss1 < loss0,
+              "captures": 1 <= tr.graph_captures <= 2,
+              "sgns_shared launches": n_fused == (ran if fused_path else 0),
               "sgns_shared bf16 launches": n_fused_bf16 == (
-                  steps if fused_path and bf16 else 0),
+                  ran if fused_path and bf16 else 0),
               "scatter_rows launches": n_scat == scat_want,
               "scatter_rows bf16 launches": n_scat_bf16 == scat_bf16_want,
               "param dtype": tr.params.syn0.dtype == getattr(torch, tr.config.param_dtype),
@@ -1404,6 +1580,15 @@ def fit_phase(name: str, knobs: dict, pool: int, corpus, seed: int, torch, fused
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"fit {name} failed: {bad}")
+    GRAPHS[name] = {"captures": tr.graph_captures, "replays": tr.graph_replays,
+                    "chunks": tr.chunks_run, "steps": steps, "steps_run": ran,
+                    "fit_wall_s": wall, "trainer_fit_s": tr.fit_time,
+                    "dispatch_s": tr.dispatch_time, "prologue_s": tr.prologue_time,
+                    "host_wait_s": tr.host_wait_time, "kernel_busy_s": busy,
+                    "device_idle_share": idle, "trace_s": trace_s,
+                    "held_loss": [loss0, loss1]}
+    if control:
+        GRAPHS[name]["eager_control"] = control_fit(name, tr, start, encoded, torch)
     return model, n_fused, n_scat, n_fused_bf16, n_scat_bf16
 
 
@@ -1431,11 +1616,13 @@ def sync_numpy_fit(model, steps: int, corpus, seed: int, torch, fused) -> float:
     err = max(float((p.syn0 - model.syn0).abs().max()),
               float((p.syn1 - model.syn1).abs().max()))
     log("fit", f"shared, numpy feed on the calling thread (prefetch_chunks 0): steps "
-        f"{tr.global_step} (default feed: {steps}), sgns_shared launches {launched}, "
+        f"{tr.global_step} (default feed: {steps}), {tr.graph_replays} replays for "
+        f"{tr.chunks_run} chunks, sgns_shared launches {launched}, "
         f"fit wall {wall:.2f} s, host_wait_s {tr.host_wait_time:.4f}, dispatch_s "
         f"{tr.dispatch_time:.4f}; max_abs_err against the default fit's parameters "
         f"{err:.3e} (tolerance {PARAM_ATOL})")
-    if not (tr.global_step == steps == launched and err <= PARAM_ATOL):
+    if not (tr.global_step == steps and launched == steps_run(tr)
+            and tr.graph_replays == tr.chunks_run and err <= PARAM_ATOL):
         raise AssertionError("the fit on the calling thread with the numpy feed "
                              "disagrees with the default fit")
     return err
@@ -1723,7 +1910,7 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
     vocab, sents = corpus
     base = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
                 min_count=1, heartbeat_every_steps=16, seed=seed, device="cuda")
-    rec, launches = {}, {}
+    rec, launches, graphs = {}, {}, {}
     restores, probed = [], {}
     real_restore, real_probe = Trainer._restore_snapshot, Trainer._health_stats
 
@@ -1745,10 +1932,7 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
         if plan:
             faults.configure(**plan)
         est = Word2Vec(**{**base, **knobs})
-        fused.fused_sgns_shared_step.launches = 0
-        scat.scatter_add_rows_.launches = 0
-        fused.fused_sgns_shared_step.bf16_launches = 0
-        scat.scatter_add_rows_.bf16_launches = 0
+        reset_counts(fused, scat)
         t0 = time.perf_counter()
         try:
             est.fit(sents, vocab=vocab)
@@ -1759,7 +1943,20 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
         launches[name] = {"sgns_shared_step": fused.fused_sgns_shared_step.launches,
                           "scatter_add_rows": scat.scatter_add_rows_.launches,
                           "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
-        return est.trainer, wall
+        tr = est.trainer
+        graphs[name] = {"captures": tr.graph_captures, "replays": tr.graph_replays,
+                        "chunks": tr.chunks_run,
+                        "captures_at_restore": tr.restore_captures,
+                        "dispatch_s": tr.dispatch_time}
+        log("runtime", f"{name}: graphs: {tr.graph_captures} captures "
+            f"({tr.restore_captures} before the restore), {tr.graph_replays} replays "
+            f"for {tr.chunks_run} chunks, dispatch_s {tr.dispatch_time:.4f}")
+        return tr, wall
+
+    def recaptured(name) -> bool:
+        g = graphs[name]
+        return (len(g["captures_at_restore"]) == 1 and g["replays"] == g["chunks"]
+                and g["captures"] > g["captures_at_restore"][0] >= 1)
 
     with tempfile.TemporaryDirectory() as tmp:
         # (a) telemetry, the status endpoint, norm_watch="warn"
@@ -1846,6 +2043,7 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
         checks = {"one rollback": tr.rollbacks_performed == 1 and len(restores) == 1,
                   "global_step past 2^22": tr.global_step > 1 << 22,
                   "params finite": finite,
+                  "recaptured after the rollback": recaptured("runtime_b_rollback"),
                   "fused before and after": bool(restores) and 0 < restores[0][0] < n}
         rec["b"] = {"wall_s": wall, "steps": tr.global_step,
                     "fused_before": restores[0][0] if restores else None,
@@ -1877,6 +2075,7 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
         checks = {"one recovery record": len(recovery) == 1
                   and recovery[0]["action"] == "rollback",
                   "lr_scale 0.5": tr._lr_scale == 0.5,
+                  "recaptured after the recovery": recaptured("runtime_c_recover"),
                   "max_row_norm engaged": tr._stabilizers.max_row_norm == NORM_THRESHOLD,
                   "fused before, none after": bool(restores) and fb > 0 and nf == fb,
                   "scatter after, none before": sb == 0 and ns > 0,
@@ -1899,6 +2098,7 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
 
         # (d) SIGTERM to a child process under checkpoint_on_preempt
         rec["d"] = preempt_child(tmp, seed, np)
+    rec["graphs"] = graphs
     return rec, launches
 
 
@@ -1963,13 +2163,14 @@ def main() -> int:
     for name, knobs, pool in FITS + (BENCH_FIT,):
         model, *counts_ = fit_phase(name, knobs, pool,
                                     bench_corpus if knobs is BENCH_KNOBS else corpus,
-                                    args.seed, torch, fused, scat, sgns, np)
+                                    args.seed, torch, fused, scat, sgns, np,
+                                    control=knobs is not BENCH_KNOBS)
         launches[name] = dict(zip(("sgns_shared_step", "scatter_add_rows",
                                    "sgns_shared_step_bf16", "scatter_add_rows_bf16"),
                                   counts_))
         if name == "shared":
             surface = model_phase(model, corpus, torch, np)
-            sync_numpy_fit(model, counts_[0], corpus, args.seed, torch, fused)
+            sync_numpy_fit(model, GRAPHS[name]["steps"], corpus, args.seed, torch, fused)
         del model
     del bench_corpus, bench_sents
     runtime, runtime_launches = runtime_phase(corpus, args.seed, torch, np, fused, scat,
@@ -2022,6 +2223,9 @@ def main() -> int:
     for k in kernels_line["kernels"]:
         if k["launches"] == 0:
             raise AssertionError(f"{k['name']}: no launch on the main path's fits")
+    log("graphs", "per fit (captures, replays, chunks, dispatch_s, idle share): " + "; ".join(
+        f"{n} {g['captures']}/{g['replays']}/{g['chunks']} {g['dispatch_s']:.4f} s "
+        f"{g['device_idle_share']:.1%}" for n, g in GRAPHS.items()))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,
@@ -2029,6 +2233,7 @@ def main() -> int:
                                               "banded": brec, "stabilizers": stab_rec,
                                               "runtime": runtime,
                                               "launches_by_fit": launches,
+                                              "graphs": GRAPHS,
                                               "card": card}) + "\n")
     print(json.dumps(kernels_line))
     print(card)

@@ -534,6 +534,20 @@ void fill_occupancy(Occupancy& occ) {
   occ.blocks[BF][0][3] = reduce_blocks<BF, float, 4>(occ.sms);
 }
 
+// The reduce kernels' resident blocks on device `dev`, cached once: the occupancy
+// query is a host call that glint_scatter_prepare makes before any stream capture.
+cudaError_t prepare_device(int dev) {
+  Occupancy& occ = occupancy[dev];
+  if (occ.sms != 0) return cudaSuccess;
+  int sms = 0;
+  const cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  occ.sms = sms;
+  fill_occupancy<false>(occ);
+  fill_occupancy<true>(occ);
+  return cudaSuccess;
+}
+
 struct ReduceArgs {
   void* mat;
   const void* upd;
@@ -629,12 +643,7 @@ int glint_scatter_rows(void* mat, const void* idx, const void* upd, const void* 
   if (e != cudaSuccess) return (int)e;
   if (dev >= 64) return (int)cudaErrorInvalidDevice;
   Occupancy& occ = occupancy[dev];
-  if (occ.sms == 0) {
-    e = cudaDeviceGetAttribute(&occ.sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    fill_occupancy<false>(occ);
-    fill_occupancy<true>(occ);
-  }
+  if (occ.sms == 0 && (e = prepare_device(dev)) != cudaSuccess) return (int)e;
   int* head = static_cast<int*>(scratch);
   int* rank = head + HEAD;
   int* perm = rank + n;
@@ -662,6 +671,17 @@ int glint_scatter_rows(void* mat, const void* idx, const void* upd, const void* 
   else
     launch_reduce_for<false>(vec, U, blocks, s, r);
   return (int)cudaGetLastError();
+}
+
+// Evaluate and cache the grouped path's occupancy for the current device, so that no
+// later call (one being captured into a CUDA graph, say) makes that host query.
+// Returns the first CUDA error (0 = ready).
+int glint_scatter_prepare(void) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  return (int)prepare_device(dev);
 }
 
 // A zeroed int32 word of pinned host memory mapped into the device's address space

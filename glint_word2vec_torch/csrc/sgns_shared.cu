@@ -180,12 +180,17 @@ struct StepArgs {
   int Bp, Pp, Dp;          // padded to multiples of PAD
   int n_neg_part;
   int k_chunks;            // batch chunks of DZ_KCHUNK pairs
-  float alpha;
+  const float* alpha;      // [1] on the device: the step's learning rate
   float ratio;             // num_negatives / P
   int clipped;
   int with_metrics;
   int flags;
 };
+
+// The step's learning rate, read from the device (a CUDA graph replays the launch
+// arguments it captured, so a value argument would keep the alpha of the step it was
+// captured on). Each thread reads it once, at its kernel's start.
+__device__ __forceinline__ float step_alpha(const StepArgs& a) { return __ldg(a.alpha); }
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -308,7 +313,7 @@ __global__ void __launch_bounds__(GATHER_WARPS * 32) gather_kernel(StepArgs a,
   if (round_products) dot = bf16r(dot);
   if (lane == 0) {
     const float m = a.mask[b];
-    a.gpos[b] = (1.0f - sigmoid_f(dot, a.clipped)) * a.alpha * m;
+    a.gpos[b] = (1.0f - sigmoid_f(dot, a.clipped)) * step_alpha(a) * m;
     if (a.with_metrics) {
       a.pos_loss[b] = softplus_f(-dot) * m;
       a.fpos[b] = dot * m;
@@ -561,22 +566,23 @@ __device__ __forceinline__ void store_bf16_cols(unsigned short* row, int d, int 
 // g_neg of one (pair, pool) entry from its logit f (already rounded as the step's f_neg)
 // and its validity (the pair's mask, or 0): the classic chain or the fused select, in
 // f32 or rounding after each bf16 operation as the JAX step's bf16 chain does.
-__device__ __forceinline__ float neg_coeff(const StepArgs& a, int flags, float f,
-                                           float valid) {
+__device__ __forceinline__ float neg_coeff(const StepArgs& a, int flags, float alpha,
+                                           float f, float valid) {
   const float s = sigmoid_f(f, a.clipped);
   if (!(flags & LOGITS_BF16)) {
-    if (flags & FUSED) return valid != 0.0f ? s * (a.alpha * (0.0f - a.ratio)) : 0.0f;
-    return (0.0f - s) * a.alpha * valid * a.ratio;
+    if (flags & FUSED) return valid != 0.0f ? s * (alpha * (0.0f - a.ratio)) : 0.0f;
+    return (0.0f - s) * alpha * valid * a.ratio;
   }
   const float sb = bf16r(s);
   if (flags & FUSED)
-    return valid != 0.0f ? bf16r(sb * bf16r(a.alpha * (0.0f - a.ratio))) : 0.0f;
-  return bf16r(bf16r(bf16r((0.0f - sb) * bf16r(a.alpha)) * valid) * bf16r(a.ratio));
+    return valid != 0.0f ? bf16r(sb * bf16r(alpha * (0.0f - a.ratio))) : 0.0f;
+  return bf16r(bf16r(bf16r((0.0f - sb) * bf16r(alpha)) * valid) * bf16r(a.ratio));
 }
 
 template <bool METRICS, bool X>
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) fneg_kernel(StepArgs a) {
   const int flags = flags_of<X>(a);
+  const float alpha = step_alpha(a);
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ float red[NT / 32];
   // the tile's pool ids and its pairs' contexts and masks, read once up front so the
@@ -619,7 +625,7 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) fneg_kernel(StepArgs a) {
         const float f = (flags & (COMPUTE_BF16 | LOGITS_BF16)) ? bf16r(f0) : f0;
         const int64_t ng = s_neg[c];
         const float valid = (ng >= 0 && s_ctx[r] != ng) ? s_mask[r] : 0.0f;
-        const float g = neg_coeff(a, flags, f, valid);
+        const float g = neg_coeff(a, flags, alpha, f, valid);
         const float gv = (flags & COMPUTE_BF16) ? bf16r(g) : g;  // G in compute dtype
         if (METRICS) lsum += softplus_f(f) * valid;
         sG[r * LD + c] = gv;
@@ -890,18 +896,24 @@ int64_t glint_sgns_scratch_floats(int B, int P, int D) {
 // One fused step, in place on f32 syn0/syn1; with STORE_BF16 in `flags` (bf16 syn0 and
 // syn1) the updates go instead to upd0 ([B, D] bf16: d_in) and upd1 ([B + P, D] bf16:
 // d_pos, then dZ), which the caller applies (the masked pairs' rows of upd0 and upd1 are
-// not written). Returns cudaGetLastError() after the launches (0 = launched); the
-// launches are asynchronous on `stream`.
+// not written). `alpha` is the device address of the step's learning rate (one float),
+// which the kernels read at run time: a CUDA graph that captures this call takes each
+// replay's alpha from that address. The host side makes no call that a stream capture
+// forbids (it allocates and synchronizes nothing; the shared-memory limit is raised once
+// per device, before any capture of the trainer, which warms the step up first).
+// Returns cudaGetLastError() after the launches (0 = launched); the launches are
+// asynchronous on `stream`.
 int glint_sgns_shared_step(void* syn0, void* syn1, const void* centers,
                            const void* contexts, const void* mask,
                            const void* negatives, void* scratch, void* metrics,
-                           void* upd0, void* upd1, int B, int P, int D, float alpha,
-                           float ratio, int clipped, int with_metrics, int flags,
-                           void* stream) {
+                           void* upd0, void* upd1, int B, int P, int D,
+                           const void* alpha, float ratio, int clipped, int with_metrics,
+                           int flags, void* stream) {
   cudaError_t err = allow_smem();
   if (err != cudaSuccess) return (int)err;
   StepArgs a;
-  if ((flags & STORE_BF16) && (!upd0 || !upd1)) return (int)cudaErrorInvalidValue;
+  if (!alpha || ((flags & STORE_BF16) && (!upd0 || !upd1)))
+    return (int)cudaErrorInvalidValue;
   a.syn0 = syn0;
   a.syn1 = syn1;
   a.upd0 = static_cast<unsigned short*>(upd0);
@@ -948,7 +960,7 @@ int glint_sgns_shared_step(void* syn0, void* syn1, const void* centers,
   a.neg_part = s;
   a.n_neg_part = (a.Bp / BM) * (a.Pp / BN);
   a.metrics = static_cast<float*>(metrics);
-  a.alpha = alpha;
+  a.alpha = static_cast<const float*>(alpha);
   a.ratio = ratio;
   a.clipped = clipped;
   a.with_metrics = with_metrics;

@@ -34,7 +34,7 @@ import torch
 
 from glint_word2vec_torch.ops import scatter as scat
 from glint_word2vec_torch.ops.fused_sgns import (
-    fused_sgns_shared_kernel, fused_sgns_shared_step)
+    alpha_on_card, fused_sgns_shared_kernel, fused_sgns_shared_step)
 from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, _shared_pool_updates, sgns_step_shared_core, shared_pool_coeffs)
 
@@ -118,15 +118,16 @@ def updates_against_plain(p0, p1, c, x, mask, neg, alpha: float, num_negatives: 
         plain_kw["bf16_chain"])
     live = mask > 0
     pair = EmbeddingPair
+    alpha_t = alpha_on_card(alpha, p0.device)  # the trainer's form; plain: the float
     if p0.dtype == torch.bfloat16:
-        _, u0, u1 = fused_sgns_shared_kernel(pair(p0, p1), c, x, mask, neg, alpha,
+        _, u0, u1 = fused_sgns_shared_kernel(pair(p0, p1), c, x, mask, neg, alpha_t,
                                              num_negatives, "exact", **kernel_kw)
         B = c.shape[0]
         kernel = torch.cat([u0[live], u1[:B][live], u1[B:]])
         plain = torch.cat([d_in[live], d_pos[live], d_Z]).to(torch.bfloat16)
         return update_agreement(kernel, plain, bf16_ulp(plain))
     g0, g1 = p0.clone(), p1.clone()
-    fused_sgns_shared_kernel(pair(g0, g1), c, x, mask, neg, alpha, num_negatives,
+    fused_sgns_shared_kernel(pair(g0, g1), c, x, mask, neg, alpha_t, num_negatives,
                              "exact", **kernel_kw)
     w0 = p0.clone().index_add_(0, c, d_in.to(p0.dtype))
     w1 = p1.clone().index_add_(0, x, d_pos.to(p1.dtype)).index_add_(0, neg,
@@ -170,8 +171,9 @@ def check_form(base0, base1, c, x, mask, neg, form: str, alpha: float = 0.025,
     terms = update_terms(p0, p1, c, x, mask, neg, rows0, rows1, alpha, num_negatives)
     g0, g1 = p0.clone(), p1.clone()
     before = (fused_sgns_shared_step.launches, scat.scatter_add_rows_.launches)
-    gm = fused_sgns_shared_step(pair(g0, g1), c, x, mask, neg, alpha, num_negatives,
-                                "exact", **kw)
+    gm = fused_sgns_shared_step(pair(g0, g1), c, x, mask, neg,
+                                alpha_on_card(alpha, p0.device), num_negatives, "exact",
+                                **kw)
     scat.check_errors()
     torch.cuda.synchronize()
     launches = (fused_sgns_shared_step.launches - before[0],

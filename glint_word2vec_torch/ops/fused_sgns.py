@@ -86,6 +86,21 @@ def _dtypes(syn0, compute_dtype, logits_dtype) -> Tuple[torch.dtype, torch.dtype
     return cd, ld
 
 
+def alpha_on_card(alpha: Union[float, torch.Tensor], device) -> torch.Tensor:
+    """The step's learning rate as the kernel reads it: a one-element float32 tensor on
+    the parameters' device, whose address the kernels read at run time (what a CUDA
+    graph of the step needs: its replays take each step's alpha from the trainer's [K]
+    alphas buffer). A Python float is written into a new such tensor by a fill on the
+    card, which copies nothing from the host; the trainer always passes a tensor."""
+    if not isinstance(alpha, torch.Tensor):
+        return torch.full((1,), float(alpha), dtype=torch.float32, device=device)
+    if alpha.dtype != torch.float32 or alpha.numel() != 1 or alpha.device != device:
+        raise ValueError(f"alpha must be a float or a one-element float32 tensor on "
+                         f"{device}, got {alpha.dtype} {tuple(alpha.shape)} on "
+                         f"{alpha.device}")
+    return alpha
+
+
 def fused_sgns_shared_step(
     params: EmbeddingPair,
     centers: torch.Tensor,    # int64 [B]
@@ -104,7 +119,9 @@ def fused_sgns_shared_step(
 ) -> StepMetrics:
     """One shared-pool SGNS step, in place on ``params`` (float32 or bfloat16).
     Indices must lie in [0, V): the feed and the sampler produce them so, and the
-    kernel does not check. ``compute_dtype`` (default: the parameters'),
+    kernel does not check. ``alpha`` is a Python float or a one-element float32 tensor
+    on the parameters' device (the kernel reads it on the card: see
+    :func:`alpha_on_card`). ``compute_dtype`` (default: the parameters'),
     ``logits_dtype`` (default: ``promote_types(compute, float32)``), ``fused`` and
     ``bf16_chain`` as in ``sgns_step_shared_core``.
 
@@ -175,14 +192,15 @@ def fused_sgns_shared_kernel(
     flags = (STORE_BF16 * store_bf16 | COMPUTE_BF16 * (cd == torch.bfloat16)
              | LOGITS_BF16 * (ld == torch.bfloat16) | FUSED * bool(fused)
              | BF16_CHAIN * bool(bf16_chain))
+    alpha_t = alpha_on_card(alpha, syn0.device)
     stream = torch.cuda.current_stream(syn0.device).cuda_stream
     err = lib.glint_sgns_shared_step(
         syn0.data_ptr(), syn1.data_ptr(), centers.data_ptr(), contexts.data_ptr(),
         mask.data_ptr(), negatives.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         None if upd0 is None else upd0.data_ptr(),
         None if upd1 is None else upd1.data_ptr(),
-        B, P, D, float(alpha), num_negatives / P, int(sigmoid_mode == "clipped"),
-        int(with_metrics), flags, stream)
+        B, P, D, alpha_t.data_ptr(), num_negatives / P,
+        int(sigmoid_mode == "clipped"), int(with_metrics), flags, stream)
     if err != 0:
         raise RuntimeError(f"sgns_shared kernel launch failed: cudaError {err}")
     fused_sgns_shared_step.launches += 1
@@ -192,6 +210,8 @@ def fused_sgns_shared_kernel(
 
 
 # Kernel launches (one per fused step on a CUDA tensor; each is four CUDA launches),
-# and those of them in a bf16 form (bf16 storage, compute or logits).
+# and those of them in a bf16 form (bf16 storage, compute or logits). A call captured
+# into a CUDA graph runs here once, at capture, where nothing launches: the trainer's
+# graphs (train/graphs.py) take that count back and add it once per replay.
 fused_sgns_shared_step.launches = 0
 fused_sgns_shared_step.bf16_launches = 0

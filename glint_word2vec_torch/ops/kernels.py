@@ -35,7 +35,8 @@ _SIGNATURES = {
         "glint_sgns_shared_step": (
             ctypes.c_int,
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
-            + [ctypes.c_float] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+            + [ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 3
+            + [ctypes.c_void_p]),
     },
     "scatter_rows": {
         "glint_scatter_rows": (
@@ -43,6 +44,7 @@ _SIGNATURES = {
             [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 6),
         "glint_scatter_scratch_bytes": (ctypes.c_int64, [ctypes.c_int64]),
+        "glint_scatter_prepare": (ctypes.c_int, []),
         "glint_scatter_flag_create": (ctypes.c_void_p, []),
         "glint_scatter_flag_device": (ctypes.c_void_p, [ctypes.c_void_p]),
     },

@@ -35,19 +35,27 @@ def mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def _mix32_host(x: int) -> int:
+    """:func:`mix32` of one uint32 held in a Python int."""
+    x = ((x ^ (x >> 16)) * 0x85EBCA6B) & _M32
+    x = ((x ^ (x >> 13)) * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
 def hash_bits(seed: int, stream: int, counter: int, shape: Tuple[int, ...],
               device) -> torch.Tensor:
     """int64 tensor of uint32 pseudo-random bits, a pure function of
     (seed, stream, counter, flat index). ``seed`` and ``counter`` are masked to 32
-    bits, as the JAX package's uint32 casts do."""
+    bits, as the JAX package's uint32 casts do. The draw's base is hashed on the host:
+    a tensor made on the card from a Python int is a blocking copy, which would hold
+    the host until the card has run everything queued before it."""
     n = 1
     for d in shape:
         n *= d
     s = ((int(seed) & _M32) * _GOLDEN) & _M32
     t = (stream * 0x7FEB352D + 0x68E31DA4) & _M32
     c = int(counter) & _M32
-    scalar = torch.tensor([s ^ t], dtype=torch.int64, device=device)
-    base = mix32(c ^ mix32(scalar))
+    base = _mix32_host(c ^ _mix32_host(s ^ t))
     i = torch.arange(n, dtype=torch.int64, device=device)
     return mix32(i ^ base).reshape(shape)
 

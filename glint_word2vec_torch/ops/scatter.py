@@ -49,6 +49,14 @@ its grouping. :class:`_Stream` holds them per (device, stream), so calls on two 
 never share them; they are allocated once, grow with V and with the number of slots,
 and are never cleared by the host. The wrapper's CUDA path runs no torch op and
 allocates nothing once they exist: one ctypes call enqueues the one or four launches.
+
+CUDA graphs. A call may be captured into a graph (the trainer captures each chunk's
+steps): the state of the capture stream must then exist at its final size before the
+capture begins (a call on that stream outside the capture sizes it; one that would grow
+it inside a capture raises), the grouped path's occupancy is queried once per device
+when the stream's state is made, and the index check of a replayed launch is read by
+:func:`check_errors`, never inside the captured region. A replay counts no launch here:
+the trainer adds each captured body's launches once per replay.
 """
 
 from __future__ import annotations
@@ -131,6 +139,17 @@ def scatter_add_rows_grouped(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Te
     return mat
 
 
+def _refuse_growth_in_capture() -> None:
+    """The state of a stream is sized by a call outside any CUDA graph capture (the
+    trainer warms each chunk body up on its capture stream first): grown inside one,
+    its zeroing would be recorded into the graph and its memory taken from the graph's
+    pool."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("scatter_rows: its state on this stream must be sized before "
+                           "a CUDA graph capture (run the captured calls once, outside "
+                           "the capture, on the capture stream)")
+
+
 class _Stream:
     """The kernel's state on one (device, stream): the two zeroed int32 [V] tables,
     the grouping's scratch and the mapped error flag. Calls on one stream run in
@@ -141,6 +160,9 @@ class _Stream:
         self.acc = None  # bf16 calls: the zeroed f32 [n, d] row accumulators
         self.lib = lib
         with torch.cuda.device(device):
+            err = lib.glint_scatter_prepare()  # the occupancy query, before any capture
+            if err != 0:
+                raise RuntimeError(f"scatter_rows: device query failed: cudaError {err}")
             host = lib.glint_scatter_flag_create()
         if not host:
             raise RuntimeError("scatter_rows: could not allocate its error flag")
@@ -157,6 +179,7 @@ class _Stream:
         a [V, D] matrix, grown first if they are too small."""
         if V <= self.rows and N <= self.slots:
             return self.ptrs
+        _refuse_growth_in_capture()
         if V > self.rows:
             self.rows = V
             self.tables = torch.zeros((2, V), dtype=torch.int32, device=self.device)
@@ -173,6 +196,7 @@ class _Stream:
         """Device pointer of the zeroed f32 accumulator rows a bf16 call over N slots
         of width D needs (every call leaves them zeroed), grown first if too small."""
         if self.acc is None or self.acc.numel() < N * D:
+            _refuse_growth_in_capture()
             self.acc = torch.zeros(N * D, dtype=_F32, device=self.device)
         return self.acc.data_ptr()
 
@@ -274,6 +298,7 @@ def scatter_add_rows_(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Tensor,
 
 # Wrapper calls that launched the kernel (one per call on CUDA tensors; each call
 # enqueues one CUDA launch, or four when grouped: rank, plan, place, reduce, and a
-# fifth, finish, on bf16), and those of them on bf16 storage.
+# fifth, finish, on bf16), and those of them on bf16 storage. Under a CUDA graph, as
+# for the fused step: counted at capture, taken back, added once per replay.
 scatter_add_rows_.launches = 0
 scatter_add_rows_.bf16_launches = 0

@@ -54,6 +54,16 @@ the f32-accumulated sum of the compute-dtype products. The hot rows
 (:func:`hot_gather`, :func:`hot_scatter_add`, :func:`hot_flush`) carry the updates of
 the first K rows of each matrix (the most frequent words) in f32 slabs across the
 steps of a chunk; reads add the pending deltas back, so no step trains on a stale row.
+
+α. Every step takes its learning rate as a Python float or as a one-element float32
+tensor on the step's device: the trainer passes the latter, a slice of the chunk's [K]
+alphas on the card, which a CUDA graph of the chunk reads at each replay (a float would
+be baked into the graph). Both forms give bit-identical parameters: α enters the chains
+as the same float32 value, and the two products of α with a constant that a float form
+takes in float64 (the fused negative scale α·(−n/P), the decay 1 − α·row_l2 in the
+stabilizers' dtype) are taken in the same precision for a tensor. No step body reads a
+tensor on the host (no ``.item()``, no 0-d tensor index, no boolean-mask indexing, no
+shape that depends on the data), so a chunk of steps can be captured.
 """
 
 from __future__ import annotations
@@ -172,7 +182,9 @@ def stabilize_rows_(mat: torch.Tensor, idx: torch.Tensor, alpha,
     V = mat.shape[0]
     pf = _stab_dtype(mat.dtype)
     touched = idx < V
-    first = torch.clamp(idx[torch.argmax(touched.to(torch.uint8))], max=V - 1)
+    # a one-element index, not a 0-d one: torch reads a 0-d index tensor on the host
+    # (a blocking copy on the card, and no CUDA graph can capture it)
+    first = torch.clamp(idx[torch.argmax(touched.to(torch.uint8)).reshape(1)], max=V - 1)
     target = torch.where(touched, idx, first)
     rows = mat[target].to(pf)
     scale = torch.ones(rows.shape[0], dtype=pf, device=mat.device)
@@ -222,6 +234,15 @@ def _scalar(x, dtype: torch.dtype):
     if dtype == torch.bfloat16:
         return torch.tensor(float(x), dtype=dtype)
     return x
+
+
+def _times(alpha, c: float):
+    """α·c as a Python float α gives it: the product in float64, rounded once by the
+    caller's cast. A tensor α (float32, as the trainer's) is widened to float64 first,
+    so both forms of α give the same bits."""
+    if isinstance(alpha, torch.Tensor):
+        return alpha.to(torch.float64) * c
+    return alpha * c
 
 
 # ---- cross-step hot rows ---------------------------------------------------------------
@@ -315,7 +336,7 @@ def shared_pool_coeffs(
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * mask
     if fused:
         valid = (negatives[None, :] != contexts[:, None]) & (mask[:, None] > 0)
-        neg_scale = _scalar(alpha * (0.0 - num_negatives / P), ld)
+        neg_scale = _scalar(_times(alpha, 0.0 - num_negatives / P), ld)
         g_neg = torch.where(valid, _sigmoid(f_neg, sigmoid_mode) * neg_scale,
                             torch.zeros((), dtype=ld, device=f_neg.device))
         return f_pos, f_neg, valid, g_pos, g_neg

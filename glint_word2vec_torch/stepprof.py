@@ -37,14 +37,22 @@ line:
   and ``by_endpoint``: the whole step's device µs and host µs per call (the calls'
   enqueue time, before the device finishes) with each endpoint form;
 - ``fit``: ``Trainer.fit`` over a synthetic Zipf corpus, twice from fresh trainers:
-  once plain (wall time, steps, pairs/s, and the trainer's ``host_wait_s`` and
-  ``dispatch_s``) and once under torch.profiler (the device's busy time, the sum of
-  device-side event times, and its idle share of that fit's wall time; the host ops'
-  self time per thread); beside them, ``feed_only_s``, the time one pass of the feed
+  once plain (wall time, steps, pairs/s, and the trainer's ``host_wait_s``,
+  ``dispatch_s`` (its ``prologue_s`` included: the chunks' eager prologues, and
+  ``prologue_ms_per_chunk``, their mean over the chunks' replays), ``captures`` and
+  ``replays`` of the chunk graphs) and once under torch.profiler (the device's busy
+  time, the sum of device-side event times, and its idle share of that fit's wall
+  time; beside them ``kernel_busy_s`` and ``kernel_idle_share``, from the union of the
+  kernels' intervals alone, which counts no copy and no two overlapping kernels twice;
+  the host ops' self time per thread; the graphs' captures and replays, the port's
+  kernels the profiler traced by name and count beside the launches the wrappers
+  counted through the replays: equal counts show that the trace holds the kernels
+  inside the CUDA graphs); beside them, ``feed_only_s``, the time one pass of the feed
   that ran (``feed_backend``, at the config's ``producer_workers``) alone takes over
-  the same corpus, and ``trainer_setup_s``, the first trainer's construction. On the device-feed paths it adds ``tokens_per_step``,
-  ``dropped_pairs`` and ``generator``: the device time of the pair generator on the
-  fit's first chunk (one batched call for its K steps; torch.profiler, per step).
+  the same corpus, and ``trainer_setup_s``, the first trainer's construction. On the
+  device-feed paths it adds ``tokens_per_step``, ``dropped_pairs`` and ``generator``:
+  the device time of the pair generator on the fit's first chunk (one batched call for
+  its K steps; torch.profiler, per step).
 
 ``--feed`` picks the skip-gram pair generator (default: the trainer's choice, native
 when it is built; CBOW has only numpy; ``device`` runs the path's device-feed twin),
@@ -102,6 +110,11 @@ GEOMETRY = "config3"
 PATHS = ("shared", "per_pair", "cbow", "cbow_per_example", "shared_devpairs",
          "per_pair_devpairs", "cbow_banded")
 DEVPAIRS = "_devpairs"
+# the port's own kernels (csrc/sgns_shared.cu, csrc/scatter_rows.cu), as the profiler
+# names them
+PORT_KERNELS = ("gather_kernel", "fneg_kernel", "update_kernel", "dz_scatter_kernel",
+                "warp_kernel", "rank_kernel", "plan_kernel", "place_kernel",
+                "reduce_kernel", "finish_kernel")
 # --stab: the JAX stabilizer suite's combined case (tests/test_stabilizers.py)
 STAB_KNOBS = {"max_row_norm": 5.0, "update_clip": 0.05, "row_l2": 1e-3}
 # --dtype bf16: the JAX bench's bf16 rows (bench.py)
@@ -143,6 +156,29 @@ def kernel_times(prof) -> dict:
             entry["us_total"] += us
             entry["count"] += int(evt.count)
     return out
+
+
+def kernel_busy_s(prof) -> float:
+    """Seconds in which at least one kernel ran on the card: the union of the kernel
+    events' intervals, read from the raw trace (the profiler's event tree would cost
+    seconds on a fit of ~40k kernels). Copies and memsets are left out (the producer's
+    copies run on their own stream while the card's SMs may have nothing to run), and
+    kernels that overlap on two streams count once."""
+    spans = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() != torch.autograd.DeviceType.CPU
+        and not e.name().startswith(("Memcpy", "Memset")))
+    busy, lo, hi = 0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            busy += 0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    if hi is not None:
+        busy += hi - lo
+    return busy / 1e9
 
 
 def host_times(prof, top: int = 12) -> dict:
@@ -435,6 +471,10 @@ def timed_fit(trainer: Trainer, encoded) -> dict:
             "pairs": trainer.pairs_trained, "fit_wall_s": wall,
             "pairs_per_s": trainer.pairs_trained / wall,
             "host_wait_s": trainer.host_wait_time, "dispatch_s": trainer.dispatch_time,
+            "prologue_s": trainer.prologue_time,
+            "prologue_ms_per_chunk": 1e3 * trainer.prologue_time
+            / max(trainer.graph_replays, 1),
+            "captures": trainer.graph_captures, "replays": trainer.graph_replays,
             **({"tokens_per_step": trainer._tokens_per_step,
                 "dropped_pairs": trainer.dropped_pairs}
                if trainer.feed_backend == "device" else {})}
@@ -497,15 +537,23 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
     del trainer
     trainer = make_trainer(path, seed, prefetch, feed, vocab, variant)
     torch.cuda.synchronize()
+    before = (fused_sgns_shared_step.launches, scatter_add_rows_.launches)
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         trainer.fit(encoded)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
+    launches = (fused_sgns_shared_step.launches - before[0],
+                scatter_add_rows_.launches - before[1])
     kt = kernel_times(prof)
     busy_s = sum(v["us_total"] for v in kt.values()) / 1e6
+    kernel_busy = kernel_busy_s(prof)
     top = sorted(kt.items(), key=lambda kv: -kv[1]["us_total"])[:10]
+    # the port's kernels as the profiler saw them, against the launches the wrappers
+    # counted (through the graphs' replays): equal counts show that the trace holds the
+    # kernels inside replays
+    ours = {k: v["count"] for k, v in kt.items() if k in PORT_KERNELS}
     if trainer.feed_backend == "device":
         rec["generator"] = profile_generator(trainer, encoded)
     return {"tokens": int(sum(s.shape[0] for s in encoded)),
@@ -514,6 +562,13 @@ def profile_fit(path: str, seed: int, corpus, feed: str = "auto",
             "trainer_setup_s": setup_s,
             "profiled_fit_wall_s": prof_wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / prof_wall,
+            "kernel_busy_s": kernel_busy,
+            "kernel_idle_share": 1.0 - kernel_busy / prof_wall,
+            "profiled_captures": trainer.graph_captures,
+            "profiled_replays": trainer.graph_replays,
+            "profiled_launches": {"sgns_shared_step": launches[0],
+                                  "scatter_add_rows": launches[1]},
+            "traced_port_kernels": ours,
             "top_device_us": {k: v for k, v in top},
             "host_us_by_thread": host_times(prof)}
 
@@ -544,7 +599,8 @@ def ab_fits(path: str, seed: int, corpus, feeds, prefetches, rounds: int,
         name = f"{mine[0]['feed_backend']}/prefetch={prefetch}"
         summary[name + (f"/endpoint={form}" if len(endpoints) > 1 else "")] = {
             k: float(np.median([x[k] for x in mine]))
-            for k in ("fit_wall_s", "pairs_per_s", "host_wait_s", "dispatch_s")} | {
+            for k in ("fit_wall_s", "pairs_per_s", "host_wait_s", "dispatch_s",
+                      "prologue_s", "prologue_ms_per_chunk", "captures", "replays")} | {
             "fit_wall_s_all": [x["fit_wall_s"] for x in mine]}
     return {"rounds": rounds, "runs": runs, "median": summary,
             "feed_only_s": feed_s}

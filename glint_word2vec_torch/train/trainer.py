@@ -48,13 +48,39 @@ parameters:
   slab), flushed every ``hot_flush_every`` steps and at every chunk's end, so
   checkpoints and heartbeats never see a pending slab;
 - per-step alphas follow the words clock;
+- each chunk runs as a prologue and a body (``_run_chunk``). The prologue, a fixed
+  handful of launches, copies the chunk into the trainer's fixed [K, ...] input buffers
+  (``self._inputs``): the index arrays, the masks built on the device from the chunk's
+  real-pair counts (the device generators' outputs on the token feeds), the chunk's
+  negatives and its alphas, scaled by the recovery's lr scale on the device. The body
+  (``_chunk_body``) runs the steps from those buffers, each taking its α as a device
+  scalar (``alphas[k]``), with the hot-row flushes, and stacks the steps' metrics
+  into one [steps, 3] tensor (loss, mean_f_pos, pairs), so that a heartbeat reads step
+  ``real - 1``, as the JAX trainer reads its stacked metrics;
+- on a CUDA device the body is one replay of a CUDA graph per chunk (``train/graphs``,
+  the counterpart of the JAX trainer's compiled scan), captured after a warm-up and
+  kept in two twins, with and without the metrics (``_with_metrics``, the JAX
+  trainer's ``_dispatch_step_fn``); a short last chunk replays the same graph, padded
+  with masked steps (mask 0, α 0, index 0), as the JAX trainer pads it: exact no-ops
+  on finite parameters. The graphs are recaptured when the step's form, its
+  stabilizers or the identity of the parameters change (a restore, a recovery, a new
+  placement). On the CPU, and on the card when the private ``_eager_chunks`` is set
+  (the tests' and the smoke's control fits), the body runs eagerly, and a short last
+  chunk runs its real steps only; ``graph_captures`` and ``graph_replays`` count this
+  fit's captures and replays, ``chunks_run`` its chunks, ``restore_captures`` the
+  captures made before each of its snapshot restores, ``prologue_time`` its
+  prologues' host seconds;
 - chunks no heartbeat will sample run the metrics-elided step (same parameters);
+- every step build (the trainer's construction, a recovery that engages
+  ``max_row_norm``) logs the JAX trainer's stability advisories
+  (``_stability_warnings``) and its ``logits_dtype`` warning;
 - the AUTO pool is re-resolved for vocabularies past 500k words, and an AUTO
   subsample ratio is lowered out of the measured duplicate-overload region.
 
 ``host_wait_time`` counts the seconds ``fit`` waited for the next chunk (its assembly,
 and its staging when the producer is on); ``dispatch_time`` the seconds spent issuing
-its steps (with the copy to the card when the producer is off).
+its steps (with the copy to the card when the producer is off); ``fit_time`` the whole
+fit's wall seconds, to the end of its last step on the card.
 
 The runtime layer (``glint_word2vec_torch/obs``), as the JAX trainer runs it:
 
@@ -83,12 +109,11 @@ The runtime layer (``glint_word2vec_torch/obs``), as the JAX trainer runs it:
 - the fault plan's hooks (``train/faults.py``) run at the end of every round.
 
 Differences: the steps update the parameters in place, the feed ships int32 indices
-(widened to int64 on the card, where the JAX package ships uint16 below 65536 words), a
-short last chunk is not padded with the JAX package's masked dummy steps (they are exact
-no-ops), the device feed has one data segment (a checkpoint that holds only
-per-segment positions is refused), the ``publish`` record of a save waits for the
-serving tier, and stability advisories and the multi-process feeds (with
-``peer_beacon_s``) are not ported yet.
+(widened to int64 on the card, where the JAX package ships uint16 below 65536 words),
+the eager body runs a short last chunk's real steps only (the graph replays the padded
+chunk), the device feed has one data segment (a checkpoint that holds only per-segment
+positions is refused), the ``publish`` record of a save waits for the serving tier, and
+the multi-process feeds (with ``peer_beacon_s``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -122,21 +147,27 @@ from glint_word2vec_torch.obs.sink import TelemetrySink
 from glint_word2vec_torch.obs.spans import clock_anchor, default_tracer
 from glint_word2vec_torch.obs.statusd import StatusServer
 from glint_word2vec_torch.obs.watch import NormWatchdog
-from glint_word2vec_torch.ops import scatter
+from glint_word2vec_torch.ops import cbow_banded, scatter
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
 from glint_word2vec_torch.ops.cbow_banded import cbow_step_banded_core
 from glint_word2vec_torch.ops.pairgen import device_block_pairs, device_cbow_windows
 from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives_hash
 from glint_word2vec_torch.ops.sgns import (
-    EmbeddingPair, Stabilizers, StepMetrics, alpha_schedule, cbow_step_core,
-    cbow_step_shared_core, hot_flush, hot_slabs, init_embeddings, sgns_step_core,
-    sgns_step_shared_scatter_)
+    EmbeddingPair, Stabilizers, alpha_schedule, cbow_step_core, cbow_step_shared_core,
+    hot_flush, hot_slabs, init_embeddings, sgns_step_core, sgns_step_shared_scatter_)
 from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
 from glint_word2vec_torch.train import faults
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model
 from glint_word2vec_torch.train.faults import NonFiniteParamsError, NormBlowupError
+from glint_word2vec_torch.train.graphs import ChunkGraphs
 
 logger = logging.getLogger("glint_word2vec_torch")
+
+# the step forms without a shared pool: the advisories skip the pool channel there, and
+# their steps compute the metrics in every chunk (no elided twin, as in the JAX trainer)
+_POOLLESS_FORMS = ("per_pair", "cbow_per_example")
+# the input buffers that gate a step's updates: all zero, a step is a padded no-op
+_GATES = ("mask", "ctx_mask", "center", "token")
 
 
 def _is_banded(cfg: Word2VecConfig) -> bool:
@@ -326,7 +357,17 @@ class Trainer:
         self._hot_flush = self.config.hot_flush_every or self.config.steps_per_dispatch
         self._slabs = (hot_slabs(self._hot_rows, self.padded_dim, self.param_dtype,
                                  self.device) if self._hot_rows else None)
-        self._warn_logits_dtype()
+        self._announce_step()
+        # the chunk's fixed [K, ...] input buffers (the prologue fills them, the body and
+        # its graphs read them), the CUDA graphs of the body, and the private switch that
+        # runs the body eagerly on the card (the tests' and the smoke's control fits)
+        self._inputs: dict = {}
+        self._graphs: Optional[ChunkGraphs] = None
+        self._eager_chunks = False
+        self.prologue_time = 0.0
+        self.chunks_run = 0  # this fit's chunks
+        self.fit_time = 0.0  # the last fit's wall seconds, to the card's last step
+        self.restore_captures: List[int] = []  # graph_captures at each of its restores
         # resume continues the (seed, counter) negative lattice where it left off
         self.global_step = self.state.global_step
         self.pairs_trained = 0.0  # real (unmasked) pairs trained over this trainer
@@ -404,6 +445,68 @@ class Trainer:
             return out
 
         return EmbeddingPair(pad(params[0]), pad(params[1]))
+
+    def _announce_step(self) -> None:
+        """The JAX trainer's warnings at every step build: the ``logits_dtype`` one,
+        then the stability advisories (without the pool channel on the per-pair and
+        per-example paths, as there)."""
+        self._warn_logits_dtype()
+        self._stability_warnings(check_pool=self._step_form() not in _POOLLESS_FORMS)
+
+    def _stability_warnings(self, check_pool: bool = True) -> None:
+        """The JAX trainer's advisories on the two per-step row-overload channels
+        (EVAL.md), with its thresholds and messages:
+
+        - POOL load ``B·n/P``: every pool row absorbs the negative gradient of all B
+          pairs scaled by n/P. Past 300 with more than 500k words the large-vocabulary
+          advisory (a measured finite norm blowup there) takes precedence over the
+          generic warning past 2000;
+        - DUPLICATE load ``B·max_word_share`` (``_duplicate_load``) past 300: a
+          frequent word's occurrences scatter-add summed updates; and the compounding
+          band (pool load past 1000 with duplicate load past 150), where the channels
+          compound on frequent rows over long runs.
+
+        ``check_pool=False`` on the per-pair and per-example paths (no pool). Silent
+        under ``duplicate_scaling``, whose mean updates bound both channels."""
+        cfg = self.config
+        if cfg.duplicate_scaling:
+            return
+        pool_load = (cfg.pairs_per_batch * cfg.negatives / cfg.negative_pool
+                     if check_pool and cfg.negative_pool > 0 else 0.0)
+        if pool_load > 300 and self.vocab.size > self._LARGE_VOCAB_BOUNDARY:
+            logger.warning(
+                "negative-pool load %.0f with a %d-word vocabulary: large-vocab "
+                "long runs measured a finite norm blowup in this region "
+                "(EVAL.md round-5 ladder — purity collapse without NaN at load "
+                "640; load 160 fixed that collapse and tames norm growth on "
+                "longer runs); consider negative_pool >= %d (an AUTO pool "
+                "scales itself to load <= 160 past 500k vocab — this one was "
+                "set explicitly), or the stabilizer/watchdog knobs "
+                "(max_row_norm, norm_watch='recover' — docs/robustness.md)",
+                pool_load, self.vocab.size,
+                128 * (-(-cfg.pairs_per_batch * cfg.negatives // (160 * 128))))
+        elif pool_load > 2000:
+            logger.warning(
+                "pairs_per_batch*negatives/negative_pool = %.0f > 2000: pool-row "
+                "updates this large can diverge at default learning rates — scale "
+                "negative_pool with the batch (e.g. %d) to keep the load ~1300 "
+                "(EVAL.md)", pool_load,
+                max(64, int(cfg.pairs_per_batch * cfg.negatives / 1300)))
+        dup_load = self._duplicate_load(cfg.subsample_ratio)
+        if dup_load > 300:
+            logger.warning(
+                "expected duplicates of the most frequent word per %d-pair batch "
+                "= %.0f > 300: summed scatter updates this dense can diverge — "
+                "set subsample_ratio (~1e-4, recommended) or "
+                "duplicate_scaling=True, or shrink pairs_per_batch (EVAL.md)",
+                cfg.pairs_per_batch, dup_load)
+        elif pool_load > 1000 and dup_load > 150:
+            logger.warning(
+                "pool load %.0f and top-word duplicate load %.0f are each below "
+                "their individual divergence thresholds but compound on frequent "
+                "rows over long runs (measured NaN at 60M words, EVAL.md) — for "
+                "long runs grow negative_pool (load <= ~600) or shrink "
+                "pairs_per_batch", pool_load, dup_load)
 
     def _warn_logits_dtype(self) -> None:
         """The JAX trainer's warning: ``logits_dtype`` applies to the shared-pool paths
@@ -575,6 +678,8 @@ class Trainer:
                                        cfg.min_alpha_factor)
                         for _, _, w in pending], np.float32)
                     batches_in_iter += real
+                    # the device copies of the step scalars ride with the index arrays
+                    arrays.update(alphas=alphas, reals=reals)
                     chunk = dict(arrays=arrays, alphas=alphas, reals=reals, real=real,
                                  iteration=k, words_processed=int(pending[-1][2]),
                                  batches_done=batches_in_iter,
@@ -706,6 +811,7 @@ class Trainer:
                         alpha_schedule(p[5], total_words, cfg.learning_rate,
                                        cfg.min_alpha_factor)
                         for p in pending], np.float32)
+                    arrays["alphas"] = alphas
                     steps_in_iter += real
                     chunk = dict(
                         arrays=arrays, alphas=alphas, real=real, iteration=k,
@@ -751,49 +857,80 @@ class Trainer:
             yield chunk
 
     def _device_arrays(self, chunk: dict) -> dict:
-        """The chunk's index arrays on the device, widened to int64. A staged chunk's
-        tensors were allocated on the copy stream: the consumer's stream waits for
-        their copies, and ``record_stream`` keeps the allocator from reusing them
-        before the consumer's work on them is done."""
+        """The chunk's arrays on the device: the index arrays widened to int64, the
+        step scalars (alphas, real-pair counts) float32. A staged chunk's tensors were
+        allocated on the copy stream: the consumer's stream waits for their copies, and
+        ``record_stream`` keeps the allocator from reusing them before the consumer's
+        work on them is done (only the prologue reads them, on that stream). On the
+        calling thread they go to the card through pinned memory (the caching host
+        allocator keeps each block until its copy has run) with non-blocking copies."""
         done = chunk.get("staged")
         if done is None:
-            return {name: torch.from_numpy(a).to(self.device).long()
-                    for name, a in chunk["arrays"].items()}
-        stream = torch.cuda.current_stream(self.device)
-        stream.wait_event(done)
-        for t in chunk["arrays"].values():
-            t.record_stream(stream)
-        return {name: t.long() for name, t in chunk["arrays"].items()}
+            cuda = self.device.type == "cuda"
+            arrays = {name: (torch.from_numpy(a).pin_memory().to(self.device,
+                                                                 non_blocking=True)
+                             if cuda else torch.from_numpy(a))
+                      for name, a in chunk["arrays"].items()}
+        else:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(done)
+            for t in chunk["arrays"].values():
+                t.record_stream(stream)
+            arrays = chunk["arrays"]
+        return {name: t if t.is_floating_point() else t.long()
+                for name, t in arrays.items()}
+
+    def _step_form(self) -> str:
+        """The step this trainer runs, by the JAX trainer's single-device selection
+        matrix: ``cbow_banded``, ``cbow_shared``, ``cbow_per_example``,
+        ``shared_fused`` (the fused kernel), ``shared_scatter`` (the shared pool with a
+        stabilizer, ``duplicate_scaling`` or the hot rows, none of which the kernel has,
+        as the JAX package's pallas step has none) or ``per_pair``. Read from the
+        trainer's state: a recovery may engage ``max_row_norm`` (``self._stabilizers``),
+        which moves the shared pool to its scatter form."""
+        cfg = self.config
+        if self._banded_cbow:
+            return "cbow_banded"
+        if cfg.cbow:
+            return "cbow_shared" if cfg.negative_pool > 0 else "cbow_per_example"
+        if cfg.negative_pool > 0:
+            if self._stabilizers.enabled or cfg.duplicate_scaling or self._slabs is not None:
+                return "shared_scatter"
+            return "shared_fused"
+        return "per_pair"
 
     def _step_fn(self) -> Callable:
-        """The step of this config, ``step(batch, negatives, alpha, with_metrics)``:
-        the JAX trainer's single-device selection matrix on the pair feeds (banded CBOW
-        runs in ``_run_banded_chunk``; pallas and shard_map are refused by the config).
-        Built for every chunk from the trainer's state: ``self.params`` (a restore
-        swaps the pair) and ``self._stabilizers`` (a recovery may engage
-        ``max_row_norm``, which moves the shared pool to the scatter form). The hot
-        slabs ride in ``self._slabs``; the caller flushes them."""
+        """The step of :meth:`_step_form`, ``step(batch, negatives, alpha,
+        with_metrics)``, over one row of the chunk's input buffers; ``alpha`` is a
+        one-element float32 tensor on the device. Built for every chunk body from the
+        trainer's state: ``self.params`` (a restore swaps the pair) and
+        ``self._stabilizers``. The hot slabs ride in ``self._slabs``; the body flushes
+        them."""
         cfg = self.config
         p, n, mode = self.params, cfg.negatives, cfg.sigmoid_mode
         stab, dup = self._stabilizers, cfg.duplicate_scaling
         cd, ld, slabs = self.compute_dtype, self.logits_dtype, self._slabs
         chain = dict(fused=cfg.fused_logits, bf16_chain=cfg.bf16_chain)
-        if cfg.cbow and cfg.negative_pool > 0:
+        form = self._step_form()
+        if form == "cbow_banded":
+            return lambda b, neg, alpha, wm: cbow_step_banded_core(
+                p, b["tokens"], b["left"], b["right"], b["center"], b["token"], neg,
+                alpha, n, cfg.window, mode, wm, stabilizers=stab, compute_dtype=cd,
+                logits_dtype=ld)
+        if form == "cbow_shared":
             return lambda b, neg, alpha, wm: cbow_step_shared_core(
                 p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha, n,
                 mode, wm, stabilizers=stab, compute_dtype=cd, logits_dtype=ld)
-        if cfg.cbow:
+        if form == "cbow_per_example":
             return lambda b, neg, alpha, wm: cbow_step_core(
                 p, b["centers"], b["contexts"], b["ctx_mask"], b["mask"], neg, alpha,
                 mode, duplicate_scaling=dup, stabilizers=stab, compute_dtype=cd)
-        if cfg.negative_pool > 0 and (stab.enabled or dup or slabs is not None):
-            # the fused kernel has none of the three (the JAX package's pallas step
-            # neither)
+        if form == "shared_scatter":
             return lambda b, neg, alpha, wm: sgns_step_shared_scatter_(
                 p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm,
                 duplicate_scaling=dup, stabilizers=stab, compute_dtype=cd,
                 logits_dtype=ld, hot_slabs=slabs, **chain)
-        if cfg.negative_pool > 0:
+        if form == "shared_fused":
             return lambda b, neg, alpha, wm: fused_sgns_shared_step(
                 p, b["centers"], b["contexts"], b["mask"], neg, alpha, n, mode, wm,
                 compute_dtype=cd, logits_dtype=ld, **chain)
@@ -822,73 +959,135 @@ class Trainer:
         return {"centers": pairs.centers, "contexts": pairs.contexts,
                 "mask": pairs.mask}
 
-    def _alphas(self, chunk: dict) -> np.ndarray:
-        """The chunk's alphas as dispatched: the schedule's, times the recovery's lr
-        scale in float32 (the one point every feed goes through; the producer's array
-        is not changed)."""
-        if self._lr_scale == 1.0:
-            return chunk["alphas"]
-        return chunk["alphas"] * np.float32(self._lr_scale)
+    def _put(self, name: str, value: torch.Tensor) -> None:
+        """Copy ``value`` ([n, ...], n <= K) into the fixed input buffer ``name`` ([K,
+        ...], made at the first chunk), zeroing rows n..K-1: a short chunk's padded
+        steps carry index 0, mask 0 and α 0."""
+        K = self.config.steps_per_dispatch
+        buf = self._inputs.get(name)
+        shape = (K, *value.shape[1:])
+        if buf is None or tuple(buf.shape) != shape or buf.dtype != value.dtype:
+            buf = self._inputs[name] = torch.zeros(shape, dtype=value.dtype,
+                                                   device=self.device)
+        n = value.shape[0]
+        buf[:n].copy_(value)
+        if n < K:
+            buf[n:].zero_()
 
-    def _run_banded_chunk(self, arrays: dict, chunk: dict) -> StepMetrics:
-        """Banded CBOW: the window extents of the chunk's K blocks in one batched call,
-        then one banded step per block; the exact example count accumulates on the
-        device. Returns the last step's metrics."""
+    def _prologue(self, chunk: dict) -> None:
+        """The chunk's eager part: wait for its staged copies, run the device pair or
+        window generator (its hashrng bases are host ints), draw its negatives (the
+        hash PRNG's counter, ``global_step + 1``, is a host int: K rows, also for a
+        short chunk), build the masks on the device from the chunk's real-pair counts
+        (a CBOW batch's context masks from its context counts), scale the alphas by the
+        recovery's lr scale (float32 on the device: the one point every feed goes
+        through; the producer's array is not changed), and copy all of it into the
+        fixed input buffers. No blocking copy and no read of a device value."""
         cfg = self.config
-        obase = arrays["obase"]
-        band = device_cbow_windows(
-            arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
-            obase[:, 1], chunk["win_base"], cfg.window, self._block_halo)
-        self._exact_pairs += ((band.center > 0) & (band.left + band.right > 0)).sum()
-        negatives = sample_negatives_hash(
-            self._table_prob, self._table_alias, cfg.seed, self.global_step + 1,
-            (cfg.steps_per_dispatch, cfg.negative_pool))
-        with_metrics = self._with_metrics(chunk["real"])
-        alphas = self._alphas(chunk)
-        metrics = None
-        for k in range(chunk["real"]):
-            metrics = cbow_step_banded_core(
-                self.params, arrays["tokens"][k], band.left[k], band.right[k],
-                band.center[k], band.token[k], negatives[k], float(alphas[k]),
-                cfg.negatives, cfg.window, cfg.sigmoid_mode, with_metrics,
-                stabilizers=self._stabilizers, compute_dtype=self.compute_dtype,
-                logits_dtype=self.logits_dtype)
-        return metrics
-
-    def _run_chunk(self, chunk: dict) -> StepMetrics:
-        """Train the steps of one chunk; returns the last step's metrics. The hot slabs
-        (zero at the chunk's start) are flushed every ``hot_flush_every`` steps and
-        after the chunk's last step."""
-        cfg = self.config
+        K = cfg.steps_per_dispatch
         arrays = self._device_arrays(chunk)
+        alphas = arrays.pop("alphas")
+        if self._lr_scale != 1.0:
+            alphas = alphas * self._lr_scale
+        vals = {"alphas": alphas}
         if self._banded_cbow:
-            return self._run_banded_chunk(arrays, chunk)
-        if cfg.device_pairgen:
-            arrays = self._device_pairs(arrays, chunk)
-        K, B = cfg.steps_per_dispatch, arrays["centers"].shape[1]
-        shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
-                 else (K, cfg.negative_pool))
-        negatives = sample_negatives_hash(
+            obase = arrays["obase"]
+            band = device_cbow_windows(
+                arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
+                obase[:, 1], chunk["win_base"], cfg.window, self._block_halo)
+            self._exact_pairs += ((band.center > 0) & (band.left + band.right > 0)).sum()
+            vals.update(tokens=arrays["tokens"], left=band.left, right=band.right,
+                        center=band.center, token=band.token)
+            shape: tuple = (K, cfg.negative_pool)
+        else:
+            if cfg.device_pairgen:
+                vals.update(self._device_pairs(arrays, chunk))
+            else:
+                B = arrays["centers"].shape[1]
+                pos = torch.arange(B, device=self.device)
+                vals.update(centers=arrays["centers"], contexts=arrays["contexts"],
+                            mask=(pos < arrays["reals"][:, None]).to(torch.float32))
+                if cfg.cbow:
+                    C = arrays["contexts"].shape[2]
+                    vals["ctx_mask"] = (torch.arange(C, device=self.device)
+                                        < arrays["nctx"][..., None]).to(torch.float32)
+            B = vals["centers"].shape[1]
+            shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
+                     else (K, cfg.negative_pool))
+        vals["negatives"] = sample_negatives_hash(
             self._table_prob, self._table_alias, cfg.seed, self.global_step + 1, shape)
-        pos = torch.arange(B, device=self.device)
-        with_metrics = self._with_metrics(chunk["real"])
-        alphas = self._alphas(chunk)
+        for name, v in vals.items():
+            self._put(name, v)
+
+    def _chunk_body(self, steps: int, with_metrics: bool) -> torch.Tensor:
+        """The first ``steps`` steps of the chunk in the input buffers, with the
+        hot-row flushes (every ``hot_flush_every`` steps and after the last); returns
+        their metrics stacked as [steps, 3] (loss, mean_f_pos, pairs). Reads only the
+        buffers and the trainer's tensors, and never a device value on the host, so
+        that it can be captured."""
+        ins = self._inputs
         step = self._step_fn()
-        metrics = None
-        for k in range(chunk["real"]):
-            batch = {name: a[k] for name, a in arrays.items()}
-            if "mask" not in batch:
-                batch["mask"] = (pos < int(chunk["reals"][k])).to(torch.float32)
-            if cfg.cbow:
-                C = batch["contexts"].shape[1]
-                batch["ctx_mask"] = (torch.arange(C, device=self.device)[None, :]
-                                     < batch.pop("nctx")[:, None]).to(torch.float32)
-            metrics = step(batch, negatives[k], float(alphas[k]), with_metrics)
+        names = [name for name in ins if name not in ("negatives", "alphas")]
+        out = []
+        for k in range(steps):
+            batch = {name: ins[name][k] for name in names}
+            out.extend(step(batch, ins["negatives"][k], ins["alphas"][k], with_metrics))
             if (k + 1) % self._hot_flush == 0:
                 self._flush_hot()
-        if chunk["real"] % self._hot_flush:
+        if steps % self._hot_flush:
             self._flush_hot()
-        return metrics
+        return torch.stack(out).view(steps, 3)
+
+    def _graph_key(self, with_metrics: bool) -> tuple:
+        """``(base, with_metrics)``: everything a captured chunk body bakes in. The
+        base is the step form, K, the stabilizers, the hot-row cadence, the dtypes, the
+        banded step's endpoint form, and the identity (address, shape, dtype) of the
+        parameters, the hot slabs and the input buffers; a restore (the snapshot's
+        tensors become the live pair), a recovery that engages ``max_row_norm`` and a
+        new placement of the parameters each change it."""
+        def ident(t: torch.Tensor) -> tuple:
+            return t.data_ptr(), tuple(t.shape), t.dtype
+
+        form = self._step_form()
+        base = (form, self.config.steps_per_dispatch, tuple(self._stabilizers),
+                self._hot_flush, self.param_dtype, self.compute_dtype, self.logits_dtype,
+                cbow_banded.CUDA_ENDPOINT if form == "cbow_banded" else None,
+                tuple(ident(t) for t in self.params),
+                None if self._slabs is None else tuple(ident(t) for t in self._slabs),
+                tuple((name, *ident(t)) for name, t in sorted(self._inputs.items())))
+        return base, bool(with_metrics)
+
+    @property
+    def graph_captures(self) -> int:
+        """Chunk-body graphs captured since this fit began (0 off the card)."""
+        return self._graphs.captures if self._graphs is not None else 0
+
+    @property
+    def graph_replays(self) -> int:
+        """Chunk-body graph replays since this fit began: one per chunk on the card."""
+        return self._graphs.replays if self._graphs is not None else 0
+
+    def _run_chunk(self, chunk: dict) -> torch.Tensor:
+        """Train the steps of one chunk: the prologue, then the body, as one replay of
+        its captured graph on the card (K steps, a short chunk padded) or eagerly (the
+        chunk's real steps) on the CPU or with ``_eager_chunks``. Returns the body's
+        [steps, 3] metrics. On the card that is the graph's output, which the next
+        replay overwrites: read it (as the heartbeat does) or clone it before the next
+        chunk. The hot slabs are zero at the chunk's start and at its end."""
+        self.chunks_run += 1
+        t0 = time.perf_counter()
+        self._prologue(chunk)
+        self.prologue_time += time.perf_counter() - t0
+        with_metrics = (self._with_metrics(chunk["real"])
+                        or self._step_form() in _POOLLESS_FORMS)
+        if self.device.type != "cuda" or self._eager_chunks:
+            return self._chunk_body(chunk["real"], with_metrics)
+        if self._graphs is None:
+            self._graphs = ChunkGraphs(self.device)
+        K = self.config.steps_per_dispatch
+        return self._graphs.run(
+            self._graph_key(with_metrics), lambda: self._chunk_body(K, with_metrics),
+            [self._inputs[name] for name in _GATES if name in self._inputs])
 
     def fit(
         self,
@@ -902,6 +1101,7 @@ class Trainer:
         records ``run_end`` with status "error" and dumps the flight recorder before
         the exception propagates."""
         cfg = self.config
+        t_fit = time.perf_counter()
         self._check_resume_position()
         # the SIGTERM hook drains its emergency save here
         self._active_checkpoint_path = checkpoint_path
@@ -953,6 +1153,9 @@ class Trainer:
                 finished=True, global_step=self.global_step)
             if checkpoint_path:
                 self.save_checkpoint(checkpoint_path)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the fit's time holds its last steps
+            self.fit_time = time.perf_counter() - t_fit
         except BaseException:
             self._abort_run()
             raise
@@ -1011,15 +1214,18 @@ class Trainer:
             logger.info("device pairgen: %.0f overflow pairs dropped (%.3f%%)",
                         dropped, 100.0 * dropped / max(exact, 1.0))
 
-    def _finish_round(self, chunk: dict, metrics: StepMetrics,
+    def _finish_round(self, chunk: dict, metrics: torch.Tensor,
                       checkpoint_path: Optional[str],
                       checkpoint_every_steps: Optional[int],
                       on_heartbeat: Optional[Callable[[HeartbeatRecord], None]]) -> None:
         """After a chunk's dispatch, the JAX trainer's order: progress counters, the
         flight recorder's dispatch record, the fault hooks, the profiler window, one
         health probe on a probing round (feeding the non-finite guard, the snapshot
-        ring and the norm watchdog), the heartbeat, a periodic checkpoint, and the
-        drain of an armed preemption deadline."""
+        ring and the norm watchdog), the heartbeat (the loss and mean_f_pos of the
+        chunk's last real step, row ``real - 1`` of ``metrics``, read before the next
+        chunk's replay overwrites them), a periodic checkpoint, and the drain of an
+        armed preemption deadline. The fault hooks change the parameters in place, so
+        the captured graphs stay valid."""
         cfg = self.config
         real = chunk["real"]
         self.global_step += real
@@ -1073,8 +1279,7 @@ class Trainer:
             pps = self._pairs_since_log / max(now - self._last_log_time, 1e-9)
             self._pairs_since_log = 0.0
             with self._tracer.span("device_block"):
-                loss, fpos = torch.stack([metrics.loss.double(),
-                                          metrics.mean_f_pos.double()]).cpu().tolist()
+                loss, fpos = metrics[real - 1, :2].double().cpu().tolist()
             phases_window = None
             if self._phases.enabled:
                 phases_window = self._phases.delta(self._last_hb_phases) or None
@@ -1142,6 +1347,11 @@ class Trainer:
             self._push_snapshot()
         self.host_wait_time = 0.0
         self.dispatch_time = 0.0
+        self.prologue_time = 0.0
+        self.chunks_run = 0
+        self.restore_captures = []
+        if self._graphs is not None:
+            self._graphs.reset_counts()
         self._last_log_time = time.perf_counter()
         self._last_log_step = self.global_step
         self._pairs_since_log = 0.0
@@ -1297,7 +1507,10 @@ class Trainer:
         becomes a spare slot), then jump ``global_step`` to
         ``max(global_step, snapshot step) + 2^22``. Popping makes the older entries
         reachable: a retry that blows up again steps further back. The one owner for
-        both consumers. Returns (snapshot step, step before the restore)."""
+        both consumers; the next chunk recaptures its graphs (the live pair is another
+        tensor now, and the graph key holds its address). Returns (snapshot step, step
+        before the restore)."""
+        self.restore_captures.append(self.graph_captures)
         params, snap_step = self._snapshot_ring.pop()
         self._spare_params.append(self.params)
         self.params = params
@@ -1378,9 +1591,12 @@ class Trainer:
         self._lr_scale = new_scale
         if engage_clamp:
             # the threshold the firing measured health by; the step of the next chunk
-            # (Trainer._step_fn) takes the clamp: on the shared pool the scatter form
+            # (Trainer._step_fn) takes the clamp: on the shared pool the scatter form,
+            # captured anew (the graph key holds the stabilizers), and announced as
+            # the JAX trainer announces its rebuilt step
             self._stabilizers = self._stabilizers._replace(
                 max_row_norm=float(cfg.norm_watch_threshold))
+            self._announce_step()
         logger.warning(
             "norm watchdog recovery %d/%d at step %d: rolled back to the snapshot from "
             "step %d, re-seeded the sample lattice (counter -> %d), lr backed off to "

@@ -16,7 +16,7 @@ from glint_word2vec_torch import scatterprobe
 from glint_word2vec_torch.ops import bf16_check
 from glint_word2vec_torch.ops import scatter as tscatter
 from glint_word2vec_torch.ops import sgns as tsgns
-from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
+from glint_word2vec_torch.ops.fused_sgns import alpha_on_card, fused_sgns_shared_step
 
 
 @pytest.fixture
@@ -46,12 +46,13 @@ def _step_inputs(cuda, seed, B, P, D, V, a=1.3, scale=0.5):
 
 def _check_kernel(syn0, syn1, c, x, mask, neg, mode):
     """One kernel step in place against the plain step: atol 1e-4 on the parameters,
-    rtol 1e-4 on the loss, exactly one launch."""
+    rtol 1e-4 on the loss, exactly one launch. The kernel takes alpha in the trainer's
+    form (a one-element tensor on the card), the plain step the Python float."""
     want, wm = tsgns.sgns_step_shared_core(
         tsgns.EmbeddingPair(syn0, syn1), c, x, mask, neg, 0.025, 5, mode)
     before = fused_sgns_shared_step.launches
     got = fused_sgns_shared_step(tsgns.EmbeddingPair(syn0, syn1), c, x, mask, neg,
-                                 0.025, 5, mode)
+                                 alpha_on_card(0.025, syn0.device), 5, mode)
     torch.cuda.synchronize()
     assert fused_sgns_shared_step.launches == before + 1
     torch.testing.assert_close(syn0, want.syn0, atol=1e-4, rtol=0)
@@ -89,7 +90,8 @@ def test_kernel_heavy_draw(cuda):
     want, wm = tsgns.sgns_step_shared_core(pair(syn0, syn1), c, x, mask, neg, 0.025, 5,
                                            "exact")
     before = fused_sgns_shared_step.launches
-    got = fused_sgns_shared_step(pair(syn0, syn1), c, x, mask, neg, 0.025, 5, "exact")
+    got = fused_sgns_shared_step(pair(syn0, syn1), c, x, mask, neg,
+                                 alpha_on_card(0.025, cuda), 5, "exact")
     torch.cuda.synchronize()
     assert fused_sgns_shared_step.launches == before + 1
     for kernel, plain, exact in ((syn0, want.syn0, ref.syn0), (syn1, want.syn1, ref.syn1)):
@@ -97,6 +99,39 @@ def test_kernel_heavy_draw(cuda):
         err_plain = float((plain.double() - exact).abs().max())
         assert err_kernel <= 2 * err_plain, (err_kernel, err_plain)
     torch.testing.assert_close(got.loss, wm.loss, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernel_reads_alpha_at_run_time(cuda):
+    """The kernel captured in a CUDA graph, as the trainer captures it, and replayed
+    after alpha's tensor took another value: each replay trains at the value it finds
+    there, against the plain step at that value (atol 1e-4, loss rtol 1e-4)."""
+    syn0, syn1, c, x, mask, neg = _step_inputs(cuda, 17, 512, 64, 128, 2048)
+    pair = tsgns.EmbeddingPair
+    alpha = alpha_on_card(0.0, cuda)
+    got0, got1 = syn0.clone(), syn1.clone()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):  # warm-up at alpha 0: an exact no-op
+        fused_sgns_shared_step(pair(got0, got1), c, x, mask, neg, alpha, 5, "exact")
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.testing.assert_close(got0, syn0, atol=0, rtol=0)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        metrics = fused_sgns_shared_step(pair(got0, got1), c, x, mask, neg, alpha, 5,
+                                         "exact")
+    ref0, ref1 = syn0, syn1
+    for value in (0.025, 0.0125):
+        alpha.fill_(value)
+        graph.replay()
+        want, wm = tsgns.sgns_step_shared_core(pair(ref0, ref1), c, x, mask, neg, value,
+                                               5, "exact")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got0, want.syn0, atol=1e-4, rtol=0)
+        torch.testing.assert_close(got1, want.syn1, atol=1e-4, rtol=0)
+        torch.testing.assert_close(metrics.loss, wm.loss, rtol=1e-4, atol=0)
+        assert float((got1 - ref1).abs().max()) > 1e-3  # the replay trained
+        ref0, ref1 = want.syn0, want.syn1
 
 
 @pytest.mark.cuda
