@@ -148,6 +148,30 @@ Phases, one line each (or a few); any failure exits non-zero:
                SIGTERM after its first heartbeat: it dies of the signal, its emergency
                checkpoint passes load_latest_valid and verify_checkpoint, its log has
                the preempt record and its blackbox dump validates.
+ 11. serve    the serving path on the shared fit's checkpoint (phase 8's, saved dense):
+               (a) EmbeddingService(checkpoint, watch=True, reload_poll_s=0.05,
+               status_port, telemetry_path) on the card, the exact arm: 8 client
+               threads query synonyms for 2 s; every served list equals
+               Word2VecModel.load(ck).find_synonyms on the card (ids, scores within
+               1e-6; a swap allowed only between scores within 1e-6), 32 queries' ids
+               equal a float64 NumPy oracle's (the same ties; scores within 1e-5), the
+               batcher coalesced (batches < submitted), /metrics carries glint_serve_*;
+               one batch of 8 exact queries profiled by kernel beside syn0's read;
+               then a second fit from the checkpoint's parameters (its kernel launches
+               counted) is saved to the same path while the clients query: it must be
+               hot-reloaded within 5 s with no query error, reloads and models_released
+               +1, every list served meanwhile one of the two models', every list
+               after it the new model's; the card's memory during the swap; the run
+               log validates; (b) the same checkpoint with the IVF arm (f32): its
+               build seconds, index bytes, recall@10 against the exact oracle, the
+               served lists' overlap with the exact ones, p50 and p99 beside (a)'s;
+               (c) python -m glint_word2vec_torch.servebench at V=200,000, d=300 over
+               its clustered matrix (V=1M fails PQ's 0.95 floor there and its builds
+               take ~70 s): every arm, the int8 and PQ builds at their recall floors,
+               and the shard-native int8 build's codes equal to the in-memory build's;
+               (d) python -m glint_word2vec_torch.serve_checkpoint ck --ann as a child
+               process on the card: synonyms and synonyms_batch equal to (b)'s lists,
+               an out-of-vocabulary word's error_type, reload, stats, info, exit 0.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -157,10 +181,12 @@ this file, it prints no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2102,6 +2128,388 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
     return rec, launches
 
 
+# the serving phase (11): clients, query words, the float64 oracle's queries, the
+# reload's limit, servebench's vocabulary, ties
+SERVE_CLIENTS = 8
+SERVE_STORM_S = 2.0
+SERVE_WORDS = 256
+SERVE_ORACLE = 32
+SERVE_TIE = 1e-6  # scores within this are a tie at f32's resolution
+SERVE_F64_ATOL = 1e-5  # f32 cosines against float64's (as phase 9's top-1)
+RELOAD_LIMIT_S = 5.0
+# the IVF arm's served overlap with the card's exact lists against the index's recall
+# on the same rows: they differ only where the card's and the host's exact top-10 break
+# a near-tie differently
+SERVE_OVERLAP_TOL = 0.01
+# the second fit's io_workers: threads hashing and reading its V=1M checkpoint (2.4 GB
+# of syn0 and syn1) at the reload, through the saved config; on one the reload's load
+# took 5.0 s, at the limit
+SERVE_IO_WORKERS = 4
+# servebench's matrix: V=1M fails PQ's 0.95 recall floor (0.38 at 512 clusters of
+# ~2,000 rows, wider than the re-rank shortlist) and its builds take ~70 s
+SERVE_BENCH_V = 200_000
+
+
+def lists_agree(got, want, tie: float, atol: float = None) -> bool:
+    """Two top-k lists of (word, score) agree: scores within ``atol`` (default
+    ``tie``) position by position, and words equal except where the wanted score ties
+    (within ``tie``) with a neighbour's or sits at the list's end (a tie with the next
+    row)."""
+    atol = tie if atol is None else atol
+    if len(got) != len(want):
+        return False
+    for i, ((wg, sg), (ww, sw)) in enumerate(zip(got, want)):
+        if abs(sg - sw) > atol:
+            return False
+        if wg != ww and i != len(want) - 1 and not any(
+                abs(sw - want[j][1]) <= tie for j in (i - 1, i + 1)
+                if 0 <= j < len(want)):
+            return False
+    return True
+
+
+def f64_topk(m, rows, num: int, np) -> list:
+    """The float64 oracle: for each query row, the ``num`` best cosine neighbours of
+    ``m`` (float64, on the host), the query itself excluded."""
+    norms = np.linalg.norm(m, axis=1)
+    out = []
+    for r in rows:
+        cos = (m @ m[r]) / np.maximum(norms, 1e-300) / max(norms[r], 1e-300)
+        cos[r] = -np.inf
+        top = np.argpartition(-cos, num)[:num]
+        top = top[np.lexsort((top, -cos[top]))]
+        out.append([(int(i), float(cos[i])) for i in top])
+    return out
+
+
+def storm(svc, words, seconds: float, clients: int, np, until=None) -> tuple:
+    """``clients`` threads query ``svc.synonyms`` back to back for ``seconds``, or
+    until the event ``until`` is set: (every (word, list) served, errors, latencies in
+    ms)."""
+    import threading
+
+    served = [[] for _ in range(clients)]
+    errors, lats = [], [[] for _ in range(clients)]
+    stop_at = time.monotonic() + seconds
+
+    def client(ci: int) -> None:
+        rng = np.random.default_rng(ci)
+        while (not until.is_set()) if until is not None else time.monotonic() < stop_at:
+            w = words[int(rng.integers(0, len(words)))]
+            t0 = time.monotonic()
+            try:
+                res = svc.synonyms(w, 10)
+            except Exception as e:  # noqa: BLE001 — counted, the phase fails on any
+                errors.append(repr(e))
+                continue
+            lats[ci].append((time.monotonic() - t0) * 1e3)
+            served[ci].append((w, res))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return ([x for s in served for x in s], errors,
+            sorted(x for per in lats for x in per))
+
+
+def pctl(lats, p: float) -> float:
+    return lats[min(len(lats) - 1, int(p * len(lats)))] if lats else float("nan")
+
+
+def serving_phase(ck: str, corpus, seed: int, torch, np, fused, scat,
+                  device: str = "cuda", bench_vocab: int = SERVE_BENCH_V) -> tuple:
+    """Phase 11: the serving path (see the module docstring): (a) the exact arm under
+    concurrent clients and a hot reload, (b) the IVF arm on the same checkpoint, (c)
+    servebench, (d) the JSON-lines CLI as a child process. Returns (record, launches
+    of the second fit)."""
+    import threading
+    import urllib.request
+
+    from glint_word2vec_torch import Word2VecModel
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.obs.schema import validate_file
+    from glint_word2vec_torch.serve import EmbeddingService
+    from glint_word2vec_torch.serve.reload import publish_signature
+    from glint_word2vec_torch.stepprof import free_port, profile_call
+    from glint_word2vec_torch.train import checkpoint as ckpt
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    vocab, sents = corpus
+    rec = {"card": card_line() if device == "cuda" else "cpu"}
+    log("serve", f"on {rec['card']}: V={vocab.size}, the shared fit's checkpoint")
+    rng = np.random.default_rng(seed + 11)
+    words = [vocab.words[i] for i in rng.choice(vocab.size, SERVE_WORDS, replace=False)]
+
+    def reference(path: str, f64: bool = False) -> tuple:
+        """The card model's lists for ``words`` (and its syn0 in float64 on the host)."""
+        t0 = time.perf_counter()
+        ref = Word2VecModel.load(path, device=device)
+        out = {w: ref.find_synonyms(w, 10) for w in words}
+        m64 = ref.syn0.double().cpu().numpy() if f64 else None
+        ref.stop()
+        log("serve", f"reference: Word2VecModel.load + {len(words)} find_synonyms on "
+            f"{device} in {time.perf_counter() - t0:.1f} s")
+        return out, m64
+
+    # (a) the exact arm, concurrent clients, a hot reload
+    ref_a, m64 = reference(ck, f64=True)
+    oracle = f64_topk(m64, [vocab.get(w) for w in words[:SERVE_ORACLE]], 10, np)
+    del m64
+    log_path = str(Path(ck).parent / "serve.jsonl")
+    port = free_port()
+    t0 = time.perf_counter()
+    svc = EmbeddingService(checkpoint=ck, ann=False, watch=True, reload_poll_s=0.05,
+                           status_port=port, telemetry_path=log_path, device=device)
+    boot_s = time.perf_counter() - t0
+    try:
+        served, errors, lats = storm(svc, words, SERVE_STORM_S, SERVE_CLIENTS, np)
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+            metrics = r.read().decode()
+        st1 = svc.stats()
+        bad = [w for w, res in served if not lists_agree(res, ref_a[w], SERVE_TIE)]
+        # the card's exact lists against float64: ids with ties, scores to f32's error
+        oracle_ok = all(lists_agree(ref_a[q], [(vocab.words[i], s) for i, s in o],
+                                    SERVE_TIE, SERVE_F64_ATOL)
+                        for q, o in zip(words, oracle))
+        f64_err = max(abs(s - so) for q, o in zip(words, oracle)
+                      for (_, s), (_, so) in zip(ref_a[q], o))
+        rec["exact"] = {"boot_s": boot_s, "queries": len(served), "errors": len(errors),
+                        "qps": len(served) / SERVE_STORM_S, "p50_ms": pctl(lats, 0.5),
+                        "p99_ms": pctl(lats, 0.99), "batches": st1["batches"],
+                        "submitted": st1["submitted"],
+                        "occupancy_mean": st1["occupancy_mean"],
+                        "max_abs_err_vs_f64": f64_err}
+        log("serve", f"(a) exact arm on {device}: boot {boot_s:.1f} s; {SERVE_CLIENTS} "
+            f"clients {SERVE_STORM_S} s: {len(served)} queries, {len(errors)} errors, "
+            f"{len(served) / SERVE_STORM_S:.0f} qps, p50 {pctl(lats, 0.5):.3f} ms, p99 "
+            f"{pctl(lats, 0.99):.3f} ms, {st1['batches']} batches for "
+            f"{st1['submitted']} submitted (occupancy {st1['occupancy_mean']}); "
+            f"{len(bad)} lists differ from Word2VecModel.load(ck).find_synonyms; "
+            f"{SERVE_ORACLE} against float64: ids {oracle_ok}, max |score err| "
+            f"{f64_err:.2e}; /metrics glint_serve_up "
+            f"{'glint_serve_up 1' in metrics}")
+        if device == "cuda":  # one batch of the exact arm on the card, by kernel
+            with svc._handle.lease() as (model, _):
+                batch = words[:SERVE_CLIENTS]
+                kt = profile_call(lambda: model.find_synonyms_batch(batch, 10), 20)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    model.find_synonyms_batch(batch, 10)
+                wall_ms = (time.perf_counter() - t0) / 20 * 1e3
+            dev_us = {k: v["us_total"] / 20 for k, v in kt.items()}
+            # the least time: syn0 read once at the card's memory rate
+            bound_ms = model.num_words * model.vector_size * 4 / PEAK_BYTES_PER_S * 1e3
+            rec["exact"]["batch"] = {"queries": len(batch), "wall_ms": wall_ms,
+                                     "device_us": dev_us, "bound_ms": bound_ms}
+            log("serve", f"(a) one batch of {len(batch)} exact queries: {wall_ms:.3f} ms "
+                f"a call, device {sum(dev_us.values()):.1f} us (syn0's read at "
+                f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s: {bound_ms * 1e3:.1f} us): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in sorted(
+                    dev_us.items(), key=lambda kv: -kv[1])[:6]))
+        if not (served and not errors and not bad and oracle_ok
+                and f64_err <= SERVE_F64_ATOL
+                and st1["batches"] < st1["submitted"] and "glint_serve_up 1" in metrics
+                and "glint_serve_submitted_total" in metrics):
+            raise AssertionError(f"serving (a) failed: errors {errors[:3]}, lists "
+                                 f"differing {bad[:3]}, oracle {oracle_ok}")
+        # a second fit from the same parameters, saved to the same path while the
+        # clients query; its config's io_workers set the save's and the reload's threads
+        data = ckpt.load_model(ck, check_ported=False)
+        tr = Trainer(dataclasses.replace(data["config"], io_workers=SERVE_IO_WORKERS),
+                     vocab, params=(data["syn0"], data["syn1"]), device=device)
+        del data
+        reset_counts(fused, scat)
+        t0 = time.perf_counter()
+        tr.fit(encode_sentences(sents, vocab))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = {"sgns_shared_step": fused.fused_sgns_shared_step.launches,
+                    "scatter_add_rows": scat.scatter_add_rows_.launches,
+                    "sgns_shared_step_bf16": fused.fused_sgns_shared_step.bf16_launches,
+                    "scatter_add_rows_bf16": scat.scatter_add_rows_.bf16_launches}
+        fit_s = time.perf_counter() - t0
+        if launches["sgns_shared_step"] != steps_run(tr):
+            raise AssertionError(f"the second fit's launches {launches}")
+        released0 = st1["models_released"]
+        mem0 = 0
+        if device == "cuda":
+            mem0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        box, done = {}, threading.Event()
+        sig0 = publish_signature(ck)
+
+        def publish():  # save after 0.5 s of queries
+            time.sleep(0.5)
+            box["save_start"] = time.monotonic()
+            tr.save_checkpoint(ck)
+            box["saved"] = time.monotonic()
+
+        def watch():  # the publish instant (the swap's rename), then the reload's
+            try:
+                while publish_signature(ck) in (None, sig0):
+                    time.sleep(0.001)
+                box["published"] = time.monotonic()
+                while (svc.stats()["reloads"] < 1
+                       and time.monotonic() - box["published"] < 60):
+                    time.sleep(0.005)
+                box["reloaded"] = time.monotonic()
+                time.sleep(1.0)  # the clients query the new model for 1 s
+            finally:
+                done.set()
+
+        threads = [threading.Thread(target=publish), threading.Thread(target=watch)]
+        for t in threads:
+            t.start()
+        served2, errors2, lats2 = storm(svc, words, 0.0, SERVE_CLIENTS, np, until=done)
+        for t in threads:
+            t.join()
+        swap_peak = (torch.cuda.max_memory_allocated() - mem0 if device == "cuda"
+                     else 0)
+        st2 = svc.stats()
+        ref_b, _ = reference(ck)
+        after = svc.synonyms_batch(words, 10)
+        bad2 = [w for w, res in served2 if not (lists_agree(res, ref_a[w], SERVE_TIE)
+                                                or lists_agree(res, ref_b[w], SERVE_TIE))]
+        bad_after = [w for w, res in zip(words, after)
+                     if not lists_agree(res, ref_b[w], SERVE_TIE)]
+        changed = sum(ref_a[w] != ref_b[w] for w in words)
+        reload_s = box["reloaded"] - box["published"]
+        rec["reload"] = {"second_fit_s": fit_s, "reload_s": reload_s,
+                         "save_s": box["saved"] - box["save_start"],
+                         "io_workers": SERVE_IO_WORKERS,
+                         "load_seconds": st2["load_seconds"],
+                         "queries": len(served2), "errors": len(errors2),
+                         "p99_ms": pctl(lats2, 0.99), "reloads": st2["reloads"],
+                         "models_released": st2["models_released"] - released0,
+                         "swap_peak_bytes": swap_peak, "resident_bytes": mem0,
+                         "lists_changed": changed}
+        log("serve", f"(a) second fit {fit_s:.1f} s ({launches['sgns_shared_step']} "
+            f"fused launches), saved to the same path while {SERVE_CLIENTS} clients "
+            f"queried (the save {box['saved'] - box['save_start']:.1f} s): swapped in "
+            f"{reload_s:.2f} s after the publish's rename (load_seconds "
+            f"{st2['load_seconds']}, {SERVE_IO_WORKERS} io_workers), reloads "
+            f"{st2['reloads']}, models_released "
+            f"+{st2['models_released'] - released0}; {len(served2)} queries, "
+            f"{len(errors2)} errors, p99 {pctl(lats2, 0.99):.3f} ms, {len(bad2)} lists "
+            f"neither model's; after it {len(bad_after)} of {len(words)} differ from "
+            f"the new model's ({changed} of the {len(words)} words' lists changed "
+            f"between the two models); card memory: {mem0 / 1e9:.3f} GB allocated "
+            f"before the swap, peak +{swap_peak / 1e9:.3f} GB during it")
+        if not (reload_s <= RELOAD_LIMIT_S and not errors2 and not bad2
+                and not bad_after and st2["reloads"] == 1
+                and st2["models_released"] - released0 == 1 and changed > 0):
+            raise AssertionError(f"serving (a) reload failed: {rec['reload']}, "
+                                 f"errors {errors2[:3]}")
+    finally:
+        svc.close()
+    summary = validate_file(log_path)
+    kinds = summary["kinds"]
+    if not (summary["ok"] and kinds.get("serve_start") == 1
+            and kinds.get("serve_reload") == 1 and kinds.get("serve_end") == 1):
+        raise AssertionError(f"serve telemetry: {summary}")
+
+    # (b) the IVF arm (f32) on the same checkpoint
+    t0 = time.perf_counter()
+    svc = EmbeddingService(checkpoint=ck, ann=True, ann_quant="f32", device=device)
+    boot_s = time.perf_counter() - t0
+    try:
+        stats = svc.info()["ann"]
+        served3, errors3, lats3 = storm(svc, words, SERVE_STORM_S, SERVE_CLIENTS, np)
+        ann_lists = svc.synonyms_batch(words, 10)
+        # the index's own recall against its host oracle on the same words' rows: the
+        # served lists must overlap the card's exact lists as much (ties apart)
+        with svc._handle.lease() as (_, index):
+            same_rows = index.measure_recall(np.array([vocab.get(w) for w in words]),
+                                             k=10, nprobe=stats["nprobe"])
+    finally:
+        svc.close()
+    overlap = float(np.mean([len({w for w, _ in a} & {w for w, _ in ref_b[q]}) / 10
+                             for q, a in zip(words, ann_lists)]))
+    rec["ann"] = {"boot_s": boot_s, "build_s": stats["build_seconds"],
+                  "index_bytes": stats["index_bytes"],
+                  "centroids": stats["centroids"], "nprobe": stats["nprobe"],
+                  "recall_at_10": stats.get("recall_at_10"),
+                  "served_overlap_at_10": overlap, "recall_same_rows": same_rows,
+                  "queries": len(served3),
+                  "errors": len(errors3), "qps": len(served3) / SERVE_STORM_S,
+                  "p50_ms": pctl(lats3, 0.5), "p99_ms": pctl(lats3, 0.99)}
+    log("serve", f"(b) IVF arm (f32) on the same checkpoint: boot {boot_s:.1f} s, "
+        f"build {stats['build_seconds']} s, {stats['index_bytes']} index bytes, "
+        f"C={stats['centroids']} nprobe={stats['nprobe']}; recall@10 against the "
+        f"exact oracle {stats.get('recall_at_10')} (the build's), "
+        f"{same_rows:.4f} on the {len(words)} served words' rows, served lists' "
+        f"overlap with the card's exact lists {overlap:.4f}; {SERVE_CLIENTS} clients: "
+        f"{len(served3)} queries, {len(errors3)} errors, p50 {pctl(lats3, 0.5):.3f} / "
+        f"p99 {pctl(lats3, 0.99):.3f} ms (exact batched: {rec['exact']['p50_ms']:.3f} / "
+        f"{rec['exact']['p99_ms']:.3f} ms)")
+    if (errors3 or not served3 or stats.get("recall_at_10") is None or overlap == 0
+            or abs(overlap - same_rows) > SERVE_OVERLAP_TOL):
+        raise AssertionError(f"serving (b) failed: errors {errors3[:3]}, overlap "
+                             f"{overlap} against the index's recall {same_rows}")
+
+    # (c) servebench over its clustered matrix, every arm
+    cmd = [sys.executable, "-m", "glint_word2vec_torch.servebench", "--vocab",
+           str(bench_vocab), "--dim", str(D_REAL), "--shard-native", "--duration", "1",
+           "--seed", str(seed), "--device", device]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                       cwd=str(Path(__file__).resolve().parent))
+    bench_s = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        log("serve", f"(c) {line}")
+    if r.returncode != 0:
+        raise AssertionError(f"servebench exited {r.returncode}")
+    bench = json.loads(r.stdout.strip().splitlines()[-1])
+    bench["wall_s"] = bench_s
+    rec["servebench"] = bench
+    floors_ok = (bench["int8_recall_at_10"] >= 0.99 and bench["pq_recall_at_10"] >= 0.95
+                 and bench["int8_recall_floor"] == 0.99
+                 and bench["pq_recall_floor"] == 0.95)
+    log("serve", f"(c) servebench at V={bench_vocab}, d={D_REAL} ({bench_s:.1f} s): "
+        f"int8 recall@10 {bench['int8_recall_at_10']}, pq "
+        f"{bench['pq_recall_at_10']} (floors 0.99, 0.95: {floors_ok}); shard-native "
+        f"codes equal the in-memory build's: {bench['shard_native_parity']}")
+    if not (floors_ok and bench["shard_native_parity"] is True):
+        raise AssertionError("servebench's quantized arms failed")
+
+    # (d) the JSON-lines CLI as a child process, on the card by default
+    cmd = [sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint", ck, "--ann"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    reqs = [{"op": "synonyms", "word": words[0], "num": 10, "id": 1},
+            {"op": "synonyms_batch", "words": words[:8], "num": 10},
+            {"op": "synonyms", "word": "not-a-word", "num": 5},
+            {"op": "reload"}, {"op": "stats"}, {"op": "info"}, {"op": "quit"}]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, input="".join(json.dumps(q) + "\n" for q in reqs),
+                       capture_output=True, text=True, timeout=600,
+                       cwd=str(Path(__file__).resolve().parent))
+    cli_s = time.perf_counter() - t0
+    out = [json.loads(x) for x in r.stdout.splitlines()]
+    ok = (r.returncode == 0 and len(out) == len(reqs) + 1 and out[0].get("ready")
+          and out[1].get("id") == 1
+          and lists_agree([tuple(x) for x in out[1]["synonyms"]], ann_lists[0],
+                          SERVE_TIE)
+          and all(lists_agree([tuple(x) for x in row], want, SERVE_TIE)
+                  for row, want in zip(out[2]["synonyms"], ann_lists[:8]))
+          and out[3].get("error_type") == "KeyError"
+          and out[4] == {"reloaded": True, "num_words": vocab.size}
+          and out[5].get("reloads") == 1 and out[5]["ann"]["centroids"] > 0
+          and out[5].get("device", "").startswith(device)
+          and out[6].get("num_words") == vocab.size and out[7] == {"bye": True})
+    rec["cli"] = {"wall_s": cli_s, "rc": r.returncode}
+    log("serve", f"(d) serve_checkpoint --ann as a child: exit {r.returncode} in "
+        f"{cli_s:.1f} s; ready, synonyms and synonyms_batch equal to (b)'s IVF lists, "
+        f"OOV error {out[3].get('error_type') if len(out) > 3 else None}, reload, "
+        f"stats, info: {bool(ok)}")
+    if not ok:
+        raise AssertionError(f"the CLI failed: rc {r.returncode}, "
+                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2160,6 +2568,8 @@ def main() -> int:
     bench_corpus = (Vocabulary.from_words_and_counts(words, counts), bench_sents)
     log("fit", f"V=200k vocabulary {BENCH_V} words, corpus {BENCH_TOKENS} tokens "
         f"({time.perf_counter() - t0:.1f} s)")
+    serve_dir = tempfile.mkdtemp(prefix="chip-smoke-serve-")
+    serve_ck = str(Path(serve_dir) / "model")
     for name, knobs, pool in FITS + (BENCH_FIT,):
         model, *counts_ = fit_phase(name, knobs, pool,
                                     bench_corpus if knobs is BENCH_KNOBS else corpus,
@@ -2170,12 +2580,18 @@ def main() -> int:
                                   counts_))
         if name == "shared":
             surface = model_phase(model, corpus, torch, np)
+            model.save(serve_ck)  # the checkpoint the serving phase serves
             sync_numpy_fit(model, GRAPHS[name]["steps"], corpus, args.seed, torch, fused)
         del model
     del bench_corpus, bench_sents
     runtime, runtime_launches = runtime_phase(corpus, args.seed, torch, np, fused, scat,
                                               profile_call)
     launches.update(runtime_launches)
+    try:
+        serving, launches["serving_refit"] = serving_phase(
+            serve_ck, corpus, args.seed, torch, np, fused, scat)
+    finally:
+        shutil.rmtree(serve_dir, ignore_errors=True)
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -2232,6 +2648,7 @@ def main() -> int:
                                               "pairgen": gen, "model": surface,
                                               "banded": brec, "stabilizers": stab_rec,
                                               "runtime": runtime,
+                                              "serving": serving,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,
                                               "card": card}) + "\n")

@@ -23,6 +23,8 @@ layer's knobs (``nonfinite_policy`` with ``rollback``, ``norm_watch`` and its re
 ladder, ``telemetry_path``, ``status_port``, ``checkpoint_on_preempt``), with
 ``profile_dir`` recording a ``torch.profiler`` trace where the JAX package records a
 ``jax.profiler`` one; ``peer_beacon_s`` belongs to multi-process fits and is refused.
+The serving tier's ``serve_*`` knobs are read only by :mod:`.serve`; the fleet's
+``serve_fleet_*`` are refused.
 """
 
 from __future__ import annotations
@@ -35,10 +37,7 @@ from typing import Optional, Tuple
 _UNPORTED = (
     "use_pallas", "step_lowering", "sync_every", "num_model_shards",
     "num_data_shards", "embedding_partition", "sharded_checkpoint", "peer_beacon_s",
-    "serve_max_batch", "serve_max_delay_ms", "serve_queue_depth",
-    "serve_ann_centroids", "serve_ann_nprobe", "serve_ann_quant", "serve_ann_pq_m",
-    "serve_ann_rerank", "serve_ann_recall_floor", "serve_ann_max_densify_bytes",
-    "serve_reload_poll_s", "serve_fleet_replicas", "serve_fleet_probe_s",
+    "serve_fleet_replicas", "serve_fleet_probe_s",
     "serve_fleet_breaker_failures", "serve_fleet_breaker_reset_s",
     "serve_fleet_hedge_ms", "serve_fleet_retry_deadline_s",
 )
@@ -151,7 +150,8 @@ class Word2VecConfig:
     supervisor_max_restarts: int = 8
     supervisor_loop_window: int = 3
 
-    # --- serving tier (not ported) ---
+    # --- serving tier (read by the serving process, never by the trainer; serve/;
+    # the fleet's serve_fleet_* are not ported) ---
     serve_max_batch: int = 64
     serve_max_delay_ms: float = 2.0
     serve_queue_depth: int = 256
@@ -526,6 +526,7 @@ def _validate_ranges(c: Word2VecConfig) -> None:
             f"nonfinite_policy must be 'halt', 'rollback', or 'none' "
             f"but got {c.nonfinite_policy!r}")
     _validate_runtime(c)
+    _validate_serving(c)
 
 
 def _validate_runtime(c: Word2VecConfig) -> None:
@@ -566,3 +567,51 @@ def _validate_runtime(c: Word2VecConfig) -> None:
     if c.peer_beacon_s < 0:
         raise ValueError(
             f"peer_beacon_s must be nonnegative (0 = off) but got {c.peer_beacon_s}")
+
+
+def _validate_serving(c: Word2VecConfig) -> None:
+    """The JAX package's range checks of the serving tier's knobs, copied as they
+    stand."""
+    if c.serve_max_batch <= 0:
+        raise ValueError(
+            f"serve_max_batch must be positive but got {c.serve_max_batch}")
+    if c.serve_max_delay_ms < 0:
+        raise ValueError(
+            f"serve_max_delay_ms must be nonnegative (0 = dispatch immediately) "
+            f"but got {c.serve_max_delay_ms}")
+    if c.serve_queue_depth <= 0:
+        raise ValueError(
+            f"serve_queue_depth must be positive but got {c.serve_queue_depth}")
+    if c.serve_ann_centroids < 0:
+        raise ValueError(
+            f"serve_ann_centroids must be nonnegative (0 = auto) "
+            f"but got {c.serve_ann_centroids}")
+    if c.serve_ann_nprobe < 0:
+        raise ValueError(
+            f"serve_ann_nprobe must be nonnegative (0 = auto) "
+            f"but got {c.serve_ann_nprobe}")
+    if c.serve_ann_quant not in ("f32", "int8", "pq"):
+        raise ValueError(
+            f"serve_ann_quant must be one of 'f32', 'int8', 'pq' "
+            f"but got {c.serve_ann_quant!r}")
+    if c.serve_ann_pq_m < 0:
+        raise ValueError(
+            f"serve_ann_pq_m must be nonnegative (0 = auto ~D/8) "
+            f"but got {c.serve_ann_pq_m}")
+    if c.serve_ann_rerank < -1:
+        raise ValueError(
+            f"serve_ann_rerank must be -1 (off), 0 (auto), or a "
+            f"positive shortlist size but got {c.serve_ann_rerank}")
+    if not (c.serve_ann_recall_floor == -1.0
+            or 0.0 <= c.serve_ann_recall_floor <= 1.0):
+        raise ValueError(
+            f"serve_ann_recall_floor must be -1 (auto per-arm floor) "
+            f"or in [0, 1] (0 = disabled) "
+            f"but got {c.serve_ann_recall_floor}")
+    if c.serve_ann_max_densify_bytes < 0:
+        raise ValueError(
+            f"serve_ann_max_densify_bytes must be nonnegative "
+            f"(0 = unlimited) but got {c.serve_ann_max_densify_bytes}")
+    if c.serve_reload_poll_s <= 0:
+        raise ValueError(
+            f"serve_reload_poll_s must be positive but got {c.serve_reload_poll_s}")

@@ -16,12 +16,12 @@ import ctypes
 import logging
 import os
 import tempfile
-import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from glint_word2vec_torch.data.native import NATIVE_SRC, build_or_reload
+from glint_word2vec_torch.lockcheck import make_lock
 from glint_word2vec_torch.train.faults import maybe_fail_ingest, retry_io
 
 logger = logging.getLogger("glint_word2vec_torch")
@@ -29,7 +29,7 @@ logger = logging.getLogger("glint_word2vec_torch")
 _ABI_VERSION = 2
 _SRC = NATIVE_SRC / "ingest.cpp"
 
-_lock = threading.Lock()
+_lock = make_lock("data.ingest_native.load")
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 

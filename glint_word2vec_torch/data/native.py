@@ -22,12 +22,13 @@ import hashlib
 import logging
 import os
 import subprocess
-import threading
 import time
 from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from glint_word2vec_torch.lockcheck import make_lock
 
 logger = logging.getLogger("glint_word2vec_torch")
 
@@ -41,7 +42,7 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-pthread", "-D_FILE_OFFSET_BITS=64"]
 _ABI_VERSION = 1
 _SRC = NATIVE_SRC / "pairgen.cpp"
 
-_lock = threading.Lock()
+_lock = make_lock("data.native.load")
 _lib: Optional[ctypes.CDLL] = None
 _load_failed = False
 

@@ -1,0 +1,379 @@
+"""Lock registry and optional run-time lock-discipline checks, ported from
+``glint_word2vec_tpu/lockcheck.py``.
+
+Every lock in the port is built through :func:`make_lock`, :func:`make_rlock` or
+:func:`make_condition` with a name registered in :data:`LOCK_TABLE`, which gives its
+owner, its kind and an ordering **rank**: a thread may only acquire a lock whose rank is
+strictly greater than that of every lock it already holds. Ranks grow from the outer
+layers (library loads, the serving handle) to the innermost leaf, the telemetry sink
+(anything may emit while holding anything else). graftlint's R9-R11 are the static half
+and parse :data:`LOCK_TABLE` as a pure literal; ``GLINT_LOCKCHECK=1`` is the run-time
+half: the factories then return checked wrappers that keep a per-thread held stack,
+record the acquisition edges actually executed, flag rank inversions, count
+held-while-blocking windows and, with ``GLINT_LOCKCHECK_PERTURB``, perturb the schedule
+with seeded yields.
+
+Off (the default) the factories return the raw ``threading`` primitives: no wrapper is
+allocated and no acquisition does extra work. The flag is read when a lock is built, so
+enabling checks instruments only what is built afterwards.
+
+The port's table differs from the JAX package's by one entry, ``ops.kernels.build``,
+the lock around the CUDA kernels' build (the JAX package has no such build), and lacks
+the serving fleet's entries, which come with the fleet.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+# ---------------------------------------------------------------------------
+# The registry. rank: strictly increasing acquisition order (outer < inner). site:
+# where the construction lives ("path:Qualname"; graftlint R9 fails on drift in either
+# direction). kind: lock | rlock | condition; only an rlock is reentrant, and only
+# rlocks may appear in a signal handler's call closure (R10).
+# ---------------------------------------------------------------------------
+LOCK_TABLE = {
+    "data.native.load": {
+        "rank": 10, "kind": "lock",
+        "site": "glint_word2vec_torch/data/native.py:<module>",
+        "owner": "one-time ctypes library load (double-checked init)"},
+    "data.ingest_native.load": {
+        "rank": 11, "kind": "lock",
+        "site": "glint_word2vec_torch/data/ingest_native.py:<module>",
+        "owner": "one-time ctypes library load (double-checked init)"},
+    "ops.kernels.build": {
+        "rank": 12, "kind": "lock",
+        "site": "glint_word2vec_torch/ops/kernels.py:<module>",
+        "owner": "nvcc build and ctypes load of the CUDA kernels, once per source; "
+                 "taken by the first launch on any thread, holding nothing"},
+    "serve.handle": {
+        "rank": 20, "kind": "lock",
+        "site": "glint_word2vec_torch/serve/reload.py:ServingHandle.__init__",
+        "owner": "atomic (model, index) swap + lease counts (serve/reload.py)"},
+    "serve.batcher.cv": {
+        "rank": 60, "kind": "condition",
+        "site": "glint_word2vec_torch/serve/batcher.py:BatchingScheduler.__init__",
+        "owner": "admission queue + counters + latency ring; NON-reentrant, so a "
+                 "signal handler's dump passes include_stats=False "
+                 "(service.dump_blackbox)"},
+    "obs.phases": {
+        "rank": 80, "kind": "rlock",
+        "site": "glint_word2vec_torch/obs/phases.py:PhaseAccumulator.__init__",
+        "owner": "phase time accounting; reentrant for the handler dump path"},
+    "obs.spans": {
+        "rank": 81, "kind": "rlock",
+        "site": "glint_word2vec_torch/obs/spans.py:Tracer.__init__",
+        "owner": "span ring; reentrant for the handler dump path"},
+    "obs.blackbox": {
+        "rank": 85, "kind": "rlock",
+        "site": "glint_word2vec_torch/obs/blackbox.py:FlightRecorder.__init__",
+        "owner": "flight-recorder rings; reentrant, the SIGTERM dump runs on the "
+                 "thread it interrupted"},
+    "obs.sink": {
+        "rank": 90, "kind": "rlock",
+        "site": "glint_word2vec_torch/obs/sink.py:TelemetrySink.__init__",
+        "owner": "telemetry JSONL writer; innermost: any layer may emit while "
+                 "holding its own lock; reentrant for handler dumps"},
+    "servebench.tickets": {
+        "rank": 95, "kind": "lock",
+        "site": "glint_word2vec_torch/servebench.py:offered_load",
+        "owner": "servebench's client-side arrival cursor and latency collection"},
+}
+
+
+class _State:
+    """Process-wide checking state. Constructed ONCE at import; the enabled
+    flag is read at FACTORY time (lock construction), so enabling after a
+    subsystem built its locks instruments only what is built afterwards."""
+
+    def __init__(self) -> None:
+        self.enabled = os.environ.get("GLINT_LOCKCHECK", "") == "1"
+        self.perturb = float(os.environ.get("GLINT_LOCKCHECK_PERTURB", "0.0"))
+        self.seed = int(os.environ.get("GLINT_LOCKCHECK_SEED", "0"))
+        self.wrappers_allocated = 0
+        self.acquisitions = 0
+        self.yields = 0
+        self.held_while_blocking = 0
+        # dedup'd findings/edges, guarded by the (raw, unregistered —
+        # bookkeeping, not product) recorder lock below
+        self.inversions: Dict[tuple, dict] = {}
+        self.edges: Dict[tuple, int] = {}
+        self.hwb_pairs: Dict[tuple, int] = {}
+        self.thread_seq = 0
+
+
+_STATE = _State()
+_REC_LOCK = threading.Lock()  # bookkeeping only; never visible to the rules
+_TLS = threading.local()
+
+
+def configure(enabled: Optional[bool] = None, seed: Optional[int] = None,
+              perturb: Optional[float] = None) -> None:
+    """Set checking state programmatically (tests). ``enabled``
+    applies to locks constructed AFTER the call."""
+    if enabled is not None:
+        _STATE.enabled = bool(enabled)
+    if seed is not None:
+        _STATE.seed = int(seed)
+    if perturb is not None:
+        _STATE.perturb = float(perturb)
+
+
+def enabled() -> bool:
+    return _STATE.enabled
+
+
+def wrappers_allocated() -> int:
+    return _STATE.wrappers_allocated
+
+
+def reset() -> None:
+    """Drop collected events/counters (keeps the enabled/seed/perturb knobs)."""
+    with _REC_LOCK:
+        _STATE.acquisitions = 0
+        _STATE.yields = 0
+        _STATE.held_while_blocking = 0
+        _STATE.inversions.clear()
+        _STATE.edges.clear()
+        _STATE.hwb_pairs.clear()
+
+
+def report() -> dict:
+    """The collected evidence: every executed acquisition-order edge, every
+    rank inversion, the held-while-blocking windows, and the perturber's
+    yield count."""
+    with _REC_LOCK:
+        return {
+            "enabled": _STATE.enabled,
+            "wrappers_allocated": _STATE.wrappers_allocated,
+            "acquisitions": _STATE.acquisitions,
+            "perturb_yields": _STATE.yields,
+            "held_while_blocking": _STATE.held_while_blocking,
+            "held_while_blocking_pairs": sorted(
+                f"{a}->{b}" for a, b in _STATE.hwb_pairs),
+            "edges": sorted(f"{a}->{b}" for a, b in _STATE.edges),
+            "inversions": [dict(v) for _, v in sorted(
+                _STATE.inversions.items())],
+        }
+
+
+def _held() -> List["_Held"]:
+    try:
+        return _TLS.held
+    except AttributeError:
+        _TLS.held = []
+        return _TLS.held
+
+
+class _Held:
+    __slots__ = ("name", "rank", "obj", "depth")
+
+    def __init__(self, name: str, rank: int, obj: Any) -> None:
+        self.name = name
+        self.rank = rank
+        self.obj = obj
+        self.depth = 1
+
+
+def _maybe_yield() -> None:
+    """Seeded schedule perturbation: a sub-millisecond sleep with probability
+    ``perturb`` at every instrumented acquire/release — the deterministic
+    analog of a scheduler running the OTHER thread first. Per-thread seeded
+    generators (R2: np.random.default_rng only) so the schedule is
+    reproducible given (seed, thread creation order)."""
+    if _STATE.perturb <= 0.0:
+        return
+    rng = getattr(_TLS, "rng", None)
+    if rng is None:
+        import numpy as np
+        with _REC_LOCK:
+            _STATE.thread_seq += 1
+            stream = _STATE.thread_seq
+        rng = _TLS.rng = np.random.default_rng((int(_STATE.seed), stream))
+    if rng.random() < _STATE.perturb:
+        with _REC_LOCK:
+            _STATE.yields += 1
+        time.sleep(float(rng.random()) * 5e-4)
+
+
+def _record_acquire(entry: "_Checked", blocking_contended: bool) -> None:
+    held = _held()
+    with _REC_LOCK:
+        _STATE.acquisitions += 1
+        if held:
+            top = held[-1]
+            if top.obj is not entry.lock:  # reentrant re-acquire: no edge
+                _STATE.edges[(top.name, entry.name)] = (
+                    _STATE.edges.get((top.name, entry.name), 0) + 1)
+            if blocking_contended:
+                _STATE.held_while_blocking += 1
+                _STATE.hwb_pairs[(top.name, entry.name)] = (
+                    _STATE.hwb_pairs.get((top.name, entry.name), 0) + 1)
+            for h in held:
+                if h.obj is not entry.lock and h.rank >= entry.rank:
+                    key = (h.name, entry.name)
+                    _STATE.inversions.setdefault(key, {
+                        "kind": "rank-inversion",
+                        "held": h.name, "held_rank": h.rank,
+                        "acquiring": entry.name, "rank": entry.rank,
+                        "thread": threading.current_thread().name})
+                elif (h.obj is entry.lock and entry.kind != "rlock"):
+                    key = (entry.name, entry.name)
+                    _STATE.inversions.setdefault(key, {
+                        "kind": "reentrant-nonreentrant",
+                        "held": h.name, "held_rank": h.rank,
+                        "acquiring": entry.name, "rank": entry.rank,
+                        "thread": threading.current_thread().name})
+
+
+class _Checked:
+    """Instrumented lock/rlock wrapper: same acquire/release/context surface
+    as the raw primitive, plus held-stack + rank bookkeeping."""
+
+    __slots__ = ("name", "rank", "kind", "lock")
+
+    def __init__(self, name: str, rank: int, kind: str, lock: Any) -> None:
+        self.name = name
+        self.rank = rank
+        self.kind = kind
+        self.lock = lock
+        with _REC_LOCK:
+            _STATE.wrappers_allocated += 1
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        _maybe_yield()
+        held = _held()
+        reentrant = (self.kind == "rlock"
+                     and any(h.obj is self.lock for h in held))
+        contended = False
+        got = self.lock.acquire(False)
+        if not got:
+            if not blocking:
+                # a failed try-lock cannot deadlock: count nothing
+                return False
+            contended = bool(held)
+            got = (self.lock.acquire(True, timeout) if timeout != -1
+                   else self.lock.acquire(True))
+        if got:
+            _record_acquire(self, contended)
+        if got:
+            if reentrant:
+                for h in reversed(held):
+                    if h.obj is self.lock:
+                        h.depth += 1
+                        break
+            else:
+                held.append(_Held(self.name, self.rank, self.lock))
+        return got
+
+    def release(self) -> None:
+        held = _held()
+        for i in range(len(held) - 1, -1, -1):
+            if held[i].obj is self.lock:
+                held[i].depth -= 1
+                if held[i].depth == 0:
+                    del held[i]
+                break
+        self.lock.release()
+        _maybe_yield()
+
+    def __enter__(self) -> "_Checked":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        self.release()
+
+    def locked(self) -> bool:
+        return self.lock.locked()
+
+
+class _CheckedCondition(_Checked):
+    """Instrumented Condition: acquire/release via the checked protocol;
+    ``wait`` drops the held-stack entry for its duration (the lock really is
+    released) and counts as a held-while-blocking window when OTHER locks
+    stay held across it — exactly the shape that starves a notifier."""
+
+    __slots__ = ("cond",)
+
+    def __init__(self, name: str, rank: int) -> None:
+        cond = threading.Condition()
+        super().__init__(name, rank, "condition", cond)
+        self.cond = cond
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        held = _held()
+        entry = None
+        for i in range(len(held) - 1, -1, -1):
+            if held[i].obj is self.lock:
+                entry = held.pop(i)
+                break
+        if held:  # waiting while still holding something else
+            with _REC_LOCK:
+                _STATE.held_while_blocking += 1
+                key = (held[-1].name, self.name)
+                _STATE.hwb_pairs[key] = _STATE.hwb_pairs.get(key, 0) + 1
+        try:
+            return self.cond.wait(timeout)
+        finally:
+            if entry is not None:
+                held.append(entry)
+
+    def wait_for(self, predicate, timeout: Optional[float] = None):
+        end = None if timeout is None else time.monotonic() + timeout
+        result = predicate()
+        while not result:
+            remaining = None if end is None else end - time.monotonic()
+            if remaining is not None and remaining <= 0:
+                break
+            self.wait(remaining)
+            result = predicate()
+        return result
+
+    def notify(self, n: int = 1) -> None:
+        self.cond.notify(n)
+
+    def notify_all(self) -> None:
+        self.cond.notify_all()
+
+
+def _entry(name: str, kind: str) -> dict:
+    e = LOCK_TABLE.get(name)
+    if e is None:
+        raise KeyError(
+            f"lock {name!r} is not in lockcheck.LOCK_TABLE — register it "
+            f"with an owner and a rank")
+    if e["kind"] != kind:
+        raise ValueError(
+            f"lock {name!r} registered as kind {e['kind']!r} but "
+            f"constructed as {kind!r}")
+    return e
+
+
+def make_lock(name: str):
+    """A ``threading.Lock`` registered as ``name``. Off: the raw primitive
+    (zero wrappers); on: the checked wrapper."""
+    if not _STATE.enabled:
+        return threading.Lock()
+    e = _entry(name, "lock")
+    return _Checked(name, e["rank"], "lock", threading.Lock())
+
+
+def make_rlock(name: str):
+    """A ``threading.RLock`` registered as ``name`` (see :func:`make_lock`)."""
+    if not _STATE.enabled:
+        return threading.RLock()
+    e = _entry(name, "rlock")
+    return _Checked(name, e["rank"], "rlock", threading.RLock())
+
+
+def make_condition(name: str):
+    """A ``threading.Condition`` registered as ``name`` (see
+    :func:`make_lock`)."""
+    if not _STATE.enabled:
+        return threading.Condition()
+    e = _entry(name, "condition")
+    return _CheckedCondition(name, e["rank"])

@@ -2,12 +2,13 @@
 sentence transforms, ``pull``, ``norms``, ``multiply``, ``find_synonyms`` (the exact
 arm), ``analogy``, the exports (``get_vectors``, ``iter_vectors``, ``to_local``,
 ``export_word2vec`` in word2vec.c's text and binary formats), ``save``, ``load`` of
-either checkpoint layout, ``load_latest`` and ``stop``. Every op runs on the model's
-device (the card unless ``device="cpu"``); after ``stop`` each raises.
+either checkpoint layout, ``load_latest`` and ``stop``, and the serving tier's entry to
+an IVF index (``attach_ann``, ``find_synonyms_batch(ann=True)``; the index lives on the
+host, :mod:`..serve.ann`). Every op runs on the model's device (the card unless
+``device="cpu"``); after ``stop`` each raises.
 
-Not ported: the serving tier's ANN index (``attach_ann`` and ``ann=True``, ROADMAP
-queue A7), and ``plan=``, which retargets a model onto a multi-device mesh (A9); both
-are refused by name.
+Not ported: ``plan=``, which retargets a model onto a multi-device mesh (ROADMAP queue
+A9); it is refused by name.
 
 The cosine scores are one matrix product on the device (the JAX package leaves it to
 XLA; here it is ``torch.matmul``). The top-k keeps ``lax.top_k``'s order, which
@@ -68,6 +69,7 @@ class Word2VecModel:
         self._syn1 = place(syn1) if syn1 is not None else None
         self._norms: Optional[torch.Tensor] = None
         self._dim = int(syn0.shape[1])
+        self._ann = None
         self._stopped = False
 
     @property
@@ -170,6 +172,31 @@ class Word2VecModel:
         v = torch.as_tensor(np.asarray(vector, np.float32), device=self.device)
         return (self.syn0 @ v).cpu().numpy()
 
+    # -- ANN index attach (serving tier, serve/ann.py) ---------------------------------
+
+    def attach_ann(self, index) -> None:
+        """Attach a built :class:`~glint_word2vec_torch.serve.ann.IvfIndex` so
+        :meth:`find_synonyms_batch` can serve the approximate arm (``ann=True``). The
+        exact arm stays the ground truth; the index is never saved with the model (it
+        is rebuilt from the matrix at load or publish time). An index whose row count
+        differs from the vocabulary is refused: a stale index from an earlier publish
+        would mis-rank silently."""
+        self._check_alive()
+        if index is not None:
+            rows = getattr(index, "num_rows", None)
+            if rows is not None and int(rows) != self.vocab.size:
+                raise ValueError(
+                    f"ANN index covers {rows} rows but the vocabulary has "
+                    f"{self.vocab.size} words — a stale index from a "
+                    f"previous publish (the vocabulary grew?); rebuild with "
+                    f"serve.ann.build_ivf(model.syn0.cpu().numpy())")
+        self._ann = index
+
+    @property
+    def ann(self):
+        """The attached ANN index, or None."""
+        return self._ann
+
     # -- synonym / analogy search ----------------------------------------------------------
 
     def find_synonyms(self, query: Union[str, np.ndarray], num: int
@@ -185,13 +212,21 @@ class Word2VecModel:
         num: int,
         chunk: int = 128,
         ann: bool = False,
+        nprobe: Optional[int] = None,
     ) -> List[List[Tuple[str, float]]]:
-        """Batched :meth:`find_synonyms`: one cosine matrix per ``chunk`` queries.
-        ``ann=True`` (the serving tier's approximate arm) is not ported."""
+        """Batched :meth:`find_synonyms`: one cosine matrix per ``chunk`` queries on the
+        model's device. ``ann=True`` routes the batch through the attached IVF index
+        instead (:meth:`attach_ann`): the ``nprobe`` nearest cells on the host, the same
+        result shape and self-exclusion, true cosine scores (only the candidate set is
+        approximate)."""
         if ann:
-            raise NotImplementedError(
-                "ann=True needs the serving tier's IVF index (attach_ann), not ported "
-                "to glint_word2vec_torch yet (ROADMAP.md queue A7)")
+            self._check_alive()
+            if self._ann is None:
+                raise RuntimeError(
+                    "ann=True but no index attached — build one with "
+                    "serve.ann.build_ivf(model.syn0.cpu().numpy()) and "
+                    "model.attach_ann(index)")
+            return self._find_synonyms_batch_ann(queries, num, nprobe)
         norms = self.norms
         k = min(num + 1, self.num_words)
         out: List[List[Tuple[str, float]]] = []
@@ -212,6 +247,36 @@ class Word2VecModel:
                 res = [(self.vocab.words[i], s) for i, s in zip(irow, srow)
                        if self.vocab.words[i] != word]
                 out.append(res[:num])
+        return out
+
+    def _find_synonyms_batch_ann(
+            self, queries: Sequence[Union[str, np.ndarray]], num: int,
+            nprobe: Optional[int] = None) -> List[List[Tuple[str, float]]]:
+        """The ANN arm of :meth:`find_synonyms_batch`: a host probe of the attached
+        index. Word queries read their vector from the index (no device gather);
+        vector queries are normalized by the index."""
+        index = self._ann
+        words: List[Optional[str]] = []
+        rows: List[np.ndarray] = []
+        for q in queries:
+            if isinstance(q, str):
+                words.append(q)
+                rows.append(index.vector(self._index(q)))
+            else:
+                words.append(None)
+                rows.append(np.asarray(q, np.float32))
+        k = min(num + 1, self.num_words)
+        scores, idxs = index.search(np.stack(rows), k, nprobe)
+        out: List[List[Tuple[str, float]]] = []
+        for word, srow, irow in zip(words, scores, idxs):
+            res: List[Tuple[str, float]] = []
+            for i, s in zip(irow, srow):
+                if i < 0:
+                    break  # fewer candidates than k in the probed cells
+                w = self.vocab.words[int(i)]
+                if w != word:
+                    res.append((w, float(s)))
+            out.append(res[:num])
         return out
 
     def analogy(self, a: str, b: str, c: str, num: int = 10) -> List[Tuple[str, float]]:
@@ -325,7 +390,7 @@ class Word2VecModel:
 
     def stop(self) -> None:
         """Release the device buffers. Idempotent; every op raises afterwards."""
-        self._syn0 = self._syn1 = self._norms = None
+        self._syn0 = self._syn1 = self._norms = self._ann = None
         self._stopped = True
 
 

@@ -8,10 +8,12 @@ is off by default and free when off:
 - :mod:`.spans`: host trace spans, exported as Chrome-trace JSON;
 - :mod:`.phases`: per-phase log2 duration histograms;
 - :mod:`.blackbox`: the flight recorder, dumped on fit death;
-- :mod:`.statusd`: the read-only live status endpoint (``config.status_port``).
+- :mod:`.statusd`: the read-only live status endpoint (``config.status_port``), with
+  the serving tier's ``glint_serve_*`` renderer;
+- :mod:`.trace`: cross-process trace ids and spans, and the trainer's ``publish``
+  record's signature.
 
-The fleet plane (``trace``, ``slo``, ``collect``) and the serving renderers wait for
-the serving tier.
+The fleet's ``slo`` and ``collect`` wait for the fleet (ROADMAP.md queue A7b).
 """
 
 from glint_word2vec_torch.obs.blackbox import FlightRecorder
@@ -26,7 +28,8 @@ from glint_word2vec_torch.obs.schema import (
 )
 from glint_word2vec_torch.obs.sink import TelemetrySink
 from glint_word2vec_torch.obs.spans import Tracer, default_tracer
-from glint_word2vec_torch.obs.statusd import StatusServer, prometheus_text
+from glint_word2vec_torch.obs.statusd import (StatusServer, prometheus_text,
+                                              serve_prometheus_text)
 from glint_word2vec_torch.obs.watch import NormWatchdog
 
 __all__ = [
@@ -35,4 +38,5 @@ __all__ = [
     "validate_blackbox", "validate_blackbox_file",
     "TelemetrySink", "Tracer", "default_tracer", "NormWatchdog",
     "FlightRecorder", "PhaseAccumulator", "StatusServer", "prometheus_text",
+    "serve_prometheus_text",
 ]

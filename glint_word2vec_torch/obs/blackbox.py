@@ -24,12 +24,12 @@ import json
 import logging
 import os
 import signal
-import threading
 import time
 import traceback
 from collections import deque
 from typing import Any, Dict, Optional
 
+from glint_word2vec_torch.lockcheck import make_rlock
 from glint_word2vec_torch.obs.schema import SCHEMA_VERSION
 from glint_word2vec_torch.obs.sink import TelemetrySink
 
@@ -46,7 +46,7 @@ class FlightRecorder:
         self.path = path
         # reentrant: the SIGTERM dump runs on the main thread, possibly inside that
         # thread's interrupted note_dispatch()/observe()
-        self._lock = threading.RLock()
+        self._lock = make_rlock("obs.blackbox")
         self._dispatches: deque = deque(maxlen=ring)
         self._heartbeats: deque = deque(maxlen=max(ring // 4, 16))
         self._events: deque = deque(maxlen=max(ring // 4, 16))

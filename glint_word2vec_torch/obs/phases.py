@@ -14,8 +14,9 @@ attribute check per ``add``.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Dict, List, Optional
+
+from glint_word2vec_torch.lockcheck import make_rlock
 
 HIST_LO = -20            # log2 seconds of the smallest bucket edge
 HIST_PER_OCTAVE = 4
@@ -68,7 +69,7 @@ class PhaseAccumulator:
 
     def __init__(self, enabled: bool = False):
         self.enabled = enabled
-        self._lock = threading.RLock()
+        self._lock = make_rlock("obs.phases")
         self._phases: Dict[str, _Phase] = {p: _Phase() for p in PHASES}
 
     def clear(self) -> None:

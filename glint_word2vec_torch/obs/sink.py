@@ -18,9 +18,9 @@ from __future__ import annotations
 import json
 import logging
 import os
-import threading
 import time
 
+from glint_word2vec_torch.lockcheck import make_rlock
 from glint_word2vec_torch.obs.schema import SCHEMA_VERSION
 
 logger = logging.getLogger("glint_word2vec_torch")
@@ -35,7 +35,7 @@ class TelemetrySink:
         self.path = path
         self.rotate_bytes = int(rotate_bytes)
         self.keep = int(keep)
-        self._lock = threading.RLock()
+        self._lock = make_rlock("obs.sink")
         self._file = None
         self._size = 0
         self._dead = False

@@ -24,6 +24,8 @@ import time
 from collections import deque
 from typing import Dict, List, Optional
 
+from glint_word2vec_torch.lockcheck import make_rlock
+
 
 class _NoopSpan:
     __slots__ = ()
@@ -72,7 +74,7 @@ class Tracer:
     def __init__(self, enabled: bool = False, max_events: int = 200_000):
         self.enabled = enabled
         self.max_events = int(max_events)
-        self._lock = threading.RLock()
+        self._lock = make_rlock("obs.spans")
         self._events: "deque" = deque(maxlen=self.max_events)
         self._dropped = 0
         self._epoch = time.perf_counter()

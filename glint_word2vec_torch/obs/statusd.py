@@ -1,12 +1,12 @@
 """Live run inspection, ported from ``glint_word2vec_tpu/obs/statusd.py``: a
-read-only HTTP status endpoint for one trainer.
+read-only HTTP status endpoint for one trainer or one embedding service.
 
 ``config.status_port > 0`` starts this server for the duration of a fit. Routes (GET
 only):
 
 - ``/`` or ``/status.json``: the gauge snapshot as JSON (``Trainer.status_snapshot()``);
-- ``/metrics``: its scalar gauges in the Prometheus text format (``glint_*`` names,
-  the JAX package's);
+- ``/metrics``: its scalar gauges in the Prometheus text format (the JAX package's
+  ``glint_*`` names for a trainer, ``glint_serve_*`` for a service);
 - ``/healthz``: ``200 ok``.
 
 One ``HTTPServer`` on one daemon thread, bound to 127.0.0.1. The snapshot callable
@@ -65,8 +65,35 @@ def prometheus_text(snap: dict) -> str:
     return "\n".join(lines) + "\n"
 
 
+def serve_prometheus_text(snap: dict) -> str:
+    """A serving snapshot (``serve.EmbeddingService.status_snapshot``) in the
+    Prometheus text format: the JAX package's ``glint_serve_*`` names (batcher counters
+    and gauges, latency quantiles over the recent ring, hot-reload counts, the live
+    index's measured recall and footprint)."""
+    lines: list = []
+    _gauge(lines, "glint_serve_up", 1.0 if snap.get("status") == "serving" else 0.0)
+    for field in ("submitted", "refused", "completed", "errors", "batches",
+                  "reloads", "models_released"):
+        _gauge(lines, f"glint_serve_{field}_total", snap.get(field))
+    for field in ("queue_depth", "occupancy_mean", "vocab_size", "load_seconds"):
+        _gauge(lines, f"glint_serve_{field}", snap.get(field))
+    lat = snap.get("latency_ms") or {}
+    for q in ("p50", "p95", "p99"):
+        if q in lat:
+            _gauge(lines, "glint_serve_latency_ms", lat[q], f'{{quantile="{q}"}}')
+    ann = snap.get("ann") or {}
+    for field in ("recall_at_10", "nprobe", "centroids", "build_seconds",
+                  "bytes_per_vector"):
+        if field in ann:
+            _gauge(lines, f"glint_serve_ann_{field}", ann[field])
+    if "index_bytes" in ann:
+        _gauge(lines, "glint_serve_index_bytes", ann["index_bytes"])
+    return "\n".join(lines) + "\n"
+
+
 class _Handler(BaseHTTPRequestHandler):
     snapshot_fn: Callable[[], dict]  # set per server by StatusServer.start
+    metrics_fn: Callable[[dict], str]
 
     def _send(self, code: int, body: bytes, ctype: str) -> None:
         self.send_response(code)
@@ -82,7 +109,7 @@ class _Handler(BaseHTTPRequestHandler):
                 self._send(200, json.dumps(self.snapshot_fn()).encode(),
                            "application/json")
             elif path == "/metrics":
-                self._send(200, prometheus_text(self.snapshot_fn()).encode(),
+                self._send(200, self.metrics_fn(self.snapshot_fn()).encode(),
                            "text/plain; version=0.0.4; charset=utf-8")
             elif path == "/healthz":
                 self._send(200, b"ok\n", "text/plain")
@@ -98,9 +125,13 @@ class _Handler(BaseHTTPRequestHandler):
 class StatusServer:
     """One localhost HTTP server serving a snapshot callable, read-only."""
 
-    def __init__(self, port: int, snapshot_fn: Callable[[], dict]):
+    def __init__(self, port: int, snapshot_fn: Callable[[], dict],
+                 metrics_fn: Optional[Callable[[dict], str]] = None):
+        """``metrics_fn`` renders ``/metrics``: the trainer's gauges by default, the
+        serving tier passes :func:`serve_prometheus_text`."""
         self._requested_port = int(port)
         self._snapshot_fn = snapshot_fn
+        self._metrics_fn = metrics_fn or prometheus_text
         self._server: Optional[HTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -112,7 +143,8 @@ class StatusServer:
 
     def start(self) -> "StatusServer":
         handler = type("_BoundHandler", (_Handler,),
-                       {"snapshot_fn": staticmethod(self._snapshot_fn)})
+                       {"snapshot_fn": staticmethod(self._snapshot_fn),
+                        "metrics_fn": staticmethod(self._metrics_fn)})
         self._server = HTTPServer(("127.0.0.1", self._requested_port), handler)
         # serve_forever checks for shutdown once per poll: at the default 0.5 s, the
         # end of every fit with the endpoint on waited up to half a second in stop()

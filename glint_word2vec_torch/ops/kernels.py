@@ -15,9 +15,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional
+
+from glint_word2vec_torch.lockcheck import make_lock
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-_lock = threading.Lock()
+_lock = make_lock("ops.kernels.build")
 _libs: Dict[str, ctypes.CDLL] = {}
 
 # C signatures of the exported functions, per source.

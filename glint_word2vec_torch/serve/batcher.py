@@ -1,0 +1,364 @@
+"""Request batching scheduler, ported from ``glint_word2vec_tpu/serve/batcher.py``: a
+bounded queue and a deadline micro-batcher.
+
+Concurrent callers become one dispatch: the exact arm's cost on the card is one matrix
+product and one sort for the whole batch, so coalescing turns N round trips into one.
+
+- ``submit()`` enqueues a request and blocks the calling thread until its result is
+  ready (clients are threads: the JSON-lines CLI, the bench's closed-loop clients);
+- one worker thread pops the queue and coalesces up to ``max_batch`` requests, waiting
+  at most ``max_delay_ms`` past the FIRST request's arrival (latency is bounded by the
+  deadline, throughput by the batch cap);
+- the whole batch goes to the ``handler`` in one call, which returns one result per
+  request (an ``Exception`` instance fails its own caller, not the batch);
+- backpressure is a fast refusal, never unbounded memory: a full queue raises
+  :class:`ServerOverloaded` at once (the 429-style contract).
+
+The worker only pairs requests with responses and reads the model; batch composition
+depends on timing by design, per-request results do not (item i maps to result i).
+"""
+
+from __future__ import annotations
+
+import collections
+import logging
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+from glint_word2vec_torch.lockcheck import make_condition
+
+logger = logging.getLogger("glint_word2vec_torch")
+
+
+class ServerOverloaded(RuntimeError):
+    """Admission refused: the bounded queue is full. The serving analog of
+    HTTP 429 — callers should shed or retry with backoff; the server never
+    buffers unboundedly.
+
+    ``retry_after_s`` is the machine-readable backoff hint (the Retry-After
+    header analog): queued batches ahead × the observed batch service time —
+    how long the present backlog takes to drain at the measured rate. None
+    when the server has not yet completed a batch to measure."""
+
+    status = 429
+
+    def __init__(self, message: str, retry_after_s: Optional[float] = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class ServiceClosed(RuntimeError):
+    """Submit refused: the scheduler is stopping or stopped. The typed
+    shutdown refusal — before this class a submit racing ``stop()`` got
+    whatever the dead worker queue produced (a bare RuntimeError at best, a
+    forever-parked ticket at worst). Distinct from :class:`ServerOverloaded`
+    on purpose: overload means "retry later / elsewhere", closed means "this
+    replica is going away — re-resolve, don't retry here"."""
+
+
+class _Ticket:
+    """One in-flight request: payload in, result/error out, an event the
+    submitting thread parks on. ``trace`` is the cross-process trace
+    context (``{"tid": ..., "ps": ...}``, obs/trace.py) when the request is
+    being traced, else None — the default path allocates nothing extra."""
+
+    __slots__ = ("payload", "enqueued", "done", "result", "error", "trace")
+
+    def __init__(self, payload: Any, trace: Optional[dict] = None):
+        self.payload = payload
+        self.enqueued = time.monotonic()
+        self.done = threading.Event()
+        self.result: Any = None
+        self.error: Optional[BaseException] = None
+        self.trace = trace
+
+
+class BatchingScheduler:
+    """Deadline-based micro-batcher over a bounded queue (module doc)."""
+
+    def __init__(
+        self,
+        handler: Callable[[List[Any]], Sequence[Any]],
+        max_batch: int = 64,
+        max_delay_ms: float = 2.0,
+        max_queue: int = 256,
+        name: str = "glint-serve-batcher",
+        straggle_every: int = 0,
+        straggle_ms: float = 0.0,
+        span_emit: Optional[Callable[[dict, str, int, int], None]] = None,
+        batch_observer: Optional[Callable[[int, float, float], None]] = None,
+    ):
+        """``straggle_every``/``straggle_ms`` are FAULT INJECTION (the
+        serve-side analog of train/faults.py, off by default): every Nth
+        dispatched batch sleeps ``straggle_ms`` before the handler runs — a
+        deterministic tail-latency straggler for benches; production never
+        sets it.
+
+        ``span_emit(trace, name, start_mono_ns, dur_ns)``: the trace hook
+        (obs/trace.py) the worker calls per TRACED ticket after each batch —
+        a ``queue_wait`` span (submit → batch pop: the admission latency the
+        micro-batching deadline trades) and a ``batch_service`` span (the
+        handler's wall time), both parented to the context the request
+        carried across the wire. Untraced tickets (trace=None — every
+        ticket when tracing is off) never reach the hook: the zero-cost
+        contract is "no trace, no call", not a no-op callee.
+
+        ``batch_observer(batch_size, service_s, queue_wait_s)``: called once
+        per dispatched batch (success or error) — the serving flight
+        recorder's dispatch-ring feed (obs/blackbox.py note_dispatch via
+        EmbeddingService). Both hooks run ON the worker thread; they must
+        not block (the sink's locked append is the intended cost)."""
+        if max_batch <= 0:
+            raise ValueError(f"max_batch must be positive but got {max_batch}")
+        if max_delay_ms < 0:
+            raise ValueError(
+                f"max_delay_ms must be nonnegative but got {max_delay_ms}")
+        if max_queue <= 0:
+            raise ValueError(f"max_queue must be positive but got {max_queue}")
+        self._handler = handler
+        self.max_batch = int(max_batch)
+        self.max_delay_s = float(max_delay_ms) / 1000.0
+        self.max_queue = int(max_queue)
+        self._straggle_every = int(straggle_every)
+        self._straggle_s = float(straggle_ms) / 1000.0
+        self._span_emit = span_emit
+        self._batch_observer = batch_observer
+        self._name = name
+        self._q: collections.deque = collections.deque()
+        self._cv = make_condition("serve.batcher.cv")
+        self._stopping = False
+        self._thread: Optional[threading.Thread] = None
+        # counters (all mutated under _cv)
+        self._submitted = 0
+        self._refused = 0
+        self._completed = 0
+        self._errors = 0
+        self._batches = 0
+        self._batched_items = 0
+        # recent end-to-end latencies (seconds); deque append is atomic, so
+        # submitters record lock-free and stats() snapshots a copy
+        self._latencies: collections.deque = collections.deque(maxlen=4096)
+        # EWMA of the handler's per-batch wall time (seconds), updated by
+        # the worker after every dispatch — feeds the ServerOverloaded
+        # retry_after_s hint. None until the first batch completes.
+        self._batch_s_ewma: Optional[float] = None
+
+    # -- lifecycle ---------------------------------------------------------------------
+
+    def start(self) -> "BatchingScheduler":
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(
+            target=self._run, name=self._name, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> int:
+        """Drain-and-stop: requests already admitted are still served (the
+        worker keeps batching until the queue is empty), new submits are
+        refused. Returns the number of leaked threads (1 when the worker
+        misses the join bound) so close() paths can surface it in stats."""
+        with self._cv:
+            if self._stopping:
+                return 0
+            self._stopping = True
+            self._cv.notify_all()
+        leaked = 0
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=30)
+            if t.is_alive():
+                leaked = 1
+                logger.warning("batcher worker thread leaked (join timeout)")
+        return leaked
+
+    # -- client side -------------------------------------------------------------------
+
+    def submit_async(self, payload: Any,
+                     trace: Optional[dict] = None) -> _Ticket:
+        """Enqueue one request; returns the ticket to :meth:`wait` on.
+        Raises :class:`ServiceClosed` once ``stop()`` has been called (during
+        the drain AND after it) and :class:`ServerOverloaded` (with the
+        ``retry_after_s`` drain-time hint) when the bounded queue is full.
+        ``trace`` is the optional cross-process trace context the worker
+        turns into queue_wait/batch_service spans (constructor docstring)."""
+        with self._cv:
+            if self._stopping:
+                raise ServiceClosed(
+                    "scheduler is stopped — admitted requests drain, new "
+                    "submits are refused")
+            if len(self._q) >= self.max_queue:
+                self._refused += 1
+                raise ServerOverloaded(
+                    f"admission queue full ({self.max_queue} waiting)",
+                    retry_after_s=self._retry_after_locked())
+            t = _Ticket(payload, trace)
+            self._q.append(t)
+            self._submitted += 1
+            self._cv.notify_all()
+        return t
+
+    def wait(self, ticket: _Ticket, timeout: float = 60.0) -> Any:
+        """Block until the ticket's batch completed; re-raise its per-request
+        error in the caller's thread."""
+        if not ticket.done.wait(timeout):
+            raise TimeoutError(f"request not served within {timeout:g}s")
+        # under _cv like every other ring access: a lock-free append races
+        # stats()'s iteration — deque.append is atomic, but iterating a
+        # deque another thread appends to raises RuntimeError (graftlint R11
+        # holds every access to the same lock)
+        with self._cv:
+            self._latencies.append(time.monotonic() - ticket.enqueued)
+        if ticket.error is not None:
+            raise ticket.error
+        return ticket.result
+
+    def submit(self, payload: Any, timeout: float = 60.0) -> Any:
+        """Blocking submit: enqueue + wait (the one-call client surface)."""
+        return self.wait(self.submit_async(payload), timeout)
+
+    def _retry_after_locked(self) -> Optional[float]:
+        """The drain-time estimate behind ``retry_after_s`` (called under
+        ``_cv``): full batches queued ahead × the EWMA batch service time.
+        None before the first completed batch — an honest "no data yet"
+        beats a made-up constant."""
+        if self._batch_s_ewma is None:
+            return None
+        batches_ahead = -(-len(self._q) // self.max_batch)  # ceil
+        return round(max(1, batches_ahead) * self._batch_s_ewma, 4)
+
+    # -- worker side -------------------------------------------------------------------
+
+    def _collect(self) -> Optional[List[_Ticket]]:
+        """Pop one batch: block for the first request, then coalesce until
+        ``max_batch`` or ``max_delay_ms`` past the first arrival. None =
+        stopped and drained."""
+        with self._cv:
+            while not self._q and not self._stopping:
+                self._cv.wait()
+            if not self._q:
+                return None  # stopping, queue drained
+            batch = [self._q.popleft()]
+            deadline = batch[0].enqueued + self.max_delay_s
+            while len(batch) < self.max_batch:
+                if self._q:
+                    batch.append(self._q.popleft())
+                    continue
+                remaining = deadline - time.monotonic()
+                if remaining <= 0 or self._stopping:
+                    break
+                self._cv.wait(remaining)
+            return batch
+
+    def _run(self) -> None:
+        while True:
+            batch = self._collect()
+            if batch is None:
+                return
+            pop = time.monotonic()
+            if self._straggle_every:
+                with self._cv:
+                    nth = self._batches + 1
+                if nth % self._straggle_every == 0:
+                    time.sleep(self._straggle_s)  # injected straggler
+            t0 = time.monotonic()
+            try:
+                results = self._handler([t.payload for t in batch])
+                if len(results) != len(batch):
+                    raise RuntimeError(
+                        f"handler returned {len(results)} results for a "
+                        f"batch of {len(batch)}")
+            except Exception as e:  # noqa: BLE001 — delivered to each caller
+                with self._cv:
+                    self._note_batch_seconds(time.monotonic() - t0)
+                    self._batches += 1
+                    self._batched_items += len(batch)
+                    self._errors += len(batch)
+                for t in batch:
+                    t.error = e
+                    t.done.set()
+                self._after_batch(batch, pop, time.monotonic())
+                continue
+            n_err = 0
+            for t, r in zip(batch, results):
+                if isinstance(r, BaseException):
+                    t.error = r
+                    n_err += 1
+                else:
+                    t.result = r
+            with self._cv:
+                self._note_batch_seconds(time.monotonic() - t0)
+                self._batches += 1
+                self._batched_items += len(batch)
+                self._errors += n_err
+                self._completed += len(batch) - n_err
+            for t in batch:
+                t.done.set()
+            self._after_batch(batch, pop, time.monotonic())
+
+    def _after_batch(self, batch: List[_Ticket], pop_s: float,
+                     done_s: float) -> None:
+        """Post-batch observability (worker thread, AFTER the callers were
+        released — a slow sink must not sit inside any caller's latency):
+        the per-batch dispatch observer, then queue_wait/batch_service
+        spans for each TRACED ticket. Best-effort like every obs surface —
+        a hook failure must never kill the worker."""
+        if self._batch_observer is None and self._span_emit is None:
+            return
+        try:
+            if self._batch_observer is not None:
+                self._batch_observer(
+                    len(batch), done_s - pop_s,
+                    max(0.0, pop_s - batch[0].enqueued))
+            if self._span_emit is not None:
+                pop_ns = int(pop_s * 1e9)
+                dur_ns = int((done_s - pop_s) * 1e9)
+                for t in batch:
+                    if t.trace is None:
+                        continue
+                    enq_ns = int(t.enqueued * 1e9)
+                    self._span_emit(t.trace, "queue_wait", enq_ns,
+                                    max(0, pop_ns - enq_ns))
+                    self._span_emit(t.trace, "batch_service", pop_ns, dur_ns)
+        except Exception:  # noqa: BLE001 — observability is best-effort
+            logger.warning("batcher trace/observer hook failed",
+                           exc_info=True)
+
+    def _note_batch_seconds(self, dt: float) -> None:
+        """Fold one batch's handler wall time into the EWMA (under _cv).
+        alpha=0.2: ~10 batches of memory — reactive enough that a reload's
+        cold first dispatch doesn't poison the hint for long."""
+        self._batch_s_ewma = (dt if self._batch_s_ewma is None
+                              else 0.8 * self._batch_s_ewma + 0.2 * dt)
+
+    # -- observability -----------------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        """Gauge snapshot: counters, queue depth, mean batch occupancy, and
+        p50/p95/p99 end-to-end latency over the recent-latency ring."""
+        with self._cv:
+            snap = {
+                "submitted": self._submitted,
+                "refused": self._refused,
+                "completed": self._completed,
+                "errors": self._errors,
+                "batches": self._batches,
+                "queue_depth": len(self._q),
+                "max_batch": self.max_batch,
+                "max_queue": self.max_queue,
+                "occupancy_mean": (round(self._batched_items / self._batches, 3)
+                                   if self._batches else None),
+                "batch_service_s": (round(self._batch_s_ewma, 5)
+                                    if self._batch_s_ewma is not None
+                                    else None),
+            }
+            lats = list(self._latencies)  # snapshot under _cv; sort outside
+        lats.sort()
+        if lats:
+            def pct(p: float) -> float:
+                return round(
+                    lats[min(len(lats) - 1, int(p * len(lats)))] * 1000, 3)
+            snap["latency_ms"] = {"p50": pct(0.50), "p95": pct(0.95),
+                                  "p99": pct(0.99), "n": len(lats)}
+        return snap

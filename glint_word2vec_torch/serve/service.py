@@ -1,0 +1,611 @@
+"""The embedding service, ported from ``glint_word2vec_tpu/serve/service.py``: batching,
+the ANN index and hot reload behind one handle, around a model on the card.
+
+ONE object that
+- loads a checkpoint through the swap-window-safe loader
+  (:func:`.reload.load_with_retry`) onto ``device`` (the card unless the caller asks
+  for the CPU),
+- builds the IVF index at load and publish time (:mod:`.ann`, host numpy), keeping
+  the exact top-k on the card as the ground-truth arm,
+- coalesces concurrent queries into batched dispatches with bounded-queue
+  backpressure (:mod:`.batcher`),
+- hot-reloads on the trainer's publish signal with zero downtime (:mod:`.reload`:
+  in-flight batches finish on the old model, whose tensors are released when its last
+  lease ends),
+- and rides the obs layer: ``serve_*`` records in the telemetry sink, the flight
+  recorder, and ``glint_serve_*`` gauges on the status endpoint.
+
+The ``serve_*`` fields of :class:`~glint_word2vec_torch.config.Word2VecConfig` travel
+with the checkpoint and are the defaults; constructor arguments override them per
+process. The trainer never reads them.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+
+from glint_word2vec_torch.device import resolve_device
+from glint_word2vec_torch.serve.ann import build_ivf
+from glint_word2vec_torch.serve.batcher import BatchingScheduler
+from glint_word2vec_torch.serve.reload import (
+    CheckpointWatcher,
+    ServingHandle,
+    load_with_retry,
+    publish_signature,
+    publish_signature_str as _sig_str,
+)
+
+logger = logging.getLogger("glint_word2vec_torch")
+
+Query = Union[str, np.ndarray]
+
+
+def _knob(model, name: str, override):
+    """Constructor override, else the checkpoint config's serve_* field,
+    else the dataclass default (old checkpoints deserialize with defaults
+    filled in, so getattr always resolves)."""
+    if override is not None:
+        return override
+    return getattr(model.config, name)
+
+
+class EmbeddingService:
+    """Batched, ANN-indexed, hot-reloading synonym/vector service."""
+
+    def __init__(
+        self,
+        checkpoint: Optional[str] = None,
+        model=None,
+        plan=None,
+        ann: bool = True,
+        nprobe: Optional[int] = None,
+        ann_centroids: Optional[int] = None,
+        ann_seed: int = 0,
+        ann_quant: Optional[str] = None,
+        ann_pq_m: Optional[int] = None,
+        ann_rerank: Optional[int] = None,
+        ann_recall_floor: Optional[float] = None,
+        ann_max_densify_bytes: Optional[int] = None,
+        ann_from_shards: bool = False,
+        max_batch: Optional[int] = None,
+        max_delay_ms: Optional[float] = None,
+        queue_depth: Optional[int] = None,
+        watch: bool = False,
+        reload_poll_s: Optional[float] = None,
+        telemetry_path: str = "",
+        status_port: int = 0,
+        straggle_every: int = 0,
+        straggle_ms: float = 0.0,
+        ann_index=None,
+        process_name: str = "",
+        device="cuda",
+    ):
+        """``straggle_every``/``straggle_ms``: fault injection passed through
+        to the batcher (its docstring has the contract): a deterministic
+        tail-latency straggler for benches. Off by default.
+
+        ``ann_quant``/``ann_pq_m``/``ann_rerank``/``ann_recall_floor``:
+        the quantized-index family (docs/serving.md §6) — which storage
+        arm the build uses (``f32``/``int8``/``pq``), the PQ subspace
+        count, the exact-re-rank shortlist, and the recall-refusal floor.
+        None defers to the checkpoint's ``serve_ann_*`` knobs (the usual
+        resolution rule); every hot-reload rebuilds at the SAME resolved
+        arm and re-measures recall, and a reload whose rebuild lands
+        below floor is refused by the watcher's catch — the old model
+        keeps serving.
+
+        ``ann_max_densify_bytes``: refuse an in-memory index build whose
+        dense normalized copy would exceed this many bytes (0 =
+        unlimited) — the in-memory copy of ``model.syn0`` OOMs the
+        host long past the point the shard-native build
+        (``ann_from_shards=True``, serve/quant.py) handles fine.
+
+        ``ann_from_shards``: build the index straight from the
+        checkpoint's row-shards files (never materializing dense [V, D]
+        f32; quantized arms only). Requires ``checkpoint=`` with a
+        row-shards layout.
+
+        ``ann_index``: a prebuilt :class:`~.ann.IvfIndex` to serve instead
+        of building one at init (``ann=True`` only; ``attach_ann``'s
+        row-count refusal still guards it): servebench builds the
+        quantized indexes once and serves each through a service.
+        Checkpoint-watching services ignore it on reload — a reload always
+        rebuilds at the new matrix.
+
+        ``process_name``: the track label stamped on this service's clock
+        anchor, trace spans, and blackbox dump (default ``serve-<pid>``).
+
+        ``device``: where a checkpoint is loaded and the exact arm runs — the
+        card unless the caller asks for ``"cpu"``; never a silent fallback
+        (``Word2VecModel.load(..., device=)``). An in-memory ``model=``
+        serves on its own device."""
+        # pure argument validation FIRST — nothing acquired yet
+        if (checkpoint is None) == (model is None):
+            raise ValueError("pass exactly one of checkpoint= or model=")
+        device = resolve_device(device) if model is None else model.device
+        if watch and checkpoint is None:
+            raise ValueError("watch=True needs a checkpoint path to poll")
+        if ann_from_shards and checkpoint is None:
+            raise ValueError(
+                "ann_from_shards=True builds from the checkpoint's shard "
+                "files — it needs checkpoint=, not an in-memory model")
+        self._checkpoint = checkpoint
+        # a checkpoint-loaded model is ours to release on close; an
+        # in-memory model= stays the caller's (handle.detach on close)
+        self._owns_model = checkpoint is not None
+        self._plan = plan
+        self._device = device
+        self._ann_enabled = bool(ann)
+        self._ann_seed = int(ann_seed)
+        self._prebuilt_index = ann_index if ann else None
+        self._batcher = None
+        self._sink = None
+        self._statusd = None
+        self._watcher = None
+        self._handle = None
+        self._closed = False
+        self._leaked_threads = 0
+        self._blackbox = None
+        self._span_emitter = None
+        self._dispatch_count = 0
+        t0 = time.perf_counter()
+        # signature BEFORE the load: a publish landing during the slow
+        # load/index build below must still read as unserved afterwards
+        # (reload.publish_signature has the capture rule)
+        pre_sig = (publish_signature(checkpoint)
+                   if checkpoint is not None else None)
+        if model is None:
+            model = load_with_retry(checkpoint, plan=plan, device=device)
+        self._nprobe = (int(nprobe) if nprobe
+                        else _knob(model, "serve_ann_nprobe", None)) or None
+        self._ann_centroids = int(
+            _knob(model, "serve_ann_centroids", ann_centroids))
+        # quantized-index knobs (docs/serving.md §6): resolved ONCE here,
+        # then every reload rebuilds at the same arm — a V-grew publish
+        # must not silently change quantization
+        self._ann_quant = str(_knob(model, "serve_ann_quant", ann_quant))
+        self._ann_pq_m = int(_knob(model, "serve_ann_pq_m", ann_pq_m))
+        self._ann_rerank = int(_knob(model, "serve_ann_rerank", ann_rerank))
+        self._ann_recall_floor = float(
+            _knob(model, "serve_ann_recall_floor", ann_recall_floor))
+        self._ann_max_densify = int(
+            _knob(model, "serve_ann_max_densify_bytes",
+                  ann_max_densify_bytes))
+        self._ann_from_shards = bool(ann_from_shards)
+        try:
+            index = self._build_index(model)
+            self._handle = ServingHandle(model, index)
+            self._load_seconds = time.perf_counter() - t0
+            # the publish generation this service serves: the signature
+            # captured BEFORE the load that produced the live model
+            self._served_sig = _sig_str(pre_sig)
+            self.reloads = 0
+            # cross-publish vocab-change tracking (continual training grows
+            # V; docs/continual.md): count reloads that changed the size
+            self.vocab_change_reloads = 0
+            self._served_vocab_size = model.num_words
+            if telemetry_path:
+                # sink + trace emitter + flight recorder BEFORE the batcher:
+                # the worker thread's span/observer hooks must find them
+                # armed from the very first dispatched batch
+                from glint_word2vec_torch.obs.blackbox import FlightRecorder
+                from glint_word2vec_torch.obs.sink import TelemetrySink
+                from glint_word2vec_torch.obs.trace import (
+                    SpanEmitter, clock_anchor, service_process_name)
+                self.process_name = (process_name
+                                     or service_process_name("serve"))
+                self._sink = TelemetrySink(telemetry_path)
+                self._span_emitter = SpanEmitter(self._sink,
+                                                 self.process_name)
+                # the serving flight recorder: a dying service leaves
+                # `<telemetry>.blackbox.json` with a serve-scoped cause and
+                # the recent serve records
+                self._blackbox = FlightRecorder(
+                    f"{telemetry_path}.blackbox.json")
+                self._blackbox.begin_run(self.process_name)
+                self._emit("serve_start",
+                           checkpoint=checkpoint or "<in-memory>",
+                           vocab_size=model.num_words,
+                           vector_size=model.vector_size,
+                           **clock_anchor(), process=self.process_name,
+                           **({"publish_sig": self._served_sig}
+                              if self._served_sig else {}),
+                           **({"ann": index.stats} if index else {}))
+            self._batcher = BatchingScheduler(
+                self._dispatch,
+                max_batch=int(_knob(model, "serve_max_batch", max_batch)),
+                max_delay_ms=float(_knob(model, "serve_max_delay_ms",
+                                         max_delay_ms)),
+                max_queue=int(_knob(model, "serve_queue_depth", queue_depth)),
+                straggle_every=straggle_every, straggle_ms=straggle_ms,
+                span_emit=(self._batch_span if self._span_emitter is not None
+                           else None),
+                batch_observer=(self._note_batch
+                                if self._blackbox is not None else None),
+            ).start()
+            if status_port:
+                from glint_word2vec_torch.obs.statusd import (
+                    StatusServer, serve_prometheus_text)
+                self._statusd = StatusServer(
+                    status_port, self.status_snapshot,
+                    metrics_fn=serve_prometheus_text).start()
+            if watch:
+                self._watcher = CheckpointWatcher(
+                    checkpoint, self._on_publish,
+                    poll_s=float(_knob(model, "serve_reload_poll_s",
+                                       reload_poll_s)),
+                    loaded_signature=pre_sig).start()
+        except BaseException:
+            # a failed init must not leak the batcher thread, the bound
+            # status socket, the sink file, or the loaded model's buffers
+            # (the caller has no service reference to close())
+            if self._handle is None:
+                if self._owns_model:
+                    model.stop()
+            self.close()
+            raise
+
+    # -- obs plumbing ------------------------------------------------------------------
+
+    def _emit(self, kind: str, **fields) -> None:
+        """One serving telemetry record to the sink AND the flight
+        recorder's ring — the same single-owner rule as Trainer._emit, so
+        the blackbox dump's entries are byte-for-byte the records the JSONL
+        carries (obs/blackbox.py)."""
+        if self._sink is not None:
+            self._sink.emit(kind, **fields)
+        if self._blackbox is not None:
+            self._blackbox.observe(kind, fields)
+
+    def _batch_span(self, trace: dict, name: str, start_ns: int,
+                    dur_ns: int) -> None:
+        """The batcher's span hook: queue_wait/batch_service children of the
+        trace context the request carried across the wire."""
+        self._span_emitter.emit(trace["tid"], name, start_ns, dur_ns,
+                                parent=trace.get("ps"))
+
+    def _note_batch(self, batch_size: int, service_s: float,
+                    wait_s: float) -> None:
+        """The batcher's per-dispatch observer: feeds the flight recorder's
+        dispatch ring (the finest-grained trace of what the service was
+        doing right before death — the serving analog of the trainer's
+        per-dispatch records; worker thread only, so the counter is safe)."""
+        self._dispatch_count += 1
+        self._blackbox.note_dispatch(self._dispatch_count, batch_size,
+                                     service_s, wait_s)
+
+    def dump_blackbox(self, cause: Optional[dict] = None,
+                      include_stats: bool = True) -> Optional[str]:
+        """Write the serving flight-recorder dump (telemetry on only; None
+        otherwise/on failure). ``cause`` is a FlightRecorder cause record —
+        the serve_checkpoint.py SIGTERM handler and its fatal-exception
+        unwind both land here; first cause wins per process, and the dump
+        carries an at-death stats snapshot when the service can still take
+        one (best-effort: forensics must never mask the original failure).
+
+        ``include_stats=False`` is REQUIRED from a signal handler: the
+        stats snapshot acquires the batcher's non-reentrant condition lock,
+        which the interrupted main thread may be holding inside
+        submit_async — every lock on a handler's dump path must be
+        reentrant (the obs/blackbox.py rule), and that one is not. The
+        rings alone (fed lock-free relative to _cv) are the forensics."""
+        if self._blackbox is None:
+            return None
+        extra = {}
+        if include_stats:
+            try:
+                extra["serve"] = self.stats()
+            except Exception:  # noqa: BLE001 — a wedged service still dumps
+                pass
+        return self._blackbox.dump(cause=cause, extra=extra)
+
+    # -- index / reload ----------------------------------------------------------------
+
+    def _build_index(self, model):
+        if not self._ann_enabled:
+            return None
+        if self._prebuilt_index is not None:
+            # one-shot: only the INIT model may use it (attach_ann still
+            # hard-refuses a row-count mismatch); reloads rebuild fresh
+            index, self._prebuilt_index = self._prebuilt_index, None
+        elif self._ann_from_shards:
+            # shard-native build (serve/quant.py): streams the checkpoint's
+            # row-shards straight into quantized codes — never a dense
+            # [V, D] f32 copy, so it is also the V-grew hot-reload path at
+            # host-exceeding vocabularies (same quant arm every rebuild)
+            from glint_word2vec_torch.serve.quant import build_ivf_from_shards
+            index = build_ivf_from_shards(
+                self._checkpoint,
+                quant=self._ann_quant,
+                num_centroids=self._ann_centroids,
+                nprobe=self._nprobe or 0,
+                seed=self._ann_seed,
+                pq_m=self._ann_pq_m,
+                rerank=self._ann_rerank,
+                recall_floor=self._ann_recall_floor)
+        else:
+            # in-memory path: one host copy of the [V, D] f32 matrix
+            # (one .cpu() of the card's syn0, row order kept), guarded BEFORE
+            # the copy — the alternative is the host OOMing mid-build
+            would_be = int(model.num_words) * int(model.vector_size) * 4
+            if 0 < self._ann_max_densify < would_be:
+                raise RuntimeError(
+                    f"refusing in-memory ANN build: densifying the "
+                    f"[{model.num_words}, {model.vector_size}] matrix "
+                    f"needs {would_be} bytes of host RAM > "
+                    f"serve_ann_max_densify_bytes={self._ann_max_densify}"
+                    f" — migrate to the shard-native build "
+                    f"(ann_from_shards=True / serve.quant."
+                    f"build_ivf_from_shards, docs/serving.md §6) or "
+                    f"raise the knob explicitly")
+            index = build_ivf(model.syn0.cpu().numpy(),
+                              num_centroids=self._ann_centroids,
+                              nprobe=self._nprobe or 0,
+                              seed=self._ann_seed,
+                              quant=self._ann_quant,
+                              pq_m=self._ann_pq_m,
+                              rerank=self._ann_rerank,
+                              recall_floor=self._ann_recall_floor)
+        model.attach_ann(index)
+        return index
+
+    def _load_and_swap(self) -> Any:
+        """Load the newest checkpoint + build its index IN THE BACKGROUND
+        (the current model keeps serving), then atomically swap.
+
+        A vocab-size change across publishes (the continual-training loop
+        grows V, docs/continual.md) is detected and counted: the index is
+        rebuilt from scratch at the new V on every reload by construction
+        (never carried over — ``attach_ann`` additionally refuses a
+        row-count mismatch as the hard guard), and the count surfaces in
+        :meth:`stats`."""
+        t0 = time.perf_counter()
+        # signature BEFORE the load (publish_signature's capture rule): the
+        # generation this reload serves is at LEAST this one — a publish
+        # landing mid-load re-fires the watcher and bumps it again
+        pre_sig = publish_signature(self._checkpoint)
+        model = load_with_retry(self._checkpoint, plan=self._plan,
+                                device=self._device)
+        index = self._build_index(model)
+        prev_v = self._served_vocab_size
+        vocab_changed = prev_v is not None and model.num_words != prev_v
+        self._handle.swap(model, index)
+        self._served_sig = _sig_str(pre_sig)
+        self._served_vocab_size = model.num_words
+        if vocab_changed:
+            self.vocab_change_reloads += 1
+            logger.info(
+                "hot-reload: vocabulary changed %d -> %d words; ANN index "
+                "fully rebuilt at the new vocabulary", prev_v,
+                model.num_words)
+        self.reloads += 1
+        self._load_seconds = time.perf_counter() - t0
+        if self._sink is not None:
+            self._emit("serve_reload",
+                       vocab_size=model.num_words,
+                       reloads=self.reloads,
+                       load_seconds=round(self._load_seconds, 3),
+                       # the generation this reload installed: joins the
+                       # publisher's `publish` record
+                       **({"publish_sig": self._served_sig}
+                          if self._served_sig else {}),
+                       **({"vocab_grew_from": prev_v}
+                          if vocab_changed else {}),
+                       **({"ann": index.stats} if index else {}))
+        logger.info("hot-reload %d: %d words in %.2fs (in-flight batches "
+                    "finished on the old model)", self.reloads,
+                    model.num_words, self._load_seconds)
+        return model
+
+    def _on_publish(self) -> None:
+        self._load_and_swap()
+
+    def reload_now(self):
+        """Explicit synchronous reload (the CLI ``reload`` op). Returns the
+        new model."""
+        if self._checkpoint is None:
+            raise RuntimeError("in-memory service has no checkpoint to reload")
+        # signature before the load (reload.publish_signature's capture
+        # rule): a publish racing this reload stays visible to the watcher
+        pre_sig = publish_signature(self._checkpoint)
+        model = self._load_and_swap()
+        if self._watcher is not None:
+            self._watcher.mark_loaded(pre_sig)
+        return model
+
+    # -- the batched dispatch (runs on the batcher worker thread) ----------------------
+
+    def _dispatch(self, payloads: List[Tuple]) -> List[Any]:
+        """One coalesced batch under ONE lease: every request in the batch
+        is answered by the same model generation, and a swap landing
+        mid-batch waits for the lease to drain before the old buffers go.
+
+        A ``syn`` payload may carry a 4th element — the cross-process trace
+        context (obs/trace.py) — in which case the scan's wall time is
+        emitted as an ``ann_probe``/``exact_scan`` child span for each
+        traced request (siblings of the batcher's batch_service span under
+        the same wire parent; the duration is the BATCH's scan — per-query
+        attribution below one device dispatch does not exist by design)."""
+        with self._handle.lease() as (model, index):
+            results: List[Any] = [None] * len(payloads)
+            syn_pos: List[int] = []
+            syn_q: List[Query] = []
+            syn_num: List[int] = []
+            syn_trace: List[Optional[dict]] = []
+            for i, p in enumerate(payloads):
+                op = p[0]
+                if op == "syn":
+                    q, num = p[1], p[2]
+                    if isinstance(q, str) and model.vocab.get(q) < 0:
+                        # per-request failure: an OOV word fails ITS caller,
+                        # never the batch (the batcher re-raises it there)
+                        results[i] = KeyError(f"{q} not in vocabulary")
+                        continue
+                    syn_pos.append(i)
+                    syn_q.append(q)
+                    syn_num.append(int(num))
+                    syn_trace.append(p[3] if len(p) > 3 else None)
+                elif op == "vec":
+                    try:
+                        results[i] = model.transform(p[1])
+                    except KeyError as e:
+                        results[i] = e
+                else:
+                    results[i] = ValueError(f"unknown op {op!r}")
+            if syn_pos:
+                kmax = max(syn_num)
+                use_ann = self._ann_enabled and index is not None
+                traced = (self._span_emitter is not None
+                          and any(t is not None for t in syn_trace))
+                t0_ns = time.monotonic_ns() if traced else 0
+                try:
+                    rows = model.find_synonyms_batch(
+                        syn_q, kmax, ann=use_ann, nprobe=self._nprobe)
+                except Exception as e:  # noqa: BLE001 — delivered per caller
+                    for i in syn_pos:
+                        results[i] = e
+                else:
+                    for i, res, num in zip(syn_pos, rows, syn_num):
+                        results[i] = res[:num]
+                if traced:
+                    dur_ns = time.monotonic_ns() - t0_ns
+                    name = "ann_probe" if use_ann else "exact_scan"
+                    for tr in syn_trace:
+                        if tr is not None:
+                            self._span_emitter.emit(
+                                tr["tid"], name, t0_ns, dur_ns,
+                                parent=tr.get("ps"))
+            return results
+
+    # -- client surface ----------------------------------------------------------------
+
+    def synonyms(self, query: Query, num: int = 10,
+                 timeout: float = 60.0,
+                 trace: Optional[dict] = None) -> List[Tuple[str, float]]:
+        """``trace``: the cross-process trace context a caller bore at
+        submit (``{"tid", "ps"}``, obs/trace.py) — None (the default, and
+        the only value when telemetry is off) keeps the payload tuple and
+        the submit path byte-identical to the untraced protocol."""
+        return self._batcher.submit(
+            ("syn", query, num) if trace is None
+            else ("syn", query, num, trace), timeout)
+
+    def synonyms_batch(self, queries: Sequence[Query], num: int = 10,
+                       timeout: float = 60.0,
+                       trace: Optional[dict] = None
+                       ) -> List[List[Tuple[str, float]]]:
+        """Submit many queries at once — they coalesce into device-batch-
+        sized dispatches with any other in-flight traffic. A traced wire
+        batch attributes its spans to the FIRST query only (one
+        representative span set per wire request, not num_queries copies)."""
+        tickets = [self._batcher.submit_async(
+            ("syn", q, num) if (trace is None or i)
+            else ("syn", q, num, trace),
+            trace=trace if i == 0 else None)
+            for i, q in enumerate(queries)]
+        return [self._batcher.wait(t, timeout) for t in tickets]
+
+    def vector(self, word: str, timeout: float = 60.0) -> np.ndarray:
+        return self._batcher.submit(("vec", word), timeout)
+
+    # non-blocking surface (a router's hedging primitive: submit here, wait
+    # on the ticket's event, race another service): the returned ticket's
+    # ``done`` is a threading.Event; pass it to :meth:`wait_result`.
+    def synonyms_async(self, query: Query, num: int = 10,
+                       trace: Optional[dict] = None):
+        return self._batcher.submit_async(
+            ("syn", query, num) if trace is None
+            else ("syn", query, num, trace), trace=trace)
+
+    def wait_result(self, ticket, timeout: float = 60.0):
+        return self._batcher.wait(ticket, timeout)
+
+    # -- observability -----------------------------------------------------------------
+
+    def info(self) -> Dict[str, Any]:
+        with self._handle.lease() as (model, index):
+            return {
+                "num_words": model.num_words,
+                "vector_size": model.vector_size,
+                "iteration": (model.train_state.iteration
+                              if model.train_state else None),
+                "finished": (model.train_state.finished
+                             if model.train_state else None),
+                "ann": dict(index.stats) if index else None,
+                "reloads": self.reloads,
+                "device": str(model.device),
+            }
+
+    def stats(self) -> Dict[str, Any]:
+        snap = self._batcher.stats()
+        snap["reloads"] = self.reloads
+        snap["vocab_change_reloads"] = self.vocab_change_reloads
+        snap["models_released"] = self._handle.models_released
+        snap["load_seconds"] = round(self._load_seconds, 3)
+        snap["leaked_threads"] = self._leaked_threads
+        # the served publish generation (None for in-memory models), to
+        # compare with the on-disk signature
+        snap["publish_sig"] = self._served_sig
+        with self._handle.lease() as (model, index):
+            snap["vocab_size"] = model.num_words
+            snap["device"] = str(model.device)
+            if index is not None:
+                snap["ann"] = dict(index.stats)
+        return snap
+
+    def status_snapshot(self) -> Dict[str, Any]:
+        snap = self.stats()
+        snap["status"] = "closed" if self._closed else "serving"
+        return snap
+
+    def emit_stats(self) -> None:
+        """Write one ``serve_stats`` telemetry record (periodic callers own
+        the cadence; the service never spawns a timer thread for it)."""
+        if self._sink is None:
+            return
+        s = self.stats()
+        self._emit(
+            "serve_stats",
+            submitted=s["submitted"], refused=s["refused"],
+            batches=s["batches"], queue_depth=s["queue_depth"],
+            reloads=s["reloads"],
+            **{k: s[k] for k in ("latency_ms", "occupancy_mean", "ann")
+               if s.get(k) is not None})
+
+    def close(self) -> int:
+        """Drain the batcher, stop the watcher/statusd, release the model,
+        close the sink. Idempotent, and safe on a partially-initialized
+        service (the failed-__init__ cleanup path calls this). Returns the
+        number of owned threads that missed their join bound (also
+        surfaced as ``leaked_threads`` in :meth:`stats`)."""
+        if self._closed:
+            return self._leaked_threads
+        self._closed = True
+        if self._watcher is not None:
+            self._leaked_threads += self._watcher.stop()
+        if self._batcher is not None:
+            self._leaked_threads += self._batcher.stop()
+        if self._statusd is not None:
+            self._leaked_threads += self._statusd.stop()
+        if self._sink is not None:
+            if self._batcher is not None:
+                s = self._batcher.stats()
+                self._emit("serve_end", submitted=s["submitted"],
+                           refused=s["refused"], reloads=self.reloads)
+            self._sink.close()
+        if self._handle is not None:
+            if self._owns_model:
+                self._handle.stop()
+            else:
+                self._handle.detach()
+        return self._leaked_threads
+
+    def __enter__(self) -> "EmbeddingService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -16,8 +16,9 @@ or, in the JAX package's row-shards layout (written by its multi-device runs),
 ``.npy`` matrices, padded as they were sharded, the real sizes in ``metadata.json``.
 
 Saves are atomic (staged in a sibling temp directory, then swapped in); readers verify
-the digests. The port writes the dense layout and reads both, onto one device: the
-row-shards writer belongs to the multi-device work (ROADMAP queue A9). File writes,
+the digests. The port writes the dense layout and reads both, onto one device; its
+row-shards save (``save_row_shards``) is one writer of syn0 alone, and the
+multi-process writer belongs to the multi-device work (ROADMAP queue A9). File writes,
 digest checks and shard reads fan out over ``io_workers`` threads; the bytes written
 and the arrays read are the same at any worker count.
 """
@@ -280,6 +281,34 @@ class ShardedMatrixReader:
             if sel.any():
                 out[sel] = self._undo_void(m[ids[sel] - s])
         return out
+
+
+def save_row_shards(path: str, words: List[str], counts: np.ndarray,
+                    syn0: np.ndarray, config: Word2VecConfig,
+                    rows_per_shard: int) -> None:
+    """A one-writer row-shards checkpoint of ``syn0`` at ``path`` (no syn1): the layout
+    the JAX package's ``save_model_sharded`` writes and :class:`ShardedMatrixReader`
+    reads, files ``syn0.shards/rows-<start>-<stop>.npy`` beside ``words``,
+    ``counts.npy`` and a ``metadata.json`` with their digests. ``path`` must not exist;
+    the save is not staged. The multi-process writer (its barriers and crash points)
+    is ROADMAP queue A9."""
+    os.makedirs(os.path.join(path, "syn0.shards"))
+    digests = {"words": _save_words_hashed(os.path.join(path, "words"), words),
+               "counts.npy": _save_npy_hashed(os.path.join(path, "counts.npy"),
+                                              np.asarray(counts, np.int64))}
+    V, D = syn0.shape
+    for lo in range(0, V, rows_per_shard):
+        hi = min(lo + rows_per_shard, V)
+        rel = f"syn0.shards/rows-{lo:010d}-{hi:010d}.npy"
+        digests[rel] = _save_npy_hashed(os.path.join(path, rel),
+                                        np.ascontiguousarray(syn0[lo:hi], np.float32))
+    meta = {"format_version": 2, "framework": FRAMEWORK, "layout": "row-shards",
+            "vocab_size": V, "vector_size": D, "padded_vocab": V, "padded_dim": D,
+            "config": config.to_dict(auto_markers=False),
+            "train_state": TrainState(finished=True).to_dict(),
+            "digests": digests}
+    with open(os.path.join(path, "metadata.json"), "w", encoding="utf-8") as f:
+        json.dump(meta, f, indent=2)
 
 
 def _verify_digests(path: str, meta: Dict[str, Any], workers: int = 1) -> None:

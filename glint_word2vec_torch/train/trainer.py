@@ -1796,3 +1796,7 @@ class Trainer:
                    self.config, self.state)
         logger.info("checkpoint saved to %s at step %d", path, self.global_step)
         self._last_save_step = int(self.global_step)
+        if self._telemetry is not None or self._blackbox is not None:
+            # the publish record: joins a save to the reloads it caused
+            from glint_word2vec_torch.obs.trace import emit_publish
+            emit_publish(self._emit, path, self.global_step)

@@ -202,7 +202,8 @@ def test_plan_and_ann_are_refused(tmp_path):
         TModel.load(str(tmp_path / "ck"), plan=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="A9"):
         TModel.load_latest(str(tmp_path), plan=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    # ann=True is ported: without an attached index it is refused as in the JAX package
+    with pytest.raises(RuntimeError, match="no index attached"):
         t.find_synonyms_batch(["w1"], 3, ann=True)
     from glint_word2vec_torch import Word2Vec
     with pytest.raises(NotImplementedError, match="A9"):

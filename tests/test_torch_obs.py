@@ -289,7 +289,8 @@ def _init(V):
 
 def test_telemetry_fit_is_observe_only_and_matches_jax(tmp_path):
     """The run log validates under both validators with run_start (clock anchor),
-    heartbeats (norms, recoveries, lr_scale, phases) and run_end (spans); the trace
+    heartbeats (norms, recoveries, lr_scale, phases), one publish record per checkpoint
+    save and run_end (spans); the trace
     loads with the trainer's spans; a clean run leaves no blackbox dump; parameters
     are bit-identical to the plain fit's; the heartbeats' norms are the JAX trainer's
     on the same toy."""
@@ -306,9 +307,12 @@ def test_telemetry_fit_is_observe_only_and_matches_jax(tmp_path):
     for schema in (tschema, jschema):
         summary = schema.validate_file(log)
         assert summary["ok"], summary["errors"]
-    assert summary["kinds"] == {"run_start": 1, "heartbeat": len(on.heartbeats),
-                                "run_end": 1}
     recs = [json.loads(line) for line in open(log)]
+    # every checkpoint save writes its publish record (the serving tier's join key)
+    saves = recs[-1]["spans"]["checkpoint_save"]["count"]
+    assert saves > 0
+    assert summary["kinds"] == {"run_start": 1, "heartbeat": len(on.heartbeats),
+                                "publish": saves, "run_end": 1}
     assert {"wall_ns", "mono_ns"} <= recs[0].keys() and recs[0]["mesh"] == [1, 1]
     hbs = [r for r in recs if r["kind"] == "heartbeat"]
     assert all({"norms", "recoveries", "lr_scale", "phases"} <= h.keys() for h in hbs)
