@@ -172,6 +172,26 @@ Phases, one line each (or a few); any failure exits non-zero:
                (d) python -m glint_word2vec_torch.serve_checkpoint ck --ann as a child
                process on the card: synonyms and synonyms_batch equal to (b)'s lists,
                an out-of-vocabulary word's error_type, reload, stats, info, exit 0.
+ 12. quality  training from a token file, held to a quality number: (a) the port's
+               generate_corpus at EVAL.md's scale (17,000,000 words, 90,000 raw types,
+               seed 42) into a temporary directory, its seconds and SHA-256; (b) python
+               -m glint_word2vec_torch.eval_quality on it in a child process on the card
+               with the JAX tool's defaults (d=100, 3 iterations, B=65536, P=512, f32,
+               lr 0.025, subsample 1e-4, min_count 5, 32 steps a dispatch) and
+               --idle-share: not diverged, purity@10 >= 0.95, cosine margin >= 0.30, the
+               fused kernel launched on every step (K a replay and K a capture's
+               warm-up) and the scatter kernel never; its analogy accuracies printed,
+               held to nothing; (c) the same corpus, config and seed through python -m
+               glint_word2vec_torch.train_run --cmd <a worker this script writes>
+               --status-port --telemetry, the first attempt SIGTERM'd by the fault plan
+               at half of (b)'s steps under checkpoint_on_preempt: verdict ok in 2
+               attempts (preempt, then ok), the preempt record saved with at most one
+               chunk since the last save, the final checkpoint finished at (b)'s step,
+               glint_supervisor_* on /metrics, both run logs valid, and its purity@10
+               (the port's scorers) within 0.02 of (b)'s; (d) one fused step at (b)'s
+               shape (V of its vocabulary, D=100 padded to 128, B=65536, P=512, Zipf 1.1
+               duplicates) against its plain version with phase 3's limits, timed per
+               call and on the device beside its bound.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -383,17 +403,14 @@ def heavy_draw(gen, mask, torch):
     return syn0, syn1, c, x, mask, neg
 
 
-def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    syn0 = torch.zeros((V, D), device="cuda")
-    syn1 = torch.zeros((V, D), device="cuda")
-    syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
-    syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
-    c, x, mask, neg = shared_batch(gen, torch)
-    # the plain step takes the Python float, the kernel the trainer's form of it
+def hold_kernel(syn0, syn1, c, x, mask, neg, torch, sgns, fused, label: str) -> float:
+    """One fused step through the kernel (alpha in the trainer's form: a one-element
+    float32 tensor on the card, read at run time) and through the plain version (the
+    Python float), in both sigmoid modes, on copies of ``syn0``/``syn1``: parameters
+    within PARAM_ATOL, the loss within LOSS_RTOL. Returns the largest difference."""
     alpha = 0.025
     alpha_t = fused.alpha_on_card(alpha, "cuda")
-    worst = {"max_abs_err": 0.0}
+    worst = 0.0
     for mode in ("exact", "clipped"):
         want, wm = sgns.sgns_step_shared_core(
             sgns.EmbeddingPair(syn0, syn1), c, x, mask, neg, alpha, N_NEG, mode)
@@ -408,20 +425,36 @@ def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
         rel1 = err1 / max(float(want.syn1.abs().max()), 1e-30)
         loss_rel = abs(float(gm.loss) - float(wm.loss)) / abs(float(wm.loss))
         fpos_err = abs(float(gm.mean_f_pos) - float(wm.mean_f_pos))
-        log("kernel", f"sigmoid={mode}: max_abs_err syn0={err0:.3e} syn1={err1:.3e} "
-            f"max_rel_err syn0={rel0:.3e} syn1={rel1:.3e} loss={float(gm.loss):.6f} "
-            f"plain_loss={float(wm.loss):.6f} loss_rel_err={loss_rel:.3e} "
-            f"mean_f_pos_err={fpos_err:.3e} (largest update {moved:.3e})")
+        log("kernel", f"{label}, sigmoid={mode}: max_abs_err syn0={err0:.3e} "
+            f"syn1={err1:.3e} max_rel_err syn0={rel0:.3e} syn1={rel1:.3e} "
+            f"loss={float(gm.loss):.6f} plain_loss={float(wm.loss):.6f} "
+            f"loss_rel_err={loss_rel:.3e} mean_f_pos_err={fpos_err:.3e} (largest update "
+            f"{moved:.3e})")
         bad = [name for name, ok in (
             ("syn0", err0 <= PARAM_ATOL), ("syn1", err1 <= PARAM_ATOL),
             ("loss", loss_rel <= LOSS_RTOL), ("moved", moved > 1e-3),
             ("finite", math.isfinite(float(gm.loss)))) if not ok]
         if bad:
-            raise AssertionError(f"kernel disagrees with the plain version ({mode}): "
-                                 f"{bad}; tolerance atol {PARAM_ATOL}, loss rtol "
-                                 f"{LOSS_RTOL}")
-        worst["max_abs_err"] = max(worst["max_abs_err"], err0, err1)
+            raise AssertionError(f"kernel disagrees with the plain version ({label}, "
+                                 f"{mode}): {bad}; tolerance atol {PARAM_ATOL}, loss "
+                                 f"rtol {LOSS_RTOL}")
+        worst = max(worst, err0, err1)
         del want, got0, got1
+    return worst
+
+
+def kernel_phase(seed: int, torch, sgns, fused, profile_call) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    syn0 = torch.zeros((V, D), device="cuda")
+    syn1 = torch.zeros((V, D), device="cuda")
+    syn0[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    syn1[:, :D_REAL] = torch.randn((V, D_REAL), generator=gen, device="cuda") * 0.35
+    c, x, mask, neg = shared_batch(gen, torch)
+    # the plain step takes the Python float, the kernel the trainer's form of it
+    alpha = 0.025
+    alpha_t = fused.alpha_on_card(alpha, "cuda")
+    worst = {"max_abs_err": hold_kernel(syn0, syn1, c, x, mask, neg, torch, sgns, fused,
+                                        "main shape")}
     hot = f64_case(f"hot row (centers on row {HOT_CENTER}, pool on row {HOT_POOL})",
                    syn0, syn1, torch.where(mask > 0, HOT_CENTER, 0).to(torch.int64), x,
                    mask, torch.full((P,), HOT_POOL, dtype=torch.int64, device="cuda"),
@@ -2141,9 +2174,9 @@ RELOAD_LIMIT_S = 5.0
 # on the same rows: they differ only where the card's and the host's exact top-10 break
 # a near-tie differently
 SERVE_OVERLAP_TOL = 0.01
-# the second fit's io_workers: threads hashing and reading its V=1M checkpoint (2.4 GB
-# of syn0 and syn1) at the reload, through the saved config; on one the reload's load
-# took 5.0 s, at the limit
+# the second fit's io_workers: threads reading and hashing its V=1M checkpoint (2.4 GB
+# of syn0 and syn1, one matrix a thread, each streamed to the card as it is hashed) at
+# the reload, through the saved config
 SERVE_IO_WORKERS = 4
 # servebench's matrix: V=1M fails PQ's 0.95 recall floor (0.38 at 512 clusters of
 # ~2,000 rows, wider than the re-rank shortlist) and its builds take ~70 s
@@ -2510,6 +2543,321 @@ def serving_phase(ck: str, corpus, seed: int, torch, np, fused, scat,
     return rec, launches
 
 
+# the quality phase (12): EVAL.md's scale (17M words, 90,000 raw types, seed 42) through
+# the port's quality harness with the JAX tool's defaults (d=100, 3 iterations, B=65536,
+# P=512, f32, lr 0.025, subsample 1e-4, min_count 5, window 5, 5 negatives, 32 steps a
+# dispatch); its floors (chance: 0.008 and 0.0, EVAL.md; every stable f32 row at P=512
+# and >= 2M words in EVAL_RUNS.jsonl has purity >= 0.99 and margin >= 0.54); the
+# supervised twin's purity within the hot-row A/B's tolerance of the uninterrupted fit's
+# (the card's float atomics make the two runs differ in their last bits)
+Q_WORDS, Q_VRAW, Q_SEED, Q_DIM, Q_B, Q_P = 17_000_000, 90_000, 42, 100, 65536, 512
+Q_PURITY, Q_MARGIN, Q_PARITY = 0.95, 0.30, 0.02
+Q_CKPT_CHUNKS = 4  # the supervised worker's checkpoint cadence, in dispatch chunks
+Q_TIMEOUT_S = 600  # each child: the harness, the supervisor
+
+QUALITY_WORKER = """
+import json, os, sys, time
+repo, corpus, out, words, workdir, every, device = sys.argv[1:8]
+sys.path.insert(0, repo)
+from glint_word2vec_torch import Word2Vec
+from glint_word2vec_torch import eval_quality as eq
+from glint_word2vec_torch.data.corpus import TokenFileCorpus
+from glint_word2vec_torch.train.checkpoint import load_latest_valid
+t0 = time.perf_counter()
+_, args = eq.parse_args(["--out", out, "--words", words])
+cache = eq.encode_dir(out, args.words, args.vocab, args.min_count)
+ckdir = os.path.join(workdir, "ckpt")
+sents = TokenFileCorpus(corpus)
+try:
+    ck = load_latest_valid(ckdir)
+except FileNotFoundError:
+    ck = None
+if ck is None:
+    est = Word2Vec(device=device, telemetry_path=os.path.join(workdir, "run.jsonl"),
+                   checkpoint_on_preempt=True, **eq.arm_config(args))
+    est.fit(sents, checkpoint_path=os.path.join(ckdir, "model"),
+            checkpoint_every_steps=int(every), encode_cache_dir=cache)
+    stats = {"attempt": "fresh", **est.timings}
+else:
+    # the scripted preemption is the first attempt's; a resume reads the encode cache
+    os.environ.pop("GLINT_FAULT_CRASH_AT_STEP", None)
+    Word2Vec.resume(ck, sents, checkpoint_every_steps=int(every), encode_cache_dir=cache,
+                    device=device)
+    stats = {"attempt": "resume", "from": ck}
+print("[worker] " + json.dumps({**stats, "wall_s": time.perf_counter() - t0}),
+      file=sys.stderr, flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _poll_metrics(port: int, stop, seen: list) -> None:
+    """Scrape /metrics until ``stop``; keeps each answer's glint_supervisor_* lines."""
+    import urllib.request
+
+    while not stop.is_set():
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                        timeout=5) as r:
+                seen.append([line for line in r.read().decode().splitlines()
+                             if line.startswith("glint_supervisor_")])
+        except OSError:
+            pass
+        stop.wait(0.2)
+
+
+def quality_kernel_case(seed: int, vocab_size: int, torch, sgns, fused,
+                        profile_call) -> dict:
+    """Phase 12 (d): one step of the fused kernel at the quality fit's shape (the
+    trainer's [V padded to 8, D=100 padded to 128] parameters, B=65536, P=512, f32, Zipf
+    1.1 duplicates, a masked tail), in both sigmoid modes, against its plain version
+    with phase 3's limits; timed per call (events) and on the device (the profiler),
+    beside its bound at the real width."""
+    from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
+
+    Vp, Dp = pad_vocab_for_sharding(vocab_size), pad_dim_to_lanes(Q_DIM)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    syn0 = torch.zeros((Vp, Dp), device="cuda")
+    syn1 = torch.zeros((Vp, Dp), device="cuda")
+    syn0[:vocab_size, :Q_DIM] = torch.randn((vocab_size, Q_DIM), generator=gen,
+                                            device="cuda") * 0.35
+    syn1[:vocab_size, :Q_DIM] = torch.randn((vocab_size, Q_DIM), generator=gen,
+                                            device="cuda") * 0.35
+    c, x = (zipf_ids(gen, Q_B, vocab_size, 1.1, torch) for _ in range(2))
+    neg = zipf_ids(gen, Q_P, vocab_size, 1.1, torch)
+    neg[:16] = x[:16]
+    mask = torch.ones(Q_B, device="cuda")
+    mask[-MASKED_TAIL:] = 0.0
+    c[-MASKED_TAIL:] = 0
+    x[-MASKED_TAIL:] = 0
+    err = hold_kernel(syn0, syn1, c, x, mask, neg, torch, sgns, fused,
+                      f"quality shape B={Q_B} P={Q_P} D={Q_DIM} (padded {Dp}) V={vocab_size}")
+    params = sgns.EmbeddingPair(syn0, syn1)
+    alpha_t = fused.alpha_on_card(0.025, "cuda")
+
+    def step():
+        fused.fused_sgns_shared_step(params, c, x, mask, neg, alpha_t, N_NEG, "exact")
+
+    call_ms = time_steps(step, TIMED_STEPS, torch)
+    plain_ms = time_steps(lambda: sgns.sgns_step_shared_core(
+        params, c, x, mask, neg, 0.025, N_NEG, "exact"), TIMED_STEPS, torch)
+    warm = per_launch_us(step, profile_call)
+    ours = ("gather_kernel", "fneg_kernel", "update_kernel", "dz_scatter_kernel")
+    if any(k not in warm for k in ours):
+        raise AssertionError(f"the profile shows no launch of {ours}: {warm}")
+    device_ms = sum(warm[k] for k in ours) / 1e3
+    bound = step_bound(c, x, neg, mask, Q_DIM, torch)
+    hottest = int(torch.bincount(c[mask > 0]).max())
+    log("quality", f"(d) kernel at B={Q_B} P={Q_P} D={Q_DIM} (padded {Dp}) V={vocab_size}"
+        f" (the hottest center row takes {hottest} updates): max_abs_err {err:.3e} "
+        f"(limit {PARAM_ATOL}); one wrapper call {call_ms:.4f} ms (events, median of "
+        f"{TIMED_STEPS}), on the device {device_ms:.4f} ms ("
+        + ", ".join(f"{k} {warm[k]:.2f} us" for k in ours) + f"); plain {plain_ms:.4f} "
+        f"ms; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, fp32 at the real "
+        f"width: {bound['flops'] / 1e9:.3f} GFLOP, {bound['bytes'] / 1e6:.1f} MB), "
+        f"bound_tc {bound['bound_tc_ms']:.4f} ms ({bound['bound_tc_by']}, 3xTF32)")
+    return {"max_abs_err": err, "ms": call_ms, "device_ms": device_ms,
+            "plain_ms": plain_ms, "per_launch_us": {k: warm[k] for k in ours},
+            "hottest_row_updates": hottest, "vocab_size": vocab_size,
+            "padded": [Vp, Dp], **{k: bound[k] for k in ("bound_ms", "bound_by",
+                                                         "bound_tc_ms", "bound_tc_by",
+                                                         "flops", "bytes")}}
+
+
+def quality_phase(seed: int, torch, np, sgns, fused, profile_call,
+                  device: str = "cuda") -> tuple:
+    """Phase 12: (a) the corpus at EVAL.md's scale from the port's generator; (b) the
+    port's quality harness on it in a child process on the card, held to the floors with
+    the fused kernel launched on every step; (c) the same fit under the supervisor
+    (train_run), preempted by a scripted SIGTERM at half its steps and resumed, held to
+    (b)'s final step and purity; (d) the fused kernel at (b)'s shape. Returns (record,
+    (b)'s launches). ``device="cpu"`` rehearses (a) to (c) on the CPU (at a smaller
+    Q_WORDS), without the card's checks (graphs, launches, idle share) and (d)."""
+    import shlex
+    import threading
+
+    from glint_word2vec_torch import eval_quality as eq
+    from glint_word2vec_torch.obs.schema import validate_file
+    from glint_word2vec_torch.train.checkpoint import (
+        load_latest_valid, load_model, verify_checkpoint)
+
+    repo = str(Path(__file__).resolve().parent)
+    env = {**os.environ, "PYTHONPATH": repo}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-quality-")
+    try:
+        out = os.path.join(tmp, "eval")
+        os.makedirs(out)
+        corpus = eq.corpus_file(out, Q_WORDS, Q_VRAW, Q_SEED)
+        t0 = time.perf_counter()
+        eq.generate_corpus(corpus, Q_WORDS, Q_SEED, Q_VRAW)
+        gen_s = time.perf_counter() - t0
+        sha = hashlib.sha256()
+        with open(corpus, "rb") as f:
+            for block in iter(lambda: f.read(1 << 24), b""):
+                sha.update(block)
+        rec = {"corpus": {"words": Q_WORDS, "v_raw": Q_VRAW, "seed": Q_SEED,
+                          "bytes": os.path.getsize(corpus), "sha256": sha.hexdigest(),
+                          "generate_s": gen_s}}
+        log("quality", f"(a) corpus: {Q_WORDS} words over {Q_VRAW} raw types, seed "
+            f"{Q_SEED}: {rec['corpus']['bytes']} bytes in {gen_s:.1f} s, sha256 "
+            f"{rec['corpus']['sha256']}")
+
+        # (b) the uninterrupted fit, through the CLI a user runs
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "harness.err"), "w") as err:
+            r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.eval_quality",
+                                "--out", out, "--words", str(Q_WORDS), "--vocab",
+                                str(Q_VRAW), "--seed", str(Q_SEED), "--runs-out",
+                                os.path.join(tmp, "rows.jsonl"), "--device", device]
+                               + (["--idle-share"] if device == "cuda" else []),
+                               env=env, cwd=repo, stdout=subprocess.PIPE, stderr=err,
+                               text=True, timeout=Q_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        tail = open(os.path.join(tmp, "harness.err")).read()[-3000:]
+        lines = r.stdout.strip().splitlines()
+        if r.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"quality (b): the harness exited {r.returncode} with "
+                                 f"{len(lines)} stdout lines: {r.stdout[-1000:]} {tail}")
+        row = json.loads(lines[0])
+        run = row.get("run", {})
+        K = run.get("steps_per_dispatch", 0)
+        launches = run.get("launches", {})
+        ran = K * (run.get("graph_replays", 0) + run.get("graph_captures", 0))
+        checks = {"not diverged": "diverged" not in row,
+                  f"purity@10 >= {Q_PURITY}": row.get("purity_at_10", 0) >= Q_PURITY,
+                  f"margin >= {Q_MARGIN}": row.get("cosine_margin", 0) >= Q_MARGIN,
+                  f"on {device}": row.get("device", "").startswith(device)}
+        if device == "cuda":
+            checks.update({
+                "one replay a chunk": run.get("graph_replays") == run.get("chunks", -1) > 0,
+                "every chunk's steps ran": run.get("chunks", 0) * K >= run.get("steps", 1),
+                "fused kernel on every step": launches.get("sgns_shared_step") == ran > 0,
+                "no scatter launch": launches.get("scatter_add_rows") == 0})
+        rec["fit"] = {"wall_s": wall, "row": row, "checks": checks}
+        analogies = {k: row[k] for k in row if k.startswith("analogy_")}
+        log("quality", f"(b) eval_quality on {device} in {wall:.1f} s: vocabulary "
+            f"{row.get('vocab_size')}, purity@10 {row.get('purity_at_10')} (random "
+            f"{row.get('purity_at_10_random_baseline')}), margin {row.get('cosine_margin')}"
+            f" (random {row.get('cosine_margin_random_baseline')}); analogies {analogies}"
+            f"; ann recall@10 {row.get('ann_recall_at_10')}; steps {run.get('steps')} in "
+            f"{run.get('chunks')} chunks ({run.get('graph_captures')} captures, "
+            f"{run.get('graph_replays')} replays), launches {launches}; vocab "
+            f"{run.get('vocab_s', 0):.2f} s, encode {run.get('encode_s', 0):.2f} s, "
+            f"trainer setup {run.get('setup_s', 0):.2f} s, Trainer.fit "
+            f"{run.get('fit_s', 0):.2f} s (host_wait_s {run.get('host_wait_s', 0):.3f}, "
+            f"dispatch_s {run.get('dispatch_s', 0):.3f}, prologue_s "
+            f"{run.get('prologue_s', 0):.3f}), idle share "
+            f"{run.get('device_idle_share', float('nan')):.1%} (kernels "
+            f"{run.get('kernel_busy_s', float('nan')):.3f} s), scoring "
+            f"{run.get('score_s', 0):.1f} s; checks {checks}")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"quality (b) failed: {bad}; stderr: {tail}")
+
+        # (c) the same fit under the supervisor, preempted at half its steps
+        steps = run["steps"]
+        workdir = os.path.join(tmp, "sup")
+        ckdir = os.path.join(workdir, "ckpt")
+        os.makedirs(workdir)
+        worker = os.path.join(tmp, "worker.py")
+        Path(worker).write_text(QUALITY_WORKER)
+        port = _free_port()
+        every = Q_CKPT_CHUNKS * K
+        sup_log, run_log = os.path.join(workdir, "sup.jsonl"), os.path.join(workdir,
+                                                                           "run.jsonl")
+        cmd = [sys.executable, "-m", "glint_word2vec_torch.train_run",
+               "--cmd", shlex.join([sys.executable, worker, repo, corpus, out,
+                                    str(Q_WORDS), workdir, str(every), device]),
+               "--log", run_log, "--checkpoint-dir", ckdir, "--telemetry", sup_log,
+               "--status-port", str(port), "--workdir", workdir, "--max-restarts", "2"]
+        stop, scraped = threading.Event(), []
+        poller = threading.Thread(target=_poll_metrics, args=(port, stop, scraped),
+                                  daemon=True)
+        poller.start()
+        t0 = time.perf_counter()
+        try:
+            with open(os.path.join(tmp, "sup.err"), "w") as err:
+                r = subprocess.run(cmd, env={**env,
+                                             "GLINT_FAULT_CRASH_AT_STEP": str(steps // 2),
+                                             "GLINT_FAULT_CRASH_SIGNAL": "TERM"},
+                                   cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True,
+                                   timeout=Q_TIMEOUT_S)
+        finally:
+            stop.set()
+            poller.join(timeout=10)
+        sup_wall = time.perf_counter() - t0
+        tail = open(os.path.join(tmp, "sup.err")).read()
+        workers = [json.loads(line[len("[worker] "):]) for line in tail.splitlines()
+                   if line.startswith("[worker] {")]
+        lines = r.stdout.strip().splitlines()
+        verdict = json.loads(lines[0]) if len(lines) == 1 else {}
+        recs = [json.loads(line) for line in open(run_log)] if os.path.exists(
+            run_log) else []
+        pre = [x for x in recs if x["kind"] == "preempt"]
+        ends = [x for x in recs if x["kind"] == "run_end"]
+        ck = load_latest_valid(ckdir, reclaim=False)
+        verify_checkpoint(ck)
+        data = load_model(ck, verify=False)
+        state = data["train_state"]
+        t0 = time.perf_counter()
+        scored = eq.evaluate(data["words"], data["syn0"].astype(np.float32),
+                             device=device)
+        score_s = time.perf_counter() - t0
+        metrics = [m for m in scraped if m]
+        checks = {"one stdout line": len(lines) == 1,
+                  "verdict ok": verdict.get("status") == "ok" and r.returncode == 0,
+                  "2 attempts": verdict.get("attempts") == 2,
+                  "first attempt preempt": [h["cls"] for h in verdict.get("history", [])]
+                  == ["preempt", "ok"],
+                  "preempt saved": len(pre) == 1 and pre[0]["saved"],
+                  f"steps_since_save <= {K}": bool(pre) and pre[0]["steps_since_save"] <= K,
+                  "run_end preempted then ok": [x["status"] for x in ends]
+                  == ["preempted", "ok"],
+                  "final checkpoint finished": state.finished,
+                  "final step == (b)'s": state.global_step == steps,
+                  "/metrics glint_supervisor_*": any(
+                      any(m.startswith("glint_supervisor_attempts_total") for m in s)
+                      for s in metrics),
+                  "supervisor log validates": validate_file(sup_log)["ok"],
+                  "worker log validates": validate_file(run_log)["ok"],
+                  f"purity within {Q_PARITY} of (b)'s": abs(
+                      scored.get("purity_at_10", -1) - row["purity_at_10"]) <= Q_PARITY}
+        rec["supervised"] = {
+            "wall_s": sup_wall, "verdict": verdict, "preempt": pre[0] if pre else None,
+            "crash_at_step": steps // 2, "checkpoint_every_steps": every,
+            "final_step": state.global_step, "workers": workers,
+            "metrics_scrapes": len(metrics), "last_metrics": metrics[-1] if metrics else [],
+            "score_s": score_s,
+            **{k: scored.get(k) for k in ("purity_at_10", "cosine_margin",
+                                          "analogy_accuracy_at_1")},
+            "checks": checks}
+        log("quality", f"(c) train_run --cmd <worker> on {device} in {sup_wall:.1f} s: "
+            f"verdict {verdict.get('status')} after {verdict.get('attempts')} attempts "
+            f"{[h['cls'] for h in verdict.get('history', [])]}; SIGTERM scripted at step "
+            f"{steps // 2}, preempt record {pre[0] if pre else None}; final step "
+            f"{state.global_step} (b: {steps}), finished {state.finished}; workers "
+            f"{workers}; {len(metrics)} /metrics scrapes, the last {metrics[-1:]}; "
+            f"purity@10 {scored.get('purity_at_10')} (b: {row['purity_at_10']}), margin "
+            f"{scored.get('cosine_margin')}, analogy "
+            f"{scored.get('analogy_accuracy_at_1')} (scored in {score_s:.1f} s); "
+            f"checks {checks}")
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"quality (c) failed: {bad}; stdout {r.stdout[-1000:]}; "
+                                 f"stderr {tail[-3000:]}")
+        if device == "cuda":
+            rec["kernel"] = quality_kernel_case(seed, row["vocab_size"], torch, sgns,
+                                                fused, profile_call)
+        return rec, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2592,6 +2940,17 @@ def main() -> int:
             serve_ck, corpus, args.seed, torch, np, fused, scat)
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    quality, launches["quality"] = quality_phase(args.seed, torch, np, sgns, fused,
+                                                 profile_call)
+    q_fit, q_sup = quality["fit"]["row"], quality["supervised"]
+    log("quality", f"phase 12 in {time.perf_counter() - t0:.1f} s: purity@10 "
+        f"{q_fit['purity_at_10']} (floor {Q_PURITY}), margin {q_fit['cosine_margin']} "
+        f"(floor {Q_MARGIN}), analogy@1 {q_fit.get('analogy_accuracy_at_1')}; supervised "
+        f"{q_sup['verdict']['history']} to step {q_sup['final_step']}, purity@10 "
+        f"{q_sup['purity_at_10']}; kernel at the fit's shape {quality['kernel']['ms']:.4f}"
+        f" ms a call, {quality['kernel']['device_ms']:.4f} ms on the device, bound "
+        f"{quality['kernel']['bound_ms']:.4f} ms")
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -2603,13 +2962,14 @@ def main() -> int:
         "name": "sgns_shared_step", "route": "cuda", "source": fused.KERNEL_SOURCE,
         "replaces": fused.REPLACES, "launches": sum(by_path["sgns_shared_step"].values()),
         "launches_by_path": by_path["sgns_shared_step"],
-        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "max_abs_err": max(rec["max_abs_err"], quality["kernel"]["max_abs_err"]),
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         "bound_tc_ms": rec["bound_tc_ms"], "bound_tc_by": rec["bound_tc_by"],
         "device_ms": rec["device_ms"], "l2_cold_ms": rec["l2_cold_ms"],
         "per_launch_us": rec["per_launch_us"],
         "hot_row_max_abs_err": rec["hot_row_max_abs_err"],
-        "heavy_draw": rec["heavy_draw"]}, {
+        "heavy_draw": rec["heavy_draw"], "quality_shape": quality["kernel"]}, {
         "name": "scatter_add_rows", "route": "cuda", "source": scat.KERNEL_SOURCE,
         "replaces": scat.REPLACES, "launches": sum(by_path["scatter_add_rows"].values()),
         "launches_by_path": by_path["scatter_add_rows"],
@@ -2649,6 +3009,7 @@ def main() -> int:
                                               "banded": brec, "stabilizers": stab_rec,
                                               "runtime": runtime,
                                               "serving": serving,
+                                              "quality": quality,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,
                                               "card": card}) + "\n")

@@ -141,8 +141,8 @@ class Word2VecConfig:
     status_port: int = 0
     blackbox_ring: int = 256
 
-    # --- preemption and supervisor (supervisor_* are read by the supervisor
-    # process only, which is not ported; peer_beacon_s waits for multi-process fits) ---
+    # --- preemption and supervisor (supervisor_* are the defaults of
+    # train_run's flags, read by no fit; peer_beacon_s waits for multi-process fits) ---
     checkpoint_on_preempt: bool = False
     preempt_deadline_s: float = 30.0
     peer_beacon_s: float = 0.0
@@ -567,6 +567,17 @@ def _validate_runtime(c: Word2VecConfig) -> None:
     if c.peer_beacon_s < 0:
         raise ValueError(
             f"peer_beacon_s must be nonnegative (0 = off) but got {c.peer_beacon_s}")
+    if c.supervisor_stall_s <= 0:
+        raise ValueError(
+            f"supervisor_stall_s must be positive but got {c.supervisor_stall_s}")
+    if c.supervisor_max_restarts < 0:
+        raise ValueError(
+            f"supervisor_max_restarts must be nonnegative "
+            f"but got {c.supervisor_max_restarts}")
+    if c.supervisor_loop_window < 2:
+        # 1 would class every second failure as a deterministic loop
+        raise ValueError(
+            f"supervisor_loop_window must be >= 2 but got {c.supervisor_loop_window}")
 
 
 def _validate_serving(c: Word2VecConfig) -> None:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 from typing import Iterable, Optional, Sequence
 
 from glint_word2vec_torch.config import Word2VecConfig
@@ -43,6 +44,7 @@ class Word2Vec:
         self.config = config
         self.trainer: Optional[Trainer] = None
         self.last_run_stats: Optional[dict] = None  # Trainer.last_run_stats of the fit
+        self.timings: Optional[dict] = None  # the last fit's seconds by stage
 
     def fit(
         self,
@@ -62,23 +64,32 @@ class Word2Vec:
         ``device_pairgen=True`` the trainer feeds token blocks and the device expands
         them into pairs. ``plan`` (a multi-device mesh) is refused: the port trains on
         one device. The runtime outcome (watchdog firings, rollbacks, recoveries, the
-        final lr scale and engaged stabilizers) is ``self.last_run_stats``."""
+        final lr scale and engaged stabilizers) is ``self.last_run_stats``; the seconds of
+        its stages (``vocab_s``: the counting pass, or 0 with ``vocab``; ``encode_s``;
+        ``setup_s``: the trainer's construction; ``train_s``: its fit) are
+        ``self.timings``."""
         refuse_plan(plan)
         cfg = self.config
+        t0 = time.perf_counter()
         if iter(sentences) is sentences:
             sentences = list(sentences)
         if vocab is None:
             vocab = build_vocab(sentences, cfg.min_count, workers=cfg.io_workers)
         logger.info("vocabSize = %d, trainWordsCount = %d",
                     vocab.size, vocab.train_words_count)
+        t1 = time.perf_counter()
         if encode_cache_dir is not None:
             encoded = encode_corpus(sentences, vocab, encode_cache_dir,
                                     cfg.max_sentence_length)
         else:
             encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
+        t2 = time.perf_counter()
         self.trainer = Trainer(cfg, vocab, device=self.device)
+        t3 = time.perf_counter()
         self.trainer.fit(encoded, checkpoint_path=checkpoint_path,
                          checkpoint_every_steps=checkpoint_every_steps)
+        self.timings = {"vocab_s": t1 - t0, "encode_s": t2 - t1, "setup_s": t3 - t2,
+                        "train_s": time.perf_counter() - t3}
         self.last_run_stats = self.trainer.last_run_stats
         params = self.trainer.unpadded_params()
         return Word2VecModel(vocab=vocab, syn0=params.syn0, syn1=params.syn1,

@@ -19,6 +19,7 @@ row index first. Word queries exclude the query word itself; vector queries do n
 from __future__ import annotations
 
 import io
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -369,9 +370,15 @@ class Word2VecModel:
         yet; they do not affect the model ops."""
         refuse_plan(plan)
         device = resolve_device(device)
-        data = ckpt.load_model(path, verify=verify, check_ported=False,
-                               io_workers=io_workers)
-        vocab = Vocabulary.from_words_and_counts(data["words"], data["counts"])
+        header = ckpt.load_model_header(path, check_ported=False)
+        # the vocabulary's index (Python, ~0.3 s at 1M words) builds while the
+        # matrices are read and hashed (hashlib lets go of the GIL)
+        with ThreadPoolExecutor(1) as pool:
+            vocab = pool.submit(Vocabulary.from_words_and_counts, header["words"],
+                                header["counts"])
+            data = ckpt.load_model(path, header=header, verify=verify,
+                                   io_workers=io_workers, device=device)
+            vocab = vocab.result()
         return cls(vocab=vocab, syn0=data["syn0"], syn1=data["syn1"],
                    config=data["config"], train_state=data["train_state"],
                    device=device)

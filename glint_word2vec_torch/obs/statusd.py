@@ -1,12 +1,14 @@
 """Live run inspection, ported from ``glint_word2vec_tpu/obs/statusd.py``: a
-read-only HTTP status endpoint for one trainer or one embedding service.
+read-only HTTP status endpoint for one trainer, one embedding service or one training
+supervisor.
 
 ``config.status_port > 0`` starts this server for the duration of a fit. Routes (GET
 only):
 
 - ``/`` or ``/status.json``: the gauge snapshot as JSON (``Trainer.status_snapshot()``);
 - ``/metrics``: its scalar gauges in the Prometheus text format (the JAX package's
-  ``glint_*`` names for a trainer, ``glint_serve_*`` for a service);
+  ``glint_*`` names for a trainer, ``glint_serve_*`` for a service,
+  ``glint_supervisor_*`` for a supervisor);
 - ``/healthz``: ``200 ok``.
 
 One ``HTTPServer`` on one daemon thread, bound to 127.0.0.1. The snapshot callable
@@ -88,6 +90,20 @@ def serve_prometheus_text(snap: dict) -> str:
             _gauge(lines, f"glint_serve_ann_{field}", ann[field])
     if "index_bytes" in ann:
         _gauge(lines, "glint_serve_index_bytes", ann["index_bytes"])
+    return "\n".join(lines) + "\n"
+
+
+def supervisor_prometheus_text(snap: dict) -> str:
+    """A supervisor snapshot (``train.supervisor.TrainingSupervisor.status_snapshot``)
+    in the Prometheus text format: the JAX package's ``glint_supervisor_*`` names
+    (restart, stall and preempt counters, the escalation ladder's stage, the
+    quarantine latch, the gang's last observed step and live children)."""
+    lines: list = []
+    _gauge(lines, "glint_supervisor_up", snap.get("up"))
+    for field in ("attempts", "restarts", "stalls", "preempts"):
+        _gauge(lines, f"glint_supervisor_{field}_total", snap.get(field))
+    for field in ("ladder_stage", "quarantined", "last_step", "child_up"):
+        _gauge(lines, f"glint_supervisor_{field}", snap.get(field))
     return "\n".join(lines) + "\n"
 
 

@@ -31,7 +31,7 @@ import json
 import logging
 import os
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +62,83 @@ def _sha256_file(path: str) -> str:
         for block in iter(lambda: f.read(1 << 20), b""):
             h.update(block)
     return h.hexdigest()
+
+
+_READ_BLOCK = 64 << 20  # bytes read and hashed at a time (hashlib drops the GIL)
+_NPY_HEADERS = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}
+
+
+def _read_npy_hashed(path: str, device: Optional[torch.device] = None
+                     ) -> Tuple[Optional[Any], str]:
+    """Read a ``.npy`` file in one pass: its array and the SHA-256 of all its bytes.
+    What is hashed is what is returned, and each byte is read once. On a CUDA
+    ``device`` a float32 C-order payload goes block by block through two pinned
+    staging buffers into a tensor there, with no host array (on an H100's host,
+    faulting in a fresh 1.2 GB array costs ~0.5 s, half a SHA-256 pass). The array
+    is None for a file this reader does not parse (an object array, a truncated or
+    foreign file): the caller compares the digest and lets ``np.load`` judge it."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        try:
+            shape, fortran, dtype = _NPY_HEADERS[np.lib.format.read_magic(f)](f)
+        except (KeyError, ValueError):
+            return None, _sha256_file(path)
+        if dtype.hasobject:
+            return None, _sha256_file(path)
+        head = f.tell()
+        f.seek(0)
+        h.update(f.read(head))
+        count = int(np.prod(shape))
+        if (device is not None and device.type == "cuda" and not fortran
+                and dtype == np.dtype(np.float32)):
+            out, got = _stream_to_card(f, h, count * 4, device)
+            out = out.view(torch.float32).view(shape)
+        else:
+            out = np.empty(count, dtype)
+            buf = memoryview(out).cast("B")
+            got = 0
+            while got < len(buf):
+                n = f.readinto(buf[got:got + _READ_BLOCK])
+                if not n:
+                    break
+                h.update(buf[got:got + n])
+                got += n
+            out = out.reshape(shape, order="F" if fortran else "C")
+        extra = 0
+        for block in iter(lambda: f.read(1 << 20), b""):  # bytes past the payload
+            h.update(block)
+            extra += len(block)
+    whole = got == count * dtype.itemsize and not extra
+    return (out if whole else None), h.hexdigest()
+
+
+def _stream_to_card(f, h, nbytes: int, device: torch.device) -> Tuple[torch.Tensor, int]:
+    """Read ``nbytes`` of ``f`` into a uint8 tensor on ``device``, hashing each block
+    into ``h``: a block is read into one pinned buffer and hashed while the other's
+    copy runs on a side stream. Returns the tensor and the bytes read."""
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    stage = [torch.empty(min(_READ_BLOCK, nbytes), dtype=torch.uint8, pin_memory=True)
+             for _ in range(2 if nbytes > _READ_BLOCK else 1)]
+    copied: List[Optional[torch.cuda.Event]] = [None] * len(stage)
+    stream = torch.cuda.Stream(device)
+    got = k = 0
+    with torch.cuda.stream(stream):
+        while got < nbytes:
+            if copied[k] is not None:
+                copied[k].synchronize()  # this buffer's last copy has left it
+            view = memoryview(stage[k].numpy())[:min(_READ_BLOCK, nbytes - got)]
+            n = f.readinto(view)
+            if not n:
+                break
+            h.update(view[:n])
+            dst[got:got + n].copy_(stage[k][:n], non_blocking=True)
+            copied[k] = torch.cuda.Event()
+            copied[k].record(stream)
+            got += n
+            k = (k + 1) % len(stage)
+    stream.synchronize()
+    return dst, got
 
 
 class _HashingWriter:
@@ -315,19 +392,29 @@ def _verify_digests(path: str, meta: Dict[str, Any], workers: int = 1) -> None:
     """Check every recorded SHA-256 digest against the bytes on disk (checkpoints
     without a digest map pass vacuously); ``workers`` hashes files concurrently, and
     failures are reported in sorted-name order either way."""
+    items = _digest_items(path, meta)
+    got_all = _run_io([lambda rel=rel: _sha256_file(os.path.join(
+        path, rel.replace("/", os.sep))) for rel, _ in items], workers)
+    _check_digests(path, items, dict(zip((rel for rel, _ in items), got_all)))
+
+
+def _digest_items(path: str, meta: Dict[str, Any]) -> List[tuple]:
+    """The digest map's (name, digest) pairs in sorted-name order, every file present."""
     items = sorted((meta.get("digests") or {}).items())
     for rel, _ in items:
         if not os.path.exists(os.path.join(path, rel.replace("/", os.sep))):
             raise CheckpointCorruptError(
                 f"checkpoint {path!r}: {rel!r} is recorded in the digest map but "
                 f"missing on disk — torn or partially deleted checkpoint")
-    got_all = _run_io([lambda rel=rel: _sha256_file(os.path.join(
-        path, rel.replace("/", os.sep))) for rel, _ in items], workers)
-    for (rel, want), got in zip(items, got_all):
-        if got != want:
+    return items
+
+
+def _check_digests(path: str, items: List[tuple], got: Dict[str, str]) -> None:
+    for rel, want in items:
+        if got[rel] != want:
             raise CheckpointCorruptError(
-                f"checkpoint {path!r}: {rel!r} content digest {got[:12]}… does not "
-                f"match the recorded {want[:12]}… — corrupt; refusing to load it")
+                f"checkpoint {path!r}: {rel!r} content digest {got[rel][:12]}… does "
+                f"not match the recorded {want[:12]}… — corrupt; refusing to load it")
 
 
 def verify_checkpoint(path: str, io_workers: int = 1) -> Dict[str, Any]:
@@ -440,7 +527,7 @@ def load_model_header(path: str, check_ported: bool = True) -> Dict[str, Any]:
     if version not in _READABLE_VERSIONS:
         raise ValueError(f"unsupported checkpoint format_version {version}")
     with open(os.path.join(path, "words"), "r", encoding="utf-8") as f:
-        words = [line.rstrip("\n") for line in f if line.rstrip("\n")]
+        words = [w for w in f.read().split("\n") if w]
     counts = np.load(os.path.join(path, "counts.npy"))
     declared = meta.get("vocab_size")
     if declared is not None and declared != len(words):
@@ -461,19 +548,33 @@ def load_model_header(path: str, check_ported: bool = True) -> Dict[str, Any]:
 
 def load_model(path: str, header: Optional[Dict[str, Any]] = None,
                verify: bool = True, check_ported: bool = True,
-               io_workers: Optional[int] = None) -> Dict[str, Any]:
-    """Read a checkpoint of either layout into host arrays: words, counts, syn0,
-    syn1 (None if not saved), config, train_state. A row-shards checkpoint is sliced
-    to its real (vocab_size, vector_size). ``verify`` checks the SHA-256 digests
-    first. ``io_workers`` (default: the saved config's) fans the digest hashing, the
-    matrix loads and the shard copies over threads."""
+               io_workers: Optional[int] = None,
+               device: Optional[torch.device] = None) -> Dict[str, Any]:
+    """Read a checkpoint of either layout: words, counts, syn0, syn1 (None if not
+    saved), config, train_state. A row-shards checkpoint is sliced to its real
+    (vocab_size, vector_size). ``verify`` checks the SHA-256 digests; a dense matrix is
+    hashed as it is read, so each of its bytes is read once. ``io_workers`` (default:
+    the saved config's) fans the hashing, the matrix reads and the shard copies over
+    threads. The matrices are host arrays, or float32 tensors on ``device`` if one is
+    given (a dense float32 matrix streams there as it is read and hashed)."""
     if header is None:
         header = load_model_header(path, check_ported=check_ported)
     if io_workers is None:
         io_workers = header["config"].io_workers
+
+    def place(a):
+        if device is None or isinstance(a, torch.Tensor):
+            return a
+        return torch.from_numpy(np.asarray(a)).to(device, torch.float32)
+
+    items: List[tuple] = []
     if verify:
         with open(os.path.join(path, "metadata.json"), "r", encoding="utf-8") as f:
-            _verify_digests(path, json.load(f), workers=io_workers)
+            meta = json.load(f)
+        if header["layout"] == "row-shards":
+            _verify_digests(path, meta, workers=io_workers)
+        else:
+            items = _digest_items(path, meta)
     if header["layout"] == "row-shards":
         V, Dr = header["vocab_size"], header["vector_size"]
         per = max(1, io_workers // 2)  # each matrix fans its own shard copies
@@ -485,12 +586,30 @@ def load_model(path: str, header: Optional[Dict[str, Any]] = None,
             return ShardedMatrixReader(d).read(0, V, workers=per)[:, :Dr]
 
         syn0, syn1 = _run_io([lambda: read("syn0"), lambda: read("syn1")], io_workers)
+        syn0 = place(syn0)
+        syn1 = place(syn1) if syn1 is not None else None
     else:
-        syn1_path = os.path.join(path, "syn1.npy")
-        syn0, syn1 = _run_io(
-            [lambda: np.load(os.path.join(path, "syn0.npy")),
-             lambda: np.load(syn1_path) if os.path.exists(syn1_path) else None],
-            io_workers)
+        want = dict(items)
+        mats = [rel for rel in ("syn0.npy", "syn1.npy")
+                if rel == "syn0.npy" or os.path.exists(os.path.join(path, rel))]
+
+        def read_dense(rel: str) -> tuple:  # (matrix or None, digest or None)
+            p = os.path.join(path, rel)
+            if rel not in mats:
+                return None, _sha256_file(p)
+            if not verify:
+                return place(np.load(p)), None
+            arr, got = _read_npy_hashed(p, device)
+            if want.get(rel, got) != got:
+                return None, got  # refused below, in sorted-name order
+            return place(np.load(p) if arr is None else arr), got
+
+        order = mats + sorted(rel for rel in want if rel not in mats)
+        out = dict(zip(order, _run_io([lambda rel=rel: read_dense(rel) for rel in order],
+                                      io_workers)))
+        _check_digests(path, items, {rel: got for rel, (_, got) in out.items()})
+        syn0 = out["syn0.npy"][0]
+        syn1 = out["syn1.npy"][0] if "syn1.npy" in out else None
     if syn0.shape[0] != len(header["words"]):
         raise ValueError(f"words sidecar has {len(header['words'])} entries but syn0 "
                          f"has {syn0.shape[0]} rows")

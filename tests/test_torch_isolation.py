@@ -1,6 +1,6 @@
-"""The port stands alone: it imports neither jax, the JAX package nor ml_dtypes, its
-entry points run on the card unless told otherwise (and never fall back silently), and
-knobs it has not implemented are refused by name."""
+"""The port stands alone: it imports neither jax, the JAX package, ml_dtypes nor the
+repo's ``tools/``, its entry points run on the card unless told otherwise (and never fall
+back silently), and knobs it has not implemented are refused by name."""
 
 import ast
 import os
@@ -17,8 +17,9 @@ from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.train.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
-# the card's machine has no ml_dtypes: bf16 crosses as float32 (exact), cast by torch
-FORBIDDEN = ("jax", "jaxlib", "glint_word2vec_tpu", "ml_dtypes")
+# the card's machine has no ml_dtypes: bf16 crosses as float32 (exact), cast by torch;
+# the repo's tools/ import the JAX package (the port keeps its own copies)
+FORBIDDEN = ("jax", "jaxlib", "glint_word2vec_tpu", "ml_dtypes", "tools")
 
 
 def _port_files():
@@ -40,7 +41,9 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.obs.blackbox, glint_word2vec_torch.obs.statusd, "
             "glint_word2vec_torch.obs.trace, glint_word2vec_torch.lockcheck, "
             "glint_word2vec_torch.serve, glint_word2vec_torch.serve_checkpoint, "
-            "glint_word2vec_torch.servebench\n"
+            "glint_word2vec_torch.servebench, glint_word2vec_torch.train, "
+            "glint_word2vec_torch.train.supervisor, glint_word2vec_torch.train_run, "
+            "glint_word2vec_torch.eval_quality\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"

@@ -59,6 +59,46 @@ def test_round_trip_with_digests(tmp_path):
         TModel.load(path, device="cpu")
 
 
+def _tear(path, how):
+    """Damage ``path`` the way a torn publish or a bad disk would."""
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        if how == "truncated":
+            f.truncate(size - 7)
+        elif how == "trailing":
+            f.seek(0, os.SEEK_END)
+            f.write(b"\0" * 4)
+        elif how == "flipped_across_blocks":
+            f.seek(1000)  # the first block's end with a 1,000-byte block
+            b = f.read(2)
+            f.seek(1000)
+            f.write(bytes([b[0] ^ 1, b[1] ^ 1]))
+        else:  # header: the .npy magic itself
+            f.seek(0)
+            f.write(b"X")
+
+
+@pytest.mark.parametrize("how", ["truncated", "trailing", "flipped_across_blocks",
+                                 "header"])
+def test_one_pass_load_refuses_what_the_jax_loader_refuses(tmp_path, monkeypatch, how):
+    """The load hashes each matrix as it reads it, in blocks: a small block size reads
+    the same arrays, and every damaged file is refused by digest, as the JAX package's
+    hash-then-load refuses it."""
+    monkeypatch.setattr(tck, "_READ_BLOCK", 1000)
+    words, counts, syn0, syn1 = _model_data()
+    t, _ = _pair(words, counts, syn0, syn1)
+    path = str(tmp_path / "ck")
+    t.save(path)
+    back = TModel.load(path, device="cpu")
+    np.testing.assert_array_equal(back.syn0.numpy(), syn0)
+    np.testing.assert_array_equal(back.syn1.numpy(), syn1)
+    _tear(os.path.join(path, "syn1.npy"), how)
+    with pytest.raises(tck.CheckpointCorruptError, match="syn1.npy"):
+        TModel.load(path, device="cpu")
+    with pytest.raises(ValueError, match="syn1.npy"):
+        JModel.load(path)
+
+
 def test_checkpoints_cross_load(tmp_path):
     words, counts, syn0, syn1 = _model_data()
     t, j = _pair(words, counts, syn0, syn1)

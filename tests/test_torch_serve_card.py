@@ -59,6 +59,30 @@ def _agree(got, want):
 
 
 @pytest.mark.cuda
+def test_checkpoint_streams_to_the_card(cuda, tmp_path, monkeypatch):
+    """A dense load onto the card streams each matrix through the pinned staging
+    buffers as it hashes it: the same rows as the host load, at a block size that
+    leaves a short last block, and a damaged matrix is refused by digest."""
+    from glint_word2vec_torch.train import checkpoint as ckpt
+    monkeypatch.setattr(ckpt, "_READ_BLOCK", 4096)
+    v, d = 3001, 37
+    m = _matrix(v, d, 2)
+    Word2VecModel(_vocab(v), m, m[::-1].copy(), device="cpu").save(str(tmp_path / "ck"))
+    host = Word2VecModel.load(str(tmp_path / "ck"), device="cpu")
+    card = Word2VecModel.load(str(tmp_path / "ck"))
+    assert card.syn0.device.type == "cuda" and card.syn0.dtype == torch.float32
+    assert torch.equal(card.syn0.cpu(), host.syn0)
+    assert torch.equal(card.syn1.cpu(), host.syn1)
+    with open(tmp_path / "ck" / "syn0.npy", "r+b") as f:
+        f.seek(4096 + 3)
+        b = f.read(1)
+        f.seek(4096 + 3)
+        f.write(bytes([b[0] ^ 1]))
+    with pytest.raises(ckpt.CheckpointCorruptError, match="syn0.npy"):
+        Word2VecModel.load(str(tmp_path / "ck"))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ann", [False, True], ids=["exact", "ann"])
 def test_service_on_the_card_agrees_with_the_cpu(cuda, ann):
     v, d = 20000, 64
