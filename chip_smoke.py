@@ -192,6 +192,31 @@ Phases, one line each (or a few); any failure exits non-zero:
                shape (V of its vocabulary, D=100 padded to 128, B=65536, P=512, Zipf 1.1
                duplicates) against its plain version with phase 3's limits, timed per
                call and on the device beside its bound.
+ 13. fleet    the serving fleet, the chaos drill and the transfer audit, run after
+               phase 11 on its checkpoint (V=1,000,000, d=300, the refit's save): (a)
+               fleet_run.run_smoke with 3 replica processes on the card serving it
+               under 8 client threads, every served list equal to the served model's
+               find_synonyms (ids, scores within 1e-6, ties as in phase 11): a SIGKILL
+               mid-storm opens the victim's breaker, no client query fails, the replica
+               restarts and its breaker closes from half-open; 3 publishes (saves of
+               the model) roll through the replicas one at a time, each reload to a
+               drained replica, capacity never below 2; a SIGTERM leaves a valid
+               flight-recorder dump; the SLO within budget; the collector merges every
+               artifact. Printed: the replicas' start-up seconds, queries and
+               failures, the breaker's transitions, each rolling round's seconds, the
+               card's memory (nvidia-smi) before, at peak and after close. (b) python
+               -m glint_word2vec_torch.chaos_run --smoke --device cuda over its ported
+               phases but fleet-kill (13a), train-preempt (12c), nan-rollback (10b),
+               norm-recover (10c) and blackbox (10d), each named with the phase that
+               covers it: every phase run passes. (c) python -m
+               glint_word2vec_torch.stepaudit --device cuda at V=1,000,000, d=300,
+               B=8192, K=16 (its default geometry there) over every single-device
+               variant and the recovery: no undeclared host read or transfer (nor a
+               sync-debug witness), no declared site doing more than it declares
+               (every staging copy pinned and non-blocking), the parameters in place
+               (peak memory over the start below one matrix), no float64 or dense
+               float32 [V, D] upcast, the expected graph captures, with the declared
+               syncs per chunk printed. (b) and (c) run side by side.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -2858,6 +2883,186 @@ def quality_phase(seed: int, torch, np, sgns, fused, profile_call,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the fleet phase (13): the drill's replicas, clients and query words; the chaos phases
+# another phase of this smoke already runs on the card at a larger size (left out of
+# 13b, each beside the phase that covers it)
+FLEET_REPLICAS = 3
+FLEET_CLIENTS = 8
+FLEET_WORDS = 64
+CHAOS_COVERED = {"fleet-kill": "13a", "train-preempt": "12c", "nan-rollback": "10b",
+                 "norm-recover": "10c", "blackbox": "10d"}
+
+
+def card_memory_mib():
+    """The card's used memory (MiB) as nvidia-smi reports it, or None."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=30, check=True).stdout
+        return int(out.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError):
+        return None
+
+
+def _module_child(args, log_path: str):
+    """Start ``python -m glint_word2vec_torch.<args>`` with its stderr in
+    ``log_path``; returns (process, its stderr file)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH"))
+        if p))
+    err = open(log_path, "w")
+    return subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
+                            stderr=err, text=True, env=env), err
+
+
+def _child_result(proc, err, limit_s: float, what: str) -> dict:
+    """Wait for a child started by :func:`_module_child` and parse its one JSON line."""
+    try:
+        out, _ = proc.communicate(timeout=limit_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what} did not finish within {limit_s:.0f} s")
+    finally:
+        err.close()
+    lines = out.strip().splitlines()
+    if not lines:
+        raise AssertionError(f"{what} exited {proc.returncode} with no result "
+                             f"(stderr: {Path(err.name).read_text()[-1500:]})")
+    return {"rc": proc.returncode, **json.loads(lines[-1])}
+
+
+def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
+                chaos_sentences: int = 0) -> dict:
+    """Phase 13 (see the module docstring): (a) the fleet-kill drill with replica
+    processes serving ``ck`` on ``device``, each served list held to the served
+    model's ``find_synonyms``; (b) the chaos drill and (c) the transfer-contract audit
+    as child processes on ``device``, run side by side after (a). Returns the record."""
+    import threading
+
+    from glint_word2vec_torch import Word2VecModel
+    from glint_word2vec_torch.fleet_run import run_smoke
+    from glint_word2vec_torch.obs.sink import TelemetrySink
+    from glint_word2vec_torch.obs.trace import emit_publish
+
+    vocab, _ = corpus
+    card = device == "cuda"
+    rec = {"card": card_line() if card else "cpu"}
+    work = Path(ck).parent / "fleet"
+    work.mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed + 13)
+    words = [vocab.words[i] for i in rng.choice(vocab.size, FLEET_WORDS, replace=False)]
+
+    # (a) the fleet drill at full width
+    t0 = time.perf_counter()
+    model = Word2VecModel.load(ck, device=device)
+    want = {w: model.find_synonyms(w, 10) for w in words}
+    log("fleet", f"on {rec['card']}: V={model.num_words}, D={model.vector_size}; "
+        f"reference lists of {len(words)} words in {time.perf_counter() - t0:.1f} s")
+    publisher = TelemetrySink(str(work / "publisher.jsonl"))
+    saves = []
+
+    def publish() -> None:  # a save of the served model: a fresh publish signature
+        t = time.perf_counter()
+        model.save(ck)
+        saves.append(round(time.perf_counter() - t, 3))
+        emit_publish(publisher.emit, ck, model.train_state.global_step
+                     if model.train_state else 0, publisher="chip_smoke")
+
+    def check(word: str, res: list):
+        ref = want.get(word)
+        if ref is None or not lists_agree([(w, float(s)) for w, s in res], ref,
+                                          SERVE_TIE):
+            return f"{word}: served {res[:3]}... differs from find_synonyms {ref[:3]}..."
+        return None
+
+    mem = {"before_mib": card_memory_mib() if card else None, "peak_mib": None}
+    stop = threading.Event()
+
+    def sample() -> None:
+        while not stop.wait(0.25):
+            m = card_memory_mib()
+            if m is not None:
+                mem["peak_mib"] = max(mem["peak_mib"] or 0, m)
+
+    sampler = threading.Thread(target=sample, daemon=True) if card else None
+    if sampler is not None:
+        sampler.start()
+    t0 = time.perf_counter()
+    try:
+        drill = run_smoke(str(work), replicas=FLEET_REPLICAS, device=device,
+                          checkpoint=ck, publish=publish, words=words, check=check,
+                          clients=FLEET_CLIENTS, num=10, ready_timeout=600.0)
+    finally:
+        stop.set()
+        if sampler is not None:
+            sampler.join(timeout=30)
+        publisher.close()
+        model.stop()
+    mem["after_close_mib"] = card_memory_mib() if card else None
+    rec["drill"] = {**drill, "saves_s": saves, "memory": mem,
+                    "seconds": round(time.perf_counter() - t0, 3)}
+    log("fleet", f"(a) {FLEET_REPLICAS} replicas on {device} started in "
+        f"{drill['start_s']:.1f} s; {FLEET_CLIENTS} clients: {drill['queries']} queries, "
+        f"{drill['failed_queries']} failed, every list equal to find_synonyms; SIGKILL: "
+        f"breaker {' '.join(drill['breaker_transitions'])}, back in "
+        f"{drill['victim_recovery_s']:.1f} s; 3 publishes (saves {saves} s): rolling "
+        f"rounds {drill['reload_round_s']} s (publish to round end), min serving "
+        f"{drill['min_serving_during_reloads']} of {FLEET_REPLICAS}, drained reloads "
+        f"{drill['drained_reloads']}; SIGTERM dump {drill['sigterm_dump']}, merged as "
+        f"{drill['collector']['blackboxes']}; "
+        f"SLO {drill['slo']} within budget {drill['slo_within_budget']}; collector "
+        f"{len(drill['collector']['processes'])} processes, {drill['collector']['traces']}"
+        f" traces; card memory {mem['before_mib']} MiB before, {mem['peak_mib']} at "
+        f"peak, {mem['after_close_mib']} after close ({rec['drill']['seconds']:.1f} s)")
+
+    # (b) the chaos drill and (c) the transfer-contract audit, side by side
+    from glint_word2vec_torch.chaos_run import NOT_PORTED, phase_table
+    chaos_run = [p for p, _ in phase_table("", 0, device)
+                 if p not in NOT_PORTED and p not in CHAOS_COVERED]
+    t0 = time.perf_counter()
+    chaos = _module_child(
+        ["glint_word2vec_torch.chaos_run", "--smoke", "--device", device, "--workdir",
+         str(work / "chaos"), "--only", ",".join(chaos_run)]
+        + (["--sentences", str(chaos_sentences)] if chaos_sentences else []),
+        str(work / "chaos.err"))
+    audit = _module_child(["glint_word2vec_torch.stepaudit", "--device", device]
+                          + ([] if card else ["--smoke"]),
+                          str(work / "stepaudit.err"))
+    rec["audit"] = _child_result(*audit, 900, "the transfer-contract audit")
+    rec["chaos"] = _child_result(*chaos, 900, "the chaos drill")
+    rec["chaos"]["left_out"] = {p: f"runs on the card in phase {ph}"
+                                for p, ph in CHAOS_COVERED.items()}
+    rec["children_s"] = round(time.perf_counter() - t0, 3)
+    c = rec["chaos"]
+    log("fleet", f"(b) chaos_run --smoke --device {device}: "
+        + ", ".join(f"{p} {r}" for p, r in c["phases"].items())
+        + f"; left out (another phase runs them on the card at a larger size): "
+        + ", ".join(f"{p} ({ph})" for p, ph in CHAOS_COVERED.items())
+        + f"; not ported: {', '.join(p for p in c['not_run'] if p not in CHAOS_COVERED)}")
+    if c["rc"] != 0 or not c["ok"] or set(c["phases"]) != set(chaos_run):
+        raise AssertionError(f"phase 13b: chaos drill failed: {c['phases']}")
+    a = rec["audit"]
+    for name, v in a["variants"].items():
+        t = v["transfers"]
+        log("fleet", f"(c) stepaudit {name:18s} at V={a['geometry']['v']}: "
+            f"{v['chunks']} chunks {v['chunk_steps']}, in place {v['in_place']['ok']} "
+            f"(peak +{v['in_place']['peak_over_start_bytes']} B of a "
+            f"{v['in_place']['matrix_bytes']} B matrix), undeclared "
+            f"{t['undeclared_count']}, misplaced {t['misplaced_count']} (witness "
+            f"{None if t['witness'] is None else t['witness']['undeclared']}), dtype "
+            f"{v['dtype']['ok']}, captures {v['recompile']}, declared syncs/chunk "
+            f"{t['declared_syncs_per_chunk']} {t['declared_syncs_per_chunk_by_site']}, "
+            f"fit {v['fit_seconds']} s")
+    log("fleet", f"(c) recovery: {a['recover_rebuild']}; audit {a['seconds']} s; "
+        f"(b) and (c) side by side in {rec['children_s']:.1f} s")
+    if a["rc"] != 0 or not a["ok"]:
+        bad = {n: v for n, v in a["variants"].items() if not v["ok"]}
+        raise AssertionError(f"phase 13c: the transfer-contract audit failed: "
+                             f"{json.dumps(bad)[:3000]} {a.get('recover_rebuild')}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2938,6 +3143,9 @@ def main() -> int:
     try:
         serving, launches["serving_refit"] = serving_phase(
             serve_ck, corpus, args.seed, torch, np, fused, scat)
+        t0 = time.perf_counter()
+        fleet = fleet_phase(serve_ck, corpus, args.seed, np)
+        log("fleet", f"phase 13 in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3009,6 +3217,7 @@ def main() -> int:
                                               "banded": brec, "stabilizers": stab_rec,
                                               "runtime": runtime,
                                               "serving": serving,
+                                              "fleet": fleet,
                                               "quality": quality,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,

@@ -23,8 +23,8 @@ layer's knobs (``nonfinite_policy`` with ``rollback``, ``norm_watch`` and its re
 ladder, ``telemetry_path``, ``status_port``, ``checkpoint_on_preempt``), with
 ``profile_dir`` recording a ``torch.profiler`` trace where the JAX package records a
 ``jax.profiler`` one; ``peer_beacon_s`` belongs to multi-process fits and is refused.
-The serving tier's ``serve_*`` knobs are read only by :mod:`.serve`; the fleet's
-``serve_fleet_*`` are refused.
+The serving tier's ``serve_*`` knobs, the fleet's ``serve_fleet_*`` among them, are
+read only by :mod:`.serve`.
 """
 
 from __future__ import annotations
@@ -37,9 +37,6 @@ from typing import Optional, Tuple
 _UNPORTED = (
     "use_pallas", "step_lowering", "sync_every", "num_model_shards",
     "num_data_shards", "embedding_partition", "sharded_checkpoint", "peer_beacon_s",
-    "serve_fleet_replicas", "serve_fleet_probe_s",
-    "serve_fleet_breaker_failures", "serve_fleet_breaker_reset_s",
-    "serve_fleet_hedge_ms", "serve_fleet_retry_deadline_s",
 )
 
 
@@ -150,8 +147,8 @@ class Word2VecConfig:
     supervisor_max_restarts: int = 8
     supervisor_loop_window: int = 3
 
-    # --- serving tier (read by the serving process, never by the trainer; serve/;
-    # the fleet's serve_fleet_* are not ported) ---
+    # --- serving tier (read by the serving process and the fleet's router, never by
+    # the trainer; serve/) ---
     serve_max_batch: int = 64
     serve_max_delay_ms: float = 2.0
     serve_queue_depth: int = 256
@@ -626,3 +623,28 @@ def _validate_serving(c: Word2VecConfig) -> None:
     if c.serve_reload_poll_s <= 0:
         raise ValueError(
             f"serve_reload_poll_s must be positive but got {c.serve_reload_poll_s}")
+    if c.serve_fleet_replicas <= 0:
+        raise ValueError(
+            f"serve_fleet_replicas must be positive "
+            f"but got {c.serve_fleet_replicas}")
+    if c.serve_fleet_probe_s <= 0:
+        raise ValueError(
+            f"serve_fleet_probe_s must be positive "
+            f"but got {c.serve_fleet_probe_s}")
+    if c.serve_fleet_breaker_failures <= 0:
+        raise ValueError(
+            f"serve_fleet_breaker_failures must be positive "
+            f"but got {c.serve_fleet_breaker_failures}")
+    if c.serve_fleet_breaker_reset_s <= 0:
+        raise ValueError(
+            f"serve_fleet_breaker_reset_s must be positive "
+            f"but got {c.serve_fleet_breaker_reset_s}")
+    if c.serve_fleet_hedge_ms < 0 and c.serve_fleet_hedge_ms != -1.0:
+        raise ValueError(
+            f"serve_fleet_hedge_ms must be -1 (auto: p99-derived), "
+            f"0 (off), or a positive delay in ms "
+            f"but got {c.serve_fleet_hedge_ms}")
+    if c.serve_fleet_retry_deadline_s <= 0:
+        raise ValueError(
+            f"serve_fleet_retry_deadline_s must be positive "
+            f"but got {c.serve_fleet_retry_deadline_s}")

@@ -18,8 +18,8 @@ allocated and no acquisition does extra work. The flag is read when a lock is bu
 enabling checks instruments only what is built afterwards.
 
 The port's table differs from the JAX package's by one entry, ``ops.kernels.build``,
-the lock around the CUDA kernels' build (the JAX package has no such build), and lacks
-the serving fleet's entries, which come with the fleet.
+the lock around the CUDA kernels' build (the JAX package has no such build), and names
+servebench's lock by its module in the package.
 """
 
 from __future__ import annotations
@@ -53,12 +53,32 @@ LOCK_TABLE = {
         "rank": 20, "kind": "lock",
         "site": "glint_word2vec_torch/serve/reload.py:ServingHandle.__init__",
         "owner": "atomic (model, index) swap + lease counts (serve/reload.py)"},
+    "fleet.router": {
+        "rank": 30, "kind": "lock",
+        "site": "glint_word2vec_torch/serve/fleet.py:FleetRouter.__init__",
+        "owner": "router counters / rr cursor / latency ring (serve/fleet.py)"},
+    "fleet.breaker": {
+        "rank": 40, "kind": "lock",
+        "site": "glint_word2vec_torch/serve/fleet.py:CircuitBreaker.__init__",
+        "owner": "per-replica breaker state machine (serve/fleet.py)"},
+    "fleet.replica.pending": {
+        "rank": 50, "kind": "lock",
+        "site": "glint_word2vec_torch/serve/fleet.py:SubprocessReplica.__init__",
+        "owner": "ticket table: submit/reader/abandon pairing (serve/fleet.py)"},
+    "fleet.replica.write": {
+        "rank": 51, "kind": "lock",
+        "site": "glint_word2vec_torch/serve/fleet.py:SubprocessReplica.__init__",
+        "owner": "replica stdin: one request line at a time (serve/fleet.py)"},
     "serve.batcher.cv": {
         "rank": 60, "kind": "condition",
         "site": "glint_word2vec_torch/serve/batcher.py:BatchingScheduler.__init__",
         "owner": "admission queue + counters + latency ring; NON-reentrant, so a "
                  "signal handler's dump passes include_stats=False "
                  "(service.dump_blackbox)"},
+    "obs.slo": {
+        "rank": 70, "kind": "lock",
+        "site": "glint_word2vec_torch/obs/slo.py:SloTracker.__init__",
+        "owner": "SLO window counters (obs/slo.py)"},
     "obs.phases": {
         "rank": 80, "kind": "rlock",
         "site": "glint_word2vec_torch/obs/phases.py:PhaseAccumulator.__init__",

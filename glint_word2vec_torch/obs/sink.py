@@ -89,6 +89,12 @@ class TelemetrySink:
                     pass
                 self._file = None
 
+    def __enter__(self) -> "TelemetrySink":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     def _open(self) -> None:
         self._file = open(self.path, "a", encoding="utf-8")
         self._size = self._file.tell()

@@ -1,6 +1,6 @@
 """Live run inspection, ported from ``glint_word2vec_tpu/obs/statusd.py``: a
-read-only HTTP status endpoint for one trainer, one embedding service or one training
-supervisor.
+read-only HTTP status endpoint for one trainer, one embedding service, one fleet router
+or one training supervisor.
 
 ``config.status_port > 0`` starts this server for the duration of a fit. Routes (GET
 only):
@@ -8,7 +8,8 @@ only):
 - ``/`` or ``/status.json``: the gauge snapshot as JSON (``Trainer.status_snapshot()``);
 - ``/metrics``: its scalar gauges in the Prometheus text format (the JAX package's
   ``glint_*`` names for a trainer, ``glint_serve_*`` for a service,
-  ``glint_supervisor_*`` for a supervisor);
+  ``glint_serve_fleet_*`` for a fleet's router, ``glint_supervisor_*`` for a
+  supervisor);
 - ``/healthz``: ``200 ok``.
 
 One ``HTTPServer`` on one daemon thread, bound to 127.0.0.1. The snapshot callable
@@ -30,14 +31,20 @@ logger = logging.getLogger("glint_word2vec_torch")
 _POLL_S = 0.05  # how often the server thread checks for stop()
 
 
-def _gauge(lines: list, name: str, value, labels: str = "") -> None:
+def _gauge(lines: list, name: str, value, labels: str = "",
+           seen: Optional[set] = None) -> None:
     """Append one gauge sample (``# TYPE`` line and sample) to ``lines``; None skips,
-    bools render as 0/1."""
+    bools render as 0/1. With ``seen``, a name's ``# TYPE`` line is written at its first
+    sample only (the text format forbids a second one; the fleet's per-replica labels
+    give one name many samples)."""
     if value is None:
         return
     if isinstance(value, bool):
         value = float(value)
-    lines.append(f"# TYPE {name} gauge")
+    if seen is None or name not in seen:
+        lines.append(f"# TYPE {name} gauge")
+        if seen is not None:
+            seen.add(name)
     lines.append(f"{name}{labels} {float(value):g}")
 
 
@@ -90,6 +97,73 @@ def serve_prometheus_text(snap: dict) -> str:
             _gauge(lines, f"glint_serve_ann_{field}", ann[field])
     if "index_bytes" in ann:
         _gauge(lines, "glint_serve_index_bytes", ann["index_bytes"])
+    return "\n".join(lines) + "\n"
+
+
+# a breaker's state as an ordered gauge: closed is healthy, open is worst
+_BREAKER_GAUGE = {"closed": 0, "half-open": 1, "open": 2}
+
+
+def fleet_prometheus_text(snap: dict) -> str:
+    """A fleet snapshot (``serve.fleet.FleetRouter.status_snapshot``) in the Prometheus
+    text format: the JAX package's fleet-level ``glint_serve_fleet_*`` gauges (the SLO
+    block among them, named by ``obs/slo.slo_gauge_lines``), and each replica's own
+    ``glint_serve_*`` gauges under a ``replica`` label, so one scrape of the router sees
+    the whole fleet."""
+    from glint_word2vec_torch.obs.slo import slo_gauge_lines
+
+    lines: list = []
+    seen: set = set()
+
+    def gauge(name: str, value, labels: str = "") -> None:
+        _gauge(lines, name, value, labels, seen=seen)
+
+    gauge("glint_serve_fleet_up", 1.0 if snap.get("status") == "serving" else 0.0)
+    for field in ("queries", "failures", "retries", "hedges", "hedge_wins",
+                  "shed_single", "shed_bulk", "reload_rounds"):
+        gauge(f"glint_serve_fleet_{field}_total", snap.get(field))
+    for field in ("healthy", "degraded", "min_serving_during_reloads"):
+        gauge(f"glint_serve_fleet_{field}", snap.get(field))
+    lat = snap.get("latency_ms") or {}
+    for q in ("p50", "p95", "p99"):
+        if q in lat:
+            gauge("glint_serve_fleet_latency_ms", lat[q], f'{{quantile="{q}"}}')
+    slo_gauge_lines(gauge, snap.get("slo") or {})
+    fleet_index_bytes = 0
+    fleet_index_replicas = 0
+    for name, rep in (snap.get("replicas") or {}).items():
+        lab = f'{{replica="{name}"}}'
+        gauge("glint_serve_fleet_breaker_state", _BREAKER_GAUGE.get(rep.get("state")),
+              lab)
+        gauge("glint_serve_up", rep.get("alive"), lab)
+        gauge("glint_serve_fleet_degraded_replica", rep.get("degraded"), lab)
+        gauge("glint_serve_fleet_in_flight", rep.get("in_flight"), lab)
+        gauge("glint_serve_fleet_restarts_total", rep.get("restarts"), lab)
+        gauge("glint_serve_fleet_reloads_total", rep.get("reloads"), lab)
+        # the replica's own gauges, from the prober's cached stats op (absent while
+        # the replica is down)
+        stats = rep.get("stats") or {}
+        for field in ("submitted", "refused", "completed", "errors", "batches",
+                      "reloads", "models_released"):
+            gauge(f"glint_serve_{field}_total", stats.get(field), lab)
+        for field in ("queue_depth", "occupancy_mean", "vocab_size", "load_seconds"):
+            gauge(f"glint_serve_{field}", stats.get(field), lab)
+        slat = stats.get("latency_ms") or {}
+        for q in ("p50", "p95", "p99"):
+            if q in slat:
+                gauge("glint_serve_latency_ms", slat[q],
+                      f'{{replica="{name}",quantile="{q}"}}')
+        ann = stats.get("ann") or {}
+        for field in ("recall_at_10", "nprobe", "centroids", "bytes_per_vector"):
+            if field in ann:
+                gauge(f"glint_serve_ann_{field}", ann[field], lab)
+        if "index_bytes" in ann:
+            gauge("glint_serve_index_bytes", ann["index_bytes"], lab)
+            fleet_index_bytes += ann["index_bytes"]
+            fleet_index_replicas += 1
+    # every replica holds its own copy of the index: the sum is what the fleet pays
+    if fleet_index_replicas:
+        gauge("glint_serve_fleet_index_bytes", fleet_index_bytes)
     return "\n".join(lines) + "\n"
 
 

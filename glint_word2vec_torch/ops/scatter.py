@@ -214,9 +214,11 @@ _streams: Dict[Tuple[int, int], _Stream] = {}
 
 def check_errors() -> None:
     """Wait for the index checks of every launch so far and raise ``IndexError`` if
-    one of them found an index outside ``[0, V)``."""
+    one of them found an index outside ``[0, V)``. One synchronize per device covers
+    every stream on it."""
+    for device in {state.device for state in _streams.values()}:
+        torch.cuda.synchronize(device)
     for state in _streams.values():
-        torch.cuda.synchronize(state.device)
         state.raise_if_set()
 
 

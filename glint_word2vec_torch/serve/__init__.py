@@ -11,10 +11,10 @@ Five layers, usable alone or through :class:`EmbeddingService`:
 - :mod:`.reload`: the swap-window-safe loader, the lease-counted serving handle and
   the checkpoint-publish watcher (zero-downtime hot reload);
 - :mod:`.service`: the assembled service around a model on the card, with ``serve_*``
-  telemetry and ``glint_serve_*`` gauges.
-
-The fleet (the JAX package's ``serve/fleet.py``: replicas behind a router) is not
-ported yet (ROADMAP.md queue A7b).
+  telemetry and ``glint_serve_*`` gauges;
+- :mod:`.fleet`: N replicas behind a router (health probes, circuit breakers,
+  deadline-budgeted retries, hedging, load shedding, the rolling reload), with
+  ``fleet_*`` telemetry and ``glint_serve_fleet_*`` gauges.
 """
 
 from glint_word2vec_torch.serve.ann import (
@@ -28,6 +28,14 @@ from glint_word2vec_torch.serve.batcher import (
     BatchingScheduler,
     ServerOverloaded,
     ServiceClosed,
+)
+from glint_word2vec_torch.serve.fleet import (
+    CircuitBreaker,
+    FleetOverloaded,
+    FleetRouter,
+    NoHealthyReplicas,
+    ReplicaSet,
+    fleet_knobs_from_checkpoint,
 )
 from glint_word2vec_torch.serve.quant import (
     Int8Storage,
@@ -52,4 +60,6 @@ __all__ = [
     "CheckpointWatcher", "ServingHandle", "load_with_retry",
     "decorrelated_jitter",
     "EmbeddingService",
+    "CircuitBreaker", "FleetOverloaded", "FleetRouter", "NoHealthyReplicas",
+    "ReplicaSet", "fleet_knobs_from_checkpoint",
 ]

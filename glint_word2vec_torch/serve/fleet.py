@@ -1,0 +1,1461 @@
+"""The serving fleet, ported from ``glint_word2vec_tpu/serve/fleet.py``: N replicas
+behind one router, with the failure model above one service.
+
+- :class:`ReplicaSet`: spawns N replica processes
+  (``python -m glint_word2vec_torch.serve_checkpoint``, each on ``device``, the card by
+  default) watching one checkpoint publish path, or adopts N in-process
+  :class:`~.service.EmbeddingService` instances (tests and the bench); restarts dead
+  processes; gives each a uniform submit/wait client (:class:`SubprocessReplica`,
+  :class:`InProcessReplica`).
+- :class:`FleetRouter`, the robustness stack in front of them:
+
+  * **health probes**: one prober thread sends each replica a cheap ``stats`` op every
+    ``probe_s``, for liveness and staleness. A replica serving an older publish
+    (``publish_sig``) than the disk's is DEGRADED: it still serves, but the router
+    prefers fresh replicas.
+  * **circuit breakers** (per replica): closed -> open after ``breaker_failures``
+    consecutive failures; after ``breaker_reset_s`` the prober sends the half-open trial
+    probe; success closes, failure reopens. Client traffic goes only to CLOSED
+    breakers, so recovery costs no client query.
+  * **deadline-budgeted retries**: a failed attempt retries on a DIFFERENT replica;
+    once every eligible replica was tried the loop backs off with decorrelated jitter
+    (:func:`.reload.decorrelated_jitter`) until the deadline. A ``ServerOverloaded``
+    reply means "retry elsewhere, not here": no backoff, no breaker blame.
+  * **tail-latency hedging**: after a delay with no response the same query goes to a
+    second replica, first response wins, the loser is abandoned. ``hedge_ms=-1``
+    derives the delay from the router's measured p99, ``0`` disables, ``>0`` is fixed.
+  * **load shedding**: bulk traffic (``synonyms_batch``) sheds first, refused while any
+    healthy replica is saturated; single queries are refused fast only when every
+    healthy replica is (:class:`FleetOverloaded`, with the fleet's minimum
+    ``retry_after_s``).
+  * **rolling reload**: on a publish the router drains and reloads the replicas one at a
+    time (they run with the watcher off), so capacity never drops below N-1; each reload
+    is issued after the replica's in-flight count drained to zero (``drained_reloads``).
+
+Threads: each :class:`SubprocessReplica` runs one stdout reader (it pairs responses to
+tickets by id), and the router one prober/orchestrator (probes, breaker trials,
+restarts, rolling reloads). Hedging spawns no thread. On one card the replicas share
+it: a fleet there proves the failure model, not capacity.
+
+Driven end to end by ``python -m glint_word2vec_torch.fleet_run --smoke`` and the
+``fleet-kill`` phase of ``python -m glint_word2vec_torch.chaos_run``; the knobs are the
+config's ``serve_fleet_*``, resolved from the checkpoint by
+:func:`fleet_knobs_from_checkpoint`.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import logging
+import os
+import subprocess
+import sys
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from glint_word2vec_torch.lockcheck import make_lock
+from glint_word2vec_torch.obs.slo import SloObjectives, SloTracker, flatten_burn
+from glint_word2vec_torch.obs.trace import (
+    clock_anchor,
+    new_span_id,
+    new_trace_id,
+    wire_context,
+)
+from glint_word2vec_torch.serve.batcher import ServerOverloaded, ServiceClosed
+from glint_word2vec_torch.serve.reload import (
+    decorrelated_jitter,
+    publish_signature,
+    publish_signature_str as _sig_str,
+)
+
+logger = logging.getLogger("glint_word2vec_torch")
+
+# the directory holding the package: the replica processes import it from there
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+class FleetOverloaded(ServerOverloaded):
+    """Every healthy replica is saturated (or bulk traffic is being shed
+    under pressure) — the FLEET-level 429. Subclasses
+    :class:`ServerOverloaded` so existing single-service callers need no
+    new except clause; ``retry_after_s`` is the minimum hint across the
+    saturated replicas."""
+
+
+class NoHealthyReplicas(RuntimeError):
+    """The retry deadline expired without any replica answering — every
+    breaker open/dead, or every attempt failed. Carries the last
+    per-replica error as ``__cause__``."""
+
+
+class ReplicaError(RuntimeError):
+    """One replica failed an attempt (pipe broken, process dead, service
+    closing, malformed reply). Router-internal: counted against that
+    replica's breaker and retried elsewhere — callers see it only wrapped
+    in :class:`NoHealthyReplicas` after the deadline."""
+
+
+class _Saturated(Exception):
+    """Router-internal: a replica answered ServerOverloaded. Not a breaker
+    failure — the replica is healthy, just full."""
+
+    def __init__(self, retry_after_s: Optional[float]):
+        super().__init__("replica saturated")
+        self.retry_after_s = retry_after_s
+
+
+# ---------------------------------------------------------------------------
+# circuit breaker
+# ---------------------------------------------------------------------------
+
+
+class CircuitBreaker:
+    """Per-replica breaker: ``closed`` → ``open`` on ``fail_threshold``
+    consecutive failures; after ``reset_s`` the next :meth:`begin_probe`
+    moves to ``half-open`` (exactly one trial in flight); trial success
+    closes, trial failure reopens and re-arms the cooldown. Transitions
+    are recorded (bounded) and surfaced through ``on_transition`` for the
+    ``fleet_breaker`` telemetry record."""
+
+    CLOSED = "closed"
+    OPEN = "open"
+    HALF_OPEN = "half-open"
+
+    def __init__(self, fail_threshold: int = 3, reset_s: float = 2.0,
+                 on_transition=None):
+        if fail_threshold <= 0:
+            raise ValueError(
+                f"fail_threshold must be positive but got {fail_threshold}")
+        if reset_s <= 0:
+            raise ValueError(f"reset_s must be positive but got {reset_s}")
+        self.fail_threshold = int(fail_threshold)
+        self.reset_s = float(reset_s)
+        self._on_transition = on_transition
+        self._lock = make_lock("fleet.breaker")
+        self._state = self.CLOSED
+        self._consecutive = 0
+        self._opened_at = 0.0
+        # bounded transition history, newest last: (from, to, reason)
+        self.transitions: collections.deque = collections.deque(maxlen=64)
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            return self._state
+
+    def _move(self, to: str, reason: str):
+        # under self._lock; returns the (from, to, reason) triple the caller
+        # hands to _fire_transition AFTER releasing — the callback emits
+        # telemetry (sink I/O), and holding the breaker lock across it made
+        # every state change a breaker→sink held-while-blocking window
+        # (a held-while-blocking window across the sink's I/O)
+        frm, self._state = self._state, to
+        self.transitions.append((frm, to, reason))
+        return (frm, to, reason)
+
+    def _fire_transition(self, t) -> None:
+        if t is None:
+            return
+        cb = self._on_transition
+        if cb is not None:
+            try:
+                cb(*t)
+            except Exception:  # noqa: BLE001 — telemetry is best-effort
+                logger.warning("breaker transition callback failed",
+                               exc_info=True)
+
+    def transitions_snapshot(self) -> list:
+        """Transition history copied under the lock — iterating the deque
+        while a breaker thread appends raises RuntimeError."""
+        with self._lock:
+            return list(self.transitions)
+
+    def allows_traffic(self) -> bool:
+        """Client traffic goes only to CLOSED breakers; OPEN/HALF_OPEN
+        replicas recover through the prober's trial, costing zero client
+        queries."""
+        with self._lock:
+            return self._state == self.CLOSED
+
+    def probe_due(self) -> bool:
+        """True when the breaker is OPEN and the cooldown elapsed — the
+        prober should call :meth:`begin_probe` and send the trial."""
+        with self._lock:
+            return (self._state == self.OPEN
+                    and time.monotonic() - self._opened_at >= self.reset_s)
+
+    def begin_probe(self) -> bool:
+        """OPEN (cooldown elapsed) → HALF_OPEN; returns False if another
+        trial already holds the half-open slot."""
+        t = None
+        with self._lock:
+            if (self._state == self.OPEN
+                    and time.monotonic() - self._opened_at >= self.reset_s):
+                t = self._move(self.HALF_OPEN, "cooldown elapsed, trial probe")
+        self._fire_transition(t)
+        return t is not None
+
+    def record_success(self) -> None:
+        t = None
+        with self._lock:
+            self._consecutive = 0
+            if self._state == self.HALF_OPEN:
+                t = self._move(self.CLOSED, "trial probe succeeded")
+        self._fire_transition(t)
+
+    def record_failure(self, reason: str = "") -> None:
+        t = None
+        with self._lock:
+            now = time.monotonic()
+            if self._state == self.HALF_OPEN:
+                self._opened_at = now
+                t = self._move(self.OPEN, f"trial failed: {reason}"[:200])
+            elif self._state == self.CLOSED:
+                self._consecutive += 1
+                if self._consecutive >= self.fail_threshold:
+                    self._opened_at = now
+                    t = self._move(
+                        self.OPEN,
+                        f"{self._consecutive} consecutive failures "
+                        f"(last: {reason})"[:200])
+        self._fire_transition(t)
+
+
+# ---------------------------------------------------------------------------
+# replica clients (uniform submit/wait over two transports)
+# ---------------------------------------------------------------------------
+
+
+class FleetTicket:
+    """One in-flight replica request: ``done`` is a ``threading.Event``
+    (for the subprocess transport the reader sets it; the in-process
+    transport shares the batcher ticket's own event), ``response`` the raw
+    wire-shaped dict once resolved. Abandoning a ticket is free: the
+    response, when it arrives, is popped and discarded."""
+
+    __slots__ = ("id", "done", "response", "batcher_ticket")
+
+    def __init__(self, tid: int):
+        self.id = tid
+        self.done = threading.Event()
+        self.response: Optional[dict] = None
+        self.batcher_ticket = None
+
+    def resolve(self, response: dict) -> None:
+        self.response = response
+        self.done.set()
+
+
+class SubprocessReplica:
+    """One ``python -m glint_word2vec_torch.serve_checkpoint`` child on the JSON-lines
+    protocol, serving from ``device`` (the card unless the caller asks for ``"cpu"``; a
+    child that cannot reach its device exits before it is ready, and :meth:`wait_ready`
+    says so), with request ids for out-of-order completion tracking (responses ARE
+    in-order; ids let abandoned/hedge-loser responses be discarded instead of corrupting
+    FIFO pairing). ``restart()`` relaunches the process in place so router bookkeeping
+    keeps its object identity."""
+
+    def __init__(self, name: str, checkpoint: str, ann: bool = False,
+                 nprobe: Optional[int] = None,
+                 python: str = sys.executable,
+                 env: Optional[Dict[str, str]] = None,
+                 stderr_path: str = "", telemetry_path: str = "",
+                 device: str = "cuda"):
+        self.name = name
+        self._checkpoint = checkpoint
+        self._ann = bool(ann)
+        self._nprobe = nprobe
+        self._python = python
+        self._env = env
+        self._stderr_path = stderr_path
+        self.device = str(device)
+        # per-replica sink: the replica's serve_*/trace_span records and its
+        # .blackbox.json dump — the collector's inputs
+        self.telemetry_path = telemetry_path
+        self._proc: Optional[subprocess.Popen] = None
+        self._reader: Optional[threading.Thread] = None
+        self._wlock = make_lock("fleet.replica.write")
+        self._plock = make_lock("fleet.replica.pending")
+        self._pending: Dict[int, FleetTicket] = {}
+        self._next_id = 0
+        self.ready = threading.Event()
+        self.restarts = 0
+        self.leaked_threads = 0
+
+    # -- lifecycle --------------------------------------------------------------------
+
+    def start(self) -> "SubprocessReplica":
+        if self._proc is not None and self._proc.poll() is None:
+            return self
+        cmd = [self._python, "-m", "glint_word2vec_torch.serve_checkpoint",
+               self._checkpoint, "--device", self.device]
+        if self._ann:
+            cmd.append("--ann")
+        if self._nprobe:
+            cmd += ["--nprobe", str(self._nprobe)]
+        if self.telemetry_path:
+            cmd += ["--telemetry", self.telemetry_path,
+                    "--process-name", self.name]
+        env = dict(self._env if self._env is not None else os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+        env.pop("JAX_PLATFORMS", None)  # the port's child imports no JAX
+        stderr = (open(self._stderr_path, "ab")
+                  if self._stderr_path else subprocess.DEVNULL)
+        try:
+            self._proc = subprocess.Popen(
+                cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=stderr, env=env, text=True, bufsize=1)
+        finally:
+            if self._stderr_path:
+                stderr.close()
+        self.ready.clear()
+        # R1 documented owner: pairs responses to tickets by id; read-only
+        self._reader = threading.Thread(
+            target=self._read_loop, args=(self._proc,),
+            name=f"glint-fleet-reader-{self.name}", daemon=True)
+        self._reader.start()
+        return self
+
+    def restart(self) -> "SubprocessReplica":
+        """Relaunch after a death (the ReplicaSet's respawn path). Pending
+        tickets were already failed by the reader's EOF sweep."""
+        self.kill()
+        self.restarts += 1
+        return self.start()
+
+    def wait_ready(self, timeout: float = 120.0) -> bool:
+        """True once the child said ready; False at ``timeout`` or as soon as the child
+        exited without saying it (a replica that cannot load its model or reach its
+        device fails to start: there is no fallback)."""
+        deadline = time.monotonic() + timeout
+        while not self.ready.wait(min(0.1, max(0.0, deadline - time.monotonic()))):
+            if not self.alive() or time.monotonic() >= deadline:
+                return self.ready.is_set()
+        return True
+
+    def alive(self) -> bool:
+        return self._proc is not None and self._proc.poll() is None
+
+    @property
+    def pid(self) -> Optional[int]:
+        return self._proc.pid if self._proc is not None else None
+
+    def kill(self) -> None:
+        """SIGKILL the child (the chaos drill's fault). Idempotent."""
+        if self._proc is not None and self._proc.poll() is None:
+            try:
+                self._proc.kill()
+            except OSError:
+                pass
+            self._proc.wait()
+
+    def terminate(self) -> None:
+        """SIGTERM the child — the GRACEFUL half of the kill surface (the
+        fleet-kill drill's dump leg): a telemetry-on replica writes its
+        ``.blackbox.json`` flight-recorder dump before dying (the serving
+        CLI's handler), which SIGKILL can never exercise.
+        Does not wait — the prober's dead-process path owns the respawn."""
+        if self._proc is not None and self._proc.poll() is None:
+            try:
+                self._proc.terminate()
+            except OSError:
+                pass
+
+    def close(self) -> int:
+        """Kill the child and join the stdout reader with a bounded
+        timeout; a reader that misses the bound is counted in
+        ``leaked_threads`` (surfaced per-replica by the router's stats).
+        Idempotent — a second close re-reports the same count."""
+        self.kill()
+        r, self._reader = self._reader, None
+        if r is not None:
+            r.join(timeout=10)
+            if r.is_alive():
+                self.leaked_threads += 1
+                logger.warning("%s: reader thread leaked (join timeout)",
+                               self.name)
+        return self.leaked_threads
+
+    # -- request/response -------------------------------------------------------------
+
+    def submit(self, req: dict) -> FleetTicket:
+        proc = self._proc
+        if proc is None or proc.poll() is not None:
+            raise ReplicaError(f"{self.name}: process not running")
+        with self._plock:
+            tid = self._next_id
+            self._next_id += 1
+            t = FleetTicket(tid)
+            self._pending[tid] = t
+        line = json.dumps({**req, "id": tid})
+        try:
+            with self._wlock:
+                proc.stdin.write(line + "\n")
+                proc.stdin.flush()
+        except (OSError, ValueError) as e:  # broken pipe / closed stdin
+            with self._plock:
+                self._pending.pop(tid, None)
+            raise ReplicaError(f"{self.name}: write failed ({e})") from e
+        return t
+
+    def wait(self, ticket: FleetTicket, timeout: float) -> dict:
+        if not ticket.done.wait(timeout):
+            raise TimeoutError(
+                f"{self.name}: no response within {timeout:.2f}s")
+        resp = ticket.response
+        if resp is None or resp.get("_dead"):
+            raise ReplicaError(f"{self.name}: process exited mid-request")
+        return resp
+
+    def abandon(self, ticket: FleetTicket) -> None:
+        """Hedge-loser/deadline bookkeeping: nothing to cancel on the wire
+        (the replica will answer; the reader discards by id)."""
+        with self._plock:
+            self._pending.pop(ticket.id, None)
+
+    def _read_loop(self, proc: subprocess.Popen) -> None:
+        try:
+            for line in proc.stdout:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    obj = json.loads(line)
+                except json.JSONDecodeError:
+                    logger.warning("%s: unparseable reply %.120r",
+                                   self.name, line)
+                    continue
+                if obj.get("ready"):
+                    self.ready.set()
+                    continue
+                tid = obj.pop("id", None)
+                with self._plock:
+                    t = self._pending.pop(tid, None)
+                if t is not None:
+                    t.resolve(obj)
+        finally:
+            # EOF: the process died — fail everything still in flight so
+            # waiting callers turn into breaker failures, not timeouts
+            self.ready.clear()
+            with self._plock:
+                pending, self._pending = list(self._pending.values()), {}
+            for t in pending:
+                t.resolve({"_dead": True})
+
+
+class InProcessReplica:
+    """An adopted in-process :class:`EmbeddingService` behind the same
+    submit/wait surface (tests, and the bench's fleet arm where N
+    subprocesses would swamp a small host). Single-query submits ride the
+    service's async batcher ticket — its ``done`` event makes in-process
+    replicas hedgeable; other ops resolve inline at submit."""
+
+    def __init__(self, name: str, service):
+        self.name = name
+        self.service = service
+        self._next_id = 0
+        self.restarts = 0
+        self.leaked_threads = 0
+
+    def start(self) -> "InProcessReplica":
+        return self
+
+    def wait_ready(self, timeout: float = 0.0) -> bool:
+        return True
+
+    def alive(self) -> bool:
+        return not self.service._closed
+
+    @property
+    def pid(self) -> Optional[int]:
+        return None
+
+    def submit(self, req: dict) -> FleetTicket:
+        self._next_id += 1
+        t = FleetTicket(self._next_id)
+        op = req.get("op")
+        try:
+            if op == "synonyms":
+                # the trace context rides through exactly like the wire
+                # transport: the adopted service's batcher emits the same
+                # queue_wait/batch_service children a subprocess would
+                bt = self.service.synonyms_async(req["word"],
+                                                 int(req.get("num", 10)),
+                                                 trace=req.get("trace"))
+                t.batcher_ticket = bt
+                t.done = bt.done  # share the batcher event — hedgeable wait
+                return t
+            if op == "synonyms_batch":
+                rows = self.service.synonyms_batch(
+                    list(req["words"]), int(req.get("num", 10)),
+                    trace=req.get("trace"))
+                t.resolve({"synonyms": [[[w, float(s)] for w, s in row]
+                                        for row in rows]})
+            elif op == "stats":
+                t.resolve(self.service.stats())
+            elif op == "reload":
+                model = self.service.reload_now()
+                t.resolve({"reloaded": True, "num_words": model.num_words})
+            else:
+                t.resolve({"error": f"unknown op {op!r}",
+                           "error_type": "ValueError"})
+        except Exception as e:  # noqa: BLE001 — wire-shaped error contract
+            t.resolve(_error_response(e))
+        return t
+
+    def wait(self, ticket: FleetTicket, timeout: float) -> dict:
+        if ticket.batcher_ticket is not None and ticket.response is None:
+            try:
+                res = self.service.wait_result(ticket.batcher_ticket, timeout)
+            except TimeoutError:
+                raise
+            except Exception as e:  # noqa: BLE001 — wire-shaped error contract
+                ticket.response = _error_response(e)
+            else:
+                ticket.response = {
+                    "synonyms": [[w, float(s)] for w, s in res]}
+        if not ticket.done.wait(timeout):
+            raise TimeoutError(
+                f"{self.name}: no response within {timeout:.2f}s")
+        return ticket.response
+
+    def abandon(self, ticket: FleetTicket) -> None:
+        pass
+
+    def kill(self) -> None:
+        self.leaked_threads = self.service.close()
+
+    def close(self) -> int:
+        self.leaked_threads = self.service.close()
+        return self.leaked_threads
+
+
+def _error_response(e: BaseException) -> dict:
+    """The wire-shaped error payload (mirrors the serving CLI's):
+    message, type name, and the machine-readable retry hint when the
+    exception carries one."""
+    resp = {"error": f"{type(e).__name__}: {e}",
+            "error_type": type(e).__name__}
+    ra = getattr(e, "retry_after_s", None)
+    if ra is not None:
+        resp["retry_after_s"] = ra
+    return resp
+
+
+# ---------------------------------------------------------------------------
+# replica set
+# ---------------------------------------------------------------------------
+
+
+class ReplicaSet:
+    """N replicas over one transport. :meth:`spawn` launches subprocess
+    replicas concurrently (each is a full interpreter loading torch — serial boots
+    would multiply the cold start by N); :meth:`adopt` wraps in-process
+    services. ``can_respawn`` gates the router's restart path — adopted
+    services have no process to relaunch."""
+
+    def __init__(self, replicas: Sequence, can_respawn: bool):
+        self.replicas = list(replicas)
+        self.can_respawn = bool(can_respawn)
+
+    @classmethod
+    def spawn(cls, checkpoint: str, n: int, ann: bool = False,
+              nprobe: Optional[int] = None, ready_timeout: float = 180.0,
+              stderr_dir: str = "", telemetry_dir: str = "",
+              env: Optional[Dict[str, str]] = None,
+              device: str = "cuda") -> "ReplicaSet":
+        """``telemetry_dir``: non-empty arms per-replica observability —
+        replica ``i`` writes ``replica-i.jsonl`` (serve records + trace
+        spans, with the clock anchor the collector aligns on) and, on a
+        graceful death, ``replica-i.jsonl.blackbox.json`` there. These are
+        exactly the files ``python -m glint_word2vec_torch.obs_collect``
+        merges with the router's own sink into the one fleet timeline.
+
+        ``device``: where every replica loads the model and runs the exact
+        arm (the card by default; the replicas of one card share it). A
+        replica that exits before it is ready fails the spawn at once, with
+        its stderr log named when ``stderr_dir`` is set."""
+        if n <= 0:
+            raise ValueError(f"replica count must be positive but got {n}")
+        reps = []
+        for i in range(n):
+            stderr_path = (os.path.join(stderr_dir, f"replica-{i}.log")
+                           if stderr_dir else "")
+            telemetry_path = (
+                os.path.join(telemetry_dir, f"replica-{i}.jsonl")
+                if telemetry_dir else "")
+            reps.append(SubprocessReplica(
+                f"r{i}", checkpoint, ann=ann, nprobe=nprobe, env=env,
+                stderr_path=stderr_path, telemetry_path=telemetry_path,
+                device=device).start())
+        deadline = time.monotonic() + ready_timeout
+        for r in reps:
+            if not r.wait_ready(max(0.0, deadline - time.monotonic())):
+                died = not r.alive()
+                for q in reps:
+                    q.close()
+                if died:
+                    raise RuntimeError(
+                        f"replica {r.name} exited before it was ready "
+                        f"(device {device!r}; stderr: "
+                        f"{r._stderr_path or 'not kept'})")
+                raise TimeoutError(
+                    f"replica {r.name} not ready within {ready_timeout}s")
+        return cls(reps, can_respawn=True)
+
+    @classmethod
+    def adopt(cls, services: Sequence) -> "ReplicaSet":
+        return cls([InProcessReplica(f"r{i}", s)
+                    for i, s in enumerate(services)], can_respawn=False)
+
+    def close(self) -> int:
+        """Close every replica; returns the total leaked-thread count."""
+        leaked = 0
+        for r in self.replicas:
+            try:
+                leaked += r.close() or 0
+            except Exception:  # noqa: BLE001 — best-effort teardown
+                logger.warning("replica %s close failed", r.name,
+                               exc_info=True)
+        return leaked
+
+
+# ---------------------------------------------------------------------------
+# the router
+# ---------------------------------------------------------------------------
+
+
+class _ReplicaState:
+    """Router-side bookkeeping for one replica handle."""
+
+    def __init__(self, handle, breaker: CircuitBreaker):
+        self.handle = handle
+        self.breaker = breaker
+        self.in_flight = 0           # mutated under the router lock
+        self.saturated_until = 0.0
+        self.draining = False
+        self.degraded = False
+        self.publish_sig: Optional[str] = None
+        self.stats_cache: Optional[dict] = None
+        self.retry_after_s: Optional[float] = None
+        self.reloads = 0
+        self.drained_reloads = 0
+        self.last_restart = 0.0
+
+    @property
+    def name(self) -> str:
+        return self.handle.name
+
+
+class FleetRouter:
+    """The robustness stack over a :class:`ReplicaSet` (module doc)."""
+
+    def __init__(
+        self,
+        replica_set: ReplicaSet,
+        checkpoint: Optional[str] = None,
+        breaker_failures: int = 3,
+        breaker_reset_s: float = 2.0,
+        probe_s: float = 0.5,
+        hedge_ms: float = -1.0,
+        retry_deadline_s: float = 10.0,
+        attempt_timeout_s: float = 5.0,
+        rolling_reload: bool = True,
+        telemetry_path: str = "",
+        status_port: int = 0,
+        rng_seed: Optional[int] = None,
+        saturation_floor_s: float = 0.25,
+        drain_timeout_s: float = 15.0,
+        reload_timeout_s: float = 300.0,
+        slo: Optional[SloObjectives] = None,
+        trace_sample: int = 1,
+    ):
+        """``slo``: the availability/latency objective set (obs/slo.py;
+        default :class:`SloObjectives` — 99.9% availability, p(250ms) ≥
+        99%, 5m/1h windows). Always tracked (one deque append per query);
+        surfaced as ``stats()["slo"]``, the ``glint_serve_fleet_slo_*``
+        gauges, and the periodic ``fleet_slo`` telemetry record. The SLO is
+        a deployment property, deliberately NOT a checkpoint-travelling
+        config knob.
+
+        ``trace_sample``: trace every Nth query when telemetry is on (1 =
+        every query — the drills' setting; production tiers sample because
+        a traced query writes ~5 flushed records across the fleet, the
+        dominant per-query cost at toy latencies). Untraced queries still feed the
+        SLO tracker and cross the wire byte-identical to tracing-off."""
+        if probe_s <= 0:
+            raise ValueError(f"probe_s must be positive but got {probe_s}")
+        if hedge_ms < 0 and hedge_ms != -1.0:
+            raise ValueError(
+                f"hedge_ms must be -1 (auto), 0 (off), or positive "
+                f"but got {hedge_ms}")
+        if trace_sample < 1:
+            raise ValueError(
+                f"trace_sample must be >= 1 but got {trace_sample}")
+        self._set = replica_set
+        self._checkpoint = checkpoint
+        self._probe_s = float(probe_s)
+        self._hedge_ms = float(hedge_ms)
+        self._retry_deadline_s = float(retry_deadline_s)
+        self._attempt_timeout_s = float(attempt_timeout_s)
+        self._rolling = bool(rolling_reload) and checkpoint is not None
+        self._saturation_floor_s = float(saturation_floor_s)
+        self._drain_timeout_s = float(drain_timeout_s)
+        self._reload_timeout_s = float(reload_timeout_s)
+        self._lock = make_lock("fleet.router")
+        self._rr = 0  # round-robin tie-break counter
+        # jitter source: seeded (R2); per-router decorrelation is the point
+        self._rng = np.random.default_rng(
+            rng_seed if rng_seed is not None
+            else (os.getpid(), time.monotonic_ns()))
+        self._replicas = [
+            _ReplicaState(h, CircuitBreaker(
+                breaker_failures, breaker_reset_s,
+                on_transition=self._make_transition_cb(h.name)))
+            for h in replica_set.replicas]
+        # counters (under _lock)
+        self.queries = 0
+        self.failures = 0
+        self.retries = 0
+        self.hedges = 0
+        self.hedge_wins = 0
+        self.shed_single = 0
+        self.shed_bulk = 0
+        self.reload_rounds = 0
+        self.min_serving_during_reloads: Optional[int] = None
+        # success latency ring + cached p99 (the hedge-delay source)
+        self._latencies: collections.deque = collections.deque(maxlen=2048)
+        self._lat_count = 0
+        self._p99_s: Optional[float] = None
+        self._closed = False
+        self._leaked_threads = 0
+        self._sink = None
+        self._statusd = None
+        self._slo = SloTracker(slo)
+        self._trace_sample = int(trace_sample)
+        # trace emitter: exists iff the sink does — `self._span is None` IS
+        # the tracing-off predicate on the hot submit path (no context
+        # object, no id, no clock read)
+        self._span = None
+        self.process_name = f"router-{os.getpid()}"
+        if telemetry_path:
+            from glint_word2vec_torch.obs.sink import TelemetrySink
+            from glint_word2vec_torch.obs.trace import SpanEmitter
+            self._sink = TelemetrySink(telemetry_path)
+            self._span = SpanEmitter(self._sink, self.process_name)
+            self._sink.emit("fleet_start",
+                            replicas=len(self._replicas),
+                            checkpoint=checkpoint or "<in-memory>",
+                            process=self.process_name, **clock_anchor())
+        if status_port:
+            from glint_word2vec_torch.obs.statusd import (
+                StatusServer, fleet_prometheus_text)
+            self._statusd = StatusServer(
+                status_port, self.status_snapshot,
+                metrics_fn=fleet_prometheus_text).start()
+        # the publish generation the fleet already serves: the disk
+        # signature at boot (every replica just loaded it) — only a LATER
+        # publish triggers a rolling round
+        self._orchestrated_sig = (
+            _sig_str(publish_signature(checkpoint))
+            if checkpoint is not None else None)
+        self._stop = threading.Event()
+        # R1 documented owner: probes + breaker trials + restarts + rolling
+        # reloads, all on ONE thread — read-only on model params
+        self._prober = threading.Thread(
+            target=self._probe_loop, name="glint-fleet-prober", daemon=True)
+        self._prober.start()
+
+    def _make_transition_cb(self, name: str):
+        def cb(frm: str, to: str, reason: str) -> None:
+            logger.info("fleet breaker %s: %s -> %s (%s)",
+                        name, frm, to, reason)
+            if self._sink is not None:
+                self._sink.emit("fleet_breaker", replica=name,
+                                from_state=frm, to_state=to, reason=reason)
+        return cb
+
+    # -- client surface ----------------------------------------------------------------
+
+    def synonyms(self, word, num: int = 10,
+                 deadline_s: Optional[float] = None
+                 ) -> List[Tuple[str, float]]:
+        return self._request({"op": "synonyms", "word": word,
+                              "num": int(num)}, bulk=False,
+                             deadline_s=deadline_s)
+
+    def synonyms_batch(self, words: Sequence[str], num: int = 10,
+                       deadline_s: Optional[float] = None
+                       ) -> List[List[Tuple[str, float]]]:
+        return self._request({"op": "synonyms_batch", "words": list(words),
+                              "num": int(num)}, bulk=True,
+                             deadline_s=deadline_s)
+
+    # -- routing core ------------------------------------------------------------------
+
+    def _eligible(self, exclude=()) -> List[_ReplicaState]:
+        """Replicas client traffic may go to right now: breaker CLOSED,
+        process alive, not draining for a rolling reload."""
+        out = []
+        for r in self._replicas:
+            if r in exclude or r.draining:
+                continue
+            if not r.breaker.allows_traffic():
+                continue
+            if not r.handle.alive():
+                continue
+            out.append(r)
+        return out
+
+    def _pick(self, exclude=()) -> Optional[_ReplicaState]:
+        """Least-in-flight among eligible unsaturated replicas, fresh
+        (non-degraded) preferred, round-robin tie-break."""
+        now = time.monotonic()
+        elig = [r for r in self._eligible(exclude)
+                if r.saturated_until <= now]
+        if not elig:
+            return None
+        with self._lock:
+            self._rr += 1
+            rr = self._rr
+        # sort key: degraded last, then least in flight, then rotate
+        elig.sort(key=lambda r: (r.degraded, r.in_flight,
+                                 (self._replicas.index(r) + rr)
+                                 % len(self._replicas)))
+        return elig[0]
+
+    def _hedge_delay_s(self) -> Optional[float]:
+        """The hedging trigger: None = no hedge. AUTO (-1) derives from the
+        measured p99 once >= 64 successes exist (re-derived every 64
+        samples; floored at 2 ms so the duplicate send can never become
+        the common case)."""
+        if self._hedge_ms == 0.0:
+            return None
+        if self._hedge_ms > 0:
+            return self._hedge_ms / 1000.0
+        p99 = self._p99_s
+        if p99 is None:
+            return None
+        return max(0.002, p99)
+
+    def _note_latency(self, dt: float) -> None:
+        # append AND snapshot under the lock: sorting a deque while another
+        # thread appends raises RuntimeError("deque mutated during
+        # iteration") — which would surface as a FAILED client query on a
+        # perfectly successful response
+        with self._lock:
+            self._latencies.append(dt)
+            self._lat_count += 1
+            snap = (list(self._latencies)
+                    if (self._lat_count % 64 == 0
+                        and len(self._latencies) >= 64) else None)
+        if snap:
+            snap.sort()
+            self._p99_s = snap[min(len(snap) - 1, int(0.99 * len(snap)))]
+
+    def _finish_query(self, trace: Optional[tuple], start_s: float,
+                      op: str, answered: bool, outcome: str) -> None:
+        """Per-query epilogue, EVERY exit path: one SLO sample (answered =
+        the caller got a result — a propagating OOV KeyError is the
+        caller's error, not unavailability) and, when tracing, the
+        ``fleet_query`` root span whose duration is the client-observed
+        latency (the collector's slowest-K exemplar key)."""
+        self._slo.note(answered,
+                       time.monotonic() - start_s if answered else None)
+        if trace is not None:
+            tid, root, root_ns = trace
+            self._span.emit(tid, "fleet_query", root_ns,
+                            time.monotonic_ns() - root_ns, span_id=root,
+                            outcome=outcome, op=op)
+
+    def _request(self, req: dict, bulk: bool,
+                 deadline_s: Optional[float]) -> Any:
+        if self._closed:
+            raise ServiceClosed("fleet router is closed")
+        with self._lock:
+            self.queries += 1
+            nth_query = self.queries
+        start_s = time.monotonic()
+        # trace context born HERE (obs/trace.py): one trace per client
+        # query, a root span id its attempt children parent to. Off (no
+        # sink) = None — no ids, no allocation, requests cross the wire
+        # byte-identical (tracing off costs nothing). With a sampled
+        # tracer (trace_sample > 1) the unsampled queries take the same
+        # None path.
+        trace = (None if self._span is None
+                 or nth_query % self._trace_sample
+                 else (new_trace_id(), new_span_id(), time.monotonic_ns()))
+        op = str(req.get("op", "?"))
+        deadline = start_s + (deadline_s if deadline_s is not None
+                              else self._retry_deadline_s)
+        # bulk sheds FIRST: refused while ANY healthy replica is saturated
+        if bulk:
+            now = time.monotonic()
+            pressured = [r for r in self._eligible()
+                         if r.saturated_until > now]
+            if pressured:
+                with self._lock:
+                    self.shed_bulk += 1
+                self._finish_query(trace, start_s, op, False, "shed")
+                raise FleetOverloaded(
+                    "bulk traffic shed: fleet under pressure "
+                    f"({len(pressured)} saturated replica(s))",
+                    retry_after_s=min((r.retry_after_s or
+                                       self._saturation_floor_s)
+                                      for r in pressured))
+        delays = decorrelated_jitter(0.05, 1.0, self._rng)
+        tried: set = set()
+        last_err: Optional[BaseException] = None
+        while True:
+            r = self._pick(exclude=tried)
+            if r is None:
+                # the fleet-level 429, refused FAST: every healthy replica
+                # is saturated right now (never block a caller on a fleet
+                # that already said it is full — "the fleet refuses fast
+                # only when EVERY healthy replica is saturated")
+                now = time.monotonic()
+                elig_all = self._eligible()
+                if elig_all and all(q.saturated_until > now
+                                    for q in elig_all):
+                    with self._lock:
+                        self.shed_single += 1
+                    self._finish_query(trace, start_s, op, False, "shed")
+                    raise FleetOverloaded(
+                        "every healthy replica is saturated",
+                        retry_after_s=min(
+                            (q.retry_after_s or self._saturation_floor_s)
+                            for q in elig_all))
+                # every candidate tried (or none healthy): back off with
+                # decorrelated jitter and re-open the candidate set, until
+                # the deadline — a replica may heal / unsaturate mid-wait
+                tried = set()
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                time.sleep(min(next(delays), max(0.0, remaining)))
+                continue
+            attempt_timeout = min(self._attempt_timeout_s,
+                                  max(0.05, deadline - time.monotonic()))
+            try:
+                value = self._call(r, req, attempt_timeout,
+                                   hedge=not bulk, tried=tried, trace=trace)
+            except _Saturated as e:
+                # "retry elsewhere, not here": healthy-but-full is not a
+                # breaker failure; mark and move on with NO backoff. The
+                # blamed replica is the one that ANSWERED (a hedged
+                # attempt's overloaded reply may come from the hedge
+                # target, not the primary — _call attributes it)
+                tgt = getattr(e, "replica", r)
+                tgt.saturated_until = time.monotonic() + max(
+                    self._saturation_floor_s, e.retry_after_s or 0.0)
+                tgt.retry_after_s = e.retry_after_s
+                tried.add(tgt)
+                last_err = e
+                continue
+            except (ReplicaError, TimeoutError) as e:
+                tgt = getattr(e, "replica", r)
+                tgt.breaker.record_failure(str(e))
+                tried.add(tgt)
+                last_err = e
+                with self._lock:
+                    self.retries += 1
+                if time.monotonic() >= deadline:
+                    break
+                continue
+            except Exception:
+                # a CLIENT error (OOV KeyError, bad op) propagating from
+                # _interpret: the fleet ANSWERED — availability is intact
+                self._finish_query(trace, start_s, op, True, "ok")
+                raise
+            self._finish_query(trace, start_s, op, True, "ok")
+            return value
+        with self._lock:
+            self.failures += 1
+        self._finish_query(trace, start_s, op, False, "failed")
+        raise NoHealthyReplicas(
+            f"no replica answered within the "
+            f"{deadline_s if deadline_s is not None else self._retry_deadline_s:g}s "
+            f"deadline (last error: {last_err})") from last_err
+
+    def _call(self, r: _ReplicaState, req: dict, timeout: float,
+              hedge: bool, tried: set,
+              trace: Optional[tuple] = None) -> Any:
+        """One attempt, optionally hedged: submit to ``r``; if the
+        p99-derived delay passes unresolved, race a second replica —
+        first response wins, the loser is abandoned.
+
+        When ``trace`` is set, every replica this attempt touched gets one
+        ``attempt`` child span under the query's root, labeled with the
+        replica and its outcome: ``ok`` (unhedged success), ``win`` /
+        ``abandoned`` (the hedge race — the loser is ABANDONED, never
+        "failed": a slow-but-healthy replica must not read as a sick one on
+        the timeline), ``failed`` (breaker food), ``saturated`` (healthy
+        but full). The wire request carries each attempt's own span id as
+        the parent for the replica-side children."""
+        deadline = time.monotonic() + timeout
+        if trace is None:
+            wire1 = req
+            s1 = None
+            a1_ns = 0
+        else:
+            tid, root, _ = trace
+            s1 = new_span_id()
+            wire1 = {**req, "trace": wire_context(tid, s1)}
+            a1_ns = time.monotonic_ns()
+        try:
+            t1 = r.handle.submit(wire1)
+        except ReplicaError:
+            # dead at submit (the SIGKILL drill's first symptom): the
+            # attempt still gets its failed child span — a trace whose
+            # failed attempt is invisible can't tell the incident's story
+            if trace is not None:
+                self._span.emit(tid, "attempt", a1_ns,
+                                time.monotonic_ns() - a1_ns, parent=root,
+                                span_id=s1, replica=r.name,
+                                outcome="failed")
+            raise
+        with self._lock:
+            r.in_flight += 1
+        r2: Optional[_ReplicaState] = None
+        t2: Optional[FleetTicket] = None
+        s2: Optional[str] = None
+        a2_ns = 0
+        race_died: list = []  # replicas dropped dead mid-hedge-race
+
+        def attempt_spans(err: Optional[BaseException],
+                          outcome: str, winner=None) -> None:
+            """Emit the attempt children. Success: ``winner`` answered (the
+            other side, if any, was abandoned — unless it DIED mid-race:
+            its breaker recorded a failure, so the timeline says ``failed``
+            too). Failure: the BLAMED replica (the one the error is
+            attributed to) carries ``outcome``, the other side was
+            abandoned mid-race."""
+            if trace is None:
+                return
+            now = time.monotonic_ns()
+            blamed = winner if winner is not None else getattr(
+                err, "replica", None)
+            for rep, sid, start in ((r, s1, a1_ns), (r2, s2, a2_ns)):
+                if rep is None or sid is None:
+                    continue
+                if rep in race_died:
+                    oc = "failed"
+                elif blamed is None or rep is blamed:
+                    oc = outcome
+                else:
+                    oc = "abandoned"
+                self._span.emit(tid, "attempt", start, now - start,
+                                parent=root, span_id=sid, replica=rep.name,
+                                outcome=oc)
+
+        try:
+            hedge_delay = self._hedge_delay_s() if hedge else None
+            if hedge_delay is not None and hedge_delay < timeout:
+                if not t1.done.wait(hedge_delay):
+                    r2 = self._pick(exclude=tried | {r})
+                    if r2 is not None:
+                        try:
+                            if trace is None:
+                                wire2 = req
+                            else:
+                                s2 = new_span_id()
+                                wire2 = {**req,
+                                         "trace": wire_context(tid, s2)}
+                                a2_ns = time.monotonic_ns()
+                            t2 = r2.handle.submit(wire2)
+                        except ReplicaError:
+                            # dead at submit: the timeline must still show
+                            # the hedge touched this replica (the mirror of
+                            # the primary's dead-at-submit span above)
+                            if trace is not None and s2 is not None:
+                                self._span.emit(
+                                    tid, "attempt", a2_ns,
+                                    time.monotonic_ns() - a2_ns,
+                                    parent=root, span_id=s2,
+                                    replica=r2.name, outcome="failed")
+                            r2, s2 = None, None
+                        else:
+                            with self._lock:
+                                self.hedges += 1
+                                r2.in_flight += 1
+            if t2 is None:
+                src, resp = r, r.handle.wait(
+                    t1, max(0.0, deadline - time.monotonic()))
+            else:
+                src, resp = self._wait_either(
+                    (r, t1), (r2, t2), deadline, died=race_died)
+                if src is r2:
+                    with self._lock:
+                        self.hedge_wins += 1
+            try:
+                value = self._interpret(resp)
+            except Exception as e:
+                # attribute the failure to the replica that ANSWERED — on a
+                # hedged attempt that may be r2, and blaming the primary
+                # would open the healthy replica's breaker (or mark it
+                # saturated with r2's hint) while the sick one stays routed
+                e.replica = src  # read by _request via getattr
+                raise
+            src.breaker.record_success()
+            self._note_latency(timeout - max(0.0,
+                                             deadline - time.monotonic()))
+            attempt_spans(None, "win" if t2 is not None else "ok",
+                          winner=src)
+            return value
+        except _Saturated as e:
+            attempt_spans(e, "saturated")
+            raise
+        except (ReplicaError, TimeoutError) as e:
+            attempt_spans(e, "failed")
+            raise
+        except Exception as e:
+            # client-level error: the blamed replica ANSWERED — its attempt
+            # is "ok" on the timeline, the raise is the caller's business
+            attempt_spans(e, "ok")
+            raise
+        finally:
+            with self._lock:
+                r.in_flight -= 1
+                if t2 is not None:
+                    r2.in_flight -= 1
+            r.handle.abandon(t1)
+            if t2 is not None:
+                r2.handle.abandon(t2)
+
+    @staticmethod
+    def _wait_either(a, b, deadline: float, died: Optional[list] = None):
+        """First-wins over two (replica, ticket) pairs. Polls at 1 ms —
+        only ever runs inside the hedge window (past p99), so the poll
+        granularity is noise relative to the tail it is cutting. A side
+        whose ticket resolves as a transport death (ReplicaError) is
+        dropped and the OTHER side keeps being waited — a dead hedge
+        target must not fail an attempt the primary can still win; the
+        raised error carries ``.replica`` for breaker attribution.
+        ``died`` (when given) collects the dropped replicas so the
+        caller's trace labels them ``failed``, not ``abandoned`` — the
+        breaker recorded a failure, the timeline must agree."""
+        pairs = [list(a), list(b)]
+        while True:
+            for pair in list(pairs):
+                rx, tx = pair
+                if tx.done.is_set():
+                    try:
+                        return rx, rx.handle.wait(tx, 0.0)
+                    except ReplicaError as e:
+                        pairs.remove(pair)
+                        if not pairs:
+                            e.replica = rx  # the outer loop records it
+                            raise
+                        # dropped side: no exception will propagate for
+                        # it, so its breaker is fed here
+                        rx.breaker.record_failure(str(e))
+                        if died is not None:
+                            died.append(rx)
+            if time.monotonic() >= deadline:
+                raise TimeoutError("hedged attempt timed out on both replicas")
+            time.sleep(0.001)
+
+    @staticmethod
+    def _interpret(resp: dict) -> Any:
+        """Wire response → value, or the typed raise. ServerOverloaded is
+        saturation (retry elsewhere); ServiceClosed/timeouts are replica
+        failures (breaker food); anything else — an OOV KeyError, a bad
+        op — is the CALLER's error and propagates without burning
+        retries."""
+        if "error" in resp:
+            et = resp.get("error_type") or resp["error"].split(":", 1)[0]
+            msg = resp["error"]
+            if et == "ServerOverloaded":
+                raise _Saturated(resp.get("retry_after_s"))
+            if et in ("ServiceClosed", "TimeoutError"):
+                raise ReplicaError(msg)
+            if et == "KeyError":
+                raise KeyError(msg.split(":", 1)[-1].strip())
+            raise RuntimeError(msg)
+        if "synonyms" in resp:
+            rows = resp["synonyms"]
+            if rows and rows[0] and isinstance(rows[0][0], list):
+                return [[(w, s) for w, s in row] for row in rows]
+            return [(w, s) for w, s in rows]
+        return resp
+
+    # -- prober / orchestrator (one thread) --------------------------------------------
+
+    def _probe_loop(self) -> None:
+        while not self._stop.wait(self._probe_s):
+            try:
+                self._probe_once()
+            except Exception:  # noqa: BLE001 — the prober must survive
+                logger.warning("fleet probe round failed", exc_info=True)
+
+    def _probe_once(self) -> None:
+        disk_sig = (_sig_str(publish_signature(self._checkpoint))
+                    if self._checkpoint else None)
+        for r in self._replicas:
+            if self._stop.is_set():
+                return
+            self._probe_replica(r, disk_sig)
+        # rolling reload: a NEW publish (disk signature moved past the last
+        # orchestrated one) drains + reloads replicas one at a time
+        if (self._rolling and disk_sig is not None
+                and disk_sig != self._orchestrated_sig):
+            self._rolling_reload(disk_sig)
+
+    def _probe_replica(self, r: _ReplicaState, disk_sig: Optional[str]
+                       ) -> None:
+        # dead process: feed the breaker (client traffic may be sparse —
+        # liveness must not depend on it) and restart under a cooldown
+        if not r.handle.alive():
+            r.breaker.record_failure("process dead")
+            if (self._set.can_respawn
+                    and time.monotonic() - r.last_restart
+                    >= r.breaker.reset_s):
+                r.last_restart = time.monotonic()
+                logger.info("fleet: restarting dead replica %s", r.name)
+                try:
+                    r.handle.restart()
+                except Exception:  # noqa: BLE001 — retried next tick
+                    logger.warning("restart of %s failed", r.name,
+                                   exc_info=True)
+            return
+        state = r.breaker.state
+        if state == CircuitBreaker.OPEN:
+            if not r.breaker.begin_probe():
+                return  # cooldown still running
+        elif state == CircuitBreaker.HALF_OPEN:
+            pass  # a prior trial is resolving this tick
+        # the probe: a cheap stats op, bounded by the probe cadence
+        try:
+            t = r.handle.submit({"op": "stats"})
+            resp = r.handle.wait(t, max(1.0, self._probe_s))
+            stats = self._interpret(resp)
+        except (_Saturated,):
+            # a saturated replica is alive — not a breaker failure
+            r.breaker.record_success()
+            return
+        except Exception as e:  # noqa: BLE001 — any probe failure is food
+            r.breaker.record_failure(f"probe: {e}")
+            return
+        r.breaker.record_success()
+        if isinstance(stats, dict):
+            r.stats_cache = stats
+            r.publish_sig = stats.get("publish_sig")
+            # staleness: serving an older publish than the disk = DEGRADED
+            # (still serves; the router prefers fresh replicas)
+            r.degraded = (disk_sig is not None
+                          and r.publish_sig is not None
+                          and r.publish_sig != disk_sig)
+
+    def _rolling_reload(self, disk_sig: str) -> None:
+        """Drain + reload one replica at a time: capacity never drops below
+        N-1 (the ``min_serving`` gauge asserts it). Replicas run with the
+        watcher OFF — this orchestrator is the only reload trigger."""
+        t0 = time.monotonic()
+        target = disk_sig
+        min_serving = len(self._replicas)
+        for r in self._replicas:
+            if self._stop.is_set():
+                return
+            if not (r.handle.alive() and r.breaker.allows_traffic()):
+                continue  # a broken replica reloads at restart/boot instead
+            r.draining = True
+            try:
+                drain_deadline = time.monotonic() + self._drain_timeout_s
+                while r.in_flight > 0 and time.monotonic() < drain_deadline:
+                    time.sleep(0.005)
+                drained = r.in_flight == 0
+                serving = sum(1 for q in self._replicas
+                              if q is not r and not q.draining
+                              and q.handle.alive()
+                              and q.breaker.allows_traffic())
+                min_serving = min(min_serving, serving)
+                t = r.handle.submit({"op": "reload"})
+                self._interpret(r.handle.wait(t, self._reload_timeout_s))
+                r.reloads += 1
+                if drained:
+                    r.drained_reloads += 1
+                r.publish_sig = target
+                r.degraded = False
+            except Exception as e:  # noqa: BLE001 — one replica's failed
+                # reload must not wedge the round; the breaker/probe path
+                # owns its recovery and the next publish retries it
+                r.breaker.record_failure(f"rolling reload: {e}")
+                logger.warning("rolling reload of %s failed", r.name,
+                               exc_info=True)
+            finally:
+                r.draining = False
+        self._orchestrated_sig = target
+        with self._lock:
+            self.reload_rounds += 1
+            self.min_serving_during_reloads = (
+                min_serving if self.min_serving_during_reloads is None
+                else min(self.min_serving_during_reloads, min_serving))
+        if self._sink is not None:
+            self._sink.emit("fleet_reload",
+                            publishes=self.reload_rounds,
+                            min_serving=min_serving,
+                            replicas=len(self._replicas),
+                            # the generation rolled to: joins the
+                            # publisher's `publish` record and each
+                            # replica's serve_reload on the fleet timeline
+                            publish_sig=target,
+                            seconds=round(time.monotonic() - t0, 3))
+        logger.info("rolling reload round %d: %d replicas, min serving %d, "
+                    "%.2fs", self.reload_rounds, len(self._replicas),
+                    min_serving, time.monotonic() - t0)
+
+    # -- observability -----------------------------------------------------------------
+
+    def breaker_states(self) -> Dict[str, str]:
+        return {r.name: r.breaker.state for r in self._replicas}
+
+    def breaker_transitions(self, name: str) -> List[Tuple[str, str, str]]:
+        for r in self._replicas:
+            if r.name == name:
+                return r.breaker.transitions_snapshot()
+        raise KeyError(name)
+
+    def stats(self) -> Dict[str, Any]:
+        now = time.monotonic()
+        with self._lock:
+            snap: Dict[str, Any] = {
+                "queries": self.queries,
+                "failures": self.failures,
+                "retries": self.retries,
+                "hedges": self.hedges,
+                "hedge_wins": self.hedge_wins,
+                "shed_single": self.shed_single,
+                "shed_bulk": self.shed_bulk,
+                "reload_rounds": self.reload_rounds,
+                "min_serving_during_reloads":
+                    self.min_serving_during_reloads,
+            }
+        replicas: Dict[str, Any] = {}
+        healthy = degraded = 0
+        leaked = self._leaked_threads
+        for r in self._replicas:
+            alive = r.handle.alive()
+            closed = r.breaker.state == CircuitBreaker.CLOSED
+            healthy += alive and closed
+            degraded += r.degraded
+            replicas[r.name] = {
+                "state": r.breaker.state,
+                "alive": alive,
+                "degraded": r.degraded,
+                "draining": r.draining,
+                "in_flight": r.in_flight,
+                "saturated": r.saturated_until > now,
+                "reloads": r.reloads,
+                "drained_reloads": r.drained_reloads,
+                "restarts": r.handle.restarts,
+                "leaked_threads": getattr(r.handle, "leaked_threads", 0),
+                "publish_sig": r.publish_sig,
+                "stats": r.stats_cache,
+            }
+        for rs in replicas.values():
+            leaked += rs["leaked_threads"]
+        snap["replicas"] = replicas
+        snap["healthy"] = healthy
+        snap["degraded"] = degraded
+        snap["leaked_threads"] = leaked
+        snap["slo"] = self._slo.snapshot()
+        with self._lock:  # same mutation-during-sort hazard as _note_latency
+            lats = list(self._latencies)
+        lats.sort()
+        if lats:
+            def pct(p: float) -> float:
+                return round(
+                    lats[min(len(lats) - 1, int(p * len(lats)))] * 1000, 3)
+            snap["latency_ms"] = {"p50": pct(0.50), "p95": pct(0.95),
+                                  "p99": pct(0.99), "n": len(lats)}
+        return snap
+
+    def status_snapshot(self) -> Dict[str, Any]:
+        snap = self.stats()
+        snap["status"] = "closed" if self._closed else "serving"
+        return snap
+
+    def slo_snapshot(self) -> Dict[str, Any]:
+        """The live SLO gauge set (obs/slo.py) — what the chaos drills
+        assert and ``fleet_prometheus_text`` renders."""
+        return self._slo.snapshot()
+
+    def slo_within_budget(self) -> bool:
+        return self._slo.within_budget()
+
+    def emit_stats(self) -> None:
+        if self._sink is None:
+            return
+        s = self.stats()
+        # the snapshot is always populated (a samples=0 record before any
+        # traffic is "no traffic burned no budget", worth the line)
+        slo = flatten_burn(s["slo"])
+        self._sink.emit(
+            "fleet_stats",
+            queries=s["queries"], failures=s["failures"],
+            retries=s["retries"], hedges=s["hedges"],
+            hedge_wins=s["hedge_wins"],
+            shed=s["shed_single"] + s["shed_bulk"],
+            healthy=s["healthy"], degraded=s["degraded"], slo=slo,
+            **({"latency_ms": s["latency_ms"]}
+               if s.get("latency_ms") else {}))
+        self._sink.emit("fleet_slo", **slo)
+
+    def close(self, close_replicas: bool = True) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        self._stop.set()
+        self._prober.join(timeout=30)
+        if self._prober.is_alive():
+            self._leaked_threads += 1
+            logger.warning("fleet prober thread leaked (join timeout)")
+        if self._statusd is not None:
+            self._leaked_threads += self._statusd.stop()
+        if self._sink is not None:
+            with self._lock:
+                q, f = self.queries, self.failures
+            # the terminal SLO snapshot BEFORE the end bracket: a collector
+            # reading only this file still gets the storm's final burn
+            self._sink.emit("fleet_slo", **flatten_burn(self._slo.snapshot()))
+            self._sink.emit("fleet_end", queries=q, failures=f)
+            self._sink.close()
+        if close_replicas:
+            self._leaked_threads += self._set.close()
+
+    def __enter__(self) -> "FleetRouter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def fleet_knobs_from_checkpoint(checkpoint: str, **overrides) -> dict:
+    """Resolve the ``serve_fleet_*`` knobs the same way the single service
+    resolves ``serve_*``: explicit override, else the checkpoint config's
+    field (the knobs travel with the checkpoint), else the dataclass
+    default. Returns the FleetRouter/ReplicaSet keyword dict."""
+    from glint_word2vec_torch.train.checkpoint import load_model_header
+    cfg = load_model_header(checkpoint)["config"]
+
+    def knob(name, override_key):
+        v = overrides.get(override_key)
+        return v if v is not None else getattr(cfg, name)
+
+    return {
+        "replicas": int(knob("serve_fleet_replicas", "replicas")),
+        "probe_s": float(knob("serve_fleet_probe_s", "probe_s")),
+        "breaker_failures": int(knob("serve_fleet_breaker_failures",
+                                     "breaker_failures")),
+        "breaker_reset_s": float(knob("serve_fleet_breaker_reset_s",
+                                      "breaker_reset_s")),
+        "hedge_ms": float(knob("serve_fleet_hedge_ms", "hedge_ms")),
+        "retry_deadline_s": float(knob("serve_fleet_retry_deadline_s",
+                                       "retry_deadline_s")),
+    }

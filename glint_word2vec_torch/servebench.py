@@ -28,8 +28,15 @@ that ANN p50.
 
 The default matrix is synthetic and CLUSTERED (unit centroids plus noise of norm
 ~0.35): trained embeddings are clustered, and a uniform random matrix has no
-structure for any index. ``--checkpoint`` serves a real model instead. ``--fleet``
-(replicas behind a router) is refused: the fleet is not ported (ROADMAP.md A7b).
+structure for any index. ``--checkpoint`` serves a real model instead.
+
+``--fleet`` adds the fleet tier: ``--fleet-replicas`` in-process replicas (each its own
+model on the device and its own batcher, one shared host IVF index) behind a
+:class:`~glint_word2vec_torch.serve.fleet.FleetRouter`, N=1 against N=3 on the exact and
+ANN arms at the half-capacity offered point, then the hedge A/B under an injected
+straggler on replica 0 (``--straggle-every``, ``--straggle-ms``). On one card the
+replicas share it: their queries per second check the router's function, not a fleet's
+capacity (``fleet_capacity_note`` in the line says so).
 """
 
 from __future__ import annotations
@@ -177,6 +184,122 @@ def offered_load(service, words: List[str], num: int, target_qps: float,
             "p50_ms": pct(lats, 0.50), "p99_ms": pct(lats, 0.99)}
 
 
+def fleet_tier(args, device) -> Dict:
+    """The fleet arms, the JAX bench's ``fleet_tier``: N in-process replicas (each its
+    own model on ``device`` and its own batcher; one shared IVF index, read-only) behind
+    a router, at the half-capacity offered point, N=1 against N=``--fleet-replicas`` on
+    the exact and ANN arms; then the hedge A/B: the N-replica ANN fleet under a 1-in-
+    ``--straggle-every`` batch stall of ``--straggle-ms`` on replica 0, hedging off
+    against hedging at the healthy fleet's measured p99 (floored at 5 ms, and capped at
+    half the stall: on a loaded host the healthy tail can pass the stall, and a hedge
+    sent after the stall resolved measures nothing)."""
+    import torch
+
+    from glint_word2vec_torch.data.vocab import Vocabulary
+    from glint_word2vec_torch.models.word2vec import Word2VecModel
+    from glint_word2vec_torch.serve import (EmbeddingService, FleetRouter, ReplicaSet,
+                                            build_ivf)
+
+    v, d, n_rep = args.fleet_vocab, args.dim, args.fleet_replicas
+    matrix = clustered_matrix(v, d, min(args.clusters, max(8, v // 64)), args.seed)
+    vocab = Vocabulary.from_words_and_counts([f"w{i}" for i in range(v)],
+                                             np.ones(v, np.int64))
+    index = build_ivf(matrix, nprobe=args.nprobe or 0, seed=args.seed)
+    log(f"[fleet] shared IVF built: C={index.stats['centroids']} "
+        f"recall@10={index.stats.get('recall_at_10')}")
+    rng = np.random.default_rng(args.seed + 2)
+    qwords = [vocab.words[i] for i in rng.integers(0, v, 2048)]
+    num, dur = args.num, args.duration
+
+    def build_fleet(n: int, ann: bool, hedge_ms: float, straggle: bool):
+        models = [Word2VecModel(vocab, torch.from_numpy(matrix), device=device)
+                  for _ in range(n)]
+        # max_delay_ms=0: the router spreads the clients over N batchers, so the
+        # coalescing deadline would only add latency. The straggler hits replica 0
+        # only: one degraded node in a healthy fleet is what hedging is for
+        svcs = [EmbeddingService(
+            model=m, ann=ann, ann_index=(index if ann else None),
+            nprobe=args.nprobe or None, max_delay_ms=0.0,
+            straggle_every=(args.straggle_every if straggle and i == 0 else 0),
+            straggle_ms=(args.straggle_ms if straggle and i == 0 else 0.0))
+            for i, m in enumerate(models)]
+        router = FleetRouter(ReplicaSet.adopt(svcs), hedge_ms=hedge_ms, probe_s=0.25,
+                             retry_deadline_s=60.0)
+        return router, models
+
+    def run_arm(n: int, ann: bool, hedge_ms: float = 0.0, straggle: bool = False,
+                target_qps: float = 0.0) -> Dict:
+        router, models = build_fleet(n, ann, hedge_ms, straggle)
+        try:
+            router.synonyms(qwords[0], num)  # warm
+            row: Dict = {}
+            if not target_qps:
+                cl = closed_loop(router, qwords, num, args.clients, dur)
+                row["qps"] = cl["qps"]
+                target_qps = max(cl["qps"], 1.0) / 2
+            off = offered_load(router, qwords, num, target_qps, min(dur, 2.0))
+            row.update(target_qps=off["target_qps"], p50_ms=off["p50_ms"],
+                       p99_ms=off["p99_ms"], refused=off["refused"],
+                       failed=off["failed"])
+            st = router.stats()
+            row["hedges"] = st["hedges"]
+            row["hedge_wins"] = st["hedge_wins"]
+            row["router_failures"] = st["failures"]
+            return row
+        finally:
+            router.close()
+            for m in models:
+                m.stop()
+
+    out: Dict = {"fleet_vocab": v, "fleet_replicas": n_rep,
+                 "fleet_recall_at_10": index.stats.get("recall_at_10"),
+                 # the in-process replicas share one index; a deployment pays one copy
+                 # per replica host
+                 "fleet_index_bytes": index.stats.get("index_bytes"),
+                 "fleet_capacity_note": (
+                     f"the {n_rep} replicas share one {device.type} device and one "
+                     "host: their qps check the router's function, not a fleet's "
+                     "capacity")}
+    half_targets: Dict = {}
+    failed = 0
+    for ann in (False, True):
+        arm = "ann" if ann else "exact"
+        for n in (1, n_rep):
+            row = run_arm(n, ann)
+            half_targets[(n, ann)] = row["target_qps"]
+            failed += row["failed"] + row["router_failures"]
+            out[f"fleet{n}_{arm}_qps"] = row["qps"]
+            out[f"fleet{n}_{arm}_p50_ms"] = row["p50_ms"]
+            out[f"fleet{n}_{arm}_p99_ms"] = row["p99_ms"]
+            log(f"[fleet] N={n} {arm}: {row['qps']} qps closed, half-cap "
+                f"p50 {row['p50_ms']} ms p99 {row['p99_ms']} ms")
+    # hedge past the healthy tail (its p99, floored at 5 ms): duplicates stay rare, and
+    # fire before the straggler's stall resolves (at most half the stall)
+    healthy_p99 = out[f"fleet{n_rep}_ann_p99_ms"]
+    hedge_delay = max(5.0, healthy_p99) if healthy_p99 == healthy_p99 else 5.0
+    hedge_delay = min(hedge_delay, args.straggle_ms / 2)
+    target = half_targets[(n_rep, True)]
+    offrow = run_arm(n_rep, True, hedge_ms=0.0, straggle=True, target_qps=target)
+    onrow = run_arm(n_rep, True, hedge_ms=hedge_delay, straggle=True,
+                    target_qps=target)
+    failed += sum(r["failed"] + r["router_failures"] for r in (offrow, onrow))
+    out["fleet_straggle"] = f"r0:1/{args.straggle_every}x{args.straggle_ms}ms"
+    out["fleet_hedge_delay_ms"] = round(hedge_delay, 3)
+    out["fleet_hedge_off_p99_ms"] = offrow["p99_ms"]
+    out["fleet_hedge_on_p99_ms"] = onrow["p99_ms"]
+    out["fleet_hedges"] = onrow["hedges"]
+    out["fleet_hedge_wins"] = onrow["hedge_wins"]
+    out["fleet_hedge_p99_cut"] = (
+        round(offrow["p99_ms"] / onrow["p99_ms"], 2)
+        if onrow["p99_ms"] and onrow["p99_ms"] == onrow["p99_ms"] else None)
+    out["fleet_failed"] = failed
+    log(f"[fleet] hedge A/B under straggler {out['fleet_straggle']}: "
+        f"p99 {offrow['p99_ms']} ms (off) -> {onrow['p99_ms']} ms (on, "
+        f"delay {hedge_delay:.1f} ms), {onrow['hedges']} hedges "
+        f"({onrow['hedge_wins']} wins)")
+    return out
+
+
 def card_line() -> str:
     """``name, power limit`` of the card as nvidia-smi reports them, or why not."""
     try:
@@ -209,14 +332,20 @@ def main(argv=None) -> int:
                     help="add the int8 build from a row-shards checkpoint of the "
                          "matrix and check its codes against the in-memory build's")
     ap.add_argument("--fleet", action="store_true",
-                    help="refused: the serving fleet is not ported")
+                    help="add the fleet tier: N=1 against N=--fleet-replicas in-process "
+                         "replicas behind a router on the exact and ANN arms, and the "
+                         "hedge A/B under an injected straggler")
+    ap.add_argument("--fleet-replicas", type=int, default=3)
+    ap.add_argument("--fleet-vocab", type=int, default=100_000,
+                    help="the fleet tier's vocabulary rows (N copies of the matrix "
+                         "coexist on the device)")
+    ap.add_argument("--straggle-every", type=int, default=3,
+                    help="hedge A/B fault injection: every Nth batch of replica 0 "
+                         "stalls --straggle-ms")
+    ap.add_argument("--straggle-ms", type=float, default=60.0)
     ap.add_argument("--smoke", action="store_true",
                     help="small and fast; the quantized builds' recall floors off")
     args = ap.parse_args(argv)
-    if args.fleet:
-        raise NotImplementedError(
-            "--fleet: the serving fleet (replicas behind a router) is not ported to "
-            "glint_word2vec_torch yet (ROADMAP.md queue A7b)")
     if args.smoke:
         args.vocab = min(args.vocab, 20_000)
         args.dim = min(args.dim, 64)
@@ -224,6 +353,8 @@ def main(argv=None) -> int:
         args.duration = min(args.duration, 1.0)
         args.clients = min(args.clients, 4)
         args.per_query = min(args.per_query, 8)
+        args.fleet_vocab = min(args.fleet_vocab, 8_000)
+        args.straggle_ms = min(args.straggle_ms, 40.0)
 
     from glint_word2vec_torch.config import Word2VecConfig
     from glint_word2vec_torch.device import resolve_device
@@ -390,9 +521,11 @@ def main(argv=None) -> int:
         "ann_speedup_p50": speedup,
         "offered_qps_sustained": round(sustained, 1),
         "offered": offered_rows,
-        "seconds": round(time.perf_counter() - _T0, 1),
     }
     model.stop()
+    if args.fleet:
+        result.update(fleet_tier(args, device))
+    result["seconds"] = round(time.perf_counter() - _T0, 1)
     print(json.dumps(result))
     return 0
 

@@ -80,8 +80,9 @@ class ChunkGraphs:
     ``(base, with_metrics)``: at most the two twins of one base at a time.
     ``captures`` and ``replays`` count since the last :meth:`reset_counts`."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, sync_sites):
         self.device = device
+        self._sites = sync_sites  # the trainer's declared sync sites
         self.stream = torch.cuda.Stream(device=device)  # warm-ups and captures
         self._pool = torch.cuda.graph_pool_handle()
         self._graphs: Dict[Tuple[Hashable, bool], _Graph] = {}
@@ -102,7 +103,8 @@ class ChunkGraphs:
             if any(k[0] != key[0] for k in self._graphs):
                 # another base: the old graphs point at tensors the trainer dropped.
                 # Their last replay finishes before their pool is handed back
-                torch.cuda.current_stream(self.device).synchronize()
+                with self._sites("graph_rebase", blocking=True):
+                    torch.cuda.current_stream(self.device).synchronize()
                 self._graphs.clear()
                 self._pool = torch.cuda.graph_pool_handle()
             g = self._graphs[key] = self._capture(body, gates)

@@ -160,6 +160,7 @@ from glint_word2vec_torch.train import faults
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model
 from glint_word2vec_torch.train.faults import NonFiniteParamsError, NormBlowupError
 from glint_word2vec_torch.train.graphs import ChunkGraphs
+from glint_word2vec_torch.train.syncsites import SyncSites
 
 logger = logging.getLogger("glint_word2vec_torch")
 
@@ -363,6 +364,8 @@ class Trainer:
         # runs the body eagerly on the card (the tests' and the smoke's control fits)
         self._inputs: dict = {}
         self._graphs: Optional[ChunkGraphs] = None
+        # the loop's declared host-sync and transfer sites (train/syncsites.py)
+        self.sync_sites = SyncSites()
         self._eager_chunks = False
         self.prologue_time = 0.0
         self.chunks_run = 0  # this fit's chunks
@@ -845,7 +848,7 @@ class Trainer:
         enqueued here."""
         stream = torch.cuda.Stream(device=self.device)
         for chunk in chunks:
-            with self._tracer.span("stage_put"):
+            with self._tracer.span("stage_put"), self.sync_sites("stage"):
                 pinned = {name: torch.from_numpy(a).pin_memory()
                           for name, a in chunk["arrays"].items()}
                 with torch.cuda.stream(stream):
@@ -867,10 +870,11 @@ class Trainer:
         done = chunk.get("staged")
         if done is None:
             cuda = self.device.type == "cuda"
-            arrays = {name: (torch.from_numpy(a).pin_memory().to(self.device,
-                                                                 non_blocking=True)
-                             if cuda else torch.from_numpy(a))
-                      for name, a in chunk["arrays"].items()}
+            with self.sync_sites("stage"):
+                arrays = {name: (torch.from_numpy(a).pin_memory().to(self.device,
+                                                                     non_blocking=True)
+                                 if cuda else torch.from_numpy(a))
+                          for name, a in chunk["arrays"].items()}
         else:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(done)
@@ -1083,7 +1087,7 @@ class Trainer:
         if self.device.type != "cuda" or self._eager_chunks:
             return self._chunk_body(chunk["real"], with_metrics)
         if self._graphs is None:
-            self._graphs = ChunkGraphs(self.device)
+            self._graphs = ChunkGraphs(self.device, self.sync_sites)
         K = self.config.steps_per_dispatch
         return self._graphs.run(
             self._graph_key(with_metrics), lambda: self._chunk_body(K, with_metrics),
@@ -1144,7 +1148,8 @@ class Trainer:
             finally:
                 self._stop_profiler()
                 chunks.close()
-            scatter.check_errors()
+            with self.sync_sites("index_check", blocking=True):
+                scatter.check_errors()
             if token_feed:
                 self._settle_device_pairgen_books(est_total)
             self.state = TrainState(
@@ -1154,7 +1159,9 @@ class Trainer:
             if checkpoint_path:
                 self.save_checkpoint(checkpoint_path)
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)  # the fit's time holds its last steps
+                with self.sync_sites("fit_end", blocking=True):
+                    # the fit's time holds its last steps
+                    torch.cuda.synchronize(self.device)
             self.fit_time = time.perf_counter() - t_fit
         except BaseException:
             self._abort_run()
@@ -1200,8 +1207,9 @@ class Trainer:
         """End of a device-feed run: the heartbeats ran on the analytic pair estimate;
         settle the books against the exact trained and dropped totals, read from the
         device once."""
-        exact = float(self._exact_pairs)
-        dropped = int(self._dropped)
+        with self.sync_sites("fit_end", blocking=True):
+            exact = float(self._exact_pairs)
+            dropped = int(self._dropped)
         self.dropped_pairs += dropped
         self.pairs_trained += exact - est_total
         self._pairs_since_log = max(self._pairs_since_log + exact - est_total, 0.0)
@@ -1274,11 +1282,13 @@ class Trainer:
             self._watchdog_check(channels)
 
         if hb_due:
-            scatter.check_errors()
+            with self.sync_sites("index_check", blocking=True):
+                scatter.check_errors()
             now = time.perf_counter()
             pps = self._pairs_since_log / max(now - self._last_log_time, 1e-9)
             self._pairs_since_log = 0.0
-            with self._tracer.span("device_block"):
+            with self._tracer.span("device_block"), \
+                    self.sync_sites("heartbeat", blocking=True):
                 loss, fpos = metrics[real - 1, :2].double().cpu().tolist()
             phases_window = None
             if self._phases.enabled:
@@ -1422,12 +1432,13 @@ class Trainer:
         ``update_mag`` (the change of the mean norms since the previous probe). On the
         card the queued steps drain first, in a ``device_block`` span, so the
         ``health_probe`` span times the probe and its one fetch."""
-        if self.device.type == "cuda":
-            with self._tracer.span("device_block"):
-                torch.cuda.synchronize(self.device)
-        with self._tracer.span("health_probe"):
-            channels = stats_to_channels(health_stats(
-                self.params, self.vocab.size, self.config.norm_watch_threshold))
+        with self.sync_sites("probe", blocking=True):
+            if self.device.type == "cuda":
+                with self._tracer.span("device_block"):
+                    torch.cuda.synchronize(self.device)
+            with self._tracer.span("health_probe"):
+                channels = stats_to_channels(health_stats(
+                    self.params, self.vocab.size, self.config.norm_watch_threshold))
         prev = self._last_probe_channels
         if prev is not None:
             channels["update_mag"] = round(
@@ -1440,12 +1451,13 @@ class Trainer:
         """A copy of the live parameters on their device, into a spare slot (one the
         ring dropped or a restore freed) when there is one: a snapshot allocates only
         until the ring is full."""
-        if self._spare_params:
-            slot = self._spare_params.pop()
-            slot.syn0.copy_(self.params.syn0)
-            slot.syn1.copy_(self.params.syn1)
-            return slot
-        return EmbeddingPair(self.params.syn0.clone(), self.params.syn1.clone())
+        with self.sync_sites("snapshot"):
+            if self._spare_params:
+                slot = self._spare_params.pop()
+                slot.syn0.copy_(self.params.syn0)
+                slot.syn1.copy_(self.params.syn1)
+                return slot
+            return EmbeddingPair(self.params.syn0.clone(), self.params.syn1.clone())
 
     def _push_snapshot(self) -> None:
         if len(self._snapshot_ring) == self._snapshot_ring.maxlen:
@@ -1453,8 +1465,9 @@ class Trainer:
         self._snapshot_ring.append((self._copy_params(), self.global_step))
 
     def _nonfinite_diagnostic(self) -> str:
-        bad0 = int((~torch.isfinite(self.params.syn0)).sum())
-        bad1 = int((~torch.isfinite(self.params.syn1)).sum())
+        with self.sync_sites("diagnostic", blocking=True):
+            bad0 = int((~torch.isfinite(self.params.syn0)).sum())
+            bad1 = int((~torch.isfinite(self.params.syn1)).sum())
         return (
             f"non-finite parameters at global step {self.global_step}: {bad0} entries "
             f"in syn0, {bad1} in syn1 (of {self.padded_vocab}x{self.padded_dim} each). "
@@ -1757,7 +1770,8 @@ class Trainer:
         elif checkpoint_path and remaining > 0:
             try:
                 if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                    with self.sync_sites("checkpoint", blocking=True):
+                        torch.cuda.synchronize(self.device)
                 self.save_checkpoint(checkpoint_path)
                 saved = True
             except BaseException as e:  # the guard refusing, or the disk dying
@@ -1791,8 +1805,9 @@ class Trainer:
         if self.config.nonfinite_policy != "none":
             self._nonfinite_guard(self._probed)
         p = self.unpadded_params()  # dense saves are float32 (bf16 widens exactly)
-        save_model(path, self.vocab.words, self.vocab.counts,
-                   p.syn0.float().cpu().numpy(), p.syn1.float().cpu().numpy(),
+        with self.sync_sites("checkpoint", blocking=True):
+            syn0, syn1 = p.syn0.float().cpu().numpy(), p.syn1.float().cpu().numpy()
+        save_model(path, self.vocab.words, self.vocab.counts, syn0, syn1,
                    self.config, self.state)
         logger.info("checkpoint saved to %s at step %d", path, self.global_step)
         self._last_save_step = int(self.global_step)

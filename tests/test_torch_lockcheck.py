@@ -85,15 +85,16 @@ def test_every_lock_of_the_port_is_registered():
 
 
 def test_lock_table_matches_the_jax_package():
-    """The shared entries keep the JAX package's ranks and kinds; the port adds the
-    CUDA kernels' build lock and names servebench's by its module; the fleet's entries
-    wait for the fleet."""
+    """The shared entries keep the JAX package's ranks and kinds (the fleet's and the
+    SLO tracker's among them); the port adds the CUDA kernels' build lock and names
+    servebench's by its module."""
     from glint_word2vec_tpu.lockcheck import LOCK_TABLE as JAX_TABLE
     mine = lockcheck.LOCK_TABLE
     shared = set(mine) & set(JAX_TABLE)
     assert shared == {"data.native.load", "data.ingest_native.load", "serve.handle",
                       "serve.batcher.cv", "obs.phases", "obs.spans", "obs.blackbox",
-                      "obs.sink"}
+                      "obs.sink", "fleet.router", "fleet.breaker",
+                      "fleet.replica.pending", "fleet.replica.write", "obs.slo"}
     for name in shared:
         assert (mine[name]["rank"], mine[name]["kind"]) == (
             JAX_TABLE[name]["rank"], JAX_TABLE[name]["kind"]), name
@@ -102,9 +103,7 @@ def test_lock_table_matches_the_jax_package():
     assert set(mine) - shared == {"ops.kernels.build", "servebench.tickets"}
     assert mine["servebench.tickets"]["rank"] == JAX_TABLE["tools.servebench.tickets"][
         "rank"]
-    assert set(JAX_TABLE) - shared == {
-        "fleet.router", "fleet.breaker", "fleet.replica.pending", "fleet.replica.write",
-        "obs.slo", "tools.servebench.tickets"}
+    assert set(JAX_TABLE) - shared == {"tools.servebench.tickets"}
     ranks = [e["rank"] for e in mine.values()]
     assert len(set(ranks)) == len(ranks)
 

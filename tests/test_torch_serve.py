@@ -969,10 +969,26 @@ def test_servebench_smoke_prints_one_json_line():
     for arm in ("exact", "ann", "int8", "pq"):
         assert res[f"{arm}_qps"] > 0
     assert res["pq_index_bytes"] < res["int8_index_bytes"] < res["ann_index_bytes"]
+    # the fleet tier: N=1 against N=3 in-process replicas behind the router, and the
+    # hedge A/B under an injected straggler on replica 0
     r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.servebench",
-                        "--fleet", "--device", "cpu"], capture_output=True,
-                       text=True, env=_env(), cwd=str(REPO), timeout=120)
-    assert r.returncode != 0 and "A7b" in r.stderr and r.stdout == ""
+                        "--fleet", "--device", "cpu", "--smoke", "--vocab", "3000",
+                        "--duration", "0.3", "--per-query", "4"], capture_output=True,
+                       text=True, env={**_env(), "OMP_NUM_THREADS": "1"}, cwd=str(REPO),
+                       timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = r.stdout.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["fleet_replicas"] == 3 and res["fleet_vocab"] == 8000
+    for n in (1, 3):
+        for arm in ("exact", "ann"):
+            assert res[f"fleet{n}_{arm}_qps"] > 0
+            assert res[f"fleet{n}_{arm}_p99_ms"] > 0
+    assert res["fleet_failed"] == 0
+    assert res["fleet_hedges"] >= 1 and res["fleet_straggle"] == "r0:1/3x40.0ms"
+    assert res["fleet_hedge_off_p99_ms"] > 0 and res["fleet_hedge_on_p99_ms"] > 0
+    assert "not a fleet's capacity" in res["fleet_capacity_note"]
 
 
 # -- the serving knobs -----------------------------------------------------------------
@@ -1010,10 +1026,16 @@ def test_serving_knobs_travel_with_the_checkpoint(tmp_path, knob, value):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("serve_fleet_replicas", 2), ("serve_fleet_probe_s", 1.0),
-    ("serve_fleet_breaker_failures", 5), ("serve_fleet_breaker_reset_s", 1.0),
-    ("serve_fleet_hedge_ms", 5.0), ("serve_fleet_retry_deadline_s", 3.0),
+    ("serve_fleet_replicas", 0), ("serve_fleet_probe_s", 0.0),
+    ("serve_fleet_breaker_failures", 0), ("serve_fleet_breaker_reset_s", -1.0),
+    ("serve_fleet_hedge_ms", -2.0), ("serve_fleet_retry_deadline_s", 0.0),
 ])
 def test_fleet_knobs_stay_refused_by_name(knob, value):
-    with pytest.raises(NotImplementedError, match=knob):
+    """The fleet's knobs are ported: a bad value is refused by the knob's name, with the
+    JAX config's message (a good one is accepted: test_torch_isolation.py)."""
+    from glint_word2vec_tpu.config import Word2VecConfig as JConfig
+    with pytest.raises(ValueError, match=knob) as want:
+        JConfig(**{knob: value})
+    with pytest.raises(ValueError, match=knob) as got:
         Word2VecConfig(**{knob: value})
+    assert str(got.value) == str(want.value)

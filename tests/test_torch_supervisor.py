@@ -10,9 +10,9 @@ raised by both packages with the same messages; and the three drills of
 ``train_run --smoke --device cpu`` (a real fit of the port, preempted, stalled and
 crash-looped under the supervisor).
 
-Two groups of the JAX file are left out: the ``run_report`` cases (that report is
+Two groups of the JAX file are left out here: the ``run_report`` cases (that report is
 ``tools/run_report.py``, which the port has no counterpart of) and the ``chaos_run``
-CLI case (the chaos drill is ROADMAP queue A6b.2)."""
+CLI case, which ``tests/test_torch_chaos.py`` ports."""
 
 import json
 import os
