@@ -205,10 +205,11 @@ Phases, one line each (or a few); any failure exits non-zero:
                artifact. Printed: the replicas' start-up seconds, queries and
                failures, the breaker's transitions, each rolling round's seconds, the
                card's memory (nvidia-smi) before, at peak and after close. (b) python
-               -m glint_word2vec_torch.chaos_run --smoke --device cuda over its ported
-               phases but fleet-kill (13a), train-preempt (12c), nan-rollback (10b),
+               -m glint_word2vec_torch.chaos_run --smoke --device cuda over its phases
+               but fleet-kill (13a), train-preempt (12c), nan-rollback (10b),
                norm-recover (10c) and blackbox (10d), each named with the phase that
-               covers it: every phase run passes. (c) python -m
+               covers it (continual-drift and serve-reload's two V-grew epilogues among
+               them): every phase run passes. (c) python -m
                glint_word2vec_torch.stepaudit --device cuda at V=1,000,000, d=300,
                B=8192, K=16 (its default geometry there) over every single-device
                variant and the recovery: no undeclared host read or transfer (nor a
@@ -217,6 +218,36 @@ Phases, one line each (or a few); any failure exits non-zero:
                (peak memory over the start below one matrix), no float64 or dense
                float32 [V, D] upcast, the expected graph captures, with the declared
                syncs per chunk printed. (b) and (c) run side by side.
+ 14. continual continual training on phase 11's checkpoint, after phase 13: (a) a copy
+               of it (V=1,000,000, d=300, syn1 and its train state) served by an
+               EmbeddingService on the card (exact arm, watch=True) under 8 client
+               threads querying 64 old words throughout; a tail segment of 2,000,000
+               Zipf(1) tokens over its words (another seed than phase 8's corpus) and
+               10,000 unseen words, each min_count + 3 times; ContinualRunner(
+               device="cuda").run_once() with continual_lr_rewarm=0.5 must grow V by
+               exactly 10,000 (old words first, in order; new ones in first-seen
+               order), merge counts equal to the old counts plus np.bincount of the
+               tail, publish an extension whose carried syn0/syn1 rows are bit-identical
+               to the source, new syn1 rows zero and new syn0 rows seed_new_rows'
+               (within 0.5/300), checked on disk before the fit; then the increment:
+               syn0 rows of old words the tail never holds bit-identical, global_step
+               advanced by exactly the steps (and pairs) of a numpy replay of the
+               feed, the published learning_rate unchanged, a lineage of depth 1 with
+               remap identity-prefix, the fused kernel launched on every step (K a
+               replay and K a capture's warm-up) and the scatter kernel never; the
+               service reloads both publishes, counts one vocabulary-change reload and
+               answers a new word with finite scores; no query fails or is refused; a
+               second run_once() is idle. Printed: the seconds of count, extension,
+               encode, load, trainer set-up and fit; pairs/s and the device's idle share
+               over the fit (profiled; the service's kernels count busy); each reload's
+               seconds from publish to swap; the card's memory before, at peak and
+               after. (b) python -m glint_word2vec_torch.eval_quality --continual-ab
+               --words 6000000 --vocab 30000 --dim 64 --iters 1 (seed 42, B=65536,
+               P=512, a 1,500,000-word tail, 2,000 new raw types) in a child process on
+               the card: vocab_base 30,349, new_words 1,747, vocab_grown 32,096 (the JAX
+               tool's EVAL_RUNS.jsonl:27-28), post purity@10 >= 0.95 and >= pre - 0.02,
+               post margin >= 0.30, the fused kernel on every step of both fits; analogy
+               @1 and each arm's train seconds printed, held to nothing.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -3039,7 +3070,7 @@ def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
         + ", ".join(f"{p} {r}" for p, r in c["phases"].items())
         + f"; left out (another phase runs them on the card at a larger size): "
         + ", ".join(f"{p} ({ph})" for p, ph in CHAOS_COVERED.items())
-        + f"; not ported: {', '.join(p for p in c['not_run'] if p not in CHAOS_COVERED)}")
+        + f"; not ported: {', '.join(NOT_PORTED) or 'none'}")
     if c["rc"] != 0 or not c["ok"] or set(c["phases"]) != set(chaos_run):
         raise AssertionError(f"phase 13b: chaos drill failed: {c['phases']}")
     a = rec["audit"]
@@ -3061,6 +3092,329 @@ def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
         raise AssertionError(f"phase 13c: the transfer-contract audit failed: "
                              f"{json.dumps(bad)[:3000]} {a.get('recover_rebuild')}")
     return rec
+
+
+# the continual phase (14): phase 11's checkpoint grown by one tail segment of
+# CONT_TOKENS Zipf(1) tokens over its words (another seed than phase 8's corpus) and
+# CONT_NEW unseen words, each the checkpoint's min_count + 3 times, in one increment at
+# lr re-warm CONT_REWARM under a service on the card queried by CONT_CLIENTS clients;
+# then the forgetting A/B at the settings of the JAX tool's rows EVAL_RUNS.jsonl:27-28
+# (seed 42, B=65536, P=512, a tail of words // 4, 2,000 new raw types), its vocabulary
+# sizes, and the quality phase's floors with the hot-row A/B's 0.02 parity
+CONT_TOKENS = 2_000_000
+CONT_NEW = 10_000
+CONT_REWARM = 0.5
+CONT_CLIENTS = 8
+CONT_WORDS = 64
+AB_ARGS = ["--continual-ab", "--words", "6000000", "--vocab", "30000", "--dim", "64",
+           "--iters", "1"]
+AB_SIZES = (30_349, 1_747, 32_096)  # vocab_base, new_words, vocab_grown
+AB_PURITY, AB_MARGIN, AB_PARITY = 0.95, 0.30, 0.02
+AB_TIMEOUT_S = 900
+
+
+def write_tail(path: str, words, counts, mc: int, seed: int, np):
+    """The tail segment: CONT_TOKENS draws of the vocabulary's own Zipf counts and
+    CONT_NEW unseen words ``novel<j>`` ``mc + 3`` times each, shuffled together into
+    sentences of 40 tokens. Returns the draws' ids (new words from len(words) up) in
+    file order and the new words' names."""
+    rng = np.random.default_rng(seed + 14)
+    V = len(words)
+    old = rng.choice(V, size=CONT_TOKENS, p=counts / counts.sum())
+    new = np.repeat(np.arange(V, V + CONT_NEW), mc + 3)
+    ids = np.concatenate([old, new])[rng.permutation(CONT_TOKENS + len(new))]
+    names = [f"novel{j:05d}" for j in range(CONT_NEW)]
+    vocab = np.asarray(list(words) + names, dtype=object)
+    with open(path, "w", encoding="utf-8") as f:
+        for i in range(0, len(ids), 40):
+            f.write(" ".join(vocab[ids[i:i + 40]]) + "\n")
+    return ids, names
+
+
+def continual_phase(ck: str, seed: int, torch, np, fused, scat,
+                    device: str = "cuda") -> tuple:
+    """Phase 14 (see the module docstring): (a) ``ContinualRunner.run_once`` on a copy
+    of ``ck`` under a live service, every assertion of the loop at full width; (b) the
+    forgetting A/B, ``eval_quality --continual-ab`` in a child process. Returns (record,
+    (a)'s launches, (b)'s launches). ``device="cpu"`` rehearses it on the CPU at a
+    smaller checkpoint (patched CONT_* sizes), without the card's checks."""
+    import threading
+    from types import SimpleNamespace
+
+    from glint_word2vec_torch.continual import ContinualRunner, seed_new_rows
+    from glint_word2vec_torch.data.corpus import TokenFileCorpus
+    from glint_word2vec_torch.data.vocab import Vocabulary
+    from glint_word2vec_torch.serve import EmbeddingService
+    from glint_word2vec_torch.serve.reload import publish_signature
+    from glint_word2vec_torch.train import trainer as trainer_mod
+    from glint_word2vec_torch.train.checkpoint import load_model_header
+
+    card = device == "cuda"
+    rec = {"card": card_line() if card else "cpu"}
+    root = Path(ck).parent / "continual"
+    publish, stream, work = root / "publish" / "ck", root / "stream", root / "work"
+    stream.mkdir(parents=True)
+    t0 = time.perf_counter()
+    shutil.copytree(ck, publish)
+    h0 = load_model_header(str(publish))
+    V, cfg0, step0 = len(h0["words"]), h0["config"], h0["train_state"].global_step
+    mc, D = cfg0.min_count, cfg0.vector_size
+    ids, names = write_tail(str(stream / "seg-001.txt"), h0["words"], h0["counts"], mc,
+                            seed, np)
+    tail_counts = np.bincount(ids, minlength=V + CONT_NEW)
+    new_ids = ids[ids >= V]  # the new words in the order they are first seen
+    want_new = [names[j - V] for j in new_ids[np.sort(np.unique(new_ids,
+                                                                return_index=True)[1])]]
+    src0 = np.load(os.path.join(ck, "syn0.npy"), mmap_mode="r")
+    src1 = np.load(os.path.join(ck, "syn1.npy"), mmap_mode="r")
+    rec["prep_s"] = time.perf_counter() - t0
+    log("continual", f"on {rec['card']}: phase 11's checkpoint V={V:,}, d={D}, step "
+        f"{step0} copied; tail {CONT_TOKENS:,} Zipf(1) tokens + {CONT_NEW:,} new words x "
+        f"{mc + 3} ({rec['prep_s']:.1f} s)")
+
+    checks, pre_fit, timing = {}, {}, {}
+
+    class Observed(ContinualRunner):
+        """The runner, its extended checkpoint held to the source on disk between the
+        extension's publish and the fit (the parameters' load is the first step after
+        it)."""
+
+        def _load_params(self, path, header, cfg):
+            t = time.perf_counter()
+            g0 = np.load(os.path.join(path, "syn0.npy"), mmap_mode="r")
+            g1 = np.load(os.path.join(path, "syn1.npy"), mmap_mode="r")
+            pre_fit.update({
+                "carried syn0 bit-identical": bool(np.array_equal(g0[:V], src0)),
+                "carried syn1 bit-identical": bool(np.array_equal(g1[:V], src1)),
+                "new syn1 zero": not np.asarray(g1[V:]).any(),
+                "new syn0 within 0.5/D": bool(np.abs(g0[V:]).max() <= 0.5 / D),
+                "new syn0 = seed_new_rows": bool(np.array_equal(
+                    g0[V:], seed_new_rows(CONT_NEW, D, cfg0.seed, V)))})
+            timing["pre_fit_checks_s"] = time.perf_counter() - t
+            return super()._load_params(path, header, cfg)
+
+    words = [h0["words"][i] for i in
+             np.random.default_rng(seed + 15).choice(V, CONT_WORDS, replace=False)]
+    svc = EmbeddingService(checkpoint=str(publish), ann=False, watch=True,
+                           reload_poll_s=0.05, device=device)
+    mem = {"before_mib": card_memory_mib() if card else None, "peak_mib": None}
+    done, stop = threading.Event(), threading.Event()
+    events = {"publish": [], "reload": []}
+
+    def watch() -> None:  # each publish's rename and each reload, on one clock
+        sig, n = publish_signature(str(publish)), svc.reloads
+        while not stop.is_set():
+            s = publish_signature(str(publish))
+            if s is not None and s != sig:
+                events["publish"].append(time.monotonic())
+                sig = s
+            if svc.reloads != n:
+                events["reload"].append(time.monotonic())
+                n = svc.reloads
+            time.sleep(0.005)
+
+    def sample() -> None:  # the card's memory every 0.25 s
+        while not stop.wait(0.25):
+            m = card_memory_mib()
+            if m is not None:
+                mem["peak_mib"] = max(mem["peak_mib"] or 0, m)
+
+    box = {}
+    clients = threading.Thread(target=lambda: box.update(zip(
+        ("served", "errors", "lats"),
+        storm(svc, words, 0.0, CONT_CLIENTS, np, until=done))))
+    watcher = threading.Thread(target=watch, daemon=True)
+    sampler = threading.Thread(target=sample, daemon=True) if card else None
+    fit_prof = {}
+    real_fit, real_save = trainer_mod.Trainer.fit, trainer_mod.Trainer.save_checkpoint
+
+    def end_training() -> None:  # the steps' end: the profile stops, the clock reads
+        if "train_s" not in fit_prof:
+            if card:
+                torch.cuda.synchronize()
+                fit_prof["prof"].stop()
+            fit_prof["train_s"] = time.perf_counter() - fit_prof["t0"]
+
+    def fit(self, *a, **k):  # the increment's steps under the profiler (card only),
+        # up to its final save; the trace is read after the reloads, not beside them
+        fit_prof["global_step_start"] = int(self.global_step)
+        if card:
+            fit_prof["prof"] = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            fit_prof["prof"].start()
+        fit_prof["t0"] = time.perf_counter()
+        try:
+            return real_fit(self, *a, **k)
+        finally:
+            end_training()
+
+    def save(self, path):  # the final save, timed apart from the steps
+        if self.state.finished:
+            end_training()
+        t = time.perf_counter()
+        real_save(self, path)
+        fit_prof["save_s"] = time.perf_counter() - t
+
+    reset_counts(fused, scat)
+    watcher.start()
+    if sampler is not None:
+        sampler.start()
+    clients.start()
+    trainer_mod.Trainer.fit, trainer_mod.Trainer.save_checkpoint = fit, save
+    t0 = time.perf_counter()
+    try:
+        with Observed(str(publish), str(stream), str(work), device=device,
+                      config_overrides={"continual_lr_rewarm": CONT_REWARM}) as runner:
+            rep = runner.run_once()
+            rec["run_once_s"] = time.perf_counter() - t0
+            launches = {"sgns_shared_step": fused.fused_sgns_shared_step.launches,
+                        "scatter_add_rows": scat.scatter_add_rows_.launches,
+                        "sgns_shared_step_bf16": fused.fused_sgns_shared_step.bf16_launches,
+                        "scatter_add_rows_bf16": scat.scatter_add_rows_.bf16_launches}
+            again = runner.run_once()
+        deadline = time.monotonic() + 60  # both publishes reloaded
+        while not len(events["reload"]) >= len(events["publish"]) >= 2 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(1.0)  # the clients query the grown model for 1 s
+        new_res = svc.synonyms(want_new[0], 10)
+        st, info = svc.stats(), svc.info()
+    finally:
+        trainer_mod.Trainer.fit, trainer_mod.Trainer.save_checkpoint = real_fit, real_save
+        done.set()
+        clients.join(timeout=120)
+        stop.set()
+        watcher.join(timeout=30)
+        if sampler is not None:
+            sampler.join(timeout=30)
+        svc.close()
+    if card:
+        from glint_word2vec_torch.stepprof import kernel_busy_s
+        fit_prof["busy_s"] = kernel_busy_s(fit_prof.pop("prof"))
+        torch.cuda.empty_cache()
+    mem["after_mib"] = card_memory_mib() if card else None
+    h1 = load_model_header(str(publish))
+    g0 = np.load(os.path.join(publish, "syn0.npy"), mmap_mode="r")
+    untouched = tail_counts[:V] == 0
+    inc_cfg = h1["config"].replace(num_iterations=h1["config"].continual_iterations)
+    steps, pairs = replay_host_feed(
+        SimpleNamespace(config=inc_cfg, vocab=Vocabulary.from_words_and_counts(
+            h1["words"], h1["counts"])), TokenFileCorpus(str(stream / "seg-001.txt")), np)
+    tr = rep["trainer"]
+    K = inc_cfg.steps_per_dispatch
+    served = len(box.get("served", ()))
+    lineage = h1["vocab_lineage"]
+    checks.update(pre_fit)
+    checks.update({
+        "grew by CONT_NEW to V + CONT_NEW": (rep["new_words"], rep["vocab_size"])
+        == (CONT_NEW, V + CONT_NEW),
+        "old words first, in order": h1["words"][:V] == h0["words"],
+        "new words in first-seen order": h1["words"][V:] == want_new,
+        "merged counts = old + bincount": bool(np.array_equal(
+            h1["counts"], np.concatenate([h0["counts"], np.zeros(CONT_NEW, np.int64)])
+            + tail_counts)),
+        "untouched syn0 rows bit-identical": bool(np.array_equal(g0[:V][untouched],
+                                                                 src0[untouched])),
+        "global_step advanced by the steps": h1["train_state"].global_step
+        == tr["global_step"] == step0 + steps and tr["global_step_start"] == step0
+        == fit_prof["global_step_start"],
+        "pairs = the numpy feed's": tr["pairs_trained"] == pairs,
+        "learning_rate unchanged": h1["config"].learning_rate == cfg0.learning_rate,
+        "lineage depth 1, identity-prefix": len(lineage) == 1
+        and lineage[0]["remap"] == "identity-prefix" and lineage[0]["new_words"] == CONT_NEW,
+        "second run_once idle": again["action"] == "idle",
+        "service reloaded the grown model": info["num_words"] == V + CONT_NEW,
+        "one vocabulary-change reload": st["vocab_change_reloads"] == 1,
+        "new word answered, finite": bool(new_res) and all(
+            np.isfinite(s) for _, s in new_res),
+        "no query failed or refused": not box.get("errors") and st["refused"] == 0
+        and served > 0})
+    if card:
+        checks.update({
+            "fused kernel on every step": launches["sgns_shared_step"]
+            == K * (tr["graph_replays"] + tr["graph_captures"]) > 0 and tr["graph_replays"]
+            == tr["chunks"],
+            "scatter kernel never": launches["scatter_add_rows"] == 0})
+    reloads = [r - p for p, r in zip(events["publish"], events["reload"])]
+    lats = box.get("lats", [])
+    sec = rep["seconds"]
+    train_s = fit_prof["train_s"]
+    idle = (1.0 - fit_prof["busy_s"] / train_s) if "busy_s" in fit_prof else None
+    rec["loop"] = {"report": rep, "checks": checks, "timing": timing, "steps": steps,
+                   "pairs": pairs, "train_s": train_s, "final_save_s": fit_prof["save_s"],
+                   "pairs_per_s": pairs / train_s, "device_idle_share": idle,
+                   "reload_s": reloads, "load_seconds": st["load_seconds"],
+                   "queries": served, "p50_ms": pctl(lats, 0.5), "p99_ms": pctl(lats, 0.99),
+                   "memory": mem, "launches": launches}
+    log("continual", f"(a) run_once in {rec['run_once_s']:.1f} s: count {sec['count']:.2f}"
+        f" s, extension {sec['extend']:.2f} s, encode {sec['encode']:.2f} s, load "
+        f"{sec['load']:.2f} s, trainer set-up {sec['setup']:.2f} s, fit {sec['fit']:.2f} s "
+        f"= steps {train_s:.2f} s + final save {fit_prof['save_s']:.2f} s (pre-fit checks "
+        f"{timing.get('pre_fit_checks_s', 0):.1f} s); V {V:,} -> {rep['vocab_size']:,}; "
+        f"{steps} steps from global step {step0}, {pairs / train_s:,.0f} pairs/s, device "
+        f"idle {'n/a' if idle is None else f'{idle:.1%}'} of the steps (the service's "
+        "kernels count busy), "
+        f"host_wait_s {tr['host_wait_s']:.2f}, dispatch_s {tr['dispatch_s']:.2f} "
+        f"(prologues {tr['prologue_s']:.2f}), "
+        f"{tr['chunks']} chunks, captures {tr['graph_captures']}, replays "
+        f"{tr['graph_replays']}, launches {launches}; reloads {[f'{r:.2f}' for r in reloads]}"
+        f" s from publish to swap (load_seconds {st['load_seconds']}); {served} queries "
+        f"under {CONT_CLIENTS} clients (p50 {pctl(lats, 0.5):.2f}, p99 "
+        f"{pctl(lats, 0.99):.2f} ms), errors {len(box.get('errors', []))}, refused "
+        f"{st['refused']}, vocab-change reloads {st['vocab_change_reloads']}; "
+        f"{want_new[0]} -> {new_res[:2]}; card memory {mem['before_mib']} MiB before, "
+        f"{mem['peak_mib']} at peak, {mem['after_mib']} after")
+    bad = [k for k, ok in checks.items() if ok is not True]
+    if bad:
+        raise AssertionError(f"continual (a) failed: {bad}; {json.dumps(rep)[:2000]}; "
+                             f"errors {box.get('errors', [])[:3]}")
+    del g0, src0, src1
+
+    # (b) the forgetting A/B in a child process
+    t0 = time.perf_counter()
+    out = root / "ab"
+    child = _module_child(["glint_word2vec_torch.eval_quality", *AB_ARGS, "--device",
+                           device, "--out", str(out), "--runs-out",
+                           str(out / "rows.jsonl")], str(root / "ab.err"))
+    ab = _child_result(*child, AB_TIMEOUT_S, "the forgetting A/B")
+    pre, post = ab["arms"]
+    la = {k: pre["run"]["launches"][k] + post["run"]["launches"][k]
+          for k in pre["run"]["launches"]}
+    Kb = pre["run"]["steps_per_dispatch"]
+    checks = {
+        "exit 0": ab["rc"] == 0,
+        "sizes as EVAL_RUNS.jsonl:27-28": (ab["vocab_base"], ab["new_words"],
+                                          ab["vocab_grown"]) == AB_SIZES,
+        f"post purity >= {AB_PURITY}": ab["purity_post"] >= AB_PURITY,
+        f"post purity >= pre - {AB_PARITY}": ab["purity_post"]
+        >= ab["purity_pre"] - AB_PARITY,
+        f"post margin >= {AB_MARGIN}": post["cosine_margin"] >= AB_MARGIN}
+    if card:
+        checks["fused kernel on both fits"] = all(
+            r["run"]["launches"]["sgns_shared_step"] == Kb * (
+                r["run"]["graph_replays"] + r["run"]["graph_captures"]) > 0
+            for r in (pre, post))
+    rec["ab"] = {"wall_s": time.perf_counter() - t0, "checks": checks,
+                 **{k: v for k, v in ab.items() if k != "arms"},
+                 "pre": {k: pre.get(k) for k in ("purity_at_10", "cosine_margin",
+                                                 "analogy_accuracy_at_1",
+                                                 "train_seconds_total", "run")},
+                 "post": {k: post.get(k) for k in ("purity_at_10", "cosine_margin",
+                                                   "analogy_accuracy_at_1",
+                                                   "train_seconds_total", "run")}}
+    log("continual", f"(b) eval_quality --continual-ab on {device} in "
+        f"{rec['ab']['wall_s']:.1f} s: vocab {ab['vocab_base']:,} + {ab['new_words']:,} "
+        f"new = {ab['vocab_grown']:,} (JAX rows: {AB_SIZES}); purity@10 "
+        f"{ab['purity_pre']} -> {ab['purity_post']}, margin {pre['cosine_margin']} -> "
+        f"{post['cosine_margin']}, analogy@1 {ab['analogy_pre']} -> {ab['analogy_post']} "
+        f"(held to nothing); train seconds {pre['train_seconds_total']} (base, vocabulary"
+        f" and encode included) and {post['train_seconds_total']} (increment: set-up and "
+        f"fit); launches {la}; checks {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"continual (b) failed: {bad}; "
+                             f"{Path(root / 'ab.err').read_text()[-3000:]}")
+    return rec, launches, la
 
 
 def main() -> int:
@@ -3146,6 +3500,10 @@ def main() -> int:
         t0 = time.perf_counter()
         fleet = fleet_phase(serve_ck, corpus, args.seed, np)
         log("fleet", f"phase 13 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        continual, launches["continual"], launches["continual_ab"] = continual_phase(
+            serve_ck, args.seed, torch, np, fused, scat)
+        log("continual", f"phase 14 in {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(serve_dir, ignore_errors=True)
     t0 = time.perf_counter()
@@ -3218,6 +3576,7 @@ def main() -> int:
                                               "runtime": runtime,
                                               "serving": serving,
                                               "fleet": fleet,
+                                              "continual": continual,
                                               "quality": quality,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,

@@ -24,12 +24,16 @@ race:
 7. **serve-reload**: a trainer thread publishes checkpoints every few steps while a
    query storm runs against an ``EmbeddingService`` watching the same path: no failed
    or refused query, at least 3 observed hot reloads, every superseded model released.
-   The JAX drill's two V-grew epilogues (a vocabulary extended between publishes)
-   need continual training and wait for it (ROADMAP.md queue A8); the phase's line
-   says so.
-8. **continual-drift**: the closed continual loop; it needs continual training, which
-   is not ported (ROADMAP.md queue A8). It stays in ``--list``, is not run by default,
-   and ``--only continual-drift`` refuses by name.
+   Then two V-grew epilogues: ``continual.extend_checkpoint`` grows the vocabulary
+   between publishes, and the service reloads at the new V and serves a brand-new
+   word; a second service on the int8 arm reloads another extension at the same arm,
+   its index rebuilt at the new V with recall measured again.
+8. **continual-drift**: the closed continual loop under a fault: a base fit, a segment
+   with unseen words, a ``python -m glint_word2vec_torch.continual_run`` process
+   SIGTERM'd by the fault plan inside its increment (after the extension's publish)
+   leaves a checkpoint that verifies and an unconsumed cursor; the retried increment
+   grows V with its lineage link, and a live service reloads the grown model and
+   answers a new word, an old word keeping its cluster.
 9. **fleet-kill**: the serving fleet's drill (``fleet_run.run_smoke``): a replica
    SIGKILLed mid-storm, no failed client query, the breaker open -> half-open ->
    closed, a 3-publish rolling reload at N-1 capacity or more.
@@ -48,7 +52,7 @@ Usage::
 
 Every fit and service runs on ``--device`` (the card by default). Progress and one line
 per phase go to stderr; stdout carries one JSON line. Exit code 0 iff every phase run
-passed; 2 for an unknown phase or one that is not ported.
+passed; 2 for an unknown phase.
 """
 
 from __future__ import annotations
@@ -67,11 +71,10 @@ import numpy as np
 # the directory holding the package, for the worker processes
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# phases of the JAX drill that need a part of the port still to come
-NOT_PORTED = {"continual-drift": "continual training is not ported to "
-                                 "glint_word2vec_torch yet (ROADMAP.md queue A8)"}
-NOTES = {"serve-reload": "the two V-grew epilogues wait for continual training "
-                         "(ROADMAP.md queue A8)"}
+# phases of the JAX drill that need a part of the port still to come (name ->
+# reason), and notes printed beside a phase's PASS: every phase is ported
+NOT_PORTED: dict = {}
+NOTES: dict = {}
 
 
 def log(msg: str) -> None:
@@ -459,8 +462,159 @@ def phase_serve_reload(workdir: str, n_sentences: int, device: str) -> str:
                     f"{stats['models_released']} old models released")
         if queries[0] < 50:
             return f"storm too thin ({queries[0]} queries) to prove overlap"
+        return (_vgrew_epilogue(service, ck)
+                or _vgrew_quant_epilogue(ck, device))
     finally:
         service.close()
+
+
+def _wait_words(service, want: int, seconds: float = 30.0) -> int:
+    """The service's vocabulary size once it reaches ``want``, or at the deadline."""
+    deadline = time.monotonic() + seconds
+    while service.info()["num_words"] != want and time.monotonic() < deadline:
+        time.sleep(0.05)
+    return service.info()["num_words"]
+
+
+def _vgrew_epilogue(service, ck: str) -> str:
+    """The vocabulary grows between publishes: the watcher reloads at the new V with
+    a fresh index, counts a vocabulary change, and serves the brand-new word."""
+    from glint_word2vec_torch.continual import extend_checkpoint
+    rep = extend_checkpoint(ck, {"brandnew0": 50, "brandnew1": 40}, min_count=1)
+    got = _wait_words(service, rep["new_vocab_size"])
+    if got != rep["new_vocab_size"]:
+        return (f"service never reloaded the V-grew publish (serving {got} words, want "
+                f"{rep['new_vocab_size']})")
+    if service.stats()["vocab_change_reloads"] < 1:
+        return "V-grew reload not counted as a vocab change"
+    res = service.synonyms("brandnew0", 3)
+    if not res or not all(np.isfinite(s) for _, s in res):
+        return f"new-vocab word query failed after the V-grew reload: {res}"
+    return ""
+
+
+def _vgrew_quant_epilogue(ck: str, device: str) -> str:
+    """A second service on the int8 arm: another extension reloads it at the same arm,
+    its index rebuilt at the new V with recall measured again (floor 0: a toy
+    vocabulary's probe loss is about the scale, not the quantizer), and the brand-new
+    word serves through the quantized index."""
+    from glint_word2vec_torch.continual import extend_checkpoint
+    from glint_word2vec_torch.serve import EmbeddingService
+    qsvc = EmbeddingService(checkpoint=ck, ann=True, watch=True, reload_poll_s=0.02,
+                            max_batch=16, max_delay_ms=1.0, ann_quant="int8",
+                            ann_recall_floor=0.0, device=device)
+    try:
+        before = qsvc.info()["ann"]
+        if before.get("quant") != "int8":
+            return f"quantized service built arm {before.get('quant')!r}"
+        rep = extend_checkpoint(ck, {"brandnew2": 30}, min_count=1)
+        got = _wait_words(qsvc, rep["new_vocab_size"])
+        if got != rep["new_vocab_size"]:
+            return (f"quantized service never reloaded the V-grew publish (serving "
+                    f"{got} words, want {rep['new_vocab_size']})")
+        after = qsvc.info()["ann"]
+        if after.get("quant") != "int8":
+            return (f"V-grew reload changed the quant arm: {before.get('quant')!r} -> "
+                    f"{after.get('quant')!r}")
+        if after.get("rows") != rep["new_vocab_size"]:
+            return f"quantized index not rebuilt at the new V (index rows {after.get('rows')})"
+        if not isinstance(after.get("recall_at_10"), float):
+            return ("quantized V-grew rebuild did not re-measure recall: "
+                    f"{after.get('recall_at_10')!r}")
+        qres = qsvc.synonyms("brandnew2", 3)
+        if not qres or not all(np.isfinite(s) for _, s in qres):
+            return f"new-vocab word query failed through the quantized index: {qres}"
+    finally:
+        qsvc.close()
+    return ""
+
+
+def phase_continual_drift(workdir: str, n_sentences: int, device: str) -> str:
+    """The closed continual loop under a fault: base fit -> a segment with unseen
+    words -> a continual_run process SIGTERM'd inside its increment must leave a checkpoint that
+    verifies and an unconsumed cursor -> the retried increment grows V (lineage
+    recorded, carried rows verified by the extension) -> a live service reloads the
+    grown model and answers a new word, an old word's neighbours still in its
+    cluster."""
+    from glint_word2vec_torch.continual import ContinualRunner, StreamCursor
+    from glint_word2vec_torch.continual_run import (_CLUSTER_A, _NEW_WORDS,
+                                                    _write_cluster_segment)
+    from glint_word2vec_torch.serve import EmbeddingService
+    from glint_word2vec_torch.train.checkpoint import (load_latest_valid,
+                                                       load_model_header,
+                                                       verify_checkpoint)
+
+    corpus_dir = os.path.join(workdir, "corpus")
+    work_dir = os.path.join(workdir, "work")
+    ck = os.path.join(workdir, "publish", "ck")
+    os.makedirs(corpus_dir, exist_ok=True)
+    _write_cluster_segment(os.path.join(corpus_dir, "seg-000.txt"), n_sentences, seed=1)
+    overrides = dict(vector_size=16, min_count=2, window=3, num_iterations=2,
+                     pairs_per_batch=128, subsample_ratio=0.0, seed=1,
+                     prefetch_chunks=0, steps_per_dispatch=2, heartbeat_every_steps=2)
+    runner = ContinualRunner(ck, corpus_dir, work_dir, config_overrides=overrides,
+                             checkpoint_every_steps=4, device=device)
+    base = runner.ensure_base()
+    v_base = base["vocab_size"]
+    _write_cluster_segment(os.path.join(corpus_dir, "seg-001.txt"), n_sentences, seed=2,
+                           extra_a_words=_NEW_WORDS)
+
+    # 1. SIGTERM mid-increment: the process extends, starts the increment's fit and
+    # dies at a scripted step; global_step continues from the base checkpoint, so the
+    # increment's first round reaches step 1
+    rc = subprocess.call(
+        [sys.executable, "-m", "glint_word2vec_torch.continual_run", "--checkpoint", ck,
+         "--corpus-dir", corpus_dir, "--work-dir", work_dir, "--max-increments", "1",
+         "--idle-polls", "1", "--device", device],
+        env=_worker_env(GLINT_FAULT_CRASH_AT_STEP="1", GLINT_FAULT_CRASH_SIGNAL="TERM"),
+        stdout=subprocess.DEVNULL)
+    if rc not in (-15, 143):
+        return f"continual_run exited {rc}, expected SIGTERM (-15/143)"
+    # resumable: the publish path (or its swap debris) verifies, and the cursor did
+    # not consume the tail
+    try:
+        verify_checkpoint(load_latest_valid(os.path.dirname(ck)))
+    except (FileNotFoundError, ValueError) as e:
+        return f"no resumable checkpoint after mid-increment SIGTERM: {e}"
+    if "seg-001.txt" in StreamCursor(work_dir).consumed:
+        return "SIGTERM'd increment was marked consumed (not resumable)"
+
+    # 2. retry the increment in this process, a live service watching
+    service = EmbeddingService(checkpoint=ck, ann=True, watch=True, reload_poll_s=0.05,
+                               max_batch=16, max_delay_ms=1.0, device=device)
+    try:
+        with ContinualRunner(ck, corpus_dir, work_dir, config_overrides=overrides,
+                             checkpoint_every_steps=4, device=device) as runner2:
+            rep = runner2.run_once()
+        if rep["action"] != "increment":
+            return f"retried increment did not run: {rep}"
+        header = load_model_header(ck)
+        if header["vocab_size"] <= v_base:
+            return (f"vocab did not grow across the increment ({v_base} -> "
+                    f"{header['vocab_size']})")
+        lineage = header["vocab_lineage"]
+        if not lineage or lineage[0].get("remap") != "identity-prefix":
+            return f"fingerprint lineage missing/wrong: {lineage}"
+        if _wait_words(service, header["vocab_size"]) != header["vocab_size"]:
+            return "serve replica never hot-reloaded the grown model"
+        res = service.synonyms(_NEW_WORDS[0], 4)
+        if not res or not all(np.isfinite(s) for _, s in res):
+            return f"new-word query failed on the grown model: {res}"
+        old = service.synonyms(_CLUSTER_A[0], 4)
+        a_like = set(_CLUSTER_A) | set(_NEW_WORDS)
+        if sum(1 for w, _ in old if w in a_like) < 2:
+            return (f"old word {_CLUSTER_A[0]!r} lost its cluster after the "
+                    f"increment: {old}")
+        if service.stats()["refused"]:
+            return "queries refused during the continual publishes"
+        # the cursor's JSON round-trips: the next run starts clean
+        with open(os.path.join(work_dir, "cursor.json")) as f:
+            doc = json.load(f)
+        if "seg-001.txt" not in doc.get("consumed", {}):
+            return "completed increment did not consume its segment"
+    finally:
+        service.close()
+        runner.close()
     return ""
 
 
@@ -532,7 +686,8 @@ def phase_table(workdir: str, n_sentences: int, device: str) -> list:
         ("blackbox", lambda: phase_blackbox(sub("p5"), n_sentences, device)),
         ("serve-reload",
          lambda: phase_serve_reload(sub("p6"), n_sentences, device)),
-        ("continual-drift", None),
+        ("continual-drift",
+         lambda: phase_continual_drift(sub("p7"), n_sentences, device)),
         ("fleet-kill",
          lambda: phase_fleet_kill(sub("p8"), min(n_sentences, 300), device)),
         ("flaky-ingest", lambda: phase_flaky_ingest(sub("p4"))),
@@ -585,10 +740,6 @@ def main(argv=None) -> int:
         unknown = sorted(set(want) - set(names))
         if unknown:
             log(f"[chaos] unknown phase(s): {unknown} — available: {', '.join(names)}")
-            return 2
-        refused = [w for w in want if w in NOT_PORTED]
-        if refused:
-            log(f"[chaos] refused: {', '.join(f'{w}: {NOT_PORTED[w]}' for w in refused)}")
             return 2
     else:
         want = [n for n in names if n not in NOT_PORTED]

@@ -1,0 +1,236 @@
+"""The continual-training CLI, ported from ``tools/continual_run.py``: watch an
+append-only corpus directory, extend the vocabulary when it drifts, train incremental
+fits on the card, and publish each through the atomic checkpoint swap the serving tier
+hot-reloads from.
+
+Stdout carries exactly one JSON line; progress goes to stderr.
+
+Usage::
+
+    # a deployment: poll corpus-dir until a bound trips
+    python -m glint_word2vec_torch.continual_run --checkpoint CK --corpus-dir DIR \\
+        --work-dir WORK [--max-increments N] [--idle-polls N] [--poll-s S] \\
+        [--device cuda|cpu]
+
+    # the end-to-end drill: base fit -> a segment with unseen words -> the increment
+    # grows V (lineage recorded) -> publish -> a live EmbeddingService hot-reloads and
+    # answers a query for a new word, with no failed query
+    python -m glint_word2vec_torch.continual_run --smoke [--device cpu]
+
+Fits, loads and the drill's service run on ``--device`` (the card by default). Exit
+code 0 iff the run, or every assertion of the drill, passed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import sys
+import tempfile
+import time
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+# the drill's corpus: two co-occurrence clusters, so "neighbours intact" is checkable
+_CLUSTER_A = [f"a{i}" for i in range(6)]
+_CLUSTER_B = [f"b{i}" for i in range(6)]
+_NEW_WORDS = ["n0", "n1", "n2"]
+
+
+def _write_cluster_segment(path: str, n_sentences: int, seed: int,
+                           extra_a_words=()) -> None:
+    """Sentences drawn from one cluster each; ``extra_a_words`` join cluster A's draws
+    (the appended segment's unseen words co-occur with A)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    a = list(_CLUSTER_A) + list(extra_a_words)
+    with open(path, "w", encoding="utf-8") as f:
+        for _ in range(n_sentences):
+            ws = a if rng.integers(0, 2) == 0 else _CLUSTER_B
+            f.write(" ".join(ws[i] for i in rng.integers(0, len(ws), 12)) + "\n")
+
+
+def run_smoke(workdir: str, n_sentences: int = 400, device="cuda") -> dict:
+    """The end-to-end drill on ``device``. Returns the report; raises AssertionError
+    naming the first broken invariant."""
+    import threading
+
+    import numpy as np
+
+    from glint_word2vec_torch.continual import ContinualRunner
+    from glint_word2vec_torch.serve import EmbeddingService
+    from glint_word2vec_torch.train.checkpoint import load_model_header
+
+    corpus_dir = os.path.join(workdir, "corpus")
+    work_dir = os.path.join(workdir, "work")
+    ck = os.path.join(workdir, "publish", "ck")
+    os.makedirs(corpus_dir, exist_ok=True)
+    _write_cluster_segment(os.path.join(corpus_dir, "seg-000.txt"), n_sentences, seed=1)
+
+    overrides = dict(
+        vector_size=16, min_count=2, window=3, num_iterations=2, pairs_per_batch=128,
+        subsample_ratio=0.0, seed=1, prefetch_chunks=0, steps_per_dispatch=2,
+        heartbeat_every_steps=4, continual_lr_rewarm=0.8, continual_iterations=2)
+    runner = ContinualRunner(ck, corpus_dir, work_dir, config_overrides=overrides,
+                             checkpoint_every_steps=8,
+                             telemetry_path=os.path.join(workdir, "continual.jsonl"),
+                             device=device)
+    base = runner.ensure_base()
+    log(f"[smoke] base fit: {base}")
+    assert base["action"] == "base", "bootstrap did not run a base fit"
+    v_base = base["vocab_size"]
+
+    # the serving replica watches the path the runner publishes to
+    service = EmbeddingService(checkpoint=ck, ann=True, watch=True, reload_poll_s=0.05,
+                               max_batch=16, max_delay_ms=1.0, device=device)
+    query_errs: list = []
+    queries = [0]
+    storm_on = threading.Event()
+    storm_on.set()
+
+    def storm():
+        known = list(_CLUSTER_A) + list(_CLUSTER_B)
+        i = 0
+        while storm_on.is_set() or i == 0:
+            w = known[i % len(known)]
+            i += 1
+            try:
+                res = service.synonyms(w, 4)
+                if not res or not all(np.isfinite(s) for _, s in res):
+                    query_errs.append(f"bad result for {w!r}: {res}")
+            except Exception as e:  # noqa: BLE001 — any raise is a failure
+                query_errs.append(f"{w!r}: {type(e).__name__}: {e}")
+            queries[0] += 1
+
+    client = threading.Thread(target=storm)
+    client.start()
+    try:
+        # the drift: a segment whose unseen words co-occur with cluster A
+        _write_cluster_segment(os.path.join(corpus_dir, "seg-001.txt"), n_sentences,
+                               seed=2, extra_a_words=_NEW_WORDS)
+        inc = runner.run_once()
+        log(f"[smoke] increment: {inc}")
+        assert inc["action"] == "increment", "increment did not run"
+        assert inc["grew"] and inc["new_words"] >= len(_NEW_WORDS), \
+            f"vocab did not grow ({inc})"
+        v_new = inc["vocab_size"]
+        assert v_new > v_base, "vocab_size did not increase"
+
+        # the live replica must reload the grown publish and answer a new word
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            if service.info()["num_words"] == v_new:
+                break
+            time.sleep(0.05)
+        info = service.info()
+        assert info["num_words"] == v_new, (
+            f"service never reloaded the grown model (serving {info['num_words']} "
+            f"words, want {v_new})")
+        new_syn = service.synonyms(_NEW_WORDS[0], 4)
+        assert new_syn and all(np.isfinite(s) for _, s in new_syn), \
+            f"new-word query failed: {new_syn}"
+        # old-word neighbours intact (the measured forgetting gate is
+        # eval_quality --continual-ab)
+        old_syn = service.synonyms(_CLUSTER_A[0], 4)
+        a_like = set(_CLUSTER_A) | set(_NEW_WORDS)
+        hits = sum(1 for w, _ in old_syn if w in a_like)
+        assert hits >= 2, (f"old word {_CLUSTER_A[0]!r} lost its cluster after the "
+                           f"increment: {old_syn}")
+    finally:
+        storm_on.clear()
+        client.join()
+        stats = service.stats()
+        service.close()
+        runner.close()
+    assert not query_errs, (f"{len(query_errs)} failed queries during the continual "
+                            f"publishes (first: {query_errs[0]})")
+    assert stats["refused"] == 0, f"{stats['refused']} refused queries"
+    assert stats["reloads"] >= 1, "no hot-reload observed"
+    assert stats["vocab_change_reloads"] >= 1, "the V-grew reload was not detected"
+    header = load_model_header(ck)
+    lineage = header["vocab_lineage"]
+    assert len(lineage) == 1 and lineage[0]["new_words"] == inc["new_words"], \
+        f"lineage chain wrong: {lineage}"
+    return {
+        "ok": True,
+        "device": str(runner.device),
+        "vocab_base": v_base,
+        "vocab_grown": v_new,
+        "new_words": inc["new_words"],
+        "lineage_depth": len(lineage),
+        "reloads": stats["reloads"],
+        "vocab_change_reloads": stats["vocab_change_reloads"],
+        "queries": queries[0],
+        "failed_queries": 0,
+        "refused": stats["refused"],
+        "new_word_top1": new_syn[0][0] if new_syn else None,
+        "increment_train_seconds": inc["train_seconds"],
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m glint_word2vec_torch.continual_run",
+                                 description=__doc__.split("\n", 1)[0])
+    ap.add_argument("--checkpoint", default="",
+                    help="publish path (the directory serving replicas watch); "
+                         "bootstrapped with a base fit if absent")
+    ap.add_argument("--corpus-dir", default="",
+                    help="append-only segment directory (*.txt)")
+    ap.add_argument("--work-dir", default="", help="cursor + encode-cache directory")
+    ap.add_argument("--max-increments", type=int, default=None,
+                    help="stop after this many completed increments")
+    ap.add_argument("--idle-polls", type=int, default=None,
+                    help="stop after this many consecutive empty polls")
+    ap.add_argument("--poll-s", type=float, default=None,
+                    help="poll cadence (default: the continual_poll_s knob)")
+    ap.add_argument("--checkpoint-every-steps", type=int, default=None)
+    ap.add_argument("--telemetry", default="",
+                    help="write continual_* telemetry records here (JSONL)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="run the self-contained end-to-end drill in a temp dir")
+    ap.add_argument("--workdir", default="",
+                    help="--smoke working directory (default: fresh temp)")
+    ap.add_argument("--device", default="cuda",
+                    help="where fits, loads and the drill's service run (default the "
+                         "card; 'cpu' runs the kernels' plain versions)")
+    args = ap.parse_args(argv)
+
+    # exactly one JSON line leaves this function on every path
+    if args.smoke:
+        workdir = args.workdir or tempfile.mkdtemp(prefix="glint_continual_")
+        try:
+            out, rc = run_smoke(workdir, device=args.device), 0
+        except AssertionError as e:
+            out, rc = {"ok": False, "error": str(e)}, 1
+        finally:
+            if not args.workdir:
+                shutil.rmtree(workdir, ignore_errors=True)
+    else:
+        if not (args.checkpoint and args.corpus_dir and args.work_dir):
+            ap.error("--checkpoint, --corpus-dir and --work-dir are required (or use "
+                     "--smoke)")
+        from glint_word2vec_torch.continual import ContinualRunner
+        runner = ContinualRunner(args.checkpoint, args.corpus_dir, args.work_dir,
+                                 checkpoint_every_steps=args.checkpoint_every_steps,
+                                 telemetry_path=args.telemetry, device=args.device)
+        try:
+            base = runner.ensure_base()
+            if base["action"] == "base":
+                log(f"[continual] bootstrapped base model: {base}")
+            result = runner.run_forever(max_increments=args.max_increments,
+                                        max_idle_polls=args.idle_polls,
+                                        poll_s=args.poll_s)
+        finally:
+            runner.close()
+        out, rc = {"ok": True, **result, "bootstrapped": base["action"] == "base"}, 0
+    print(json.dumps(out))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

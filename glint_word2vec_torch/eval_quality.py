@@ -33,8 +33,11 @@ Usage:
         [--corpus existing.txt] [--dim 100] [--iters 3] [--device cpu]
         [--runs-out FILE] [--idle-share]
 
-``--continual-ab`` (continual training, ROADMAP queue A8) and ``--localsgd-ab`` /
-``--sync-every`` (multi-GPU, A9) are refused: the port has neither yet.
+``--continual-ab`` is the forgetting gate: a base fit, one continual increment
+(``continual.ContinualRunner``) over a drifted tail of the generator with new word
+types, and the base vocabulary's rows scored before and after (two rows,
+``continual_ab_arm`` pre and post). ``--localsgd-ab`` / ``--sync-every`` (multi-GPU,
+ROADMAP queue A9) are refused: the port has no multi-GPU fit yet.
 """
 
 import argparse
@@ -515,15 +518,8 @@ def _run_stats(est, busy_s) -> dict:
 
 
 def _refuse_unported(ap, args) -> None:
-    """The JAX tool's A/Bs that need what the port does not have yet, refused by
+    """The JAX tool's A/B that needs what the port does not have yet, refused by
     name."""
-    continual = [f for f in ("continual_tail_words", "continual_new_types",
-                             "continual_lr_rewarm", "continual_iterations")
-                 if getattr(args, f) is not None]
-    if args.continual_ab or continual:
-        ap.error("--continual-ab (and its --continual-* knobs) needs continual "
-                 "training, which is not ported to glint_word2vec_torch yet "
-                 "(ROADMAP.md queue A8)")
     if args.localsgd_ab or args.sync_every is not None:
         ap.error("--localsgd-ab and --sync-every need a multi-GPU data axis, which is "
                  "not ported to glint_word2vec_torch yet (ROADMAP.md queue A9)")
@@ -612,12 +608,22 @@ def parse_args(argv=None):
     ap.add_argument("--norm-watch", default="off",
                     choices=["off", "warn", "recover", "halt"],
                     help="finite-blowup watchdog policy for the trained run")
+    # the continual forgetting gate: a base fit, ONE continual increment over a
+    # drifted tail (new word types, shifted frequencies), and the ORIGINAL vocabulary's
+    # purity/analogy before and after (two rows)
     ap.add_argument("--continual-ab", action="store_true",
-                    help="refused: continual training is not ported (ROADMAP A8)")
-    ap.add_argument("--continual-tail-words", type=int, default=None)
-    ap.add_argument("--continual-new-types", type=int, default=None)
-    ap.add_argument("--continual-lr-rewarm", type=float, default=None)
-    ap.add_argument("--continual-iterations", type=int, default=None)
+                    help="base fit -> one continual increment on a drifted tail -> "
+                         "score the ORIGINAL vocab pre/post; one row per arm "
+                         "(continual_ab_arm=pre/post)")
+    ap.add_argument("--continual-tail-words", type=int, default=None,
+                    help="drift-tail size in words (default: --words // 4)")
+    ap.add_argument("--continual-new-types", type=int, default=2000,
+                    help="extra raw word types in the tail generator (ranks past "
+                         "--vocab become NEW words)")
+    ap.add_argument("--continual-lr-rewarm", type=float, default=1.0,
+                    help="continual_lr_rewarm for the increment")
+    ap.add_argument("--continual-iterations", type=int, default=1,
+                    help="continual_iterations for the increment")
     # the hot-row parity gate: hot_rows changes the rounding order (f32 slab sums, one
     # flush per chunk), so it is judged by this A/B: two arms on the same corpus and
     # seed, the hot arm failing when its purity@10 drops more than 0.02 below the
@@ -642,6 +648,90 @@ def parse_args(argv=None):
                          "--norm-watch knobs; max_row_norm=100 + norm_watch=recover when "
                          "none is given), one row each")
     return ap, ap.parse_args(argv)
+
+
+def continual_ab(args, sents, cache_dir: str, device, provenance: dict,
+                 append_rows) -> dict:
+    """The forgetting gate: a base fit on the generated corpus, saved as a
+    checkpoint; one ``ContinualRunner`` increment over a tail drawn with
+    ``--continual-new-types`` more raw types (the ranks past ``--vocab`` are new words,
+    and every surviving word's frequency shifts); the post arm scored over the base
+    vocabulary's rows ``[:v_base]``, which the identity-prefix contract keeps at the
+    same words. Appends one row per arm (``continual_ab_arm`` pre and post) and
+    returns the summary."""
+    import shutil
+
+    from glint_word2vec_torch import Word2Vec, Word2VecModel
+    from glint_word2vec_torch.continual import ContinualRunner
+
+    knobs = dict(continual_lr_rewarm=args.continual_lr_rewarm,
+                 continual_iterations=args.continual_iterations)
+    est = Word2Vec(device=device, **arm_config(args, **knobs))
+    _reset_kernel_counts()
+    t0 = time.perf_counter()
+    model = est.fit(sents, encode_cache_dir=cache_dir)
+    base_s = round(time.perf_counter() - t0, 1)
+    words_base = list(model.vocab.words)
+    index_base = dict(model.vocab.index)
+    v_base = model.num_words
+    log(f"continual-ab base: vocab {v_base:,} in {base_s}s")
+    tail_words = args.continual_tail_words or args.words // 4
+    common = {
+        "metric": "topic_recovery_at_text8_scale",
+        "corpus_words": args.words, "vocab_raw": args.vocab, "vocab_size": v_base,
+        "dim": args.dim, "iterations": args.iters, "param_dtype": args.param_dtype,
+        "logits_dtype": args.logits_dtype or "float32",
+        "pairs_per_batch": args.batch, "negative_pool": args.pool,
+        "subsample_ratio": args.subsample, "min_count": args.min_count,
+        "learning_rate": args.lr if args.lr is not None else 0.025,
+        "rel_sent_frac": REL_SENT_FRAC, "rel_lambda_entity": REL_LAMBDA_ENTITY,
+        "rel_lambda_role": REL_LAMBDA_ROLE, "continual_tail_words": tail_words,
+        "continual_new_types": args.continual_new_types, **knobs, **provenance}
+    row_pre = {**common, "continual_ab_arm": "pre", "train_seconds_total": base_s,
+               "run": _run_stats(est, None)}
+    row_pre.update(evaluate(words_base, model.syn0.float().cpu().numpy(), index_base,
+                            device=device))
+
+    croot = os.path.join(args.out, "continual")
+    shutil.rmtree(croot, ignore_errors=True)
+    ckpath = os.path.join(croot, "publish", "ck")
+    model.save(ckpath)
+    model.stop()
+    del model, est
+    stream_dir = os.path.join(croot, "stream")
+    os.makedirs(stream_dir, exist_ok=True)
+    # the drifted tail: the extra raw types past --vocab are new words (their names
+    # carry their topics, so the ground truth travels with them)
+    generate_corpus(os.path.join(stream_dir, "seg-001.txt"), tail_words,
+                    args.seed + 1000, args.vocab + args.continual_new_types)
+    _reset_kernel_counts()
+    with ContinualRunner(ckpath, stream_dir, os.path.join(croot, "work"),
+                         config_overrides=dict(allow_unstable=True, **knobs),
+                         device=device) as runner:
+        inc = runner.run_once()
+    log(f"continual-ab increment: {inc}")
+    post = Word2VecModel.load(ckpath, device=device)
+    row_post = {**common, "continual_ab_arm": "post",
+                "continual_new_words": inc["new_words"],
+                "continual_vocab_size": inc["vocab_size"],
+                "train_seconds_total": inc["train_seconds"],
+                "run": {**inc["trainer"], "seconds": inc["seconds"],
+                        "launches": _kernel_counts()}}
+    # scored over the ORIGINAL vocabulary's rows only
+    row_post.update(evaluate(words_base, post.syn0[:v_base].float().cpu().numpy(),
+                             index_base, device=device))
+    post.stop()
+    append_rows(row_pre, row_post)
+    delta = None
+    if "purity_at_10" in row_pre and "purity_at_10" in row_post:
+        delta = round(row_post["purity_at_10"] - row_pre["purity_at_10"], 4)
+    return {"metric": "continual_ab", "purity_delta": delta,
+            "purity_pre": row_pre.get("purity_at_10"),
+            "purity_post": row_post.get("purity_at_10"),
+            "analogy_pre": row_pre.get("analogy_accuracy_at_1"),
+            "analogy_post": row_post.get("analogy_accuracy_at_1"),
+            "vocab_base": v_base, "vocab_grown": inc["vocab_size"],
+            "new_words": inc["new_words"], "arms": [row_pre, row_post]}
 
 
 def main(argv=None):
@@ -776,6 +866,14 @@ def main(argv=None):
             # only ground-truth (synthetic corpus) runs qualify as stability evidence
             append_rows(result)
         return result
+
+    if args.continual_ab:
+        if args.corpus:
+            ap.error("--continual-ab needs the synthetic ground-truth corpus (external "
+                     "corpora have no labels to score forgetting against)")
+        print(json.dumps(continual_ab(args, sents, cache_dir, device, provenance,
+                                      append_rows)))
+        return
 
     if args.hotrow_ab:
         r_classic = run_arm(dict(hot_rows=0), save_arrays=False, arm="classic",

@@ -18,6 +18,7 @@ import time
 from typing import Iterable, Optional, Sequence
 
 from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.continual.extend import lineage_fingerprints
 from glint_word2vec_torch.data.corpus import EncodedCorpus, encode_corpus, vocab_fingerprint
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import Vocabulary, build_vocab
@@ -114,8 +115,10 @@ class Word2Vec:
 
         ``sentences`` may be token sequences or an :class:`EncodedCorpus`. If
         ``encode_cache_dir`` already holds an encoded corpus, it is reused when its
-        vocabulary fingerprint is the checkpoint's and refused otherwise; an empty
-        ``encode_cache_dir`` is filled from ``sentences``. ``allow_unstable`` and
+        vocabulary fingerprint is the checkpoint's or an ancestor's in the checkpoint's
+        ``vocab_lineage`` chain (continual training), and refused otherwise; an empty
+        ``encode_cache_dir`` is filled from ``sentences``. The resumed run's saves keep
+        the chain. ``allow_unstable`` and
         ``config_overrides`` replace fields of the checkpoint's config (which pins the
         resolved subsample ratio) for the resumed run; a knob that changes the batch
         stream shifts what the recorded position means. A dense or row-shards
@@ -124,11 +127,6 @@ class Word2Vec:
         refuse_plan(plan)
         device = resolve_device(device)
         header = load_model_header(checkpoint_path)
-        if header["vocab_lineage"]:
-            raise NotImplementedError(
-                f"checkpoint {checkpoint_path!r} carries a vocab_lineage chain (a "
-                "vocabulary grown by continual training); continual training is not "
-                "ported to glint_word2vec_torch yet (ROADMAP.md queue A8)")
         cfg: Word2VecConfig = header["config"]
         if config_overrides:
             cfg = cfg.replace(**config_overrides)
@@ -146,12 +144,22 @@ class Word2Vec:
                 encoded = EncodedCorpus(encode_cache_dir)
                 want = vocab_fingerprint(vocab)
                 got = encoded.meta.get("vocab_fingerprint")
-                if got != want:
+                # a checkpoint grown by continual.extend keeps every ancestor
+                # vocabulary's ids valid (identity prefix): a cache encoded under any
+                # of them is reused as it is
+                allowed = set(lineage_fingerprints(header["vocab_lineage"]))
+                allowed.add(want)
+                if got not in allowed:
                     raise ValueError(
                         f"encode_cache_dir {encode_cache_dir!r} was encoded under a "
                         f"different vocabulary (fingerprint {got} != the checkpoint's "
-                        f"{want}); its ids would map to the wrong words. Point resume "
-                        "at the cache of the interrupted run, or at an empty directory")
+                        f"{want}, and it is not an ancestor in the checkpoint's lineage "
+                        "chain); its ids would map to the wrong words. Point resume at "
+                        "the cache of the interrupted run, or at an empty directory; or, "
+                        "if the corpus drifted (new words, shifted frequencies), migrate "
+                        "the checkpoint first with "
+                        "glint_word2vec_torch.continual.extend.extend_checkpoint instead "
+                        "of retraining from scratch")
             else:
                 encoded = encode_corpus(sentences, vocab, encode_cache_dir,
                                         cfg.max_sentence_length)
@@ -161,6 +169,9 @@ class Word2Vec:
             encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
         trainer = Trainer(cfg, vocab, params=(data["syn0"], data["syn1"]),
                           train_state=state, device=device)
+        if header["vocab_lineage"]:
+            # the resumed run's saves keep the chain
+            trainer.extra_checkpoint_meta = {"vocab_lineage": header["vocab_lineage"]}
         if not state.finished:
             # the cadence is a fit() argument, not stored in the checkpoint
             trainer.fit(encoded, checkpoint_path=checkpoint_path,

@@ -44,6 +44,7 @@ from glint_word2vec_torch.train import faults
 logger = logging.getLogger("glint_word2vec_torch")
 
 DENSE_FORMAT_VERSION = 1
+SHARDED_FORMAT_VERSION = 2
 # a checkpoint whose train state carries shard_progress stamps 3, so that readers
 # that would drop the field refuse it instead (the JAX package's rule)
 SHARD_PROGRESS_FORMAT_VERSION = 3
@@ -181,6 +182,30 @@ def _run_io(tasks, workers: int) -> list:
     return list(ordered_pool_map(lambda t: t(), tasks, min(workers, len(tasks))))
 
 
+def _format_version(base: int, train_state: Optional["TrainState"]) -> int:
+    if train_state is not None and train_state.shard_progress is not None:
+        return SHARD_PROGRESS_FORMAT_VERSION
+    return base
+
+
+# keys the checkpoint writers own; extra_metadata may not shadow them (a caller's
+# "digests" or "config" would corrupt the contract)
+_RESERVED_META_KEYS = frozenset({
+    "format_version", "framework", "layout", "vocab_size", "vector_size",
+    "padded_vocab", "padded_dim", "config", "train_state", "digests"})
+
+
+def _merge_extra_metadata(meta: Dict[str, Any], extra: Optional[Dict[str, Any]]) -> None:
+    if not extra:
+        return
+    clash = sorted(_RESERVED_META_KEYS & set(extra))
+    if clash:
+        raise ValueError(
+            f"extra_metadata may not shadow writer-owned metadata keys "
+            f"{clash}; pick different names")
+    meta.update(extra)
+
+
 @dataclasses.dataclass
 class TrainState:
     """Mid-training progress: iteration, lr-clock words, ``global_step`` (the hash-PRNG
@@ -216,20 +241,24 @@ def save_model(
     syn1: Optional[np.ndarray],
     config: Word2VecConfig,
     train_state: Optional[TrainState] = None,
+    extra_metadata: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Atomic dense save with per-file SHA-256 digests in ``metadata.json``, each
     digest taken in its file's write pass; the file writes fan out over
-    ``config.io_workers`` threads. The fault plan's crash points ``save:arrays-written``,
+    ``config.io_workers`` threads. ``extra_metadata``: additive keys merged into
+    ``metadata.json`` (the continual runner's ``vocab_lineage``); a writer-owned key
+    is refused. The fault plan's crash points ``save:arrays-written``,
     ``save:staged`` and ``save:swap`` (the torn window: ``path`` absent while its
     ``.old-*`` predecessor and the ``.tmp-*`` staging directory are live) sit where the
     JAX package has them, and ``corrupt_checkpoint`` runs after the save; the save is a
     ``checkpoint_save`` span of the process-wide tracer."""
     with default_tracer().span("checkpoint_save"):
-        _save_model(path, words, counts, syn0, syn1, config, train_state)
+        _save_model(path, words, counts, syn0, syn1, config, train_state, extra_metadata)
     faults.corrupt_checkpoint(path)
 
 
-def _save_model(path, words, counts, syn0, syn1, config, train_state) -> None:
+def _save_model(path, words, counts, syn0, syn1, config, train_state,
+                extra_metadata) -> None:
     bad = [w for w in words if (not w) or ("\n" in w)]
     if bad:
         raise ValueError(
@@ -259,9 +288,7 @@ def _save_model(path, words, counts, syn0, syn1, config, train_state) -> None:
         faults.crash_point("save:arrays-written")
         train_state = train_state or TrainState(finished=True)
         meta = {
-            "format_version": (SHARD_PROGRESS_FORMAT_VERSION
-                               if train_state.shard_progress is not None
-                               else DENSE_FORMAT_VERSION),
+            "format_version": _format_version(DENSE_FORMAT_VERSION, train_state),
             "framework": FRAMEWORK,
             "vocab_size": int(syn0.shape[0]),
             "vector_size": int(syn0.shape[1]),
@@ -269,6 +296,7 @@ def _save_model(path, words, counts, syn0, syn1, config, train_state) -> None:
             "train_state": train_state.to_dict(),
             "digests": digests,
         }
+        _merge_extra_metadata(meta, extra_metadata)
         with open(stage("metadata.json"), "w", encoding="utf-8") as f:
             json.dump(meta, f, indent=2)
         faults.crash_point("save:staged")
@@ -362,13 +390,14 @@ class ShardedMatrixReader:
 
 def save_row_shards(path: str, words: List[str], counts: np.ndarray,
                     syn0: np.ndarray, config: Word2VecConfig,
-                    rows_per_shard: int) -> None:
+                    rows_per_shard: int,
+                    extra_metadata: Optional[Dict[str, Any]] = None) -> None:
     """A one-writer row-shards checkpoint of ``syn0`` at ``path`` (no syn1): the layout
     the JAX package's ``save_model_sharded`` writes and :class:`ShardedMatrixReader`
     reads, files ``syn0.shards/rows-<start>-<stop>.npy`` beside ``words``,
     ``counts.npy`` and a ``metadata.json`` with their digests. ``path`` must not exist;
     the save is not staged. The multi-process writer (its barriers and crash points)
-    is ROADMAP queue A9."""
+    is ROADMAP queue A9. ``extra_metadata`` as in :func:`save_model`."""
     os.makedirs(os.path.join(path, "syn0.shards"))
     digests = {"words": _save_words_hashed(os.path.join(path, "words"), words),
                "counts.npy": _save_npy_hashed(os.path.join(path, "counts.npy"),
@@ -379,11 +408,13 @@ def save_row_shards(path: str, words: List[str], counts: np.ndarray,
         rel = f"syn0.shards/rows-{lo:010d}-{hi:010d}.npy"
         digests[rel] = _save_npy_hashed(os.path.join(path, rel),
                                         np.ascontiguousarray(syn0[lo:hi], np.float32))
-    meta = {"format_version": 2, "framework": FRAMEWORK, "layout": "row-shards",
+    meta = {"format_version": SHARDED_FORMAT_VERSION, "framework": FRAMEWORK,
+            "layout": "row-shards",
             "vocab_size": V, "vector_size": D, "padded_vocab": V, "padded_dim": D,
             "config": config.to_dict(auto_markers=False),
             "train_state": TrainState(finished=True).to_dict(),
             "digests": digests}
+    _merge_extra_metadata(meta, extra_metadata)
     with open(os.path.join(path, "metadata.json"), "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=2)
 

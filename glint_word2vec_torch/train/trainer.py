@@ -335,6 +335,9 @@ class Trainer:
                                      self.param_dtype)
         self.params = self._place_params(params)
         self.state = train_state or TrainState()
+        # additive metadata keys merged into every save this trainer makes (periodic,
+        # final, preempt); the continual runner parks its vocab_lineage chain here
+        self.extra_checkpoint_meta: dict = {}
         self._resolve_duplicate_channel()
         self._tokens_per_step = 0
         if self.config.device_pairgen:
@@ -1099,11 +1102,19 @@ class Trainer:
         checkpoint_path: Optional[str] = None,
         checkpoint_every_steps: Optional[int] = None,
         on_heartbeat: Optional[Callable[[HeartbeatRecord], None]] = None,
+        corpus_words: Optional[int] = None,
     ) -> EmbeddingPair:
         """Run the remaining iterations over encoded sentences (int32 index arrays,
         OOV-filtered and chunked). Resumes from ``self.state``. A fit that raises
         records ``run_end`` with status "error" and dumps the flight recorder before
-        the exception propagates."""
+        the exception propagates.
+
+        ``corpus_words``: the raw token count of ``sentences`` where it differs from
+        what the vocabulary's counts imply (a continual increment feeds the corpus
+        tail while ``vocab.counts`` carries the merged history): the learning-rate
+        clock then anneals over the fed corpus, scaled by the same expected
+        subsample-keep ratio, on every feed. None: the corpus is the vocabulary's
+        source."""
         cfg = self.config
         t_fit = time.perf_counter()
         self._check_resume_position()
@@ -1111,6 +1122,11 @@ class Trainer:
         self._active_checkpoint_path = checkpoint_path
         train_words = expected_kept_words(
             self.vocab.counts, self.vocab.train_words_count, cfg.subsample_ratio)
+        if corpus_words is not None:
+            # the fed corpus's expected kept words per iteration: the vocabulary-wide
+            # keep ratio applied to the fed token count
+            train_words = (train_words / max(float(self.vocab.train_words_count), 1.0)
+                           * float(corpus_words))
         total_words = float(cfg.num_iterations * train_words + 1)
         token_feed = cfg.device_pairgen or self._banded_cbow
         if token_feed:
@@ -1808,7 +1824,8 @@ class Trainer:
         with self.sync_sites("checkpoint", blocking=True):
             syn0, syn1 = p.syn0.float().cpu().numpy(), p.syn1.float().cpu().numpy()
         save_model(path, self.vocab.words, self.vocab.counts, syn0, syn1,
-                   self.config, self.state)
+                   self.config, self.state,
+                   extra_metadata=self.extra_checkpoint_meta or None)
         logger.info("checkpoint saved to %s at step %d", path, self.global_step)
         self._last_save_step = int(self.global_step)
         if self._telemetry is not None or self._blackbox is not None:

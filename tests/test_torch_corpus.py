@@ -21,6 +21,7 @@ from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data import corpus as tcorpus
 from glint_word2vec_torch.data import ingest_native as tingest
 from glint_word2vec_torch.data import vocab as tvocab
+from glint_word2vec_torch.train import checkpoint as tckpt
 from glint_word2vec_torch.train import faults as tfaults
 from glint_word2vec_tpu.config import Word2VecConfig as JConfig
 from glint_word2vec_tpu.data import corpus as jcorpus
@@ -255,15 +256,20 @@ def test_resume_refuses_a_foreign_cache_and_a_lineage(tmp_path):
     other = [s + ["extra"] for s in sents]
     foreign = str(tmp_path / "foreign")
     tcorpus.encode_corpus(other, tvocab.build_vocab(other, 1), foreign)
-    with pytest.raises(ValueError, match="different vocabulary"):
+    with pytest.raises(ValueError, match="different vocabulary") as e:
         TWord2Vec.resume(ck, sents, encode_cache_dir=foreign, device="cpu")
+    assert "glint_word2vec_torch.continual.extend.extend_checkpoint" in str(e.value)
     data = jckpt.load_model(ck)
     lineage = str(tmp_path / "lineage")
+    chain = [{"fingerprint": "x"}]
     jckpt.save_model(lineage, data["words"], data["counts"], data["syn0"], data["syn1"],
                      data["config"], data["train_state"],
-                     extra_metadata={"vocab_lineage": [{"fingerprint": "x"}]})
-    with pytest.raises(NotImplementedError, match="continual training"):
-        TWord2Vec.resume(lineage, sents, device="cpu")
+                     extra_metadata={"vocab_lineage": chain})
+    # a checkpoint with a lineage chain (continual training) resumes, and its saves
+    # keep the chain
+    grown = TWord2Vec.resume(lineage, sents, device="cpu")
+    assert grown.train_state.finished
+    assert tckpt.load_model_header(lineage)["vocab_lineage"] == chain
     # the same checkpoint without the chain resumes
     model = TWord2Vec.resume(ck, sents, encode_cache_dir=str(tmp_path / "cache"),
                              device="cpu")

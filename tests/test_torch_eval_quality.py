@@ -295,9 +295,52 @@ def test_driver_end_to_end_on_the_cpu(tmp_path):
     assert _sha(runs) == before
 
 
+def test_harness_continual_ab_on_the_cpu(tmp_path, capsys):
+    """--continual-ab at a toy size: a base fit, one ContinualRunner increment over a
+    tail with new word types, two rows (pre, post) in --runs-out and none in the repo's
+    EVAL_RUNS.jsonl; the vocabulary sizes equal the JAX package's host-only vocabulary
+    pass over the same generated files."""
+    from glint_word2vec_tpu.continual.extend import compute_vocab_delta
+    from glint_word2vec_tpu.data.corpus import TokenFileCorpus
+    from glint_word2vec_tpu.data.vocab import build_vocab, count_words
+
+    runs = os.path.join(REPO, "EVAL_RUNS.jsonl")
+    before = _sha(runs)
+    rows, out = tmp_path / "rows.jsonl", tmp_path / "out"
+    tq.main(["--continual-ab", "--words", "200000", "--vocab", "3000", "--dim", "16",
+             "--iters", "1", "--batch", "4096", "--pool", "64",
+             "--continual-new-types", "200", "--continual-lr-rewarm", "0.5",
+             "--device", "cpu", "--out", str(out), "--runs-out", str(rows)])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["metric"] == "continual_ab" and _sha(runs) == before
+    pre, post = [json.loads(line) for line in open(rows)]
+    assert (pre["continual_ab_arm"], post["continual_ab_arm"]) == ("pre", "post")
+    assert res["arms"] == [pre, post]
+    assert post["continual_lr_rewarm"] == 0.5 and post["continual_tail_words"] == 50_000
+    assert post["run"]["global_step"] > post["run"]["global_step_start"] > 0
+    base = build_vocab(TokenFileCorpus(tq.corpus_file(str(out), 200000, 3000, 42)), 5)
+    tail = count_words(TokenFileCorpus(str(out / "continual" / "stream" / "seg-001.txt")))
+    delta = compute_vocab_delta(base, tail, 5)
+    assert res["vocab_base"] == base.size
+    assert res["new_words"] == delta.num_new > 0
+    assert res["vocab_grown"] == base.size + delta.num_new
+    for row in (pre, post):
+        assert 0.0 <= row["purity_at_10"] <= 1.0 and np.isfinite(row["cosine_margin"])
+
+
+def test_continual_tail_words_alone_is_accepted(tmp_path):
+    """As in the JAX tool, a --continual-* knob without --continual-ab is accepted (and
+    changes nothing of a plain run)."""
+    ap, args = tq.parse_args(["--continual-tail-words", "1000", "--out", str(tmp_path)])
+    tq._refuse_unported(ap, args)
+    assert args.continual_tail_words == 1000 and not args.continual_ab
+    assert (args.continual_new_types, args.continual_lr_rewarm,
+            args.continual_iterations) == (2000, 1.0, 1)
+
+
 @pytest.mark.parametrize("argv,names", [
-    (["--continual-ab"], ("--continual-ab", "A8")),
-    (["--continual-tail-words", "1000"], ("--continual-ab", "A8")),
     (["--localsgd-ab"], ("--localsgd-ab", "A9")),
     (["--sync-every", "4"], ("--sync-every", "A9")),
     (["--idle-share", "--device", "cpu"], ("--idle-share",)),

@@ -47,7 +47,9 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.obs.slo, glint_word2vec_torch.obs.collect, "
             "glint_word2vec_torch.obs_collect, glint_word2vec_torch.fleet_run, "
             "glint_word2vec_torch.chaos_run, glint_word2vec_torch.stepaudit, "
-            "glint_word2vec_torch.train.syncsites\n"
+            "glint_word2vec_torch.train.syncsites, glint_word2vec_torch.continual, "
+            "glint_word2vec_torch.continual.extend, glint_word2vec_torch.continual.stream, "
+            "glint_word2vec_torch.continual.loop, glint_word2vec_torch.continual_run\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"

@@ -377,10 +377,10 @@ def test_densify_guard_names_shard_native_migration(tmp_path):
 
 
 def test_service_vgrew_reload_keeps_quant_arm_and_remeasures(tmp_path):
-    """A vocabulary-grown publish (written here by the JAX package's continual
-    extend; the port's continual training is ROADMAP queue A8) hot-reloads into a
-    rebuild at the SAME quant arm with recall re-measured on the grown matrix."""
-    from glint_word2vec_tpu.continual.extend import extend_checkpoint
+    """A vocabulary-grown publish (written here by the port's continual extend, per
+    shard) hot-reloads into a rebuild at the SAME quant arm with recall re-measured on
+    the grown matrix."""
+    from glint_word2vec_torch.continual.extend import extend_checkpoint
     m = clustered_matrix(v=300, d=16, seed=15)
     ck = _save_shards(tmp_path, m)
     svc = EmbeddingService(checkpoint=ck, ann=True, ann_quant="int8",
