@@ -248,6 +248,23 @@ Phases, one line each (or a few); any failure exits non-zero:
                tool's EVAL_RUNS.jsonl:27-28), post purity@10 >= 0.95 and >= pre - 0.02,
                post margin >= 0.30, the fused kernel on every step of both fits; analogy
                @1 and each arm's train seconds printed, held to nothing.
+ 15. mesh     row-sharded training over torch.distributed, after phase 12: two rank
+               processes of this script on the one card (NCCL refuses two ranks on one
+               device, so a gloo world whose every collective is staged through host
+               memory), V=1,000,000, d=300 (384), B=8192, the AUTO pool (256 at 1M
+               words), f32, this corpus's Zipf(1) tokens: (a) mesh (1, 2), the
+               default sharded-input fit through Trainer(plan=) for 64 steps from the
+               trainer's seeded start; its global chunks replayed through the plain
+               single-process step on the card, and the ranks' row-shards checkpoint
+               within PARAM_ATOL of the replay; each rank's step time (dispatch, eager)
+               and the staging's share of it, its scatter launches (non-zero; the fused
+               kernel's zero) and the scatter kernel against its plain version at the
+               shapes the mesh step gives it; (b) mesh (2, 1), sync_every=2, one
+               window a chunk: after every merge the two replicas' fingerprints are
+               equal, and their bytes at the end; (c) the checkpoint loaded by one
+               process serves find_synonyms for 16 words as the explicitly gathered
+               rows do (ids identical, scores within 1e-6); (d) a world of one on NCCL
+               runs the collective interface on the card.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -3417,10 +3434,346 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
     return rec, launches, la
 
 
+# --- phase 15: the mesh -----------------------------------------------------------------
+
+MESH_STEPS = 64       # (a): the model-sharded fit's steps
+MESH_K = 16           # its steps a chunk
+MESH_SGD_STEPS = 8    # (b): local SGD's steps, one window a chunk (K = sync_every = 2)
+MESH_TOKENS = 300_000  # >= 64 steps of the 2-rank sharded feed at B=8192, window 5
+MESH_WORDS = 16       # (c): the synonym queries
+MESH_LIMIT_S = 600.0  # each world's ranks, start-up and build included
+
+
+class _MeshStop(Exception):
+    pass
+
+
+def _stop_at(tr, steps: int) -> None:
+    """End ``tr``'s fit by raising at the end of the round that reaches ``steps``
+    (every rank reaches it at the same round)."""
+    finish = tr._finish_round
+
+    def finish_then_stop(chunk, *a, **kw):
+        finish(chunk, *a, **kw)
+        if tr.global_step >= steps:
+            raise _MeshStop()
+
+    tr._finish_round = finish_then_stop
+
+
+def _replica_fingerprint(params, torch) -> int:
+    """A position-weighted int64 sum over the bits of both matrices (wrapping): two
+    replicas that differ in one bit differ here."""
+    total = 0
+    for m in params:
+        bits = m.view(torch.int32).to(torch.int64)
+        w = torch.arange(1, m.shape[1] + 1, device=m.device, dtype=torch.int64)
+        rows = (bits * w).sum(dim=1)
+        rw = torch.arange(m.shape[0], device=m.device, dtype=torch.int64) % 65521 + 1
+        total = (total + int((rows * rw).sum())) % (1 << 62)
+    return total
+
+
+def _rank_scatter_hold(tr, plan, torch, scat) -> dict:
+    """The row-scatter kernel at the sizes the mesh step gives it on this rank, against
+    its plain version on the same inputs. The synchronous step scatters the
+    data-gathered payload: B centers into the rank's syn0 block, and B + num_data * P
+    contexts and pool rows into its syn1 block. A local-SGD window's step scatters this
+    data shard's own: Bl = B / num_data centers, and Bl + P contexts and pool rows. The
+    last eighth of every segment's centers and contexts is masked (index -1, as a
+    stream's last batch is); those slots and the rows the rank does not own are dead."""
+    cfg = tr.config
+    gen = torch.Generator(device="cuda").manual_seed(plan.rank + 1)
+    vs = tr.params.syn0.shape[0]
+    lo = plan.rows(tr.padded_vocab)[0]
+    bl, pool = cfg.pairs_per_batch // plan.num_data, cfg.negative_pool
+    segments = 1 if cfg.sync_every > 1 else plan.num_data
+    out = {}
+    for name, with_pool in (("syn0", False), ("syn1", True)):
+        parts = []
+        for _ in range(segments):
+            ids = zipf_ids(gen, bl, tr.padded_vocab, 1.1, torch)
+            ids[bl - bl // 8:] = -1
+            parts.append(ids)
+            if with_pool:
+                parts.append(zipf_ids(gen, pool, tr.padded_vocab, 1.1, torch))
+        idx = torch.cat(parts) - lo
+        n = idx.shape[0]
+        own = (idx >= 0) & (idx < vs)
+        loc = torch.where(own, idx, 0).contiguous()
+        live = own.to(torch.float32)
+        upd = torch.randn((n, tr.padded_dim), generator=gen, device="cuda") * 1e-3
+        base = getattr(tr.params, name)
+        got = scat.scatter_add_rows_(base.clone(), loc, upd, live)
+        want = scat.scatter_add_rows_reference(base.clone(), loc[own], upd[own])
+        torch.cuda.synchronize()
+        out[name] = {"slots": n, "live": int(own.sum()),
+                     "max_abs_err": float((got - want).abs().max())}
+    return out
+
+
+def mesh_rank_main(args) -> int:
+    """One rank of phase 15, run by :func:`mesh_phase` as
+    ``chip_smoke.py --mesh-rank R --mesh-case CASE --mesh-dir DIR``: a gloo world of
+    two ranks on this one card, every collective staged through host memory."""
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from glint_word2vec_torch import Vocabulary
+    from glint_word2vec_torch.config import Word2VecConfig
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.ops import fused_sgns as fused
+    from glint_word2vec_torch.ops import scatter as scat
+    from glint_word2vec_torch.parallel import distributed
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    d = Path(args.mesh_dir)
+    case, r = args.mesh_case, args.mesh_rank
+    distributed.initialize(init_method=f"file://{d / (case + '.store')}",
+                           num_processes=2, process_id=r, backend="gloo",
+                           device="cuda", timeout_s=300)
+    rec = {"rank": r, "case": case}
+    words, counts, sents = synthetic_corpus(args.seed, MESH_TOKENS, np)
+    vocab = Vocabulary.from_words_and_counts(words, counts)
+    enc = encode_sentences(sents, vocab, 1000)
+    knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
+                 seed=args.seed, heartbeat_every_steps=MESH_K)
+    if case == "model":
+        plan, steps = make_mesh(1, 2), MESH_STEPS
+        cfg = Word2VecConfig(steps_per_dispatch=MESH_K, **knobs)
+    else:
+        plan, steps = make_mesh(2, 1), MESH_SGD_STEPS
+        cfg = Word2VecConfig(steps_per_dispatch=2, step_lowering="shard_map",
+                             sync_every=2, **knobs)
+    tr = Trainer(cfg, vocab, device="cuda", plan=plan)
+    rec.update(place=[plan.data_index, plan.model_index], pool=tr.config.negative_pool,
+               rows=list(plan.rows(tr.padded_vocab)), padded_dim=tr.padded_dim)
+    rounds = []
+    run = tr._run_chunk
+    fps = []
+
+    def run_chunk(chunk):
+        a = chunk["arrays"]
+        rounds.append({k: np.array(a[k]) for k in ("centers", "contexts", "reals",
+                                                   "alphas")} | {"real": chunk["real"]})
+        out = run(chunk)
+        if case == "data":  # every chunk is one window: it ended on a merge
+            fp = torch.tensor([_replica_fingerprint(tr.params, torch)], dtype=torch.int64)
+            fps.append(distributed.COLLECTIVES.all_gather(
+                fp, distributed.host_group()).tolist())
+        return out
+
+    tr._run_chunk = run_chunk
+    _stop_at(tr, steps)
+    torch.cuda.synchronize()
+    fused.fused_sgns_shared_step.launches = 0
+    scat.scatter_add_rows_.launches = 0
+    distributed.COLLECTIVES.reset()
+    t0 = time.perf_counter()
+    try:
+        tr.fit(enc)
+    except _MeshStop:
+        pass
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    rec.update(steps=tr.global_step, scatter_launches=scat.scatter_add_rows_.launches,
+               fused_launches=fused.fused_sgns_shared_step.launches,
+               collectives={f"{op}/{ax}": n for (op, ax), n in
+                            distributed.COLLECTIVES.counts.items()},
+               fit_s=fit_s, dispatch_s=tr.dispatch_time, host_wait_s=tr.host_wait_time,
+               step_ms=1e3 * tr.dispatch_time / max(tr.global_step, 1),
+               staged_s=distributed.COLLECTIVES.staged_s,
+               staged_calls=distributed.COLLECTIVES.staged_calls,
+               staging_share=distributed.COLLECTIVES.staged_s / max(tr.dispatch_time, 1e-9))
+    if case == "model":
+        if r == 0:
+            np.savez(d / "rounds.npz", **{k: np.stack([x[k] for x in rounds]) for k in
+                                          ("centers", "contexts", "reals", "alphas")},
+                     real=np.asarray([x["real"] for x in rounds]))
+        tr.save_checkpoint(str(d / "ck"))
+        g = tr.gather_params()
+        if r == 0:
+            np.save(d / "gathered_syn0.npy", g.syn0.float().cpu().numpy())
+        del g
+    else:
+        rec["fingerprints"] = fps
+        dig = hashlib.sha256()
+        for m in tr.params:
+            dig.update(m.cpu().numpy().tobytes())
+        rec["sha256"] = dig.hexdigest()
+    rec["scatter_hold"] = _rank_scatter_hold(tr, plan, torch, scat)
+    (d / f"{case}-r{r}.json").write_text(json.dumps(rec))
+    distributed.shutdown()
+    return 0
+
+
+def _mesh_world(case: str, d: Path, seed: int) -> list:
+    procs = []
+    for r in range(2):
+        err = open(d / f"{case}-r{r}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
+             "--mesh-case", case, "--mesh-dir", str(d), "--seed", str(seed)],
+            stdout=err, stderr=subprocess.STDOUT), err))
+    deadline = time.monotonic() + MESH_LIMIT_S
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"mesh {case}: a rank did not finish within "
+                             f"{MESH_LIMIT_S:.0f} s")
+    finally:
+        for p, err in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    out = []
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh {case} rank {r} exited {p.returncode}: "
+                                 f"{(d / f'{case}-r{r}.log').read_text()[-3000:]}")
+        out.append(json.loads((d / f"{case}-r{r}.json").read_text()))
+    return out
+
+
+def _mesh_replay(d: Path, vocab, pool: int, seed: int, torch, np, sgns):
+    """The model-sharded fit's recorded global chunks through the single-process plain
+    shared-pool step on the card, from the trainer's start parameters."""
+    from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives_hash
+
+    rd = np.load(d / "rounds.npz")
+    table = build_alias_table(vocab.counts, 0.75)
+    prob = torch.from_numpy(table.prob).cuda()
+    alias = torch.from_numpy(table.alias.astype(np.int64)).cuda()
+    start = sgns.init_embeddings(V, D_REAL, torch.Generator().manual_seed(seed))
+    p = sgns.EmbeddingPair(*(torch.nn.functional.pad(m, (0, D - D_REAL)).cuda()
+                             for m in start))
+    step = 0
+    for i, real in enumerate(rd["real"]):
+        negs = sample_negatives_hash(prob, alias, seed, step + 1, (MESH_K, pool))
+        reals = torch.from_numpy(rd["reals"][i]).cuda().reshape(MESH_K, -1)
+        pos = torch.arange(B // reals.shape[1], device="cuda")
+        mask = (pos < reals[:, :, None]).to(torch.float32).reshape(MESH_K, B)
+        c = torch.from_numpy(rd["centers"][i]).cuda().long()
+        x = torch.from_numpy(rd["contexts"][i]).cuda().long()
+        a = torch.from_numpy(rd["alphas"][i]).cuda()
+        for k in range(int(real)):
+            p, _ = sgns.sgns_step_shared_core(p, c[k], x[k], mask[k], negs[k], a[k],
+                                              N_NEG)
+        step += int(real)
+    return p, step
+
+
+def mesh_phase(seed: int, torch, np, sgns) -> tuple:
+    """Phase 15: row-sharded training over torch.distributed, two ranks sharing this
+    one card through a gloo group staged in host memory (NCCL refuses two ranks on one
+    device): (a) the model-sharded fit, (b) local SGD on the data axis, (c) the
+    row-shards checkpoint served on one device, (d) NCCL at a world of one."""
+    from glint_word2vec_torch import Vocabulary, Word2VecModel
+    from glint_word2vec_torch.parallel import distributed
+    from glint_word2vec_torch.train.checkpoint import load_model
+
+    from glint_word2vec_torch.data import native
+
+    native.native_available()  # built here once, not raced by the ranks
+    torch.cuda.empty_cache()
+    d = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
+    rec = {}
+    try:
+        t0 = time.perf_counter()
+        model = _mesh_world("model", d, seed)
+        rec["model_world_s"] = time.perf_counter() - t0
+        for r in model:
+            if r["scatter_launches"] <= 0:
+                raise AssertionError(f"mesh (a) rank {r['rank']}: no scatter launch")
+            if r["fused_launches"]:
+                raise AssertionError("mesh (a): the fused kernel ran on the mesh path")
+        words, counts, _ = synthetic_corpus(seed, 1, np)
+        vocab = Vocabulary.from_words_and_counts(words, counts)
+        ref, steps = _mesh_replay(d, vocab, model[0]["pool"], seed, torch, np, sgns)
+        if steps != model[0]["steps"]:
+            raise AssertionError(f"mesh (a): replay {steps} steps, fit {model[0]['steps']}")
+        got = load_model(str(d / "ck"), verify=True)
+        err = 0.0
+        for name, m in (("syn0", got["syn0"]), ("syn1", got["syn1"])):
+            want = getattr(ref, name)[:V, :D_REAL]
+            err = max(err, float((torch.from_numpy(m).cuda() - want).abs().max()))
+        if not err <= PARAM_ATOL:
+            raise AssertionError(f"mesh (a): sharded vs single-process max |diff| {err}")
+        del ref
+        # (c) the row-shards checkpoint on one device against the gathered rows
+        served = Word2VecModel.load(str(d / "ck"), device="cuda")
+        gathered = Word2VecModel(vocab, np.load(d / "gathered_syn0.npy"), device="cuda")
+        queries = [f"w{i}" for i in range(0, 4 * MESH_WORDS, 4)]
+        for w in queries:
+            a, b = served.find_synonyms(w, 10), gathered.find_synonyms(w, 10)
+            if [x for x, _ in a] != [x for x, _ in b] or max(
+                    abs(s - t) for (_, s), (_, t) in zip(a, b)) > 1e-6:
+                raise AssertionError(f"mesh (c): find_synonyms({w!r}) differs")
+        del served, gathered
+        t0 = time.perf_counter()
+        sgd = _mesh_world("data", d, seed)
+        rec["data_world_s"] = time.perf_counter() - t0
+        fps = sgd[0]["fingerprints"]
+        if len(fps) != MESH_SGD_STEPS // 2 or any(a != b for a, b in fps):
+            raise AssertionError(f"mesh (b): replicas differ after a merge: {fps}")
+        if sgd[0]["sha256"] != sgd[1]["sha256"]:
+            raise AssertionError("mesh (b): the replicas' bytes differ at the end")
+        # (d) NCCL at a world of one, through the collective interface
+        distributed.initialize(init_method=f"file://{d / 'nccl.store'}", num_processes=1,
+                               process_id=0, backend="nccl", device="cuda")
+        try:
+            x = torch.arange(1024, device="cuda", dtype=torch.float32)
+            C = distributed.COLLECTIVES
+            same = bool(torch.equal(C.all_reduce(x.clone()), x)
+                        and torch.equal(C.all_gather(x), x))
+            C.barrier()
+            nccl = {"backend": torch.distributed.get_backend(), "ok": same}
+        finally:
+            distributed.shutdown()
+        if not same:
+            raise AssertionError("mesh (d): NCCL collectives at a world of one differ")
+        rec.update(model=model, data=sgd, max_abs_err_vs_single=err, nccl=nccl,
+                   synonyms_checked=len(queries))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    hold = max(v["max_abs_err"] for r in model + sgd for v in r["scatter_hold"].values())
+    if not hold <= PARAM_ATOL:
+        raise AssertionError(f"mesh: scatter kernel vs plain {hold}")
+    rec["scatter_hold_max_abs_err"] = hold
+    for r in model + sgd:
+        log("mesh", f"({'a' if r['case'] == 'model' else 'b'}) rank {r['rank']} at "
+            f"(data {r['place'][0]}, model {r['place'][1]}), rows {r['rows']}: "
+            f"{r['steps']} steps, {r['step_ms']:.3f} ms a step (dispatch, eager), staging "
+            f"{r['staged_s']:.3f} s in {r['staged_calls']} calls = "
+            f"{r['staging_share']:.1%} of it; host wait {r['host_wait_s']:.3f} s; "
+            f"scatter launches {r['scatter_launches']}, fused {r['fused_launches']}; "
+            f"collectives {r['collectives']}; scatter vs plain " + ", ".join(
+                f"{m} {h['slots']} slots ({h['live']} live) {h['max_abs_err']:.3g}"
+                for m, h in r["scatter_hold"].items()))
+    log("mesh", f"(a) sharded vs single-process replay max |diff| {err:.3g} "
+        f"(limit {PARAM_ATOL}); (b) {len(fps)} merges, replicas bit-identical; (c) "
+        f"{len(queries)} synonym lists equal; (d) NCCL world of one ok; scatter vs plain "
+        f"{hold:.3g}; worlds {rec['model_world_s']:.1f} s + {rec['data_world_s']:.1f} s")
+    launches = {"mesh_model": sum(r["scatter_launches"] for r in model),
+                "mesh_localsgd": sum(r["scatter_launches"] for r in sgd)}
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default="", help="also write the kernels record here")
+    # phase 15's rank processes (mesh_phase starts them)
+    ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-case", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     repo = Path(__file__).resolve().parent
     if not (repo / "glint_word2vec_torch" / "csrc").is_dir():
@@ -3433,6 +3786,8 @@ def main() -> int:
         print("chip_smoke.py: torch.cuda.is_available() is False; this drives the "
               "port on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.mesh_rank is not None:
+        return mesh_rank_main(args)
     sys.path.insert(0, str(repo))
     from glint_word2vec_torch import Vocabulary
     from glint_word2vec_torch import scatterprobe as probe
@@ -3517,6 +3872,13 @@ def main() -> int:
         f"{q_sup['purity_at_10']}; kernel at the fit's shape {quality['kernel']['ms']:.4f}"
         f" ms a call, {quality['kernel']['device_ms']:.4f} ms on the device, bound "
         f"{quality['kernel']['bound_ms']:.4f} ms")
+    t0 = time.perf_counter()
+    mesh, mesh_launches = mesh_phase(args.seed, torch, np, sgns)
+    for name, n in mesh_launches.items():  # phase 15: the scatter kernel on every rank
+        launches[name] = {"sgns_shared_step": 0, "scatter_add_rows": n,
+                          "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
+    srec["max_abs_err"] = max(srec["max_abs_err"], mesh["scatter_hold_max_abs_err"])
+    log("mesh", f"phase 15 in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -3578,6 +3940,7 @@ def main() -> int:
                                               "fleet": fleet,
                                               "continual": continual,
                                               "quality": quality,
+                                              "mesh": mesh,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,
                                               "card": card}) + "\n")

@@ -1,7 +1,8 @@
 """glint_word2vec_torch — the PyTorch/CUDA port of glint_word2vec_tpu.
 
 Skip-gram and CBOW word2vec, with a shared negative pool or per-pair negatives, trained
-on one NVIDIA GPU through hand-written CUDA kernels (``csrc/sgns_shared.cu``, the fused
+on one NVIDIA GPU, or the shared-pool skip-gram row-sharded over a mesh of them
+(``parallel/``), through hand-written CUDA kernels (``csrc/sgns_shared.cu``, the fused
 shared-pool skip-gram step; ``csrc/scatter_rows.cu``, the row scatter-add of the other
 steps), with the JAX package as the reference it is held against. The package imports
 torch and numpy, never jax.

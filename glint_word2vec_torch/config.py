@@ -22,8 +22,17 @@ checkpoint and export I/O) mean what they mean in the JAX package. So do the run
 layer's knobs (``nonfinite_policy`` with ``rollback``, ``norm_watch`` and its recovery
 ladder, ``telemetry_path``, ``status_port``, ``checkpoint_on_preempt``), with
 ``profile_dir`` recording a ``torch.profiler`` trace where the JAX package records a
-``jax.profiler`` one; ``peer_beacon_s`` belongs to multi-process fits and is refused.
-The serving tier's ``serve_*`` knobs, the fleet's ``serve_fleet_*`` among them, are
+``jax.profiler`` one.
+
+On a (data, model) mesh of ranks (``num_data_shards`` x ``num_model_shards``, or
+``mesh_shape``; one rank a card, ``parallel/``) the port trains the shared-pool
+skip-gram step row-sharded, with ``sync_every`` (local SGD), ``shard_input``,
+``sharded_checkpoint`` and ``peer_beacon_s`` as in the JAX package. ``step_lowering``
+takes both values and the JAX package's selection matrix (:func:`_validate_mesh`); the
+port has one schedule for both, the owner-local one. The combinations the JAX package
+runs only under GSPMD (the per-pair step, CBOW, ``duplicate_scaling``,
+``device_pairgen`` on a mesh) and the column layout are refused by name (ROADMAP.md
+queue A9b). The serving tier's ``serve_*`` knobs, the fleet's ``serve_fleet_*`` among them, are
 read only by :mod:`.serve`.
 """
 
@@ -32,12 +41,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-# Knobs not ported yet, refused off their default (ROADMAP queue A names the slice
-# each one lands in).
-_UNPORTED = (
-    "use_pallas", "step_lowering", "sync_every", "num_model_shards",
-    "num_data_shards", "embedding_partition", "sharded_checkpoint", "peer_beacon_s",
-)
+# Knobs not ported, refused off their default: use_pallas by design (ROADMAP C), the
+# column layout with the rest of the multi-device work still queued (ROADMAP A9b).
+_UNPORTED = ("use_pallas", "embedding_partition")
 
 
 @dataclasses.dataclass
@@ -63,7 +69,7 @@ class Word2VecConfig:
     subsample_ratio: float = -1.0   # -1 = AUTO: 1e-3, which the Trainer may lower
     seed: int = 0
 
-    # --- sharding / deployment (the port runs on one device) ---
+    # --- sharding / deployment (a mesh of ranks, one a device: parallel/) ---
     num_model_shards: int = 1
     num_data_shards: int = 1
     embedding_partition: str = "rows"
@@ -104,8 +110,10 @@ class Word2VecConfig:
     prefetch_chunks: int = 8        # chunks a producer thread assembles (and, on the
                                     # card, stages) ahead; 0 = on the calling thread
     profile_dir: str = ""           # torch.profiler's Chrome trace goes here
-    feed_consistency_check: bool = False  # multi-process only: inert here
-    shard_input: bool = True              # multi-process only: inert here
+    feed_consistency_check: bool = False  # debug, multi-process: every round's feed
+                                          # fingerprinted and compared across ranks
+                                          # (one tiny allgather a round)
+    shard_input: bool = True              # multi-process: each rank feeds its 1/W
     device_pairgen: bool = False          # the card expands token blocks into pairs
     tokens_per_step: int = 0              # device_pairgen: token slots per step; 0 =
                                           # sized by the Trainer for ~93% pair fill
@@ -139,7 +147,8 @@ class Word2VecConfig:
     blackbox_ring: int = 256
 
     # --- preemption and supervisor (supervisor_* are the defaults of
-    # train_run's flags, read by no fit; peer_beacon_s waits for multi-process fits) ---
+    # train_run's flags, read by no fit; peer_beacon_s arms a multi-process fit's
+    # liveness beacons) ---
     checkpoint_on_preempt: bool = False
     preempt_deadline_s: float = 30.0
     peer_beacon_s: float = 0.0
@@ -213,6 +222,7 @@ class Word2VecConfig:
                 f"but got {self.negative_pool}")
         # after the pool resolves (bf16_chain reads it), before the unported knobs
         _validate_restructurings(self)
+        _validate_mesh(self)
         if check_ported:
             self._refuse_unported()
         _validate_ranges(self)
@@ -223,12 +233,22 @@ class Word2VecConfig:
             value = getattr(self, name)
             if value != defaults[name]:
                 raise NotImplementedError(
-                    f"{name}={value!r} is not ported to glint_word2vec_torch yet "
-                    f"(default {defaults[name]!r}); see ROADMAP.md queue A")
-        if self.mesh_shape is not None and tuple(self.mesh_shape) != (1, 1):
-            raise NotImplementedError(
-                f"mesh_shape={self.mesh_shape!r}: the port trains on one device; "
-                "multi-device meshes are not ported yet")
+                    f"{name}={value!r} is not ported to glint_word2vec_torch "
+                    f"(default {defaults[name]!r}); see ROADMAP.md "
+                    f"{'section C' if name == 'use_pallas' else 'queue A9b'}")
+        nd, nm = self.mesh_size
+        if nd * nm > 1:
+            refuse_unported_on_mesh(
+                self, f"a {nd}x{nm} mesh (num_data_shards x num_model_shards, or "
+                "mesh_shape)")
+
+    @property
+    def mesh_size(self) -> Tuple[int, int]:
+        """The (data, model) mesh the config asks for: ``mesh_shape``, else
+        (num_data_shards, num_model_shards)."""
+        if self.mesh_shape is not None:
+            return tuple(self.mesh_shape)
+        return (self.num_data_shards, self.num_model_shards)
 
     def replace(self, **kwargs) -> "Word2VecConfig":
         # keep AUTO-ness: a resolved AUTO value must re-derive on the new config
@@ -469,6 +489,104 @@ def _validate_restructurings(c: Word2VecConfig) -> None:
             f"every chunk flushes at its end, so the cadence cannot "
             f"exceed or straddle the chunk (0 = auto: once per "
             f"chunk)")
+
+
+def refuse_unported_on_mesh(c: Word2VecConfig, where: str) -> None:
+    """The combinations the port does not run on a mesh larger than 1x1 (``where``
+    names it), refused by name: the JAX package runs them under GSPMD only, and the
+    port has one schedule, the owner-local shared-pool skip-gram step (ROADMAP.md queue
+    A9b). Checked at construction when the config names the mesh, and by the
+    ``Trainer`` when the world decides it."""
+    what = None
+    if c.cbow:
+        what = (f"cbow=True (cbow_update={c.cbow_update!r}): CBOW's scatter and banded "
+                "steps")
+    elif c.duplicate_scaling:
+        what = "duplicate_scaling=True: the mean-update step"
+    elif c.negative_pool == 0:
+        what = "negative_pool=0: the per-pair step"
+    elif c.device_pairgen:
+        what = "device_pairgen=True: the sharded device feed"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} on {where} runs only under the JAX package's GSPMD lowering; the "
+            "port's mesh runs the owner-local shared-pool skip-gram step, and the rest "
+            "is not ported yet (ROADMAP.md queue A9b)")
+
+
+def _validate_mesh(c: Word2VecConfig) -> None:
+    """The JAX package's ``step_lowering`` and ``sync_every`` selection matrices, and
+    its column-layout checkpoint refusal, copied as they stand (classes and messages
+    included). ``step_lowering="gspmd"`` on a mesh runs the same owner-local schedule
+    in the port (it has no compiler to choose another)."""
+    if c.step_lowering not in ("gspmd", "shard_map"):
+        raise ValueError(
+            f"step_lowering must be 'gspmd' or 'shard_map' "
+            f"but got {c.step_lowering!r}")
+    if c.step_lowering == "shard_map":
+        if c.cbow:
+            raise ValueError(
+                "step_lowering='shard_map' is implemented for the "
+                "shared-pool skip-gram step only; CBOW runs under GSPMD "
+                "(step_lowering='gspmd')")
+        if c.use_pallas:
+            raise ValueError(
+                "step_lowering='shard_map' and use_pallas=True both claim "
+                "the step lowering; the pallas kernel is single-device "
+                "only — drop one")
+        if c.duplicate_scaling:
+            raise ValueError(
+                "step_lowering='shard_map' does not support "
+                "duplicate_scaling=True: mean-update semantics need global "
+                "in-batch occurrence counts, a [V]-sized cross-shard psum "
+                "the explicit schedule exists to avoid — use 'gspmd'")
+        if c.negative_pool == 0:
+            raise ValueError(
+                "step_lowering='shard_map' requires the shared-pool "
+                "estimator (negative_pool > 0, or -1 for auto at "
+                "pairs_per_batch >= 4096); per-pair negatives "
+                "(negative_pool=0) are GSPMD-path only")
+        if c.embedding_partition != "rows":
+            raise ValueError(
+                "step_lowering='shard_map' is the rows-layout schedule "
+                "(owner-local row scatters); embedding_partition="
+                f"{c.embedding_partition!r} keeps GSPMD")
+    if c.sync_every <= 0:
+        raise ValueError(
+            f"sync_every must be positive (1 = synchronous) "
+            f"but got {c.sync_every}")
+    if c.sync_every > 1:
+        if c.step_lowering != "shard_map":
+            raise ValueError(
+                f"sync_every={c.sync_every} (local-SGD) requires "
+                f"step_lowering='shard_map': the k owner-local steps "
+                f"reuse the explicit schedule's owner-local gather/"
+                f"scatter machinery, which has no GSPMD form (and no "
+                f"CBOW form — CBOW runs under GSPMD); got "
+                f"step_lowering={c.step_lowering!r}")
+        if c.device_pairgen:
+            raise ValueError(
+                f"sync_every={c.sync_every} (local-SGD) supports the "
+                f"host packed-pair feed only; device_pairgen's token-"
+                f"block chunks have no windowed form")
+        if c.steps_per_dispatch % c.sync_every:
+            raise ValueError(
+                f"sync_every={c.sync_every} must divide "
+                f"steps_per_dispatch={c.steps_per_dispatch}: the "
+                f"local-SGD window lives inside the dispatch chunk's "
+                f"scan and every chunk ends merged, so the merge cadence "
+                f"cannot exceed or straddle the chunk (snapshot-ring/"
+                f"rollback/preemption saves land on merge boundaries "
+                f"only)")
+    if c.embedding_partition == "cols" and c.sharded_checkpoint:
+        raise ValueError(
+            "embedding_partition='cols' does not support "
+            "sharded_checkpoint=True: row-shards checkpoints need each "
+            "process to own whole rows (design rationale: PERF.md §7); "
+            "use 'rows'")
+    if c.num_data_shards <= 0:
+        raise ValueError(
+            f"num_data_shards must be positive but got {c.num_data_shards}")
 
 
 def _validate_device_pairgen(c: Word2VecConfig) -> None:

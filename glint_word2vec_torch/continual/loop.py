@@ -24,6 +24,13 @@ One blocking loop, no thread: run it as its own process
 (``python -m glint_word2vec_torch.continual_run``) beside the serving replicas. Each
 increment builds a new :class:`..train.trainer.Trainer` (its CUDA graphs are its own,
 captured at its V); nothing catches a kernel's failure.
+
+On a mesh (``plan``, one rank a card) every rank runs the same runner. Rank 0 decides
+and writes alone (the poll, the checkpoint's recovery and extension, the cursor, the
+first encode of a segment, the telemetry) and hands its decisions to the others
+(``parallel/distributed.COLLECTIVES.broadcast_object``); the ranks then read what it
+wrote, each streams its rows of a row-shards checkpoint
+(``load_params_into_plan``), and every rank fits and saves its own rows.
 """
 
 from __future__ import annotations
@@ -47,11 +54,14 @@ from glint_word2vec_torch.data.corpus import vocab_fingerprint
 from glint_word2vec_torch.data.vocab import Vocabulary, count_words, merge_counts
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.models.word2vec import refuse_plan
+from glint_word2vec_torch.parallel import distributed
+from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
 from glint_word2vec_torch.train.checkpoint import (
     TrainState,
     load_latest_valid,
     load_model,
     load_model_header,
+    load_params_into_plan,
     verify_checkpoint,
 )
 
@@ -65,8 +75,9 @@ class ContinualRunner:
     segment directory; ``work_dir`` holds the cursor and the per-segment encode caches.
     ``config_overrides`` replace checkpoint-config fields for every increment.
     ``telemetry_path`` opens a sink for the ``continual_*`` and ``publish`` records.
-    Fits and loads run on ``device`` (the card unless ``"cpu"``). ``plan`` (a
-    multi-device mesh) is refused: the port runs on one device."""
+    Fits and loads run on ``device`` (the card unless ``"cpu"``). ``plan``: a mesh of
+    ranks (``parallel.mesh.make_mesh``) every rank of which runs this runner alike, or
+    None for one device."""
 
     def __init__(
         self,
@@ -80,6 +91,8 @@ class ContinualRunner:
         device="cuda",
     ):
         refuse_plan(plan)
+        self.plan = plan if plan is not None and plan.size > 1 else None
+        self._lead = self.plan is None or self.plan.rank == 0
         self.device = resolve_device(device)
         self.checkpoint_path = checkpoint_path
         self.stream = CorpusStream(corpus_dir)
@@ -88,13 +101,35 @@ class ContinualRunner:
         self.checkpoint_every_steps = checkpoint_every_steps
         self.increments = 0
         self._sink = None
-        if telemetry_path:
+        if telemetry_path and self._lead:
             from glint_word2vec_torch.obs.sink import TelemetrySink
             self._sink = TelemetrySink(telemetry_path)
         os.makedirs(work_dir, exist_ok=True)
         self.cursor = StreamCursor(work_dir)
 
     # -- helpers -------------------------------------------------------------------
+
+    def _shared(self, fn):
+        """``fn()`` run by rank 0 alone, its result handed to every rank of the mesh
+        (on one device, just ``fn()``)."""
+        out = fn() if self._lead else None
+        if self.plan is not None:
+            out = distributed.COLLECTIVES.broadcast_object(out, distributed.host_group())
+        return out
+
+    def _lead_first(self, fn):
+        """``fn()`` on rank 0, then, once it is done, on the other ranks (which reuse
+        what it wrote: the encode caches)."""
+        out = fn() if self._lead else None
+        if self.plan is not None:
+            distributed.COLLECTIVES.barrier(distributed.host_group())
+            if not self._lead:
+                out = fn()
+        return out
+
+    def _save_cursor(self) -> None:
+        if self._lead:
+            self.cursor.save()
 
     def _emit(self, kind: str, **fields) -> None:
         if self._sink is not None:
@@ -134,7 +169,17 @@ class ContinualRunner:
 
     def _load_params(self, path: str, header: Dict[str, Any], cfg) -> tuple:
         """The checkpoint's matrices on the runner's device (a dense f32 matrix streams
-        to the card as it is read and hashed)."""
+        to the card as it is read and hashed); on a mesh, this rank's rows of a
+        row-shards checkpoint, streamed."""
+        if self.plan is not None and header["layout"] == "row-shards":
+            nm = self.plan.num_model
+            shards = load_params_into_plan(
+                path, self.plan, pad_vocab_for_sharding(len(header["words"]), nm),
+                pad_dim_to_lanes(cfg.vector_size, cfg.pad_vector_to_lanes),
+                io_workers=cfg.io_workers, device=self.device)
+            if shards.syn1 is None:
+                raise ValueError("checkpoint has no syn1; cannot train an increment")
+            return shards
         data = load_model(path, header=header, io_workers=cfg.io_workers,
                           device=self.device)
         if data["syn1"] is None:
@@ -146,10 +191,11 @@ class ContinualRunner:
     def ensure_base(self) -> Dict[str, Any]:
         """Without a checkpoint, fit a base model over every segment in the stream
         and publish it; with one, do nothing."""
-        if os.path.exists(os.path.join(self.checkpoint_path, "metadata.json")):
+        if self._shared(lambda: os.path.exists(
+                os.path.join(self.checkpoint_path, "metadata.json"))):
             return {"action": "none"}
         from glint_word2vec_torch.train.trainer import Trainer
-        names = self.cursor.new_segments(self.stream)
+        names = self._shared(lambda: self.cursor.new_segments(self.stream))
         if not names:
             raise FileNotFoundError(
                 f"no checkpoint at {self.checkpoint_path!r} and no corpus segments "
@@ -157,17 +203,18 @@ class ContinualRunner:
         cfg = Word2VecConfig(**self.config_overrides)
         counter = merge_counts(count_words(self.stream.corpus(n)) for n in names)
         vocab = Vocabulary.from_counter(counter, cfg.min_count)
-        parts = [encode_segment(self.stream, n, vocab, self._cache_dir(),
-                                cfg.max_sentence_length) for n in names]
+        parts = self._lead_first(lambda: [
+            encode_segment(self.stream, n, vocab, self._cache_dir(),
+                           cfg.max_sentence_length) for n in names])
         t0 = time.perf_counter()
-        trainer = Trainer(cfg, vocab, device=self.device)
+        trainer = Trainer(cfg, vocab, device=self.device, plan=self.plan)
         trainer.fit(ConcatCorpus(parts), checkpoint_path=self.checkpoint_path,
                     checkpoint_every_steps=self.checkpoint_every_steps)
         vfp = vocab_fingerprint(vocab)
         for name, enc in zip(names, parts):
             self.cursor.mark_consumed(name, segment_fingerprint(self.stream.path(name)),
                                       vfp, enc.meta)
-        self.cursor.save()
+        self._save_cursor()
         report = {"action": "base", "segments": len(names), "vocab_size": vocab.size,
                   "train_seconds": round(time.perf_counter() - t0, 3)}
         self._emit("continual_increment", increment=0, segments=len(names),
@@ -185,10 +232,10 @@ class ContinualRunner:
         (``seconds``) and what its trainer did (``trainer``: global steps, pairs, the
         fit's, feed waits' and dispatch's seconds, chunks, graph captures and
         replays)."""
-        new_names = self.cursor.new_segments(self.stream)
+        new_names = self._shared(lambda: self.cursor.new_segments(self.stream))
         if not new_names:
             return {"action": "idle", "segments": 0}
-        ck = self._recovered_checkpoint()
+        ck = self._shared(self._recovered_checkpoint)
         header = load_model_header(ck)
         cfg = self._load_config(header)
         seconds = {"count": 0.0, "extend": 0.0}
@@ -199,28 +246,34 @@ class ContinualRunner:
         grew = False
         report = {"new_words": 0}
         if count_names:
+            def count_and_extend():
+                t0 = time.perf_counter()
+                tail_counts = merge_counts(count_words(self.stream.corpus(n))
+                                           for n in count_names)
+                seconds["count"] = time.perf_counter() - t0
+                # 2. migrate, on every increment with fresh counts: growth or a counts
+                # merge (the fingerprint changes either way, and the link keeps old
+                # caches valid). Publish #1: a watcher reloads the grown model now. The
+                # tail's fingerprint rides the link, so a retry whose attempt died
+                # between this publish and the cursor save below sees the merge
+                # already applied.
+                tail_fp = "+".join(f"{n}={segment_fingerprint(self.stream.path(n))}"
+                                   for n in count_names)
+                return _extend.extend_checkpoint(
+                    ck, tail_counts, out_path=self.checkpoint_path,
+                    min_count=cfg.min_count, min_new_words=cfg.continual_min_new_words,
+                    tail_fingerprint=tail_fp)
+
             t0 = time.perf_counter()
-            tail_counts = merge_counts(count_words(self.stream.corpus(n))
-                                       for n in count_names)
-            seconds["count"] = time.perf_counter() - t0
-            # 2. migrate, on every increment with fresh counts: growth or a counts
-            # merge (the fingerprint changes either way, and the link keeps old caches
-            # valid). Publish #1: a watcher reloads the grown model now. The tail's
-            # fingerprint rides the link, so a retry whose attempt died between this
-            # publish and the cursor save below sees the merge already applied.
-            t0 = time.perf_counter()
-            tail_fp = "+".join(f"{n}={segment_fingerprint(self.stream.path(n))}"
-                               for n in count_names)
-            report = _extend.extend_checkpoint(
-                ck, tail_counts, out_path=self.checkpoint_path, min_count=cfg.min_count,
-                min_new_words=cfg.continual_min_new_words, tail_fingerprint=tail_fp)
+            report = self._shared(count_and_extend)
+            t0 += seconds["count"]
             ck = report["path"]
             grew = report["new_words"] > 0
             header = load_model_header(ck)
             cfg = self._load_config(header)
             for name in count_names:
                 self.cursor.mark_counted(name, segment_fingerprint(self.stream.path(name)))
-            self.cursor.save()
+            self._save_cursor()
             seconds["extend"] = time.perf_counter() - t0
             if grew:
                 self._emit("continual_extend", old_vocab_size=report["old_vocab_size"],
@@ -232,9 +285,10 @@ class ContinualRunner:
 
         # 3. delta encode: only the tail is new work
         t0 = time.perf_counter()
-        enc = encode_delta(self.stream, self.cursor, vocab, self._cache_dir(),
-                           max_sentence_length=cfg.max_sentence_length, lineage=allowed,
-                           replay_segments=cfg.continual_replay_segments)
+        enc = self._lead_first(lambda: encode_delta(
+            self.stream, self.cursor, vocab, self._cache_dir(),
+            max_sentence_length=cfg.max_sentence_length, lineage=allowed,
+            replay_segments=cfg.continual_replay_segments, names=new_names))
         seconds["encode"] = time.perf_counter() - t0
 
         # 4. the incremental fit: lr re-warmed through the dispatch-time scale (a
@@ -248,7 +302,8 @@ class ContinualRunner:
         inc_cfg = cfg.replace(num_iterations=cfg.continual_iterations)
         step0 = int(header["train_state"].global_step)
         trainer = Trainer(inc_cfg, vocab, params=params,
-                          train_state=TrainState(global_step=step0), device=self.device)
+                          train_state=TrainState(global_step=step0), device=self.device,
+                          plan=self.plan)
         del params
         if cfg.continual_lr_rewarm != 1.0:
             trainer._lr_scale = cfg.continual_lr_rewarm
@@ -268,7 +323,7 @@ class ContinualRunner:
         for name in enc["new"]:
             self.cursor.mark_consumed(name, segment_fingerprint(self.stream.path(name)),
                                       vfp, enc["encoded"][name].meta)
-        self.cursor.save()
+        self._save_cursor()
         self.increments += 1
         words = sum(int(enc["encoded"][n].total_tokens) for n in enc["new"])
         self._emit("continual_increment", increment=self.increments,

@@ -206,13 +206,15 @@ def encode_segment(stream: CorpusStream, name: str, vocab: Vocabulary, cache_dir
 def encode_delta(stream: CorpusStream, cursor: StreamCursor, vocab: Vocabulary,
                  cache_dir: str, max_sentence_length: int = 1000,
                  lineage: Optional[Sequence[str]] = None,
-                 replay_segments: int = 0) -> Dict[str, Any]:
+                 replay_segments: int = 0,
+                 names: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     """Encode only the unconsumed tail under ``vocab``; the increment's corpus is
     (the last ``replay_segments`` consumed segments, from their caches) + (the tail).
-    Returns ``{"corpus": ConcatCorpus, "new": [names], "replayed": [names],
-    "encoded": {name: EncodedCorpus of the tail}}``."""
+    ``names``: the tail as already polled (the ranks of a mesh runner take rank 0's
+    poll); None polls the cursor. Returns ``{"corpus": ConcatCorpus, "new": [names],
+    "replayed": [names], "encoded": {name: EncodedCorpus of the tail}}``."""
     os.makedirs(cache_dir, exist_ok=True)
-    new_names = cursor.new_segments(stream)
+    new_names = list(names) if names is not None else cursor.new_segments(stream)
     encoded: Dict[str, EncodedCorpus] = {}
     parts: List[EncodedCorpus] = []
     replayed: List[str] = []

@@ -311,10 +311,14 @@ def epoch_batches(
     block_words: int = 1_000_000,
     backend: str = "auto",
     producer_workers: int = 1,
+    shard: int = 0,
+    num_shards: int = 1,
 ) -> Iterator[PairBatch]:
-    """One iteration's stream of fixed-shape pair batches (the JAX package's shard 0
-    of 1): sentences shuffled per (seed, iteration), processed in ~``block_words``-word
-    slabs, the last batch zero-padded and masked.
+    """One iteration's stream of fixed-shape pair batches for one data shard:
+    sentences assigned to the ``num_shards`` shards round-robin, this shard's shuffled
+    per (seed, iteration, shard), processed in ~``block_words``-word slabs, the last
+    batch zero-padded and masked. A multi-process fit's rank pulls its own shard
+    (``Trainer._fit_sharded``); a single process, shard 0 of 1.
 
     ``backend``: "native" generates each slab's pairs with the C++ generator, "numpy"
     with :func:`_block_pairs`, "auto" (the default) with the first when it is built.
@@ -323,11 +327,10 @@ def epoch_batches(
     then divided across the concurrent calls, so the pools compose instead of
     multiplying. Only the batching and the clock below stay serial."""
     use_native = resolve_backend(backend) == "native"
-    shard = 0
     rng = stream_rng(seed, iteration, shard)
     keep = keep_probabilities(
         vocab.counts, vocab.train_words_count, subsample_ratio).astype(np.float32)
-    order = np.arange(len(sentences))
+    order = np.arange(shard, len(sentences), num_shards)
     if shuffle:
         rng.shuffle(order)
     native_threads = native.threads_per_call(producer_workers)

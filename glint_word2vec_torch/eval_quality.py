@@ -36,8 +36,13 @@ Usage:
 ``--continual-ab`` is the forgetting gate: a base fit, one continual increment
 (``continual.ContinualRunner``) over a drifted tail of the generator with new word
 types, and the base vocabulary's rows scored before and after (two rows,
-``continual_ab_arm`` pre and post). ``--localsgd-ab`` / ``--sync-every`` (multi-GPU,
-ROADMAP queue A9) are refused: the port has no multi-GPU fit yet.
+``continual_ab_arm`` pre and post). ``--localsgd-ab`` is the local-SGD staleness gate:
+two arms on a mesh with a data axis, ``sync_every=1`` and ``--sync-every``, one row each
+(``localsgd_ab_arm`` sync and local) and a verdict (the local arm's purity@10 more than
+0.03 below the synchronous arm's fails). The port runs one rank a device, so the harness
+starts ``--ranks`` copies of itself (a gloo world meeting through a file store beside
+``--out``; on one card the ranks share it, their collectives staged through host
+memory), each fitting its rows; rank 0 gathers the model, scores it and prints the line.
 """
 
 import argparse
@@ -518,11 +523,33 @@ def _run_stats(est, busy_s) -> dict:
 
 
 def _refuse_unported(ap, args) -> None:
-    """The JAX tool's A/B that needs what the port does not have yet, refused by
-    name."""
-    if args.localsgd_ab or args.sync_every is not None:
-        ap.error("--localsgd-ab and --sync-every need a multi-GPU data axis, which is "
-                 "not ported to glint_word2vec_torch yet (ROADMAP.md queue A9)")
+    """The JAX tool's checks of the local-SGD A/B's knobs, with its messages."""
+    if args.localsgd_ab and (args.sync_every <= 1 or 32 % args.sync_every):
+        ap.error("--sync-every must be > 1 and divide "
+                 f"steps_per_dispatch=32 (got {args.sync_every})")
+    if args.localsgd_ab and args.ranks < 2:
+        ap.error(f"--localsgd-ab needs >= 2 ranks for a data axis (have {args.ranks})")
+
+
+def _launch_ranks(argv, args) -> int:
+    """Start ``--ranks`` copies of this harness, one a rank of a gloo world meeting
+    through a file store under ``--out``; print rank 0's result line. Returns the
+    first non-zero exit code, or 0."""
+    os.makedirs(args.out, exist_ok=True)
+    store = os.path.join(args.out, f".localsgd-store-{os.getpid()}")
+    env = dict(os.environ, OMP_NUM_THREADS=os.environ.get("OMP_NUM_THREADS", "2"))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "glint_word2vec_torch.eval_quality", *argv,
+         "--rank", str(r), "--store", store],
+        stdout=subprocess.PIPE, text=True, env=env) for r in range(args.ranks)]
+    outs = [p.communicate()[0] for p in procs]
+    if os.path.exists(store):
+        os.unlink(store)
+    rcs = [p.returncode for p in procs]
+    lines = outs[0].strip().splitlines()
+    if lines:
+        print(lines[-1])
+    return next((rc for rc in rcs if rc), 0)
 
 
 def corpus_file(out: str, words: int, v_raw: int, seed: int) -> str:
@@ -637,10 +664,23 @@ def parse_args(argv=None):
                     help="hot_rows for the hot arm of --hotrow-ab")
     ap.add_argument("--hot-flush-every", type=int, default=0,
                     help="hot_flush_every for the hot arm (0 = once per dispatch chunk)")
+    # the local-SGD staleness gate: two shard_map arms on the same corpus and seed on
+    # a mesh with a data axis, sync_every=1 and --sync-every, the local arm failing
+    # when its purity@10 drops more than 0.03 below the synchronous arm's
     ap.add_argument("--localsgd-ab", action="store_true",
-                    help="refused: multi-GPU fits are not ported (ROADMAP A9)")
-    ap.add_argument("--sync-every", type=int, default=None,
-                    help="refused with --localsgd-ab (ROADMAP A9)")
+                    help="train TWO shard_map arms on the identical corpus/seed, "
+                         "sync_every=1 and sync_every=--sync-every, on a data-parallel "
+                         "mesh of --ranks ranks, one row each (localsgd_ab_arm="
+                         "sync/local) plus a staleness verdict (purity drop > 0.03 "
+                         "absolute fails)")
+    ap.add_argument("--sync-every", type=int, default=8,
+                    help="sync_every for the local arm of --localsgd-ab (must divide "
+                         "steps_per_dispatch=32)")
+    ap.add_argument("--ranks", type=int, default=2,
+                    help="--localsgd-ab's world: one rank a device (on one card the "
+                         "ranks share it); the mesh is max(2, ranks // 4) data shards")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--stab-ab", action="store_true",
                     help="train TWO arms on the identical corpus/seed, the unmitigated "
                          "baseline (all stabilizers and the watchdog off) and the "
@@ -737,6 +777,8 @@ def continual_ab(args, sents, cache_dir: str, device, provenance: dict,
 def main(argv=None):
     ap, args = parse_args(argv)
     _refuse_unported(ap, args)
+    if args.localsgd_ab and args.rank is None:
+        sys.exit(_launch_ranks(sys.argv[1:] if argv is None else list(argv), args))
 
     import torch
 
@@ -748,6 +790,19 @@ def main(argv=None):
     device = resolve_device(args.device)
     if args.idle_share and device.type != "cuda":
         ap.error("--idle-share profiles the card; it has no meaning with --device cpu")
+    plan, lead = None, True
+    if args.localsgd_ab:
+        from glint_word2vec_torch.parallel import distributed
+        from glint_word2vec_torch.parallel.mesh import make_mesh
+        # gloo on the CPU, and when the ranks outnumber the cards (they share one)
+        shared = device.type != "cuda" or args.ranks > torch.cuda.device_count()
+        if device.type == "cuda" and not shared:
+            device = torch.device("cuda", args.rank)
+        distributed.initialize(init_method=f"file://{args.store}",
+                               num_processes=args.ranks, process_id=args.rank,
+                               backend="gloo" if shared else "nccl", device=device)
+        plan = make_mesh(max(2, args.ranks // 4))
+        lead = args.rank == 0
     card = card_line(device)
     lr = args.lr if args.lr is not None else 0.025
     os.makedirs(args.out, exist_ok=True)
@@ -789,18 +844,24 @@ def main(argv=None):
         cache_dir = os.path.join(args.out, f"encoded_ext_{args.words}_{args.min_count}")
     else:
         corpus_path = corpus_file(args.out, args.words, args.vocab, args.seed)
-        if not os.path.exists(corpus_path):
+        if not lead:
+            pass  # rank 0 writes it
+        elif not os.path.exists(corpus_path):
             generate_corpus(corpus_path, args.words, args.seed, args.vocab)
         else:
             log(f"reusing corpus at {corpus_path}")
         cache_dir = encode_dir(args.out, args.words, args.vocab, args.min_count)
+    if plan is not None:
+        distributed.COLLECTIVES.barrier(distributed.host_group())  # the corpus is written
+        cache_dir += f".rank{args.rank}"  # each rank encodes into its own cache
     sents = TokenFileCorpus(corpus_path)
 
     def run_arm(stab: dict, save_arrays: bool, arm: str = "",
                 arm_field: str = "stab_ab_arm"):
         """Train one configuration and score it; appends the row (ground-truth corpora
         only) with the requested stabilizer knobs, the engaged end state and what the
-        fit did on the device, and returns it."""
+        fit did on the device, and returns it. On the A/B's mesh every rank fits its
+        rows and rank 0 alone gathers the model (explicitly), scores it and writes."""
         est = Word2Vec(device=device, **arm_config(args, **stab))
         common = {"metric": "topic_recovery_at_text8_scale",
                   "corpus_words": args.words, "vocab_raw": args.vocab,
@@ -819,20 +880,25 @@ def main(argv=None):
                     torch.cuda.synchronize()
                 busy = kernel_busy_s(prof)
             else:
-                model, busy = est.fit(sents, encode_cache_dir=cache_dir), None
+                model = est.fit(sents, encode_cache_dir=cache_dir, plan=plan)
+                busy = None
+            if plan is not None:
+                model = model.gather()
         except (NonFiniteParamsError, NormBlowupError) as e:
             # an unmitigated arm may halt mid-run (that is the measurement: the
             # boundary); the divergence is a row, not the end of the other arm
             log(f"arm {arm or 'run'} diverged: {type(e).__name__}: {str(e)[:160]}")
             result = {**common, "diverged": type(e).__name__, **stab,
                       **({arm_field: arm} if arm else {}), **provenance}
-            if not args.corpus:
+            if not args.corpus and lead:
                 append_rows(result)
             return result
         train_s = time.perf_counter() - t0
         log(f"trained{f' [{arm}]' if arm else ''}: vocab {model.num_words:,}, "
             f"d={args.dim}, {args.iters} iters in {train_s:.0f}s (incl. vocab+encode "
             "passes)")
+        if not lead:
+            return {}
         syn0 = model.syn0.float().cpu().numpy()
         if save_arrays:
             np.save(os.path.join(args.out, "syn0.npy"), syn0)
@@ -873,6 +939,31 @@ def main(argv=None):
                      "corpora have no labels to score forgetting against)")
         print(json.dumps(continual_ab(args, sents, cache_dir, device, provenance,
                                       append_rows)))
+        return
+
+    if args.localsgd_ab:
+        log(f"localsgd-ab mesh: {plan.num_data}x{plan.num_model}, "
+            f"sync_every={args.sync_every}, {args.ranks} ranks")
+        r_sync = run_arm(dict(step_lowering="shard_map", sync_every=1),
+                         save_arrays=False, arm="sync", arm_field="localsgd_ab_arm")
+        r_local = run_arm(dict(step_lowering="shard_map", sync_every=args.sync_every),
+                          save_arrays=True, arm="local", arm_field="localsgd_ab_arm")
+        distributed.shutdown()
+        if not lead:
+            return
+        delta = analogy_delta = None
+        if "purity_at_10" in r_sync and "purity_at_10" in r_local:
+            delta = round(r_local["purity_at_10"] - r_sync["purity_at_10"], 4)
+        if "analogy_accuracy_at_1" in r_sync and "analogy_accuracy_at_1" in r_local:
+            analogy_delta = round(r_local["analogy_accuracy_at_1"]
+                                  - r_sync["analogy_accuracy_at_1"], 4)
+        print(json.dumps({
+            "metric": "localsgd_ab", "sync_every": args.sync_every,
+            "mesh": [plan.num_data, plan.num_model], "purity_delta": delta,
+            "analogy_delta": analogy_delta,
+            "staleness_ok": (delta is not None and delta >= -0.03),
+            "staleness_rule": "local purity_at_10 >= sync - 0.03 absolute",
+            "arms": [r_sync, r_local]}))
         return
 
     if args.hotrow_ab:

@@ -13,9 +13,10 @@ The setters map onto :class:`..config.Word2VecConfig` as they do in the JAX pack
 by design, as there: there are no parameter servers, so ``setParameterServerHost``/
 ``setParameterServerConfig`` warn and are ignored; ``setNumParameterServers`` maps to
 the model axis's size, capped by the devices the port sees; the reference's Akka
-payload cap only warns. The port trains on one device, so a chain whose config lands
-on a knob the port refuses (``setNumParameterServers(n)`` with n > 1 on a machine with
-several cards) fails at ``fit`` with that knob's ``NotImplementedError``.
+payload cap only warns. ``fit`` runs in one process, so a chain whose config asks for
+a mesh (``setNumParameterServers(n)`` with n > 1 on a machine with several cards)
+fails there, naming the knob: a mesh needs one process a card
+(``parallel/distributed``), and the port never trains it on fewer devices.
 """
 
 from __future__ import annotations

@@ -4,10 +4,13 @@
     model = Word2Vec(vector_size=300, cbow=True, device="cuda").fit(sentences)
     model = Word2Vec(vector_size=300, device_pairgen=True).fit(sentences)
     model = Word2Vec.resume(checkpoint_path, sentences, encode_cache_dir=cache)
+    model = Word2Vec(vector_size=300).fit(sentences, plan=make_mesh(2, 2))  # each rank
 
 vocabulary -> encoded corpus (in RAM, or memory-mapped under ``encode_cache_dir``) ->
 :class:`..train.trainer.Trainer` fit -> :class:`..models.word2vec.Word2VecModel`, on the
-card unless ``device="cpu"``.
+card unless ``device="cpu"``. On a mesh of ranks (``parallel/``: one process a card,
+joined by ``parallel.distributed.initialize``) every rank runs the same call and ends
+with a :class:`..models.word2vec.ShardedWord2VecModel` of its rows.
 """
 
 from __future__ import annotations
@@ -23,8 +26,13 @@ from glint_word2vec_torch.data.corpus import EncodedCorpus, encode_corpus, vocab
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import Vocabulary, build_vocab
 from glint_word2vec_torch.device import resolve_device
-from glint_word2vec_torch.models.word2vec import Word2VecModel, refuse_plan
-from glint_word2vec_torch.train.checkpoint import load_model, load_model_header
+from glint_word2vec_torch.models.word2vec import (
+    ShardedWord2VecModel, Word2VecModel, refuse_plan)
+from glint_word2vec_torch.parallel import distributed
+from glint_word2vec_torch.parallel.mesh import (
+    make_mesh, pad_dim_to_lanes, pad_vocab_for_sharding)
+from glint_word2vec_torch.train.checkpoint import (
+    load_model, load_model_header, load_params_into_plan)
 from glint_word2vec_torch.train.trainer import Trainer
 
 logger = logging.getLogger("glint_word2vec_torch")
@@ -63,8 +71,10 @@ class Word2Vec:
         from memory-mapped files (bounded host RAM); without it, encoding is in RAM.
         The fitted :class:`Trainer` stays on ``self.trainer``. With
         ``device_pairgen=True`` the trainer feeds token blocks and the device expands
-        them into pairs. ``plan`` (a multi-device mesh) is refused: the port trains on
-        one device. The runtime outcome (watchdog firings, rollbacks, recoveries, the
+        them into pairs. ``plan``: a (data, model) mesh of ranks
+        (``parallel.mesh.make_mesh``), or None for the config's (one device unless it
+        names a larger one); on a mesh every rank calls ``fit`` alike and gets a
+        :class:`ShardedWord2VecModel` of its rows. The runtime outcome (watchdog firings, rollbacks, recoveries, the
         final lr scale and engaged stabilizers) is ``self.last_run_stats``; the seconds of
         its stages (``vocab_s``: the counting pass, or 0 with ``vocab``; ``encode_s``;
         ``setup_s``: the trainer's construction; ``train_s``: its fit) are
@@ -85,17 +95,14 @@ class Word2Vec:
         else:
             encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
         t2 = time.perf_counter()
-        self.trainer = Trainer(cfg, vocab, device=self.device)
+        self.trainer = Trainer(cfg, vocab, device=self.device, plan=plan)
         t3 = time.perf_counter()
         self.trainer.fit(encoded, checkpoint_path=checkpoint_path,
                          checkpoint_every_steps=checkpoint_every_steps)
         self.timings = {"vocab_s": t1 - t0, "encode_s": t2 - t1, "setup_s": t3 - t2,
                         "train_s": time.perf_counter() - t3}
         self.last_run_stats = self.trainer.last_run_stats
-        params = self.trainer.unpadded_params()
-        return Word2VecModel(vocab=vocab, syn0=params.syn0, syn1=params.syn1,
-                             config=self.trainer.config,
-                             train_state=self.trainer.state, device=self.device)
+        return _fitted_model(self.trainer, self.device)
 
     @staticmethod
     def resume(
@@ -123,7 +130,9 @@ class Word2Vec:
         resolved subsample ratio) for the resumed run; a knob that changes the batch
         stream shifts what the recorded position means. A dense or row-shards
         checkpoint loads onto the one device; its reads use the resumed config's
-        ``io_workers``."""
+        ``io_workers``. ``plan`` (or a resumed config that names a mesh): every rank
+        resumes alike; a row-shards checkpoint streams each rank's rows onto it, even
+        from another mesh (elastic resume), a dense one is carved."""
         refuse_plan(plan)
         device = resolve_device(device)
         header = load_model_header(checkpoint_path)
@@ -134,8 +143,18 @@ class Word2Vec:
             cfg = cfg.replace(allow_unstable=allow_unstable)
         state = header["train_state"]
         vocab = Vocabulary.from_words_and_counts(header["words"], header["counts"])
-        data = load_model(checkpoint_path, header=header, io_workers=cfg.io_workers)
-        if data["syn1"] is None:
+        if plan is None and (cfg.mesh_size[0] * cfg.mesh_size[1] > 1
+                             or distributed.is_multiprocess()):
+            plan = make_mesh(*cfg.mesh_size)
+        if plan is not None and plan.size > 1 and header["layout"] == "row-shards":
+            params = load_params_into_plan(
+                checkpoint_path, plan, pad_vocab_for_sharding(vocab.size, plan.num_model),
+                pad_dim_to_lanes(cfg.vector_size, cfg.pad_vector_to_lanes),
+                io_workers=cfg.io_workers)
+        else:
+            data = load_model(checkpoint_path, header=header, io_workers=cfg.io_workers)
+            params = (data["syn0"], data["syn1"])
+        if params[1] is None:
             raise ValueError("checkpoint has no syn1; cannot resume training")
         if isinstance(sentences, EncodedCorpus):
             encoded = sentences
@@ -167,8 +186,8 @@ class Word2Vec:
             if iter(sentences) is sentences:
                 sentences = list(sentences)
             encoded = encode_sentences(sentences, vocab, cfg.max_sentence_length)
-        trainer = Trainer(cfg, vocab, params=(data["syn0"], data["syn1"]),
-                          train_state=state, device=device)
+        trainer = Trainer(cfg, vocab, params=params, train_state=state, device=device,
+                          plan=plan)
         if header["vocab_lineage"]:
             # the resumed run's saves keep the chain
             trainer.extra_checkpoint_meta = {"vocab_lineage": header["vocab_lineage"]}
@@ -176,7 +195,14 @@ class Word2Vec:
             # the cadence is a fit() argument, not stored in the checkpoint
             trainer.fit(encoded, checkpoint_path=checkpoint_path,
                         checkpoint_every_steps=checkpoint_every_steps)
-        out = trainer.unpadded_params()
-        return Word2VecModel(vocab=vocab, syn0=out.syn0, syn1=out.syn1,
-                             config=trainer.config, train_state=trainer.state,
-                             device=device)
+        return _fitted_model(trainer, device)
+
+
+def _fitted_model(trainer: Trainer, device):
+    """The model a fit leaves: dense on one device, this rank's rows on a mesh."""
+    if trainer.plan is not None:
+        return ShardedWord2VecModel(trainer.vocab, trainer.params, trainer.config,
+                                    trainer.state, trainer.plan, device)
+    out = trainer.unpadded_params()
+    return Word2VecModel(vocab=trainer.vocab, syn0=out.syn0, syn1=out.syn1,
+                         config=trainer.config, train_state=trainer.state, device=device)

@@ -7,8 +7,11 @@ an IVF index (``attach_ann``, ``find_synonyms_batch(ann=True)``; the index lives
 host, :mod:`..serve.ann`). Every op runs on the model's device (the card unless
 ``device="cpu"``); after ``stop`` each raises.
 
-Not ported: ``plan=``, which retargets a model onto a multi-device mesh (ROADMAP queue
-A9); it is refused by name.
+A mesh fit (``Word2Vec(...).fit(plan=...)``) ends on every rank with a
+:class:`ShardedWord2VecModel`: the rank's row blocks, reachable through a row-shards
+save or an explicit :meth:`ShardedWord2VecModel.gather` to one device, never gathered
+unasked. Not ported: ``load(plan=)``, which places a loaded model on a mesh, and the
+model ops on a sharded model (ROADMAP queue A9b); both are refused by name.
 
 The cosine scores are one matrix product on the device (the JAX package leaves it to
 XLA; here it is ``torch.matmul``). The top-k keeps ``lax.top_k``'s order, which
@@ -33,12 +36,81 @@ from glint_word2vec_torch.train import checkpoint as ckpt
 
 
 def refuse_plan(plan) -> None:
-    """Refuse a multi-device placement by name: the port runs on one device."""
+    """A fit's or a resume's ``plan``: None (the config's mesh, one device by default)
+    or a :class:`..parallel.mesh.MeshPlan` of the port."""
+    from glint_word2vec_torch.parallel.mesh import MeshPlan
+
+    if plan is not None and not isinstance(plan, MeshPlan):
+        raise TypeError(f"plan must be a glint_word2vec_torch MeshPlan "
+                        f"(parallel.mesh.make_mesh) or None, got {type(plan).__name__}")
+
+
+def refuse_model_plan(plan) -> None:
+    """Refuse a loaded model's placement on a mesh by name."""
     if plan is not None:
         raise NotImplementedError(
-            "plan= places a model on a multi-device mesh; glint_word2vec_torch runs on "
-            "one device, and multi-device placement is not ported yet (ROADMAP.md "
-            "queue A9); pass plan=None")
+            "plan= places a loaded model on a multi-device mesh, which is not ported "
+            "to glint_word2vec_torch yet (ROADMAP.md queue A9b); load it onto one "
+            "device, or stream a row-shards checkpoint into a mesh trainer with "
+            "train.checkpoint.load_params_into_plan")
+
+
+# the model ops a sharded model refuses (ROADMAP.md queue A9b)
+_MODEL_OPS = ("syn0", "syn1", "transform", "transform_words", "transform_sentences",
+              "pull", "norms", "multiply", "attach_ann", "ann", "find_synonyms",
+              "find_synonyms_batch", "analogy", "get_vectors", "iter_vectors",
+              "to_local", "export_word2vec")
+
+
+class ShardedWord2VecModel:
+    """What a mesh fit leaves on one rank: the vocabulary, config, train state and this
+    rank's padded row blocks (``params``) on ``plan``. Its rows are reachable two
+    ways, each a collective every rank of the mesh calls: :meth:`save` (a row-shards
+    checkpoint, each rank writing its own rows) and :meth:`gather` (the explicit gather
+    to a :class:`Word2VecModel` on this rank's device). The model ops are not ported on
+    a sharded model and raise ``NotImplementedError`` (ROADMAP.md queue A9b)."""
+
+    def __init__(self, vocab: Vocabulary, params, config: Word2VecConfig,
+                 train_state: Optional[ckpt.TrainState], plan, device):
+        self.vocab, self.params, self.config = vocab, params, config
+        self.train_state, self.plan, self.device = train_state, plan, device
+
+    @property
+    def vector_size(self) -> int:
+        return self.config.vector_size
+
+    @property
+    def num_words(self) -> int:
+        return self.vocab.size
+
+    def save(self, path: str) -> None:
+        ckpt.save_model_sharded(
+            path, self.vocab.words, self.vocab.counts, self.params[0], self.params[1],
+            self.config, self.train_state, plan=self.plan, vocab_size=self.vocab.size,
+            vector_size=self.config.vector_size)
+
+    def gather(self) -> "Word2VecModel":
+        """Every rank's rows gathered over the model axis (one all_gather a matrix);
+        the dense model on this rank's device."""
+        from glint_word2vec_torch.parallel.distributed import COLLECTIVES
+        from glint_word2vec_torch.parallel.mesh import MODEL_AXIS
+
+        V, D = self.vocab.size, self.config.vector_size
+        mats = []
+        for m in self.params:
+            if self.plan.num_model > 1:
+                m = COLLECTIVES.all_gather(m, self.plan.model_group, MODEL_AXIS)
+            mats.append(m[:V, :D])
+        return Word2VecModel(self.vocab, mats[0], mats[1], self.config,
+                             self.train_state, device=self.device)
+
+    def __getattr__(self, name: str):
+        if name in _MODEL_OPS:
+            raise NotImplementedError(
+                f"{name} on a sharded model is not ported to glint_word2vec_torch yet "
+                "(ROADMAP.md queue A9b); save() it as a row-shards checkpoint and load "
+                "that on one device, or gather() it")
+        raise AttributeError(name)
 
 
 class Word2VecModel:
@@ -367,8 +439,8 @@ class Word2VecModel:
         row-shards layout, onto one device (digests verified unless
         ``verify=False``; ``io_workers`` threads for hashing and reads, default the
         saved config's). The config may carry knobs the port does not train with
-        yet; they do not affect the model ops."""
-        refuse_plan(plan)
+        yet; they do not affect the model ops. ``plan`` is refused (A9b)."""
+        refuse_model_plan(plan)
         device = resolve_device(device)
         header = ckpt.load_model_header(path, check_ported=False)
         # the vocabulary's index (Python, ~0.3 s at 1M words) builds while the
@@ -391,7 +463,7 @@ class Word2VecModel:
         saving; a torn swap's predecessor loads from its ``*.old-*`` path);
         ``reclaim=True``, when the writer is known dead, also cleans up the debris.
         The scan verified the winner, so the load does not hash it again."""
-        refuse_plan(plan)
+        refuse_model_plan(plan)
         return cls.load(ckpt.load_latest_valid(directory, reclaim=reclaim),
                         verify=False, device=device)
 

@@ -20,6 +20,12 @@ from the norms of all padded rows; only when one of them is not finite does the 
 per-entry check run, a second fetch on the way to a rollback or a halt. The device
 results are stacked into one small float64 tensor and fetched with one ``.cpu()``.
 Not a kernel: the JAX package's probe is an XLA reduction, not a Pallas kernel.
+
+On a mesh each rank reduces its own row blocks to partials (histogram counts, the
+maximum and sum of the norms, the rows over the threshold, the finite bit:
+:func:`sharded_probe_partials`), the trainer gathers them, and every rank folds the same
+bytes into the same channels (:func:`combine_partials`), so the guards and the watchdog
+decide alike on every rank.
 """
 
 from __future__ import annotations
@@ -80,6 +86,50 @@ def probe_tensor(params, vocab_size: int, threshold: float) -> torch.Tensor:
     fetched."""
     return torch.cat([_matrix_stats(params[0], vocab_size, threshold),
                       _matrix_stats(params[1], vocab_size, threshold)])
+
+
+def _block_partials(m: torch.Tensor, row_lo: int, vocab_size: int,
+                    threshold: float) -> torch.Tensor:
+    """[132] float64 partials of one row block (global rows ``row_lo`` on) of a
+    row-sharded matrix: the p99 histogram of its real rows (128), their max and sum of
+    norms, the rows over the threshold, and whether every row's norm is finite."""
+    norms_all = torch.linalg.vector_norm(m, dim=1, dtype=torch.float32)
+    real = max(0, min(m.shape[0], vocab_size - row_lo))
+    norms = norms_all[:real]
+    logn = torch.log2(torch.clamp_min(norms, 2.0 ** _HIST_LO))
+    idx = torch.nan_to_num(torch.floor((logn - _HIST_LO) * _HIST_PER_OCTAVE), nan=0.0)
+    hist = torch.bincount(idx.clamp_(0, _HIST_BUCKETS - 1).long(),
+                          minlength=_HIST_BUCKETS)
+    top = norms.max() if real else torch.zeros((), device=m.device)
+    return torch.cat([hist.double(), torch.stack([
+        top.double(), norms.double().sum(), (norms > threshold).sum().double(),
+        torch.isfinite(norms_all).all().double()])])
+
+
+def sharded_probe_partials(params, row_lo: int, vocab_size: int,
+                           threshold: float) -> torch.Tensor:
+    """The probe's device half on a rank's row blocks: [264] float64 (syn0's partials,
+    then syn1's), which :func:`combine_partials` folds over the model axis."""
+    return torch.cat([_block_partials(params[0], row_lo, vocab_size, threshold),
+                      _block_partials(params[1], row_lo, vocab_size, threshold)])
+
+
+def combine_partials(parts: np.ndarray, vocab_size: int) -> HealthStats:
+    """:class:`HealthStats` of the whole matrices from the [n, 264] partials of their
+    n row blocks (every block once): the histograms and sums add, the maxima and the
+    finite bits fold. The channels are :func:`health_stats`' (the mean's sum runs in
+    another order)."""
+    out = []
+    need = -(-vocab_size * 99 // 100)
+    for off in (0, 132):
+        p = parts[:, off:off + 132]
+        hist = p[:, :_HIST_BUCKETS].sum(0)
+        k = float((np.cumsum(hist) < need).sum())
+        out.append(np.array([p[:, 128].max(), p[:, 129].sum() / vocab_size,
+                             p[:, 130].sum(), k, p[:, 131].min()]))
+    return HealthStats(finite=bool(out[0][4] and out[1][4]),
+                       syn0=_host_stats(out[0], vocab_size),
+                       syn1=_host_stats(out[1], vocab_size))
 
 
 def _host_stats(v: np.ndarray, vocab_size: int) -> MatrixStats:

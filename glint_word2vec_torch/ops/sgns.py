@@ -387,12 +387,34 @@ def _shared_pool_updates(
     e_in = _gather(syn0, centers, cd, slab0)
     e_pos = _gather(syn1, contexts, cd, slab1)
     Z = _gather(syn1, negatives, cd, slab1)
+    return shared_pool_updates_from_rows(
+        e_in, e_pos, Z, centers, contexts, mask, negatives, alpha, num_negatives,
+        sigmoid_mode, matmul, stabilizers, logits_dtype, fused, bf16_chain,
+        syn0.shape[0] if duplicate_scaling else 0)
+
+
+def shared_pool_updates_from_rows(
+    e_in: torch.Tensor, e_pos: torch.Tensor, Z: torch.Tensor, centers: torch.Tensor,
+    contexts: torch.Tensor, mask: torch.Tensor, negatives: torch.Tensor, alpha,
+    num_negatives: int, sigmoid_mode: str, matmul: MatMul = torch.matmul,
+    stabilizers: Optional[Stabilizers] = None,
+    logits_dtype: Optional[torch.dtype] = None, fused: bool = False,
+    bf16_chain: bool = False, dup_vocab: int = 0,
+):
+    """The shared-pool step's math on rows already gathered in the compute dtype
+    (e_in [B, D], e_pos [B, D], Z [P, D]): the update rows d_in, d_pos, d_Z and the
+    logit chain (f_pos, f_neg, neg_valid). ``dup_vocab > 0`` turns
+    ``duplicate_scaling`` on over a vocabulary of that size. The single-device steps
+    and the row-sharded step (``ops/sgns_shard.py``, whose rows are assembled across
+    the model axis) run this one function, so the two cannot drift."""
+    cd = e_in.dtype
+    duplicate_scaling = dup_vocab > 0
     f_pos, f_neg, neg_valid, g_pos, g_neg = shared_pool_coeffs(
         e_in, e_pos, Z, contexts, negatives, mask, alpha, num_negatives, sigmoid_mode,
         matmul=matmul, logits_dtype=logits_dtype, fused=fused, bf16_chain=bf16_chain)
     g_pos_in, g_neg_in, g_pos_out, z_scale = g_pos, g_neg, g_pos, None
     if duplicate_scaling:
-        V = syn0.shape[0]
+        V = dup_vocab
         in_scale = 1.0 / torch.clamp(_counts(V, (centers, mask))[centers], min=1.0)
         g_pos_in = g_pos * in_scale
         g_neg_in = g_neg * in_scale[:, None].to(g_neg.dtype)

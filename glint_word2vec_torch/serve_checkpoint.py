@@ -9,7 +9,7 @@ A thin client of :class:`~glint_word2vec_torch.serve.EmbeddingService`: the mode
 loaded onto ``--device`` (the card by default; no fallback to the CPU), queries ride
 the request batcher, ``--ann`` serves the IVF arm built at load time, ``--watch``
 hot-reloads on the trainer's publish signal. ``--mesh`` (a multi-device mesh) is
-refused: the port serves from one device (ROADMAP.md queue A9).
+refused: the port serves from one device (ROADMAP.md queue A9b).
 
 The protocol is the JAX package's, unchanged. One request object per line on stdin,
 one response object per line on stdout; the first line out is
@@ -43,7 +43,7 @@ def main(argv=None) -> int:
         description="Serve a checkpoint's model ops over JSON lines on stdin/stdout.")
     ap.add_argument("checkpoint")
     ap.add_argument("--mesh", default=None,
-                    help="refused: multi-device serving is not ported")
+                    help="refused: serving from a mesh is not ported (ROADMAP A9b)")
     ap.add_argument("--ann", action="store_true",
                     help="serve synonym queries from the IVF index (built at load and "
                          "reload time; the exact arm is the default)")
@@ -68,7 +68,7 @@ def main(argv=None) -> int:
     if args.mesh:
         raise NotImplementedError(
             f"--mesh {args.mesh}: serving from a multi-device mesh is not ported to "
-            "glint_word2vec_torch yet (ROADMAP.md queue A9); the port serves from one "
+            "glint_word2vec_torch yet (ROADMAP.md queue A9b); the port serves from one "
             "device")
 
     from glint_word2vec_torch.obs.blackbox import FlightRecorder

@@ -16,9 +16,10 @@ or, in the JAX package's row-shards layout (written by its multi-device runs),
 ``.npy`` matrices, padded as they were sharded, the real sizes in ``metadata.json``.
 
 Saves are atomic (staged in a sibling temp directory, then swapped in); readers verify
-the digests. The port writes the dense layout and reads both, onto one device; its
-row-shards save (``save_row_shards``) is one writer of syn0 alone, and the
-multi-process writer belongs to the multi-device work (ROADMAP queue A9). File writes,
+the digests. The port writes and reads both. A mesh fit (``parallel/``) writes the
+row-shards layout, every rank its own rows (``save_model_sharded``), and
+``load_params_into_plan`` streams one onto another mesh, a rank's rows at a time;
+``save_row_shards`` is a one-writer row-shards save of syn0 alone. File writes,
 digest checks and shard reads fan out over ``io_workers`` threads; the bytes written
 and the arrays read are the same at any worker count.
 """
@@ -396,8 +397,8 @@ def save_row_shards(path: str, words: List[str], counts: np.ndarray,
     the JAX package's ``save_model_sharded`` writes and :class:`ShardedMatrixReader`
     reads, files ``syn0.shards/rows-<start>-<stop>.npy`` beside ``words``,
     ``counts.npy`` and a ``metadata.json`` with their digests. ``path`` must not exist;
-    the save is not staged. The multi-process writer (its barriers and crash points)
-    is ROADMAP queue A9. ``extra_metadata`` as in :func:`save_model`."""
+    the save is not staged (:func:`save_model_sharded` is the staged, multi-process
+    writer). ``extra_metadata`` as in :func:`save_model`."""
     os.makedirs(os.path.join(path, "syn0.shards"))
     digests = {"words": _save_words_hashed(os.path.join(path, "words"), words),
                "counts.npy": _save_npy_hashed(os.path.join(path, "counts.npy"),
@@ -417,6 +418,180 @@ def save_row_shards(path: str, words: List[str], counts: np.ndarray,
     _merge_extra_metadata(meta, extra_metadata)
     with open(os.path.join(path, "metadata.json"), "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=2)
+
+
+def _shard_array(t) -> np.ndarray:
+    """A row block as the array its ``rows-*.npy`` file holds: f32 as it is, bf16 as
+    numpy's raw 2-byte void (the bytes the JAX package's bf16 shards hold)."""
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            return t.detach().view(torch.int16).cpu().numpy().view(np.dtype("V2"))
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def save_model_sharded(
+    path: str,
+    words: List[str],
+    counts: np.ndarray,
+    syn0,
+    syn1,
+    config: Word2VecConfig,
+    train_state: Optional[TrainState] = None,
+    *,
+    plan=None,
+    vocab_size: Optional[int] = None,
+    vector_size: Optional[int] = None,
+    extra_metadata: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Row-shards save, the JAX package's ``save_model_sharded``: every rank writes its
+    own rows, and rank 0 writes the metadata and swaps the directory into place between
+    barriers. ``syn0``/``syn1`` are this rank's padded row blocks exactly as trained
+    (torch or numpy; ``syn1`` may be None) on ``plan`` (a :class:`..parallel.mesh
+    .MeshPlan`), or the whole padded matrices when ``plan`` is None (one writer, the
+    same protocol). Only the ranks of data index 0 write (the other data replicas hold
+    the same rows). ``vocab_size`` / ``vector_size`` record the real extents.
+
+    Staging: ``.<name>.tmp-sharded`` beside ``path`` (every rank writes into it: the
+    shared-filesystem contract), digest sidecars a rank, merged by rank 0 after the
+    write barrier. The crash points ``save:arrays-written`` (every rank),
+    ``save:staged`` and ``save:swap`` (rank 0, the torn window: ``path`` absent, its
+    ``.old-swap`` and the staging directory live) sit where the JAX package has them,
+    so a killed save leaves the previous checkpoint loadable
+    (:func:`load_latest_valid`). A rank that raises between the barriers fails the
+    others' next barrier: a partial save is never swapped in."""
+    from glint_word2vec_torch.parallel import distributed
+
+    bad = [w for w in words if (not w) or ("\n" in w)]
+    if bad:
+        raise ValueError(
+            f"cannot save vocabulary: {len(bad)} token(s) are empty or contain newlines "
+            f"(first: {bad[0]!r}); the words sidecar is newline-delimited")
+    multi = plan is not None and plan.size > 1
+    rank = plan.rank if multi else 0
+    writes = not multi or plan.data_index == 0
+    rows = int(syn0.shape[0])
+    lo = plan.model_index * rows if multi else 0
+    padded_vocab = rows * plan.num_model if multi else rows
+
+    def barrier():
+        if multi:
+            distributed.COLLECTIVES.barrier(distributed.host_group())
+
+    parent = os.path.dirname(os.path.abspath(path)) or "."
+    os.makedirs(parent, exist_ok=True)
+    tmp = os.path.join(parent, f".{os.path.basename(path)}.tmp-sharded")
+    with default_tracer().span("checkpoint_save"):
+        if rank == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        barrier()
+        try:
+            digests: Dict[str, str] = {}
+            if writes:
+                fname = f"rows-{lo:010d}-{lo + rows:010d}.npy"
+                jobs = [(name, m) for name, m in (("syn0", syn0), ("syn1", syn1))
+                        if m is not None]
+                for name, _ in jobs:
+                    os.makedirs(os.path.join(tmp, f"{name}.shards"), exist_ok=True)
+                got = _run_io([lambda name=name, m=m: _save_npy_hashed(
+                    os.path.join(tmp, f"{name}.shards", fname), _shard_array(m))
+                    for name, m in jobs], config.io_workers)
+                digests = {f"{name}.shards/{fname}": d
+                           for (name, _), d in zip(jobs, got)}
+                with open(os.path.join(tmp, f".digests-{rank}.json"), "w",
+                          encoding="utf-8") as f:
+                    json.dump(digests, f)
+            faults.crash_point("save:arrays-written")
+            barrier()
+            if rank == 0:
+                digests = {}
+                for name in sorted(os.listdir(tmp)):
+                    if name.startswith(".digests-"):
+                        with open(os.path.join(tmp, name), encoding="utf-8") as f:
+                            digests.update(json.load(f))
+                        os.unlink(os.path.join(tmp, name))
+                digests["words"] = _save_words_hashed(os.path.join(tmp, "words"), words)
+                digests["counts.npy"] = _save_npy_hashed(
+                    os.path.join(tmp, "counts.npy"), np.asarray(counts, dtype=np.int64))
+                meta = {
+                    "format_version": _format_version(SHARDED_FORMAT_VERSION,
+                                                      train_state),
+                    "framework": FRAMEWORK,
+                    "layout": "row-shards",
+                    "vocab_size": int(vocab_size if vocab_size is not None
+                                      else padded_vocab),
+                    "vector_size": int(vector_size if vector_size is not None
+                                       else syn0.shape[1]),
+                    "padded_vocab": int(padded_vocab),
+                    "padded_dim": int(syn0.shape[1]),
+                    "config": config.to_dict(auto_markers=False),
+                    "train_state": (train_state or TrainState(finished=True)).to_dict(),
+                    "digests": digests,
+                }
+                _merge_extra_metadata(meta, extra_metadata)
+                with open(os.path.join(tmp, "metadata.json"), "w",
+                          encoding="utf-8") as f:
+                    json.dump(meta, f, indent=2)
+                faults.crash_point("save:staged")
+                old = None
+                if os.path.exists(path):
+                    old = path + ".old-swap"
+                    if os.path.exists(old):
+                        shutil.rmtree(old)
+                    os.rename(path, old)
+                faults.crash_point("save:swap")
+                os.rename(tmp, path)
+                if old is not None:
+                    shutil.rmtree(old)
+            barrier()
+        except BaseException:
+            if rank == 0:
+                shutil.rmtree(tmp, ignore_errors=True)
+            raise
+    if rank == 0:
+        faults.corrupt_checkpoint(path)
+
+
+def load_params_into_plan(path: str, plan, padded_vocab: int, padded_dim: int,
+                          dtype=torch.float32, verify: bool = False,
+                          io_workers: Optional[int] = None, device=None):
+    """Stream a row-shards checkpoint onto ``plan`` (which may differ from the mesh
+    that wrote it: elastic resume): this rank's row block ``[lo, hi)`` of the
+    ``[padded_vocab, padded_dim]`` target is read from the memory-mapped shard files
+    (only the overlapping ranges), zero-padded past the real extents, and never a
+    dense copy of the whole matrix. ``plan`` None reads the whole padded matrices.
+    Returns a :class:`..parallel.mesh.LocalShards` of ``dtype`` tensors on ``device``
+    (the host when None); syn1 is None if the checkpoint has none. ``verify=True``
+    checks the digests first (one extra read of every shard file)."""
+    from glint_word2vec_torch.parallel.mesh import LocalShards
+
+    with open(os.path.join(path, "metadata.json"), "r", encoding="utf-8") as f:
+        meta = json.load(f)
+    if meta.get("layout") != "row-shards":
+        raise ValueError(f"{path!r} is not a row-shards checkpoint")
+    if io_workers is None:
+        io_workers = int(meta.get("config", {}).get("io_workers", 1))
+    if verify:
+        _verify_digests(path, meta, workers=io_workers)
+    V, Dr = meta["vocab_size"], meta["vector_size"]
+    lo, hi = plan.rows(padded_vocab) if plan is not None else (0, padded_vocab)
+    d = min(Dr, padded_dim)
+
+    def make(name: str):
+        dirpath = os.path.join(path, f"{name}.shards")
+        if not os.path.isdir(dirpath):
+            return None
+        block = np.zeros((hi - lo, padded_dim), dtype=np.float32)
+        top = min(hi, V)  # rows past the real vocabulary stay zero
+        if lo < top:
+            src = ShardedMatrixReader(dirpath).read(lo, top, workers=io_workers)
+            block[:top - lo, :d] = src[:, :d]
+        t = torch.from_numpy(block).to(dtype)
+        return t if device is None else t.to(device)
+
+    return LocalShards(make("syn0"), make("syn1"))
 
 
 def _verify_digests(path: str, meta: Dict[str, Any], workers: int = 1) -> None:

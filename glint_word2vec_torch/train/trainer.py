@@ -1,5 +1,6 @@
-"""Single-device synchronous trainer, ported from the host-feed path of
-``glint_word2vec_tpu/train/trainer.py`` (``fit`` and its ``chunk`` function).
+"""The synchronous trainer, ported from the host-feed path of
+``glint_word2vec_tpu/train/trainer.py`` (``fit``, its ``chunk`` function and, on a
+mesh, ``_fit_sharded``).
 
 The control flow and bookkeeping are the JAX package's, so that a fit from the same
 parameters gives the same step count, pair count, alpha trace and (to f32 tolerance)
@@ -108,12 +109,32 @@ The runtime layer (``glint_word2vec_torch/obs``), as the JAX trainer runs it:
   signal under the prior handler;
 - the fault plan's hooks (``train/faults.py``) run at the end of every round.
 
+On a mesh of ranks (``plan``, ``parallel/``; one rank a card), the JAX trainer's
+multi-process fit:
+
+- each rank holds its row blocks of both matrices and runs the row-sharded step
+  (``ops/sgns_shard.py``; with ``sync_every = k > 1`` its k-step local-SGD windows,
+  each data shard on its own slice of the negative lattice), on the host pair feed of
+  the shared-pool skip-gram step; the combinations the JAX package runs there only
+  under GSPMD are refused by name (ROADMAP.md queue A9b);
+- with ``shard_input`` (the default) each rank feeds its 1/W of the sentence stream and
+  one allgather a round assembles the identical global batch on every rank
+  (``_sharded_chunk_stream``); without it every rank regenerates the whole stream and
+  trains its data slice of each batch;
+- every chunk runs eagerly: no graph is captured around the steps' collectives;
+- the probe gathers its per-row-block partials, so every rank's guards decide alike;
+  checkpoints are row shards, every rank writing its own rows; a sharded-input
+  checkpoint resumes from its ``shard_progress`` at the same world size;
+- with ``peer_beacon_s`` (and a checkpoint path) the ranks heartbeat liveness beacons:
+  a dead peer raises ``PeerDeathError`` at the next round instead of a hang.
+
 Differences: the steps update the parameters in place, the feed ships int32 indices
 (widened to int64 on the card, where the JAX package ships uint16 below 65536 words),
 the eager body runs a short last chunk's real steps only (the graph replays the padded
 chunk), the device feed has one data segment (a checkpoint that holds only per-segment
 positions is refused), the ``publish`` record of a save waits for the serving tier, and
-the multi-process feeds (with ``peer_beacon_s``) are not ported yet.
+a mesh must cover the world (the JAX trainer drops to one device when the devices are
+too few).
 """
 
 from __future__ import annotations
@@ -124,6 +145,7 @@ import queue
 import signal
 import threading
 import time
+import zlib
 from collections import deque
 from dataclasses import dataclass, replace as dc_replace
 from typing import Callable, Iterator, List, Optional, Sequence, Tuple
@@ -131,7 +153,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from glint_word2vec_torch.config import Word2VecConfig
+from glint_word2vec_torch.config import Word2VecConfig, refuse_unported_on_mesh
 from glint_word2vec_torch.data.hashrng import (
     STREAM_SUBSAMPLE, STREAM_WINDOW, hash_u01_at, stream_base)
 from glint_word2vec_torch.data.pipeline import (
@@ -142,7 +164,8 @@ from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.obs.blackbox import FlightRecorder
 from glint_word2vec_torch.obs.phases import PhaseAccumulator
-from glint_word2vec_torch.obs.probe import health_stats, stats_to_channels
+from glint_word2vec_torch.obs.probe import (
+    combine_partials, health_stats, sharded_probe_partials, stats_to_channels)
 from glint_word2vec_torch.obs.sink import TelemetrySink
 from glint_word2vec_torch.obs.spans import clock_anchor, default_tracer
 from glint_word2vec_torch.obs.statusd import StatusServer
@@ -155,9 +178,13 @@ from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives
 from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, Stabilizers, alpha_schedule, cbow_step_core, cbow_step_shared_core,
     hot_flush, hot_slabs, init_embeddings, sgns_step_core, sgns_step_shared_scatter_)
-from glint_word2vec_torch.parallel.mesh import pad_dim_to_lanes, pad_vocab_for_sharding
+from glint_word2vec_torch.ops.sgns_shard import make_sharded_sgns_step
+from glint_word2vec_torch.parallel import distributed
+from glint_word2vec_torch.parallel.mesh import (
+    MODEL_AXIS, LocalShards, MeshPlan, make_mesh, pad_dim_to_lanes,
+    pad_vocab_for_sharding)
 from glint_word2vec_torch.train import faults
-from glint_word2vec_torch.train.checkpoint import TrainState, save_model
+from glint_word2vec_torch.train.checkpoint import TrainState, save_model, save_model_sharded
 from glint_word2vec_torch.train.faults import NonFiniteParamsError, NormBlowupError
 from glint_word2vec_torch.train.graphs import ChunkGraphs
 from glint_word2vec_torch.train.syncsites import SyncSites
@@ -308,19 +335,30 @@ class Trainer:
         train_state: Optional[TrainState] = None,
         device="cuda",
         feed_backend: str = "auto",
+        plan: Optional[MeshPlan] = None,
     ):
         """``feed_backend``: the skip-gram pair generator, "native", "numpy" or
         "auto" (native when it is built, as the JAX package chooses); CBOW has only
         the numpy generator, and ``device_pairgen`` and banded CBOW only "device" (the
         token-block feed, which "auto" resolves to). The resolved choice is
-        ``self.feed_backend``."""
+        ``self.feed_backend``.
+
+        ``plan``: a (data, model) mesh of ranks (``parallel/mesh.make_mesh``); None
+        builds the config's (``num_data_shards`` x ``num_model_shards``, or
+        ``mesh_shape``) when it is larger than 1x1 or the world has more than one
+        rank. On a mesh larger than 1x1 (``self.plan``; None on one device) this
+        rank holds its row blocks of both matrices and runs the row-sharded step
+        (``ops/sgns_shard.py``). ``params`` are then full matrices, carved to this
+        rank's rows, or a :class:`..parallel.mesh.LocalShards` taken as they are."""
         self.device = resolve_device(device)
         self.config = config
         self.vocab = vocab
         self.feed_backend = self._resolve_feed(feed_backend)
         self._resolve_vocab_scaled_pool()
         config = self.config
-        self.padded_vocab = pad_vocab_for_sharding(vocab.size)
+        self.plan = self._resolve_plan(plan)
+        self.padded_vocab = pad_vocab_for_sharding(
+            vocab.size, self.plan.num_model if self.plan is not None else 1)
         self.padded_dim = pad_dim_to_lanes(config.vector_size, config.pad_vector_to_lanes)
         self.table = build_alias_table(vocab.counts, config.sample_power)
         self._table_prob = torch.from_numpy(self.table.prob).to(self.device)
@@ -329,6 +367,16 @@ class Trainer:
         self.param_dtype = getattr(torch, config.param_dtype)
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.logits_dtype = getattr(torch, config.logits_dtype)
+        # a sharded-input mesh fit: each rank feeds its 1/W of the sentence stream,
+        # and the global batch is W contiguous segments (_sharded_chunk_stream)
+        self._feed_segments = 1
+        if self.plan is not None and config.shard_input:
+            n = distributed.world_size()
+            if config.pairs_per_batch % n:
+                raise ValueError(
+                    f"shard_input=True needs pairs_per_batch divisible by the "
+                    f"process count ({config.pairs_per_batch} % {n} != 0)")
+            self._feed_segments = n
         if params is None:
             gen = torch.Generator().manual_seed(config.seed & 0xFFFFFFFFFFFFFFFF)
             params = init_embeddings(self.padded_vocab, config.vector_size, gen,
@@ -419,6 +467,8 @@ class Trainer:
         self._preempt_deadline: Optional[float] = None
         self._preempt_signum = 0
         self._active_checkpoint_path: Optional[str] = None
+        self._beacons = None  # a mesh fit's liveness board, fit-scoped
+        self._shard_clock = 0.0  # the sharded feed's global word clock
 
     # -- setup -----------------------------------------------------------------------
 
@@ -436,16 +486,63 @@ class Trainer:
                              "CBOW feeds run numpy")
         return resolve_backend("numpy" if backend == "auto" else backend)
 
+    def _resolve_plan(self, plan: Optional[MeshPlan]) -> Optional[MeshPlan]:
+        """The mesh this trainer runs on, or None for one device. A mesh must cover
+        the world (``make_mesh`` raises otherwise: no fallback to fewer devices), and
+        what the port does not run on one is refused by name (ROADMAP.md queue A9b)."""
+        cfg = self.config
+        if plan is None:
+            nd, nm = cfg.mesh_size
+            if nd * nm == 1 and not distributed.is_multiprocess():
+                return None
+            plan = make_mesh(nd, nm)
+        elif not isinstance(plan, MeshPlan):
+            raise TypeError(f"plan must be a glint_word2vec_torch MeshPlan "
+                            f"(parallel.mesh.make_mesh), got {type(plan).__name__}")
+        if plan.size == 1:
+            return None
+        where = f"a {plan.num_data}x{plan.num_model} mesh"
+        refuse_unported_on_mesh(cfg, where)
+        if cfg.hot_rows:
+            raise NotImplementedError(
+                f"hot_rows on {where}: the row-sharded step has no hot-row form (the "
+                "slab is the global prefix, all on model shard 0); not ported "
+                "(ROADMAP.md queue A9b)")
+        if cfg.pairs_per_batch % plan.num_data:
+            raise ValueError(
+                f"the row-sharded step (step_lowering={cfg.step_lowering!r}: the port "
+                f"runs the owner-local schedule for both) splits the batch over the "
+                f"data axis with static shapes: pairs_per_batch={cfg.pairs_per_batch} "
+                f"must be divisible by num_data={plan.num_data}")
+        if self.device.type == "cuda":
+            logger.info("%s: each chunk's steps run eagerly; the chunk's CUDA graph is "
+                        "not captured around collectives (ROADMAP.md queue A9b)", where)
+        return plan
+
+    @property
+    def _row_offset(self) -> int:
+        """The global index of this rank's first row (0 on one device)."""
+        return self.plan.rows(self.padded_vocab)[0] if self.plan is not None else 0
+
     def _place_params(self, params) -> EmbeddingPair:
-        """Copy (numpy or torch) parameters into zero-padded [Vp, Dp] tensors of
-        ``param_dtype`` on the device (a float32 source is rounded to bf16 once); the
+        """Copy (numpy or torch) parameters into zero-padded tensors of
+        ``param_dtype`` on the device (a float32 source is rounded to bf16 once): the
+        whole [Vp, Dp] matrices on one device, this rank's [Vs, Dp] row blocks on a
+        mesh (carved from full matrices, or :class:`LocalShards` as they are); the
         trainer owns and updates its copy."""
+        lo, hi = (self.plan.rows(self.padded_vocab) if self.plan is not None
+                  else (0, self.padded_vocab))
+        local = isinstance(params, LocalShards)
+
         def pad(a) -> torch.Tensor:
             t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
-            if t.dim() != 2 or t.shape[0] > self.padded_vocab or t.shape[1] > self.padded_dim:
+            rows = hi - lo if local else self.padded_vocab
+            if t.dim() != 2 or t.shape[0] > rows or t.shape[1] > self.padded_dim:
                 raise ValueError(f"parameter shape {tuple(t.shape)} does not fit the "
-                                 f"padded geometry ({self.padded_vocab}, {self.padded_dim})")
-            out = torch.zeros((self.padded_vocab, self.padded_dim), dtype=self.param_dtype,
+                                 f"padded geometry ({rows}, {self.padded_dim})")
+            if not local:
+                t = t[lo:hi]
+            out = torch.zeros((hi - lo, self.padded_dim), dtype=self.param_dtype,
                               device=self.device)
             out[:t.shape[0], :t.shape[1]] = t.to(self.device, self.param_dtype)
             return out
@@ -896,6 +993,8 @@ class Trainer:
         trainer's state: a recovery may engage ``max_row_norm`` (``self._stabilizers``),
         which moves the shared pool to its scatter form."""
         cfg = self.config
+        if self.plan is not None:
+            return "sharded"  # the one step on a mesh (the rest is refused, A9b)
         if self._banded_cbow:
             return "cbow_banded"
         if cfg.cbow:
@@ -919,6 +1018,13 @@ class Trainer:
         cd, ld, slabs = self.compute_dtype, self.logits_dtype, self._slabs
         chain = dict(fused=cfg.fused_logits, bf16_chain=cfg.bf16_chain)
         form = self._step_form()
+        if form == "sharded":
+            # the row-sharded step, or with sync_every > 1 its k-step window (the
+            # body feeds it k rows of the buffers at a time)
+            steps = {wm: make_sharded_sgns_step(
+                self.plan, n, mode, cd, ld, wm, stab, sync_every=cfg.sync_every,
+                **chain) for wm in (False, True)}
+            return lambda b, neg, alpha, wm: steps[wm](p, b, neg, alpha)
         if form == "cbow_banded":
             return lambda b, neg, alpha, wm: cbow_step_banded_core(
                 p, b["tokens"], b["left"], b["right"], b["center"], b["token"], neg,
@@ -1011,9 +1117,14 @@ class Trainer:
                 vals.update(self._device_pairs(arrays, chunk))
             else:
                 B = arrays["centers"].shape[1]
-                pos = torch.arange(B, device=self.device)
+                # [K] real counts, or [K, S] on the sharded feed: the batch is S
+                # segments, each prefix-masked by its own count
+                reals = arrays["reals"]
+                reals = reals[:, None] if reals.dim() == 1 else reals
+                pos = torch.arange(B // reals.shape[1], device=self.device)
+                mask = (pos < reals[:, :, None]).to(torch.float32).view(-1, B)
                 vals.update(centers=arrays["centers"], contexts=arrays["contexts"],
-                            mask=(pos < arrays["reals"][:, None]).to(torch.float32))
+                            mask=mask)
                 if cfg.cbow:
                     C = arrays["contexts"].shape[2]
                     vals["ctx_mask"] = (torch.arange(C, device=self.device)
@@ -1021,8 +1132,17 @@ class Trainer:
             B = vals["centers"].shape[1]
             shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
                      else (K, cfg.negative_pool))
+            if self.plan is not None and cfg.sync_every > 1:
+                # local SGD: each data shard its own disjoint [K, P] lattice slice
+                shape = (K, self.plan.num_data * cfg.negative_pool)
         vals["negatives"] = sample_negatives_hash(
             self._table_prob, self._table_alias, cfg.seed, self.global_step + 1, shape)
+        if self.plan is not None:
+            # every rank holds the global chunk; this rank trains its data slice
+            carve = ["centers", "contexts", "mask"]
+            carve += ["negatives"] if cfg.sync_every > 1 else []
+            vals.update(distributed.put_global(
+                self.plan, {name: vals[name] for name in carve}, self.plan.batch_stacked))
         for name, v in vals.items():
             self._put(name, v)
 
@@ -1036,6 +1156,17 @@ class Trainer:
         step = self._step_fn()
         names = [name for name in ins if name not in ("negatives", "alphas")]
         out = []
+        k_win = self.config.sync_every if self.plan is not None else 1
+        if k_win > 1:
+            # local-SGD windows of k steps, each ending merged; a short chunk's last
+            # window runs its padded rows too (mask 0, alpha 0: exact no-ops, and
+            # the merge of a zero delta), so every chunk ends on a merge
+            for w in range(-(-steps // k_win)):
+                sl = slice(w * k_win, (w + 1) * k_win)
+                m = step({name: ins[name][sl] for name in names}, ins["negatives"][sl],
+                         ins["alphas"][sl], with_metrics)
+                out.append(torch.stack(tuple(m), dim=1))
+            return torch.cat(out)[:steps]
         for k in range(steps):
             batch = {name: ins[name][k] for name in names}
             out.extend(step(batch, ins["negatives"][k], ins["alphas"][k], with_metrics))
@@ -1087,7 +1218,9 @@ class Trainer:
         self.prologue_time += time.perf_counter() - t0
         with_metrics = (self._with_metrics(chunk["real"])
                         or self._step_form() in _POOLLESS_FORMS)
-        if self.device.type != "cuda" or self._eager_chunks:
+        if self.device.type != "cuda" or self._eager_chunks or self.plan is not None:
+            # on a mesh the steps' collectives stay outside any graph (gloo cannot be
+            # captured): the body runs eagerly, and no graph is ever captured there
             return self._chunk_body(chunk["real"], with_metrics)
         if self._graphs is None:
             self._graphs = ChunkGraphs(self.device, self.sync_sites)
@@ -1129,20 +1262,28 @@ class Trainer:
                            * float(corpus_words))
         total_words = float(cfg.num_iterations * train_words + 1)
         token_feed = cfg.device_pairgen or self._banded_cbow
+        sharded = self._feed_segments > 1
         if token_feed:
             self._exact_pairs = torch.zeros((), dtype=torch.int64, device=self.device)
             self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
             est_total = 0.0
             chunks = self._token_chunk_stream(sentences, total_words, float(train_words))
+        elif sharded:
+            # the rounds' allgathers run here, on the calling thread, in lockstep on
+            # every rank; only the local feed runs on the producer thread
+            chunks = self._sharded_chunk_stream(sentences, total_words)
         else:
             chunks = self._chunk_stream(sentences, total_words, float(train_words))
-        # each next() of the assembly is a "producer" span, on the thread that runs it
-        chunks = self._tracer.wrap_iter("producer", chunks)
-        if cfg.prefetch_chunks > 0:
+        if not sharded:
+            # each next() of the assembly is a "producer" span, on the thread that
+            # runs it
+            chunks = self._tracer.wrap_iter("producer", chunks)
+        if cfg.prefetch_chunks > 0 and not sharded:
             if self.device.type == "cuda":
                 chunks = self._stage(chunks)
             chunks = _threaded_iter(chunks, cfg.prefetch_chunks)
         self._start_run_bookkeeping()
+        self._beacons = self._start_peer_beacons(checkpoint_path)
         try:
             try:
                 while True:
@@ -1154,6 +1295,8 @@ class Trainer:
                     if chunk is None:
                         break
                     t0 = time.perf_counter()
+                    if cfg.feed_consistency_check and distributed.is_multiprocess():
+                        self._assert_feed_consistent(chunk)
                     with self._tracer.span("dispatch"):
                         metrics = self._run_chunk(chunk)
                     self.dispatch_time += time.perf_counter() - t0
@@ -1161,16 +1304,23 @@ class Trainer:
                         est_total += chunk["real_pairs"]
                     self._finish_round(chunk, metrics, checkpoint_path,
                                        checkpoint_every_steps, on_heartbeat)
+            except RuntimeError as e:
+                self._raise_if_peer_died(e)
+                raise
             finally:
                 self._stop_profiler()
                 chunks.close()
+                if self._beacons is not None:
+                    self._beacons.stop()
+                    self._beacons = None
             with self.sync_sites("index_check", blocking=True):
                 scatter.check_errors()
             if token_feed:
                 self._settle_device_pairgen_books(est_total)
             self.state = TrainState(
                 iteration=cfg.num_iterations,
-                words_processed=int(cfg.num_iterations * train_words),
+                words_processed=int(self._shard_clock if sharded
+                                    else cfg.num_iterations * train_words),
                 finished=True, global_step=self.global_step)
             if checkpoint_path:
                 self.save_checkpoint(checkpoint_path)
@@ -1191,8 +1341,30 @@ class Trainer:
         twice: ``batches_done`` (the step rows of this process's stream, what this
         trainer skips, as the JAX package's single-process device feed does) and
         ``shard_progress`` (per data segment); one without ``batches_done`` needs the
-        per-segment resume."""
+        per-segment resume. A sharded-input fit resumes from ``shard_progress``, one
+        position a rank, at the same world size (the JAX package's checks and
+        messages)."""
         st, cfg = self.state, self.config
+        if self._feed_segments > 1:
+            sp = st.shard_progress
+            if sp is not None:
+                if st.shard_feed not in (None, "pairs"):
+                    raise ValueError(
+                        "checkpoint shard_progress indexes the device-feed token "
+                        f"streams (shard_feed={st.shard_feed!r}); resume it with "
+                        "device_pairgen=True — pair-batch positions are a different "
+                        "stream")
+                if len(sp) != self._feed_segments:
+                    raise ValueError(
+                        f"checkpoint shard_progress has {len(sp)} entries but this run "
+                        f"has {self._feed_segments} processes; resume sharded-input "
+                        "runs with the same process count")
+            elif st.batches_done and not st.finished:
+                raise ValueError(
+                    "checkpoint was written mid-iteration by a replicated-feed run; it "
+                    "cannot be resumed exactly with shard_input=True — resume with "
+                    "shard_input=False (or from an iteration-boundary checkpoint)")
+            return
         if st.shard_progress is None or st.finished:
             return
         if cfg.device_pairgen or self._banded_cbow:
@@ -1205,8 +1377,8 @@ class Trainer:
                 raise NotImplementedError(
                     "checkpoint records per-segment device-feed positions only "
                     "(shard_progress, from a multi-process run or an elastic resume); "
-                    "the per-segment resume is multi-device work, not ported to "
-                    "glint_word2vec_torch yet (ROADMAP.md queue A9)")
+                    "the per-segment resume of the sharded device feed is not ported "
+                    "to glint_word2vec_torch yet (ROADMAP.md queue A9b)")
             return
         if st.shard_feed == "tokens":
             raise ValueError(
@@ -1215,9 +1387,199 @@ class Trainer:
                 "device_pairgen=True, or cbow_update='banded' if it was a banded-CBOW "
                 "run")
         raise ValueError(
-            f"checkpoint was written by a sharded-input multi-process run "
-            f"({len(st.shard_progress)} shards); the port resumes single-process runs "
-            "only (ROADMAP.md queue A9)")
+            "checkpoint was written by a sharded-input multi-process run "
+            f"({len(st.shard_progress)} shards); resume it with the same process "
+            "count and shard_input=True, not on the replicated feed")
+
+    def _sharded_chunk_stream(self, sentences: Sequence[np.ndarray],
+                              total_words: float) -> Iterator[dict]:
+        """The sharded-input feed (the JAX trainer's ``_fit_sharded``), one round a
+        chunk, every rank in lockstep:
+
+        1. each rank pulls its next local chunk, K batches of B/W pairs from
+           ``epoch_batches(shard=rank, num_shards=W)``, off its producer thread; an
+           exhausted rank substitutes a zero chunk;
+        2. ONE allgather (``parallel/distributed.allgather``) ships every
+           rank's pairs, real counts, word-clock deltas, alive flag and stream
+           position to every rank (after the peer beacons' check);
+        3. every rank assembles the identical global batch ([K, B]: W contiguous
+           segments, each prefix-masked by its own count), the global word clock from
+           the summed deltas, and identical alphas;
+        4. the stream ends when every alive flag is zero: an exhausted rank keeps
+           dispatching fully masked segments until then.
+
+        ``TrainState.shard_progress`` records every rank's position (``batches_done``
+        is 0: no single count means anything across ranks)."""
+        cfg = self.config
+        K = cfg.steps_per_dispatch
+        S = self._feed_segments
+        pid = distributed.rank()
+        B = cfg.pairs_per_batch
+        b_local = B // S
+        st = self.state
+        start_iter = st.iteration
+        skip = st.batches_done if not st.finished else 0
+        if st.shard_progress is not None:
+            start_iter, skip = (int(x) for x in st.shard_progress[pid])
+
+        def local_stream() -> Iterator[dict]:
+            for k in range(start_iter, cfg.num_iterations + 1):
+                pending: List[tuple] = []
+                prev_ws = 0
+                batches_in_iter = skip if k == start_iter else 0
+                to_skip = batches_in_iter
+
+                def flush() -> dict:
+                    nonlocal pending, batches_in_iter
+                    real = len(pending)
+                    batches_in_iter += real
+                    arrays = {"centers": np.zeros((K, b_local), np.int32),
+                              "contexts": np.zeros((K, b_local), np.int32)}
+                    reals = np.zeros(K, np.int32)
+                    deltas = np.zeros(K, np.int64)
+                    for j, (c, x, r, d) in enumerate(pending):
+                        arrays["centers"][j], arrays["contexts"][j] = c, x
+                        reals[j], deltas[j] = r, d
+                    pending = []
+                    return dict(arrays=arrays, reals=reals, deltas=deltas, iteration=k,
+                                batches_done=batches_in_iter)
+
+                for b in epoch_batches(
+                        sentences, self.vocab, pairs_per_batch=b_local,
+                        window=cfg.window, subsample_ratio=cfg.subsample_ratio,
+                        seed=cfg.seed, iteration=k, shuffle=cfg.shuffle,
+                        producer_workers=cfg.producer_workers,
+                        backend=self.feed_backend, shard=pid, num_shards=S):
+                    ws = b.words_seen
+                    if to_skip:  # exact resume: fast-forward already-trained batches
+                        to_skip -= 1
+                        prev_ws = ws
+                        continue
+                    pending.append((b.centers, b.contexts, b.num_real_pairs,
+                                    ws - prev_ws))
+                    prev_ws = ws
+                    if len(pending) == K:
+                        yield flush()
+                if pending:
+                    yield flush()
+
+        local_chunks = self._tracer.wrap_iter("producer", local_stream())
+        if cfg.prefetch_chunks > 0:
+            local_chunks = _threaded_iter(local_chunks, cfg.prefetch_chunks)
+        clock = float(st.words_processed)
+        self._shard_clock = clock
+        cur_iter, cur_batches = start_iter, skip
+        exhausted = False
+        zero = dict(arrays={"centers": np.zeros((K, b_local), np.int32),
+                            "contexts": np.zeros((K, b_local), np.int32)},
+                    reals=np.zeros(K, np.int32), deltas=np.zeros(K, np.int64))
+        try:
+            while True:
+                local = None if exhausted else next(local_chunks, None)
+                if local is None:
+                    exhausted = True
+                    local = zero
+                else:
+                    cur_iter, cur_batches = local["iteration"], local["batches_done"]
+                if self._beacons is not None:
+                    # a dead peer never reaches its allgather: entering ours would
+                    # hang; the check turns that into a clean abort
+                    self._beacons.check_or_raise()
+                with self._tracer.span("allgather"):
+                    g = distributed.allgather({
+                        **local["arrays"], "reals": local["reals"],
+                        "deltas": local["deltas"],
+                        "alive": np.asarray([0 if exhausted else 1], np.int32),
+                        "prog": np.asarray([cur_iter, cur_batches], np.int64)})
+                if int(g["alive"].sum()) == 0:
+                    return
+                reals_all = g["reals"]                                   # [S, K]
+                real = int((reals_all > 0).any(axis=0).sum())
+                clocks = clock + np.cumsum(g["deltas"].sum(axis=0))
+                clock = self._shard_clock = float(clocks[-1])
+                if real == 0:
+                    continue  # no step this round on any rank (lockstep holds)
+                alphas = np.asarray([
+                    alpha_schedule(float(w), total_words, cfg.learning_rate,
+                                   cfg.min_alpha_factor) for w in clocks], np.float32)
+                # [S, K, b] -> [K, S, b] -> [K, B]: segment s of every batch is rank
+                # s's slice, matching the per-segment prefix masks
+                arrays = {name: np.ascontiguousarray(
+                    np.transpose(g[name], (1, 0, 2)).reshape(K, B))
+                    for name in ("centers", "contexts")}
+                arrays.update(alphas=alphas, reals=np.ascontiguousarray(
+                    reals_all.T.astype(np.float32)))
+                yield dict(arrays=arrays, alphas=alphas, real=real,
+                           iteration=int(g["prog"][:, 0].min()),
+                           words_processed=int(clock), batches_done=0,
+                           real_pairs=float(reals_all.sum()),
+                           shard_progress=[[int(a), int(b_)] for a, b_ in g["prog"]],
+                           shard_feed="pairs")
+        finally:
+            closer = getattr(local_chunks, "close", None)
+            if closer is not None:
+                closer()
+
+    def _assert_feed_consistent(self, chunk: dict) -> None:
+        """The SPMD divergence detector (``config.feed_consistency_check``): every rank
+        fingerprints the round's assembled global feed (its host arrays, in name
+        order) and one allgather compares the fingerprints. Identical step inputs on
+        every rank are what keeps the replicas and the row blocks consistent; a
+        mismatch (a nondeterministic host pipeline, clock drift, a corrupted transport)
+        would otherwise show only as silent divergence."""
+        host = chunk.get("pinned") or chunk["arrays"]
+        h = 0
+        for name in sorted(host):
+            a = host[name]
+            a = a.numpy() if isinstance(a, torch.Tensor) else np.ascontiguousarray(a)
+            h = zlib.crc32(a.tobytes(), h)
+        if self._beacons is not None:
+            self._beacons.check_or_raise()
+        fps = distributed.allgather({"fp": np.asarray([h], np.int64)})["fp"][:, 0]
+        if not (fps == fps[0]).all():
+            raise RuntimeError(
+                "SPMD feed divergence: per-process fingerprints of the "
+                f"assembled global batch differ ({[int(f) for f in fps]}) — "
+                "host pipelines produced different feeds (nondeterministic "
+                "input ordering or clock drift); training would silently "
+                "diverge from here")
+
+    def _start_peer_beacons(self, checkpoint_path: Optional[str]):
+        """Arm the liveness beacons of a multi-process fit (``train/supervisor.py``
+        ``BeaconBoard``): each rank heartbeats a small file in ``beacons/`` beside the
+        checkpoint path, and the check before every round's allgather turns a dead
+        peer into a :class:`PeerDeathError` instead of a hang (the board's writer
+        thread hard-exits a rank that is already wedged in a collective). None when
+        ``peer_beacon_s`` is 0, on one device, or without a checkpoint path to anchor
+        the directory to."""
+        if (self.config.peer_beacon_s <= 0 or not checkpoint_path
+                or not distributed.is_multiprocess()):
+            return None
+        from glint_word2vec_torch.train.supervisor import BeaconBoard
+        board = BeaconBoard(
+            os.path.join(os.path.dirname(os.path.abspath(checkpoint_path)), "beacons"),
+            process_index=distributed.rank(), num_processes=distributed.world_size(),
+            interval_s=self.config.peer_beacon_s)
+        return board.start()
+
+    def _raise_if_peer_died(self, err: BaseException) -> None:
+        """After a collective failed (a peer's socket closed mid-round): raise
+        :class:`PeerDeathError` from ``err`` once the board sees a peer's beacon go
+        stale, waiting up to twice the staleness horizon; return (the caller re-raises
+        ``err``) when beacons are off or every peer stays alive."""
+        board = getattr(self, "_beacons", None)
+        if board is None:
+            return
+        from glint_word2vec_torch.train.supervisor import PeerDeathError
+        deadline = time.monotonic() + 2 * board.stale_after
+        while time.monotonic() < deadline:
+            dead = board.stale_peers(board.stale_after)
+            if dead:
+                raise PeerDeathError(
+                    f"peer process(es) {dead} stopped heartbeating their liveness "
+                    f"beacon (> {board.stale_after:.1f}s stale) while this rank was in "
+                    f"a collective ({type(err).__name__}: {err})") from err
+            time.sleep(board.interval_s / 2)
 
     def _settle_device_pairgen_books(self, est_total: float) -> None:
         """End of a device-feed run: the heartbeats ran on the analytic pair estimate;
@@ -1453,8 +1815,11 @@ class Trainer:
                 with self._tracer.span("device_block"):
                     torch.cuda.synchronize(self.device)
             with self._tracer.span("health_probe"):
-                channels = stats_to_channels(health_stats(
-                    self.params, self.vocab.size, self.config.norm_watch_threshold))
+                if self.plan is not None:
+                    channels = stats_to_channels(self._mesh_health_stats())
+                else:
+                    channels = stats_to_channels(health_stats(
+                        self.params, self.vocab.size, self.config.norm_watch_threshold))
         prev = self._last_probe_channels
         if prev is not None:
             channels["update_mag"] = round(
@@ -1462,6 +1827,18 @@ class Trainer:
                 + abs(channels["syn1"]["mean_norm"] - prev["syn1"]["mean_norm"]), 9)
         self._last_probe_channels = channels
         return channels
+
+    def _mesh_health_stats(self):
+        """The probe on a mesh: each rank's partials of its row blocks, gathered over
+        the world in one collective; every rank folds the row blocks of data replica 0
+        from the same bytes, so every rank's guard and watchdog see the same
+        channels."""
+        parts = sharded_probe_partials(self.params, self._row_offset, self.vocab.size,
+                                       self.config.norm_watch_threshold)
+        group = None if parts.device.type == "cuda" else distributed.host_group()
+        parts = distributed.COLLECTIVES.all_gather(parts[None], group).cpu().numpy()
+        replica0 = [r for r in range(parts.shape[0]) if r // self.plan.num_model == 0]
+        return combine_partials(parts[replica0], self.vocab.size)
 
     def _copy_params(self) -> EmbeddingPair:
         """A copy of the live parameters on their device, into a spare slot (one the
@@ -1809,8 +2186,32 @@ class Trainer:
     # -- export / persistence ----------------------------------------------------------
 
     def unpadded_params(self) -> EmbeddingPair:
+        """The real [V, D] parameters on one device. On a mesh a rank holds only its
+        rows: save them (:meth:`save_checkpoint`, row shards) or ask for the gather
+        (:meth:`gather_params`)."""
+        if self.plan is not None:
+            raise RuntimeError(
+                "this trainer holds one rank's row blocks of a mesh; save them as a "
+                "row-shards checkpoint (save_checkpoint) or gather them explicitly "
+                "(gather_params)")
         V, D = self.vocab.size, self.config.vector_size
         return EmbeddingPair(self.params.syn0[:V, :D], self.params.syn1[:V, :D])
+
+    def gather_params(self) -> EmbeddingPair:
+        """The explicit gather of a mesh's row blocks: every rank of the model axis
+        contributes its rows (one all_gather a matrix) and every rank returns the real
+        [V, D] parameters on its device. On one device, :meth:`unpadded_params`."""
+        if self.plan is None:
+            return self.unpadded_params()
+        V, D = self.vocab.size, self.config.vector_size
+        out = []
+        for m in self.params:
+            full = m
+            if self.plan.num_model > 1:
+                full = distributed.COLLECTIVES.all_gather(m, self.plan.model_group,
+                                                          MODEL_AXIS)
+            out.append(full[:V, :D])
+        return EmbeddingPair(*out)
 
     def save_checkpoint(self, path: str) -> None:
         """The guarded save: under a policy other than "none" the non-finite guard runs
@@ -1820,12 +2221,25 @@ class Trainer:
         a pending slab."""
         if self.config.nonfinite_policy != "none":
             self._nonfinite_guard(self._probed)
+        if self.plan is not None or self.config.sharded_checkpoint:
+            # row shards: every rank writes its own rows, no gather
+            with self.sync_sites("checkpoint", blocking=True):
+                save_model_sharded(
+                    path, self.vocab.words, self.vocab.counts, self.params.syn0,
+                    self.params.syn1, self.config, self.state, plan=self.plan,
+                    vocab_size=self.vocab.size, vector_size=self.config.vector_size,
+                    extra_metadata=self.extra_checkpoint_meta or None)
+            self._after_save(path)
+            return
         p = self.unpadded_params()  # dense saves are float32 (bf16 widens exactly)
         with self.sync_sites("checkpoint", blocking=True):
             syn0, syn1 = p.syn0.float().cpu().numpy(), p.syn1.float().cpu().numpy()
         save_model(path, self.vocab.words, self.vocab.counts, syn0, syn1,
                    self.config, self.state,
                    extra_metadata=self.extra_checkpoint_meta or None)
+        self._after_save(path)
+
+    def _after_save(self, path: str) -> None:
         logger.info("checkpoint saved to %s at step %d", path, self.global_step)
         self._last_save_step = int(self.global_step)
         if self._telemetry is not None or self._blackbox is not None:

@@ -573,7 +573,8 @@ def test_run_forever_reads_poll_s_from_the_checkpoint(tmp_path):
 
 
 def test_runner_refuses_plan_and_defaults_to_the_card(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A9"):
+    # the runner takes the port's MeshPlan (a mesh of ranks); any other plan is refused
+    with pytest.raises(TypeError, match="MeshPlan"):
         TRunner(str(tmp_path / "ck"), str(tmp_path), str(tmp_path / "w"), plan=object(),
                 device=CPU)
     import torch

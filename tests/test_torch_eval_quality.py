@@ -330,6 +330,32 @@ def test_harness_continual_ab_on_the_cpu(tmp_path, capsys):
         assert 0.0 <= row["purity_at_10"] <= 1.0 and np.isfinite(row["cosine_margin"])
 
 
+def test_harness_localsgd_ab_on_a_gloo_world(tmp_path):
+    """--localsgd-ab at a toy size on the CPU: two ranks on a (2, 1) mesh train the
+    synchronous and the sync_every=4 arms of the same corpus and seed; rank 0 prints
+    the verdict line and writes one row per arm."""
+    rows, out = tmp_path / "rows.jsonl", tmp_path / "out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "glint_word2vec_torch.eval_quality", "--localsgd-ab",
+         "--sync-every", "4", "--words", "200000", "--vocab", "3000", "--dim", "16",
+         "--iters", "1", "--batch", "4096", "--pool", "64", "--device", "cpu",
+         "--out", str(out), "--runs-out", str(rows)],
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"},
+        cwd=str(tmp_path), capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["metric"] == "localsgd_ab" and res["mesh"] == [2, 1]
+    assert res["sync_every"] == 4 and isinstance(res["staleness_ok"], bool)
+    sync, local = [json.loads(line) for line in open(rows)]
+    assert (sync["localsgd_ab_arm"], local["localsgd_ab_arm"]) == ("sync", "local")
+    assert (sync["sync_every"], local["sync_every"]) == (1, 4)
+    assert res["arms"] == [sync, local]
+    for row in (sync, local):
+        assert row["step_lowering"] == "shard_map" and row["run"]["steps"] > 0
+        assert 0.0 <= row["purity_at_10"] <= 1.0
+    assert res["purity_delta"] == round(local["purity_at_10"] - sync["purity_at_10"], 4)
+
+
 def test_continual_tail_words_alone_is_accepted(tmp_path):
     """As in the JAX tool, a --continual-* knob without --continual-ab is accepted (and
     changes nothing of a plain run)."""
@@ -341,8 +367,8 @@ def test_continual_tail_words_alone_is_accepted(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--localsgd-ab"], ("--localsgd-ab", "A9")),
-    (["--sync-every", "4"], ("--sync-every", "A9")),
+    (["--localsgd-ab", "--sync-every", "3"], ("--sync-every", "divide")),
+    (["--localsgd-ab", "--ranks", "1"], ("--localsgd-ab", "ranks")),
     (["--idle-share", "--device", "cpu"], ("--idle-share",)),
 ])
 def test_driver_refuses_by_name(tmp_path, capsys, argv, names):

@@ -49,7 +49,9 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.chaos_run, glint_word2vec_torch.stepaudit, "
             "glint_word2vec_torch.train.syncsites, glint_word2vec_torch.continual, "
             "glint_word2vec_torch.continual.extend, glint_word2vec_torch.continual.stream, "
-            "glint_word2vec_torch.continual.loop, glint_word2vec_torch.continual_run\n"
+            "glint_word2vec_torch.continual.loop, glint_word2vec_torch.continual_run, "
+            "glint_word2vec_torch.parallel.distributed, glint_word2vec_torch.parallel.mesh, "
+            "glint_word2vec_torch.ops.sgns_shard\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -137,9 +139,7 @@ def test_prng_helpers_take_no_default_device():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("sync_every", 2), ("use_pallas", True), ("embedding_partition", "cols"),
-    ("sharded_checkpoint", True), ("peer_beacon_s", 1.0), ("num_model_shards", 2),
-    ("step_lowering", "shard_map"), ("num_data_shards", 2), ("mesh_shape", (2, 1)),
+    ("use_pallas", True), ("embedding_partition", "cols"),
 ])
 def test_unported_knobs_are_refused_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
@@ -158,13 +158,18 @@ def test_unported_knobs_are_refused_by_name(knob, value):
     ("norm_watch", "halt"), ("nonfinite_policy", "rollback"), ("status_port", 8123),
     ("checkpoint_on_preempt", True), ("serve_max_batch", 8), ("serve_ann_quant", "pq"),
     ("serve_fleet_hedge_ms", 5.0), ("serve_fleet_replicas", 2), ("serve_fleet_probe_s", 1.0),
+    ("sync_every", 2), ("sharded_checkpoint", True), ("peer_beacon_s", 1.0),
+    ("num_model_shards", 2), ("step_lowering", "shard_map"), ("num_data_shards", 2),
+    ("mesh_shape", (2, 1)),
 ])
 def test_ported_knobs_are_accepted(knob, value):
     """Banded CBOW, the stabilizers, duplicate scaling, the bf16 dtypes, the step
     restructurings, the runtime layer's knobs and the serving tier's (the fleet's among
     them) are ported: accepted by the config and carried through to_dict/from_dict with
     the port's checks on."""
-    extra = {"cbow": True} if knob == "cbow_update" else {}  # banded needs CBOW
+    # banded needs CBOW, local SGD the shard_map lowering
+    extra = {"cbow_update": {"cbow": True},
+             "sync_every": {"step_lowering": "shard_map"}}.get(knob, {})
     cfg = Word2VecConfig(pairs_per_batch=8192, **{knob: value}, **extra)
     assert getattr(Word2VecConfig.from_dict(cfg.to_dict()), knob) == value
 

@@ -206,5 +206,6 @@ def test_plan_and_ann_are_refused(tmp_path):
     with pytest.raises(RuntimeError, match="no index attached"):
         t.find_synonyms_batch(["w1"], 3, ann=True)
     from glint_word2vec_torch import Word2Vec
-    with pytest.raises(NotImplementedError, match="A9"):
+    # a fit takes the port's MeshPlan (a mesh fit); any other plan is refused
+    with pytest.raises(TypeError, match="MeshPlan"):
         Word2Vec(vector_size=8, device="cpu").fit([["a", "b"]], plan=object())

@@ -625,11 +625,13 @@ def test_refusal_matrix_matches_jax(kw):
     (dict(step_lowering="shard_map", embedding_partition="cols"), "step_lowering"),
 ])
 def test_unported_partners_stay_refused_by_name(kw, knob):
-    """Combinations whose other knob is not ported yet stay refused through that knob."""
-    with pytest.raises(ValueError):
+    """Combinations with the shard_map lowering (ported since the mesh step) are refused
+    through that knob with the JAX config's class and message."""
+    with pytest.raises(ValueError) as je:
         JConfig(**kw)
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(ValueError, match=knob) as te:
         TConfig(**kw)
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("kw", [
