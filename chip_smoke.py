@@ -253,7 +253,7 @@ Phases, one line each (or a few); any failure exits non-zero:
                device, so a gloo world whose every collective is staged through host
                memory), V=1,000,000, d=300 (384), B=8192, the AUTO pool (256 at 1M
                words), f32, this corpus's Zipf(1) tokens: (a) mesh (1, 2), the
-               default sharded-input fit through Trainer(plan=) for 64 steps from the
+               default sharded-input fit through Trainer(plan=) for 32 steps from the
                trainer's seeded start; its global chunks replayed through the plain
                single-process step on the card, and the ranks' row-shards checkpoint
                within PARAM_ATOL of the replay; each rank's step time (dispatch, eager)
@@ -265,6 +265,22 @@ Phases, one line each (or a few); any failure exits non-zero:
                process serves find_synonyms for 16 words as the explicitly gathered
                rows do (ids identical, scores within 1e-6); (d) a world of one on NCCL
                runs the collective interface on the card.
+ 16. forms    every step form and both multi-process feeds on the mesh, after phase 15,
+               at its widths (P = 256, the AUTO pool at 1M words), K=4: world (1, 2)
+               trains the per-pair step (negative_pool=0), shared-pool CBOW and a
+               device_pairgen fit (the sharded token-block feed, its rounds staged one
+               ahead) saved at step 8 and stopped at 12; world (2, 1) the per-pair step
+               and per-example CBOW with duplicate_scaling, and banded CBOW; 8 steps
+               each. Each fit's global rounds replayed through the plain single-process
+               step on the card from the trainer's seeded start, within PARAM_ATOL on
+               the 16,384 most frequent rows and 16,384 drawn at random; the scatter
+               kernel launched on every rank, the fused kernel never, and held against
+               index_add_ on each rank at the fit's own slot counts (banded: its local
+               endpoint delta too) with masked slots. Then the device_pairgen checkpoint
+               resumes on one process on the card: its rounds equal the mesh fit's
+               after step 8, its rows within PARAM_ATOL of the mesh's at step 12.
+               Printed: each rank's step time (dispatch, eager), the staging's share,
+               the collectives by axis, the launches and the holds.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -1328,10 +1344,12 @@ def pairgen_phase(corpus, seed: int, torch, np) -> dict:
     keep = tr._keep_prob_dev
 
     def run(dev, presubsampled=True):
-        a = {k: torch.from_numpy(v).to(dev).long() for k, v in chunk["arrays"].items()}
+        # one device runs one token segment: its [K, ...] rows
+        a = {k: torch.from_numpy(v).to(dev).long()[:, 0]
+             for k, v in chunk["arrays"].items() if k != "alphas"}
         return lambda: device_block_pairs(
             a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0], a["obase"][:, 1],
-            keep.to(dev), chunk["sub_base"], chunk["win_base"], WINDOW, B,
+            keep.to(dev), chunk["sub_bases"][0], chunk["win_bases"][0], WINDOW, B,
             presubsampled=presubsampled)
 
     bad = []
@@ -3436,7 +3454,7 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
 
 # --- phase 15: the mesh -----------------------------------------------------------------
 
-MESH_STEPS = 64       # (a): the model-sharded fit's steps
+MESH_STEPS = 32       # (a): the model-sharded fit's steps
 MESH_K = 16           # its steps a chunk
 MESH_SGD_STEPS = 8    # (b): local SGD's steps, one window a chunk (K = sync_every = 2)
 MESH_TOKENS = 300_000  # >= 64 steps of the 2-rank sharded feed at B=8192, window 5
@@ -3541,6 +3559,11 @@ def mesh_rank_main(args) -> int:
     words, counts, sents = synthetic_corpus(args.seed, MESH_TOKENS, np)
     vocab = Vocabulary.from_words_and_counts(words, counts)
     enc = encode_sentences(sents, vocab, 1000)
+    if case in FORM_WORLDS:
+        rec = forms_rank_main(args, r, d, vocab, enc, np, torch)
+        (d / f"{case}-r{r}.json").write_text(json.dumps(rec))
+        distributed.shutdown()
+        return 0
     knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
                  seed=args.seed, heartbeat_every_steps=MESH_K)
     if case == "model":
@@ -3766,6 +3789,372 @@ def mesh_phase(seed: int, torch, np, sgns) -> tuple:
     return rec, launches
 
 
+# --- phase 16: every step form on the mesh ----------------------------------------------
+
+FORM_K = 4          # every phase-16 fit's steps a chunk
+FORM_STEPS = 8      # each fit's steps
+TOKEN_STEPS = 12    # the device_pairgen fit's: saved at step 8, stopped at 12
+TOKEN_CKPT = 8
+FORM_ROWS = 16_384  # rows compared: the most frequent, and as many drawn at random
+CTX = 2 * WINDOW    # a CBOW example's context slots
+# world -> ((num_data, num_model), [(fit, config knobs)]); the pools are P, the AUTO
+# pool at 1M words
+FORM_WORLDS = {
+    "forms12": ((1, 2), [("per_pair", {"negative_pool": 0}),
+                         ("cbow_shared", {"cbow": True, "negative_pool": P}),
+                         ("pairgen", {"device_pairgen": True, "negative_pool": P})]),
+    "forms21": ((2, 1), [("per_pair_dup", {"negative_pool": 0,
+                                           "duplicate_scaling": True}),
+                         ("cbow_pe_dup", {"cbow": True, "duplicate_scaling": True}),
+                         ("banded", {"cbow": True, "cbow_update": "banded",
+                                     "negative_pool": P})]),
+}
+
+
+def form_config(name: str, knobs: dict, seed: int):
+    from glint_word2vec_torch.config import Word2VecConfig
+    return Word2VecConfig(vector_size=D_REAL, window=WINDOW, negatives=N_NEG,
+                          pairs_per_batch=B, seed=seed, steps_per_dispatch=FORM_K,
+                          heartbeat_every_steps=FORM_K, **knobs)
+
+
+def form_rows(seed: int, np):
+    """The compared rows: the FORM_ROWS most frequent words and FORM_ROWS drawn at
+    random from the rest, sorted."""
+    rest = np.random.default_rng(seed).choice(np.arange(FORM_ROWS, V), FORM_ROWS,
+                                              replace=False)
+    return np.sort(np.concatenate([np.arange(FORM_ROWS), rest]))
+
+
+def form_slots(name: str, cfg, nd: int, tokens_per_step: int) -> dict:
+    """The slots of each owner-local scatter of one step of fit ``name`` on a mesh of
+    ``nd`` data shards (the data axis's gathered index list), and banded CBOW's local
+    endpoint delta (a [T + 1] target, 2T slots)."""
+    pool, ctx, neg = cfg.negative_pool, CTX, N_NEG
+    if name.startswith("per_pair"):
+        return {"syn0": B, "syn1": B * (1 + neg)}
+    if name == "cbow_shared":
+        return {"syn0": B * ctx, "syn1": B + nd * pool}
+    if name == "cbow_pe_dup":
+        return {"syn0": B * ctx, "syn1": B * (1 + neg)}
+    if name == "banded":
+        T = tokens_per_step
+        return {"syn0": nd * T, "syn1": nd * (T + pool), "endpoint": (2 * T, T + 1)}
+    return {"syn0": B, "syn1": B + nd * pool}
+
+
+def _form_scatter_hold(tr, plan, torch, scat, slots: dict) -> dict:
+    """The row-scatter kernel at fit ``slots``' sizes on this rank against its plain
+    version on the same inputs: Zipf(1.1) rows over the padded vocabulary, an eighth
+    of the slots dead (index -1, as a masked slot), the slots this rank does not own
+    dead too; the endpoint delta's local target takes every slot it draws."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + plan.rank)
+    vs = tr.params.syn0.shape[0]
+    lo = plan.rows(tr.padded_vocab)[0]
+    out = {}
+    for name, n in slots.items():
+        if name == "endpoint":
+            n, rows = n
+            base = torch.zeros((rows, tr.padded_dim), device="cuda")
+            idx = torch.randint(0, rows, (n,), generator=gen, device="cuda")
+            own = torch.rand(n, generator=gen, device="cuda") >= 0.125
+        else:
+            base = getattr(tr.params, name)
+            idx = zipf_ids(gen, n, tr.padded_vocab, 1.1, torch)
+            idx[torch.rand(n, generator=gen, device="cuda") < 0.125] = -1
+            idx = torch.where(idx >= 0, idx - lo, -1)
+            own = (idx >= 0) & (idx < vs)
+        loc = torch.where(own, idx, 0).contiguous()
+        upd = torch.randn((n, tr.padded_dim), generator=gen, device="cuda") * 1e-3
+        got = scat.scatter_add_rows_(base.clone(), loc, upd, own.to(torch.float32))
+        want = scat.scatter_add_rows_reference(base.clone(), loc[own], upd[own])
+        torch.cuda.synchronize()
+        out[name] = {"slots": n, "live": int(own.sum()),
+                     "max_abs_err": float((got - want).abs().max())}
+    return out
+
+
+def forms_rank_main(args, r: int, d: Path, vocab, enc, np, torch) -> dict:
+    """One rank of phase 16 (``--mesh-case forms12`` or ``forms21``): the world's
+    three fits, each recorded (rank 0 keeps the global rounds), timed, counted and its
+    rank's compared rows kept; then the scatter kernel held at the fit's own sizes."""
+    from glint_word2vec_torch.ops import fused_sgns as fused
+    from glint_word2vec_torch.ops import scatter as scat
+    from glint_word2vec_torch.parallel import distributed
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    (nd, nm), fits = FORM_WORLDS[args.mesh_case]
+    plan = make_mesh(nd, nm)
+    rows = form_rows(args.seed, np)
+    out = {"rank": r, "case": args.mesh_case,
+           "place": [plan.data_index, plan.model_index], "fits": {}}
+    for name, knobs in fits:
+        cfg = form_config(name, knobs, args.seed)
+        tr = Trainer(cfg, vocab, device="cuda", plan=plan)
+        steps = TOKEN_STEPS if name == "pairgen" else FORM_STEPS
+        rounds = []
+        run = tr._run_chunk
+
+        def run_chunk(chunk, run=run, rounds=rounds):
+            host = chunk.get("pinned") or chunk["arrays"]  # a staged chunk's host copy
+            rounds.append({**{k: np.array(v) for k, v in host.items()},
+                           "real": chunk["real"],
+                           **{k: np.asarray(chunk[k]) for k in ("sub_bases", "win_bases")
+                              if k in chunk}})
+            return run(chunk)
+
+        tr._run_chunk = run_chunk
+        _stop_at(tr, steps)
+        ck = str(d / "ck_pairgen") if name == "pairgen" else None
+        torch.cuda.synchronize()
+        reset_counts(fused, scat)
+        distributed.COLLECTIVES.reset()
+        t0 = time.perf_counter()
+        try:
+            tr.fit(enc, checkpoint_path=ck,
+                   checkpoint_every_steps=TOKEN_CKPT if ck else None)
+        except _MeshStop:
+            pass
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        C = distributed.COLLECTIVES
+        rec = {"steps": tr.global_step, "pool": tr.config.negative_pool,
+               "form": tr._step_form(), "tokens_per_step": tr._tokens_per_step,
+               "scatter_launches": scat.scatter_add_rows_.launches,
+               "fused_launches": fused.fused_sgns_shared_step.launches,
+               "collectives": {f"{op}/{ax}": n for (op, ax), n in C.counts.items()},
+               "fit_s": fit_s, "dispatch_s": tr.dispatch_time,
+               "step_ms": 1e3 * tr.dispatch_time / max(tr.global_step, 1),
+               "staged_s": C.staged_s, "staged_calls": C.staged_calls,
+               "staging_share": C.staged_s / max(tr.dispatch_time, 1e-9)}
+        if r == 0:
+            keys = [k for k in rounds[0] if k not in ("real",)]
+            np.savez(d / f"{name}-rounds.npz",
+                     **{k: np.stack([x[k] for x in rounds]) for k in keys},
+                     real=np.asarray([x["real"] for x in rounds]))
+        if plan.data_index == 0:
+            lo, hi = plan.rows(tr.padded_vocab)
+            mine = rows[(rows >= lo) & (rows < hi)]
+            np.savez(d / f"{name}-rows-r{r}.npz", ids=mine, **{
+                m: getattr(tr.params, m)[torch.from_numpy(mine - lo).cuda(), :D_REAL]
+                .cpu().numpy() for m in ("syn0", "syn1")})
+        rec["scatter_hold"] = _form_scatter_hold(
+            tr, plan, torch, scat, form_slots(name, tr.config, nd, tr._tokens_per_step))
+        out["fits"][name] = rec
+        del tr, rounds
+        torch.cuda.empty_cache()
+    return out
+
+
+def _form_plain_step(name: str, p, ins: dict, k: int, sgns, cb, plain) -> None:
+    """Step k of the input buffers through the plain single-device step of fit
+    ``name``, in place on ``p``; every scatter plain (``index_add_``)."""
+    a, neg = ins["alphas"][k], ins["negatives"][k]
+    if name == "banded":
+        cb.cbow_step_banded_core(p, ins["tokens"][k], ins["left"][k], ins["right"][k],
+                                 ins["center"][k], ins["token"][k], neg, a, N_NEG, WINDOW,
+                                 scatter=plain)
+        return
+    c, x, m = ins["centers"][k], ins["contexts"][k], ins["mask"][k]
+    if name.startswith("per_pair"):
+        sgns.sgns_step_core(p, c, x, m, neg, a, scatter=plain,
+                            duplicate_scaling=name.endswith("_dup"))
+    elif name == "cbow_shared":
+        sgns.cbow_step_shared_core(p, c, x, ins["ctx_mask"][k], m, neg, a, N_NEG,
+                                   scatter=plain)
+    elif name == "cbow_pe_dup":
+        sgns.cbow_step_core(p, c, x, ins["ctx_mask"][k], m, neg, a, scatter=plain,
+                            duplicate_scaling=True)
+    else:
+        sgns.sgns_step_shared_scatter_(p, c, x, m, neg, a, N_NEG, scatter=plain)
+
+
+def _form_replay(name: str, knobs: dict, nd: int, d: Path, vocab, start, seed: int,
+                 torch, np):
+    """Fit ``name``'s recorded global rounds through the plain single-process step on
+    the card, from the trainer's seeded start: a one-device trainer's prologue builds
+    each round's inputs (masks, negatives, the device pairs or windows; its token
+    segments are the mesh's data shards), :func:`_form_plain_step` runs the steps."""
+    from glint_word2vec_torch.ops import cbow_banded as cb
+    from glint_word2vec_torch.ops import sgns
+    from glint_word2vec_torch.ops.sgns_shard import _plain_scatter
+    from glint_word2vec_torch.train.checkpoint import TrainState
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    cfg = form_config(name, knobs, seed)
+    token = cfg.device_pairgen or cfg.cbow_update == "banded"
+    st = (TrainState(iteration=1, shard_progress=[[1, 0]] * nd, shard_feed="tokens")
+          if token and nd > 1 else None)
+    tr = Trainer(cfg, vocab, params=start, train_state=st, device="cuda")
+    tr._exact_pairs = torch.zeros((), dtype=torch.int64, device="cuda")
+    tr._dropped = torch.zeros((), dtype=torch.int64, device="cuda")
+    rd = np.load(d / f"{name}-rounds.npz")
+    keys = [k for k in rd.files if k not in ("real", "sub_bases", "win_bases")]
+    step = 0
+    for i, real in enumerate(rd["real"]):
+        chunk = {"arrays": {k: rd[k][i] for k in keys}, "real": int(real)}
+        if token:
+            chunk.update(sub_bases=[int(b) for b in rd["sub_bases"][i]],
+                         win_bases=[int(b) for b in rd["win_bases"][i]])
+        tr.global_step = step
+        tr._prologue(chunk)
+        for k in range(int(real)):
+            _form_plain_step(name, tr.params, tr._inputs, k, sgns, cb, _plain_scatter)
+        step += int(real)
+    return tr, step
+
+
+def _mesh_rows(d: Path, name: str, ranks: list, np) -> dict:
+    """The compared rows of fit ``name`` from the data-index-0 ranks' files."""
+    parts = [np.load(d / f"{name}-rows-r{r}.npz") for r in ranks]
+    return {k: np.concatenate([x[k] for x in parts]) for k in ("ids", "syn0", "syn1")}
+
+
+def _rows_err(rows: dict, params, torch) -> float:
+    ids = torch.from_numpy(rows["ids"]).cuda()
+    return max(float((getattr(params, m)[ids, :D_REAL]
+                      - torch.from_numpy(rows[m]).cuda()).abs().max())
+               for m in ("syn0", "syn1"))
+
+
+def forms_phase(seed: int, torch, np) -> tuple:
+    """Phase 16: every step form and both multi-process feeds on the mesh, two ranks
+    sharing this card through gloo staged in host memory, at phase 15's widths: world
+    (1, 2) runs the per-pair step, shared-pool CBOW and a device_pairgen fit saved at
+    step 8; world (2, 1) the per-pair step and per-example CBOW with duplicate scaling
+    and banded CBOW. Each fit is held against the plain one-process replay of its
+    rounds on the compared rows, launches the scatter kernel and never the fused one,
+    and its rank's scatter is held against index_add_ at the fit's own sizes; then the
+    device_pairgen checkpoint resumes on one process on the card, to the mesh fit's
+    rounds and rows."""
+    from glint_word2vec_torch import Vocabulary
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.ops import fused_sgns as fused
+    from glint_word2vec_torch.ops import scatter as scat
+    from glint_word2vec_torch.ops import sgns
+    from glint_word2vec_torch.train.checkpoint import load_model, load_model_header
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    d = Path(tempfile.mkdtemp(prefix="chip-smoke-forms-"))
+    rec, launches = {"fits": {}}, {}
+    try:
+        worlds = {}
+        for case in FORM_WORLDS:
+            t0 = time.perf_counter()
+            worlds[case] = _mesh_world(case, d, seed)
+            rec[f"{case}_world_s"] = time.perf_counter() - t0
+        words, counts, sents = synthetic_corpus(seed, MESH_TOKENS, np)
+        vocab = Vocabulary.from_words_and_counts(words, counts)
+        start = sgns.init_embeddings(V, D_REAL, torch.Generator().manual_seed(seed))
+        t0 = time.perf_counter()
+        for case, ((nd, nm), fits) in FORM_WORLDS.items():
+            ranks = worlds[case]
+            for name, knobs in fits:
+                per = [x["fits"][name] for x in ranks]
+                for x in per:
+                    if x["scatter_launches"] <= 0 or x["fused_launches"]:
+                        raise AssertionError(
+                            f"forms {name}: scatter launches {x['scatter_launches']}, "
+                            f"fused {x['fused_launches']} (want > 0 and 0)")
+                tr, steps = _form_replay(name, knobs, nd, d, vocab, start, seed,
+                                         torch, np)
+                if steps != per[0]["steps"]:
+                    raise AssertionError(f"forms {name}: replay {steps} steps, fit "
+                                         f"{per[0]['steps']}")
+                rows = _mesh_rows(d, name, list(range(nm)), np)
+                err = _rows_err(rows, tr.params, torch)
+                if not err <= PARAM_ATOL:
+                    raise AssertionError(f"forms {name}: mesh vs replay max |diff| {err}")
+                hold = max(h["max_abs_err"] for x in per
+                           for h in x["scatter_hold"].values())
+                if not hold <= PARAM_ATOL:
+                    raise AssertionError(f"forms {name}: scatter kernel vs plain {hold}")
+                rec["fits"][name] = {"mesh": [nd, nm], "ranks": per,
+                                     "max_abs_err_vs_replay": err,
+                                     "scatter_hold_max_abs_err": hold}
+                launches[f"mesh_{name}"] = sum(x["scatter_launches"] for x in per)
+                del tr
+                torch.cuda.empty_cache()
+        rec["replays_s"] = time.perf_counter() - t0
+        # the device_pairgen checkpoint (step 8, per-segment positions) on one process
+        t0 = time.perf_counter()
+        ck = str(d / "ck_pairgen")
+        header = load_model_header(ck)
+        st = header["train_state"]
+        if st.global_step != TOKEN_CKPT or st.finished or st.batches_done:
+            raise AssertionError(f"forms resume: checkpoint state {st}")
+        got = load_model(ck, verify=True)
+        tr = Trainer(header["config"], vocab, params=(got["syn0"], got["syn1"]),
+                     train_state=st, device="cuda")
+        del got
+        seen = []
+        run = tr._run_chunk
+
+        def run_chunk(chunk):
+            host = chunk.get("pinned") or chunk["arrays"]  # a staged chunk's host copy
+            seen.append({k: np.array(v) for k, v in host.items()}
+                        | {"real": chunk["real"]})
+            return run(chunk)
+
+        tr._run_chunk = run_chunk
+        _stop_at(tr, TOKEN_STEPS)
+        reset_counts(fused, scat)
+        try:
+            tr.fit(encode_sentences(sents, vocab, 1000))
+        except _MeshStop:
+            pass
+        torch.cuda.synchronize()
+        mesh_rd = np.load(d / "pairgen-rounds.npz")
+        first = TOKEN_CKPT // FORM_K
+        if [x["real"] for x in seen] != list(mesh_rd["real"][first:]):
+            raise AssertionError(f"forms resume: rounds {[x['real'] for x in seen]}")
+        for i, x in enumerate(seen):
+            n = x["real"]
+            for k in ("tokens", "starts", "nvalid", "obase", "alphas"):
+                if not np.array_equal(x[k][:n], mesh_rd[k][first + i][:n]):
+                    raise AssertionError(f"forms resume: round {i} {k} differs")
+        err = _rows_err(_mesh_rows(d, "pairgen", [0, 1], np), tr.params, torch)
+        if not err <= PARAM_ATOL:
+            raise AssertionError(f"forms resume: one process vs mesh max |diff| {err}")
+        rec["resume"] = {"steps": tr.global_step, "rounds": len(seen),
+                         "max_abs_err_vs_mesh": err,
+                         "fused_launches": fused.fused_sgns_shared_step.launches,
+                         "s": time.perf_counter() - t0}
+        launches["mesh_resume_one_process"] = {
+            "sgns_shared_step": fused.fused_sgns_shared_step.launches,
+            "scatter_add_rows": scat.scatter_add_rows_.launches}
+        del tr
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for name, f in rec["fits"].items():
+        for x in f["ranks"]:
+            log("forms", f"{name} rank {f['ranks'].index(x)} on mesh {tuple(f['mesh'])} "
+                f"({x['form']}, pool {x['pool']}, T {x['tokens_per_step']}): "
+                f"{x['steps']} steps, {x['step_ms']:.3f} ms a step (dispatch, eager), "
+                f"staging {x['staged_s']:.3f} s in {x['staged_calls']} calls = "
+                f"{x['staging_share']:.1%}; scatter launches {x['scatter_launches']}, "
+                f"fused {x['fused_launches']}; collectives {x['collectives']}; "
+                "scatter vs "
+                "plain " + ", ".join(f"{m} {h['slots']} slots ({h['live']} live) "
+                                     f"{h['max_abs_err']:.3g}"
+                                     for m, h in x["scatter_hold"].items()))
+        log("forms", f"{name}: mesh vs one-process plain replay max |diff| "
+            f"{f['max_abs_err_vs_replay']:.3g} on {2 * FORM_ROWS} rows (limit "
+            f"{PARAM_ATOL})")
+    r = rec["resume"]
+    log("forms", f"device_pairgen checkpoint at step {TOKEN_CKPT} resumed on one "
+        "process: "
+        f"{r['rounds']} rounds equal to the mesh fit's, to step {r['steps']}, max |diff| "
+        f"{r['max_abs_err_vs_mesh']:.3g}; fused launches {r['fused_launches']}; worlds "
+        + ", ".join(f"{c} {rec[c + '_world_s']:.1f} s" for c in FORM_WORLDS)
+        + f", replays {rec['replays_s']:.1f} s, resume {r['s']:.1f} s")
+    rec["scatter_hold_max_abs_err"] = max(f["scatter_hold_max_abs_err"]
+                                          for f in rec["fits"].values())
+    return rec, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3879,6 +4268,15 @@ def main() -> int:
                           "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
     srec["max_abs_err"] = max(srec["max_abs_err"], mesh["scatter_hold_max_abs_err"])
     log("mesh", f"phase 15 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    forms, forms_launches = forms_phase(args.seed, torch, np)
+    for name, n in forms_launches.items():  # phase 16: the scatter kernel on every rank
+        counts_ = n if isinstance(n, dict) else {"scatter_add_rows": n}
+        launches[name] = {"sgns_shared_step": counts_.get("sgns_shared_step", 0),
+                          "scatter_add_rows": counts_["scatter_add_rows"],
+                          "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
+    srec["max_abs_err"] = max(srec["max_abs_err"], forms["scatter_hold_max_abs_err"])
+    log("forms", f"phase 16 in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -3940,7 +4338,7 @@ def main() -> int:
                                               "fleet": fleet,
                                               "continual": continual,
                                               "quality": quality,
-                                              "mesh": mesh,
+                                              "mesh": mesh, "forms": forms,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,
                                               "card": card}) + "\n")

@@ -25,14 +25,15 @@ ladder, ``telemetry_path``, ``status_port``, ``checkpoint_on_preempt``), with
 ``jax.profiler`` one.
 
 On a (data, model) mesh of ranks (``num_data_shards`` x ``num_model_shards``, or
-``mesh_shape``; one rank a card, ``parallel/``) the port trains the shared-pool
-skip-gram step row-sharded, with ``sync_every`` (local SGD), ``shard_input``,
+``mesh_shape``; one rank a card, ``parallel/``) the port trains every step form
+row-sharded: skip-gram with the shared pool or per pair, scatter CBOW with either pool,
+banded CBOW, ``duplicate_scaling`` where the JAX package has it, with ``sync_every``
+(local SGD), ``shard_input``, ``device_pairgen``, ``sharded_prefetch``,
 ``sharded_checkpoint`` and ``peer_beacon_s`` as in the JAX package. ``step_lowering``
 takes both values and the JAX package's selection matrix (:func:`_validate_mesh`); the
-port has one schedule for both, the owner-local one. The combinations the JAX package
-runs only under GSPMD (the per-pair step, CBOW, ``duplicate_scaling``,
-``device_pairgen`` on a mesh) and the column layout are refused by name (ROADMAP.md
-queue A9b). The serving tier's ``serve_*`` knobs, the fleet's ``serve_fleet_*`` among them, are
+port has one schedule for both, the owner-local one. The column layout is refused by
+name (ROADMAP.md queue A9b), and ``hot_rows`` by the JAX package's own refusal. The
+serving tier's ``serve_*`` knobs, the fleet's ``serve_fleet_*`` among them, are
 read only by :mod:`.serve`.
 """
 
@@ -42,7 +43,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 # Knobs not ported, refused off their default: use_pallas by design (ROADMAP C), the
-# column layout with the rest of the multi-device work still queued (ROADMAP A9b).
+# column layout (ROADMAP A9b.2).
 _UNPORTED = ("use_pallas", "embedding_partition")
 
 
@@ -122,7 +123,8 @@ class Word2VecConfig:
     producer_workers: int = 1             # feed slabs generated on a thread pool
     io_workers: int = 1                   # vocabulary counting, checkpoint and
                                           # export I/O threads
-    sharded_prefetch: bool = True         # multi-process only: inert here
+    sharded_prefetch: bool = True         # the mesh token feed: rounds staged one
+                                          # ahead on a thread (with prefetch_chunks)
 
     # --- fault tolerance ---
     nonfinite_policy: str = "halt"
@@ -236,11 +238,6 @@ class Word2VecConfig:
                     f"{name}={value!r} is not ported to glint_word2vec_torch "
                     f"(default {defaults[name]!r}); see ROADMAP.md "
                     f"{'section C' if name == 'use_pallas' else 'queue A9b'}")
-        nd, nm = self.mesh_size
-        if nd * nm > 1:
-            refuse_unported_on_mesh(
-                self, f"a {nd}x{nm} mesh (num_data_shards x num_model_shards, or "
-                "mesh_shape)")
 
     @property
     def mesh_size(self) -> Tuple[int, int]:
@@ -489,29 +486,6 @@ def _validate_restructurings(c: Word2VecConfig) -> None:
             f"every chunk flushes at its end, so the cadence cannot "
             f"exceed or straddle the chunk (0 = auto: once per "
             f"chunk)")
-
-
-def refuse_unported_on_mesh(c: Word2VecConfig, where: str) -> None:
-    """The combinations the port does not run on a mesh larger than 1x1 (``where``
-    names it), refused by name: the JAX package runs them under GSPMD only, and the
-    port has one schedule, the owner-local shared-pool skip-gram step (ROADMAP.md queue
-    A9b). Checked at construction when the config names the mesh, and by the
-    ``Trainer`` when the world decides it."""
-    what = None
-    if c.cbow:
-        what = (f"cbow=True (cbow_update={c.cbow_update!r}): CBOW's scatter and banded "
-                "steps")
-    elif c.duplicate_scaling:
-        what = "duplicate_scaling=True: the mean-update step"
-    elif c.negative_pool == 0:
-        what = "negative_pool=0: the per-pair step"
-    elif c.device_pairgen:
-        what = "device_pairgen=True: the sharded device feed"
-    if what is not None:
-        raise NotImplementedError(
-            f"{what} on {where} runs only under the JAX package's GSPMD lowering; the "
-            "port's mesh runs the owner-local shared-pool skip-gram step, and the rest "
-            "is not ported yet (ROADMAP.md queue A9b)")
 
 
 def _validate_mesh(c: Word2VecConfig) -> None:

@@ -523,18 +523,20 @@ def epoch_batches_cbow(
     legacy_asymmetric_window: bool = True,
     block_words: int = 1_000_000,
     producer_workers: int = 1,
+    shard: int = 0,
+    num_shards: int = 1,
 ) -> Iterator[CbowBatch]:
-    """CBOW analog of :func:`epoch_batches` (the JAX package's shard 0 of 1):
-    fixed-shape [B, 2·window] context batches over the same position-keyed stream,
-    the last batch zero-padded and masked. ``producer_workers``: the same slab pool
-    as :func:`epoch_batches`, over the numpy :func:`_block_cbow` (there is no native
+    """CBOW analog of :func:`epoch_batches`: fixed-shape [B, 2·window] context
+    batches over the same position-keyed stream, sharded as the skip-gram feed is
+    (the sharded-input mesh fit's ranks each pull their shard), the last batch
+    zero-padded and masked. ``producer_workers``: the same slab pool as
+    :func:`epoch_batches`, over the numpy :func:`_block_cbow` (there is no native
     CBOW generator)."""
     B = int(pairs_per_batch)
-    shard = 0
     rng = stream_rng(seed, iteration, shard)
     keep = keep_probabilities(
         vocab.counts, vocab.train_words_count, subsample_ratio).astype(np.float32)
-    order = np.arange(len(sentences))
+    order = np.arange(shard, len(sentences), num_shards)
     if shuffle:
         rng.shuffle(order)
 

@@ -161,12 +161,56 @@ def cbow_step_banded_core(
     if endpoint not in ENDPOINT_FORMS:
         raise ValueError(f"endpoint must be one of {ENDPOINT_FORMS}, got {endpoint!r}")
     syn0, syn1 = params
-    T = tokens.shape[0]
     P = negatives.shape[0]
     dev = syn0.device
-    t = torch.arange(T, dtype=torch.int64, device=dev)
-    pf = torch.promote_types(syn0.dtype, torch.float32)  # prefix accumulation dtype
     cd = compute_dtype or syn0.dtype
+    d_ctx, d_out, d_Z, live, stats = banded_updates_from_rows(
+        syn0[tokens], syn1[tokens].to(cd), syn1[negatives].to(cd), tokens, left, right,
+        center_mask, token_mask, negatives, alpha, num_negatives, window, sigmoid_mode,
+        with_metrics, scatter, stabilizers=stabilizers, endpoint=endpoint,
+        logits_dtype=logits_dtype)
+    scatter(syn0, tokens, d_ctx.to(syn0.dtype), token_mask)
+    scatter(syn1, torch.cat([tokens, negatives]), torch.cat([d_out, d_Z]).to(syn1.dtype),
+            torch.cat([live, torch.ones(P, dtype=live.dtype, device=dev)]))
+    if (stabilizers or _OFF).post_pass:
+        V = syn0.shape[0]
+        enable = token_mask.sum() > 0
+        stabilize_rows_(syn0, _mask_sentinel(tokens, token_mask, V), alpha,
+                        stabilizers, enable)
+        stabilize_rows_(syn1, torch.cat([_mask_sentinel(tokens, live, V), negatives]),
+                        alpha, stabilizers, enable)
+    pairs = live.sum()
+    if not with_metrics:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return StepMetrics(zero, zero, pairs)
+    denom = torch.clamp(pairs, min=1.0)
+    return StepMetrics(stats[0] / denom, stats[1] / denom, pairs)
+
+
+def banded_updates_from_rows(
+    e: torch.Tensor,            # [T, D] syn0 rows of the tokens, the parameters' dtype
+    e_out: torch.Tensor,        # [T, D] syn1 rows of the tokens, the compute dtype
+    Z: torch.Tensor,            # [P, D] syn1 rows of the pool, the compute dtype
+    tokens: torch.Tensor, left: torch.Tensor, right: torch.Tensor,
+    center_mask: torch.Tensor, token_mask: torch.Tensor, negatives: torch.Tensor,
+    alpha, num_negatives: int, window: int, sigmoid_mode: str = "exact",
+    with_metrics: bool = True, scatter: Scatter = scatter_add_rows_, *,
+    stabilizers: Optional[Stabilizers] = None, endpoint: str = "auto",
+    logits_dtype: Optional[torch.dtype] = None,
+):
+    """The banded step's math on rows already gathered: the tokens' context update
+    rows d_ctx [T, D] (in ``promote_types(e.dtype, float32)``, zero at dead slots),
+    their output rows d_out [T, D] and the pool's dZ [P, D] (the compute dtype), the
+    live examples [T] and the loss and mean-f_pos numerators (zeros without
+    ``with_metrics``). ``scatter`` builds the endpoint delta's scatter form. The
+    single-device step and the row-sharded one (``ops/sgns_shard.py``) run this one
+    function."""
+    T = tokens.shape[0]
+    P = negatives.shape[0]
+    dev = e.device
+    t = torch.arange(T, dtype=torch.int64, device=dev)
+    pf = torch.promote_types(e.dtype, torch.float32)  # prefix accumulation dtype
+    cd = e_out.dtype
     ld = logits_dtype or _wide(cd)
 
     ctx_n_i = left + right
@@ -174,7 +218,6 @@ def cbow_step_banded_core(
     live = center_mask * has_ctx                                     # [T]
 
     # forward: the windowed context mean as one prefix-sum difference
-    e = syn0[tokens]                                                 # [T, D]
     ep = e.to(pf)
     S = cumsum_rows(ep)
     Spad = torch.cat([torch.zeros((1, S.shape[1]), dtype=pf, device=dev), S])
@@ -183,8 +226,6 @@ def cbow_step_banded_core(
     hidden = (ctx_sum / ctx_n[:, None]).to(cd)                       # [T, D]
 
     # the shared-pool chain of the scatter step
-    e_out = syn1[tokens].to(cd)                                      # [T, D]
-    Z = syn1[negatives].to(cd)                                       # [P, D]
     f_pos = torch.sum(hidden * e_out, dim=-1).to(_wide(cd))
     f_neg = (hidden @ Z.T).to(ld)                                    # [T, P]
     neg_valid = (negatives[None, :] != tokens[:, None]).to(ld) \
@@ -209,23 +250,11 @@ def cbow_step_banded_core(
     delta = _band_endpoint_delta(g_row, left, right, window, form, scatter, live)
     d_ctx = (cumsum_rows(delta) - g_row) * token_mask[:, None].to(pf)
 
-    scatter(syn0, tokens, d_ctx.to(syn0.dtype), token_mask)
-    scatter(syn1, torch.cat([tokens, negatives]), torch.cat([d_out, d_Z]).to(syn1.dtype),
-            torch.cat([live, torch.ones(P, dtype=live.dtype, device=dev)]))
-    if (stabilizers or _OFF).post_pass:
-        V = syn0.shape[0]
-        enable = token_mask.sum() > 0
-        stabilize_rows_(syn0, _mask_sentinel(tokens, token_mask, V), alpha,
-                        stabilizers, enable)
-        stabilize_rows_(syn1, torch.cat([_mask_sentinel(tokens, live, V), negatives]),
-                        alpha, stabilizers, enable)
-
-    pairs = live.sum()
     if not with_metrics:
         zero = torch.zeros((), dtype=torch.float32, device=dev)
-        return StepMetrics(zero, zero, pairs)
-    denom = torch.clamp(pairs, min=1.0)
+        return d_ctx, d_out, d_Z, live, (zero, zero)
     neg_term = torch.sum(_log_sigmoid(-f_neg) * neg_valid * has_ctx[:, None].to(ld),
                          dim=-1, dtype=_wide(ld))
-    loss = (-_log_sigmoid(f_pos) * live - neg_term * (num_negatives / P)).sum() / denom
-    return StepMetrics(loss, (f_pos * live).sum() / denom, pairs)
+    return d_ctx, d_out, d_Z, live, (
+        (-_log_sigmoid(f_pos) * live - neg_term * (num_negatives / P)).sum(),
+        (f_pos * live).sum())

@@ -400,20 +400,29 @@ def shared_pool_updates_from_rows(
     stabilizers: Optional[Stabilizers] = None,
     logits_dtype: Optional[torch.dtype] = None, fused: bool = False,
     bf16_chain: bool = False, dup_vocab: int = 0,
+    dup_scales: Optional[Tuple[torch.Tensor, ...]] = None,
 ):
     """The shared-pool step's math on rows already gathered in the compute dtype
     (e_in [B, D], e_pos [B, D], Z [P, D]): the update rows d_in, d_pos, d_Z and the
     logit chain (f_pos, f_neg, neg_valid). ``dup_vocab > 0`` turns
-    ``duplicate_scaling`` on over a vocabulary of that size. The single-device steps
-    and the row-sharded step (``ops/sgns_shard.py``, whose rows are assembled across
-    the model axis) run this one function, so the two cannot drift."""
+    ``duplicate_scaling`` on over a vocabulary of that size, counting the rows in this
+    batch; ``dup_scales`` turns it on with the counts taken elsewhere (the row-sharded
+    step counts the global batch): the centers' scale [B] (1 / count), the contexts'
+    divisor [B] and the pool rows' scale [P]. The single-device steps and the
+    row-sharded step (``ops/sgns_shard.py``, whose rows are assembled across the model
+    axis) run this one function, so the two cannot drift."""
     cd = e_in.dtype
     duplicate_scaling = dup_vocab > 0
     f_pos, f_neg, neg_valid, g_pos, g_neg = shared_pool_coeffs(
         e_in, e_pos, Z, contexts, negatives, mask, alpha, num_negatives, sigmoid_mode,
         matmul=matmul, logits_dtype=logits_dtype, fused=fused, bf16_chain=bf16_chain)
     g_pos_in, g_neg_in, g_pos_out, z_scale = g_pos, g_neg, g_pos, None
-    if duplicate_scaling:
+    if dup_scales is not None:
+        in_scale, out_div, z_scale = dup_scales
+        g_pos_in = g_pos * in_scale
+        g_neg_in = g_neg * in_scale[:, None].to(g_neg.dtype)
+        g_pos_out = g_pos / out_div
+    elif duplicate_scaling:
         V = dup_vocab
         in_scale = 1.0 / torch.clamp(_counts(V, (centers, mask))[centers], min=1.0)
         g_pos_in = g_pos * in_scale
@@ -564,6 +573,72 @@ def sgns_step_shared_scatter_(
     return _shared_metrics(chain, mask, num_negatives, with_metrics)
 
 
+def per_pair_valid(negatives: torch.Tensor, contexts: torch.Tensor, mask: torch.Tensor,
+                   fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(neg_valid, neg_live) of the per-pair chain: a negative counts where it differs
+    from its pair's context on a live pair; ``fused`` keeps the predicate bool, and
+    ``neg_live`` is its float32 form (the scatter's live slots)."""
+    if fused:
+        neg_valid = (negatives != contexts[:, None]) & (mask[:, None] > 0)
+        return neg_valid, neg_valid.to(torch.float32)
+    neg_valid = (negatives != contexts[:, None]).to(torch.float32) * mask[:, None]
+    return neg_valid, neg_valid
+
+
+def per_pair_updates_from_rows(
+    e_in: torch.Tensor, e_pos: torch.Tensor, e_neg: torch.Tensor, mask: torch.Tensor,
+    neg_valid: torch.Tensor, alpha, sigmoid_mode: str = "exact", *,
+    dup_div: Optional[Tuple[torch.Tensor, ...]] = None,
+    stabilizers: Optional[Stabilizers] = None, fused: bool = False,
+    bf16_chain: bool = False,
+):
+    """The per-pair step's math on rows already gathered in the compute dtype (e_in,
+    e_pos [B, D], e_neg [B, n, D]): d_in [B, D], syn1's update rows [B·(1 + n), D]
+    (contexts, then negatives) and the loss and mean-f_pos numerators. ``dup_div``
+    (duplicate scaling): the divisors of the centers' [B], contexts' [B] and
+    negatives' [B, n] updates, each row's count in the batch, at least 1. The
+    single-device step and the row-sharded one (``ops/sgns_shard.py``, whose rows and
+    counts come from across the mesh) run this one function."""
+    B, n, D = e_neg.shape
+    cd = e_in.dtype
+    wide = _wide(cd)
+    if bf16_chain:
+        f_pos = torch.sum(e_in.to(wide) * e_pos.to(wide), dim=-1)
+        f_neg = torch.einsum("bd,bnd->bn", e_in.to(wide), e_neg.to(wide))
+    else:
+        f_pos = torch.sum(e_in * e_pos, dim=-1).to(wide)
+        f_neg = torch.einsum("bd,bnd->bn", e_in, e_neg).to(wide)
+    g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * mask
+    if fused:
+        g_neg = torch.where(neg_valid, _sigmoid(f_neg, sigmoid_mode) * (-alpha),
+                            torch.zeros((), dtype=f_neg.dtype, device=f_neg.device))
+    else:
+        g_neg = (0.0 - _sigmoid(f_neg, sigmoid_mode)) * alpha * neg_valid
+    g_pos_in, g_neg_in, g_pos_out, g_neg_out = g_pos, g_neg, g_pos, g_neg
+    if dup_div is not None:
+        in_div, ctx_div, neg_div = dup_div
+        g_pos_in, g_neg_in = g_pos / in_div, g_neg / in_div[:, None]
+        g_pos_out = g_pos / ctx_div
+        g_neg_out = g_neg / neg_div
+    d_in = (g_pos_in[:, None].to(cd) * e_pos
+            + torch.einsum("bn,bnd->bd", g_neg_in.to(cd), e_neg))
+    # syn1's update rows, contexts then negatives, written in place into one buffer
+    upd1 = torch.empty((B * (1 + n), D), dtype=cd, device=e_in.device)
+    torch.mul(g_pos_out[:, None].to(cd), e_in, out=upd1[:B])
+    torch.mul(g_neg_out[..., None].to(cd), e_in[:, None, :], out=upd1[B:].view(B, n, D))
+    if (stabilizers or _OFF).update_clip:
+        d_in = clip_update_rows(d_in, stabilizers.update_clip)
+        upd1 = clip_update_rows(upd1, stabilizers.update_clip)
+    if fused:
+        neg_loss = torch.sum(torch.where(neg_valid, _log_sigmoid(-f_neg),
+                                         torch.zeros((), dtype=f_neg.dtype,
+                                                     device=f_neg.device)), dim=-1)
+    else:
+        neg_loss = torch.sum(_log_sigmoid(-f_neg) * neg_valid, dim=-1)
+    return d_in, upd1, ((-_log_sigmoid(f_pos) * mask - neg_loss).sum(),
+                        (f_pos * mask).sum())
+
+
 def sgns_step_core(
     params: EmbeddingPair,
     centers: torch.Tensor,    # int64 [B]
@@ -591,47 +666,22 @@ def sgns_step_core(
     ``hot_slabs`` as in the JAX function; the per-pair chain has no logits dtype."""
     syn0, syn1 = params
     B, n = negatives.shape
-    D = syn0.shape[1]
     cd = compute_dtype or syn0.dtype
-    wide = _wide(cd)
     slab0, slab1 = hot_slabs if hot_slabs is not None else (None, None)
     e_in = _gather(syn0, centers, cd, slab0)                         # [B, D]
     e_pos = _gather(syn1, contexts, cd, slab1)                       # [B, D]
     e_neg = _gather(syn1, negatives, cd, slab1)                      # [B, n, D]
-    if bf16_chain:
-        f_pos = torch.sum(e_in.to(wide) * e_pos.to(wide), dim=-1)
-        f_neg = torch.einsum("bd,bnd->bn", e_in.to(wide), e_neg.to(wide))
-    else:
-        f_pos = torch.sum(e_in * e_pos, dim=-1).to(wide)
-        f_neg = torch.einsum("bd,bnd->bn", e_in, e_neg).to(wide)
-    g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * mask
-    if fused:
-        neg_valid = (negatives != contexts[:, None]) & (mask[:, None] > 0)
-        g_neg = torch.where(neg_valid, _sigmoid(f_neg, sigmoid_mode) * (-alpha),
-                            torch.zeros((), dtype=f_neg.dtype, device=f_neg.device))
-        neg_live = neg_valid.to(torch.float32)
-    else:
-        neg_valid = neg_live = (negatives != contexts[:, None]).to(torch.float32) \
-            * mask[:, None]
-        g_neg = (0.0 - _sigmoid(f_neg, sigmoid_mode)) * alpha * neg_valid
-    g_pos_in, g_neg_in, g_pos_out, g_neg_out = g_pos, g_neg, g_pos, g_neg
+    neg_valid, neg_live = per_pair_valid(negatives, contexts, mask, fused)
+    dup = None
     if duplicate_scaling:
         V = syn0.shape[0]
         cnt0 = _counts(V, (centers, mask))
         cnt1 = _counts(V, (contexts, mask), (negatives.reshape(-1), neg_valid.reshape(-1)))
-        in_div = torch.clamp(cnt0[centers], min=1.0)
-        g_pos_in, g_neg_in = g_pos / in_div, g_neg / in_div[:, None]
-        g_pos_out = g_pos / torch.clamp(cnt1[contexts], min=1.0)
-        g_neg_out = g_neg / torch.clamp(cnt1[negatives], min=1.0)
-    d_in = (g_pos_in[:, None].to(cd) * e_pos
-            + torch.einsum("bn,bnd->bd", g_neg_in.to(cd), e_neg))
-    # syn1's update rows, contexts then negatives, written in place into one buffer
-    upd1 = torch.empty((B * (1 + n), D), dtype=cd, device=syn1.device)
-    torch.mul(g_pos_out[:, None].to(cd), e_in, out=upd1[:B])
-    torch.mul(g_neg_out[..., None].to(cd), e_in[:, None, :], out=upd1[B:].view(B, n, D))
-    if (stabilizers or _OFF).update_clip:
-        d_in = clip_update_rows(d_in, stabilizers.update_clip)
-        upd1 = clip_update_rows(upd1, stabilizers.update_clip)
+        dup = (torch.clamp(cnt0[centers], min=1.0), torch.clamp(cnt1[contexts], min=1.0),
+               torch.clamp(cnt1[negatives], min=1.0))
+    d_in, upd1, (loss_num, fpos_num) = per_pair_updates_from_rows(
+        e_in, e_pos, e_neg, mask, neg_valid, alpha, sigmoid_mode, dup_div=dup,
+        stabilizers=stabilizers, fused=fused, bf16_chain=bf16_chain)
     idx1 = torch.cat([contexts, negatives.reshape(-1)])
     live1 = torch.cat([mask, neg_live.reshape(-1)])
     if hot_slabs is not None:
@@ -650,25 +700,38 @@ def sgns_step_core(
             _mask_sentinel(negatives, mask[:, None].expand(B, n), V).reshape(-1)]),
             alpha, stabilizers, enable)
     denom = torch.clamp(mask.sum(), min=1.0)
-    if fused:
-        neg_loss = torch.sum(torch.where(neg_valid, _log_sigmoid(-f_neg),
-                                         torch.zeros((), dtype=f_neg.dtype,
-                                                     device=f_neg.device)), dim=-1)
-    else:
-        neg_loss = torch.sum(_log_sigmoid(-f_neg) * neg_valid, dim=-1)
-    loss = (-_log_sigmoid(f_pos) * mask - neg_loss).sum() / denom
-    return StepMetrics(loss, (f_pos * mask).sum() / denom, mask.sum())
+    return StepMetrics(loss_num / denom, fpos_num / denom, mask.sum())
 
 
 def _cbow_hidden(syn0: torch.Tensor, contexts: torch.Tensor, ctx_mask: torch.Tensor,
                  cd: torch.dtype):
     """(hidden [B, D], ctx_n [B], has_ctx [B]): the mean of the live context rows, and
     its divisor, in the compute dtype ``cd``."""
+    return cbow_hidden_from_rows(syn0[contexts].to(cd), ctx_mask)
+
+
+def cbow_hidden_from_rows(e_ctx: torch.Tensor, ctx_mask: torch.Tensor):
+    """:func:`_cbow_hidden` on the context rows already gathered ([B, C, D] in the
+    compute dtype)."""
+    cd = e_ctx.dtype
     ctx_count = ctx_mask.sum(dim=-1)
     ctx_n = torch.clamp(ctx_count, min=1.0).to(cd)
-    hidden = torch.einsum("bc,bcd->bd", ctx_mask.to(cd), syn0[contexts].to(cd)) \
-        / ctx_n[:, None]
+    hidden = torch.einsum("bc,bcd->bd", ctx_mask.to(cd), e_ctx) / ctx_n[:, None]
     return hidden, ctx_n, (ctx_count > 0).to(torch.float32)
+
+
+def cbow_context_rows(d_hidden: torch.Tensor, ctx_n: torch.Tensor,
+                      ctx_mask: torch.Tensor,
+                      ctx_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The context slots' update rows [B·C, D]: the mean convention gives each live
+    slot d_hidden / |context| (times ``ctx_scale`` [B, C], duplicate scaling's per-slot
+    factor, when given); a dead slot's row is zero."""
+    D = d_hidden.shape[1]
+    d_ctx = (d_hidden / ctx_n[:, None])[:, None, :] \
+        * ctx_mask.to(d_hidden.dtype)[..., None]                       # [B, C, D]
+    if ctx_scale is not None:
+        d_ctx = d_ctx * ctx_scale.to(d_hidden.dtype)[..., None]
+    return d_ctx.reshape(-1, D)
 
 
 def _scatter_cbow_contexts(syn0: torch.Tensor, contexts: torch.Tensor,
@@ -678,12 +741,8 @@ def _scatter_cbow_contexts(syn0: torch.Tensor, contexts: torch.Tensor,
                            ctx_scale: Optional[torch.Tensor] = None) -> None:
     """Mean convention: each live context slot gets d_hidden / |context| (times
     ``ctx_scale`` [B, C], duplicate scaling's per-slot factor, when given)."""
-    D = syn0.shape[1]
-    d_ctx = (d_hidden / ctx_n[:, None])[:, None, :] \
-        * ctx_mask.to(d_hidden.dtype)[..., None]                       # [B, C, D]
-    if ctx_scale is not None:
-        d_ctx = d_ctx * ctx_scale.to(d_hidden.dtype)[..., None]
-    scatter(syn0, contexts.reshape(-1), d_ctx.reshape(-1, D).to(syn0.dtype),
+    scatter(syn0, contexts.reshape(-1),
+            cbow_context_rows(d_hidden, ctx_n, ctx_mask, ctx_scale).to(syn0.dtype),
             (ctx_mask * mask[:, None]).reshape(-1))
 
 
@@ -702,6 +761,49 @@ def _cbow_post_pass(syn0, syn1, contexts, ctx_mask, mask, has_ctx, centers,
                                          V).reshape(-1), alpha, stabilizers, enable)
     stabilize_rows_(syn1, torch.cat([_mask_sentinel(centers, live, V), neg_idx]),
                     alpha, stabilizers, enable)
+
+
+def cbow_updates_from_rows(
+    hidden: torch.Tensor, has_ctx: torch.Tensor, e_out: torch.Tensor,
+    e_neg: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
+    negatives: torch.Tensor, alpha, sigmoid_mode: str = "exact", *,
+    dup_div: Optional[Tuple[torch.Tensor, ...]] = None,
+    stabilizers: Optional[Stabilizers] = None,
+):
+    """The per-example CBOW step's math on the hidden mean and the rows already
+    gathered in the compute dtype (e_out [B, D], e_neg [B, n, D]): d_hidden [B, D],
+    syn1's update rows [B·(1 + n), D] (centers, then negatives), the live examples
+    [B], the live negatives [B, n] and the loss and mean-f_pos numerators.
+    ``dup_div`` (duplicate scaling): the context slots' scale [B, C] (1 / count) and
+    the divisors of the centers' [B] and negatives' [B, n] updates. The
+    single-device step and the row-sharded one run this one function."""
+    B, n, D = e_neg.shape
+    cd = hidden.dtype
+    wide = _wide(cd)
+    neg_valid = (negatives != centers[:, None]).to(torch.float32) * mask[:, None]
+    f_pos = torch.sum(hidden * e_out, dim=-1).to(wide)
+    f_neg = torch.einsum("bd,bnd->bn", hidden, e_neg).to(wide)
+    live = mask * has_ctx
+    neg_live = neg_valid * has_ctx[:, None]
+    g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
+    g_neg = (0.0 - _sigmoid(f_neg, sigmoid_mode)) * alpha * neg_live
+    g_pos_out, g_neg_out = g_pos, g_neg
+    if dup_div is not None:
+        _, out_div, neg_div = dup_div
+        g_pos_out = g_pos / out_div
+        g_neg_out = g_neg / neg_div
+    d_hidden = (g_pos[:, None].to(cd) * e_out
+                + torch.einsum("bn,bnd->bd", g_neg.to(cd), e_neg))
+    upd1 = torch.empty((B * (1 + n), D), dtype=cd, device=hidden.device)
+    torch.mul(g_pos_out[:, None].to(cd), hidden, out=upd1[:B])
+    torch.mul(g_neg_out[..., None].to(cd), hidden[:, None, :],
+              out=upd1[B:].view(B, n, D))
+    if (stabilizers or _OFF).update_clip:
+        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
+        upd1 = clip_update_rows(upd1, stabilizers.update_clip)
+    loss_num = (-_log_sigmoid(f_pos) * live
+                - torch.sum(_log_sigmoid(-f_neg) * neg_live, dim=-1)).sum()
+    return d_hidden, upd1, live, neg_live, (loss_num, (f_pos * live).sum())
 
 
 def cbow_step_core(
@@ -728,47 +830,74 @@ def cbow_step_core(
     row. ``compute_dtype`` as in the JAX function (the logits are f32-wide)."""
     syn0, syn1 = params
     B, n = negatives.shape
-    D = syn0.shape[1]
     cd = compute_dtype or syn0.dtype
-    wide = _wide(cd)
-    neg_valid = (negatives != centers[:, None]).to(torch.float32) * mask[:, None]
     hidden, ctx_n, has_ctx = _cbow_hidden(syn0, contexts, ctx_mask, cd)
     e_out = syn1[centers].to(cd)                                     # [B, D]
     e_neg = syn1[negatives].to(cd)                                   # [B, n, D]
-    f_pos = torch.sum(hidden * e_out, dim=-1).to(wide)
-    f_neg = torch.einsum("bd,bnd->bn", hidden, e_neg).to(wide)
-    live = mask * has_ctx
-    neg_live = neg_valid * has_ctx[:, None]
-    g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
-    g_neg = (0.0 - _sigmoid(f_neg, sigmoid_mode)) * alpha * neg_live
-    g_pos_out, g_neg_out, ctx_scale = g_pos, g_neg, None
+    dup = None
     if duplicate_scaling:
         V = syn0.shape[0]
+        live = mask * has_ctx
+        neg_live = (negatives != centers[:, None]).to(torch.float32) \
+            * mask[:, None] * has_ctx[:, None]
         cnt0 = _counts(V, (contexts.reshape(-1), (ctx_mask * live[:, None]).reshape(-1)))
         cnt1 = _counts(V, (centers, live), (negatives.reshape(-1), neg_live.reshape(-1)))
-        ctx_scale = 1.0 / torch.clamp(cnt0[contexts], min=1.0)
-        g_pos_out = g_pos / torch.clamp(cnt1[centers], min=1.0)
-        g_neg_out = g_neg / torch.clamp(cnt1[negatives], min=1.0)
-    d_hidden = (g_pos[:, None].to(cd) * e_out
-                + torch.einsum("bn,bnd->bd", g_neg.to(cd), e_neg))
-    upd1 = torch.empty((B * (1 + n), D), dtype=cd, device=syn1.device)
-    torch.mul(g_pos_out[:, None].to(cd), hidden, out=upd1[:B])
-    torch.mul(g_neg_out[..., None].to(cd), hidden[:, None, :],
-              out=upd1[B:].view(B, n, D))
-    if (stabilizers or _OFF).update_clip:
-        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
-        upd1 = clip_update_rows(upd1, stabilizers.update_clip)
+        dup = (1.0 / torch.clamp(cnt0[contexts], min=1.0),
+               torch.clamp(cnt1[centers], min=1.0), torch.clamp(cnt1[negatives], min=1.0))
+    d_hidden, upd1, live, neg_live, (loss_num, fpos_num) = cbow_updates_from_rows(
+        hidden, has_ctx, e_out, e_neg, centers, mask, negatives, alpha, sigmoid_mode,
+        dup_div=dup, stabilizers=stabilizers)
     _scatter_cbow_contexts(syn0, contexts, ctx_mask, mask, d_hidden, ctx_n, scatter,
-                           ctx_scale)
+                           None if dup is None else dup[0])
     scatter(syn1, torch.cat([centers, negatives.reshape(-1)]), upd1.to(syn1.dtype),
             torch.cat([live, neg_live.reshape(-1)]))
     _cbow_post_pass(syn0, syn1, contexts, ctx_mask, mask, has_ctx, centers,
                     _mask_sentinel(negatives, mask[:, None].expand(B, n),
                                    syn0.shape[0]).reshape(-1), alpha, stabilizers)
     denom = torch.clamp(live.sum(), min=1.0)
-    loss = (-_log_sigmoid(f_pos) * live
-            - torch.sum(_log_sigmoid(-f_neg) * neg_live, dim=-1)).sum() / denom
-    return StepMetrics(loss, (f_pos * live).sum() / denom, live.sum())
+    return StepMetrics(loss_num / denom, fpos_num / denom, live.sum())
+
+
+def cbow_shared_updates_from_rows(
+    hidden: torch.Tensor, has_ctx: torch.Tensor, e_out: torch.Tensor, Z: torch.Tensor,
+    centers: torch.Tensor, mask: torch.Tensor, negatives: torch.Tensor, alpha,
+    num_negatives: int, sigmoid_mode: str = "exact", *,
+    stabilizers: Optional[Stabilizers] = None,
+    logits_dtype: Optional[torch.dtype] = None, with_metrics: bool = True,
+):
+    """The shared-pool CBOW step's math on the hidden mean and the rows already
+    gathered in the compute dtype (e_out [B, D], Z [P, D]): d_hidden [B, D], syn1's
+    update rows [B + P, D] (centers, then the pool), the live examples [B] and the
+    loss and mean-f_pos numerators (zeros without ``with_metrics``). The single-device
+    step and the row-sharded one run this one function; the pool rows' dZ is summed
+    over the examples given (the sharded step sums the data shards' parts)."""
+    B, D = hidden.shape
+    P = negatives.shape[0]
+    cd = hidden.dtype
+    ld = logits_dtype or _wide(cd)
+    neg_valid = (negatives[None, :] != centers[:, None]).to(ld) * mask[:, None].to(ld)
+    f_pos = torch.sum(hidden * e_out, dim=-1).to(_wide(cd))
+    f_neg = (hidden @ Z.T).to(ld)                                    # [B, P]
+    live = mask * has_ctx
+    g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
+    g_neg = ((0.0 - _sigmoid(f_neg, sigmoid_mode)) * _scalar(alpha, ld) * neg_valid
+             * has_ctx[:, None].to(ld) * _scalar(num_negatives / P, ld))
+    d_hidden = g_pos[:, None].to(cd) * e_out + g_neg.to(cd) @ Z
+    upd1 = torch.empty((B + P, D), dtype=cd, device=hidden.device)
+    torch.mul(g_pos[:, None].to(cd), hidden, out=upd1[:B])
+    torch.matmul(g_neg.to(cd).T, hidden, out=upd1[B:])               # dZ [P, D]
+    if (stabilizers or _OFF).update_clip:
+        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
+        upd1[:B] = clip_update_rows(upd1[:B], stabilizers.update_clip)
+    if with_metrics:
+        neg_term = torch.sum(_log_sigmoid(-f_neg) * neg_valid * has_ctx[:, None].to(ld),
+                             dim=-1, dtype=_wide(ld))
+        stats = ((-_log_sigmoid(f_pos) * live - neg_term * (num_negatives / P)).sum(),
+                 (f_pos * live).sum())
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        stats = (zero, zero)
+    return d_hidden, upd1, live, stats
 
 
 def cbow_step_shared_core(
@@ -796,43 +925,24 @@ def cbow_step_shared_core(
     context slots, the live centers and the whole pool. ``compute_dtype`` and
     ``logits_dtype`` (the [B, P] chain) as in the JAX function."""
     syn0, syn1 = params
-    B = centers.shape[0]
     P = negatives.shape[0]
-    D = syn0.shape[1]
     cd = compute_dtype or syn0.dtype
-    ld = logits_dtype or _wide(cd)
-    neg_valid = (negatives[None, :] != centers[:, None]).to(ld) * mask[:, None].to(ld)
     hidden, ctx_n, has_ctx = _cbow_hidden(syn0, contexts, ctx_mask, cd)
     e_out = syn1[centers].to(cd)                                     # [B, D]
     Z = syn1[negatives].to(cd)                                       # [P, D]
-    f_pos = torch.sum(hidden * e_out, dim=-1).to(_wide(cd))
-    f_neg = (hidden @ Z.T).to(ld)                                    # [B, P]
-    live = mask * has_ctx
-    g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
-    g_neg = ((0.0 - _sigmoid(f_neg, sigmoid_mode)) * _scalar(alpha, ld) * neg_valid
-             * has_ctx[:, None].to(ld) * _scalar(num_negatives / P, ld))
-    d_hidden = g_pos[:, None].to(cd) * e_out + g_neg.to(cd) @ Z
-    upd1 = torch.empty((B + P, D), dtype=cd, device=syn1.device)
-    torch.mul(g_pos[:, None].to(cd), hidden, out=upd1[:B])
-    torch.matmul(g_neg.to(cd).T, hidden, out=upd1[B:])               # dZ [P, D]
-    if (stabilizers or _OFF).update_clip:
-        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
-        upd1[:B] = clip_update_rows(upd1[:B], stabilizers.update_clip)
+    d_hidden, upd1, live, (loss_num, fpos_num) = cbow_shared_updates_from_rows(
+        hidden, has_ctx, e_out, Z, centers, mask, negatives, alpha, num_negatives,
+        sigmoid_mode, stabilizers=stabilizers, logits_dtype=logits_dtype,
+        with_metrics=with_metrics)
     _scatter_cbow_contexts(syn0, contexts, ctx_mask, mask, d_hidden, ctx_n, scatter)
     scatter(syn1, torch.cat([centers, negatives]), upd1.to(syn1.dtype),
             torch.cat([live, torch.ones(P, dtype=live.dtype, device=live.device)]))
     _cbow_post_pass(syn0, syn1, contexts, ctx_mask, mask, has_ctx, centers, negatives,
                     alpha, stabilizers)
-    if with_metrics:
-        denom = torch.clamp(live.sum(), min=1.0)
-        neg_term = torch.sum(_log_sigmoid(-f_neg) * neg_valid * has_ctx[:, None].to(ld),
-                             dim=-1, dtype=_wide(ld))
-        loss = (-_log_sigmoid(f_pos) * live
-                - neg_term * (num_negatives / P)).sum() / denom
-        mean_f_pos = (f_pos * live).sum() / denom
-    else:
-        loss = mean_f_pos = torch.zeros((), dtype=torch.float32, device=syn0.device)
-    return StepMetrics(loss, mean_f_pos, live.sum())
+    if not with_metrics:
+        return StepMetrics(loss_num, fpos_num, live.sum())
+    denom = torch.clamp(live.sum(), min=1.0)
+    return StepMetrics(loss_num / denom, fpos_num / denom, live.sum())
 
 
 def alpha_schedule(

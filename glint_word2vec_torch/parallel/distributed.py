@@ -27,8 +27,10 @@ the card's queued work is not counted) accumulate in ``COLLECTIVES.staged_s``.
 
 The feed's :func:`allgather` packs a round's arrays into one byte buffer, so a round
 is one collective. It is blocking, as the JAX package's ``_fit_sharded`` calls
-``process_allgather``; the JAX split-phase form serves only the sharded device feed's
-overlap (ROADMAP A9b.3) and comes with it.
+``process_allgather``. Its split-phase form, :func:`allgather_start` (launch, a
+``torch.distributed`` work handle) and :func:`allgather_fetch` (wait and unpack), is
+the sharded token-block feed's: it launches the next round's gather one round ahead
+(``config.sharded_prefetch``).
 """
 
 from __future__ import annotations
@@ -260,6 +262,40 @@ def allgather(host_tree: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     out = [torch.empty_like(src) for _ in range(world_size())]
     dist.all_gather(out, src, group=host_group())
     return _unpack(torch.stack(out).numpy(), layout)
+
+
+class PendingGather:
+    """An allgather in flight (:func:`allgather_start`): its work handle (None in a
+    world of one), the output buffers and the packing layout."""
+
+    def __init__(self, work, out, layout, local=None):
+        self.work, self.out, self.layout, self.local = work, out, layout, local
+
+
+def allgather_start(host_tree: Dict[str, np.ndarray]) -> PendingGather:
+    """Launch :func:`allgather` of ``host_tree`` without waiting for it (an
+    ``async_op`` collective on the host group); :func:`allgather_fetch` waits and
+    unpacks. The JAX package's ``allgather_start``. Every rank must start its gathers
+    in one order, as with every collective."""
+    if not is_multiprocess():
+        return PendingGather(None, None, None,
+                             {k: np.expand_dims(np.asarray(v), 0)
+                              for k, v in host_tree.items()})
+    buf, layout = _pack(host_tree)
+    src = torch.from_numpy(buf)
+    COLLECTIVES.counts[("all_gather", "world")] += 1
+    out = [torch.empty_like(src) for _ in range(world_size())]
+    work = dist.all_gather(out, src, group=host_group(), async_op=True)
+    return PendingGather(work, out, layout)
+
+
+def allgather_fetch(pending: PendingGather) -> Dict[str, np.ndarray]:
+    """Wait for a gather :func:`allgather_start` launched; its arrays with the leading
+    [world] axis, as :func:`allgather` returns them."""
+    if pending.work is None:
+        return pending.local
+    pending.work.wait()
+    return _unpack(torch.stack(pending.out).numpy(), pending.layout)
 
 
 def local_sgd_delta_merge(start, local, group, num_shards: int, axis: str = "data"):

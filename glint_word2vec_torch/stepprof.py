@@ -486,17 +486,19 @@ def profile_generator(trainer: Trainer, encoded, calls: int = 20) -> dict:
     gives the chunk's and one step's share."""
     cfg = trainer.config
     chunk = next(iter(trainer._token_chunk_stream(encoded, 1.0, 1.0)))
-    a = {k: torch.from_numpy(v).cuda().long() for k, v in chunk["arrays"].items()}
+    # one device runs one token segment: its [K, ...] rows
+    a = {k: torch.from_numpy(v).cuda().long()[:, 0] for k, v in chunk["arrays"].items()
+         if k != "alphas"}
 
     def call():
         if trainer._banded_cbow:
             return device_cbow_windows(
                 a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0],
-                a["obase"][:, 1], chunk["win_base"], cfg.window, trainer._block_halo)
+                a["obase"][:, 1], chunk["win_bases"][0], cfg.window, trainer._block_halo)
         return device_block_pairs(
             a["tokens"], a["starts"], a["nvalid"], a["obase"][:, 0], a["obase"][:, 1],
-            trainer._keep_prob_dev, chunk["sub_base"], chunk["win_base"], cfg.window,
-            cfg.pairs_per_batch, presubsampled=True)
+            trainer._keep_prob_dev, chunk["sub_bases"][0], chunk["win_bases"][0],
+            cfg.window, cfg.pairs_per_batch, presubsampled=True)
 
     kt = profile_call(call, calls)
     per_chunk = sum(v["us_total"] for v in kt.values()) / calls

@@ -112,29 +112,37 @@ The runtime layer (``glint_word2vec_torch/obs``), as the JAX trainer runs it:
 On a mesh of ranks (``plan``, ``parallel/``; one rank a card), the JAX trainer's
 multi-process fit:
 
-- each rank holds its row blocks of both matrices and runs the row-sharded step
-  (``ops/sgns_shard.py``; with ``sync_every = k > 1`` its k-step local-SGD windows,
-  each data shard on its own slice of the negative lattice), on the host pair feed of
-  the shared-pool skip-gram step; the combinations the JAX package runs there only
-  under GSPMD are refused by name (ROADMAP.md queue A9b);
-- with ``shard_input`` (the default) each rank feeds its 1/W of the sentence stream and
-  one allgather a round assembles the identical global batch on every rank
-  (``_sharded_chunk_stream``); without it every rank regenerates the whole stream and
-  trains its data slice of each batch;
+- each rank holds its row blocks of both matrices and runs the row-sharded twin of the
+  step the selection matrix picks (``ops/sgns_shard.py``: the shared pool, with
+  ``duplicate_scaling`` and, with ``sync_every = k > 1``, its k-step local-SGD windows,
+  each data shard on its own slice of the negative lattice; the per-pair step; CBOW
+  with either pool; banded CBOW);
+- with ``shard_input`` (the default) each rank feeds its 1/W of the sentence stream
+  (skip-gram pairs, or CBOW's grouped examples) and one allgather a round assembles the
+  identical global batch on every rank (``_sharded_chunk_stream``); without it every
+  rank regenerates the whole stream and trains its data slice of each batch;
+- the token-block feeds (``device_pairgen``, banded CBOW) have one data segment a data
+  shard: each rank packs its own segment's blocks, one allgather a round assembles the
+  global blocks under an iteration barrier, so the rounds are the one-process feed's on
+  the same segments, and each rank derives its slice's pairs or windows on its card
+  (``_sharded_token_stream``); with ``sharded_prefetch`` the rounds are staged one
+  ahead on a thread;
 - every chunk runs eagerly: no graph is captured around the steps' collectives;
 - the probe gathers its per-row-block partials, so every rank's guards decide alike;
   checkpoints are row shards, every rank writing its own rows; a sharded-input
-  checkpoint resumes from its ``shard_progress`` at the same world size;
+  checkpoint resumes from its ``shard_progress`` at the same world size, a token-feed
+  one (per data segment) on any mesh with the same data axis, or on one process;
 - with ``peer_beacon_s`` (and a checkpoint path) the ranks heartbeat liveness beacons:
   a dead peer raises ``PeerDeathError`` at the next round instead of a hang.
 
 Differences: the steps update the parameters in place, the feed ships int32 indices
 (widened to int64 on the card, where the JAX package ships uint16 below 65536 words),
 the eager body runs a short last chunk's real steps only (the graph replays the padded
-chunk), the device feed has one data segment (a checkpoint that holds only per-segment
-positions is refused), the ``publish`` record of a save waits for the serving tier, and
-a mesh must cover the world (the JAX trainer drops to one device when the devices are
-too few).
+chunk), the one-device token feed has one data segment unless it resumes a mesh's
+per-segment checkpoint (then the checkpoint's), the ranks of one data column pack the
+same token segment (a rank is a device, where a JAX process may own several segments),
+the ``publish`` record of a save waits for the serving tier, and a mesh must cover the
+world (the JAX trainer drops to one device when the devices are too few).
 """
 
 from __future__ import annotations
@@ -153,7 +161,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from glint_word2vec_torch.config import Word2VecConfig, refuse_unported_on_mesh
+from glint_word2vec_torch.config import Word2VecConfig
 from glint_word2vec_torch.data.hashrng import (
     STREAM_SUBSAMPLE, STREAM_WINDOW, hash_u01_at, stream_base)
 from glint_word2vec_torch.data.pipeline import (
@@ -178,7 +186,9 @@ from glint_word2vec_torch.ops.sampler import build_alias_table, sample_negatives
 from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, Stabilizers, alpha_schedule, cbow_step_core, cbow_step_shared_core,
     hot_flush, hot_slabs, init_embeddings, sgns_step_core, sgns_step_shared_scatter_)
-from glint_word2vec_torch.ops.sgns_shard import make_sharded_sgns_step
+from glint_word2vec_torch.ops.sgns_shard import (
+    make_sharded_banded_step, make_sharded_cbow_step, make_sharded_per_pair_step,
+    make_sharded_sgns_step)
 from glint_word2vec_torch.parallel import distributed
 from glint_word2vec_torch.parallel.mesh import (
     MODEL_AXIS, LocalShards, MeshPlan, make_mesh, pad_dim_to_lanes,
@@ -193,7 +203,8 @@ logger = logging.getLogger("glint_word2vec_torch")
 
 # the step forms without a shared pool: the advisories skip the pool channel there, and
 # their steps compute the metrics in every chunk (no elided twin, as in the JAX trainer)
-_POOLLESS_FORMS = ("per_pair", "cbow_per_example")
+_POOLLESS_FORMS = ("per_pair", "cbow_per_example", "sharded_per_pair",
+                   "sharded_cbow_per_example")
 # the input buffers that gate a step's updates: all zero, a step is a padded no-op
 _GATES = ("mask", "ctx_mask", "center", "token")
 
@@ -290,6 +301,108 @@ class _threaded_iter:
             pass
 
 
+class _one_ahead_iter:
+    """Run a generator on a background thread exactly one item ahead of the consumer,
+    under an explicit ticket: after delivering item r the producer does not start item
+    r + 1 until the consumer calls ``ack()`` for r (the JAX package's).
+
+    The sharded token feed's staging (``config.sharded_prefetch``): producing a round
+    launches the next round's allgather, and consuming one launches the steps' and the
+    bookkeeping's collectives. Every rank must issue the collectives of a process
+    group in one order, so the ticket serialises the two threads into one order,
+    [gather r+1, round r's steps and bookkeeping, gather r+2, ...], the same on every
+    rank because both sides decide from gathered values only. What overlaps is the
+    host work: the round's decode and assembly and its copy to the card run while the
+    previous round trains.
+
+    An exception of the generator is raised at the consumer's ``next()``; ``close()``
+    unblocks and joins the producer, which closes the generator."""
+
+    _DONE = object()
+
+    def __init__(self, gen: Iterator):
+        self._out: "queue.Queue" = queue.Queue(maxsize=1)
+        self._ack: "queue.Queue" = queue.Queue()
+        self._stop = threading.Event()
+
+        def put_checked(item) -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._out.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def wait_ack() -> bool:
+            while not self._stop.is_set():
+                try:
+                    self._ack.get(timeout=0.1)
+                    return True
+                except queue.Empty:
+                    continue
+            return False
+
+        def run():
+            try:
+                first = True
+                while True:
+                    # the ticket gates the production of item r + 1 (before the
+                    # generator resumes), so its launches follow the consumer's
+                    # round-r launches on every rank
+                    if not first and not wait_ack():
+                        return
+                    first = False
+                    try:
+                        item = next(gen)
+                    except StopIteration:
+                        put_checked(self._DONE)
+                        return
+                    if not put_checked(item):
+                        return
+            except BaseException as e:  # relayed to the consumer
+                put_checked(e)
+            finally:
+                gen.close()
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="glint-round-stager")
+        self._thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._stop.is_set():
+            raise StopIteration
+        item = self._out.get()
+        if item is self._DONE:
+            self._stop.set()
+            raise StopIteration
+        if isinstance(item, BaseException):
+            self._stop.set()
+            raise item
+        return item
+
+    def ack(self) -> None:
+        self._ack.put(None)
+
+    def close(self) -> None:
+        self._stop.set()
+        try:
+            while True:
+                self._out.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=30.0)
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
 @dataclass
 class HeartbeatRecord:
     """One heartbeat, the JAX package's fields: ``alpha`` is the effective lr (the
@@ -347,7 +460,7 @@ class Trainer:
         builds the config's (``num_data_shards`` x ``num_model_shards``, or
         ``mesh_shape``) when it is larger than 1x1 or the world has more than one
         rank. On a mesh larger than 1x1 (``self.plan``; None on one device) this
-        rank holds its row blocks of both matrices and runs the row-sharded step
+        rank holds its row blocks of both matrices and runs the row-sharded steps
         (``ops/sgns_shard.py``). ``params`` are then full matrices, carved to this
         rank's rows, or a :class:`..parallel.mesh.LocalShards` taken as they are."""
         self.device = resolve_device(device)
@@ -370,7 +483,8 @@ class Trainer:
         # a sharded-input mesh fit: each rank feeds its 1/W of the sentence stream,
         # and the global batch is W contiguous segments (_sharded_chunk_stream)
         self._feed_segments = 1
-        if self.plan is not None and config.shard_input:
+        if self.plan is not None and config.shard_input and not (
+                config.device_pairgen or _is_banded(config)):
             n = distributed.world_size()
             if config.pairs_per_batch % n:
                 raise ValueError(
@@ -383,6 +497,11 @@ class Trainer:
                                      self.param_dtype)
         self.params = self._place_params(params)
         self.state = train_state or TrainState()
+        # the token-block feed's data segments (the JAX trainer's plan.num_data): the
+        # mesh's data axis, each rank deriving its slice from its own segment; on one
+        # device 1, or a per-segment checkpoint's count (an elastic resume of a mesh's
+        # token feed on one process)
+        self._token_segments = self._resolve_token_segments()
         # additive metadata keys merged into every save this trainer makes (periodic,
         # final, preempt); the continual runner parks its vocab_lineage chain here
         self.extra_checkpoint_meta: dict = {}
@@ -397,7 +516,10 @@ class Trainer:
         self._banded_cbow = _is_banded(self.config)
         self._block_halo = self.config.window if self._banded_cbow else 0
         if self._banded_cbow:
-            self._init_token_block_feed(self.config.pairs_per_batch + 2 * self._block_halo)
+            # core slots per segment block = examples per segment per step
+            self._init_token_block_feed(
+                self.config.pairs_per_batch // self._token_segments
+                + 2 * self._block_halo)
         # from the config, then trainer state (a recovery may engage max_row_norm);
         # all zero runs no stabilizer op
         self._stabilizers = Stabilizers(max_row_norm=self.config.max_row_norm,
@@ -488,8 +610,9 @@ class Trainer:
 
     def _resolve_plan(self, plan: Optional[MeshPlan]) -> Optional[MeshPlan]:
         """The mesh this trainer runs on, or None for one device. A mesh must cover
-        the world (``make_mesh`` raises otherwise: no fallback to fewer devices), and
-        what the port does not run on one is refused by name (ROADMAP.md queue A9b)."""
+        the world (``make_mesh`` raises otherwise: no fallback to fewer devices); the
+        JAX trainer's refusals on a mesh (hot_rows, a replicated token feed) raise its
+        classes and messages."""
         cfg = self.config
         if plan is None:
             nd, nm = cfg.mesh_size
@@ -502,12 +625,19 @@ class Trainer:
         if plan.size == 1:
             return None
         where = f"a {plan.num_data}x{plan.num_model} mesh"
-        refuse_unported_on_mesh(cfg, where)
         if cfg.hot_rows:
-            raise NotImplementedError(
-                f"hot_rows on {where}: the row-sharded step has no hot-row form (the "
-                "slab is the global prefix, all on model shard 0); not ported "
-                "(ROADMAP.md queue A9b)")
+            # the JAX trainer's runtime twin of the config's multi-shard refusal
+            raise ValueError(
+                "hot_rows is the single-chip step restructuring "
+                "(PERF.md §11) and the mesh plan has "
+                f"{plan.size} devices; use a single-device plan or hot_rows=0")
+        if (cfg.device_pairgen or _is_banded(cfg)) and not cfg.shard_input:
+            feature = "device_pairgen" if cfg.device_pairgen else "cbow_update='banded'"
+            raise ValueError(
+                f"{feature} with multiple processes requires "
+                "shard_input=True (each process packs token blocks for "
+                "its own data segments; a replicated token feed would "
+                "have every process regenerate everything)")
         if cfg.pairs_per_batch % plan.num_data:
             raise ValueError(
                 f"the row-sharded step (step_lowering={cfg.step_lowering!r}: the port "
@@ -518,6 +648,19 @@ class Trainer:
             logger.info("%s: each chunk's steps run eagerly; the chunk's CUDA graph is "
                         "not captured around collectives (ROADMAP.md queue A9b)", where)
         return plan
+
+    def _resolve_token_segments(self) -> int:
+        """The token feed's data segments: the mesh's data axis; on one device the
+        entries of a per-segment token-feed checkpoint (``shard_progress`` without a
+        ``batches_done``, as a mesh writes it), else 1."""
+        if self.plan is not None:
+            return self.plan.num_data
+        st = self.state
+        if (st.shard_progress is not None and not st.finished
+                and st.shard_feed == "tokens" and st.batches_done == 0
+                and (self.config.device_pairgen or _is_banded(self.config))):
+            return len(st.shard_progress)
+        return 1
 
     @property
     def _row_offset(self) -> int:
@@ -702,6 +845,11 @@ class Trainer:
         ``device_pairgen``, the JAX package's 2^24 bound for a T the Trainer sized (the
         config checks an explicit one)."""
         cfg = self.config
+        if cfg.pairs_per_batch % self._token_segments:
+            feature = "device_pairgen" if cfg.device_pairgen else "cbow_update='banded'"
+            raise ValueError(
+                f"{feature} needs pairs_per_batch divisible by the data-"
+                f"parallel degree ({cfg.pairs_per_batch} % {self._token_segments} != 0)")
         keep = keep_probabilities(self.vocab.counts, self.vocab.train_words_count,
                                   cfg.subsample_ratio).astype(np.float32)
         self._keep_host = keep
@@ -720,7 +868,8 @@ class Trainer:
         kept token (sentence-edge clipping ignored, so the fill lands below target
         rather than overflowing)."""
         cfg = self.config
-        T = int(np.ceil(0.93 * cfg.pairs_per_batch / _pairs_per_kept_token(cfg.window)))
+        T = int(np.ceil(0.93 * cfg.pairs_per_batch / self._token_segments
+                        / _pairs_per_kept_token(cfg.window)))
         return max(T, 64)
 
     # -- training --------------------------------------------------------------------
@@ -802,9 +951,12 @@ class Trainer:
 
         return chunks()
 
-    def _device_seg_blocks(self, sentences: Sequence[np.ndarray], k: int,
+    def _device_seg_blocks(self, sentences: Sequence[np.ndarray], k: int, s: int = 0,
                            workers: Optional[int] = None) -> Iterator[tuple]:
-        """[T]-token blocks of iteration k for the device pair generator, subsampled on
+        """[T]-token blocks of data segment s, iteration k, for the device pair
+        generator (the segment holds sentences s, s + Sd, ... of the
+        ``self._token_segments`` segments, shuffled per (seed, k, s): deterministic and
+        independent of the process that packs it), subsampled on
         the host (the feed's hashrng draws on raw ordinals, vectorised over ~1M-token
         slabs fanned over ``workers`` threads, so the stream is the same at any worker
         count), so the wire carries only kept tokens and the lr clock is exact. The
@@ -813,16 +965,15 @@ class Trainer:
         (tokens int32 [T], start bits uint8 [ceil(T/8)], n_valid, kept-ordinal base,
         kept count). Banded CBOW (``self._block_halo > 0``) cuts the same kept stream
         with a ±halo overlap instead (``pack_halo_token_blocks``), and the count is the
-        block's new core tokens. One data segment: the multi-process feed waits with
-        the multi-device work."""
+        block's new core tokens."""
         cfg = self.config
         workers = cfg.producer_workers if workers is None else workers
         T = self._tokens_per_step
         keep = self._keep_host
-        order = np.arange(len(sentences))
+        order = np.arange(s, len(sentences), self._token_segments)
         if cfg.shuffle:
-            stream_rng(cfg.seed, k, 0).shuffle(order)
-        sub_base = stream_base(cfg.seed, STREAM_SUBSAMPLE, k, 0)
+            stream_rng(cfg.seed, k, s).shuffle(order)
+        sub_base = stream_base(cfg.seed, STREAM_SUBSAMPLE, k, s)
 
         def slab_jobs():
             raw_ord = 0
@@ -880,54 +1031,163 @@ class Trainer:
         if rest_tok.shape[0]:
             yield emit(rest_tok, rest_start)
 
+    def _device_step_rows(self, sentences: Sequence[np.ndarray], k: int, segs,
+                          skips=None, counts=None) -> Iterator[tuple]:
+        """One entry a step row over the data segments ``segs``, stacked across them:
+        (tokens int32 [n, T], start bits uint8 [n, ceil(T/8)], n_valid int64 [n],
+        ordinal bases int64 [n, 2] (low, high 32 bits), expected kept tokens). A segment
+        that is exhausted before the others rides as zero blocks (n_valid 0); the stream
+        ends when every segment is. ``skips`` (a resume): each segment's blocks to
+        fast-forward first, −1 for a segment that already finished this iteration.
+        ``counts``: updated in place with each segment's consumed blocks, skips
+        included (the per-segment positions a checkpoint records). The JAX trainer's
+        ``_device_step_rows``; its segments run one after another here, each with the
+        slab workers."""
+        segs = list(segs)
+        T = self._tokens_per_step
+        nbytes = (T + 7) // 8
+        iters = []
+        for i, s in enumerate(segs):
+            skip = 0 if skips is None else skips[i]
+            if skip < 0:
+                iters.append(iter(()))
+                continue
+            it = self._device_seg_blocks(sentences, k, s)
+            for consumed in range(skip):
+                if next(it, None) is None:
+                    # a shorter stream than the checkpoint's position means another
+                    # corpus: training on would train the wrong data with wrong books
+                    raise ValueError(
+                        f"device-feed resume: segment {s} iteration {k} has only "
+                        f"{consumed} blocks but the checkpoint recorded {skip} — the "
+                        "corpus does not match the checkpoint")
+            iters.append(it)
+            if counts is not None:
+                counts[i] += max(skip, 0)
+        while True:
+            rows = []
+            exp_kept = 0.0
+            exhausted = 0
+            for i, it in enumerate(iters):
+                blk = next(it, None)
+                if blk is None:
+                    exhausted += 1
+                    rows.append((np.zeros(T, np.int32), np.zeros(nbytes, np.uint8), 0, 0,
+                                 0.0))
+                else:
+                    rows.append(blk)
+                    exp_kept += blk[4]
+                    if counts is not None:
+                        counts[i] += 1
+            if exhausted == len(iters):
+                return
+            yield (np.stack([r[0] for r in rows]), np.stack([r[1] for r in rows]),
+                   np.asarray([r[2] for r in rows], np.int64),
+                   np.asarray([[r[3] & 0xFFFFFFFF, r[3] >> 32] for r in rows], np.int64),
+                   exp_kept)
+
+    def _device_seg_resume_state(self) -> List[List[int]]:
+        """The token feed's per-segment resume positions, ``[[iteration, blocks]]`` in
+        segment order: a fresh run (or a finished state) starts every segment at
+        (iteration, 0); a checkpoint's ``shard_progress`` is checked against this
+        feed's segments. Entries are per data segment, not per rank, so any mesh with
+        the same data axis, and one process, resume them (the JAX trainer's checks and
+        messages)."""
+        Sd = self._token_segments
+        st = self.state
+        if st.shard_progress is None or st.finished:
+            if st.batches_done and not st.finished and distributed.is_multiprocess():
+                raise ValueError(
+                    "checkpoint was written mid-iteration by a pre-elastic "
+                    "device-feed run (no per-segment positions); resume it "
+                    "single-process (or from an iteration boundary)")
+            return [[st.iteration, 0] for _ in range(Sd)]
+        if st.shard_feed != "tokens":
+            raise ValueError(
+                "checkpoint shard_progress indexes the host-feed pair streams "
+                f"(shard_feed={st.shard_feed!r}); resume it with "
+                "device_pairgen=False — token positions are a different stream")
+        if len(st.shard_progress) != Sd:
+            raise ValueError(
+                f"checkpoint shard_progress has {len(st.shard_progress)} "
+                f"entries but the mesh data degree is {Sd}; device-feed "
+                "positions are per data segment — resume on a mesh with the "
+                "same data degree")
+        return [[int(a), int(b)] for a, b in st.shard_progress]
+
+    def _token_rate(self) -> float:
+        """Pairs (banded CBOW: examples) a kept token trains, the heartbeats'
+        analytic estimate."""
+        return (_cbow_examples_per_kept_token(self.config.window) if self._banded_cbow
+                else _pairs_per_kept_token(self.config.window))
+
     def _token_chunk_stream(self, sentences: Sequence[np.ndarray], total_words: float,
                             train_words: float) -> Iterator[dict]:
-        """The token feed's chunks: up to K step rows, their alphas on the words
-        clock (advanced by each block's kept or new core tokens), and the analytic
-        pair (or CBOW example) estimate the heartbeats read (the exact count stays on
-        the device until the end). No torch call, so it may run on the producer
-        thread."""
+        """The one-process token feed's chunks (the JAX trainer's ``_fit_device_feed``):
+        up to K step rows of ``self._token_segments`` segment blocks each ([n, Sd, T]
+        tokens, [n, Sd, ...] start bits, valid counts and ordinal bases), their alphas
+        on the words clock (advanced by each row's kept or new core tokens), and the
+        analytic pair (or CBOW example) estimate the heartbeats read (the exact count
+        stays on the device until the end). A checkpoint with a step-row count
+        (``batches_done``, this feed's own) skips that many rows, rebuilding the clock
+        exactly; one with per-segment positions only (a mesh's) fast-forwards each
+        segment, the clock rebuilt from the saved word count (exact to < 1 word). Every
+        chunk records each segment's position (``shard_progress``). No torch call, so
+        it may run on the producer thread."""
         cfg = self.config
-        K, T = cfg.steps_per_dispatch, self._tokens_per_step
-        start_iter = self.state.iteration
-        skip_steps = self.state.batches_done if not self.state.finished else 0
-        rate = (_cbow_examples_per_kept_token(cfg.window) if self._banded_cbow
-                else _pairs_per_kept_token(cfg.window))
+        K, Sd = cfg.steps_per_dispatch, self._token_segments
+        st = self.state
+        seg_state = (self._device_seg_resume_state()
+                     if st.shard_progress is not None and not st.finished
+                     and st.batches_done == 0 else None)
+        start_iter = min(it for it, _ in seg_state) if seg_state else st.iteration
+        skip_steps = st.batches_done if not (st.finished or seg_state) else 0
+        rate = self._token_rate()
 
         def chunks() -> Iterator[dict]:
             for k in range(start_iter, cfg.num_iterations + 1):
                 prev_words = (k - 1) * train_words
-                to_skip = skip_steps if k == start_iter else 0
-                steps_in_iter, clock = to_skip, 0.0
+                if seg_state:
+                    skips = [b if it == k else (-1 if it > k else 0)
+                             for it, b in seg_state]
+                    clock = (max(0.0, float(st.words_processed) - prev_words)
+                             if k == st.iteration else 0.0)
+                    steps_in_iter = max([b for it, b in seg_state if it == k], default=0)
+                    to_skip = 0
+                else:
+                    skips, clock = None, 0.0
+                    steps_in_iter = to_skip = skip_steps if k == start_iter else 0
+                counts = [0] * Sd
                 pending: List[tuple] = []
 
                 def flush() -> dict:
                     nonlocal pending, steps_in_iter
                     real = len(pending)
-                    arrays = {
-                        "tokens": np.stack([p[0] for p in pending]),
-                        "starts": np.stack([p[1] for p in pending]),
-                        "nvalid": np.asarray([p[2] for p in pending], np.int64),
-                        "obase": np.asarray([[p[3] & 0xFFFFFFFF, p[3] >> 32]
-                                             for p in pending], np.int64)}
+                    arrays = {name: np.stack([p[i] for p in pending])
+                              for i, name in enumerate(("tokens", "starts", "nvalid",
+                                                        "obase"))}
                     alphas = np.asarray([
                         alpha_schedule(p[5], total_words, cfg.learning_rate,
                                        cfg.min_alpha_factor)
                         for p in pending], np.float32)
                     arrays["alphas"] = alphas
                     steps_in_iter += real
+                    sprog = [list(seg_state[i]) if skips and skips[i] < 0
+                             else [k, counts[i]] for i in range(Sd)]
                     chunk = dict(
                         arrays=arrays, alphas=alphas, real=real, iteration=k,
-                        words_processed=int(pending[-1][5]), batches_done=steps_in_iter,
+                        words_processed=int(pending[-1][5]),
+                        # after a per-segment resume the joined rows are offset from
+                        # the row stream, so the positions are per segment only
+                        batches_done=0 if seg_state else steps_in_iter,
                         real_pairs=sum(p[4] for p in pending) * rate,
-                        shard_progress=[[k, steps_in_iter]], shard_feed="tokens",
-                        sub_base=int(stream_base(cfg.seed, STREAM_SUBSAMPLE, k, 0)),
-                        win_base=int(stream_base(cfg.seed, STREAM_WINDOW, k, 0)))
+                        shard_progress=sprog, shard_feed="tokens",
+                        **self._segment_bases(k))
                     pending = []
                     return chunk
 
-                # one data segment, so a step row is one block
-                for row in self._device_seg_blocks(sentences, k):
+                for row in self._device_step_rows(sentences, k, range(Sd), skips=skips,
+                                                  counts=counts):
                     clock += row[4]
                     if to_skip:  # already trained (exact resume); the clock advances
                         to_skip -= 1
@@ -939,6 +1199,15 @@ class Trainer:
                     yield flush()
 
         return chunks()
+
+    def _segment_bases(self, k: int) -> dict:
+        """Iteration k's hashrng bases of every token segment: ``sub_bases`` and
+        ``win_bases``, lists of ``self._token_segments`` ints."""
+        seed, Sd = self.config.seed, self._token_segments
+        return dict(sub_bases=[int(stream_base(seed, STREAM_SUBSAMPLE, k, s))
+                               for s in range(Sd)],
+                    win_bases=[int(stream_base(seed, STREAM_WINDOW, k, s))
+                               for s in range(Sd)])
 
     def _stage(self, chunks: Iterator[dict]) -> Iterator[dict]:
         """Send each chunk's arrays to the card from the producer thread: a copy into
@@ -991,10 +1260,18 @@ class Trainer:
         stabilizer, ``duplicate_scaling`` or the hot rows, none of which the kernel has,
         as the JAX package's pallas step has none) or ``per_pair``. Read from the
         trainer's state: a recovery may engage ``max_row_norm`` (``self._stabilizers``),
-        which moves the shared pool to its scatter form."""
+        which moves the shared pool to its scatter form. On a mesh the same matrix picks
+        the row-sharded twin (``ops/sgns_shard.py``): ``sharded_banded``,
+        ``sharded_cbow_shared``, ``sharded_cbow_per_example``, ``sharded_shared`` (the
+        shared pool, every chain option) or ``sharded_per_pair``."""
         cfg = self.config
         if self.plan is not None:
-            return "sharded"  # the one step on a mesh (the rest is refused, A9b)
+            if self._banded_cbow:
+                return "sharded_banded"
+            if cfg.cbow:
+                return ("sharded_cbow_shared" if cfg.negative_pool > 0
+                        else "sharded_cbow_per_example")
+            return "sharded_shared" if cfg.negative_pool > 0 else "sharded_per_pair"
         if self._banded_cbow:
             return "cbow_banded"
         if cfg.cbow:
@@ -1018,12 +1295,26 @@ class Trainer:
         cd, ld, slabs = self.compute_dtype, self.logits_dtype, self._slabs
         chain = dict(fused=cfg.fused_logits, bf16_chain=cfg.bf16_chain)
         form = self._step_form()
-        if form == "sharded":
-            # the row-sharded step, or with sync_every > 1 its k-step window (the
-            # body feeds it k rows of the buffers at a time)
-            steps = {wm: make_sharded_sgns_step(
-                self.plan, n, mode, cd, ld, wm, stab, sync_every=cfg.sync_every,
-                **chain) for wm in (False, True)}
+        if form.startswith("sharded"):
+            plan = self.plan
+            if form == "sharded_shared":
+                # with sync_every > 1 its k-step window (the body feeds it k rows of
+                # the buffers at a time)
+                steps = {wm: make_sharded_sgns_step(
+                    plan, n, mode, cd, ld, wm, stab, sync_every=cfg.sync_every,
+                    duplicate_scaling=dup, **chain) for wm in (False, True)}
+            elif form == "sharded_per_pair":
+                one = make_sharded_per_pair_step(plan, mode, cd, stab,
+                                                 duplicate_scaling=dup, **chain)
+                steps = {False: one, True: one}
+            elif form == "sharded_banded":
+                steps = {wm: make_sharded_banded_step(plan, n, cfg.window, mode, cd, ld,
+                                                      wm, stab) for wm in (False, True)}
+            else:
+                shared = form == "sharded_cbow_shared"
+                steps = {wm: make_sharded_cbow_step(
+                    plan, n, shared, mode, cd, ld, wm, stab, duplicate_scaling=dup)
+                    for wm in (False, True)}
             return lambda b, neg, alpha, wm: steps[wm](p, b, neg, alpha)
         if form == "cbow_banded":
             return lambda b, neg, alpha, wm: cbow_step_banded_core(
@@ -1058,19 +1349,42 @@ class Trainer:
             hot_flush(self.params.syn0, self._slabs[0])
             hot_flush(self.params.syn1, self._slabs[1])
 
+    def _token_rows(self, arrays: dict, chunk: dict) -> tuple:
+        """The chunk's [n, Sd, ...] token arrays as the rows this device expands: on a
+        mesh its own data segment's ([n, ...], this segment's hashrng bases as ints);
+        on one device every segment's, flattened to [n·Sd, ...] (with one segment the
+        bases are ints, with several a [n·Sd] tensor of each row's)."""
+        if self.plan is not None:
+            d = self.plan.data_index
+            rows = {name: arrays[name][:, d] for name in ("tokens", "starts", "nvalid",
+                                                           "obase")}
+            return rows, chunk["sub_bases"][d], chunk["win_bases"][d]
+        rows = {name: arrays[name].reshape(-1, *arrays[name].shape[2:])
+                for name in ("tokens", "starts", "nvalid", "obase")}
+        n = arrays["tokens"].shape[0]
+        if self._token_segments == 1:
+            return rows, chunk["sub_bases"][0], chunk["win_bases"][0]
+        return rows, *(torch.from_numpy(np.tile(np.asarray(chunk[k], np.int64), n))
+                       .to(self.device) for k in ("sub_bases", "win_bases"))
+
     def _device_pairs(self, arrays: dict, chunk: dict) -> dict:
         """The chunk's pairs from its token blocks, in one batched call of the device
-        generator; the exact pair and drop counts accumulate on the device."""
+        generator, ``pairs_per_batch / Sd`` slots a segment block ([n, B] on one
+        device; this rank's data slice [n, B / num_data] on a mesh); the exact pair and
+        drop counts accumulate on the device."""
         cfg = self.config
-        obase = arrays["obase"]
+        rows, sub, win = self._token_rows(arrays, chunk)
+        obase = rows["obase"]
+        n = arrays["tokens"].shape[0]
         pairs = device_block_pairs(
-            arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
-            obase[:, 1], self._keep_prob_dev, chunk["sub_base"], chunk["win_base"],
-            cfg.window, cfg.pairs_per_batch, presubsampled=True)
+            rows["tokens"], rows["starts"], rows["nvalid"], obase[:, 0], obase[:, 1],
+            self._keep_prob_dev, sub, win, cfg.window,
+            cfg.pairs_per_batch // self._token_segments, presubsampled=True)
         self._exact_pairs += pairs.mask.sum(dim=1).long().sum()  # each row <= B, exact
         self._dropped += pairs.dropped_pairs.sum()
-        return {"centers": pairs.centers, "contexts": pairs.contexts,
-                "mask": pairs.mask}
+        return {"centers": pairs.centers.reshape(n, -1),
+                "contexts": pairs.contexts.reshape(n, -1),
+                "mask": pairs.mask.reshape(n, -1)}
 
     def _put(self, name: str, value: torch.Tensor) -> None:
         """Copy ``value`` ([n, ...], n <= K) into the fixed input buffer ``name`` ([K,
@@ -1104,13 +1418,19 @@ class Trainer:
             alphas = alphas * self._lr_scale
         vals = {"alphas": alphas}
         if self._banded_cbow:
-            obase = arrays["obase"]
+            # one step is the row's segment blocks end to end (the JAX chunk's [Sd·T]
+            # flattening: the windows stay inside their block); on a mesh this rank's
+            # own block
+            rows, _, win = self._token_rows(arrays, chunk)
+            n = arrays["tokens"].shape[0]
+            obase = rows["obase"]
             band = device_cbow_windows(
-                arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
-                obase[:, 1], chunk["win_base"], cfg.window, self._block_halo)
+                rows["tokens"], rows["starts"], rows["nvalid"], obase[:, 0], obase[:, 1],
+                win, cfg.window, self._block_halo)
             self._exact_pairs += ((band.center > 0) & (band.left + band.right > 0)).sum()
-            vals.update(tokens=arrays["tokens"], left=band.left, right=band.right,
-                        center=band.center, token=band.token)
+            vals.update({name: v.reshape(n, -1) for name, v in (
+                ("tokens", rows["tokens"]), ("left", band.left), ("right", band.right),
+                ("center", band.center), ("token", band.token))})
             shape: tuple = (K, cfg.negative_pool)
         else:
             if cfg.device_pairgen:
@@ -1129,7 +1449,7 @@ class Trainer:
                     C = arrays["contexts"].shape[2]
                     vals["ctx_mask"] = (torch.arange(C, device=self.device)
                                         < arrays["nctx"][..., None]).to(torch.float32)
-            B = vals["centers"].shape[1]
+            B = cfg.pairs_per_batch
             shape = ((K, B, cfg.negatives) if cfg.negative_pool == 0
                      else (K, cfg.negative_pool))
             if self.plan is not None and cfg.sync_every > 1:
@@ -1138,9 +1458,14 @@ class Trainer:
         vals["negatives"] = sample_negatives_hash(
             self._table_prob, self._table_alias, cfg.seed, self.global_step + 1, shape)
         if self.plan is not None:
-            # every rank holds the global chunk; this rank trains its data slice
-            carve = ["centers", "contexts", "mask"]
-            carve += ["negatives"] if cfg.sync_every > 1 else []
+            # every rank holds the global chunk; this rank trains its data slice (the
+            # token feeds derived it from the rank's own segment already)
+            carve = ([] if cfg.device_pairgen or self._banded_cbow
+                     else ["centers", "contexts", "mask"] + (["ctx_mask"] if cfg.cbow
+                                                             else []))
+            # per-example negatives [K, B, n]: the data slice of the one-device draw;
+            # local SGD: each data shard its own lattice slice
+            carve += ["negatives"] if cfg.sync_every > 1 or cfg.negative_pool == 0 else []
             vals.update(distributed.put_global(
                 self.plan, {name: vals[name] for name in carve}, self.plan.batch_stacked))
         for name, v in vals.items():
@@ -1262,12 +1587,16 @@ class Trainer:
                            * float(corpus_words))
         total_words = float(cfg.num_iterations * train_words + 1)
         token_feed = cfg.device_pairgen or self._banded_cbow
-        sharded = self._feed_segments > 1
+        # the feeds whose rounds run in lockstep on every rank (their allgathers on the
+        # calling thread, or the token feed's one-ahead stager)
+        sharded = self._feed_segments > 1 or (token_feed and self.plan is not None)
         if token_feed:
             self._exact_pairs = torch.zeros((), dtype=torch.int64, device=self.device)
             self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
             est_total = 0.0
-            chunks = self._token_chunk_stream(sentences, total_words, float(train_words))
+            stream = (self._sharded_token_stream if self.plan is not None
+                      else self._token_chunk_stream)
+            chunks = stream(sentences, total_words, float(train_words))
         elif sharded:
             # the rounds' allgathers run here, on the calling thread, in lockstep on
             # every rank; only the local feed runs on the producer thread
@@ -1284,6 +1613,7 @@ class Trainer:
             chunks = _threaded_iter(chunks, cfg.prefetch_chunks)
         self._start_run_bookkeeping()
         self._beacons = self._start_peer_beacons(checkpoint_path)
+        ack = getattr(chunks, "ack", None)  # the one-ahead stager's ticket
         try:
             try:
                 while True:
@@ -1304,6 +1634,8 @@ class Trainer:
                         est_total += chunk["real_pairs"]
                     self._finish_round(chunk, metrics, checkpoint_path,
                                        checkpoint_every_steps, on_heartbeat)
+                    if ack is not None:
+                        ack()  # the round's launches are done: release the next
             except RuntimeError as e:
                 self._raise_if_peer_died(e)
                 raise
@@ -1319,7 +1651,7 @@ class Trainer:
                 self._settle_device_pairgen_books(est_total)
             self.state = TrainState(
                 iteration=cfg.num_iterations,
-                words_processed=int(self._shard_clock if sharded
+                words_processed=int(self._shard_clock if self._feed_segments > 1
                                     else cfg.num_iterations * train_words),
                 finished=True, global_step=self.global_step)
             if checkpoint_path:
@@ -1345,6 +1677,10 @@ class Trainer:
         position a rank, at the same world size (the JAX package's checks and
         messages)."""
         st, cfg = self.state, self.config
+        token_feed = cfg.device_pairgen or self._banded_cbow
+        if token_feed and self.plan is not None:
+            self._device_seg_resume_state()  # the mesh token feed's checks
+            return
         if self._feed_segments > 1:
             sp = st.shard_progress
             if sp is not None:
@@ -1367,18 +1703,14 @@ class Trainer:
             return
         if st.shard_progress is None or st.finished:
             return
-        if cfg.device_pairgen or self._banded_cbow:
+        if token_feed:
             if st.shard_feed != "tokens":
                 raise ValueError(
                     "checkpoint was written by a host-feed sharded-input run (its "
                     "positions index per-process pair streams); resume it with the "
                     "same process count and device_pairgen=False")
             if st.batches_done == 0:
-                raise NotImplementedError(
-                    "checkpoint records per-segment device-feed positions only "
-                    "(shard_progress, from a multi-process run or an elastic resume); "
-                    "the per-segment resume of the sharded device feed is not ported "
-                    "to glint_word2vec_torch yet (ROADMAP.md queue A9b)")
+                self._device_seg_resume_state()  # the per-segment resume's checks
             return
         if st.shard_feed == "tokens":
             raise ValueError(
@@ -1397,8 +1729,9 @@ class Trainer:
         chunk, every rank in lockstep:
 
         1. each rank pulls its next local chunk, K batches of B/W pairs from
-           ``epoch_batches(shard=rank, num_shards=W)``, off its producer thread; an
-           exhausted rank substitutes a zero chunk;
+           ``epoch_batches(shard=rank, num_shards=W)`` (CBOW: B/W examples, their
+           grouped centers, contexts and context counts, from ``epoch_batches_cbow``),
+           off its producer thread; an exhausted rank substitutes a zero chunk;
         2. ONE allgather (``parallel/distributed.allgather``) ships every
            rank's pairs, real counts, word-clock deltas, alive flag and stream
            position to every rank (after the peer beacons' check);
@@ -1421,6 +1754,17 @@ class Trainer:
         skip = st.batches_done if not st.finished else 0
         if st.shard_progress is not None:
             start_iter, skip = (int(x) for x in st.shard_progress[pid])
+        C = 2 * cfg.window
+
+        def empty_feed() -> dict:
+            """The local chunk's arrays, zeroed: the fill target and an exhausted
+            rank's offer."""
+            if cfg.cbow:
+                return {"centers": np.zeros((K, b_local), np.int32),
+                        "contexts": np.zeros((K, b_local, C), np.int32),
+                        "nctx": np.zeros((K, b_local), np.int32)}
+            return {"centers": np.zeros((K, b_local), np.int32),
+                    "contexts": np.zeros((K, b_local), np.int32)}
 
         def local_stream() -> Iterator[dict]:
             for k in range(start_iter, cfg.num_iterations + 1):
@@ -1433,30 +1777,37 @@ class Trainer:
                     nonlocal pending, batches_in_iter
                     real = len(pending)
                     batches_in_iter += real
-                    arrays = {"centers": np.zeros((K, b_local), np.int32),
-                              "contexts": np.zeros((K, b_local), np.int32)}
+                    arrays = empty_feed()
                     reals = np.zeros(K, np.int32)
                     deltas = np.zeros(K, np.int64)
-                    for j, (c, x, r, d) in enumerate(pending):
-                        arrays["centers"][j], arrays["contexts"][j] = c, x
+                    for j, (batch, r, d) in enumerate(pending):
+                        for name, a in batch.items():
+                            arrays[name][j] = a
                         reals[j], deltas[j] = r, d
                     pending = []
                     return dict(arrays=arrays, reals=reals, deltas=deltas, iteration=k,
                                 batches_done=batches_in_iter)
 
-                for b in epoch_batches(
-                        sentences, self.vocab, pairs_per_batch=b_local,
-                        window=cfg.window, subsample_ratio=cfg.subsample_ratio,
-                        seed=cfg.seed, iteration=k, shuffle=cfg.shuffle,
-                        producer_workers=cfg.producer_workers,
-                        backend=self.feed_backend, shard=pid, num_shards=S):
+                common = dict(pairs_per_batch=b_local, window=cfg.window,
+                              subsample_ratio=cfg.subsample_ratio, seed=cfg.seed,
+                              iteration=k, shuffle=cfg.shuffle,
+                              producer_workers=cfg.producer_workers, shard=pid,
+                              num_shards=S)
+                stream = (epoch_batches_cbow(sentences, self.vocab, **common) if cfg.cbow
+                          else epoch_batches(sentences, self.vocab,
+                                             backend=self.feed_backend, **common))
+                for b in stream:
                     ws = b.words_seen
                     if to_skip:  # exact resume: fast-forward already-trained batches
                         to_skip -= 1
                         prev_ws = ws
                         continue
-                    pending.append((b.centers, b.contexts, b.num_real_pairs,
-                                    ws - prev_ws))
+                    if cfg.cbow:
+                        pending.append(({"centers": b.centers, "contexts": b.contexts,
+                                         "nctx": b.n_ctx}, b.num_real, ws - prev_ws))
+                    else:
+                        pending.append(({"centers": b.centers, "contexts": b.contexts},
+                                        b.num_real_pairs, ws - prev_ws))
                     prev_ws = ws
                     if len(pending) == K:
                         yield flush()
@@ -1470,9 +1821,8 @@ class Trainer:
         self._shard_clock = clock
         cur_iter, cur_batches = start_iter, skip
         exhausted = False
-        zero = dict(arrays={"centers": np.zeros((K, b_local), np.int32),
-                            "contexts": np.zeros((K, b_local), np.int32)},
-                    reals=np.zeros(K, np.int32), deltas=np.zeros(K, np.int64))
+        zero = dict(arrays=empty_feed(), reals=np.zeros(K, np.int32),
+                    deltas=np.zeros(K, np.int64))
         try:
             while True:
                 local = None if exhausted else next(local_chunks, None)
@@ -1502,11 +1852,11 @@ class Trainer:
                 alphas = np.asarray([
                     alpha_schedule(float(w), total_words, cfg.learning_rate,
                                    cfg.min_alpha_factor) for w in clocks], np.float32)
-                # [S, K, b] -> [K, S, b] -> [K, B]: segment s of every batch is rank
-                # s's slice, matching the per-segment prefix masks
+                # [S, K, b(, C)] -> [K, S, b(, C)] -> [K, B(, C)]: segment s of every
+                # batch is rank s's slice, matching the per-segment prefix masks
                 arrays = {name: np.ascontiguousarray(
-                    np.transpose(g[name], (1, 0, 2)).reshape(K, B))
-                    for name in ("centers", "contexts")}
+                    np.swapaxes(g[name], 0, 1).reshape(K, B, *g[name].shape[3:]))
+                    for name in zero["arrays"]}
                 arrays.update(alphas=alphas, reals=np.ascontiguousarray(
                     reals_all.T.astype(np.float32)))
                 yield dict(arrays=arrays, alphas=alphas, real=real,
@@ -1519,6 +1869,181 @@ class Trainer:
             closer = getattr(local_chunks, "close", None)
             if closer is not None:
                 closer()
+
+    def _sharded_token_stream(self, sentences: Sequence[np.ndarray], total_words: float,
+                              train_words: float):
+        """The token feed on a mesh (the JAX trainer's ``_fit_device_feed_sharded``),
+        one round a chunk, every rank in lockstep:
+
+        1. each rank packs the token blocks of its own data segment only (the ranks of
+           one data column pack the same deterministic stream): K step rows a local
+           chunk, padded, with each row's kept tokens and the segment's position after
+           it; an exhausted rank offers zeros;
+        2. ONE allgather a round ships every rank's tokens, start bits, ordinal bases,
+           valid counts, kept counts, alive flag and positions; rank (s, model 0)
+           speaks for segment s;
+        3. the ITERATION BARRIER: a round trains the lowest iteration any live segment
+           offers, and a segment already in a later iteration rides as zero blocks
+           and keeps its chunk for a later round, so the rounds are the one-process
+           device feed's rows (``_token_chunk_stream``) on the same segments, bit for
+           bit;
+        4. alphas follow the one-process convention: the iteration's base plus the
+           within-iteration kept cumsum, from gathered values only;
+        5. ``shard_progress`` records each segment's last trained position (a held
+           chunk was not trained), so N ranks resume on any mesh with the same data
+           axis, or on one process.
+
+        With ``sharded_prefetch`` (and ``prefetch_chunks > 0``) the rounds run on a
+        thread one round ahead under the ticket handshake (:class:`_one_ahead_iter`),
+        the next round's allgather launched (``distributed.allgather_start``) before
+        this one is handed over, and on the card each round's copy staged as
+        :meth:`_stage` does; the consumer acks each round after its bookkeeping.
+        Without it the rounds run on the calling thread. Each rank's device work takes
+        its own segment of the assembled feed (:meth:`_prologue`)."""
+        cfg = self.config
+        K, Sd, T = cfg.steps_per_dispatch, self._token_segments, self._tokens_per_step
+        nb = (T + 7) // 8
+        plan = self.plan
+        d = plan.data_index
+        owners = [s * plan.num_model for s in range(Sd)]
+        seg_state = [self._device_seg_resume_state()[d]]
+        rate = self._token_rate()
+        staged = bool(cfg.sharded_prefetch and cfg.prefetch_chunks > 0)
+        st = self.state
+
+        def local_stream() -> Iterator[dict]:
+            for k in range(seg_state[0][0], cfg.num_iterations + 1):
+                it, blocks = seg_state[0]
+                skips = [blocks if it == k else (-1 if it > k else 0)]
+                counts = [0]
+                pending: List[tuple] = []
+
+                def flush() -> dict:
+                    nonlocal pending
+                    real = len(pending)
+                    out = dict(tokens=np.zeros((K, T), np.int32),
+                               starts=np.zeros((K, nb), np.uint8),
+                               nvalid=np.zeros(K, np.int64),
+                               obase=np.zeros((K, 2), np.int64),
+                               kept=np.zeros(K, np.float32))
+                    for j, row in enumerate(pending):
+                        out["tokens"][j], out["starts"][j] = row[0][0], row[1][0]
+                        out["nvalid"][j], out["obase"][j] = row[2][0], row[3][0]
+                        out["kept"][j] = row[4]
+                    out.update(iteration=k, real=real, sprog=np.asarray(
+                        seg_state[0] if skips[0] < 0 else [k, counts[0]], np.int64))
+                    pending = []
+                    return out
+
+                for row in self._device_step_rows(sentences, k, [d], skips=skips,
+                                                  counts=counts):
+                    pending.append(row)
+                    if len(pending) == K:
+                        yield flush()
+                if pending:
+                    yield flush()
+
+        local = self._tracer.wrap_iter("producer", local_stream())
+        if cfg.prefetch_chunks > 0:
+            local = _threaded_iter(local, cfg.prefetch_chunks)
+
+        def rounds() -> Iterator[dict]:
+            cur_sprog = np.asarray(seg_state[0], np.int64)   # last consumed position
+            round_iter = st.iteration
+            iter_kept = max(0.0, float(st.words_processed)
+                            - (round_iter - 1) * train_words)
+            held, exhausted = None, False
+            zero = dict(tokens=np.zeros((K, T), np.int32),
+                        starts=np.zeros((K, nb), np.uint8), nvalid=np.zeros(K, np.int64),
+                        obase=np.zeros((K, 2), np.int64), kept=np.zeros(K, np.float32))
+
+            def start_gather():
+                """Collect this rank's next offer and launch its allgather."""
+                nonlocal held, exhausted
+                if held is None and not exhausted:
+                    t0 = time.perf_counter()
+                    held = next(local, None)
+                    if not staged:
+                        wait = time.perf_counter() - t0
+                        self.host_wait_time += wait
+                        self._phases.add("producer_wait", wait)
+                    exhausted = held is None
+                offer = held if held is not None else dict(
+                    zero, iteration=int(cur_sprog[0]), sprog=cur_sprog, real=0)
+                return distributed.allgather_start({
+                    **{name: offer[name] for name in zero},
+                    "real": np.asarray([offer["real"]], np.int32),
+                    "iter": np.asarray([offer["iteration"]], np.int64),
+                    "sprog": np.asarray(offer["sprog"], np.int64),
+                    "alive": np.asarray([0 if exhausted else 1], np.int32),
+                    "prog": cur_sprog})
+
+            try:
+                pending = start_gather()
+                while True:
+                    if self._beacons is not None:
+                        # a dead peer never reaches its allgather: turn the wait into
+                        # a clean abort
+                        self._beacons.check_or_raise()
+                    with self._tracer.span("allgather"):
+                        g = {k_: v[owners] for k_, v in
+                             distributed.allgather_fetch(pending).items()}   # [Sd, ...]
+                    alive = g["alive"][:, 0] > 0
+                    if not alive.any():
+                        return
+                    round_it = int(g["iter"][alive, 0].min())
+                    use = alive & (g["iter"][:, 0] == round_it)              # [Sd]
+                    if round_it != round_iter:
+                        round_iter, iter_kept = round_it, 0.0
+
+                    def seg_axis(a):  # [Sd, K, ...] of the used segments -> [K, Sd, ...]
+                        keep = use.reshape((Sd,) + (1,) * (a.ndim - 1)).astype(a.dtype)
+                        return np.ascontiguousarray(np.swapaxes(a * keep, 0, 1))
+
+                    arrays = {name: seg_axis(g[name])
+                              for name in ("tokens", "starts", "nvalid", "obase")}
+                    kept_step = (g["kept"].astype(np.float64)
+                                 * use[:, None]).sum(axis=0)                 # [K]
+                    clocks = ((round_it - 1) * train_words + iter_kept
+                              + np.cumsum(kept_step))
+                    iter_kept += float(kept_step.sum())
+                    alphas = np.asarray([
+                        alpha_schedule(float(w), total_words, cfg.learning_rate,
+                                       cfg.min_alpha_factor) for w in clocks], np.float32)
+                    arrays["alphas"] = alphas
+                    # used segments pad only their iteration's last chunk, so their
+                    # real rows are prefixes and the longest is the round's
+                    real = int(g["real"][use, 0].max())
+                    if use[d] and held is not None:
+                        cur_sprog, held = np.asarray(held["sprog"], np.int64), None
+                    # a segment's position: its offer's if it trained this round, else
+                    # the last one it trained
+                    prog = [[int(a), int(b)] for s in range(Sd)
+                            for a, b in [g["sprog"][s] if use[s] else g["prog"][s]]]
+                    chunk = dict(
+                        arrays=arrays, alphas=alphas, real=real, iteration=round_it,
+                        words_processed=int(clocks[max(real - 1, 0)]), batches_done=0,
+                        real_pairs=float(kept_step.sum()) * rate, shard_progress=prog,
+                        shard_feed="tokens", **self._segment_bases(round_it))
+                    if staged:
+                        # the next round's gather is launched before this round is
+                        # handed over: it precedes this round's steps on every rank
+                        pending = start_gather()
+                        yield chunk
+                    else:
+                        yield chunk
+                        pending = start_gather()
+            finally:
+                closer = getattr(local, "close", None)
+                if closer is not None:
+                    closer()
+
+        out = rounds()
+        if staged:
+            if self.device.type == "cuda":
+                out = self._stage(out)
+            out = _one_ahead_iter(out)
+        return out
 
     def _assert_feed_consistent(self, chunk: dict) -> None:
         """The SPMD divergence detector (``config.feed_consistency_check``): every rank
@@ -1585,9 +2110,13 @@ class Trainer:
         """End of a device-feed run: the heartbeats ran on the analytic pair estimate;
         settle the books against the exact trained and dropped totals, read from the
         device once."""
+        books = torch.stack([self._exact_pairs, self._dropped])
+        if self.plan is not None and self.plan.num_data > 1:
+            # each data rank counted its own segment's
+            distributed.COLLECTIVES.all_reduce(books, self.plan.data_group, "data")
         with self.sync_sites("fit_end", blocking=True):
-            exact = float(self._exact_pairs)
-            dropped = int(self._dropped)
+            exact = float(books[0])
+            dropped = int(books[1])
         self.dropped_pairs += dropped
         self.pairs_trained += exact - est_total
         self._pairs_since_log = max(self._pairs_since_log + exact - est_total, 0.0)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -47,6 +48,41 @@ def step_inputs(seed: int, nd: int, k: int, dtype=np.float32, V=128, D=32, B=64,
         centers=rng.integers(0, V, (k, B)), contexts=rng.integers(0, V, (k, B)),
         mask=(rng.random((k, B)) < 0.9).astype(np.float32),
         negatives=rng.integers(0, V, (k, nd * P)), alpha=0.025, P=P)
+
+
+FORMS = {  # the row-sharded step forms of tests/test_torch_shard_forms.py
+    "pp": dict(kind="per_pair"), "pp_stab": dict(kind="per_pair", stab=True),
+    "pp_dup": dict(kind="per_pair", dup=True),
+    "shared_dup": dict(kind="shared", dup=True),
+    "cbow_shared": dict(kind="cbow_shared"), "cbow_pe": dict(kind="cbow_pe"),
+    "cbow_pe_dup": dict(kind="cbow_pe", dup=True)}
+CTX = 6  # the CBOW cases' context slots
+
+
+def form_inputs(seed: int, k: int, V=128, D=32, B=64, P=8) -> dict:
+    """Step inputs of every form from a seed: full parameters, ``[k, B]`` centers,
+    contexts and mask, per-pair negatives ``[k, B, n]``, a pool ``[k, P]``, CBOW
+    contexts ``[k, B, C]`` with their context masks, and alpha. Row 7 is the center,
+    row 9 the context, row 11 a negative and row 13 a CBOW context slot of the first
+    and the last live pair of every step: one row in the slices of data shards 0 and
+    ``nd - 1``, so duplicate scaling needs the global count."""
+    rng = np.random.default_rng(seed)
+    centers = rng.integers(0, V, (k, B))
+    contexts = rng.integers(0, V, (k, B))
+    mask = (rng.random((k, B)) < 0.9).astype(np.float32)
+    negatives = rng.integers(0, V, (k, B, NEG))
+    ctx = rng.integers(0, V, (k, B, CTX))
+    nctx = rng.integers(0, CTX + 1, (k, B))
+    for j in (0, B - 1):
+        centers[:, j], contexts[:, j], negatives[:, j, 0], ctx[:, j, 0] = 7, 9, 11, 13
+        mask[:, j] = 1.0
+        nctx[:, j] = np.maximum(nctx[:, j], 1)
+    return dict(
+        syn0=rng.standard_normal((V, D)).astype(np.float32),
+        syn1=(rng.standard_normal((V, D)) * 0.1).astype(np.float32),
+        centers=centers, contexts=contexts, mask=mask, negatives=negatives,
+        pool=rng.integers(0, V, (k, P)), cbow_contexts=ctx,
+        ctx_mask=(np.arange(CTX) < nctx[..., None]).astype(np.float32), alpha=0.025)
 
 
 def fit_corpus(seed: int = 0, n: int = 201):
@@ -243,24 +279,93 @@ def _scenario_steps(ctx) -> None:
             ctx.arrays[f"{tag}/window_{variant}/syn1"] = params.syn1.numpy()
 
 
+def build_form(plan, name: str):
+    """The port's row-sharded step of form ``name`` on ``plan``."""
+    from glint_word2vec_torch.ops import sgns_shard as sh
+    from glint_word2vec_torch.ops.sgns import Stabilizers
+
+    f = FORMS[name]
+    stab = Stabilizers(**STAB) if f.get("stab") else None
+    dup = bool(f.get("dup"))
+    if f["kind"] == "per_pair":
+        return sh.make_sharded_per_pair_step(plan, stabilizers=stab,
+                                             duplicate_scaling=dup)
+    if f["kind"] == "shared":
+        return sh.make_sharded_sgns_step(plan, NEG, stabilizers=stab,
+                                         duplicate_scaling=dup)
+    return sh.make_sharded_cbow_step(plan, NEG, f["kind"] == "cbow_shared",
+                                     stabilizers=stab, duplicate_scaling=dup)
+
+
+def form_step_args(name: str, inp: dict, i: int, carve):
+    """(batch, negatives) of step i of form ``name``; ``carve`` takes an array's data
+    slice (the identity for the whole batch)."""
+    cbow = FORMS[name]["kind"].startswith("cbow")
+    batch = {"centers": carve(inp["centers"][i]), "mask": carve(inp["mask"][i]),
+             "contexts": carve(inp["cbow_contexts" if cbow else "contexts"][i])}
+    if cbow:
+        batch["ctx_mask"] = carve(inp["ctx_mask"][i])
+    pooled = FORMS[name]["kind"] in ("shared", "cbow_shared")
+    return batch, (inp["pool"][i] if pooled else carve(inp["negatives"][i]))
+
+
+def _scenario_forms(ctx) -> None:
+    """Three steps of each named form at each mesh shape of this world, each rank's
+    row blocks saved, with the metrics and the collective counts."""
+    import torch
+    from glint_word2vec_torch.ops.sgns import EmbeddingPair
+    from glint_word2vec_torch.parallel.distributed import COLLECTIVES
+    from glint_word2vec_torch.parallel.mesh import make_mesh, shard_params
+
+    for nd, nm, names in ctx.args["cases"]:
+        plan = make_mesh(nd, nm)
+        tag = f"{nd}x{nm}"
+        ctx.meta[f"{tag}/place"] = [plan.data_index, plan.model_index]
+
+        def carve(a):
+            return torch.as_tensor(np.ascontiguousarray(plan.carve(a, plan.batch)))
+
+        for name in names:
+            inp = form_inputs(21, 3)
+            params = EmbeddingPair(*shard_params((inp["syn0"], inp["syn1"]), plan))
+            step = build_form(plan, name)
+            COLLECTIVES.reset()
+            metrics = []
+            for i in range(3):
+                batch, negs = form_step_args(name, inp, i, carve)
+                m = step(params, batch, torch.as_tensor(negs), inp["alpha"])
+                metrics.append([float(m.loss), float(m.mean_f_pos), float(m.pairs)])
+            ctx.meta[f"{tag}/{name}/counts"] = {
+                f"{op}/{axis}": n for (op, axis), n in COLLECTIVES.counts.items()}
+            ctx.meta[f"{tag}/{name}/metrics"] = metrics
+            ctx.arrays[f"{tag}/{name}/syn0"] = params.syn0.numpy()
+            ctx.arrays[f"{tag}/{name}/syn1"] = params.syn1.numpy()
+
+
 def _record_rounds(trainer, rounds: list) -> None:
-    """Keep a copy of every round's global chunk the trainer runs."""
+    """Keep a copy of every round's global chunk the trainer runs: its host arrays
+    (a pair feed's centers, contexts, real counts and alphas; CBOW's context counts
+    too; a token feed's tokens, start bits, valid counts, ordinal bases and alphas),
+    each padded to the chunk's K rows."""
     run = trainer._run_chunk
+    K = trainer.config.steps_per_dispatch
 
     def recording(chunk):
-        a = chunk["arrays"]
-        rounds.append({"centers": np.array(a["centers"]),
-                       "contexts": np.array(a["contexts"]),
-                       "reals": np.array(a["reals"]), "alphas": np.array(a["alphas"]),
-                       "real": int(chunk["real"])})
+        rec = {}
+        for name, a in chunk["arrays"].items():
+            a = np.array(a)
+            pad = np.zeros((K - a.shape[0],) + a.shape[1:], a.dtype)
+            rec[name] = np.concatenate([a, pad])
+        rounds.append(dict(rec, real=int(chunk["real"])))
         return run(chunk)
 
     trainer._run_chunk = recording
 
 
 def _save_rounds(ctx, name: str, rounds: list) -> None:
-    for key in ("centers", "contexts", "reals", "alphas"):
-        ctx.arrays[f"{name}/rounds/{key}"] = np.stack([r[key] for r in rounds])
+    for key in rounds[0]:
+        if key != "real":
+            ctx.arrays[f"{name}/rounds/{key}"] = np.stack([r[key] for r in rounds])
     ctx.meta[f"{name}/rounds/real"] = [r["real"] for r in rounds]
 
 
@@ -292,9 +397,24 @@ def _diverge_feed(trainer) -> None:
     trainer._chunk_stream = diverged
 
 
+def _stop_after_rounds(trainer, rounds: int) -> None:
+    """End the fit by raising at the end of its ``rounds``-th round (every rank at the
+    same one)."""
+    finish = trainer._finish_round
+    seen = []
+
+    def finish_then_stop(*a, **kw):
+        finish(*a, **kw)
+        seen.append(1)
+        if len(seen) >= rounds:
+            raise _Stop()
+
+    trainer._finish_round = finish_then_stop
+
+
 def _mesh_fit(ctx, plan, name: str, record: bool = True, checkpoint: str = None,
               every: int = None, interrupt: bool = False, diverge: bool = False,
-              **knobs):
+              rounds_only: int = 0, **knobs):
     """One fit of the shared corpus on ``plan`` from the injected start parameters;
     saves this rank's row blocks (and the rounds it ran) under ``name``, with the
     world allgathers the fit issued. ``diverge``: this rank's replicated feed differs
@@ -308,8 +428,9 @@ def _mesh_fit(ctx, plan, name: str, record: bool = True, checkpoint: str = None,
     sents = fit_corpus()
     vocab = build_vocab(sents, 1)
     cfg = Word2VecConfig(**dict(FIT_KNOBS, **knobs))
+    token_feed = cfg.device_pairgen or cfg.cbow_update == "banded"
     t = Trainer(cfg, vocab, params=fit_params(vocab.size), device="cpu",
-                feed_backend="numpy", plan=plan)
+                feed_backend="device" if token_feed else "numpy", plan=plan)
     rounds: list = []
     if record:
         _record_rounds(t, rounds)
@@ -317,6 +438,8 @@ def _mesh_fit(ctx, plan, name: str, record: bool = True, checkpoint: str = None,
         _stop_after_first_save(t)
     if diverge:
         _diverge_feed(t)
+    if rounds_only:
+        _stop_after_rounds(t, rounds_only)
     COLLECTIVES.reset()
     try:
         t.fit(encode_sentences(sents, vocab, cfg.max_sentence_length),
@@ -341,7 +464,8 @@ def _mesh_fit(ctx, plan, name: str, record: bool = True, checkpoint: str = None,
 def _scenario_fit(ctx) -> None:
     """Fits on a (2, 2) mesh of four ranks: the sharded-input feed, the replicated
     feed (``shard_input=False``), local SGD (``sync_every=2``), the sharded feed under
-    ``feed_consistency_check``, and the replicated one with rank 1's feed diverged."""
+    ``feed_consistency_check``, the replicated one with rank 1's feed diverged, and one
+    round of each step form beside the shared pool."""
     from glint_word2vec_torch.parallel.mesh import make_mesh
 
     plan = make_mesh(2, 2)
@@ -353,6 +477,70 @@ def _scenario_fit(ctx) -> None:
     _mesh_fit(ctx, plan, "checked", record=False, feed_consistency_check=True)
     _mesh_fit(ctx, plan, "diverged", record=False, diverge=ctx.rank == 1,
               shard_input=False, feed_consistency_check=True)
+    # one round of each step form beside the shared pool (ROADMAP A9b.1, A9b.3)
+    for kw in (dict(cbow=True), dict(cbow=True, cbow_update="banded"),
+               dict(duplicate_scaling=True), dict(negative_pool=0),
+               dict(device_pairgen=True)):
+        _mesh_fit(ctx, plan, "a9b/" + "-".join(kw), record=False, rounds_only=1,
+                  num_iterations=1, **kw)
+
+
+TOKEN_KNOBS = dict(FIT_KNOBS, device_pairgen=True)
+BANDED_KNOBS = dict(FIT_KNOBS, cbow=True, cbow_update="banded")
+TOKEN_CKPT_EVERY = 10  # the interrupted token-feed fit's first save: mid-iteration 1
+
+
+def _scenario_tokens(ctx) -> None:
+    """The token-block feed and the CBOW host feed on the meshes of two ranks: at
+    (2, 1) and (1, 2), a ``device_pairgen`` fit with the rounds staged one ahead
+    (``sharded_prefetch``, the default) and without, and a banded-CBOW fit; at (2, 1)
+    the sharded-input CBOW fit, and a ``device_pairgen`` fit stopped at its first
+    checkpoint (a copy kept for a one-process resume), then resumed on this world."""
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+
+    d = Path(ctx.args["dir"])
+    for nd, nm in ((2, 1), (1, 2)):
+        plan = make_mesh(nd, nm)
+        tag = f"{nd}x{nm}"
+        ctx.meta[f"{tag}/place"] = [plan.data_index, plan.model_index]
+        _mesh_fit(ctx, plan, f"{tag}/pairgen", **TOKEN_KNOBS)
+        _mesh_fit(ctx, plan, f"{tag}/pairgen_unstaged", sharded_prefetch=False,
+                  **TOKEN_KNOBS)
+        _mesh_fit(ctx, plan, f"{tag}/banded", **BANDED_KNOBS)
+        if (nd, nm) != (2, 1):
+            continue
+        _mesh_fit(ctx, plan, f"{tag}/cbow", cbow=True)
+        _mesh_fit(ctx, plan, f"{tag}/stopped", record=False, checkpoint=str(d / "ck_tok"),
+                  every=TOKEN_CKPT_EVERY, interrupt=True, **TOKEN_KNOBS)
+        from glint_word2vec_torch.parallel import distributed
+        if ctx.rank == 0:  # the one-process resume's copy (the resume below saves)
+            shutil.copytree(d / "ck_tok", d / "ck_tok_stopped")
+        distributed.COLLECTIVES.barrier(distributed.host_group())
+        rounds: list = []
+        m = _resume_recorded(str(d / "ck_tok"), plan, rounds)
+        _save_rounds(ctx, f"{tag}/resumed", rounds)
+        ctx.arrays[f"{tag}/resumed/syn0"] = m.params[0].numpy()
+        ctx.arrays[f"{tag}/resumed/syn1"] = m.params[1].numpy()
+
+
+def _resume_recorded(ck: str, plan, rounds: list):
+    """``Word2Vec.resume`` of ``ck`` (on ``plan``, or one process for None), every
+    round its trainer runs recorded into ``rounds``."""
+    from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.train import trainer as trainer_mod
+
+    cls = trainer_mod.Trainer
+    init = cls.__init__
+
+    def recording_init(self, *a, **kw):
+        init(self, *a, **kw)
+        _record_rounds(self, rounds)
+
+    cls.__init__ = recording_init
+    try:
+        return Word2Vec.resume(ck, fit_corpus(), plan=plan, device="cpu")
+    finally:
+        cls.__init__ = init
 
 
 def _scenario_ckpt(ctx) -> None:
@@ -487,8 +675,9 @@ def _scenario_dist(ctx) -> None:
     ctx.meta["staged_calls"] = C.staged_calls
 
 
-SCENARIOS = {"dist": _scenario_dist, "steps": _scenario_steps, "fit": _scenario_fit, "ckpt": _scenario_ckpt,
-             "beacon": _scenario_beacon}
+SCENARIOS = {"dist": _scenario_dist, "steps": _scenario_steps, "fit": _scenario_fit,
+             "ckpt": _scenario_ckpt, "beacon": _scenario_beacon, "forms": _scenario_forms,
+             "tokens": _scenario_tokens}
 
 
 class _Ctx:

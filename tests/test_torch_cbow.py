@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import interop
 from glint_word2vec_torch.data import pipeline as tp
 from glint_word2vec_torch.data import vocab as tv
@@ -19,6 +20,12 @@ from glint_word2vec_torch.ops import sgns as tsgns
 from glint_word2vec_tpu.data import pipeline as jp
 from glint_word2vec_tpu.data import vocab as jv
 from glint_word2vec_tpu.ops import sgns as jsgns
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 ATOL = 1e-5
 LOSS_RTOL = 1e-5

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import Word2Vec as TWord2Vec
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data import pipeline as tpipe
@@ -40,6 +41,12 @@ from glint_word2vec_tpu.ops import cbow_banded as jband
 from glint_word2vec_tpu.ops import pairgen as jpg
 from glint_word2vec_tpu.ops.sgns import EmbeddingPair as JPair
 from glint_word2vec_tpu.train.trainer import Trainer as JTrainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 SEED, IT, SHARD = 7, 1, 0
 F64_TOL = 1e-12

@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.models.word2vec import Word2VecModel as TModel
 from glint_word2vec_torch.train import checkpoint as tck
 from glint_word2vec_tpu.config import Word2VecConfig
@@ -19,6 +20,11 @@ from glint_word2vec_tpu.models.word2vec import Word2VecModel as JModel
 from glint_word2vec_tpu.parallel.mesh import make_mesh
 from glint_word2vec_tpu.train import checkpoint as jck
 from glint_word2vec_tpu.train.trainer import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 def _small_corpus(n=120, v=50, seed=0):

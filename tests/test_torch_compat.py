@@ -9,10 +9,16 @@ import jax
 import numpy as np
 import pytest
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.models import ServerSideGlintWord2Vec as TW2V
 from glint_word2vec_torch.models import ServerSideGlintWord2VecModel as TModel
 from glint_word2vec_torch.models import compat as tcompat
 from glint_word2vec_tpu.models import ServerSideGlintWord2Vec as JW2V
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 def _chains():
@@ -44,10 +50,13 @@ def test_setter_chain_maps_to_the_same_config(chain, monkeypatch):
 
 
 def test_refused_knob_fails_at_fit(monkeypatch):
+    """Three parameter servers map to a mesh of three model shards, which a world of
+    one cannot hold: the fit raises, naming the knob (every step form runs on a mesh,
+    but one rank is one device and the port never falls back to fewer)."""
     monkeypatch.setattr(tcompat, "_device_count", lambda device: 4)
     est = TW2V(device="cpu").setNumParameterServers(3).setMinCount(1)
     assert est.to_config().num_model_shards == 3  # the mapping itself is kept
-    with pytest.raises(NotImplementedError, match="num_model_shards"):
+    with pytest.raises(ValueError, match="num_model_shards.*this world has 1"):
         est.fit([["a", "b", "c"]] * 10)
 
 

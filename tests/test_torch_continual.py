@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import Word2Vec as TWord2Vec
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.continual import extend as text
@@ -39,6 +40,12 @@ from glint_word2vec_tpu.data.vocab import Vocabulary as JVocab
 from glint_word2vec_tpu.parallel.mesh import make_mesh
 from glint_word2vec_tpu.train import checkpoint as jckpt
 from glint_word2vec_tpu.train.trainer import Trainer as JTrainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import Word2Vec as TWord2Vec
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data import corpus as tcorpus
@@ -31,6 +32,11 @@ from glint_word2vec_tpu.models.estimator import Word2Vec as JWord2Vec
 from glint_word2vec_tpu.ops.sgns import EmbeddingPair as JPair
 from glint_word2vec_tpu.train import checkpoint as jckpt
 from glint_word2vec_tpu.train.trainer import Trainer as JTrainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 def _token_lines(seed=0, n_words=250, n_sent=300, unicode=False):

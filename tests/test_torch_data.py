@@ -5,10 +5,16 @@ numpy pair generator)."""
 import numpy as np
 import pytest
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.data import pipeline as tp
 from glint_word2vec_torch.data import vocab as tv
 from glint_word2vec_tpu.data import pipeline as jp
 from glint_word2vec_tpu.data import vocab as jv
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 def _corpus(seed=0, n_sent=400, n_words=600, max_len=40):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import Word2Vec as TWord2Vec
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data.pipeline import encode_sentences
@@ -25,6 +26,12 @@ from glint_word2vec_tpu.data import pipeline as jpipeline
 from glint_word2vec_tpu.data.vocab import build_vocab as j_build_vocab
 from glint_word2vec_tpu.ops.sgns import EmbeddingPair as JPair
 from glint_word2vec_tpu.train.trainer import Trainer as JTrainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 PARAM_ATOL = 1e-5
 
@@ -180,17 +187,26 @@ def test_resume_is_deterministic(tmp_path):
 
 
 def test_per_segment_positions_are_refused(tmp_path):
-    """A checkpoint that carries only per-segment positions needs the multi-device
-    resume: refused by name."""
+    """A checkpoint that carries only per-segment positions resumes through the
+    per-segment fast-forward (a mesh's token feed writes them); positions past the
+    corpus's stream are refused with the JAX trainer's message, and within it the fit
+    resumes from them."""
     sents = _corpus(seed=9, n_sent=40)
     vocab = t_build_vocab(sents, 1)
     from glint_word2vec_torch.train.checkpoint import TrainState
     st = TrainState(iteration=1, words_processed=10, global_step=4, batches_done=0,
-                    shard_progress=[[1, 4]], shard_feed="tokens")
+                    shard_progress=[[1, 10_000]], shard_feed="tokens")
     tt = TTrainer(TConfig(**_knobs(negative_pool=8)), vocab, train_state=st,
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="segment 0 iteration 1 has only .* blocks but "
+                                         "the checkpoint recorded 10000"):
         tt.fit(encode_sentences(sents, vocab))
+    st = TrainState(iteration=1, words_processed=10, global_step=4, batches_done=0,
+                    shard_progress=[[1, 1]], shard_feed="tokens")
+    tt = TTrainer(TConfig(**_knobs(negative_pool=8)), vocab, train_state=st,
+                  device="cpu")
+    tt.fit(encode_sentences(sents, vocab))
+    assert tt.state.finished and tt.global_step > 4
 
 
 @pytest.mark.parametrize("kw", [

@@ -142,10 +142,12 @@ def _reference_chunk(t, chunk):
     K, real = cfg.steps_per_dispatch, chunk["real"]
     step = t._step_fn()
     if t._banded_cbow:
+        # the token feed's [n, segments, ...] arrays: one device runs one segment
+        arrays = {n: a[:, 0] for n, a in arrays.items()}
         obase = arrays["obase"]
         band = device_cbow_windows(
             arrays["tokens"], arrays["starts"], arrays["nvalid"], obase[:, 0],
-            obase[:, 1], chunk["win_base"], cfg.window, t._block_halo)
+            obase[:, 1], chunk["win_bases"][0], cfg.window, t._block_halo)
         negatives = sample_negatives_hash(t._table_prob, t._table_alias, cfg.seed,
                                           t.global_step + 1, (K, cfg.negative_pool))
         for k in range(real):

@@ -12,11 +12,18 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.config import Word2VecConfig
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.ops import sgns as tsgns
 from glint_word2vec_torch.train.trainer import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 NEG = 3
 ALPHA = 0.05

@@ -12,9 +12,16 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import Word2Vec, Word2VecConfig, Word2VecModel
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.train.trainer import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 REPO = Path(__file__).resolve().parent.parent
 # the card's machine has no ml_dtypes: bf16 crosses as float32 (exact), cast by torch;

@@ -12,11 +12,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import scatterprobe
 from glint_word2vec_torch.ops import bf16_check
 from glint_word2vec_torch.ops import scatter as tscatter
 from glint_word2vec_torch.ops import sgns as tsgns
 from glint_word2vec_torch.ops.fused_sgns import alpha_on_card, fused_sgns_shared_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 @pytest.fixture

@@ -20,7 +20,14 @@ import pytest
 
 from tools.graftlint import concurrency, engine, rules
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import lockcheck
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = "glint_word2vec_torch/"

@@ -11,6 +11,7 @@ import shutil
 import numpy as np
 import pytest
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data.vocab import Vocabulary as TVocab
 from glint_word2vec_torch.models.word2vec import Word2VecModel as TModel
@@ -19,6 +20,12 @@ from glint_word2vec_tpu.config import Word2VecConfig as JConfig
 from glint_word2vec_tpu.data.vocab import Vocabulary as JVocab
 from glint_word2vec_tpu.models.word2vec import Word2VecModel as JModel
 from glint_word2vec_tpu.train import checkpoint as jck
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 MEAN_ATOL = 1e-6
 

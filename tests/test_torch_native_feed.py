@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data import native as tnative
 from glint_word2vec_torch.data import pipeline as tp
@@ -28,6 +29,12 @@ from glint_word2vec_torch.train.trainer import NonFiniteParamsError, Trainer
 from glint_word2vec_tpu.data import native as jnative
 from glint_word2vec_tpu.data import pipeline as jp
 from glint_word2vec_tpu.data.vocab import Vocabulary as JVocab
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 REPO = Path(__file__).resolve().parent.parent
 FEED_THREADS = ("glint-batch-producer", "glint-feed-worker")

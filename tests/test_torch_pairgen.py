@@ -11,10 +11,17 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.data.hashrng import STREAM_SUBSAMPLE, STREAM_WINDOW, stream_base
 from glint_word2vec_torch.data.pipeline import _block_pairs, keep_probabilities
 from glint_word2vec_torch.ops import pairgen as tpg
 from glint_word2vec_tpu.ops import pairgen as jpg
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 V = 500
 WINDOW = 5

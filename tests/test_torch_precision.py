@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_tpu.config import Word2VecConfig as JConfig
 from glint_word2vec_tpu.ops import cbow_banded as jband
 from glint_word2vec_tpu.ops import sgns as jsgns
@@ -31,6 +32,12 @@ from glint_word2vec_torch.ops import bf16_check
 from glint_word2vec_torch.ops import cbow_banded as tband
 from glint_word2vec_torch.ops import scatter as tscatter
 from glint_word2vec_torch.ops import sgns as tsgns
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 BF = torch.bfloat16
 ALPHA, NEG = 0.05, 3

@@ -11,6 +11,7 @@ import pytest
 
 import jax.numpy as jnp
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_tpu.config import Word2VecConfig as JConfig
 from glint_word2vec_tpu.train.checkpoint import save_model_sharded
 
@@ -32,6 +33,12 @@ from glint_word2vec_torch.serve.ann import (
 )
 from glint_word2vec_torch.serve.quant import auto_pq_m
 from glint_word2vec_torch.train.checkpoint import ShardedMatrixReader
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 CPU = "cpu"
 

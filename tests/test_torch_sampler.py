@@ -6,12 +6,18 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.data import hashrng as thash
 from glint_word2vec_torch.ops import prng as tprng
 from glint_word2vec_torch.ops import sampler as ts
 from glint_word2vec_tpu.data import hashrng as jhash
 from glint_word2vec_tpu.ops import prng as jprng
 from glint_word2vec_tpu.ops import sampler as js
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 @pytest.mark.parametrize("V", [7, 1000, 1 << 18])  # 1 << 18: the partitioned build

@@ -15,7 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.ops import scatter as ts
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 EPS32 = 2.0 ** -24
 CHUNK = ts.CHUNK

@@ -31,6 +31,7 @@ import torch
 
 import jax.numpy as jnp
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.config import Word2VecConfig
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import Vocabulary, build_vocab
@@ -48,6 +49,12 @@ from glint_word2vec_torch.serve import (
     load_with_retry,
 )
 from glint_word2vec_torch.train.trainer import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = "cpu"

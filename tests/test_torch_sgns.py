@@ -15,11 +15,18 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import interop
 from glint_word2vec_torch.ops import sgns as tsgns
 from glint_word2vec_torch.ops.fused_sgns import fused_sgns_shared_step
 from glint_word2vec_tpu.ops import sgns as jsgns
 from glint_word2vec_tpu.ops.pallas.sgns_kernel import make_pallas_sgns_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 ATOL = 1e-5
 LOSS_RTOL = 1e-5

@@ -1,12 +1,14 @@
 """The port's mesh fit (glint_word2vec_torch/train/trainer.py on a MeshPlan) on gloo
 worlds on the CPU: the W-rank feed against the JAX pipeline's W shards, the fit against
 the port's single-process step on the same global batches, local SGD's replicas, peer
-beacons, and the refusals of what the port does not run on a mesh (ROADMAP A9b).
+beacons, one round of each step form beside the shared pool, and the refusals that
+remain on a mesh (ROADMAP A9b.2, and the JAX package's own).
 
 Two worlds (module-scoped): four ranks on a (2, 2) mesh run the sharded-input fit, the
 replicated-feed fit (``shard_input=False``) and a local-SGD fit, each recording every
-round's global chunk, and two fits under ``feed_consistency_check`` (one with a
-diverged rank); two ranks run the beacon drill, in which rank 1 dies.
+round's global chunk, two fits under ``feed_consistency_check`` (one with a diverged
+rank) and one round of CBOW, banded CBOW, duplicate scaling, the per-pair step and
+``device_pairgen``; two ranks run the beacon drill, in which rank 1 dies.
 """
 
 import numpy as np
@@ -243,24 +245,43 @@ A9B = [
     dict(negative_pool=0),
     dict(device_pairgen=True),
 ]
+A9B_FORMS = {"cbow": "sharded_cbow_shared", "cbow-cbow_update": "sharded_banded",
+             "duplicate_scaling": "sharded_shared", "negative_pool": "sharded_per_pair",
+             "device_pairgen": "sharded_shared"}
 
 
 @pytest.mark.parametrize("kw", A9B, ids=lambda kw: "-".join(kw))
-def test_a9b_combinations_are_refused_by_name(kw):
-    """What the JAX package runs on a mesh only under GSPMD is refused, naming ROADMAP
-    A9b: at construction when the config names the mesh, in the Trainer when the plan
-    does."""
-    with pytest.raises(NotImplementedError, match="A9b"):
-        TConfig(pairs_per_batch=8192, num_model_shards=2, **kw)
+def test_a9b_combinations_are_refused_by_name(fit_world, kw):
+    """The combinations the port refused on a mesh until the rest of ROADMAP A9b.1 and
+    A9b.3 landed are refused by no name now: the config that names a mesh
+    constructs, the Trainer on a plan picks the row-sharded twin of the step the JAX
+    trainer selects, and the (2, 2) world trained one round of each (finite
+    parameters that moved, the same bits on every data replica)."""
+    TConfig(pairs_per_batch=8192, num_model_shards=2, **kw)
     vocab = t_build_vocab(fit_corpus(), 1)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        TTrainer(TConfig(pairs_per_batch=8192, **kw), vocab, device="cpu",
+    t = TTrainer(TConfig(pairs_per_batch=8192, **kw), vocab, device="cpu",
                  plan=MeshPlan(2, 1))
+    name = "-".join(kw)
+    assert t._step_form() == A9B_FORMS[name]
+    start = fit_params(vocab.size)
+    for r, res in enumerate(fit_world):
+        meta, a = res["meta"], res["arrays"]
+        assert meta[f"a9b/{name}/stopped_at"] == K
+        for i, m in enumerate(("syn0", "syn1")):
+            got = a[f"a9b/{name}/{m}"]
+            assert np.isfinite(got).all()
+            lo = (r % NM) * got.shape[0]
+            assert not np.array_equal(got[:, :start[i].shape[1]],
+                                      start[i][lo:lo + got.shape[0]])
+            assert np.array_equal(got, fit_world[r % NM]["arrays"][f"a9b/{name}/{m}"])
 
 
 def test_hot_rows_and_cols_are_refused_on_a_mesh():
+    """hot_rows on a plan of several ranks raises the JAX trainer's ValueError and
+    message; the column layout stays refused by name (ROADMAP A9b.2)."""
     vocab = t_build_vocab(fit_corpus(), 1)
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(ValueError, match="hot_rows is the single-chip step "
+                                         "restructuring"):
         TTrainer(TConfig(pairs_per_batch=8192, hot_rows=8), vocab, device="cpu",
                  plan=MeshPlan(1, 2))
     with pytest.raises(NotImplementedError, match="A9b"):

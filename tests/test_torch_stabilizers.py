@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import Word2Vec as TWord2Vec
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data.pipeline import encode_sentences
@@ -40,6 +41,12 @@ from glint_word2vec_tpu.ops import cbow_banded as jband
 from glint_word2vec_tpu.ops import sgns as jsgns
 from glint_word2vec_tpu.train.trainer import Trainer as JTrainer
 from test_stabilizers import _np_shared_step
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 ORACLE_TOL = 1e-12
 JAX_F64_ATOL = 2e-6   # α·2^-24 · |row| ~600 · a few occurrences (module docstring)

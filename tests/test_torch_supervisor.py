@@ -22,6 +22,7 @@ import time
 
 import pytest
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.obs.schema import validate_file
 from glint_word2vec_torch.obs.statusd import supervisor_prometheus_text
@@ -38,6 +39,12 @@ from glint_word2vec_tpu.config import Word2VecConfig as JConfig
 from glint_word2vec_tpu.obs.statusd import (
     supervisor_prometheus_text as j_supervisor_prometheus_text,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAULT_ENV = ("GLINT_FAULT_CRASH_AT_STEP", "GLINT_FAULT_CRASH_SIGNAL",

@@ -27,6 +27,7 @@ import time
 import numpy as np
 import pytest
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.data.vocab import Vocabulary
 from glint_word2vec_torch.models.word2vec import Word2VecModel
 from glint_word2vec_torch.obs.collect import (
@@ -57,6 +58,11 @@ from glint_word2vec_torch.obs.trace import (
 )
 from glint_word2vec_torch.serve.fleet import FleetRouter, FleetTicket, ReplicaSet
 from glint_word2vec_torch.serve.service import EmbeddingService
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 def make_model(v=60, d=8, seed=0):

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch.config import Word2VecConfig as TConfig
 from glint_word2vec_torch.data.pipeline import encode_sentences
 from glint_word2vec_torch.data.vocab import build_vocab as t_build_vocab
@@ -20,6 +21,11 @@ from glint_word2vec_tpu.config import Word2VecConfig as JConfig
 from glint_word2vec_tpu.data.vocab import build_vocab as j_build_vocab
 from glint_word2vec_tpu.ops.sgns import EmbeddingPair as JPair
 from glint_word2vec_tpu.train.trainer import Trainer as JTrainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
 
 
 def _corpus(seed=4, n_words=300, n_sent=160, length=20):
