@@ -251,17 +251,18 @@ Phases, one line each (or a few); any failure exits non-zero:
  15. mesh     row-sharded training over torch.distributed, after phase 12: two rank
                processes of this script on the one card (NCCL refuses two ranks on one
                device, so a gloo world whose every collective is staged through host
-               memory), V=1,000,000, d=300 (384), B=8192, the AUTO pool (256 at 1M
+               memory; one world runs the ranks' cases of phases 15, 16 and 17 in
+               turn, then each phase checks its records), V=1,000,000, d=300 (384), B=8192, the AUTO pool (256 at 1M
                words), f32, this corpus's Zipf(1) tokens: (a) mesh (1, 2), the
-               default sharded-input fit through Trainer(plan=) for 32 steps from the
+               default sharded-input fit through Trainer(plan=) for 16 steps from the
                trainer's seeded start; its global chunks replayed through the plain
                single-process step on the card, and the ranks' row-shards checkpoint
                within PARAM_ATOL of the replay; each rank's step time (dispatch, eager)
                and the staging's share of it, its scatter launches (non-zero; the fused
                kernel's zero) and the scatter kernel against its plain version at the
                shapes the mesh step gives it; (b) mesh (2, 1), sync_every=2, one
-               window a chunk: after every merge the two replicas' fingerprints are
-               equal, and their bytes at the end; (c) the checkpoint loaded by one
+               window a chunk, 2 steps: after the merge the two replicas'
+               fingerprints are equal, and their bytes at the end; (c) the checkpoint loaded by one
                process serves find_synonyms for 16 words as the explicitly gathered
                rows do (ids identical, scores within 1e-6); (d) a world of one on NCCL
                runs the collective interface on the card.
@@ -281,6 +282,26 @@ Phases, one line each (or a few); any failure exits non-zero:
                after step 8, its rows within PARAM_ATOL of the mesh's at step 12.
                Printed: each rank's step time (dispatch, eager), the staging's share,
                the collectives by axis, the launches and the holds.
+ 17. cols     the column layout and a model on the mesh, in phase 16's (1, 2) world
+               after its fits (two ranks on this card over gloo): (a) with
+               embedding_partition="cols" at phase 15's widths and corpus, K=4, 8 steps
+               each: the shared-pool skip-gram step with max_row_norm and update_clip
+               (the norm all_reduces run), the per-pair step, shared-pool CBOW and
+               banded CBOW; each held as phase 16's fits are (the plain one-process
+               replay within PARAM_ATOL on the compared rows, the scatter kernel on each
+               rank at its column block's width against index_add_, the fused kernel
+               never); the banded fit's dense checkpoint (saved at step 8 by data 0 /
+               model 0) equal to each rank's column block bit for bit (sha256), then
+               resumed on one process, where it steps. Printed per fit and rank: the
+               step time (dispatch, eager), the model-axis bytes a step, the staging's
+               share. (b) then, in the same world: phase 15's row-shards checkpoint
+               loaded on the (1, 2) mesh with Word2VecModel.load(plan=): pull of 1,000
+               rows bit for bit against the one-device model, find_synonyms_batch of
+               256 words under phase 11's tie rule, the binary export byte for byte;
+               then serve_checkpoint --mesh 1x2 answers 256 synonyms requests as the
+               one-device model does, one reload of a newer publish lands on both
+               ranks, SIGTERM ends both with exit 0; its queries/s and p50/p99 printed
+               beside phase 11's one-process exact arm.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
@@ -3454,12 +3475,12 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
 
 # --- phase 15: the mesh -----------------------------------------------------------------
 
-MESH_STEPS = 32       # (a): the model-sharded fit's steps
+MESH_STEPS = 16       # (a): the model-sharded fit's steps
 MESH_K = 16           # its steps a chunk
-MESH_SGD_STEPS = 8    # (b): local SGD's steps, one window a chunk (K = sync_every = 2)
+MESH_SGD_STEPS = 2    # (b): local SGD's steps, one window a chunk (K = sync_every = 2)
 MESH_TOKENS = 300_000  # >= 64 steps of the 2-rank sharded feed at B=8192, window 5
 MESH_WORDS = 16       # (c): the synonym queries
-MESH_LIMIT_S = 600.0  # each world's ranks, start-up and build included
+MESH_LIMIT_S = 900.0  # the world's ranks, start-up included
 
 
 class _MeshStop(Exception):
@@ -3531,9 +3552,12 @@ def _rank_scatter_hold(tr, plan, torch, scat) -> dict:
 
 
 def mesh_rank_main(args) -> int:
-    """One rank of phase 15, run by :func:`mesh_phase` as
-    ``chip_smoke.py --mesh-rank R --mesh-case CASE --mesh-dir DIR``: a gloo world of
-    two ranks on this one card, every collective staged through host memory."""
+    """One rank of phases 15–17, run by :func:`mesh_phases` as ``chip_smoke.py
+    --mesh-rank R --mesh-case CASES --mesh-dir DIR``: a gloo world of two ranks on this
+    one card, every collective staged through host memory, running the comma-separated
+    cases in turn (phase 15's ``model`` and ``data``, phase 16's worlds of
+    :data:`FORM_WORLDS`, phase 17 inside :data:`COLS_WORLD`), each writing its record
+    to ``DIR/<case>-r<R>.json``."""
     import numpy as np
     import torch
 
@@ -3542,28 +3566,43 @@ def mesh_rank_main(args) -> int:
     repo = Path(__file__).resolve().parent
     sys.path.insert(0, str(repo))
     from glint_word2vec_torch import Vocabulary
-    from glint_word2vec_torch.config import Word2VecConfig
     from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.parallel import distributed
+
+    d = Path(args.mesh_dir)
+    r = args.mesh_rank
+    distributed.initialize(init_method=f"file://{d / 'world.store'}",
+                           num_processes=2, process_id=r, backend="gloo",
+                           device="cuda", timeout_s=300)
+    words, counts, sents = synthetic_corpus(args.seed, MESH_TOKENS, np)
+    vocab = Vocabulary.from_words_and_counts(words, counts)
+    enc = encode_sentences(sents, vocab, 1000)
+    for case in args.mesh_case.split(","):
+        if case in FORM_WORLDS:
+            rec = forms_rank_main(args, r, d, vocab, enc, np, torch, case)
+            if args.mesh_ck and case == COLS_WORLD:  # phase 17 (b), after every fit
+                torch.cuda.empty_cache()
+                rec["model17"] = model17_rank_main(args, r, d, np, torch)
+        else:
+            rec = _mesh_case(case, args, r, d, vocab, enc, np, torch)
+        (d / f"{case}-r{r}.json").write_text(json.dumps(rec))
+        torch.cuda.empty_cache()
+    distributed.shutdown()
+    return 0
+
+
+def _mesh_case(case: str, args, r: int, d: Path, vocab, enc, np, torch) -> dict:
+    """Phase 15's ``model`` (the (1, 2) fit, its rounds, row-shards checkpoint and
+    gathered rows) or ``data`` (local SGD on (2, 1), its replicas' fingerprints) on
+    this rank."""
+    from glint_word2vec_torch.config import Word2VecConfig
     from glint_word2vec_torch.ops import fused_sgns as fused
     from glint_word2vec_torch.ops import scatter as scat
     from glint_word2vec_torch.parallel import distributed
     from glint_word2vec_torch.parallel.mesh import make_mesh
     from glint_word2vec_torch.train.trainer import Trainer
 
-    d = Path(args.mesh_dir)
-    case, r = args.mesh_case, args.mesh_rank
-    distributed.initialize(init_method=f"file://{d / (case + '.store')}",
-                           num_processes=2, process_id=r, backend="gloo",
-                           device="cuda", timeout_s=300)
     rec = {"rank": r, "case": case}
-    words, counts, sents = synthetic_corpus(args.seed, MESH_TOKENS, np)
-    vocab = Vocabulary.from_words_and_counts(words, counts)
-    enc = encode_sentences(sents, vocab, 1000)
-    if case in FORM_WORLDS:
-        rec = forms_rank_main(args, r, d, vocab, enc, np, torch)
-        (d / f"{case}-r{r}.json").write_text(json.dumps(rec))
-        distributed.shutdown()
-        return 0
     knobs = dict(vector_size=D_REAL, window=WINDOW, negatives=N_NEG, pairs_per_batch=B,
                  seed=args.seed, heartbeat_every_steps=MESH_K)
     if case == "model":
@@ -3630,25 +3669,25 @@ def mesh_rank_main(args) -> int:
             dig.update(m.cpu().numpy().tobytes())
         rec["sha256"] = dig.hexdigest()
     rec["scatter_hold"] = _rank_scatter_hold(tr, plan, torch, scat)
-    (d / f"{case}-r{r}.json").write_text(json.dumps(rec))
-    distributed.shutdown()
-    return 0
+    return rec
 
 
-def _mesh_world(case: str, d: Path, seed: int) -> list:
+def _mesh_world(cases: list, d: Path, seed: int, extra: list = ()) -> dict:
+    """Run ``cases`` in one world of two rank processes of this script; each case's
+    records in rank order, by case."""
     procs = []
     for r in range(2):
-        err = open(d / f"{case}-r{r}.log", "w")
+        err = open(d / f"world-r{r}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
-             "--mesh-case", case, "--mesh-dir", str(d), "--seed", str(seed)],
-            stdout=err, stderr=subprocess.STDOUT), err))
+             "--mesh-case", ",".join(cases), "--mesh-dir", str(d), "--seed", str(seed),
+             *extra], stdout=err, stderr=subprocess.STDOUT), err))
     deadline = time.monotonic() + MESH_LIMIT_S
     try:
         for p, _ in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
-        raise AssertionError(f"mesh {case}: a rank did not finish within "
+        raise AssertionError(f"mesh world {cases}: a rank did not finish within "
                              f"{MESH_LIMIT_S:.0f} s")
     finally:
         for p, err in procs:
@@ -3656,13 +3695,12 @@ def _mesh_world(case: str, d: Path, seed: int) -> list:
                 p.kill()
                 p.wait()
             err.close()
-    out = []
     for r, (p, _) in enumerate(procs):
         if p.returncode != 0:
-            raise AssertionError(f"mesh {case} rank {r} exited {p.returncode}: "
-                                 f"{(d / f'{case}-r{r}.log').read_text()[-3000:]}")
-        out.append(json.loads((d / f"{case}-r{r}.json").read_text()))
-    return out
+            raise AssertionError(f"mesh world rank {r} exited {p.returncode}: "
+                                 f"{(d / f'world-r{r}.log').read_text()[-3000:]}")
+    return {case: [json.loads((d / f"{case}-r{r}.json").read_text()) for r in range(2)]
+            for case in cases}
 
 
 def _mesh_replay(d: Path, vocab, pool: int, seed: int, torch, np, sgns):
@@ -3693,79 +3731,99 @@ def _mesh_replay(d: Path, vocab, pool: int, seed: int, torch, np, sgns):
     return p, step
 
 
-def mesh_phase(seed: int, torch, np, sgns) -> tuple:
-    """Phase 15: row-sharded training over torch.distributed, two ranks sharing this
-    one card through a gloo group staged in host memory (NCCL refuses two ranks on one
-    device): (a) the model-sharded fit, (b) local SGD on the data axis, (c) the
-    row-shards checkpoint served on one device, (d) NCCL at a world of one."""
-    from glint_word2vec_torch import Vocabulary, Word2VecModel
-    from glint_word2vec_torch.parallel import distributed
-    from glint_word2vec_torch.train.checkpoint import load_model
-
+def mesh_phases(seed: int, torch, np, sgns, one_process: dict = None) -> tuple:
+    """Phases 15, 16 and 17 on one world of two rank processes on this card (one
+    start-up for all their cases: :func:`mesh_rank_main`), then each phase's checks on
+    its records in the world's directory: (mesh, forms, launches); forms["cols"] is
+    phase 17's record."""
     from glint_word2vec_torch.data import native
 
     native.native_available()  # built here once, not raced by the ranks
     torch.cuda.empty_cache()
     d = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
-    rec = {}
     try:
         t0 = time.perf_counter()
-        model = _mesh_world("model", d, seed)
-        rec["model_world_s"] = time.perf_counter() - t0
-        for r in model:
-            if r["scatter_launches"] <= 0:
-                raise AssertionError(f"mesh (a) rank {r['rank']}: no scatter launch")
-            if r["fused_launches"]:
-                raise AssertionError("mesh (a): the fused kernel ran on the mesh path")
-        words, counts, _ = synthetic_corpus(seed, 1, np)
-        vocab = Vocabulary.from_words_and_counts(words, counts)
-        ref, steps = _mesh_replay(d, vocab, model[0]["pool"], seed, torch, np, sgns)
-        if steps != model[0]["steps"]:
-            raise AssertionError(f"mesh (a): replay {steps} steps, fit {model[0]['steps']}")
-        got = load_model(str(d / "ck"), verify=True)
-        err = 0.0
-        for name, m in (("syn0", got["syn0"]), ("syn1", got["syn1"])):
-            want = getattr(ref, name)[:V, :D_REAL]
-            err = max(err, float((torch.from_numpy(m).cuda() - want).abs().max()))
-        if not err <= PARAM_ATOL:
-            raise AssertionError(f"mesh (a): sharded vs single-process max |diff| {err}")
-        del ref
-        # (c) the row-shards checkpoint on one device against the gathered rows
-        served = Word2VecModel.load(str(d / "ck"), device="cuda")
-        gathered = Word2VecModel(vocab, np.load(d / "gathered_syn0.npy"), device="cuda")
-        queries = [f"w{i}" for i in range(0, 4 * MESH_WORDS, 4)]
-        for w in queries:
-            a, b = served.find_synonyms(w, 10), gathered.find_synonyms(w, 10)
-            if [x for x, _ in a] != [x for x, _ in b] or max(
-                    abs(s - t) for (_, s), (_, t) in zip(a, b)) > 1e-6:
-                raise AssertionError(f"mesh (c): find_synonyms({w!r}) differs")
-        del served, gathered
+        cases = ["model", "data", *FORM_WORLDS]
+        worlds = _mesh_world(cases, d, seed, extra=["--mesh-ck", str(d / "ck")])
+        world_s = time.perf_counter() - t0
+        log("mesh", f"one world of two ranks ran phases 15-17's cases {cases} in "
+            f"{world_s:.1f} s")
         t0 = time.perf_counter()
-        sgd = _mesh_world("data", d, seed)
-        rec["data_world_s"] = time.perf_counter() - t0
-        fps = sgd[0]["fingerprints"]
-        if len(fps) != MESH_SGD_STEPS // 2 or any(a != b for a, b in fps):
-            raise AssertionError(f"mesh (b): replicas differ after a merge: {fps}")
-        if sgd[0]["sha256"] != sgd[1]["sha256"]:
-            raise AssertionError("mesh (b): the replicas' bytes differ at the end")
-        # (d) NCCL at a world of one, through the collective interface
-        distributed.initialize(init_method=f"file://{d / 'nccl.store'}", num_processes=1,
-                               process_id=0, backend="nccl", device="cuda")
-        try:
-            x = torch.arange(1024, device="cuda", dtype=torch.float32)
-            C = distributed.COLLECTIVES
-            same = bool(torch.equal(C.all_reduce(x.clone()), x)
-                        and torch.equal(C.all_gather(x), x))
-            C.barrier()
-            nccl = {"backend": torch.distributed.get_backend(), "ok": same}
-        finally:
-            distributed.shutdown()
-        if not same:
-            raise AssertionError("mesh (d): NCCL collectives at a world of one differ")
-        rec.update(model=model, data=sgd, max_abs_err_vs_single=err, nccl=nccl,
-                   synonyms_checked=len(queries))
+        mesh, launches = mesh_phase(d, worlds, seed, torch, np, sgns)
+        mesh["world_s"] = world_s
+        log("mesh", f"phase 15's checks in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        forms, forms_launches = forms_phase(d, worlds, seed, torch, np, str(d / "ck"),
+                                            one_process)
+        launches.update(forms_launches)
+        log("forms", f"phases 16 and 17's checks in {time.perf_counter() - t0:.1f} s "
+            f"(17's {forms['cols']['checks_s']:.1f} s)")
     finally:
         shutil.rmtree(d, ignore_errors=True)
+    return mesh, forms, launches
+
+
+def mesh_phase(d: Path, worlds: dict, seed: int, torch, np, sgns) -> tuple:
+    """Phase 15's checks on the world's ``model`` and ``data`` records in ``d``:
+    row-sharded training over torch.distributed, two ranks sharing this one card
+    through a gloo group staged in host memory (NCCL refuses two ranks on one device):
+    (a) the model-sharded fit, (b) local SGD on the data axis, (c) the row-shards
+    checkpoint served on one device, (d) NCCL at a world of one."""
+    from glint_word2vec_torch import Vocabulary, Word2VecModel
+    from glint_word2vec_torch.parallel import distributed
+    from glint_word2vec_torch.train.checkpoint import load_model
+
+    rec = {}
+    model, sgd = worlds["model"], worlds["data"]
+    for r in model:
+        if r["scatter_launches"] <= 0:
+            raise AssertionError(f"mesh (a) rank {r['rank']}: no scatter launch")
+        if r["fused_launches"]:
+            raise AssertionError("mesh (a): the fused kernel ran on the mesh path")
+    words, counts, _ = synthetic_corpus(seed, 1, np)
+    vocab = Vocabulary.from_words_and_counts(words, counts)
+    ref, steps = _mesh_replay(d, vocab, model[0]["pool"], seed, torch, np, sgns)
+    if steps != model[0]["steps"]:
+        raise AssertionError(f"mesh (a): replay {steps} steps, fit {model[0]['steps']}")
+    got = load_model(str(d / "ck"), verify=True)
+    err = 0.0
+    for name, m in (("syn0", got["syn0"]), ("syn1", got["syn1"])):
+        want = getattr(ref, name)[:V, :D_REAL]
+        err = max(err, float((torch.from_numpy(m).cuda() - want).abs().max()))
+    if not err <= PARAM_ATOL:
+        raise AssertionError(f"mesh (a): sharded vs single-process max |diff| {err}")
+    del ref
+    # (c) the row-shards checkpoint on one device against the gathered rows
+    served = Word2VecModel.load(str(d / "ck"), device="cuda")
+    gathered = Word2VecModel(vocab, np.load(d / "gathered_syn0.npy"), device="cuda")
+    queries = [f"w{i}" for i in range(0, 4 * MESH_WORDS, 4)]
+    for w in queries:
+        a, b = served.find_synonyms(w, 10), gathered.find_synonyms(w, 10)
+        if [x for x, _ in a] != [x for x, _ in b] or max(
+                abs(s - t) for (_, s), (_, t) in zip(a, b)) > 1e-6:
+            raise AssertionError(f"mesh (c): find_synonyms({w!r}) differs")
+    del served, gathered
+    fps = sgd[0]["fingerprints"]
+    if len(fps) != MESH_SGD_STEPS // 2 or any(a != b for a, b in fps):
+        raise AssertionError(f"mesh (b): replicas differ after a merge: {fps}")
+    if sgd[0]["sha256"] != sgd[1]["sha256"]:
+        raise AssertionError("mesh (b): the replicas' bytes differ at the end")
+    # (d) NCCL at a world of one, through the collective interface
+    distributed.initialize(init_method=f"file://{d / 'nccl.store'}", num_processes=1,
+                           process_id=0, backend="nccl", device="cuda")
+    try:
+        x = torch.arange(1024, device="cuda", dtype=torch.float32)
+        C = distributed.COLLECTIVES
+        same = bool(torch.equal(C.all_reduce(x.clone()), x)
+                    and torch.equal(C.all_gather(x), x))
+        C.barrier()
+        nccl = {"backend": torch.distributed.get_backend(), "ok": same}
+    finally:
+        distributed.shutdown()
+    if not same:
+        raise AssertionError("mesh (d): NCCL collectives at a world of one differ")
+    rec.update(model=model, data=sgd, max_abs_err_vs_single=err, nccl=nccl,
+               synonyms_checked=len(queries))
     hold = max(v["max_abs_err"] for r in model + sgd for v in r["scatter_hold"].values())
     if not hold <= PARAM_ATOL:
         raise AssertionError(f"mesh: scatter kernel vs plain {hold}")
@@ -3783,7 +3841,7 @@ def mesh_phase(seed: int, torch, np, sgns) -> tuple:
     log("mesh", f"(a) sharded vs single-process replay max |diff| {err:.3g} "
         f"(limit {PARAM_ATOL}); (b) {len(fps)} merges, replicas bit-identical; (c) "
         f"{len(queries)} synonym lists equal; (d) NCCL world of one ok; scatter vs plain "
-        f"{hold:.3g}; worlds {rec['model_world_s']:.1f} s + {rec['data_world_s']:.1f} s")
+        f"{hold:.3g}")
     launches = {"mesh_model": sum(r["scatter_launches"] for r in model),
                 "mesh_localsgd": sum(r["scatter_launches"] for r in sgd)}
     return rec, launches
@@ -3831,6 +3889,7 @@ def form_slots(name: str, cfg, nd: int, tokens_per_step: int) -> dict:
     ``nd`` data shards (the data axis's gathered index list), and banded CBOW's local
     endpoint delta (a [T + 1] target, 2T slots)."""
     pool, ctx, neg = cfg.negative_pool, CTX, N_NEG
+    name = name.removeprefix("cols_")
     if name.startswith("per_pair"):
         return {"syn0": B, "syn1": B * (1 + neg)}
     if name == "cbow_shared":
@@ -3843,19 +3902,34 @@ def form_slots(name: str, cfg, nd: int, tokens_per_step: int) -> dict:
     return {"syn0": B, "syn1": B + nd * pool}
 
 
+def _warm_rank(plan, torch, scat, C) -> None:
+    """One-time costs out of the first fit's steps: a product (cuBLAS's handle), a
+    scatter kernel launch (its library's load) and a staged collective on each axis of
+    ``plan``; the fits reset the counters after it."""
+    a = torch.randn((256, 256), device="cuda")
+    (a @ a).sum().item()
+    scat.scatter_add_rows_(torch.zeros((8, 64), device="cuda"),
+                           torch.arange(8, device="cuda"), torch.ones((8, 64),
+                                                                      device="cuda"))
+    for group, axis in ((plan.model_group, "model"), (plan.data_group, "data")):
+        if group is not None:
+            C.all_reduce(torch.ones(1, device="cuda"), group, axis)
+    torch.cuda.synchronize()
+
+
 def _form_scatter_hold(tr, plan, torch, scat, slots: dict) -> dict:
     """The row-scatter kernel at fit ``slots``' sizes on this rank against its plain
     version on the same inputs: Zipf(1.1) rows over the padded vocabulary, an eighth
     of the slots dead (index -1, as a masked slot), the slots this rank does not own
     dead too; the endpoint delta's local target takes every slot it draws."""
     gen = torch.Generator(device="cuda").manual_seed(100 + plan.rank)
-    vs = tr.params.syn0.shape[0]
-    lo = plan.rows(tr.padded_vocab)[0]
+    vs, width = tr.params.syn0.shape  # a row block, or (cols) a column block
+    lo = tr._row_offset
     out = {}
     for name, n in slots.items():
         if name == "endpoint":
             n, rows = n
-            base = torch.zeros((rows, tr.padded_dim), device="cuda")
+            base = torch.zeros((rows, width), device="cuda")
             idx = torch.randint(0, rows, (n,), generator=gen, device="cuda")
             own = torch.rand(n, generator=gen, device="cuda") >= 0.125
         else:
@@ -3865,7 +3939,7 @@ def _form_scatter_hold(tr, plan, torch, scat, slots: dict) -> dict:
             idx = torch.where(idx >= 0, idx - lo, -1)
             own = (idx >= 0) & (idx < vs)
         loc = torch.where(own, idx, 0).contiguous()
-        upd = torch.randn((n, tr.padded_dim), generator=gen, device="cuda") * 1e-3
+        upd = torch.randn((n, width), generator=gen, device="cuda") * 1e-3
         got = scat.scatter_add_rows_(base.clone(), loc, upd, own.to(torch.float32))
         want = scat.scatter_add_rows_reference(base.clone(), loc[own], upd[own])
         torch.cuda.synchronize()
@@ -3874,7 +3948,7 @@ def _form_scatter_hold(tr, plan, torch, scat, slots: dict) -> dict:
     return out
 
 
-def forms_rank_main(args, r: int, d: Path, vocab, enc, np, torch) -> dict:
+def forms_rank_main(args, r: int, d: Path, vocab, enc, np, torch, case: str) -> dict:
     """One rank of phase 16 (``--mesh-case forms12`` or ``forms21``): the world's
     three fits, each recorded (rank 0 keeps the global rounds), timed, counted and its
     rank's compared rows kept; then the scatter kernel held at the fit's own sizes."""
@@ -3884,41 +3958,51 @@ def forms_rank_main(args, r: int, d: Path, vocab, enc, np, torch) -> dict:
     from glint_word2vec_torch.parallel.mesh import make_mesh
     from glint_word2vec_torch.train.trainer import Trainer
 
-    (nd, nm), fits = FORM_WORLDS[args.mesh_case]
+    (nd, nm), fits = FORM_WORLDS[case]
+    if args.mesh_ck and case == COLS_WORLD:  # phase 17 (a)'s column fits
+        fits = fits + COLS_FITS
     plan = make_mesh(nd, nm)
     rows = form_rows(args.seed, np)
-    out = {"rank": r, "case": args.mesh_case,
+    out = {"rank": r, "case": case,
            "place": [plan.data_index, plan.model_index], "fits": {}}
+    C = distributed.COLLECTIVES
+    _warm_rank(plan, torch, scat, C)
     for name, knobs in fits:
         cfg = form_config(name, knobs, args.seed)
         tr = Trainer(cfg, vocab, device="cuda", plan=plan)
         steps = TOKEN_STEPS if name == "pairgen" else FORM_STEPS
         rounds = []
         run = tr._run_chunk
+        in_steps = {"staged_s": 0.0, "model_bytes": 0}  # the chunks' own collectives
 
-        def run_chunk(chunk, run=run, rounds=rounds):
+        def run_chunk(chunk, run=run, rounds=rounds, in_steps=in_steps):
             host = chunk.get("pinned") or chunk["arrays"]  # a staged chunk's host copy
             rounds.append({**{k: np.array(v) for k, v in host.items()},
                            "real": chunk["real"],
                            **{k: np.asarray(chunk[k]) for k in ("sub_bases", "win_bases")
                               if k in chunk}})
-            return run(chunk)
+            s0, b0 = C.staged_s, C.nbytes[("all_reduce", "model")]
+            try:
+                return run(chunk)
+            finally:
+                in_steps["staged_s"] += C.staged_s - s0
+                in_steps["model_bytes"] += C.nbytes[("all_reduce", "model")] - b0
 
         tr._run_chunk = run_chunk
         _stop_at(tr, steps)
-        ck = str(d / "ck_pairgen") if name == "pairgen" else None
+        ck = (str(d / "ck_pairgen") if name == "pairgen"
+              else str(d / "ck_cols") if name == COLS_CKPT_FIT and tr._cols else None)
+        every = TOKEN_CKPT if name == "pairgen" else FORM_STEPS
         torch.cuda.synchronize()
         reset_counts(fused, scat)
         distributed.COLLECTIVES.reset()
         t0 = time.perf_counter()
         try:
-            tr.fit(enc, checkpoint_path=ck,
-                   checkpoint_every_steps=TOKEN_CKPT if ck else None)
+            tr.fit(enc, checkpoint_path=ck, checkpoint_every_steps=every if ck else None)
         except _MeshStop:
             pass
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
-        C = distributed.COLLECTIVES
         rec = {"steps": tr.global_step, "pool": tr.config.negative_pool,
                "form": tr._step_form(), "tokens_per_step": tr._tokens_per_step,
                "scatter_launches": scat.scatter_add_rows_.launches,
@@ -3926,14 +4010,29 @@ def forms_rank_main(args, r: int, d: Path, vocab, enc, np, torch) -> dict:
                "collectives": {f"{op}/{ax}": n for (op, ax), n in C.counts.items()},
                "fit_s": fit_s, "dispatch_s": tr.dispatch_time,
                "step_ms": 1e3 * tr.dispatch_time / max(tr.global_step, 1),
-               "staged_s": C.staged_s, "staged_calls": C.staged_calls,
-               "staging_share": C.staged_s / max(tr.dispatch_time, 1e-9)}
+               # the staging inside the chunks (a probe's or a save's between them
+               # is not the step's), its share of the steps' dispatch, and the step's
+               # model-axis traffic: its all_reduces (the row assembly on rows, the
+               # partial logits and norms on cols)
+               "staged_s": in_steps["staged_s"], "staged_calls": C.staged_calls,
+               "staging_share": in_steps["staged_s"] / max(tr.dispatch_time, 1e-9),
+               "model_bytes_per_step": in_steps["model_bytes"] / max(tr.global_step, 1)}
         if r == 0:
             keys = [k for k in rounds[0] if k not in ("real",)]
             np.savez(d / f"{name}-rounds.npz",
                      **{k: np.stack([x[k] for x in rounds]) for k in keys},
                      real=np.asarray([x["real"] for x in rounds]))
-        if plan.data_index == 0:
+        if tr._cols:  # this rank's columns of every compared row, and of the matrices
+            lo, hi = plan.cols(tr.padded_dim)
+            real = max(0, min(hi, D_REAL) - lo)
+            np.savez(d / f"{name}-rows-r{r}.npz", ids=rows, cols=[lo, lo + real], **{
+                m: getattr(tr.params, m)[torch.from_numpy(rows).cuda(), :real]
+                .cpu().numpy() for m in ("syn0", "syn1")})
+            rec["sha256"] = {m: hashlib.sha256(np.ascontiguousarray(
+                getattr(tr.params, m)[:V, :real].cpu().numpy()).tobytes()).hexdigest()
+                for m in ("syn0", "syn1")}
+            rec["cols"] = [lo, lo + real]
+        elif plan.data_index == 0:
             lo, hi = plan.rows(tr.padded_vocab)
             mine = rows[(rows >= lo) & (rows < hi)]
             np.savez(d / f"{name}-rows-r{r}.npz", ids=mine, **{
@@ -3949,15 +4048,20 @@ def forms_rank_main(args, r: int, d: Path, vocab, enc, np, torch) -> dict:
 
 def _form_plain_step(name: str, p, ins: dict, k: int, sgns, cb, plain) -> None:
     """Step k of the input buffers through the plain single-device step of fit
-    ``name``, in place on ``p``; every scatter plain (``index_add_``)."""
+    ``name`` (a column fit's: the same step on whole rows), in place on ``p``; every
+    scatter plain (``index_add_``)."""
     a, neg = ins["alphas"][k], ins["negatives"][k]
+    name = name.removeprefix("cols_")
     if name == "banded":
         cb.cbow_step_banded_core(p, ins["tokens"][k], ins["left"][k], ins["right"][k],
                                  ins["center"][k], ins["token"][k], neg, a, N_NEG, WINDOW,
                                  scatter=plain)
         return
     c, x, m = ins["centers"][k], ins["contexts"][k], ins["mask"][k]
-    if name.startswith("per_pair"):
+    if name == "shared_stab":
+        sgns.sgns_step_shared_scatter_(p, c, x, m, neg, a, N_NEG, scatter=plain,
+                                       stabilizers=sgns.Stabilizers(**COLS_STAB))
+    elif name.startswith("per_pair"):
         sgns.sgns_step_core(p, c, x, m, neg, a, scatter=plain,
                             duplicate_scaling=name.endswith("_dup"))
     elif name == "cbow_shared":
@@ -4018,8 +4122,9 @@ def _rows_err(rows: dict, params, torch) -> float:
                for m in ("syn0", "syn1"))
 
 
-def forms_phase(seed: int, torch, np) -> tuple:
-    """Phase 16: every step form and both multi-process feeds on the mesh, two ranks
+def forms_phase(d: Path, worlds: dict, seed: int, torch, np, cols_ck: str = "",
+                one_process: dict = None) -> tuple:
+    """Phase 16's checks on the world's records in ``d``: every step form and both multi-process feeds on the mesh, two ranks
     sharing this card through gloo staged in host memory, at phase 15's widths: world
     (1, 2) runs the per-pair step, shared-pool CBOW and a device_pairgen fit saved at
     step 8; world (2, 1) the per-pair step and per-example CBOW with duplicate scaling
@@ -4027,7 +4132,9 @@ def forms_phase(seed: int, torch, np) -> tuple:
     rounds on the compared rows, launches the scatter kernel and never the fused one,
     and its rank's scatter is held against index_add_ at the fit's own sizes; then the
     device_pairgen checkpoint resumes on one process on the card, to the mesh fit's
-    rounds and rows."""
+    rounds and rows. ``cols_ck`` (phase 15's row-shards checkpoint): the (1, 2) world
+    then runs phase 17 after its own fits, and :func:`cols_checks` holds it (its record
+    ``rec["cols"]``, its launches among the returned ones)."""
     from glint_word2vec_torch import Vocabulary
     from glint_word2vec_torch.data.pipeline import encode_sentences
     from glint_word2vec_torch.ops import fused_sgns as fused
@@ -4037,97 +4144,103 @@ def forms_phase(seed: int, torch, np) -> tuple:
     from glint_word2vec_torch.train.trainer import Trainer
 
     torch.cuda.empty_cache()
-    d = Path(tempfile.mkdtemp(prefix="chip-smoke-forms-"))
     rec, launches = {"fits": {}}, {}
+    words, counts, sents = synthetic_corpus(seed, MESH_TOKENS, np)
+    vocab = Vocabulary.from_words_and_counts(words, counts)
+    start = sgns.init_embeddings(V, D_REAL, torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    for case, ((nd, nm), fits) in FORM_WORLDS.items():
+        ranks = worlds[case]
+        for name, knobs in fits:
+            per = [x["fits"][name] for x in ranks]
+            for x in per:
+                if x["scatter_launches"] <= 0 or x["fused_launches"]:
+                    raise AssertionError(
+                        f"forms {name}: scatter launches {x['scatter_launches']}, "
+                        f"fused {x['fused_launches']} (want > 0 and 0)")
+            tr, steps = _form_replay(name, knobs, nd, d, vocab, start, seed,
+                                     torch, np)
+            if steps != per[0]["steps"]:
+                raise AssertionError(f"forms {name}: replay {steps} steps, fit "
+                                     f"{per[0]['steps']}")
+            rows = _mesh_rows(d, name, list(range(nm)), np)
+            err = _rows_err(rows, tr.params, torch)
+            if not err <= PARAM_ATOL:
+                raise AssertionError(f"forms {name}: mesh vs replay max |diff| {err}")
+            hold = max(h["max_abs_err"] for x in per
+                       for h in x["scatter_hold"].values())
+            if not hold <= PARAM_ATOL:
+                raise AssertionError(f"forms {name}: scatter kernel vs plain {hold}")
+            rec["fits"][name] = {"mesh": [nd, nm], "ranks": per,
+                                 "max_abs_err_vs_replay": err,
+                                 "scatter_hold_max_abs_err": hold}
+            launches[f"mesh_{name}"] = sum(x["scatter_launches"] for x in per)
+            del tr
+            torch.cuda.empty_cache()
+    rec["replays_s"] = time.perf_counter() - t0
+    # the device_pairgen checkpoint (step 8, per-segment positions) on one process
+    t0 = time.perf_counter()
+    ck = str(d / "ck_pairgen")
+    header = load_model_header(ck)
+    st = header["train_state"]
+    if st.global_step != TOKEN_CKPT or st.finished or st.batches_done:
+        raise AssertionError(f"forms resume: checkpoint state {st}")
+    got = load_model(ck, verify=True)
+    tr = Trainer(header["config"], vocab, params=(got["syn0"], got["syn1"]),
+                 train_state=st, device="cuda")
+    del got
+    seen = []
+    run = tr._run_chunk
+
+    def run_chunk(chunk):
+        host = chunk.get("pinned") or chunk["arrays"]  # a staged chunk's host copy
+        seen.append({k: np.array(v) for k, v in host.items()}
+                    | {"real": chunk["real"]})
+        return run(chunk)
+
+    tr._run_chunk = run_chunk
+    _stop_at(tr, TOKEN_STEPS)
+    reset_counts(fused, scat)
     try:
-        worlds = {}
-        for case in FORM_WORLDS:
-            t0 = time.perf_counter()
-            worlds[case] = _mesh_world(case, d, seed)
-            rec[f"{case}_world_s"] = time.perf_counter() - t0
-        words, counts, sents = synthetic_corpus(seed, MESH_TOKENS, np)
-        vocab = Vocabulary.from_words_and_counts(words, counts)
-        start = sgns.init_embeddings(V, D_REAL, torch.Generator().manual_seed(seed))
+        tr.fit(encode_sentences(sents, vocab, 1000))
+    except _MeshStop:
+        pass
+    torch.cuda.synchronize()
+    mesh_rd = np.load(d / "pairgen-rounds.npz")
+    first = TOKEN_CKPT // FORM_K
+    if [x["real"] for x in seen] != list(mesh_rd["real"][first:]):
+        raise AssertionError(f"forms resume: rounds {[x['real'] for x in seen]}")
+    for i, x in enumerate(seen):
+        n = x["real"]
+        for k in ("tokens", "starts", "nvalid", "obase", "alphas"):
+            if not np.array_equal(x[k][:n], mesh_rd[k][first + i][:n]):
+                raise AssertionError(f"forms resume: round {i} {k} differs")
+    err = _rows_err(_mesh_rows(d, "pairgen", [0, 1], np), tr.params, torch)
+    if not err <= PARAM_ATOL:
+        raise AssertionError(f"forms resume: one process vs mesh max |diff| {err}")
+    rec["resume"] = {"steps": tr.global_step, "rounds": len(seen),
+                     "max_abs_err_vs_mesh": err,
+                     "fused_launches": fused.fused_sgns_shared_step.launches,
+                     "s": time.perf_counter() - t0}
+    launches["mesh_resume_one_process"] = {
+        "sgns_shared_step": fused.fused_sgns_shared_step.launches,
+        "scatter_add_rows": scat.scatter_add_rows_.launches}
+    del tr
+    rec["scatter_hold_max_abs_err"] = max(f["scatter_hold_max_abs_err"]
+                                          for f in rec["fits"].values())
+    _log_forms(rec)
+    if cols_ck:  # phase 17, on the (1, 2) world's records
         t0 = time.perf_counter()
-        for case, ((nd, nm), fits) in FORM_WORLDS.items():
-            ranks = worlds[case]
-            for name, knobs in fits:
-                per = [x["fits"][name] for x in ranks]
-                for x in per:
-                    if x["scatter_launches"] <= 0 or x["fused_launches"]:
-                        raise AssertionError(
-                            f"forms {name}: scatter launches {x['scatter_launches']}, "
-                            f"fused {x['fused_launches']} (want > 0 and 0)")
-                tr, steps = _form_replay(name, knobs, nd, d, vocab, start, seed,
-                                         torch, np)
-                if steps != per[0]["steps"]:
-                    raise AssertionError(f"forms {name}: replay {steps} steps, fit "
-                                         f"{per[0]['steps']}")
-                rows = _mesh_rows(d, name, list(range(nm)), np)
-                err = _rows_err(rows, tr.params, torch)
-                if not err <= PARAM_ATOL:
-                    raise AssertionError(f"forms {name}: mesh vs replay max |diff| {err}")
-                hold = max(h["max_abs_err"] for x in per
-                           for h in x["scatter_hold"].values())
-                if not hold <= PARAM_ATOL:
-                    raise AssertionError(f"forms {name}: scatter kernel vs plain {hold}")
-                rec["fits"][name] = {"mesh": [nd, nm], "ranks": per,
-                                     "max_abs_err_vs_replay": err,
-                                     "scatter_hold_max_abs_err": hold}
-                launches[f"mesh_{name}"] = sum(x["scatter_launches"] for x in per)
-                del tr
-                torch.cuda.empty_cache()
-        rec["replays_s"] = time.perf_counter() - t0
-        # the device_pairgen checkpoint (step 8, per-segment positions) on one process
-        t0 = time.perf_counter()
-        ck = str(d / "ck_pairgen")
-        header = load_model_header(ck)
-        st = header["train_state"]
-        if st.global_step != TOKEN_CKPT or st.finished or st.batches_done:
-            raise AssertionError(f"forms resume: checkpoint state {st}")
-        got = load_model(ck, verify=True)
-        tr = Trainer(header["config"], vocab, params=(got["syn0"], got["syn1"]),
-                     train_state=st, device="cuda")
-        del got
-        seen = []
-        run = tr._run_chunk
+        rec["cols"], cols_launches = cols_checks(
+            d, worlds[COLS_WORLD], vocab, start, sents, seed, torch, np, cols_ck,
+            one_process)
+        rec["cols"]["checks_s"] = time.perf_counter() - t0
+        launches.update(cols_launches)
+    return rec, launches
 
-        def run_chunk(chunk):
-            host = chunk.get("pinned") or chunk["arrays"]  # a staged chunk's host copy
-            seen.append({k: np.array(v) for k, v in host.items()}
-                        | {"real": chunk["real"]})
-            return run(chunk)
 
-        tr._run_chunk = run_chunk
-        _stop_at(tr, TOKEN_STEPS)
-        reset_counts(fused, scat)
-        try:
-            tr.fit(encode_sentences(sents, vocab, 1000))
-        except _MeshStop:
-            pass
-        torch.cuda.synchronize()
-        mesh_rd = np.load(d / "pairgen-rounds.npz")
-        first = TOKEN_CKPT // FORM_K
-        if [x["real"] for x in seen] != list(mesh_rd["real"][first:]):
-            raise AssertionError(f"forms resume: rounds {[x['real'] for x in seen]}")
-        for i, x in enumerate(seen):
-            n = x["real"]
-            for k in ("tokens", "starts", "nvalid", "obase", "alphas"):
-                if not np.array_equal(x[k][:n], mesh_rd[k][first + i][:n]):
-                    raise AssertionError(f"forms resume: round {i} {k} differs")
-        err = _rows_err(_mesh_rows(d, "pairgen", [0, 1], np), tr.params, torch)
-        if not err <= PARAM_ATOL:
-            raise AssertionError(f"forms resume: one process vs mesh max |diff| {err}")
-        rec["resume"] = {"steps": tr.global_step, "rounds": len(seen),
-                         "max_abs_err_vs_mesh": err,
-                         "fused_launches": fused.fused_sgns_shared_step.launches,
-                         "s": time.perf_counter() - t0}
-        launches["mesh_resume_one_process"] = {
-            "sgns_shared_step": fused.fused_sgns_shared_step.launches,
-            "scatter_add_rows": scat.scatter_add_rows_.launches}
-        del tr
-    finally:
-        shutil.rmtree(d, ignore_errors=True)
+def _log_forms(rec: dict) -> None:
+    """Phase 16's lines: each fit a rank, its replay, the token checkpoint's resume."""
     for name, f in rec["fits"].items():
         for x in f["ranks"]:
             log("forms", f"{name} rank {f['ranks'].index(x)} on mesh {tuple(f['mesh'])} "
@@ -4147,13 +4260,357 @@ def forms_phase(seed: int, torch, np) -> tuple:
     log("forms", f"device_pairgen checkpoint at step {TOKEN_CKPT} resumed on one "
         "process: "
         f"{r['rounds']} rounds equal to the mesh fit's, to step {r['steps']}, max |diff| "
-        f"{r['max_abs_err_vs_mesh']:.3g}; fused launches {r['fused_launches']}; worlds "
-        + ", ".join(f"{c} {rec[c + '_world_s']:.1f} s" for c in FORM_WORLDS)
-        + f", replays {rec['replays_s']:.1f} s, resume {r['s']:.1f} s")
+        f"{r['max_abs_err_vs_mesh']:.3g}; fused launches {r['fused_launches']}; "
+        f"replays {rec['replays_s']:.1f} s, resume {r['s']:.1f} s")
+
+
+# --- phase 17: the column layout and a model on the mesh --------------------------------
+
+COLS_STAB = {"max_row_norm": STAB["max_row_norm"], "update_clip": STAB["update_clip"]}
+COLS_CKPT_FIT = "cols_banded"  # its dense checkpoint (a token feed: one process resumes it)
+COLS_RESUME_STEPS = 4          # the resumed fit's steps past the checkpoint
+COLS_WORLD = "forms12"         # phase 16's (1, 2) world runs them after its own fits
+# [(fit, config knobs)]; K = FORM_K, FORM_STEPS steps; "cols_" + the plain step's name
+COLS_FITS = [
+    ("cols_shared_stab", {"embedding_partition": "cols", "negative_pool": P,
+                          **COLS_STAB}),
+    ("cols_per_pair", {"embedding_partition": "cols", "negative_pool": 0}),
+    ("cols_cbow_shared", {"embedding_partition": "cols", "cbow": True,
+                          "negative_pool": P}),
+    ("cols_banded", {"embedding_partition": "cols", "cbow": True,
+                     "cbow_update": "banded", "negative_pool": P})]
+MODEL17_ROWS = 1_000   # (b): the pulled rows
+MODEL17_WORDS = 256    # the synonym queries of the mesh model and of the servers
+MODEL17_RELOAD_WORDS = 16
+MODEL17_NUM = 10
+SERVER_START_S = 300.0  # (b): both servers' ready lines, from their start
+
+
+def _cols_rows(d: Path, name: str, ranks: list, np) -> dict:
+    """The compared rows of column fit ``name``: each rank's columns put together."""
+    parts = sorted((np.load(d / f"{name}-rows-r{r}.npz") for r in ranks),
+                   key=lambda x: int(x["cols"][0]))
+    return {"ids": parts[0]["ids"],
+            **{m: np.concatenate([x[m] for x in parts], axis=1) for m in ("syn0", "syn1")}}
+
+
+def cols_checks(d: Path, ranks: list, vocab, start, sents, seed: int, torch, np,
+                ck15: str, one_process: dict = None) -> tuple:
+    """Phase 17, on the records phase 16's (1, 2) world left in ``d`` after its column
+    fits and model ops: (a) each column fit held against its plain one-process replay,
+    the dense checkpoint against the ranks' column blocks, its resume on one process;
+    (b) phase 15's row-shards checkpoint ``ck15`` as the ranks' sharded model against
+    the one-device model, then served from the mesh (:func:`mesh_model_checks`;
+    ``one_process``: phase 11's exact arm, printed beside)."""
+    from glint_word2vec_torch.data.pipeline import encode_sentences
+    from glint_word2vec_torch.ops import fused_sgns as fused
+    from glint_word2vec_torch.ops import scatter as scat
+    from glint_word2vec_torch.train.checkpoint import load_model, load_model_header
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    rec, launches = {"fits": {}}, {}
+    (nd, nm), _ = FORM_WORLDS[COLS_WORLD]
+    t0 = time.perf_counter()
+    for name, knobs in COLS_FITS:
+        per = [x["fits"][name] for x in ranks]
+        for x in per:
+            if x["scatter_launches"] <= 0 or x["fused_launches"]:
+                raise AssertionError(
+                    f"cols {name}: scatter launches {x['scatter_launches']}, "
+                    f"fused {x['fused_launches']} (want > 0 and 0)")
+            if x["form"] not in ("sharded_shared", "sharded_per_pair",
+                                 "sharded_cbow_shared", "sharded_banded"):
+                raise AssertionError(f"cols {name}: step form {x['form']}")
+        tr, steps = _form_replay(name, knobs, nd, d, vocab, start, seed, torch, np)
+        if steps != per[0]["steps"]:
+            raise AssertionError(f"cols {name}: replay {steps} steps, fit "
+                                 f"{per[0]['steps']}")
+        err = _rows_err(_cols_rows(d, name, list(range(nm)), np), tr.params, torch)
+        if not err <= PARAM_ATOL:
+            raise AssertionError(f"cols {name}: mesh vs replay max |diff| {err}")
+        hold = max(h["max_abs_err"] for x in per for h in x["scatter_hold"].values())
+        if not hold <= PARAM_ATOL:
+            raise AssertionError(f"cols {name}: scatter kernel vs plain {hold}")
+        rec["fits"][name] = {"mesh": [nd, nm], "ranks": per,
+                             "max_abs_err_vs_replay": err,
+                             "scatter_hold_max_abs_err": hold}
+        launches[f"mesh_{name}"] = sum(x["scatter_launches"] for x in per)
+        del tr
+        torch.cuda.empty_cache()
+    rec["replays_s"] = time.perf_counter() - t0
+    # the dense checkpoint: data 0 / model 0 wrote the gathered columns
+    t0 = time.perf_counter()
+    ck = str(d / "ck_cols")
+    header = load_model_header(ck)
+    if header["layout"] != "dense":
+        raise AssertionError(f"cols checkpoint layout {header['layout']}")
+    got = load_model(ck, verify=True)
+    for x in (r["fits"][COLS_CKPT_FIT] for r in ranks):
+        lo, hi = x["cols"]
+        for m in ("syn0", "syn1"):
+            dig = hashlib.sha256(np.ascontiguousarray(got[m][:, lo:hi]).tobytes())
+            if dig.hexdigest() != x["sha256"][m]:
+                raise AssertionError(f"cols checkpoint {m}[:, {lo}:{hi}] differs "
+                                     "from the rank's column block")
+    # resumed on one process, it steps
+    st = header["train_state"]
+    tr = Trainer(header["config"], vocab, params=(got["syn0"], got["syn1"]),
+                 train_state=st, device="cuda")
+    del got
+    _stop_at(tr, st.global_step + COLS_RESUME_STEPS)
+    reset_counts(fused, scat)
+    try:
+        tr.fit(encode_sentences(sents, vocab, 1000))
+    except _MeshStop:
+        pass
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(tr.params.syn0).all()
+                  and torch.isfinite(tr.params.syn1).all())
+    if tr.global_step < st.global_step + COLS_RESUME_STEPS or not finite:
+        raise AssertionError(f"cols resume: to step {tr.global_step} from "
+                             f"{st.global_step}, finite {finite}")
+    rec["resume"] = {"from_step": st.global_step, "steps": tr.global_step,
+                     "scatter_launches": scat.scatter_add_rows_.launches,
+                     "fused_launches": fused.fused_sgns_shared_step.launches,
+                     "s": time.perf_counter() - t0}
+    launches["mesh_cols_resume_one_process"] = {
+        "sgns_shared_step": fused.fused_sgns_shared_step.launches,
+        "scatter_add_rows": scat.scatter_add_rows_.launches}
+    del tr
+    torch.cuda.empty_cache()
     rec["scatter_hold_max_abs_err"] = max(f["scatter_hold_max_abs_err"]
                                           for f in rec["fits"].values())
+    _log_cols(rec)
+    rec["model"] = mesh_model_checks(ck15, d, [x["model17"] for x in ranks], torch,
+                                     np, one_process)
     return rec, launches
 
+
+def _log_cols(rec: dict) -> None:
+    """Phase 17 (a)'s lines: each fit a rank, its replay, the checkpoint and resume."""
+    for name, f in rec["fits"].items():
+        for i, x in enumerate(f["ranks"]):
+            log("cols", f"{name} rank {i} columns {x['cols']} ({x['form']}, pool "
+                f"{x['pool']}): {x['steps']} steps, {x['step_ms']:.3f} ms a step "
+                f"(dispatch, eager), model-axis {x['model_bytes_per_step'] / 1e6:.3f} MB "
+                f"a step, staging {x['staged_s']:.3f} s in {x['staged_calls']} calls = "
+                f"{x['staging_share']:.1%}; scatter launches {x['scatter_launches']}, "
+                f"fused {x['fused_launches']}; collectives {x['collectives']}; scatter "
+                "vs plain " + ", ".join(f"{m} {h['slots']} slots ({h['live']} live) "
+                                        f"{h['max_abs_err']:.3g}"
+                                        for m, h in x["scatter_hold"].items()))
+        log("cols", f"{name}: mesh vs one-process plain replay max |diff| "
+            f"{f['max_abs_err_vs_replay']:.3g} on {2 * FORM_ROWS} rows (limit "
+            f"{PARAM_ATOL})")
+    r = rec["resume"]
+    log("cols", f"{COLS_CKPT_FIT}'s dense checkpoint equals both column blocks (sha256); "
+        f"resumed on one process from step {r['from_step']} to {r['steps']} (scatter "
+        f"launches {r['scatter_launches']}, fused {r['fused_launches']}); replays "
+        f"{rec['replays_s']:.1f} s, checkpoint and resume {r['s']:.1f} s")
+
+
+def model17_words(vocab) -> list:
+    """The synonym queries of (b): MODEL17_WORDS words spread over the frequency
+    ranks."""
+    step = max(1, vocab.size // MODEL17_WORDS)
+    return [vocab.words[i] for i in range(0, step * MODEL17_WORDS, step)]
+
+
+def model17_rank_main(args, r: int, d: Path, np, torch) -> dict:
+    """One rank of phase 17 (b), after the world's fits: phase 15's row-shards
+    checkpoint loaded on a (1, 2) mesh; the pulled rows, the synonym lists and the
+    binary export (rank 0 writes)."""
+    from glint_word2vec_torch.models.word2vec import Word2VecModel
+    from glint_word2vec_torch.parallel import distributed
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+
+    plan = make_mesh(1, 2)
+    C = distributed.COLLECTIVES
+    t0 = time.perf_counter()
+    m = Word2VecModel.load(args.mesh_ck, plan=plan, device="cuda")
+    torch.cuda.synchronize()
+    rec = {"rank": r, "type": type(m).__name__, "load_s": time.perf_counter() - t0,
+           "rows": list(plan.rows(m.params[0].shape[0] * plan.num_model))}
+    ids = np.random.default_rng(args.seed).choice(m.num_words, MODEL17_ROWS,
+                                                  replace=False)
+    C.reset()
+    t0 = time.perf_counter()
+    pulled = m.pull(ids)
+    rec["pull_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    syn = m.find_synonyms_batch(model17_words(m.vocab), MODEL17_NUM)
+    rec["synonyms_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m.export_word2vec(str(d / "mesh.bin"), binary=True)
+    rec["export_s"] = time.perf_counter() - t0
+    rec["collectives"] = {f"{op}/{ax}": n for (op, ax), n in C.counts.items()}
+    if r == 0:
+        np.savez(d / "model17.npz", ids=ids, pulled=pulled)
+        rec["synonyms"] = syn
+    return rec
+
+
+def _ask(proc, **req) -> dict:
+    proc.stdin.write(json.dumps(req) + "\n")
+    proc.stdin.flush()
+    return json.loads(proc.stdout.readline())
+
+
+def _serve_arm(proc, words: list, np) -> tuple:
+    """256 sequential synonyms requests: their answers and the arm's latency
+    summary."""
+    lats, answers = [], []
+    t0 = time.perf_counter()
+    for w in words:
+        t = time.perf_counter()
+        res = _ask(proc, op="synonyms", word=w, num=MODEL17_NUM)
+        lats.append(time.perf_counter() - t)
+        if "synonyms" not in res:
+            raise AssertionError(f"server answered {res}")
+        answers.append([tuple(x) for x in res["synonyms"]])
+    wall = time.perf_counter() - t0
+    lats.sort()
+    return answers, {"qps": len(words) / wall, "p50_ms": 1e3 * pctl(lats, 0.50),
+                     "p99_ms": 1e3 * pctl(lats, 0.99), "requests": len(words)}
+
+
+def _followers(pid: int) -> list:
+    """The mesh server's follower ranks: its child processes started with ``--rank``
+    (thread group leaders: a kernel may list a child's threads as children too)."""
+    out = set()
+    for c in Path(f"/proc/{pid}/task/{pid}/children").read_text().split():
+        try:
+            if b"--rank" not in Path(f"/proc/{c}/cmdline").read_bytes().split(b"\0"):
+                continue
+            status = Path(f"/proc/{c}/status").read_text()
+        except OSError:
+            continue
+        out.add(int(next(x.split()[1] for x in status.splitlines()
+                         if x.startswith("Tgid:"))))
+    return sorted(out)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        return Path(f"/proc/{pid}/stat").read_text().split()[2] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def mesh_model_checks(ck: str, d: Path, ranks: list, torch, np,
+                      one_process: dict = None) -> dict:
+    """Phase 17 (b): the ranks' sharded model of ``ck`` against the one-device model
+    (pull, synonyms, the binary export), then ``ck`` served by serve_checkpoint --mesh
+    1x2 (started first, so it loads while the model is checked): its answers against
+    the one-device model's, a reload of a newer publish on both ranks, SIGTERM; its
+    queries/s and p50/p99 printed beside ``one_process`` (phase 11's exact arm)."""
+    from glint_word2vec_torch import Word2VecModel
+    from glint_word2vec_torch.train.checkpoint import save_model_sharded
+
+    rec = {}
+    procs = []
+    try:
+        if any(x["type"] != "ShardedWord2VecModel" for x in ranks):
+            raise AssertionError(f"model (b): load(plan=) gave {ranks[0]['type']}")
+        # the server loads while this process checks the mesh model
+        t0 = time.perf_counter()
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint", ck, "--mesh",
+             "1x2"], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            stderr=open(d / "mesh.err", "w"), cwd=str(Path(__file__).resolve().parent))
+        procs.append(srv)
+        one = Word2VecModel.load(ck, device="cuda")
+        got = np.load(d / "model17.npz")
+        if not np.array_equal(got["pulled"], one.pull(got["ids"])):
+            raise AssertionError("model (b): pull differs from the one-device model")
+        words = model17_words(one.vocab)
+        want = one.find_synonyms_batch(words, MODEL17_NUM)
+        bad = [w for w, g, x in zip(words, ranks[0]["synonyms"], want)
+               if not lists_agree([tuple(y) for y in g], x, SERVE_TIE)]
+        if bad:
+            raise AssertionError(f"model (b): find_synonyms_batch differs for {bad[:5]}")
+        t1 = time.perf_counter()
+        one.export_word2vec(str(d / "one.bin"), binary=True)
+        rec["one_export_s"] = time.perf_counter() - t1
+
+        def digest(p):
+            h = hashlib.sha256()
+            with open(p, "rb") as f:
+                for block in iter(lambda: f.read(1 << 24), b""):
+                    h.update(block)
+            return h.hexdigest()
+
+        if digest(d / "mesh.bin") != digest(d / "one.bin"):
+            raise AssertionError("model (b): the mesh's binary export differs")
+        rec["export_bytes"] = os.path.getsize(d / "one.bin")
+        # its ready line, then the requests
+        import select
+        left_s = SERVER_START_S - (time.perf_counter() - t0)
+        line = (srv.stdout.readline()
+                if select.select([srv.stdout], [], [], max(left_s, 0.0))[0] else "")
+        if not line.startswith('{"ready"'):
+            raise AssertionError("serve --mesh 1x2 did not start: "
+                                 f"{(d / 'mesh.err').read_text()[-3000:]}")
+        rec["ready_s"] = time.perf_counter() - t0
+        followers = _followers(srv.pid)
+        if len(followers) != 1:
+            raise AssertionError(f"serve --mesh 1x2: followers {followers}")
+        mesh_ans, rec["mesh"] = _serve_arm(srv, words, np)
+        bad = [w for w, g, x in zip(words, mesh_ans, want)
+               if not lists_agree(g, x, SERVE_TIE)]
+        if bad:
+            raise AssertionError(f"serve --mesh: answers differ for {bad[:5]}")
+        # a newer publish (the rows in reverse order), reloaded on both ranks
+        new0 = one.syn0.cpu().numpy()[::-1].copy()
+        newm = Word2VecModel(one.vocab, new0, config=one.config, device="cuda")
+        del one
+        save_model_sharded(ck, newm.vocab.words, newm.vocab.counts, new0, None,
+                           newm.config, vocab_size=newm.num_words,
+                           vector_size=newm.vector_size)
+        t1 = time.perf_counter()
+        if _ask(srv, op="reload").get("reloaded") is not True:
+            raise AssertionError("serve --mesh: reload refused")
+        rec["reload_s"] = time.perf_counter() - t1
+        for w in words[:MODEL17_RELOAD_WORDS]:
+            g = [tuple(x) for x in _ask(srv, op="synonyms", word=w,
+                                        num=MODEL17_NUM)["synonyms"]]
+            if not lists_agree(g, newm.find_synonyms(w, MODEL17_NUM), SERVE_TIE):
+                raise AssertionError(f"serve --mesh: after the reload {w!r} differs")
+        del newm
+        srv.send_signal(15)
+        rc = srv.wait(timeout=120)
+        end = time.monotonic() + 30
+        while any(_alive(p) for p in followers) and time.monotonic() < end:
+            time.sleep(0.1)
+        left = [p for p in followers if _alive(p)]
+        if rc != 0 or left:
+            raise AssertionError(f"serve --mesh: SIGTERM gave rc {rc}, followers left "
+                                 f"{left}: {(d / 'mesh.err').read_text()[-2000:]}")
+        rec["sigterm_rc"] = rc
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rec["ranks"] = [{k: v for k, v in x.items() if k != "synonyms"} for x in ranks]
+    x = ranks[0]
+    log("cols", f"(b) V={V:,} row-shards on a (1, 2) mesh: load {x['load_s']:.1f} s, "
+        f"pull of {MODEL17_ROWS} rows bit for bit ({x['pull_s'] * 1e3:.1f} ms), "
+        f"find_synonyms_batch of {len(words)} words agrees ({x['synonyms_s']:.2f} s), "
+        f"binary export of {rec['export_bytes']:,} bytes equal ({x['export_s']:.1f} s on "
+        f"the mesh, {rec['one_export_s']:.1f} s on one device); collectives "
+        f"{x['collectives']}")
+    m = rec["mesh"]
+    p11 = (f"; beside phase 11's one-process exact arm in process ({SERVE_CLIENTS} "
+           f"clients) {one_process['qps']:.0f} q/s, p50 {one_process['p50_ms']:.2f} ms, "
+           f"p99 {one_process['p99_ms']:.2f} ms" if one_process else "")
+    log("cols", f"(b) serve_checkpoint --mesh 1x2, {len(words)} sequential synonyms "
+        f"requests: {m['qps']:.1f} q/s, p50 {m['p50_ms']:.2f} ms, p99 "
+        f"{m['p99_ms']:.2f} ms{p11}; ready {rec['ready_s']:.1f} s after its start; "
+        f"the answers agree with the one-device model's; reload on both ranks in "
+        f"{rec['reload_s']:.2f} s; SIGTERM rc {rec['sigterm_rc']}, the follower gone")
+    return rec
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4163,6 +4620,7 @@ def main() -> int:
     ap.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--mesh-case", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-dir", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-ck", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
     repo = Path(__file__).resolve().parent
     if not (repo / "glint_word2vec_torch" / "csrc").is_dir():
@@ -4262,21 +4720,18 @@ def main() -> int:
         f" ms a call, {quality['kernel']['device_ms']:.4f} ms on the device, bound "
         f"{quality['kernel']['bound_ms']:.4f} ms")
     t0 = time.perf_counter()
-    mesh, mesh_launches = mesh_phase(args.seed, torch, np, sgns)
-    for name, n in mesh_launches.items():  # phase 15: the scatter kernel on every rank
-        launches[name] = {"sgns_shared_step": 0, "scatter_add_rows": n,
-                          "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
-    srec["max_abs_err"] = max(srec["max_abs_err"], mesh["scatter_hold_max_abs_err"])
-    log("mesh", f"phase 15 in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    forms, forms_launches = forms_phase(args.seed, torch, np)
-    for name, n in forms_launches.items():  # phase 16: the scatter kernel on every rank
+    mesh, forms, mesh_launches = mesh_phases(args.seed, torch, np, sgns,
+                                             serving.get("exact"))
+    cols = forms["cols"]
+    for name, n in mesh_launches.items():  # phases 15-17: the scatter kernel, every rank
         counts_ = n if isinstance(n, dict) else {"scatter_add_rows": n}
         launches[name] = {"sgns_shared_step": counts_.get("sgns_shared_step", 0),
                           "scatter_add_rows": counts_["scatter_add_rows"],
                           "sgns_shared_step_bf16": 0, "scatter_add_rows_bf16": 0}
-    srec["max_abs_err"] = max(srec["max_abs_err"], forms["scatter_hold_max_abs_err"])
-    log("forms", f"phase 16 in {time.perf_counter() - t0:.1f} s")
+    srec["max_abs_err"] = max(srec["max_abs_err"], mesh["scatter_hold_max_abs_err"],
+                              forms["scatter_hold_max_abs_err"],
+                              cols["scatter_hold_max_abs_err"])
+    log("mesh", f"phases 15, 16 and 17 in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -4339,6 +4794,7 @@ def main() -> int:
                                               "continual": continual,
                                               "quality": quality,
                                               "mesh": mesh, "forms": forms,
+                                              "cols": cols,
                                               "launches_by_fit": launches,
                                               "graphs": GRAPHS,
                                               "card": card}) + "\n")

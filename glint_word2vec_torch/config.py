@@ -31,8 +31,11 @@ banded CBOW, ``duplicate_scaling`` where the JAX package has it, with ``sync_eve
 (local SGD), ``shard_input``, ``device_pairgen``, ``sharded_prefetch``,
 ``sharded_checkpoint`` and ``peer_beacon_s`` as in the JAX package. ``step_lowering``
 takes both values and the JAX package's selection matrix (:func:`_validate_mesh`); the
-port has one schedule for both, the owner-local one. The column layout is refused by
-name (ROADMAP.md queue A9b), and ``hot_rows`` by the JAX package's own refusal. The
+port has one schedule for both, the owner-local one. ``embedding_partition="cols"``
+(the reference's column layout: partial dot products summed over the model axis) trains
+every synchronous form, with the JAX package's refusals (``sharded_checkpoint``,
+``hot_rows``, ``step_lowering="shard_map"`` and with it ``sync_every > 1``);
+``hot_rows`` on a mesh raises the JAX package's own refusal. The
 serving tier's ``serve_*`` knobs, the fleet's ``serve_fleet_*`` among them, are
 read only by :mod:`.serve`.
 """
@@ -42,9 +45,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-# Knobs not ported, refused off their default: use_pallas by design (ROADMAP C), the
-# column layout (ROADMAP A9b.2).
-_UNPORTED = ("use_pallas", "embedding_partition")
+# Knobs not ported, refused off their default: use_pallas, by design (ROADMAP C).
+_UNPORTED = ("use_pallas",)
 
 
 @dataclasses.dataclass
@@ -188,6 +190,10 @@ class Word2VecConfig:
     check_ported: dataclasses.InitVar[bool] = True
 
     def __post_init__(self, check_ported: bool) -> None:
+        if self.embedding_partition not in ("rows", "cols"):
+            raise ValueError(
+                f"embedding_partition must be 'rows' or 'cols', "
+                f"got {self.embedding_partition!r}")
         # before the unported knobs, so that their combinations with use_pallas get
         # the JAX package's answer
         _validate_device_pairgen(self)
@@ -237,7 +243,7 @@ class Word2VecConfig:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported to glint_word2vec_torch "
                     f"(default {defaults[name]!r}); see ROADMAP.md "
-                    f"{'section C' if name == 'use_pallas' else 'queue A9b'}")
+                    "section C")
 
     @property
     def mesh_size(self) -> Tuple[int, int]:

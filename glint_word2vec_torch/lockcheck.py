@@ -53,6 +53,12 @@ LOCK_TABLE = {
         "rank": 20, "kind": "lock",
         "site": "glint_word2vec_torch/serve/reload.py:ServingHandle.__init__",
         "owner": "atomic (model, index) swap + lease counts (serve/reload.py)"},
+    "serve.mesh": {
+        "rank": 25, "kind": "lock",
+        "site": "glint_word2vec_torch/serve/mesh.py:MeshLeader.__init__",
+        "owner": "a mesh service's announcements and the collectives that follow "
+                 "them, one at a time (serve/mesh.py); taken holding nothing, or "
+                 "after the serving handle let go"},
     "fleet.router": {
         "rank": 30, "kind": "lock",
         "site": "glint_word2vec_torch/serve/fleet.py:FleetRouter.__init__",

@@ -132,7 +132,8 @@ class Word2Vec:
         checkpoint loads onto the one device; its reads use the resumed config's
         ``io_workers``. ``plan`` (or a resumed config that names a mesh): every rank
         resumes alike; a row-shards checkpoint streams each rank's rows onto it, even
-        from another mesh (elastic resume), a dense one is carved."""
+        from another mesh (elastic resume), a dense one is carved (its columns, under
+        the column layout)."""
         refuse_plan(plan)
         device = resolve_device(device)
         header = load_model_header(checkpoint_path)
@@ -146,7 +147,8 @@ class Word2Vec:
         if plan is None and (cfg.mesh_size[0] * cfg.mesh_size[1] > 1
                              or distributed.is_multiprocess()):
             plan = make_mesh(*cfg.mesh_size)
-        if plan is not None and plan.size > 1 and header["layout"] == "row-shards":
+        if (plan is not None and plan.size > 1 and header["layout"] == "row-shards"
+                and cfg.embedding_partition == "rows"):
             params = load_params_into_plan(
                 checkpoint_path, plan, pad_vocab_for_sharding(vocab.size, plan.num_model),
                 pad_dim_to_lanes(cfg.vector_size, cfg.pad_vector_to_lanes),
@@ -199,9 +201,12 @@ class Word2Vec:
 
 
 def _fitted_model(trainer: Trainer, device):
-    """The model a fit leaves: dense on one device, this rank's rows on a mesh."""
+    """The model a fit leaves: dense on one device, this rank's rows on a mesh. A
+    column fit's model is relaid to row blocks (one model-axis all_to_all a matrix),
+    as the JAX estimator places its model on ``plan.embedding`` whatever the fit's
+    layout: the model ops serve row blocks."""
     if trainer.plan is not None:
-        return ShardedWord2VecModel(trainer.vocab, trainer.params, trainer.config,
+        return ShardedWord2VecModel(trainer.vocab, trainer.row_blocks(), trainer.config,
                                     trainer.state, trainer.plan, device)
     out = trainer.unpadded_params()
     return Word2VecModel(vocab=trainer.vocab, syn0=out.syn0, syn1=out.syn1,

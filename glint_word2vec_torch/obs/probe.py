@@ -21,7 +21,9 @@ per-entry check run, a second fetch on the way to a rollback or a halt. The devi
 results are stacked into one small float64 tensor and fetched with one ``.cpu()``.
 Not a kernel: the JAX package's probe is an XLA reduction, not a Pallas kernel.
 
-On a mesh each rank reduces its own row blocks to partials (histogram counts, the
+Under the column layout a rank's squared row norms are summed over the model axis
+first (:func:`column_probe_partials`), so every rank folds the whole rows. On a mesh
+each rank reduces its own row blocks to partials (histogram counts, the
 maximum and sum of the norms, the rows over the threshold, the finite bit:
 :func:`sharded_probe_partials`), the trainer gathers them, and every rank folds the same
 bytes into the same channels (:func:`combine_partials`), so the guards and the watchdog
@@ -93,14 +95,34 @@ def _block_partials(m: torch.Tensor, row_lo: int, vocab_size: int,
     """[132] float64 partials of one row block (global rows ``row_lo`` on) of a
     row-sharded matrix: the p99 histogram of its real rows (128), their max and sum of
     norms, the rows over the threshold, and whether every row's norm is finite."""
-    norms_all = torch.linalg.vector_norm(m, dim=1, dtype=torch.float32)
-    real = max(0, min(m.shape[0], vocab_size - row_lo))
+    return _norm_partials(torch.linalg.vector_norm(m, dim=1, dtype=torch.float32),
+                          row_lo, vocab_size, threshold)
+
+
+def column_probe_partials(params, vocab_size: int, threshold: float,
+                          col_sum) -> torch.Tensor:
+    """The probe's [264] partials under the column layout, where a rank holds columns
+    of every row: each row's squared norm over the rank's columns (float32), summed
+    over the model axis by ``col_sum`` (``ops/sgns_shard.column_sum``; None on a model
+    axis of one) in one collective, then the partials of the whole matrices, the same
+    on every rank."""
+    sq = [torch.sum(torch.square(m.to(torch.float32)), dim=1) for m in params]
+    if col_sum is not None:
+        sq = col_sum(sq)
+    return torch.cat([_norm_partials(torch.sqrt(s), 0, vocab_size, threshold)
+                      for s in sq])
+
+
+def _norm_partials(norms_all: torch.Tensor, row_lo: int, vocab_size: int,
+                   threshold: float) -> torch.Tensor:
+    """:func:`_block_partials` from the block's row norms."""
+    real = max(0, min(norms_all.shape[0], vocab_size - row_lo))
     norms = norms_all[:real]
     logn = torch.log2(torch.clamp_min(norms, 2.0 ** _HIST_LO))
     idx = torch.nan_to_num(torch.floor((logn - _HIST_LO) * _HIST_PER_OCTAVE), nan=0.0)
     hist = torch.bincount(idx.clamp_(0, _HIST_BUCKETS - 1).long(),
                           minlength=_HIST_BUCKETS)
-    top = norms.max() if real else torch.zeros((), device=m.device)
+    top = norms.max() if real else torch.zeros((), device=norms_all.device)
     return torch.cat([hist.double(), torch.stack([
         top.double(), norms.double().sum(), (norms > threshold).sum().double(),
         torch.isfinite(norms_all).all().double()])])

@@ -41,8 +41,8 @@ import torch
 
 from glint_word2vec_torch.ops.scatter import scatter_add_rows_
 from glint_word2vec_torch.ops.sgns import (
-    _OFF, EmbeddingPair, Scatter, StepMetrics, Stabilizers, _log_sigmoid,
-    _mask_sentinel, _scalar, _sigmoid, _wide, clip_update_rows, stabilize_rows_)
+    _OFF, ColSum, EmbeddingPair, Scatter, StepMetrics, Stabilizers, _log_sigmoid,
+    _mask_sentinel, _scalar, _sigmoid, _wide, clip_rows_together, stabilize_rows_)
 
 # above this window the unrolled shifted adds (2·window [T, D] terms) lose to one
 # 2T-row scatter-add (the JAX package's rule for its CPU and TPU path)
@@ -196,7 +196,7 @@ def banded_updates_from_rows(
     alpha, num_negatives: int, window: int, sigmoid_mode: str = "exact",
     with_metrics: bool = True, scatter: Scatter = scatter_add_rows_, *,
     stabilizers: Optional[Stabilizers] = None, endpoint: str = "auto",
-    logits_dtype: Optional[torch.dtype] = None,
+    logits_dtype: Optional[torch.dtype] = None, col_sum: Optional[ColSum] = None,
 ):
     """The banded step's math on rows already gathered: the tokens' context update
     rows d_ctx [T, D] (in ``promote_types(e.dtype, float32)``, zero at dead slots),
@@ -204,7 +204,9 @@ def banded_updates_from_rows(
     live examples [T] and the loss and mean-f_pos numerators (zeros without
     ``with_metrics``). ``scatter`` builds the endpoint delta's scatter form. The
     single-device step and the row-sharded one (``ops/sgns_shard.py``) run this one
-    function."""
+    function, and so does the column-sharded one: its rows are a rank's columns (the
+    prefix sums run along the token axis, column by column), and ``col_sum`` sums the
+    logits over the model axis."""
     T = tokens.shape[0]
     P = negatives.shape[0]
     dev = e.device
@@ -228,6 +230,8 @@ def banded_updates_from_rows(
     # the shared-pool chain of the scatter step
     f_pos = torch.sum(hidden * e_out, dim=-1).to(_wide(cd))
     f_neg = (hidden @ Z.T).to(ld)                                    # [T, P]
+    if col_sum is not None:
+        f_pos, f_neg = col_sum([f_pos, f_neg])
     neg_valid = (negatives[None, :] != tokens[:, None]).to(ld) \
         * center_mask[:, None].to(ld)
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
@@ -239,8 +243,8 @@ def banded_updates_from_rows(
     d_Z = gn.T @ hidden                                              # [P, D]
     if (stabilizers or _OFF).update_clip:
         # before the spread: the quantity the scatter step clips
-        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
-        d_out = clip_update_rows(d_out, stabilizers.update_clip)
+        d_hidden, d_out = clip_rows_together([d_hidden, d_out], stabilizers.update_clip,
+                                             col_sum)
 
     # backward: the banded spread of d_hidden/n as a difference array and a prefix sum
     g_row = d_hidden.to(pf) / ctx_n[:, None]                         # [T, D]

@@ -68,7 +68,7 @@ shape that depends on the data), so a chunk of steps can be captured.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,6 +85,11 @@ SCATTERS_PER_STEP = 2
 
 Scatter = Callable[..., torch.Tensor]
 MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+# the column layout's hook (ops/sgns_shard.py): each tensor of the list summed over the
+# model axis, the list in one collective, each returned in its own dtype. The chains
+# below call it on their partial dot products (and the stabilizers on their partial
+# squared norms) when the rows they hold are a rank's columns; None on whole rows.
+ColSum = Callable[[List[torch.Tensor]], List[torch.Tensor]]
 
 
 class EmbeddingPair(NamedTuple):
@@ -145,11 +150,22 @@ def _ratio_clamped(limit: float, norm: torch.Tensor) -> torch.Tensor:
 def clip_update_rows(d: torch.Tensor, clip: float) -> torch.Tensor:
     """Rows of ``d`` ([..., D]) longer than ``clip`` in L2 rescaled to exactly
     ``clip``; shorter rows pass through bit for bit. ``clip=0`` returns ``d``."""
+    return clip_rows_together([d], clip)[0]
+
+
+def clip_rows_together(ds: List[torch.Tensor], clip: float,
+                       col_sum: Optional["ColSum"] = None) -> List[torch.Tensor]:
+    """:func:`clip_update_rows` of each tensor of ``ds``. ``col_sum`` (the column
+    layout, :data:`ColSum`): the rows hold a rank's columns, and their squared norms
+    are summed over the model axis, all of ``ds``'s in one call, before the ratio."""
     if not clip:
-        return d
-    dp = d.to(_stab_dtype(d.dtype))
-    norm = torch.sqrt(torch.sum(dp * dp, dim=-1, keepdim=True))
-    return (dp * _ratio_clamped(clip, norm)).to(d.dtype)
+        return ds
+    dps = [d.to(_stab_dtype(d.dtype)) for d in ds]
+    sq = [torch.sum(dp * dp, dim=-1, keepdim=True) for dp in dps]
+    if col_sum is not None:
+        sq = col_sum(sq)
+    return [(dp * _ratio_clamped(clip, torch.sqrt(s))).to(d.dtype)
+            for d, dp, s in zip(ds, dps, sq)]
 
 
 def _decay_scalar(alpha, row_l2: float, pf: torch.dtype, device) -> Union[float, torch.Tensor]:
@@ -177,24 +193,43 @@ def stabilize_rows_(mat: torch.Tensor, idx: torch.Tensor, alpha,
     replacement. A sentinel slot is pointed at a touched index of the same call, so it
     writes that row's replacement too; when no slot is touched, or ``enable`` (a 0-d
     tensor) is 0, every scale is exactly 1 and the pass rewrites the rows unchanged."""
+    stabilize_rows_together_([(mat, idx)], alpha, stab, enable)
+    return mat
+
+
+def stabilize_rows_together_(parts, alpha, stab: Stabilizers, enable: torch.Tensor,
+                             col_sum: Optional["ColSum"] = None) -> None:
+    """:func:`stabilize_rows_` of each ``(mat, idx)`` of ``parts``. ``col_sum`` (the
+    column layout): the matrices hold a rank's columns, and the touched rows' squared
+    norms are summed over the model axis, every part's in one call, before the clamp
+    (``row_l2``'s decay is per column and needs none)."""
     if not stab.post_pass:
-        return mat
-    V = mat.shape[0]
-    pf = _stab_dtype(mat.dtype)
-    touched = idx < V
-    # a one-element index, not a 0-d one: torch reads a 0-d index tensor on the host
-    # (a blocking copy on the card, and no CUDA graph can capture it)
-    first = torch.clamp(idx[torch.argmax(touched.to(torch.uint8)).reshape(1)], max=V - 1)
-    target = torch.where(touched, idx, first)
-    rows = mat[target].to(pf)
-    scale = torch.ones(rows.shape[0], dtype=pf, device=mat.device)
-    if stab.row_l2:
-        scale = scale * _decay_scalar(alpha, stab.row_l2, pf, mat.device)
+        return
+    work = []
+    for mat, idx in parts:
+        V = mat.shape[0]
+        pf = _stab_dtype(mat.dtype)
+        touched = idx < V
+        # a one-element index, not a 0-d one: torch reads a 0-d index tensor on the
+        # host (a blocking copy on the card, and no CUDA graph can capture it)
+        first = torch.clamp(idx[torch.argmax(touched.to(torch.uint8)).reshape(1)],
+                            max=V - 1)
+        target = torch.where(touched, idx, first)
+        rows = mat[target].to(pf)
+        scale = torch.ones(rows.shape[0], dtype=pf, device=mat.device)
+        if stab.row_l2:
+            scale = scale * _decay_scalar(alpha, stab.row_l2, pf, mat.device)
+        work.append((mat, touched, target, rows, scale))
     if stab.max_row_norm:
-        norm = torch.sqrt(torch.sum(rows * rows, dim=-1)) * scale
-        scale = scale * _ratio_clamped(stab.max_row_norm, norm)
-    scale = torch.where((enable > 0) & touched.any(), scale, 1.0)
-    return mat.index_copy_(0, target, (rows * scale[:, None]).to(mat.dtype))
+        sq = [torch.sum(rows * rows, dim=-1) for _, _, _, rows, _ in work]
+        if col_sum is not None:
+            sq = col_sum(sq)
+        work = [(mat, touched, target, rows,
+                 scale * _ratio_clamped(stab.max_row_norm, torch.sqrt(s) * scale))
+                for (mat, touched, target, rows, scale), s in zip(work, sq)]
+    for mat, touched, target, rows, scale in work:
+        scale = torch.where((enable > 0) & touched.any(), scale, 1.0)
+        mat.index_copy_(0, target, (rows * scale[:, None]).to(mat.dtype))
 
 
 def _counts(V: int, *pairs) -> torch.Tensor:
@@ -318,13 +353,16 @@ def shared_pool_coeffs(
     logits_dtype: Optional[torch.dtype] = None,
     fused: bool = False,
     bf16_chain: bool = False,
+    col_sum: Optional[ColSum] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The shared-pool logit chain: (f_pos, f_neg, neg_valid, g_pos, g_neg);
     ``matmul`` computes f_neg. f_neg and g_neg are in ``logits_dtype`` (default
     ``promote_types(compute, float32)``), f_pos in ``promote_types(compute, float32)``.
     ``fused``: g_neg is one select of σ(f_neg)·(α·(−n/P)) on the predicate (pool entry
     ≠ the pair's context) ∧ mask, and ``neg_valid`` is that bool predicate.
-    ``bf16_chain``: f_pos is the f32-accumulated sum of the compute-dtype products."""
+    ``bf16_chain``: f_pos is the f32-accumulated sum of the compute-dtype products.
+    ``col_sum``: the rows are a rank's columns, and f_pos and f_neg (each in its own
+    dtype) are summed over the model axis before the sigmoid."""
     P = negatives.shape[0]
     wide = _wide(e_in.dtype)
     ld = logits_dtype or wide
@@ -333,6 +371,8 @@ def shared_pool_coeffs(
     else:
         f_pos = torch.sum(e_in * e_pos, dim=-1).to(wide)
     f_neg = matmul(e_in, Z.T).to(ld)                                 # [B, P]
+    if col_sum is not None:
+        f_pos, f_neg = col_sum([f_pos, f_neg])
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * mask
     if fused:
         valid = (negatives[None, :] != contexts[:, None]) & (mask[:, None] > 0)
@@ -401,6 +441,7 @@ def shared_pool_updates_from_rows(
     logits_dtype: Optional[torch.dtype] = None, fused: bool = False,
     bf16_chain: bool = False, dup_vocab: int = 0,
     dup_scales: Optional[Tuple[torch.Tensor, ...]] = None,
+    col_sum: Optional[ColSum] = None,
 ):
     """The shared-pool step's math on rows already gathered in the compute dtype
     (e_in [B, D], e_pos [B, D], Z [P, D]): the update rows d_in, d_pos, d_Z and the
@@ -410,12 +451,15 @@ def shared_pool_updates_from_rows(
     step counts the global batch): the centers' scale [B] (1 / count), the contexts'
     divisor [B] and the pool rows' scale [P]. The single-device steps and the
     row-sharded step (``ops/sgns_shard.py``, whose rows are assembled across the model
-    axis) run this one function, so the two cannot drift."""
+    axis) run this one function, so the two cannot drift; so does the column-sharded
+    step, whose rows are a rank's columns and which passes ``col_sum``
+    (:data:`ColSum`)."""
     cd = e_in.dtype
     duplicate_scaling = dup_vocab > 0
     f_pos, f_neg, neg_valid, g_pos, g_neg = shared_pool_coeffs(
         e_in, e_pos, Z, contexts, negatives, mask, alpha, num_negatives, sigmoid_mode,
-        matmul=matmul, logits_dtype=logits_dtype, fused=fused, bf16_chain=bf16_chain)
+        matmul=matmul, logits_dtype=logits_dtype, fused=fused, bf16_chain=bf16_chain,
+        col_sum=col_sum)
     g_pos_in, g_neg_in, g_pos_out, z_scale = g_pos, g_neg, g_pos, None
     if dup_scales is not None:
         in_scale, out_div, z_scale = dup_scales
@@ -440,8 +484,7 @@ def shared_pool_updates_from_rows(
     if z_scale is not None:
         d_Z = d_Z * z_scale[:, None].to(cd)
     if (stabilizers or _OFF).update_clip:
-        d_in = clip_update_rows(d_in, stabilizers.update_clip)
-        d_pos = clip_update_rows(d_pos, stabilizers.update_clip)
+        d_in, d_pos = clip_rows_together([d_in, d_pos], stabilizers.update_clip, col_sum)
     return d_in, d_pos, d_Z, (f_pos, f_neg, neg_valid)
 
 
@@ -590,7 +633,7 @@ def per_pair_updates_from_rows(
     neg_valid: torch.Tensor, alpha, sigmoid_mode: str = "exact", *,
     dup_div: Optional[Tuple[torch.Tensor, ...]] = None,
     stabilizers: Optional[Stabilizers] = None, fused: bool = False,
-    bf16_chain: bool = False,
+    bf16_chain: bool = False, col_sum: Optional[ColSum] = None,
 ):
     """The per-pair step's math on rows already gathered in the compute dtype (e_in,
     e_pos [B, D], e_neg [B, n, D]): d_in [B, D], syn1's update rows [B·(1 + n), D]
@@ -598,7 +641,8 @@ def per_pair_updates_from_rows(
     (duplicate scaling): the divisors of the centers' [B], contexts' [B] and
     negatives' [B, n] updates, each row's count in the batch, at least 1. The
     single-device step and the row-sharded one (``ops/sgns_shard.py``, whose rows and
-    counts come from across the mesh) run this one function."""
+    counts come from across the mesh) run this one function, and so does the
+    column-sharded one (``col_sum``: the logits are summed over the model axis)."""
     B, n, D = e_neg.shape
     cd = e_in.dtype
     wide = _wide(cd)
@@ -608,6 +652,8 @@ def per_pair_updates_from_rows(
     else:
         f_pos = torch.sum(e_in * e_pos, dim=-1).to(wide)
         f_neg = torch.einsum("bd,bnd->bn", e_in, e_neg).to(wide)
+    if col_sum is not None:
+        f_pos, f_neg = col_sum([f_pos, f_neg])
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * mask
     if fused:
         g_neg = torch.where(neg_valid, _sigmoid(f_neg, sigmoid_mode) * (-alpha),
@@ -627,8 +673,7 @@ def per_pair_updates_from_rows(
     torch.mul(g_pos_out[:, None].to(cd), e_in, out=upd1[:B])
     torch.mul(g_neg_out[..., None].to(cd), e_in[:, None, :], out=upd1[B:].view(B, n, D))
     if (stabilizers or _OFF).update_clip:
-        d_in = clip_update_rows(d_in, stabilizers.update_clip)
-        upd1 = clip_update_rows(upd1, stabilizers.update_clip)
+        d_in, upd1 = clip_rows_together([d_in, upd1], stabilizers.update_clip, col_sum)
     if fused:
         neg_loss = torch.sum(torch.where(neg_valid, _log_sigmoid(-f_neg),
                                          torch.zeros((), dtype=f_neg.dtype,
@@ -768,7 +813,7 @@ def cbow_updates_from_rows(
     e_neg: torch.Tensor, centers: torch.Tensor, mask: torch.Tensor,
     negatives: torch.Tensor, alpha, sigmoid_mode: str = "exact", *,
     dup_div: Optional[Tuple[torch.Tensor, ...]] = None,
-    stabilizers: Optional[Stabilizers] = None,
+    stabilizers: Optional[Stabilizers] = None, col_sum: Optional[ColSum] = None,
 ):
     """The per-example CBOW step's math on the hidden mean and the rows already
     gathered in the compute dtype (e_out [B, D], e_neg [B, n, D]): d_hidden [B, D],
@@ -776,13 +821,16 @@ def cbow_updates_from_rows(
     [B], the live negatives [B, n] and the loss and mean-f_pos numerators.
     ``dup_div`` (duplicate scaling): the context slots' scale [B, C] (1 / count) and
     the divisors of the centers' [B] and negatives' [B, n] updates. The
-    single-device step and the row-sharded one run this one function."""
+    single-device step and the row-sharded one run this one function; the
+    column-sharded one too, with ``col_sum`` (the hidden mean is column-local)."""
     B, n, D = e_neg.shape
     cd = hidden.dtype
     wide = _wide(cd)
     neg_valid = (negatives != centers[:, None]).to(torch.float32) * mask[:, None]
     f_pos = torch.sum(hidden * e_out, dim=-1).to(wide)
     f_neg = torch.einsum("bd,bnd->bn", hidden, e_neg).to(wide)
+    if col_sum is not None:
+        f_pos, f_neg = col_sum([f_pos, f_neg])
     live = mask * has_ctx
     neg_live = neg_valid * has_ctx[:, None]
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
@@ -799,8 +847,8 @@ def cbow_updates_from_rows(
     torch.mul(g_neg_out[..., None].to(cd), hidden[:, None, :],
               out=upd1[B:].view(B, n, D))
     if (stabilizers or _OFF).update_clip:
-        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
-        upd1 = clip_update_rows(upd1, stabilizers.update_clip)
+        d_hidden, upd1 = clip_rows_together([d_hidden, upd1], stabilizers.update_clip,
+                                            col_sum)
     loss_num = (-_log_sigmoid(f_pos) * live
                 - torch.sum(_log_sigmoid(-f_neg) * neg_live, dim=-1)).sum()
     return d_hidden, upd1, live, neg_live, (loss_num, (f_pos * live).sum())
@@ -864,13 +912,15 @@ def cbow_shared_updates_from_rows(
     num_negatives: int, sigmoid_mode: str = "exact", *,
     stabilizers: Optional[Stabilizers] = None,
     logits_dtype: Optional[torch.dtype] = None, with_metrics: bool = True,
+    col_sum: Optional[ColSum] = None,
 ):
     """The shared-pool CBOW step's math on the hidden mean and the rows already
     gathered in the compute dtype (e_out [B, D], Z [P, D]): d_hidden [B, D], syn1's
     update rows [B + P, D] (centers, then the pool), the live examples [B] and the
     loss and mean-f_pos numerators (zeros without ``with_metrics``). The single-device
     step and the row-sharded one run this one function; the pool rows' dZ is summed
-    over the examples given (the sharded step sums the data shards' parts)."""
+    over the examples given (the sharded step sums the data shards' parts). The
+    column-sharded step passes ``col_sum`` (the logits summed over the model axis)."""
     B, D = hidden.shape
     P = negatives.shape[0]
     cd = hidden.dtype
@@ -878,6 +928,8 @@ def cbow_shared_updates_from_rows(
     neg_valid = (negatives[None, :] != centers[:, None]).to(ld) * mask[:, None].to(ld)
     f_pos = torch.sum(hidden * e_out, dim=-1).to(_wide(cd))
     f_neg = (hidden @ Z.T).to(ld)                                    # [B, P]
+    if col_sum is not None:
+        f_pos, f_neg = col_sum([f_pos, f_neg])
     live = mask * has_ctx
     g_pos = (1.0 - _sigmoid(f_pos, sigmoid_mode)) * alpha * live
     g_neg = ((0.0 - _sigmoid(f_neg, sigmoid_mode)) * _scalar(alpha, ld) * neg_valid
@@ -887,8 +939,8 @@ def cbow_shared_updates_from_rows(
     torch.mul(g_pos[:, None].to(cd), hidden, out=upd1[:B])
     torch.matmul(g_neg.to(cd).T, hidden, out=upd1[B:])               # dZ [P, D]
     if (stabilizers or _OFF).update_clip:
-        d_hidden = clip_update_rows(d_hidden, stabilizers.update_clip)
-        upd1[:B] = clip_update_rows(upd1[:B], stabilizers.update_clip)
+        d_hidden, upd1[:B] = clip_rows_together([d_hidden, upd1[:B]],
+                                                stabilizers.update_clip, col_sum)
     if with_metrics:
         neg_term = torch.sum(_log_sigmoid(-f_neg) * neg_valid * has_ctx[:, None].to(ld),
                              dim=-1, dtype=_wide(ld))

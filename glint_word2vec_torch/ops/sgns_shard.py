@@ -63,11 +63,29 @@ data-axis all_gathers and one data-axis all_reduce (at ``num_data > 1``). Floati
 point: the sums run in another order than the single-device step's (and than the JAX
 step's), so the steps agree to reassociation tolerance, bit for bit only where no row
 repeats.
+
+**The column layout** (``cols=True`` on every factory; ``embedding_partition="cols"``,
+the reference's partial-dot scheme, which the JAX package runs under GSPMD): each rank
+holds columns ``[m·Dc, (m+1)·Dc)`` of every row of both matrices (``plan.cols``), so
+every row is local and step 1 is a plain gather of the rank's columns. The chain runs
+on those columns and stops once, between its dot products and its sigmoid: the
+:data:`.sgns.ColSum` hook sums the partial logits (``[Bl]`` + ``[Bl, P]`` scalars, or
+``[Bl]`` + ``[Bl, n]`` per pair) in one model-axis all_reduce, and the rest of the chain
+runs on the summed logits, identical on every rank of the model axis. A CBOW hidden
+vector, the banded prefix sums and every update row (a coefficient times the other
+matrix's columns) stay column-local. ``update_clip`` and ``max_row_norm`` need whole-row
+norms: the squared norms of the rank's columns, summed by the same hook (one more
+all_reduce each, of the clipped rows' and of the touched rows' partial norms);
+``row_l2``'s decay is per column. The data axis runs as on rows: the index list and the
+payload (now the rank's columns of each update row) are gathered, and every rank applies
+every slot to its own column block through the row-scatter kernel. No update row crosses
+the model axis.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+from typing import Callable, List, Optional
 
 import torch
 
@@ -77,7 +95,7 @@ from glint_word2vec_torch.ops.sgns import (
     Stabilizers, StepMetrics, _counts, cbow_context_rows, cbow_hidden_from_rows,
     cbow_shared_updates_from_rows, cbow_updates_from_rows, per_pair_updates_from_rows,
     per_pair_valid, shared_pool_loss_terms, shared_pool_updates_from_rows,
-    stabilize_rows_)
+    stabilize_rows_, stabilize_rows_together_)
 from glint_word2vec_torch.parallel.distributed import COLLECTIVES, local_sgd_delta_merge
 from glint_word2vec_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, MeshPlan
 
@@ -151,23 +169,53 @@ def _count_live(Vp: int, idx: torch.Tensor, live: Optional[torch.Tensor] = None)
     return _counts(Vp, (torch.where(ok, idx, 0), ok.to(torch.float32)))
 
 
+def column_sum(plan: MeshPlan):
+    """The column layout's :data:`.sgns.ColSum` on ``plan``: each tensor of the list
+    summed over the model axis in one all_reduce (flattened together, in the widest of
+    their dtypes and at least float32, each returned in its own dtype: a bf16 partial
+    is summed in f32 and rounded once). None on a model axis of one."""
+    if plan.num_model == 1:
+        return None
+
+    def col_sum(parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        wide = functools.reduce(torch.promote_types, [p.dtype for p in parts],
+                                torch.float32)
+        flat = torch.cat([p.reshape(-1).to(wide) for p in parts])
+        COLLECTIVES.all_reduce(flat, plan.model_group, MODEL_AXIS)
+        out, off = [], 0
+        for p in parts:
+            out.append(flat[off:off + p.numel()].view(p.shape).to(p.dtype))
+            off += p.numel()
+        return out
+
+    return col_sum
+
+
 class _Exchange:
     """One synchronous owner-local step's collectives and scatters on ``plan``: the
     model-axis row assembly, the data-axis index list, the metric all_reduce, the
-    payload exchange, the owner-local scatters and the touched-row pass."""
+    payload exchange, the owner-local scatters and the touched-row pass. ``cols``: the
+    parameters are the rank's column blocks [Vp, Dc] (every row local, no assembly);
+    ``col_sum`` is the chain's hook (:func:`column_sum`), None on rows."""
 
-    def __init__(self, plan: MeshPlan, params, stab: Optional[Stabilizers]):
+    def __init__(self, plan: MeshPlan, params, stab: Optional[Stabilizers],
+                 cols: bool = False):
         self.plan = plan
         self.syn0, self.syn1 = params
+        self.cols = cols
         self.vs = self.syn0.shape[0]
-        self.off = plan.model_index * self.vs
-        self.Vp = self.vs * plan.num_model
+        self.off = 0 if cols else plan.model_index * self.vs
+        self.Vp = self.vs if cols else self.vs * plan.num_model
         self.stab = stab
         self.scat = default_scatter(self.syn0.dtype)
+        self.col_sum = column_sum(plan) if cols else None
 
     def assemble(self, parts) -> list:
         """The full rows of each ``(matrix, global index)`` of ``parts`` (this rank's
-        owned rows, summed over the model axis), split back into the parts."""
+        owned rows, summed over the model axis), split back into the parts. Under
+        ``cols`` the rank's columns of every row, gathered locally."""
+        if self.cols:
+            return [m[i.reshape(-1)] for m, i in parts]
         cat = torch.cat([owned_rows(m, i.reshape(-1), self.off) for m, i in parts])
         if self.plan.num_model > 1:
             COLLECTIVES.all_reduce(cat, self.plan.model_group, MODEL_AXIS)
@@ -213,10 +261,10 @@ class _Exchange:
                                  self.scat)
         if self.stab is not None and self.stab.post_pass:
             enable = stats[3] > 0
-            stabilize_rows_(syn0, _local_or_sentinel(idx0, self.off, self.vs), alpha,
-                            self.stab, enable)
-            stabilize_rows_(syn1, _local_or_sentinel(idx1, self.off, self.vs), alpha,
-                            self.stab, enable)
+            stabilize_rows_together_(
+                [(syn0, _local_or_sentinel(idx0, self.off, self.vs)),
+                 (syn1, _local_or_sentinel(idx1, self.off, self.vs))],
+                alpha, self.stab, enable, self.col_sum)
 
 
 def _stab_or_none(stabilizers: Optional[Stabilizers]) -> Optional[Stabilizers]:
@@ -235,6 +283,7 @@ def make_sharded_sgns_step(
     bf16_chain: bool = False,
     sync_every: int = 1,
     duplicate_scaling: bool = False,
+    cols: bool = False,
 ) -> Callable[..., StepMetrics]:
     """Build the row-sharded shared-pool step on ``plan``. ``sync_every=1`` returns
     ``step(params, batch, negatives, alpha)``: ``params`` this rank's row blocks
@@ -246,9 +295,14 @@ def make_sharded_sgns_step(
     ``logits_dtype`` (None: the parameters' dtype and its f32 widening), ``fused``,
     ``bf16_chain``, ``stabilizers`` and ``duplicate_scaling`` (synchronous steps only,
     as the JAX config has it) as in the JAX step factory. The owner-local scatters run
-    :func:`default_scatter` of the parameters' dtype."""
+    :func:`default_scatter` of the parameters' dtype. ``cols``: ``params`` are this
+    rank's column blocks ``[Vp, Dc]`` (synchronous steps only: the column layout runs
+    under GSPMD in the JAX package, which has no local-SGD form)."""
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    if cols and sync_every > 1:
+        raise ValueError("the column layout has no local-SGD window form "
+                         "(sync_every=1)")
     if duplicate_scaling and sync_every > 1:
         raise ValueError("duplicate_scaling has no local-SGD window form")
     nd = plan.num_data
@@ -256,11 +310,11 @@ def make_sharded_sgns_step(
     post = stab is not None and stab.post_pass
 
     def chain(e_in, e_pos, Z, centers, contexts, mask, negatives, alpha, cd,
-              dup_scales=None):
+              dup_scales=None, col_sum=None):
         return shared_pool_updates_from_rows(
             e_in.to(cd), e_pos.to(cd), Z.to(cd), centers, contexts, mask, negatives,
             alpha, num_negatives, sigmoid_mode, torch.matmul, stab, logits_dtype, fused,
-            bf16_chain, dup_scales=dup_scales)
+            bf16_chain, dup_scales=dup_scales, col_sum=col_sum)
 
     def loss_terms(chain_out, mask):
         if not with_metrics:
@@ -269,7 +323,7 @@ def make_sharded_sgns_step(
         return shared_pool_loss_terms(*chain_out, mask, num_negatives)
 
     def step(params, batch, negatives, alpha) -> StepMetrics:
-        ex = _Exchange(plan, params, stab)
+        ex = _Exchange(plan, params, stab, cols)
         centers, contexts = batch["centers"].long(), batch["contexts"].long()
         mask, negatives = batch["mask"], negatives.long()
         e_in, e_pos, Z = ex.assemble([(ex.syn0, centers), (ex.syn1, contexts),
@@ -291,7 +345,8 @@ def make_sharded_sgns_step(
                    torch.clamp(cnt_out[contexts], min=1.0),
                    1.0 / (torch.clamp(valid, min=1.0) * pool_mult))
         d_in, d_pos, d_Z, ch = chain(e_in, e_pos, Z, centers, contexts, mask, negatives,
-                                     alpha, compute_dtype or ex.syn0.dtype, dup)
+                                     alpha, compute_dtype or ex.syn0.dtype, dup,
+                                     ex.col_sum)
         stats = ex.reduce_stats(*loss_terms(ch, mask), mask.sum(), mask.sum())
         ex.apply(d_in, torch.cat([d_pos, d_Z]), alpha, stats)
         return _finish_metrics(stats, with_metrics)
@@ -352,17 +407,19 @@ def make_sharded_per_pair_step(
     fused: bool = False,
     bf16_chain: bool = False,
     duplicate_scaling: bool = False,
+    cols: bool = False,
 ) -> Callable[..., StepMetrics]:
     """The row-sharded per-pair step (the JAX package's ``sgns_step_core`` on a mesh):
     ``step(params, batch, negatives, alpha)`` with ``batch`` this rank's data slice
     (``centers``, ``contexts``, ``mask``, [Bl]) and ``negatives`` its [Bl, n] slice of
     the single-device draw. ``compute_dtype``, ``stabilizers``, ``fused``,
     ``bf16_chain`` and ``duplicate_scaling`` as in the single-device step; the metrics
-    are always computed (the per-pair step has no elided twin)."""
+    are always computed (the per-pair step has no elided twin). ``cols``: the
+    column-sharded step on this rank's column blocks."""
     stab = _stab_or_none(stabilizers)
 
     def step(params, batch, negatives, alpha) -> StepMetrics:
-        ex = _Exchange(plan, params, stab)
+        ex = _Exchange(plan, params, stab, cols)
         centers, contexts = batch["centers"].long(), batch["contexts"].long()
         mask, negatives = batch["mask"], negatives.long()
         bl, n = negatives.shape
@@ -385,7 +442,7 @@ def make_sharded_per_pair_step(
         d_in, upd1, (loss_num, fpos_num) = per_pair_updates_from_rows(
             e_in.to(cd), e_pos.to(cd), e_neg.to(cd).view(bl, n, -1), mask, neg_valid,
             alpha, sigmoid_mode, dup_div=dup, stabilizers=stab, fused=fused,
-            bf16_chain=bf16_chain)
+            bf16_chain=bf16_chain, col_sum=ex.col_sum)
         stats = ex.reduce_stats(loss_num, fpos_num, mask.sum(), mask.sum())
         ex.apply(d_in, upd1, alpha, stats)
         return _finish_metrics(stats, True)
@@ -403,6 +460,7 @@ def make_sharded_cbow_step(
     with_metrics: bool = True,
     stabilizers: Optional[Stabilizers] = None,
     duplicate_scaling: bool = False,
+    cols: bool = False,
 ) -> Callable[..., StepMetrics]:
     """The row-sharded scatter CBOW step (the JAX package's ``cbow_step_shared_core``
     with ``shared_pool``, else ``cbow_step_core``, on a mesh): ``step(params, batch,
@@ -411,14 +469,15 @@ def make_sharded_cbow_step(
     pool [P] or this data shard's [Bl, n] slice of the per-example draw.
     ``duplicate_scaling`` (per-example negatives only, as the JAX config has it),
     ``stabilizers``, ``compute_dtype`` and ``logits_dtype`` (the pool's chain) as in
-    the single-device steps."""
+    the single-device steps. ``cols``: the column-sharded step on this rank's column
+    blocks."""
     if duplicate_scaling and shared_pool:
         raise ValueError("duplicate_scaling CBOW runs per-example negatives "
                          "(negative_pool=0), as in the JAX package")
     stab = _stab_or_none(stabilizers)
 
     def step(params, batch, negatives, alpha) -> StepMetrics:
-        ex = _Exchange(plan, params, stab)
+        ex = _Exchange(plan, params, stab, cols)
         centers, contexts = batch["centers"].long(), batch["contexts"].long()
         ctx_mask, mask, negatives = batch["ctx_mask"], batch["mask"], negatives.long()
         bl, C = contexts.shape
@@ -436,7 +495,8 @@ def make_sharded_cbow_step(
             d_hidden, upd1, live, (loss_num, fpos_num) = cbow_shared_updates_from_rows(
                 hidden, has_ctx, e_out.to(cd), e_neg.to(cd), centers, mask, negatives,
                 alpha, num_negatives, sigmoid_mode, stabilizers=stab,
-                logits_dtype=logits_dtype, with_metrics=with_metrics)
+                logits_dtype=logits_dtype, with_metrics=with_metrics,
+                col_sum=ex.col_sum)
             ctx_scale = None
         else:
             n = negatives.shape[1]
@@ -452,7 +512,8 @@ def make_sharded_cbow_step(
                        torch.clamp(cnt1[negatives], min=1.0))
             d_hidden, upd1, live, _, (loss_num, fpos_num) = cbow_updates_from_rows(
                 hidden, has_ctx, e_out.to(cd), e_neg.to(cd).view(bl, n, -1), centers,
-                mask, negatives, alpha, sigmoid_mode, dup_div=dup, stabilizers=stab)
+                mask, negatives, alpha, sigmoid_mode, dup_div=dup, stabilizers=stab,
+                col_sum=ex.col_sum)
             ctx_scale = None if dup is None else dup[0]
         d_ctx = cbow_context_rows(d_hidden, ctx_n, ctx_mask, ctx_scale)
         stats = ex.reduce_stats(loss_num, fpos_num, live.sum(), mask.sum())
@@ -471,6 +532,7 @@ def make_sharded_banded_step(
     logits_dtype: Optional[torch.dtype] = None,
     with_metrics: bool = True,
     stabilizers: Optional[Stabilizers] = None,
+    cols: bool = False,
 ) -> Callable[..., StepMetrics]:
     """The row-sharded banded CBOW step (the JAX package's ``cbow_step_banded_core``
     on a mesh, each data shard on its own token block): ``step(params, batch,
@@ -478,11 +540,12 @@ def make_sharded_banded_step(
     ``right`` int64 [T], ``center`` and ``token`` float32 [T]) and ``negatives`` the
     shared pool [P]. The prefix sums and the endpoint delta run locally (the endpoint's
     scatter form through :func:`default_scatter` on the card); the tokens' syn0 and
-    syn1 updates and the pool's go to their owners."""
+    syn1 updates and the pool's go to their owners. ``cols``: the column-sharded step on
+    this rank's column blocks."""
     stab = _stab_or_none(stabilizers)
 
     def step(params, batch, negatives, alpha) -> StepMetrics:
-        ex = _Exchange(plan, params, stab)
+        ex = _Exchange(plan, params, stab, cols)
         tokens, negatives = batch["tokens"].long(), negatives.long()
         center, token = batch["center"], batch["token"]
         left, right = batch["left"], batch["right"]
@@ -494,7 +557,7 @@ def make_sharded_banded_step(
         d_ctx, d_out, d_Z, live, (loss_num, fpos_num) = banded_updates_from_rows(
             e, e_out.to(cd), Z.to(cd), tokens, left, right, center, token, negatives,
             alpha, num_negatives, window, sigmoid_mode, with_metrics, ex.scat,
-            stabilizers=stab, logits_dtype=logits_dtype)
+            stabilizers=stab, logits_dtype=logits_dtype, col_sum=ex.col_sum)
         stats = ex.reduce_stats(loss_num, fpos_num, live.sum(), token.sum())
         ex.apply(d_ctx, torch.cat([d_out, d_Z]), alpha, stats)
         return _finish_metrics(stats, with_metrics)

@@ -131,18 +131,22 @@ def is_multiprocess() -> bool:
 
 class Collectives:
     """The one interface the port's collectives go through, with a count of each call
-    by (operation, axis): ``all_reduce``, ``all_gather``, ``broadcast_object`` and
-    ``barrier`` on a process group (``None``: the world). A gloo group given a tensor on the card is
-    staged through host memory; ``staged_s`` and ``staged_calls`` count those calls'
-    wall seconds and number. The counts are per process."""
+    by (operation, axis): ``all_reduce``, ``all_gather``, ``all_to_all``,
+    ``broadcast_object`` and ``barrier`` on a process group (``None``: the world), and
+    of each tensor collective's input bytes (``nbytes``, by the same key). A gloo group
+    given a tensor on the card is staged through host memory; ``staged_s`` and
+    ``staged_calls`` count those calls' wall seconds and number. The counts are per
+    process."""
 
     def __init__(self):
         self.counts: Counter = Counter()
+        self.nbytes: Counter = Counter()
         self.staged_s = 0.0
         self.staged_calls = 0
 
     def reset(self) -> None:
         self.counts.clear()
+        self.nbytes.clear()
         self.staged_s = 0.0
         self.staged_calls = 0
 
@@ -164,6 +168,7 @@ class Collectives:
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
         """Sum ``t`` over ``group`` in place; returns ``t``."""
         self.counts[("all_reduce", axis)] += 1
+        self.nbytes[("all_reduce", axis)] += t.numel() * t.element_size()
         if not self._staged(t, group):
             dist.all_reduce(t, op=op, group=group)
             return t
@@ -177,6 +182,7 @@ class Collectives:
     def all_gather(self, t: torch.Tensor, group=None, axis: str = "world") -> torch.Tensor:
         """The group's ``t`` concatenated along dim 0 in rank order (tiled)."""
         self.counts[("all_gather", axis)] += 1
+        self.nbytes[("all_gather", axis)] += t.numel() * t.element_size()
         staged = self._staged(t, group)
         if staged:
             t0 = self._begin_staging(t)
@@ -190,6 +196,25 @@ class Collectives:
             cat = cat.to(t.device)
             self._end_staging(t0)
         return cat
+
+    def all_to_all(self, t: torch.Tensor, group=None, axis: str = "world") -> torch.Tensor:
+        """Split ``t`` along dim 0 into one equal part a rank of ``group``, send part j
+        to rank j, and return the parts received, concatenated in rank order
+        (``all_to_all_single``)."""
+        self.counts[("all_to_all", axis)] += 1
+        self.nbytes[("all_to_all", axis)] += t.numel() * t.element_size()
+        staged = self._staged(t, group)
+        if staged:
+            t0 = self._begin_staging(t)
+            src = t.cpu()
+        else:
+            src = t.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group)
+        if staged:
+            out = out.to(t.device)
+            self._end_staging(t0)
+        return out
 
     def broadcast_object(self, obj, group=None, axis: str = "world"):
         """Rank 0's picklable ``obj`` on every rank of ``group`` (a gloo group: host

@@ -11,6 +11,11 @@ card, laid out on two axes:
 - ``data``: the batch is split into ``num_data`` contiguous slices, and the ranks of
   one model index hold replicas of the same row block.
 
+The column layout (``embedding_partition="cols"``, :attr:`MeshPlan.embedding_cols`,
+the reference's own scheme) splits the columns instead: the rank at model index m owns
+columns ``[m·Dc, (m+1)·Dc)`` of every row, ``Dc = Dp / num_model``, and the step sums
+its partial dot products over the model axis (``ops/sgns_shard.py``).
+
 Rank r sits at (data r // num_model, model r % num_model): the row-major order in which
 the JAX package's ``make_mesh`` reshapes its devices. The plan owns one process group
 per model-axis row of the grid and one per data-axis column (``torch.distributed
@@ -85,6 +90,12 @@ class MeshPlan:
         return Sharding(MODEL_AXIS, 0)
 
     @property
+    def embedding_cols(self) -> Sharding:
+        """Column-sharded [V, D] embeddings over the model axis, replicated over data:
+        the reference's layout (each server holds a slice of every vector's columns)."""
+        return Sharding(MODEL_AXIS, 1)
+
+    @property
     def batch(self) -> Sharding:
         """[B, ...] batches split over the data axis, replicated over model."""
         return Sharding(DATA_AXIS, 0)
@@ -105,6 +116,15 @@ class MeshPlan:
                              f"num_model={self.num_model}")
         vs = padded_vocab // self.num_model
         return self.model_index * vs, (self.model_index + 1) * vs
+
+    def cols(self, padded_dim: int) -> tuple:
+        """This rank's column range ``(lo, hi)`` of a [V, padded_dim] matrix under the
+        column layout."""
+        if padded_dim % self.num_model:
+            raise ValueError(f"padded vector dim {padded_dim} is not divisible by "
+                             f"num_model={self.num_model}")
+        dc = padded_dim // self.num_model
+        return self.model_index * dc, (self.model_index + 1) * dc
 
     def carve(self, a, spec: Sharding):
         """This rank's block of the global array ``a`` (numpy or torch) under
@@ -163,17 +183,24 @@ def make_mesh(num_data: int = 1, num_model: Optional[int] = None) -> MeshPlan:
     return MeshPlan(num_data, num_model, r, model_group, data_group)
 
 
-def shard_params(params, plan: MeshPlan, device=None) -> LocalShards:
-    """This rank's row blocks of an EmbeddingPair of full [Vp, Dp] matrices (numpy or
-    torch), copied to ``device``."""
+def shard_params(params, plan: MeshPlan, device=None,
+                 spec: Optional[Sharding] = None) -> LocalShards:
+    """This rank's blocks of an EmbeddingPair of full [Vp, Dp] matrices (numpy or
+    torch) under ``spec`` (default ``plan.embedding``, the row blocks;
+    ``plan.embedding_cols`` for the column blocks), each copied to ``device`` as a
+    contiguous tensor of its own: :meth:`MeshPlan.carve` of columns is a strided view,
+    and the row-scatter kernel takes only contiguous matrices."""
+    spec = plan.embedding if spec is None else spec
     out = []
     for m in params:
         if m is None:
             out.append(None)
             continue
-        blk = plan.carve(m, plan.embedding)
-        t = blk if isinstance(blk, torch.Tensor) else torch.from_numpy(np.asarray(blk))
-        out.append(t.to(device).clone() if device is not None else t.clone())
+        blk = plan.carve(m, spec)
+        t = (blk if isinstance(blk, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(blk)))
+        t = t.to(device) if device is not None else t
+        out.append(t.clone(memory_format=torch.contiguous_format))
     return LocalShards(*out)
 
 
@@ -192,3 +219,30 @@ def pad_vocab_for_sharding(vocab_size: int, num_model: int = 1, multiple: int = 
     """Smallest padded row count divisible by ``num_model`` and ``multiple``."""
     lcm = math.lcm(num_model, multiple)
     return -(-vocab_size // lcm) * lcm
+
+
+def gather_cols(m: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
+    """The whole [Vp, Dp] matrix from the column blocks [Vp, Dc] of the model axis:
+    one all_gather over it (a collective every rank of the axis calls)."""
+    from glint_word2vec_torch.parallel.distributed import COLLECTIVES
+
+    if plan.num_model == 1:
+        return m
+    n, dc = m.shape
+    g = COLLECTIVES.all_gather(m, plan.model_group, MODEL_AXIS)       # [M·Vp, Dc]
+    return g.view(plan.num_model, n, dc).permute(1, 0, 2).reshape(n, plan.num_model * dc)
+
+
+def cols_to_rows(m: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
+    """This rank's row block [Vp / M, Dp] of a matrix held as column blocks [Vp, Dc]
+    over the model axis: one all_to_all over it, rank j receiving every rank's columns
+    of row block j (a collective every rank of the axis calls)."""
+    from glint_word2vec_torch.parallel.distributed import COLLECTIVES
+
+    if plan.num_model == 1:
+        return m
+    n, dc = m.shape
+    vs = n // plan.num_model
+    got = COLLECTIVES.all_to_all(m, plan.model_group, MODEL_AXIS)     # [M·Vs, Dc]
+    return got.view(plan.num_model, vs, dc).permute(1, 0, 2).reshape(
+        vs, plan.num_model * dc)

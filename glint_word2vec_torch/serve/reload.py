@@ -69,8 +69,15 @@ def load_with_retry(path: str, plan=None, attempts: int = 8,
     vocab_size/words ValueError), and a digest mismatch (two atomic saves, one
     straddling reader: publish N's metadata with publish N+1's arrays). Real
     corruption keeps failing and raises once the budget is spent; permanent
-    problems (``plan=``, which the port refuses) raise at once. A load that
-    succeeded is always one self-consistent publish.
+    problems raise at once. A load that succeeded is always one self-consistent
+    publish.
+
+    ``plan`` (a mesh of several ranks; every rank calls this alike): each rank loads
+    its rows (``Word2VecModel.load(plan=)``), and after each attempt one all_reduce
+    over the world takes the worst outcome (loaded, transient, permanent), so the
+    ranks retry together, succeed together or raise together; a rank whose own
+    attempt succeeded while a peer's failed drops its model and raises (or retries)
+    with the others.
 
     The backoff between attempts is :func:`decorrelated_jitter` over
     ``[delay, max_delay]``. Pass a seeded ``rng`` to pin the sequence (tests); the
@@ -82,6 +89,8 @@ def load_with_retry(path: str, plan=None, attempts: int = 8,
         # point, so the seed folds in process identity + time
         rng = np.random.default_rng((os.getpid(), time.monotonic_ns()))
     delays = decorrelated_jitter(delay, max_delay, rng)
+    if plan is not None and plan.size > 1:
+        return _load_together(path, plan, attempts, delays, device)
     last: Optional[BaseException] = None
     for i in range(attempts):
         try:
@@ -96,6 +105,49 @@ def load_with_retry(path: str, plan=None, attempts: int = 8,
         if i == attempts - 1:
             raise last
         time.sleep(next(delays))
+
+
+_LOADED, _TRANSIENT, _PERMANENT = 0, 1, 2
+
+
+def _load_outcome(path: str, plan, device):
+    """(model or None, error or None, outcome) of one load attempt on this rank."""
+    from glint_word2vec_torch.models.word2vec import Word2VecModel
+    from glint_word2vec_torch.train.checkpoint import CheckpointCorruptError
+    try:
+        return Word2VecModel.load(path, plan=plan, device=device), None, _LOADED
+    except (FileNotFoundError, json.JSONDecodeError, CheckpointCorruptError) as e:
+        return None, e, _TRANSIENT
+    except ValueError as e:
+        transient = "vocab_size" in str(e) or "words" in str(e)
+        return None, e, _TRANSIENT if transient else _PERMANENT
+    except Exception as e:  # noqa: BLE001 — raised below, on every rank together
+        return None, e, _PERMANENT
+
+
+def _load_together(path: str, plan, attempts: int, delays, device):
+    """:func:`load_with_retry` on a mesh: every attempt's worst outcome over the
+    world decides every rank's next move."""
+    import torch
+
+    from glint_word2vec_torch.parallel import distributed
+
+    last: Optional[BaseException] = None
+    for i in range(attempts):
+        model, err, outcome = _load_outcome(path, plan, device)
+        worst = torch.tensor([outcome], dtype=torch.int64)
+        distributed.COLLECTIVES.all_reduce(worst, distributed.host_group(),
+                                           op=torch.distributed.ReduceOp.MAX)
+        if int(worst) == _LOADED:
+            return model
+        if model is not None:
+            model.stop()
+        last = err or RuntimeError(
+            f"a peer rank's load of {path!r} failed; this rank's attempt succeeded")
+        if int(worst) == _PERMANENT or i == attempts - 1:
+            raise last
+        time.sleep(next(delays))
+    raise last
 
 
 def publish_signature(checkpoint_path: str) -> Optional[Tuple[int, int, int]]:

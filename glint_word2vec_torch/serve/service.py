@@ -15,6 +15,12 @@ ONE object that
 - and rides the obs layer: ``serve_*`` records in the telemetry sink, the flight
   recorder, and ``glint_serve_*`` gauges on the status endpoint.
 
+With ``plan`` (a mesh of several ranks) the service is the mesh's front end on rank 0:
+the checkpoint loads onto the mesh, each rank its rows, and the exact arm runs on it,
+every load and op announced to the other ranks (:mod:`.mesh`; they run
+:func:`.mesh.follow`). The ANN index is rank 0's, built from the checkpoint's files
+(``ann_from_shards``, or syn0 read from them), never gathered from the ranks.
+
 The ``serve_*`` fields of :class:`~glint_word2vec_torch.config.Word2VecConfig` travel
 with the checkpoint and are the defaults; constructor arguments override them per
 process. The trainer never reads them.
@@ -138,6 +144,11 @@ class EmbeddingService:
         # in-memory model= stays the caller's (handle.detach on close)
         self._owns_model = checkpoint is not None
         self._plan = plan
+        # a mesh of several ranks: this service is its front end on rank 0
+        self._leader = None
+        if plan is not None and plan.size > 1 and checkpoint is not None:
+            from glint_word2vec_torch.serve.mesh import MeshLeader
+            self._leader = MeshLeader(plan, device)
         self._device = device
         self._ann_enabled = bool(ann)
         self._ann_seed = int(ann_seed)
@@ -159,7 +170,7 @@ class EmbeddingService:
         pre_sig = (publish_signature(checkpoint)
                    if checkpoint is not None else None)
         if model is None:
-            model = load_with_retry(checkpoint, plan=plan, device=device)
+            model = self._load()
         self._nprobe = (int(nprobe) if nprobe
                         else _knob(model, "serve_ann_nprobe", None)) or None
         self._ann_centroids = int(
@@ -342,7 +353,7 @@ class EmbeddingService:
                     f"(ann_from_shards=True / serve.quant."
                     f"build_ivf_from_shards, docs/serving.md §6) or "
                     f"raise the knob explicitly")
-            index = build_ivf(model.syn0.cpu().numpy(),
+            index = build_ivf(self._host_matrix(model),
                               num_centroids=self._ann_centroids,
                               nprobe=self._nprobe or 0,
                               seed=self._ann_seed,
@@ -352,6 +363,21 @@ class EmbeddingService:
                               recall_floor=self._ann_recall_floor)
         model.attach_ann(index)
         return index
+
+    def _load(self):
+        """The checkpoint's model: onto the mesh through the leader, else onto the
+        device."""
+        if self._leader is not None:
+            return self._leader.load(self._checkpoint)
+        return load_with_retry(self._checkpoint, plan=self._plan, device=self._device)
+
+    def _host_matrix(self, model):
+        """syn0 [V, D] on the host for the in-memory index build: the model's on one
+        device; on a mesh read from the checkpoint's files on rank 0."""
+        if self._leader is not None:
+            from glint_word2vec_torch.train.checkpoint import read_matrix
+            return read_matrix(self._checkpoint, "syn0", model.config.io_workers)
+        return model.syn0.cpu().numpy()
 
     def _load_and_swap(self) -> Any:
         """Load the newest checkpoint + build its index IN THE BACKGROUND
@@ -368,9 +394,12 @@ class EmbeddingService:
         # generation this reload serves is at LEAST this one — a publish
         # landing mid-load re-fires the watcher and bumps it again
         pre_sig = publish_signature(self._checkpoint)
-        model = load_with_retry(self._checkpoint, plan=self._plan,
-                                device=self._device)
-        index = self._build_index(model)
+        model = self._load()
+        try:
+            index = self._build_index(model)
+        except BaseException:
+            model.stop()  # the new generation never served (on a mesh: every rank's)
+            raise
         prev_v = self._served_vocab_size
         vocab_changed = prev_v is not None and model.num_words != prev_v
         self._handle.swap(model, index)
@@ -602,6 +631,8 @@ class EmbeddingService:
                 self._handle.stop()
             else:
                 self._handle.detach()
+        if self._leader is not None:
+            self._leader.close()
         return self._leaked_threads
 
     def __enter__(self) -> "EmbeddingService":

@@ -594,6 +594,55 @@ def load_params_into_plan(path: str, plan, padded_vocab: int, padded_dim: int,
     return LocalShards(make("syn0"), make("syn1"))
 
 
+def load_dense_rows_into_plan(path: str, plan, padded_vocab: int, verify: bool = False,
+                              io_workers: Optional[int] = None, device=None):
+    """This rank's row block ``[lo, hi)`` of a dense checkpoint's [padded_vocab, D]
+    matrices on ``plan``, read from the memory-mapped ``.npy`` files (only the block's
+    rows; never the whole matrix, and never :func:`load_model`), zero-padded past the
+    real vocabulary: the dense counterpart of :func:`load_params_into_plan`, for any
+    mesh. Returns a :class:`..parallel.mesh.LocalShards` of float32 tensors on
+    ``device`` (the host when None); syn1 is None if the checkpoint has none.
+    ``verify=True`` checks the digests first."""
+    from glint_word2vec_torch.parallel.mesh import LocalShards
+
+    with open(os.path.join(path, "metadata.json"), "r", encoding="utf-8") as f:
+        meta = json.load(f)
+    if meta.get("layout", "dense") != "dense":
+        raise ValueError(f"{path!r} is not a dense checkpoint")
+    if io_workers is None:
+        io_workers = int(meta.get("config", {}).get("io_workers", 1))
+    if verify:
+        _verify_digests(path, meta, workers=io_workers)
+    lo, hi = plan.rows(padded_vocab)
+
+    def make(name: str):
+        p = os.path.join(path, f"{name}.npy")
+        if not os.path.exists(p):
+            return None
+        src = np.load(p, mmap_mode="r")
+        block = np.zeros((hi - lo, src.shape[1]), dtype=np.float32)
+        top = min(hi, src.shape[0])
+        if lo < top:
+            block[:top - lo] = src[lo:top]
+        t = torch.from_numpy(block)
+        return t if device is None else t.to(device)
+
+    return LocalShards(make("syn0"), make("syn1"))
+
+
+def read_matrix(path: str, name: str = "syn0", io_workers: int = 1) -> np.ndarray:
+    """One matrix of a checkpoint of either layout as a [V, D] float32 host array, read
+    from its files with no digest check (a mesh service's host ANN build reads syn0
+    this way on rank 0)."""
+    with open(os.path.join(path, "metadata.json"), "r", encoding="utf-8") as f:
+        meta = json.load(f)
+    if meta.get("layout") == "row-shards":
+        V, Dr = meta["vocab_size"], meta["vector_size"]
+        return ShardedMatrixReader(os.path.join(path, f"{name}.shards")).read(
+            0, V, workers=io_workers)[:, :Dr].astype(np.float32, copy=False)
+    return np.load(os.path.join(path, f"{name}.npy")).astype(np.float32, copy=False)
+
+
 def _verify_digests(path: str, meta: Dict[str, Any], workers: int = 1) -> None:
     """Check every recorded SHA-256 digest against the bytes on disk (checkpoints
     without a digest map pass vacuously); ``workers`` hashes files concurrently, and

@@ -116,7 +116,11 @@ multi-process fit:
   step the selection matrix picks (``ops/sgns_shard.py``: the shared pool, with
   ``duplicate_scaling`` and, with ``sync_every = k > 1``, its k-step local-SGD windows,
   each data shard on its own slice of the negative lattice; the per-pair step; CBOW
-  with either pool; banded CBOW);
+  with either pool; banded CBOW); under ``embedding_partition="cols"`` it holds its
+  column blocks of every row instead and runs the column-sharded twins (the partial
+  logits summed over the model axis), saves dense checkpoints (data 0 / model 0
+  writes the gathered columns) and relays its parameters to row blocks for the fit's
+  model (:meth:`Trainer.row_blocks`);
 - with ``shard_input`` (the default) each rank feeds its 1/W of the sentence stream
   (skip-gram pairs, or CBOW's grouped examples) and one allgather a round assembles the
   identical global batch on every rank (``_sharded_chunk_stream``); without it every
@@ -151,6 +155,7 @@ import logging
 import os
 import queue
 import signal
+import socket
 import threading
 import time
 import zlib
@@ -173,7 +178,8 @@ from glint_word2vec_torch.device import resolve_device
 from glint_word2vec_torch.obs.blackbox import FlightRecorder
 from glint_word2vec_torch.obs.phases import PhaseAccumulator
 from glint_word2vec_torch.obs.probe import (
-    combine_partials, health_stats, sharded_probe_partials, stats_to_channels)
+    column_probe_partials, combine_partials, health_stats, sharded_probe_partials,
+    stats_to_channels)
 from glint_word2vec_torch.obs.sink import TelemetrySink
 from glint_word2vec_torch.obs.spans import clock_anchor, default_tracer
 from glint_word2vec_torch.obs.statusd import StatusServer
@@ -187,12 +193,12 @@ from glint_word2vec_torch.ops.sgns import (
     EmbeddingPair, Stabilizers, alpha_schedule, cbow_step_core, cbow_step_shared_core,
     hot_flush, hot_slabs, init_embeddings, sgns_step_core, sgns_step_shared_scatter_)
 from glint_word2vec_torch.ops.sgns_shard import (
-    make_sharded_banded_step, make_sharded_cbow_step, make_sharded_per_pair_step,
-    make_sharded_sgns_step)
+    column_sum, make_sharded_banded_step, make_sharded_cbow_step,
+    make_sharded_per_pair_step, make_sharded_sgns_step)
 from glint_word2vec_torch.parallel import distributed
 from glint_word2vec_torch.parallel.mesh import (
-    MODEL_AXIS, LocalShards, MeshPlan, make_mesh, pad_dim_to_lanes,
-    pad_vocab_for_sharding)
+    MODEL_AXIS, LocalShards, MeshPlan, cols_to_rows, gather_cols, make_mesh,
+    pad_dim_to_lanes, pad_vocab_for_sharding)
 from glint_word2vec_torch.train import faults
 from glint_word2vec_torch.train.checkpoint import TrainState, save_model, save_model_sharded
 from glint_word2vec_torch.train.faults import NonFiniteParamsError, NormBlowupError
@@ -211,6 +217,17 @@ _GATES = ("mask", "ctx_mask", "center", "token")
 
 def _is_banded(cfg: Word2VecConfig) -> bool:
     return bool(cfg.cbow and cfg.cbow_update == "banded")
+
+
+def _world_spans_hosts() -> bool:
+    """Whether the ranks of this world run on more than one host: one allgather of
+    each rank's host name over the world (a collective every rank calls)."""
+    if not distributed.is_multiprocess():
+        return False
+    name = socket.gethostname().encode()[:255]
+    got = distributed.allgather({"host": np.frombuffer(name.ljust(256, b"\0"),
+                                                       np.uint8)})
+    return len({bytes(h) for h in got["host"]}) > 1
 
 
 def _pairs_per_kept_token(window: int) -> float:
@@ -473,6 +490,13 @@ class Trainer:
         self.padded_vocab = pad_vocab_for_sharding(
             vocab.size, self.plan.num_model if self.plan is not None else 1)
         self.padded_dim = pad_dim_to_lanes(config.vector_size, config.pad_vector_to_lanes)
+        # the column layout (the reference's partial-dot scheme): this rank holds its
+        # column blocks [Vp, Dp / num_model] of every row, not row blocks
+        self._cols = self.plan is not None and config.embedding_partition == "cols"
+        if self._cols and self.padded_dim % self.plan.num_model:
+            raise ValueError(
+                f"embedding_partition='cols' needs the padded vector dim "
+                f"{self.padded_dim} divisible by num_model={self.plan.num_model}")
         self.table = build_alias_table(vocab.counts, config.sample_power)
         self._table_prob = torch.from_numpy(self.table.prob).to(self.device)
         self._table_alias = torch.from_numpy(
@@ -624,6 +648,19 @@ class Trainer:
                             f"(parallel.mesh.make_mesh), got {type(plan).__name__}")
         if plan.size == 1:
             return None
+        if cfg.embedding_partition == "cols" and cfg.sharded_checkpoint:
+            raise ValueError(
+                "embedding_partition='cols' is experimental and single-host only: "
+                "row-shards checkpoints need each process to own whole rows "
+                "(design rationale: PERF.md §7); use 'rows'")
+        if cfg.embedding_partition == "cols" and _world_spans_hosts():
+            # the JAX trainer's process_count() > 1: there one process drives every
+            # device of its host, here one rank drives one card, so a world of ranks
+            # on one host is the counterpart of one JAX process
+            raise ValueError(
+                "embedding_partition='cols' is experimental and single-host only: "
+                "multi-process runs need each process to own whole rows "
+                "(design rationale: PERF.md §7); use 'rows'")
         where = f"a {plan.num_data}x{plan.num_model} mesh"
         if cfg.hot_rows:
             # the JAX trainer's runtime twin of the config's multi-shard refusal
@@ -664,28 +701,36 @@ class Trainer:
 
     @property
     def _row_offset(self) -> int:
-        """The global index of this rank's first row (0 on one device)."""
-        return self.plan.rows(self.padded_vocab)[0] if self.plan is not None else 0
+        """The global index of this rank's first row (0 on one device and under the
+        column layout)."""
+        if self.plan is None or self._cols:
+            return 0
+        return self.plan.rows(self.padded_vocab)[0]
 
     def _place_params(self, params) -> EmbeddingPair:
         """Copy (numpy or torch) parameters into zero-padded tensors of
         ``param_dtype`` on the device (a float32 source is rounded to bf16 once): the
         whole [Vp, Dp] matrices on one device, this rank's [Vs, Dp] row blocks on a
-        mesh (carved from full matrices, or :class:`LocalShards` as they are); the
-        trainer owns and updates its copy."""
-        lo, hi = (self.plan.rows(self.padded_vocab) if self.plan is not None
+        mesh, or its [Vp, Dc] column blocks under the column layout (carved from full
+        matrices, or :class:`LocalShards` as they are); the trainer owns and updates
+        its copy, each block a contiguous tensor of its own."""
+        lo, hi = (self.plan.rows(self.padded_vocab)
+                  if self.plan is not None and not self._cols
                   else (0, self.padded_vocab))
+        clo, chi = (self.plan.cols(self.padded_dim) if self._cols
+                    else (0, self.padded_dim))
         local = isinstance(params, LocalShards)
 
         def pad(a) -> torch.Tensor:
             t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
             rows = hi - lo if local else self.padded_vocab
-            if t.dim() != 2 or t.shape[0] > rows or t.shape[1] > self.padded_dim:
+            width = chi - clo if local else self.padded_dim
+            if t.dim() != 2 or t.shape[0] > rows or t.shape[1] > width:
                 raise ValueError(f"parameter shape {tuple(t.shape)} does not fit the "
-                                 f"padded geometry ({rows}, {self.padded_dim})")
+                                 f"padded geometry ({rows}, {width})")
             if not local:
-                t = t[lo:hi]
-            out = torch.zeros((hi - lo, self.padded_dim), dtype=self.param_dtype,
+                t = t[lo:hi, clo:chi]
+            out = torch.zeros((hi - lo, chi - clo), dtype=self.param_dtype,
                               device=self.device)
             out[:t.shape[0], :t.shape[1]] = t.to(self.device, self.param_dtype)
             return out
@@ -1296,25 +1341,27 @@ class Trainer:
         chain = dict(fused=cfg.fused_logits, bf16_chain=cfg.bf16_chain)
         form = self._step_form()
         if form.startswith("sharded"):
-            plan = self.plan
+            plan, cols = self.plan, self._cols
             if form == "sharded_shared":
                 # with sync_every > 1 its k-step window (the body feeds it k rows of
                 # the buffers at a time)
                 steps = {wm: make_sharded_sgns_step(
                     plan, n, mode, cd, ld, wm, stab, sync_every=cfg.sync_every,
-                    duplicate_scaling=dup, **chain) for wm in (False, True)}
+                    duplicate_scaling=dup, cols=cols, **chain) for wm in (False, True)}
             elif form == "sharded_per_pair":
                 one = make_sharded_per_pair_step(plan, mode, cd, stab,
-                                                 duplicate_scaling=dup, **chain)
+                                                 duplicate_scaling=dup, cols=cols,
+                                                 **chain)
                 steps = {False: one, True: one}
             elif form == "sharded_banded":
                 steps = {wm: make_sharded_banded_step(plan, n, cfg.window, mode, cd, ld,
-                                                      wm, stab) for wm in (False, True)}
+                                                      wm, stab, cols=cols)
+                         for wm in (False, True)}
             else:
                 shared = form == "sharded_cbow_shared"
                 steps = {wm: make_sharded_cbow_step(
-                    plan, n, shared, mode, cd, ld, wm, stab, duplicate_scaling=dup)
-                    for wm in (False, True)}
+                    plan, n, shared, mode, cd, ld, wm, stab, duplicate_scaling=dup,
+                    cols=cols) for wm in (False, True)}
             return lambda b, neg, alpha, wm: steps[wm](p, b, neg, alpha)
         if form == "cbow_banded":
             return lambda b, neg, alpha, wm: cbow_step_banded_core(
@@ -2362,6 +2409,13 @@ class Trainer:
         the world in one collective; every rank folds the row blocks of data replica 0
         from the same bytes, so every rank's guard and watchdog see the same
         channels."""
+        if self._cols:
+            # whole-row norms: the squared norms of this rank's columns summed over the
+            # model axis, the same on every rank, so no gather is needed
+            sq = column_sum(self.plan)
+            parts = column_probe_partials(self.params, self.vocab.size,
+                                          self.config.norm_watch_threshold, sq)
+            return combine_partials(parts[None].cpu().numpy(), self.vocab.size)
         parts = sharded_probe_partials(self.params, self._row_offset, self.vocab.size,
                                        self.config.norm_watch_threshold)
         group = None if parts.device.type == "cuda" else distributed.host_group()
@@ -2727,20 +2781,34 @@ class Trainer:
         return EmbeddingPair(self.params.syn0[:V, :D], self.params.syn1[:V, :D])
 
     def gather_params(self) -> EmbeddingPair:
-        """The explicit gather of a mesh's row blocks: every rank of the model axis
-        contributes its rows (one all_gather a matrix) and every rank returns the real
-        [V, D] parameters on its device. On one device, :meth:`unpadded_params`."""
+        """The explicit gather of a mesh's blocks: every rank of the model axis
+        contributes its rows (its columns, under the column layout; one all_gather a
+        matrix) and every rank returns the real [V, D] parameters on its device. On one
+        device, :meth:`unpadded_params`."""
         if self.plan is None:
             return self.unpadded_params()
         V, D = self.vocab.size, self.config.vector_size
         out = []
         for m in self.params:
-            full = m
-            if self.plan.num_model > 1:
+            if self._cols:
+                full = gather_cols(m, self.plan)
+            elif self.plan.num_model > 1:
                 full = distributed.COLLECTIVES.all_gather(m, self.plan.model_group,
                                                           MODEL_AXIS)
+            else:
+                full = m
             out.append(full[:V, :D])
         return EmbeddingPair(*out)
+
+    def row_blocks(self) -> EmbeddingPair:
+        """This rank's padded row blocks [Vs, Dp] of both matrices: the parameters as
+        they are under the row layout; under the column layout, relaid from the column
+        blocks by one model-axis all_to_all a matrix (a collective every rank calls),
+        the layout a mesh fit's model is placed on, as the JAX estimator places its
+        model on ``plan.embedding``."""
+        if not self._cols:
+            return self.params
+        return EmbeddingPair(*(cols_to_rows(m, self.plan) for m in self.params))
 
     def save_checkpoint(self, path: str) -> None:
         """The guarded save: under a policy other than "none" the non-finite guard runs
@@ -2750,6 +2818,9 @@ class Trainer:
         a pending slab."""
         if self.config.nonfinite_policy != "none":
             self._nonfinite_guard(self._probed)
+        if self._cols:
+            self._save_dense_from_cols(path)
+            return
         if self.plan is not None or self.config.sharded_checkpoint:
             # row shards: every rank writes its own rows, no gather
             with self.sync_sites("checkpoint", blocking=True):
@@ -2766,6 +2837,28 @@ class Trainer:
         save_model(path, self.vocab.words, self.vocab.counts, syn0, syn1,
                    self.config, self.state,
                    extra_metadata=self.extra_checkpoint_meta or None)
+        self._after_save(path)
+
+    def _save_dense_from_cols(self, path: str) -> None:
+        """A column mesh's save: the dense format, as the JAX package's column fit
+        writes (its ``sharded_checkpoint`` is False: no rank owns whole rows). Every
+        rank calls it: one all_gather of each matrix's columns over the model axis,
+        then the rank at data 0, model 0 writes, and a barrier over the world holds
+        every rank until the save has landed."""
+        host = distributed.host_group()
+        with self.sync_sites("checkpoint", blocking=True):
+            full = self.gather_params()
+            if self.plan.rank == 0:
+                syn0 = full.syn0.float().cpu().numpy()
+                syn1 = full.syn1.float().cpu().numpy()
+        del full
+        try:
+            if self.plan.rank == 0:
+                save_model(path, self.vocab.words, self.vocab.counts, syn0, syn1,
+                           self.config, self.state,
+                           extra_metadata=self.extra_checkpoint_meta or None)
+        finally:
+            distributed.COLLECTIVES.barrier(host)
         self._after_save(path)
 
     def _after_save(self, path: str) -> None:

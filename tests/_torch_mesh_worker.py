@@ -85,6 +85,43 @@ def form_inputs(seed: int, k: int, V=128, D=32, B=64, P=8) -> dict:
         ctx_mask=(np.arange(CTX) < nctx[..., None]).astype(np.float32), alpha=0.025)
 
 
+COLS_FORMS = {  # the column-sharded step forms of tests/test_torch_cols.py
+    "shared": dict(kind="shared"), "shared_stab": dict(kind="shared", stab=True),
+    "shared_dup": dict(kind="shared", dup=True), "pp": dict(kind="per_pair"),
+    "pp_stab": dict(kind="per_pair", stab=True), "cbow_shared": dict(kind="cbow_shared"),
+    "cbow_pe": dict(kind="cbow_pe"), "cbow_pe_dup": dict(kind="cbow_pe", dup=True),
+    "banded": dict(kind="banded"), "banded_stab": dict(kind="banded", stab=True)}
+BAND_WINDOW = 3  # the banded cases' window
+
+
+def banded_inputs(seed: int, k: int, nd: int, V=128, D=32, T=64, P=8) -> dict:
+    """Banded CBOW step inputs from a seed: full parameters and ``[k, T]`` token blocks
+    (tokens, in-sentence window extents ``left``/``right`` below :data:`BAND_WINDOW`,
+    center and token masks, the last two slots padding) whose sentences never cross
+    the cut between two data shards' ``T / nd`` slots, so each shard's block is a block
+    of its own; a pool ``[k, P]`` and alpha."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, V, (k, T))
+    left = np.zeros((k, T), np.int64)
+    right = np.zeros((k, T), np.int64)
+    token = np.ones((k, T), np.float32)
+    token[:, -2:] = 0.0
+    tokens[:, -2:] = 0
+    seg = T // nd
+    for i in range(k):
+        cuts = sorted({0, T - 2, *range(seg, T, seg), *rng.integers(1, T - 2, 5)})
+        for s0, s1 in zip(cuts[:-1], cuts[1:]):
+            for b in range(s0, s1):
+                left[i, b] = min(b - s0, rng.integers(0, BAND_WINDOW))
+                right[i, b] = min(s1 - 1 - b, rng.integers(0, BAND_WINDOW))
+    center = ((rng.random((k, T)) < 0.85) * token).astype(np.float32)
+    return dict(
+        syn0=rng.standard_normal((V, D)).astype(np.float32),
+        syn1=(rng.standard_normal((V, D)) * 0.1).astype(np.float32),
+        tokens=tokens, left=left, right=right, center=center, token=token,
+        pool=rng.integers(0, V, (k, P)), alpha=0.025)
+
+
 def fit_corpus(seed: int = 0, n: int = 201):
     """Sentences of 3 to 39 tokens over 64 words, an odd count: the ranks' streams
     end at different rounds."""
@@ -300,12 +337,13 @@ def build_form(plan, name: str):
 def form_step_args(name: str, inp: dict, i: int, carve):
     """(batch, negatives) of step i of form ``name``; ``carve`` takes an array's data
     slice (the identity for the whole batch)."""
-    cbow = FORMS[name]["kind"].startswith("cbow")
+    kind = {**FORMS, **COLS_FORMS}[name]["kind"]
+    cbow = kind.startswith("cbow")
     batch = {"centers": carve(inp["centers"][i]), "mask": carve(inp["mask"][i]),
              "contexts": carve(inp["cbow_contexts" if cbow else "contexts"][i])}
     if cbow:
         batch["ctx_mask"] = carve(inp["ctx_mask"][i])
-    pooled = FORMS[name]["kind"] in ("shared", "cbow_shared")
+    pooled = kind in ("shared", "cbow_shared")
     return batch, (inp["pool"][i] if pooled else carve(inp["negatives"][i]))
 
 
@@ -340,6 +378,241 @@ def _scenario_forms(ctx) -> None:
             ctx.meta[f"{tag}/{name}/metrics"] = metrics
             ctx.arrays[f"{tag}/{name}/syn0"] = params.syn0.numpy()
             ctx.arrays[f"{tag}/{name}/syn1"] = params.syn1.numpy()
+
+
+def build_cols_form(plan, name: str):
+    """The port's column-sharded step of form ``name`` (:data:`COLS_FORMS`) on
+    ``plan``."""
+    from glint_word2vec_torch.ops import sgns_shard as sh
+    from glint_word2vec_torch.ops.sgns import Stabilizers
+
+    f = COLS_FORMS[name]
+    stab = Stabilizers(**STAB) if f.get("stab") else None
+    dup = bool(f.get("dup"))
+    if f["kind"] == "per_pair":
+        return sh.make_sharded_per_pair_step(plan, stabilizers=stab,
+                                             duplicate_scaling=dup, cols=True)
+    if f["kind"] == "shared":
+        return sh.make_sharded_sgns_step(plan, NEG, stabilizers=stab,
+                                         duplicate_scaling=dup, cols=True)
+    if f["kind"] == "banded":
+        return sh.make_sharded_banded_step(plan, NEG, BAND_WINDOW, stabilizers=stab,
+                                           cols=True)
+    return sh.make_sharded_cbow_step(plan, NEG, f["kind"] == "cbow_shared",
+                                     stabilizers=stab, duplicate_scaling=dup, cols=True)
+
+
+def cols_step_args(name: str, inp: dict, i: int, carve):
+    """(batch, negatives) of step i of column form ``name``; ``carve`` takes an
+    array's data slice (the identity for the whole batch)."""
+    if COLS_FORMS[name]["kind"] == "banded":
+        return ({k: carve(inp[k][i]) for k in ("tokens", "left", "right", "center",
+                                                "token")}, inp["pool"][i])
+    return form_step_args(name, inp, i, carve)
+
+
+def cols_inputs(name: str, nd: int) -> dict:
+    """The inputs of column form ``name`` at a data axis of ``nd``."""
+    if COLS_FORMS[name]["kind"] == "banded":
+        return banded_inputs(31, 3, nd)
+    return form_inputs(21, 3)
+
+
+def _scenario_cols(ctx) -> None:
+    """Three steps of each column form at each mesh shape of this world, each rank's
+    column blocks saved, with the metrics and the collective counts."""
+    import torch
+    from glint_word2vec_torch.ops.sgns import EmbeddingPair
+    from glint_word2vec_torch.parallel.distributed import COLLECTIVES
+    from glint_word2vec_torch.parallel.mesh import make_mesh, shard_params
+
+    for nd, nm, names in ctx.args["cases"]:
+        plan = make_mesh(nd, nm)
+        tag = f"{nd}x{nm}"
+        ctx.meta[f"{tag}/place"] = [plan.data_index, plan.model_index]
+
+        def carve(a):
+            return torch.as_tensor(np.ascontiguousarray(plan.carve(a, plan.batch)))
+
+        for name in names:
+            inp = cols_inputs(name, nd)
+            params = EmbeddingPair(*shard_params((inp["syn0"], inp["syn1"]), plan,
+                                                 spec=plan.embedding_cols))
+            step = build_cols_form(plan, name)
+            COLLECTIVES.reset()
+            metrics = []
+            for i in range(3):
+                batch, negs = cols_step_args(name, inp, i, carve)
+                m = step(params, batch, torch.as_tensor(negs), inp["alpha"])
+                metrics.append([float(m.loss), float(m.mean_f_pos), float(m.pairs)])
+            ctx.meta[f"{tag}/{name}/counts"] = {
+                f"{op}/{axis}": n for (op, axis), n in COLLECTIVES.counts.items()}
+            ctx.meta[f"{tag}/{name}/metrics"] = metrics
+            ctx.arrays[f"{tag}/{name}/syn0"] = params.syn0.numpy()
+            ctx.arrays[f"{tag}/{name}/syn1"] = params.syn1.numpy()
+    if ctx.args.get("fit"):
+        _cols_bf16(ctx)
+        _cols_fits(ctx)
+
+
+def bf16_cols_inputs(V=128, D=32, B=32, P=8) -> dict:
+    """One bf16 step's inputs with no row repeated within the step: centers, contexts
+    and the pool drawn from one permutation, parameters rounded to bf16 values."""
+    import torch
+
+    rng = np.random.default_rng(41)
+    perm = rng.permutation(V)
+
+    def bf16_values(a):
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
+
+    return dict(syn0=bf16_values(rng.normal(0, 0.5, (V, D))),
+                syn1=bf16_values(rng.normal(0, 0.5, (V, D))),
+                centers=perm[:B], contexts=perm[B:2 * B],
+                pool=perm[2 * B:2 * B + P], mask=np.ones(B, np.float32), alpha=0.05)
+
+
+def _cols_bf16(ctx) -> None:
+    """One column-sharded shared-pool step on (1, 2) in bf16 parameters, compute and
+    logits, on inputs whose rows do not repeat."""
+    import torch
+    from glint_word2vec_torch.ops.sgns import EmbeddingPair
+    from glint_word2vec_torch.ops.sgns_shard import make_sharded_sgns_step
+    from glint_word2vec_torch.parallel.mesh import make_mesh, shard_params
+
+    plan = make_mesh(1, 2)
+    bf = torch.bfloat16
+    inp = bf16_cols_inputs()
+    params = EmbeddingPair(*(t.to(bf) for t in shard_params(
+        (inp["syn0"], inp["syn1"]), plan, spec=plan.embedding_cols)))
+    step = make_sharded_sgns_step(plan, NEG, compute_dtype=bf, logits_dtype=bf,
+                                  cols=True)
+    m = step(params, {k: torch.as_tensor(inp[k]) for k in ("centers", "contexts", "mask")},
+             torch.as_tensor(inp["pool"]), inp["alpha"])
+    ctx.meta["bf16/loss"] = float(m.loss)
+    ctx.arrays["bf16/syn0"] = params.syn0.float().numpy()
+    ctx.arrays["bf16/syn1"] = params.syn1.float().numpy()
+
+
+def _cols_fits(ctx) -> None:
+    """On (1, 2): a column fit and a row fit of the shared corpus from the injected
+    parameters, both on the replicated feed (the one-process stream the JAX Trainer
+    runs); the column fit's dense checkpoint, its gathered matrices and its row blocks
+    after the relayout; the estimator's column fit and a resume of the dense
+    checkpoint onto the column mesh; then a world whose ranks report two host names."""
+    import socket
+
+    from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.config import Word2VecConfig
+    from glint_word2vec_torch.data.vocab import build_vocab
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    plan = make_mesh(1, 2)
+    ck = str(Path(ctx.out) / "cols-ck")
+    t = _mesh_fit(ctx, plan, "colsfit", record=False, shard_input=False,
+                  embedding_partition="cols", checkpoint=ck)
+    full = t.gather_params()
+    ctx.arrays["colsfit/full0"] = full.syn0.numpy()
+    ctx.arrays["colsfit/full1"] = full.syn1.numpy()
+    rows = t.row_blocks()
+    ctx.arrays["colsfit/rows0"] = rows.syn0.numpy()
+    ctx.arrays["colsfit/rows1"] = rows.syn1.numpy()
+    _mesh_fit(ctx, plan, "rowsfit", record=False, shard_input=False)
+    sents = fit_corpus()
+    model = Word2Vec(device="cpu", **dict(FIT_KNOBS, shard_input=False,
+                                          embedding_partition="cols")).fit(
+        sents, plan=plan)
+    ctx.meta["est/type"] = type(model).__name__
+    ctx.arrays["est/rows0"] = model.params[0].numpy()
+    ctx.arrays["est/rowsfit0"] = Word2Vec(device="cpu", **dict(
+        FIT_KNOBS, shard_input=False)).fit(sents, plan=plan).params[0].numpy()
+    resumed = Word2Vec.resume(ck, sents, plan=plan, device="cpu")
+    ctx.meta["resume/type"] = type(resumed).__name__
+    ctx.arrays["resume/rows0"] = resumed.params[0].numpy()
+    ctx.arrays["resume/rows1"] = resumed.params[1].numpy()
+    # a world whose ranks report two host names is refused as the JAX trainer refuses
+    # a multi-process column run
+    if ctx.rank == 1:
+        socket.gethostname = lambda: "another-host"
+    vocab = build_vocab(sents, 1)
+    try:
+        Trainer(Word2VecConfig(**dict(FIT_KNOBS, embedding_partition="cols")), vocab,
+                device="cpu", plan=plan)
+        ctx.meta["multihost"] = ""
+    except ValueError as e:
+        ctx.meta["multihost"] = str(e)
+
+
+SYN_WORDS = 12  # the sharded model cases' word queries: the first this many words
+
+
+def _scenario_model(ctx) -> None:
+    """The sharded model's ops on each mesh shape of this world, from each checkpoint
+    of ``args["checkpoints"]`` (name -> path) loaded with ``Word2VecModel.load(plan=)``
+    (the dense ``load_model`` replaced by a function that raises), and from the
+    directory's newest with ``load_latest(plan=)``: every op's answer, the exports
+    (rank 0 writes), and the errors after ``stop``."""
+    import torch
+    from glint_word2vec_torch.models.word2vec import Word2VecModel
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+    from glint_word2vec_torch.train import checkpoint as ckpt
+
+    def no_dense_load(*a, **kw):
+        raise AssertionError("the dense load_model ran on a mesh load")
+
+    ckpt.load_model = no_dense_load
+    for nd, nm in ctx.args["shapes"]:
+        plan = make_mesh(nd, nm)
+        for name, path in ctx.args["checkpoints"].items():
+            tag = f"{nd}x{nm}/{name}"
+            m = Word2VecModel.load(path, plan=plan, device="cpu")
+            V, D = m.num_words, m.vector_size
+            words = m.vocab.words[:SYN_WORDS]
+            vec = np.random.default_rng(5).standard_normal(D).astype(np.float32)
+            ctx.meta[f"{tag}/type"] = type(m).__name__
+            ctx.arrays[f"{tag}/pull"] = m.pull(list(range(V)))
+            ctx.arrays[f"{tag}/pull_neg"] = m.pull([-1, 0])
+            ctx.arrays[f"{tag}/norms"] = m.norms.numpy()
+            ctx.arrays[f"{tag}/multiply"] = m.multiply(vec)
+            ctx.arrays[f"{tag}/transform"] = m.transform(words[3])
+            ctx.arrays[f"{tag}/words"] = np.stack(list(m.transform_words(words, 5)))
+            ctx.arrays[f"{tag}/sentences"] = m.transform_sentences(
+                [words[:3], ["nope"], words[2:9]], batch_size=2)
+            ctx.arrays[f"{tag}/iter"] = np.stack([v for _, v in m.iter_vectors(7)])
+            ctx.arrays[f"{tag}/local"] = m.to_local()[1]
+            ctx.arrays[f"{tag}/syn0"] = m.syn0.numpy()
+            ctx.meta[f"{tag}/vectors_equal"] = all(
+                np.array_equal(v, ctx.arrays[f"{tag}/pull"][i])
+                for i, v in enumerate(m.get_vectors().values()))
+            ctx.meta[f"{tag}/syn"] = m.find_synonyms_batch(words, 5, chunk=5)
+            ctx.meta[f"{tag}/syn_vec"] = m.find_synonyms(vec, 6)
+            ctx.meta[f"{tag}/syn_all"] = m.find_synonyms(
+                ctx.arrays[f"{tag}/pull"][0], V)
+            ctx.meta[f"{tag}/analogy"] = m.analogy(words[0], words[1], words[2], 4)
+            try:
+                m.transform("nope")
+                ctx.meta[f"{tag}/oov"] = ""
+            except KeyError as e:
+                ctx.meta[f"{tag}/oov"] = type(e).__name__
+            out = Path(ctx.out) / f"export-{nd}x{nm}-{name}"
+            m.export_word2vec(str(out) + ".bin", binary=True, batch_size=7)
+            m.export_word2vec(str(out) + ".txt", batch_size=7)
+            m.stop()
+            errors = []
+            for op in (lambda: m.pull([0]), lambda: m.norms,
+                       lambda: m.find_synonyms(words[0], 3), lambda: m.to_local()):
+                try:
+                    op()
+                    errors.append("")
+                except Exception as e:  # noqa: BLE001 — the class is what is recorded
+                    errors.append(type(e).__name__)
+            ctx.meta[f"{tag}/after_stop"] = errors
+        latest = Word2VecModel.load_latest(ctx.args["latest_dir"], plan=plan,
+                                           device="cpu")
+        ctx.arrays[f"{nd}x{nm}/latest/pull"] = latest.pull(list(range(latest.num_words)))
+        ctx.meta[f"{nd}x{nm}/latest/syn"] = latest.find_synonyms_batch(
+            latest.vocab.words[:SYN_WORDS], 5)
 
 
 def _record_rounds(trainer, rounds: list) -> None:
@@ -586,11 +859,8 @@ def _scenario_ckpt(ctx) -> None:
     est = Word2Vec(device="cpu", **dict(FIT_KNOBS, num_iterations=1))
     sm = est.fit(sents, plan=plan)
     ctx.meta["estimator/type"] = type(sm).__name__
-    try:
-        sm.find_synonyms("w1", 3)
-        ctx.meta["estimator/refused"] = ""
-    except NotImplementedError as e:
-        ctx.meta["estimator/refused"] = str(e)
+    ctx.meta["estimator/sharded_synonyms"] = [[w, float(s)] for w, s in
+                                              sm.find_synonyms("w1", 3)]
     sm.save(str(d / "ck_est"))
     dense = sm.gather()
     ctx.meta["estimator/synonyms"] = [[w, float(s)] for w, s in
@@ -677,7 +947,8 @@ def _scenario_dist(ctx) -> None:
 
 SCENARIOS = {"dist": _scenario_dist, "steps": _scenario_steps, "fit": _scenario_fit,
              "ckpt": _scenario_ckpt, "beacon": _scenario_beacon, "forms": _scenario_forms,
-             "tokens": _scenario_tokens}
+             "tokens": _scenario_tokens, "cols": _scenario_cols,
+             "model": _scenario_model}
 
 
 class _Ctx:

@@ -146,7 +146,7 @@ def test_prng_helpers_take_no_default_device():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("use_pallas", True), ("embedding_partition", "cols"),
+    ("use_pallas", True),
 ])
 def test_unported_knobs_are_refused_by_name(knob, value):
     with pytest.raises(NotImplementedError, match=knob):
@@ -167,7 +167,7 @@ def test_unported_knobs_are_refused_by_name(knob, value):
     ("serve_fleet_hedge_ms", 5.0), ("serve_fleet_replicas", 2), ("serve_fleet_probe_s", 1.0),
     ("sync_every", 2), ("sharded_checkpoint", True), ("peer_beacon_s", 1.0),
     ("num_model_shards", 2), ("step_lowering", "shard_map"), ("num_data_shards", 2),
-    ("mesh_shape", (2, 1)),
+    ("mesh_shape", (2, 1)), ("embedding_partition", "cols"),
 ])
 def test_ported_knobs_are_accepted(knob, value):
     """Banded CBOW, the stabilizers, duplicate scaling, the bf16 dtypes, the step

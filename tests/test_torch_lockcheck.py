@@ -93,8 +93,9 @@ def test_every_lock_of_the_port_is_registered():
 
 def test_lock_table_matches_the_jax_package():
     """The shared entries keep the JAX package's ranks and kinds (the fleet's and the
-    SLO tracker's among them); the port adds the CUDA kernels' build lock and names
-    servebench's by its module."""
+    SLO tracker's among them); the port adds the CUDA kernels' build lock and the mesh
+    service's announcement lock (serve/mesh.py), and names servebench's by its
+    module."""
     from glint_word2vec_tpu.lockcheck import LOCK_TABLE as JAX_TABLE
     mine = lockcheck.LOCK_TABLE
     shared = set(mine) & set(JAX_TABLE)
@@ -107,7 +108,8 @@ def test_lock_table_matches_the_jax_package():
             JAX_TABLE[name]["rank"], JAX_TABLE[name]["kind"]), name
         assert mine[name]["site"] == JAX_TABLE[name]["site"].replace(
             "glint_word2vec_tpu/", PORT), name
-    assert set(mine) - shared == {"ops.kernels.build", "servebench.tickets"}
+    assert set(mine) - shared == {"ops.kernels.build", "servebench.tickets",
+                                  "serve.mesh"}
     assert mine["servebench.tickets"]["rank"] == JAX_TABLE["tools.servebench.tickets"][
         "rank"]
     assert set(JAX_TABLE) - shared == {"tools.servebench.tickets"}

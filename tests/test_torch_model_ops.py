@@ -205,10 +205,17 @@ def test_plan_and_ann_are_refused(tmp_path):
     words, counts, syn0, syn1 = _data(V=50, D=8)
     t, _ = _pair(words, counts, syn0, syn1)
     t.save(str(tmp_path / "ck"))
-    with pytest.raises(NotImplementedError, match="A9"):
+    # load(plan=) and load_latest(plan=) are ported: a plan that is not the port's
+    # MeshPlan raises the TypeError a fit raises, and a MeshPlan loads
+    with pytest.raises(TypeError, match="MeshPlan"):
         TModel.load(str(tmp_path / "ck"), plan=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(TypeError, match="MeshPlan"):
         TModel.load_latest(str(tmp_path), plan=object(), device="cpu")
+    from glint_word2vec_torch.parallel.mesh import MeshPlan
+    one = TModel.load(str(tmp_path / "ck"), plan=MeshPlan(1, 1), device="cpu")
+    np.testing.assert_array_equal(one.pull([0, 1]), t.pull([0, 1]))
+    one = TModel.load_latest(str(tmp_path), plan=MeshPlan(1, 1), device="cpu")
+    np.testing.assert_array_equal(one.pull([0, 1]), t.pull([0, 1]))
     # ann=True is ported: without an attached index it is refused as in the JAX package
     with pytest.raises(RuntimeError, match="no index attached"):
         t.find_synonyms_batch(["w1"], 3, ann=True)

@@ -947,12 +947,22 @@ def test_cli_serves_the_json_lines_protocol(tmp_path):
 
 
 def test_cli_refuses_mesh_and_defaults_to_the_card(tmp_path):
+    """``--mesh`` is ported: ``--mesh 1x2 --device cpu`` serves from two ranks (rank 0
+    starts its follower) and ``quit`` ends both with exit 0; a malformed mesh is
+    refused by name. Without ``--device`` the CLI wants the card."""
     _, _, ck, _ = _train_tiny(tmp_path, seed=47)
     r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint",
-                        ck, "--mesh", "1x8", "--device", "cpu"], input="",
+                        ck, "--mesh", "1x2", "--device", "cpu"], input='{"op": "quit"}\n',
                        capture_output=True, text=True, env=_env(), cwd=str(REPO),
                        timeout=120)
-    assert r.returncode != 0 and "--mesh" in r.stderr and "A9" in r.stderr
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = [json.loads(x) for x in r.stdout.splitlines()]
+    assert lines[0]["ready"] and lines[-1] == {"bye": True}
+    r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint",
+                        ck, "--mesh", "1x", "--device", "cpu"], input="",
+                       capture_output=True, text=True, env=_env(), cwd=str(REPO),
+                       timeout=120)
+    assert r.returncode != 0 and "--mesh" in r.stderr
     if torch.cuda.is_available():
         return
     r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint",

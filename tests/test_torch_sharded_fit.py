@@ -278,14 +278,23 @@ def test_a9b_combinations_are_refused_by_name(fit_world, kw):
 
 def test_hot_rows_and_cols_are_refused_on_a_mesh():
     """hot_rows on a plan of several ranks raises the JAX trainer's ValueError and
-    message; the column layout stays refused by name (ROADMAP A9b.2)."""
+    message. The column layout is ported: on a (1, 2) plan the trainer holds this
+    rank's column blocks [Vp, Dp / 2] of both matrices and runs the column-sharded
+    shared-pool step; with hot_rows it raises the JAX config's refusal."""
     vocab = t_build_vocab(fit_corpus(), 1)
     with pytest.raises(ValueError, match="hot_rows is the single-chip step "
                                          "restructuring"):
         TTrainer(TConfig(pairs_per_batch=8192, hot_rows=8), vocab, device="cpu",
                  plan=MeshPlan(1, 2))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        TConfig(embedding_partition="cols")
+    with pytest.raises(ValueError, match="hot_rows requires the rows layout"):
+        TConfig(embedding_partition="cols", hot_rows=8)
+    start = fit_params(vocab.size)
+    t = TTrainer(TConfig(**dict(FIT_KNOBS, embedding_partition="cols")), vocab,
+                 params=start, device="cpu", plan=MeshPlan(1, 2, rank=1))
+    assert t._step_form() == "sharded_shared" and t._cols
+    assert tuple(t.params.syn0.shape) == (t.padded_vocab, t.padded_dim // 2)
+    np.testing.assert_array_equal(t.params.syn0[:vocab.size].numpy(),
+                                  start[0][:, t.padded_dim // 2:])
 
 
 @pytest.mark.parametrize("kw", [dict(num_model_shards=2), dict(num_data_shards=4),
