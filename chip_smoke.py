@@ -165,13 +165,14 @@ Phases, one line each (or a few); any failure exits non-zero:
                log validates; (b) the same checkpoint with the IVF arm (f32): its
                build seconds, index bytes, recall@10 against the exact oracle, the
                served lists' overlap with the exact ones, p50 and p99 beside (a)'s;
-               (c) python -m glint_word2vec_torch.servebench at V=200,000, d=300 over
+               (c) python -m glint_word2vec_torch.servebench at V=100,000, d=300 over
                its clustered matrix (V=1M fails PQ's 0.95 floor there and its builds
-               take ~70 s): every arm, the int8 and PQ builds at their recall floors,
+               take ~70 s; V=200,000's PQ build alone took 56 s): every arm, the int8 and PQ builds at their recall floors,
                and the shard-native int8 build's codes equal to the in-memory build's;
                (d) python -m glint_word2vec_torch.serve_checkpoint ck --ann as a child
                process on the card: synonyms and synonyms_batch equal to (b)'s lists,
                an out-of-vocabulary word's error_type, reload, stats, info, exit 0.
+               (c) and (d) are child processes started beside (b) and read after it.
  12. quality  training from a token file, held to a quality number: (a) the port's
                generate_corpus at EVAL.md's scale (17,000,000 words, 90,000 raw types,
                seed 42) into a temporary directory, its seconds and SHA-256; (b) python
@@ -209,7 +210,11 @@ Phases, one line each (or a few); any failure exits non-zero:
                but fleet-kill (13a), train-preempt (12c), nan-rollback (10b),
                norm-recover (10c) and blackbox (10d), each named with the phase that
                covers it (continual-drift and serve-reload's two V-grew epilogues among
-               them): every phase run passes. (c) python -m
+               them), in three children side by side (train-stall and train-crashloop,
+               which mostly wait on their horizons, a child each): every phase run
+               passes.
+               The SIGKILL of (a) lands while the router counts an attempt in flight
+               on the victim (stopped first: fleet_run._kill_with_attempt_in_flight). (c) python -m
                glint_word2vec_torch.stepaudit --device cuda at V=1,000,000, d=300,
                B=8192, K=16 (its default geometry there) over every single-device
                variant and the recovery: no undeclared host read or transfer (nor a
@@ -238,22 +243,25 @@ Phases, one line each (or a few); any failure exits non-zero:
                service reloads both publishes, counts one vocabulary-change reload and
                answers a new word with finite scores; no query fails or is refused; a
                second run_once() is idle. Printed: the seconds of count, extension,
-               encode, load, trainer set-up and fit; pairs/s and the device's idle share
-               over the fit (profiled; the service's kernels count busy); each reload's
-               seconds from publish to swap; the card's memory before, at peak and
+               encode, load, trainer set-up and fit; pairs/s (the fit is not profiled:
+               the profiler's start beside the clients' threads and the fit's graph
+               capture is the one suspect of a segmentation fault seen twice here); each
+               reload's seconds from publish to swap; the card's memory before, at peak and
                after. (b) python -m glint_word2vec_torch.eval_quality --continual-ab
                --words 6000000 --vocab 30000 --dim 64 --iters 1 (seed 42, B=65536,
                P=512, a 1,500,000-word tail, 2,000 new raw types) in a child process on
                the card: vocab_base 30,349, new_words 1,747, vocab_grown 32,096 (the JAX
                tool's EVAL_RUNS.jsonl:27-28), post purity@10 >= 0.95 and >= pre - 0.02,
                post margin >= 0.30, the fused kernel on every step of both fits; analogy
-               @1 and each arm's train seconds printed, held to nothing.
- 15. mesh     row-sharded training over torch.distributed, after phase 12: two rank
-               processes of this script on the one card (NCCL refuses two ranks on one
-               device, so a gloo world whose every collective is staged through host
-               memory; one world runs the ranks' cases of phases 15, 16 and 17 in
-               turn, then each phase checks its records), V=1,000,000, d=300 (384), B=8192, the AUTO pool (256 at 1M
-               words), f32, this corpus's Zipf(1) tokens: (a) mesh (1, 2), the
+               @1 and each arm's train seconds printed, held to nothing. (b) starts
+               with the phase and runs beside (a).
+ 15. mesh     row-sharded training over torch.distributed, its world started after
+               phase 13 and running beside phases 14 and 12, its checks after phase 12:
+               two rank processes of this script on the one card (NCCL refuses two
+               ranks on one device, so a gloo world whose every collective is staged
+               through host memory; one world runs the ranks' cases of phases 15, 16
+               and 17 in turn, then each phase checks its records), V=1,000,000, d=300
+               (384), B=8192, the AUTO pool (256 at 1M words), f32, this corpus's Zipf(1) tokens: (a) mesh (1, 2), the
                default sharded-input fit through Trainer(plan=) for 16 steps from the
                trainer's seeded start; its global chunks replayed through the plain
                single-process step on the card, and the ranks' row-shards checkpoint
@@ -302,16 +310,39 @@ Phases, one line each (or a few); any failure exits non-zero:
                one-device model does, one reload of a newer publish lands on both
                ranks, SIGTERM ends both with exit 0; its queries/s and p50/p99 printed
                beside phase 11's one-process exact arm.
+ 18. tools    the run-log tools and the repo's checkers over the port, last (it reads
+               phase 12 (c)'s log, and racecheck runs with no other child: phases
+               15-17's world runs beside phases 14 and 12), each a child process, on the
+               logs
+               earlier phases left: python -m glint_word2vec_torch.run_report over phase
+               10 (a)'s run log (status ok, its steps and pairs the fit's own), over
+               phase 12 (c)'s first attempt (status preempted, exit 1, the preempt
+               block's steps saved and lost the preempt record's), and --log over phase
+               13 (a)'s sinks (every process and the merged rollup); telemetry_tail over
+               phase 10 (a)'s log (exit 0, every record kind named); telemetry_run
+               --smoke --device cuda (its run log schema-valid, its trace parses with
+               the producer, staging, dispatch, probe and checkpoint spans, a kernel
+               launched: its counts join the kernels line under "tools"); graftcheck
+               --smoke --device cuda clean (its dispatch probe builds the port's trainer
+               on the card); then, alone, racecheck --smoke --device cuda: no inversion
+               beyond its baseline and the zero-cost probe within 1.25x. Each tool's
+               JSON is printed.
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
+JSON line with every phase's seconds ({"phase_seconds": ..., "total_s": ...}), one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
 {"ok": true, "device": {...}}. With no CUDA device, or without the package beside
-this file, it prints no result and exits 2.
+this file, it prints no result and exits 2. A phase that fails prints one line,
+{"failed_phase": ..., "phase_seconds": {...}} (the phases that finished), before its
+traceback; the exit code stays non-zero. faulthandler is on in this process and in every
+child (PYTHONFAULTHANDLER=1): a segmentation fault prints every thread's stack.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import faulthandler
 import hashlib
 import json
 import math
@@ -359,6 +390,49 @@ _T0 = time.perf_counter()
 def log(phase: str, msg: str) -> None:
     """One line of the run, after the seconds since the script started."""
     print(f"[{phase} {time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
+
+
+PHASE_S = {}  # phase -> its seconds, in the order the phases finished
+CURRENT = ["start-up"]  # the phase running now (named by the failure line)
+
+
+@contextlib.contextmanager
+def timed(phase: str):
+    """Time one phase of main() into PHASE_S; CURRENT names it while it runs."""
+    CURRENT[0] = phase
+    t0 = time.perf_counter()
+    yield
+    PHASE_S[phase] = round(time.perf_counter() - t0, 1)
+    CURRENT[0] = f"after {phase}"
+
+
+KEPT = {}  # run logs the tools phase (18) reads: name -> {"paths": [...], facts}
+
+
+def keep_logs(name: str, paths, **facts) -> list:
+    """Copy ``paths`` (each with its ``.blackbox.json`` dump, if any) into a directory
+    that outlives the phase that wrote them, for the tools phase; returns the copies."""
+    if "_dir" not in KEPT:
+        KEPT["_dir"] = tempfile.mkdtemp(prefix="chip-smoke-logs-")
+    d = Path(KEPT["_dir"]) / name
+    d.mkdir()
+    out = []
+    for src in paths:
+        dst = d / Path(src).name
+        shutil.copy(src, dst)
+        if os.path.exists(str(src) + ".blackbox.json"):
+            shutil.copy(str(src) + ".blackbox.json", str(dst) + ".blackbox.json")
+        out.append(str(dst))
+    KEPT[name] = {"paths": out, **facts}
+    return out
+
+
+def child_env(**extra) -> dict:
+    """The environment of a child process: this one's, the repo on PYTHONPATH, and
+    PYTHONFAULTHANDLER=1 (a segmentation fault prints every thread's Python stack)."""
+    return dict(os.environ, PYTHONFAULTHANDLER="1", PYTHONPATH=os.pathsep.join(
+        p for p in (str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH"))
+        if p), **extra)
 
 
 def card_line() -> str:
@@ -2176,6 +2250,8 @@ def runtime_phase(corpus, seed: int, torch, np, fused, scat, profile_call) -> tu
             / 20 / 1e3, "bound_ms": k * nbytes / PEAK_BYTES_PER_S * 1e3}
             for fn, k in ((calls["probe"], 1), (calls["snapshot"], 2)))
         del slot, calls
+        keep_logs("runtime_a", [log_a], steps=int(tr.global_step),
+                  pairs=float(tr.pairs_trained), kinds=summary["kinds"])
         rec["a"] = {"wall_s": wall, "layer_off_wall_s": FIT_WALL.get("shared"),
                     "steps": tr.global_step, "heartbeats": len(tr.heartbeats),
                     "kinds": summary["kinds"], "polls": len(seen),
@@ -2291,8 +2367,9 @@ SERVE_OVERLAP_TOL = 0.01
 # the reload, through the saved config
 SERVE_IO_WORKERS = 4
 # servebench's matrix: V=1M fails PQ's 0.95 recall floor (0.38 at 512 clusters of
-# ~2,000 rows, wider than the re-rank shortlist) and its builds take ~70 s
-SERVE_BENCH_V = 200_000
+# ~2,000 rows, wider than the re-rank shortlist) and its builds take ~70 s; at
+# V=200,000 its PQ build alone took 56 s of the phase's critical path
+SERVE_BENCH_V = 100_000
 
 
 def lists_agree(got, want, tie: float, atol: float = None) -> bool:
@@ -2555,6 +2632,47 @@ def serving_phase(ck: str, corpus, seed: int, torch, np, fused, scat,
             and kinds.get("serve_reload") == 1 and kinds.get("serve_end") == 1):
         raise AssertionError(f"serve telemetry: {summary}")
 
+    # (c) servebench and (d) the JSON-lines CLI (on the card by default) as child
+    # processes, started side by side with (b): the three builds are host numpy, each
+    # in its own process; their results are read after (b)
+    here = str(Path(__file__).resolve().parent)
+    bench_cmd = [sys.executable, "-m", "glint_word2vec_torch.servebench", "--vocab",
+                 str(bench_vocab), "--dim", str(D_REAL), "--shard-native", "--duration",
+                 "1", "--seed", str(seed), "--device", device]
+    cli_cmd = [sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint", ck, "--ann"]
+    if device != "cuda":
+        cli_cmd += ["--device", device]
+    reqs = [{"op": "synonyms", "word": words[0], "num": 10, "id": 1},
+            {"op": "synonyms_batch", "words": words[:8], "num": 10},
+            {"op": "synonyms", "word": "not-a-word", "num": 5},
+            {"op": "reload"}, {"op": "stats"}, {"op": "info"}, {"op": "quit"}]
+    requests = Path(ck).parent / "serve_checkpoint.in"
+    requests.write_text("".join(json.dumps(q) + "\n" for q in reqs))
+    bench_err = open(Path(ck).parent / "servebench.err", "w+")
+    cli_err = open(Path(ck).parent / "serve_checkpoint.err", "w+")
+    t_children = time.perf_counter()
+    bench_proc = subprocess.Popen(bench_cmd, stdout=subprocess.PIPE, stderr=bench_err,
+                                  text=True, cwd=here)
+    with open(requests) as cli_in:
+        cli_proc = subprocess.Popen(cli_cmd, stdin=cli_in, stdout=subprocess.PIPE,
+                                    stderr=cli_err, text=True, cwd=here)
+    try:
+        return _serving_bcd(rec, launches, ck, words, ref_b, vocab, np, device,
+                            bench_vocab, (bench_proc, bench_err), (cli_proc, cli_err),
+                            reqs, t_children)
+    finally:
+        for proc, err in ((bench_proc, bench_err), (cli_proc, cli_err)):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            err.close()
+
+
+def _serving_bcd(rec: dict, launches, ck: str, words, ref_b, vocab, np, device: str,
+                 bench_vocab: int, bench, cli, reqs, t_children: float) -> tuple:
+    """Phase 11 (b) in process, beside its children (c) and (d); then their results."""
+    from glint_word2vec_torch.serve import EmbeddingService
+
     # (b) the IVF arm (f32) on the same checkpoint
     t0 = time.perf_counter()
     svc = EmbeddingService(checkpoint=ck, ann=True, ann_quant="f32", device=device)
@@ -2595,24 +2713,22 @@ def serving_phase(ck: str, corpus, seed: int, torch, np, fused, scat,
                              f"{overlap} against the index's recall {same_rows}")
 
     # (c) servebench over its clustered matrix, every arm
-    cmd = [sys.executable, "-m", "glint_word2vec_torch.servebench", "--vocab",
-           str(bench_vocab), "--dim", str(D_REAL), "--shard-native", "--duration", "1",
-           "--seed", str(seed), "--device", device]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                       cwd=str(Path(__file__).resolve().parent))
-    bench_s = time.perf_counter() - t0
-    for line in r.stderr.splitlines():
+    proc, err = bench
+    out, _ = proc.communicate(timeout=600)
+    bench_s = time.perf_counter() - t_children
+    err.seek(0)
+    for line in err.read().splitlines():
         log("serve", f"(c) {line}")
-    if r.returncode != 0:
-        raise AssertionError(f"servebench exited {r.returncode}")
-    bench = json.loads(r.stdout.strip().splitlines()[-1])
+    if proc.returncode != 0:
+        raise AssertionError(f"servebench exited {proc.returncode}")
+    bench = json.loads(out.strip().splitlines()[-1])
     bench["wall_s"] = bench_s
     rec["servebench"] = bench
     floors_ok = (bench["int8_recall_at_10"] >= 0.99 and bench["pq_recall_at_10"] >= 0.95
                  and bench["int8_recall_floor"] == 0.99
                  and bench["pq_recall_floor"] == 0.95)
-    log("serve", f"(c) servebench at V={bench_vocab}, d={D_REAL} ({bench_s:.1f} s): "
+    log("serve", f"(c) servebench at V={bench_vocab}, d={D_REAL} ({bench_s:.1f} s from "
+        f"its start, beside (b) and (d)): "
         f"int8 recall@10 {bench['int8_recall_at_10']}, pq "
         f"{bench['pq_recall_at_10']} (floors 0.99, 0.95: {floors_ok}); shard-native "
         f"codes equal the in-memory build's: {bench['shard_native_parity']}")
@@ -2620,18 +2736,11 @@ def serving_phase(ck: str, corpus, seed: int, torch, np, fused, scat,
         raise AssertionError("servebench's quantized arms failed")
 
     # (d) the JSON-lines CLI as a child process, on the card by default
-    cmd = [sys.executable, "-m", "glint_word2vec_torch.serve_checkpoint", ck, "--ann"]
-    if device != "cuda":
-        cmd += ["--device", device]
-    reqs = [{"op": "synonyms", "word": words[0], "num": 10, "id": 1},
-            {"op": "synonyms_batch", "words": words[:8], "num": 10},
-            {"op": "synonyms", "word": "not-a-word", "num": 5},
-            {"op": "reload"}, {"op": "stats"}, {"op": "info"}, {"op": "quit"}]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, input="".join(json.dumps(q) + "\n" for q in reqs),
-                       capture_output=True, text=True, timeout=600,
-                       cwd=str(Path(__file__).resolve().parent))
-    cli_s = time.perf_counter() - t0
+    proc, err = cli
+    stdout, _ = proc.communicate(timeout=600)
+    cli_s = time.perf_counter() - t_children
+    err.seek(0)
+    r = subprocess.CompletedProcess(proc.args, proc.returncode, stdout, err.read())
     out = [json.loads(x) for x in r.stdout.splitlines()]
     ok = (r.returncode == 0 and len(out) == len(reqs) + 1 and out[0].get("ready")
           and out[1].get("id") == 1
@@ -2645,8 +2754,9 @@ def serving_phase(ck: str, corpus, seed: int, torch, np, fused, scat,
           and out[5].get("device", "").startswith(device)
           and out[6].get("num_words") == vocab.size and out[7] == {"bye": True})
     rec["cli"] = {"wall_s": cli_s, "rc": r.returncode}
-    log("serve", f"(d) serve_checkpoint --ann as a child: exit {r.returncode} in "
-        f"{cli_s:.1f} s; ready, synonyms and synonyms_batch equal to (b)'s IVF lists, "
+    log("serve", f"(d) serve_checkpoint --ann as a child: exit {r.returncode}, "
+        f"{cli_s:.1f} s from its start (beside (b) and (c)); ready, synonyms and "
+        f"synonyms_batch equal to (b)'s IVF lists, "
         f"OOV error {out[3].get('error_type') if len(out) > 3 else None}, reload, "
         f"stats, info: {bool(ok)}")
     if not ok:
@@ -2962,6 +3072,14 @@ def quality_phase(seed: int, torch, np, sgns, fused, profile_call,
         if bad:
             raise AssertionError(f"quality (c) failed: {bad}; stdout {r.stdout[-1000:]}; "
                                  f"stderr {tail[-3000:]}")
+        # the first attempt's records (the sink appends: its run_end closes them)
+        first = os.path.join(workdir, "first_attempt.jsonl")
+        with open(run_log) as f, open(first, "w") as out_f:
+            for line in f:
+                out_f.write(line)
+                if json.loads(line)["kind"] == "run_end":
+                    break
+        keep_logs("quality_c_first", [first], preempt=pre[0])
         if device == "cuda":
             rec["kernel"] = quality_kernel_case(seed, row["vocab_size"], torch, sgns,
                                                 fused, profile_call)
@@ -2978,6 +3096,7 @@ FLEET_CLIENTS = 8
 FLEET_WORDS = 64
 CHAOS_COVERED = {"fleet-kill": "13a", "train-preempt": "12c", "nan-rollback": "10b",
                  "norm-recover": "10c", "blackbox": "10d"}
+CHAOS_WAITING = ("train-stall", "train-crashloop")  # 13b: a child each
 
 
 def card_memory_mib():
@@ -2994,16 +3113,13 @@ def card_memory_mib():
 def _module_child(args, log_path: str):
     """Start ``python -m glint_word2vec_torch.<args>`` with its stderr in
     ``log_path``; returns (process, its stderr file)."""
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (str(Path(__file__).resolve().parent), os.environ.get("PYTHONPATH"))
-        if p))
     err = open(log_path, "w")
     return subprocess.Popen([sys.executable, "-m", *args], stdout=subprocess.PIPE,
-                            stderr=err, text=True, env=env), err
+                            stderr=err, text=True, env=child_env()), err
 
 
-def _child_result(proc, err, limit_s: float, what: str) -> dict:
-    """Wait for a child started by :func:`_module_child` and parse its one JSON line."""
+def _text_child(proc, err, limit_s: float, what: str) -> tuple:
+    """Wait for a child started by :func:`_module_child`; returns (exit code, stdout)."""
     try:
         out, _ = proc.communicate(timeout=limit_s)
     except subprocess.TimeoutExpired:
@@ -3012,6 +3128,12 @@ def _child_result(proc, err, limit_s: float, what: str) -> dict:
         raise AssertionError(f"{what} did not finish within {limit_s:.0f} s")
     finally:
         err.close()
+    return proc.returncode, out
+
+
+def _child_result(proc, err, limit_s: float, what: str) -> dict:
+    """Wait for a child started by :func:`_module_child` and parse its one JSON line."""
+    _, out = _text_child(proc, err, limit_s, what)
     lines = out.strip().splitlines()
     if not lines:
         raise AssertionError(f"{what} exited {proc.returncode} with no result "
@@ -3089,6 +3211,8 @@ def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
     mem["after_close_mib"] = card_memory_mib() if card else None
     rec["drill"] = {**drill, "saves_s": saves, "memory": mem,
                     "seconds": round(time.perf_counter() - t0, 3)}
+    # every process's sink (router, replicas, publisher), for the tools phase
+    keep_logs("fleet_a", sorted(str(p) for p in work.glob("*.jsonl")))
     log("fleet", f"(a) {FLEET_REPLICAS} replicas on {device} started in "
         f"{drill['start_s']:.1f} s; {FLEET_CLIENTS} clients: {drill['queries']} queries, "
         f"{drill['failed_queries']} failed, every list equal to find_synonyms; SIGKILL: "
@@ -3107,19 +3231,28 @@ def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
     from glint_word2vec_torch.chaos_run import NOT_PORTED, phase_table
     chaos_run = [p for p, _ in phase_table("", 0, device)
                  if p not in NOT_PORTED and p not in CHAOS_COVERED]
+    # the chaos drill in three children side by side: the supervisor's stall drill and
+    # its crash-loop drill (each mostly waiting on its horizon), and the other phases
     t0 = time.perf_counter()
-    chaos = _module_child(
+    halves = ([[p] for p in chaos_run if p in CHAOS_WAITING]
+              + [[p for p in chaos_run if p not in CHAOS_WAITING]])
+    chaos = [_module_child(
         ["glint_word2vec_torch.chaos_run", "--smoke", "--device", device, "--workdir",
-         str(work / "chaos"), "--only", ",".join(chaos_run)]
+         str(work / f"chaos{i}"), "--only", ",".join(half)]
         + (["--sentences", str(chaos_sentences)] if chaos_sentences else []),
-        str(work / "chaos.err"))
+        str(work / f"chaos{i}.err")) for i, half in enumerate(halves) if half]
     audit = _module_child(["glint_word2vec_torch.stepaudit", "--device", device]
                           + ([] if card else ["--smoke"]),
                           str(work / "stepaudit.err"))
     rec["audit"] = _child_result(*audit, 900, "the transfer-contract audit")
-    rec["chaos"] = _child_result(*chaos, 900, "the chaos drill")
-    rec["chaos"]["left_out"] = {p: f"runs on the card in phase {ph}"
-                                for p, ph in CHAOS_COVERED.items()}
+    parts = [_child_result(*c, 900, "the chaos drill") for c in chaos]
+    rec["chaos"] = {"rc": max(abs(c["rc"]) for c in parts),
+                    "ok": all(c["ok"] for c in parts),
+                    "phases": {k: v for c in parts for k, v in c["phases"].items()},
+                    "seconds": {k: v for c in parts for k, v in c["seconds"].items()},
+                    "children": len(parts),
+                    "left_out": {p: f"runs on the card in phase {ph}"
+                                 for p, ph in CHAOS_COVERED.items()}}
     rec["children_s"] = round(time.perf_counter() - t0, 3)
     c = rec["chaos"]
     log("fleet", f"(b) chaos_run --smoke --device {device}: "
@@ -3148,6 +3281,98 @@ def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
         raise AssertionError(f"phase 13c: the transfer-contract audit failed: "
                              f"{json.dumps(bad)[:3000]} {a.get('recover_rebuild')}")
     return rec
+
+
+# the tools phase (18): each child's time limit
+TOOLS_CHILD_S = 180.0
+
+
+def tools_phase(device: str = "cuda") -> tuple:
+    """Phase 18 (see the module docstring): the run-log tools over the logs phases 10
+    (a), 12 (c) and 13 (a) left (:data:`KEPT`), the scripted telemetry fit, graftcheck's
+    smoke sweep and racecheck's smoke on ``device``, each a child process; racecheck
+    alone, after the others (its zero-cost A/B times lock loops). Returns (record, the
+    telemetry fit's kernel launches)."""
+    d = Path(KEPT["_dir"]) / "tools"
+    d.mkdir()
+    rt, q1, fl = KEPT["runtime_a"], KEPT["quality_c_first"], KEPT["fleet_a"]
+    m = "glint_word2vec_torch."
+    t0 = time.perf_counter()
+    started = {
+        "run_report 10a": [m + "run_report", rt["paths"][0]],
+        "run_report 12c": [m + "run_report", q1["paths"][0]],
+        "run_report --log 13a": [m + "run_report",
+                                 *[a for p in fl["paths"] for a in ("--log", p)]],
+        "telemetry_tail 10a": [m + "telemetry_tail", rt["paths"][0]],
+        "telemetry_run": [m + "telemetry_run", "--smoke", "--device", device, "--out",
+                          str(d / "telemetry")],
+        "graftcheck": [m + "graftcheck", "--smoke", "--device", device]}
+    children = {name: _module_child(args, str(d / f"{i}.err"))
+                for i, (name, args) in enumerate(started.items())}
+    rc_tail, tail = _text_child(*children.pop("telemetry_tail 10a"), TOOLS_CHILD_S,
+                                "telemetry_tail")
+    rec = {name: _child_result(*c, TOOLS_CHILD_S, name) for name, c in children.items()}
+    rec["telemetry_tail 10a"] = {"rc": rc_tail, "summary": tail.strip().splitlines()[0]}
+    rec["children_s"] = round(time.perf_counter() - t0, 3)
+    t0 = time.perf_counter()
+    rec["racecheck"] = _child_result(*_module_child(
+        [m + "racecheck", "--smoke", "--device", device, "--workdir",
+         str(d / "racecheck")], str(d / "racecheck.err")), TOOLS_CHILD_S, "racecheck")
+    rec["racecheck_s"] = round(time.perf_counter() - t0, 3)
+
+    r10, r12, r13 = rec["run_report 10a"], rec["run_report 12c"], rec["run_report --log 13a"]
+    pre = q1["preempt"]
+    lost = 0 if pre["saved"] else int(pre["steps_since_save"])
+    tel, gc, rc = rec["telemetry_run"], rec["graftcheck"], rec["racecheck"]
+    try:
+        with open(tel["trace"]) as f:
+            trace_events = len(json.load(f)["traceEvents"])
+    except (OSError, ValueError, KeyError):
+        trace_events = 0
+    names = {os.path.splitext(os.path.basename(p))[0] for p in fl["paths"]}
+    checks = {
+        "10a ok": r10["rc"] == 0 and r10["ok"] and r10["status"] == "ok",
+        "10a steps and pairs the fit's": (r10["steps"] == rt["steps"]
+                                          and r10["pairs_trained"] == rt["pairs"]),
+        "12c preempted, exit 1": r12["rc"] == 1 and r12["status"] == "preempted",
+        "12c preempt block the record's": r12.get("preempt") == {
+            "saved": pre["saved"], "step": pre["step"],
+            "steps_saved": pre["step"] - lost, "steps_lost": lost,
+            "checkpoint": pre.get("checkpoint")},
+        "13a every process": (r13["rc"] == 0 and r13["ok"] and r13["mode"] == "fleet"
+                              and set(r13["processes"]) == names
+                              and r13["merged"]["logs"] == len(fl["paths"])
+                              and r13["merged"]["schema_valid"]),
+        "tail exit 0, every kind named": rc_tail == 0 and all(
+            f"{k}={n}" in tail for k, n in rt["kinds"].items()),
+        "telemetry_run ok": (tel["rc"] == 0 and tel["ok"] and tel["schema_valid"]
+                             and not tel["missing_spans"]),
+        "telemetry_run trace parses": trace_events > 0,
+        # the wrappers count on the card only
+        "telemetry_run launched a kernel": (device != "cuda"
+                                            or sum(tel["launches"].values()) > 0),
+        "graftcheck clean": (gc["rc"] == 0 and gc["ok"]
+                             and gc["unexplained_violations"] == 0
+                             and gc["device"].startswith(device)),
+        "racecheck ok": (rc["rc"] == 0 and rc["ok"] and rc["zero_cost"]["ok"]
+                         and rc["inversions_unbaselined"] == []),
+    }
+    rec["checks"] = checks
+    gc_line = {k: v for k, v in gc.items() if k != "refusal_signatures"}
+    gc_line["refusal_signatures"] = len(gc["refusal_signatures"])
+    for name in ("run_report 10a", "run_report 12c", "run_report --log 13a"):
+        log("tools", f"{name}: {json.dumps({k: v for k, v in rec[name].items() if k != 'detail'})}")
+    log("tools", f"telemetry_tail 10a (exit {rc_tail}): {rec['telemetry_tail 10a']['summary']}")
+    log("tools", f"telemetry_run: {json.dumps(tel)}")
+    log("tools", f"graftcheck: {json.dumps(gc_line)}")
+    log("tools", f"racecheck: {json.dumps(rc)}")
+    log("tools", f"children side by side {rec['children_s']:.1f} s, racecheck alone "
+        f"{rec['racecheck_s']:.1f} s; checks {checks}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"phase 18 (tools) failed: {bad}")
+    rec["graftcheck"] = gc_line
+    return rec, tel["launches"]
 
 
 # the continual phase (14): phase 11's checkpoint grown by one tail segment of
@@ -3194,6 +3419,32 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
     forgetting A/B, ``eval_quality --continual-ab`` in a child process. Returns (record,
     (a)'s launches, (b)'s launches). ``device="cpu"`` rehearses it on the CPU at a
     smaller checkpoint (patched CONT_* sizes), without the card's checks."""
+    card = device == "cuda"
+    rec = {"card": card_line() if card else "cpu"}
+    root = Path(ck).parent / "continual"
+    publish, stream, work = root / "publish" / "ck", root / "stream", root / "work"
+    stream.mkdir(parents=True)
+    # (b) the forgetting A/B, a child process on its own data, started now: it runs
+    # beside (a) and is read after it
+    t_ab = time.perf_counter()
+    out = root / "ab"
+    child = _module_child(["glint_word2vec_torch.eval_quality", *AB_ARGS, "--device",
+                           device, "--out", str(out), "--runs-out",
+                           str(out / "rows.jsonl")], str(root / "ab.err"))
+    try:
+        return _continual_ab(_continual_a(ck, root, publish, stream, work, rec, seed,
+                                          torch, np, fused, scat, device),
+                             rec, root, child, t_ab, card)
+    finally:
+        if child[0].poll() is None:
+            child[0].kill()
+            child[0].wait()
+        child[1].close()
+
+
+def _continual_a(ck: str, root: Path, publish: Path, stream: Path, work: Path, rec: dict,
+                 seed: int, torch, np, fused, scat, device: str) -> dict:
+    """Phase 14 (a) (see :func:`continual_phase`); returns its launches."""
     import threading
     from types import SimpleNamespace
 
@@ -3206,10 +3457,6 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
     from glint_word2vec_torch.train.checkpoint import load_model_header
 
     card = device == "cuda"
-    rec = {"card": card_line() if card else "cpu"}
-    root = Path(ck).parent / "continual"
-    publish, stream, work = root / "publish" / "ck", root / "stream", root / "work"
-    stream.mkdir(parents=True)
     t0 = time.perf_counter()
     shutil.copytree(ck, publish)
     h0 = load_model_header(str(publish))
@@ -3284,20 +3531,14 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
     fit_prof = {}
     real_fit, real_save = trainer_mod.Trainer.fit, trainer_mod.Trainer.save_checkpoint
 
-    def end_training() -> None:  # the steps' end: the profile stops, the clock reads
+    def end_training() -> None:  # the steps' end: the clock reads
         if "train_s" not in fit_prof:
             if card:
                 torch.cuda.synchronize()
-                fit_prof["prof"].stop()
             fit_prof["train_s"] = time.perf_counter() - fit_prof["t0"]
 
-    def fit(self, *a, **k):  # the increment's steps under the profiler (card only),
-        # up to its final save; the trace is read after the reloads, not beside them
+    def fit(self, *a, **k):  # the increment's steps, up to its final save
         fit_prof["global_step_start"] = int(self.global_step)
-        if card:
-            fit_prof["prof"] = torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA])
-            fit_prof["prof"].start()
         fit_prof["t0"] = time.perf_counter()
         try:
             return real_fit(self, *a, **k)
@@ -3345,8 +3586,6 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
             sampler.join(timeout=30)
         svc.close()
     if card:
-        from glint_word2vec_torch.stepprof import kernel_busy_s
-        fit_prof["busy_s"] = kernel_busy_s(fit_prof.pop("prof"))
         torch.cuda.empty_cache()
     mem["after_mib"] = card_memory_mib() if card else None
     h1 = load_model_header(str(publish))
@@ -3395,10 +3634,9 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
     lats = box.get("lats", [])
     sec = rep["seconds"]
     train_s = fit_prof["train_s"]
-    idle = (1.0 - fit_prof["busy_s"] / train_s) if "busy_s" in fit_prof else None
     rec["loop"] = {"report": rep, "checks": checks, "timing": timing, "steps": steps,
                    "pairs": pairs, "train_s": train_s, "final_save_s": fit_prof["save_s"],
-                   "pairs_per_s": pairs / train_s, "device_idle_share": idle,
+                   "pairs_per_s": pairs / train_s,
                    "reload_s": reloads, "load_seconds": st["load_seconds"],
                    "queries": served, "p50_ms": pctl(lats, 0.5), "p99_ms": pctl(lats, 0.99),
                    "memory": mem, "launches": launches}
@@ -3407,9 +3645,7 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
         f"{sec['load']:.2f} s, trainer set-up {sec['setup']:.2f} s, fit {sec['fit']:.2f} s "
         f"= steps {train_s:.2f} s + final save {fit_prof['save_s']:.2f} s (pre-fit checks "
         f"{timing.get('pre_fit_checks_s', 0):.1f} s); V {V:,} -> {rep['vocab_size']:,}; "
-        f"{steps} steps from global step {step0}, {pairs / train_s:,.0f} pairs/s, device "
-        f"idle {'n/a' if idle is None else f'{idle:.1%}'} of the steps (the service's "
-        "kernels count busy), "
+        f"{steps} steps from global step {step0}, {pairs / train_s:,.0f} pairs/s, "
         f"host_wait_s {tr['host_wait_s']:.2f}, dispatch_s {tr['dispatch_s']:.2f} "
         f"(prologues {tr['prologue_s']:.2f}), "
         f"{tr['chunks']} chunks, captures {tr['graph_captures']}, replays "
@@ -3425,13 +3661,13 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
         raise AssertionError(f"continual (a) failed: {bad}; {json.dumps(rep)[:2000]}; "
                              f"errors {box.get('errors', [])[:3]}")
     del g0, src0, src1
+    return launches
 
-    # (b) the forgetting A/B in a child process
-    t0 = time.perf_counter()
-    out = root / "ab"
-    child = _module_child(["glint_word2vec_torch.eval_quality", *AB_ARGS, "--device",
-                           device, "--out", str(out), "--runs-out",
-                           str(out / "rows.jsonl")], str(root / "ab.err"))
+
+def _continual_ab(launches: dict, rec: dict, root: Path, child, t0: float,
+                  card: bool) -> tuple:
+    """Phase 14 (b): the forgetting A/B's child, read after (a); returns (record, (a)'s
+    launches, (b)'s launches)."""
     ab = _child_result(*child, AB_TIMEOUT_S, "the forgetting A/B")
     pre, post = ab["arms"]
     la = {k: pre["run"]["launches"][k] + post["run"]["launches"][k]
@@ -3458,8 +3694,8 @@ def continual_phase(ck: str, seed: int, torch, np, fused, scat,
                  "post": {k: post.get(k) for k in ("purity_at_10", "cosine_margin",
                                                    "analogy_accuracy_at_1",
                                                    "train_seconds_total", "run")}}
-    log("continual", f"(b) eval_quality --continual-ab on {device} in "
-        f"{rec['ab']['wall_s']:.1f} s: vocab {ab['vocab_base']:,} + {ab['new_words']:,} "
+    log("continual", f"(b) eval_quality --continual-ab in {rec['ab']['wall_s']:.1f} s "
+        f"from its start (beside (a)): vocab {ab['vocab_base']:,} + {ab['new_words']:,} "
         f"new = {ab['vocab_grown']:,} (JAX rows: {AB_SIZES}); purity@10 "
         f"{ab['purity_pre']} -> {ab['purity_post']}, margin {pre['cosine_margin']} -> "
         f"{post['cosine_margin']}, analogy@1 {ab['analogy_pre']} -> {ab['analogy_post']} "
@@ -3558,9 +3794,14 @@ def mesh_rank_main(args) -> int:
     cases in turn (phase 15's ``model`` and ``data``, phase 16's worlds of
     :data:`FORM_WORLDS`, phase 17 inside :data:`COLS_WORLD`), each writing its record
     to ``DIR/<case>-r<R>.json``."""
+    import ctypes
+    import signal
+
     import numpy as np
     import torch
 
+    # the rank dies with the smoke that started it, which cannot stop it if it crashes
+    ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
     torch.set_num_threads(4)
     torch.backends.cuda.matmul.allow_tf32 = False
     repo = Path(__file__).resolve().parent
@@ -3672,17 +3913,24 @@ def _mesh_case(case: str, args, r: int, d: Path, vocab, enc, np, torch) -> dict:
     return rec
 
 
-def _mesh_world(cases: list, d: Path, seed: int, extra: list = ()) -> dict:
-    """Run ``cases`` in one world of two rank processes of this script; each case's
-    records in rank order, by case."""
+def _start_world(cases: list, d: Path, seed: int, extra: list = ()) -> dict:
+    """Start ``cases`` in one world of two rank processes of this script; the handle
+    :func:`_mesh_world` waits on."""
     procs = []
     for r in range(2):
         err = open(d / f"world-r{r}.log", "w")
         procs.append((subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), "--mesh-rank", str(r),
              "--mesh-case", ",".join(cases), "--mesh-dir", str(d), "--seed", str(seed),
-             *extra], stdout=err, stderr=subprocess.STDOUT), err))
-    deadline = time.monotonic() + MESH_LIMIT_S
+             *extra], stdout=err, stderr=subprocess.STDOUT, env=child_env()), err))
+    return {"cases": cases, "d": d, "procs": procs, "t0": time.perf_counter(),
+            "deadline": time.monotonic() + MESH_LIMIT_S}
+
+
+def _mesh_world(world: dict) -> dict:
+    """Wait for a world :func:`_start_world` started; each case's records in rank
+    order, by case."""
+    cases, d, procs, deadline = (world[k] for k in ("cases", "d", "procs", "deadline"))
     try:
         for p, _ in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -3731,23 +3979,42 @@ def _mesh_replay(d: Path, vocab, pool: int, seed: int, torch, np, sgns):
     return p, step
 
 
-def mesh_phases(seed: int, torch, np, sgns, one_process: dict = None) -> tuple:
-    """Phases 15, 16 and 17 on one world of two rank processes on this card (one
-    start-up for all their cases: :func:`mesh_rank_main`), then each phase's checks on
-    its records in the world's directory: (mesh, forms, launches); forms["cols"] is
-    phase 17's record."""
+def start_mesh_world(seed: int, torch) -> dict:
+    """Start phases 15, 16 and 17's world of two rank processes on this card (one
+    start-up for all their cases: :func:`mesh_rank_main`); :func:`mesh_phases` waits
+    for it. The smoke starts it after phase 13; phases 14 and 12 run beside it."""
     from glint_word2vec_torch.data import native
 
     native.native_available()  # built here once, not raced by the ranks
     torch.cuda.empty_cache()
     d = Path(tempfile.mkdtemp(prefix="chip-smoke-mesh-"))
+    return _start_world(["model", "data", *FORM_WORLDS], d, seed,
+                        extra=["--mesh-ck", str(d / "ck")])
+
+
+def stop_world(world: dict) -> None:
+    """Kill a world's ranks that still run, and remove its directory."""
+    for p, err in world["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        err.close()
+    shutil.rmtree(world["d"], ignore_errors=True)
+
+
+def mesh_phases(seed: int, torch, np, sgns, one_process: dict = None,
+                world: dict = None) -> tuple:
+    """Phases 15, 16 and 17: wait for their world (``world`` from
+    :func:`start_mesh_world`, else one started now), then each phase's checks on its
+    records in the world's directory: (mesh, forms, launches); forms["cols"] is phase
+    17's record."""
+    world = world or start_mesh_world(seed, torch)
+    d = world["d"]
     try:
-        t0 = time.perf_counter()
-        cases = ["model", "data", *FORM_WORLDS]
-        worlds = _mesh_world(cases, d, seed, extra=["--mesh-ck", str(d / "ck")])
-        world_s = time.perf_counter() - t0
-        log("mesh", f"one world of two ranks ran phases 15-17's cases {cases} in "
-            f"{world_s:.1f} s")
+        worlds = _mesh_world(world)
+        world_s = time.perf_counter() - world["t0"]
+        log("mesh", f"one world of two ranks ran phases 15-17's cases {world['cases']} "
+            f"in {world_s:.1f} s from its start")
         t0 = time.perf_counter()
         mesh, launches = mesh_phase(d, worlds, seed, torch, np, sgns)
         mesh["world_s"] = world_s
@@ -3759,7 +4026,7 @@ def mesh_phases(seed: int, torch, np, sgns, one_process: dict = None) -> tuple:
         log("forms", f"phases 16 and 17's checks in {time.perf_counter() - t0:.1f} s "
             f"(17's {forms['cols']['checks_s']:.1f} s)")
     finally:
-        shutil.rmtree(d, ignore_errors=True)
+        stop_world(world)
     return mesh, forms, launches
 
 
@@ -4622,6 +4889,9 @@ def main() -> int:
     ap.add_argument("--mesh-dir", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-ck", default="", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    # a segmentation fault prints every thread's Python stack, here and in every child
+    faulthandler.enable(all_threads=True)
+    os.environ["PYTHONFAULTHANDLER"] = "1"
     repo = Path(__file__).resolve().parent
     if not (repo / "glint_word2vec_torch" / "csrc").is_dir():
         print("chip_smoke.py: glint_word2vec_torch is not beside this script",
@@ -4651,77 +4921,101 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; allow_tf32 "
         f"matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}")
-    log("build", f"{kernels.sources()} built in {build_all(kernels):.1f} s "
-        f"({' '.join(kernels.NVCC_FLAGS)})")
-    rec = kernel_phase(args.seed, torch, sgns, fused, profile_call)
-    bf16_rec = bf16_kernel_phase(args.seed, torch, sgns, fused, profile_call)
-    t0 = time.perf_counter()
-    words, counts, sents = synthetic_corpus(args.seed, N_TOKENS, np)
-    corpus = (Vocabulary.from_words_and_counts(words, counts), sents)
-    log("fit", f"vocabulary {corpus[0].size} words, corpus {N_TOKENS} tokens in "
-        f"{len(sents)} sentences ({time.perf_counter() - t0:.1f} s)")
-    srec = scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
-    sbf_rec = bf16_scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
-    srec["max_abs_err"] = max(srec["max_abs_err"], steps_phase(args.seed, torch, sgns,
-                                                                  scat))
-    brec = banded_phase(args.seed, torch, np, sgns, scat, profile_call)
-    stab_rec = stabilizers_phase(args.seed, torch, np, sgns, scat)
+    with timed("2 build"):
+        log("build", f"{kernels.sources()} built in {build_all(kernels):.1f} s "
+            f"({' '.join(kernels.NVCC_FLAGS)})")
+    with timed("3 kernel"):
+        rec = kernel_phase(args.seed, torch, sgns, fused, profile_call)
+    with timed("3b kernel_bf16"):
+        bf16_rec = bf16_kernel_phase(args.seed, torch, sgns, fused, profile_call)
+    with timed("corpus"):
+        words, counts, sents = synthetic_corpus(args.seed, N_TOKENS, np)
+        corpus = (Vocabulary.from_words_and_counts(words, counts), sents)
+        log("fit", f"vocabulary {corpus[0].size} words, corpus {N_TOKENS} tokens in "
+            f"{len(sents)} sentences")
+    with timed("4 scatter"):
+        srec = scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
+    with timed("4b scatter_bf16"):
+        sbf_rec = bf16_scatter_phase(args.seed, corpus, torch, scat, probe, profile_call)
+    with timed("5 steps"):
+        srec["max_abs_err"] = max(srec["max_abs_err"],
+                                  steps_phase(args.seed, torch, sgns, scat))
+    with timed("5b banded"):
+        brec = banded_phase(args.seed, torch, np, sgns, scat, profile_call)
+    with timed("5c stabilizers"):
+        stab_rec = stabilizers_phase(args.seed, torch, np, sgns, scat)
     srec["max_abs_err"] = max(srec["max_abs_err"], brec["max_abs_err"],
                               *(r["max_abs_err"] for r in stab_rec.values()))
-    feed = feed_phase(corpus, args.seed, np)
-    gen = pairgen_phase(corpus, args.seed, torch, np)
+    with timed("6 feed"):
+        feed = feed_phase(corpus, args.seed, np)
+    with timed("7 pairgen"):
+        gen = pairgen_phase(corpus, args.seed, torch, np)
     launches = {}
-    t0 = time.perf_counter()
-    words, counts, bench_sents = synthetic_corpus(args.seed, BENCH_TOKENS, np, BENCH_V,
-                                                  BENCH_SHIFT, BENCH_POWER)
-    bench_corpus = (Vocabulary.from_words_and_counts(words, counts), bench_sents)
-    log("fit", f"V=200k vocabulary {BENCH_V} words, corpus {BENCH_TOKENS} tokens "
-        f"({time.perf_counter() - t0:.1f} s)")
     serve_dir = tempfile.mkdtemp(prefix="chip-smoke-serve-")
     serve_ck = str(Path(serve_dir) / "model")
-    for name, knobs, pool in FITS + (BENCH_FIT,):
-        model, *counts_ = fit_phase(name, knobs, pool,
-                                    bench_corpus if knobs is BENCH_KNOBS else corpus,
-                                    args.seed, torch, fused, scat, sgns, np,
-                                    control=knobs is not BENCH_KNOBS)
-        launches[name] = dict(zip(("sgns_shared_step", "scatter_add_rows",
-                                   "sgns_shared_step_bf16", "scatter_add_rows_bf16"),
-                                  counts_))
-        if name == "shared":
-            surface = model_phase(model, corpus, torch, np)
-            model.save(serve_ck)  # the checkpoint the serving phase serves
-            sync_numpy_fit(model, GRAPHS[name]["steps"], corpus, args.seed, torch, fused)
-        del model
-    del bench_corpus, bench_sents
-    runtime, runtime_launches = runtime_phase(corpus, args.seed, torch, np, fused, scat,
-                                              profile_call)
-    launches.update(runtime_launches)
+    world = None  # phases 15-17's world of two ranks, beside phases 14 and 12
     try:
-        serving, launches["serving_refit"] = serving_phase(
-            serve_ck, corpus, args.seed, torch, np, fused, scat)
-        t0 = time.perf_counter()
-        fleet = fleet_phase(serve_ck, corpus, args.seed, np)
-        log("fleet", f"phase 13 in {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        continual, launches["continual"], launches["continual_ab"] = continual_phase(
-            serve_ck, args.seed, torch, np, fused, scat)
-        log("continual", f"phase 14 in {time.perf_counter() - t0:.1f} s")
-    finally:
+        with timed("8-9 fits, model"):
+            words, counts, bench_sents = synthetic_corpus(
+                args.seed, BENCH_TOKENS, np, BENCH_V, BENCH_SHIFT, BENCH_POWER)
+            bench_corpus = (Vocabulary.from_words_and_counts(words, counts), bench_sents)
+            log("fit", f"V=200k vocabulary {BENCH_V} words, corpus {BENCH_TOKENS} tokens")
+            for name, knobs, pool in FITS + (BENCH_FIT,):
+                model, *counts_ = fit_phase(
+                    name, knobs, pool, bench_corpus if knobs is BENCH_KNOBS else corpus,
+                    args.seed, torch, fused, scat, sgns, np,
+                    control=knobs is not BENCH_KNOBS)
+                launches[name] = dict(zip(("sgns_shared_step", "scatter_add_rows",
+                                           "sgns_shared_step_bf16",
+                                           "scatter_add_rows_bf16"), counts_))
+                if name == "shared":
+                    surface = model_phase(model, corpus, torch, np)
+                    model.save(serve_ck)  # the checkpoint the serving phase serves
+                    sync_numpy_fit(model, GRAPHS[name]["steps"], corpus, args.seed, torch,
+                                   fused)
+                del model
+            del bench_corpus, bench_sents
+        with timed("10 runtime"):
+            runtime, runtime_launches = runtime_phase(corpus, args.seed, torch, np, fused,
+                                                      scat, profile_call)
+        launches.update(runtime_launches)
+        with timed("11 serve"):
+            serving, launches["serving_refit"] = serving_phase(
+                serve_ck, corpus, args.seed, torch, np, fused, scat)
+        with timed("13 fleet"):
+            fleet = fleet_phase(serve_ck, corpus, args.seed, np)
+        # phases 15-17's world runs beside phases 14 and 12; phase 18 runs last, alone
+        # (racecheck's zero-cost A/B times lock loops)
+        world = start_mesh_world(args.seed, torch)
+        with timed("14 continual, beside the mesh world"):
+            continual, launches["continual"], launches["continual_ab"] = continual_phase(
+                serve_ck, args.seed, torch, np, fused, scat)
         shutil.rmtree(serve_dir, ignore_errors=True)
-    t0 = time.perf_counter()
-    quality, launches["quality"] = quality_phase(args.seed, torch, np, sgns, fused,
-                                                 profile_call)
+        with timed("12 quality, beside the mesh world"):
+            quality, launches["quality"] = quality_phase(args.seed, torch, np, sgns, fused,
+                                                         profile_call)
+        with timed("15-17 mesh, the rest of its world and its checks"):
+            mesh, forms, mesh_launches = mesh_phases(args.seed, torch, np, sgns,
+                                                     serving.get("exact"), world)
+        with timed("18 tools"):
+            tools, tool_launches = tools_phase()
+    finally:
+        if world is not None:
+            stop_world(world)
+        shutil.rmtree(serve_dir, ignore_errors=True)
+        shutil.rmtree(KEPT.get("_dir", ""), ignore_errors=True)
+    launches["tools"] = {"sgns_shared_step": tool_launches["sgns_shared_step"],
+                         "scatter_add_rows": tool_launches["scatter_add_rows"],
+                         "sgns_shared_step_bf16": tool_launches["sgns_shared_step_bf16"],
+                         "scatter_add_rows_bf16": tool_launches["scatter_add_rows_bf16"]}
     q_fit, q_sup = quality["fit"]["row"], quality["supervised"]
-    log("quality", f"phase 12 in {time.perf_counter() - t0:.1f} s: purity@10 "
+    log("quality", f"phase 12: purity@10 "
         f"{q_fit['purity_at_10']} (floor {Q_PURITY}), margin {q_fit['cosine_margin']} "
         f"(floor {Q_MARGIN}), analogy@1 {q_fit.get('analogy_accuracy_at_1')}; supervised "
         f"{q_sup['verdict']['history']} to step {q_sup['final_step']}, purity@10 "
         f"{q_sup['purity_at_10']}; kernel at the fit's shape {quality['kernel']['ms']:.4f}"
         f" ms a call, {quality['kernel']['device_ms']:.4f} ms on the device, bound "
         f"{quality['kernel']['bound_ms']:.4f} ms")
-    t0 = time.perf_counter()
-    mesh, forms, mesh_launches = mesh_phases(args.seed, torch, np, sgns,
-                                             serving.get("exact"))
     cols = forms["cols"]
     for name, n in mesh_launches.items():  # phases 15-17: the scatter kernel, every rank
         counts_ = n if isinstance(n, dict) else {"scatter_add_rows": n}
@@ -4731,7 +5025,6 @@ def main() -> int:
     srec["max_abs_err"] = max(srec["max_abs_err"], mesh["scatter_hold_max_abs_err"],
                               forms["scatter_hold_max_abs_err"],
                               cols["scatter_hold_max_abs_err"])
-    log("mesh", f"phases 15, 16 and 17 in {time.perf_counter() - t0:.1f} s")
     by_path = {k: {name: v[k] for name, v in launches.items() if v[k]}
                for k in ("sgns_shared_step", "scatter_add_rows", "sgns_shared_step_bf16",
                          "scatter_add_rows_bf16")}
@@ -4783,6 +5076,8 @@ def main() -> int:
     log("graphs", "per fit (captures, replays, chunks, dispatch_s, idle share): " + "; ".join(
         f"{n} {g['captures']}/{g['replays']}/{g['chunks']} {g['dispatch_s']:.4f} s "
         f"{g['device_idle_share']:.1%}" for n, g in GRAPHS.items()))
+    print(json.dumps({"phase_seconds": PHASE_S,
+                      "total_s": round(time.perf_counter() - _T0, 1)}), flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({**kernels_line, "feed": feed,
@@ -4793,6 +5088,8 @@ def main() -> int:
                                               "fleet": fleet,
                                               "continual": continual,
                                               "quality": quality,
+                                              "tools": tools,
+                                              "phase_seconds": PHASE_S,
                                               "mesh": mesh, "forms": forms,
                                               "cols": cols,
                                               "launches_by_fit": launches,
@@ -4807,4 +5104,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except Exception:
+        # the phase that failed and the seconds of those that finished, then the
+        # exception's own traceback (the exit code stays non-zero)
+        print(json.dumps({"failed_phase": CURRENT[0], "phase_seconds": PHASE_S}),
+              flush=True)
+        raise

@@ -452,6 +452,13 @@ def phase_serve_reload(workdir: str, n_sentences: int, device: str) -> str:
             return (f"{len(query_errs)} failed queries during publishes "
                     f"(first: {query_errs[0]})")
         stats = service.stats()
+        # a reload may still be landing: its swap releases the old model before the
+        # reload is counted, so give the two counts a bounded wait to meet
+        deadline = time.monotonic() + 10
+        while (stats["models_released"] != stats["reloads"]
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+            stats = service.stats()
         if stats["refused"]:
             return f"{stats['refused']} queries refused (queue never fills here)"
         if stats["reloads"] < 3:

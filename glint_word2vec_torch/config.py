@@ -195,8 +195,8 @@ class Word2VecConfig:
                 f"embedding_partition must be 'rows' or 'cols', "
                 f"got {self.embedding_partition!r}")
         # before the unported knobs, so that their combinations with use_pallas get
-        # the JAX package's answer
-        _validate_device_pairgen(self)
+        # the JAX package's answer; each matrix in the JAX package's order, so that a
+        # config with several faults gets its first refusal too
         _validate_cbow(self)
         _validate_stabilizers(self)
         _validate_dtypes(self)
@@ -231,6 +231,8 @@ class Word2VecConfig:
         # after the pool resolves (bf16_chain reads it), before the unported knobs
         _validate_restructurings(self)
         _validate_mesh(self)
+        _validate_device_pairgen(self)
+        _validate_layout(self)
         if check_ported:
             self._refuse_unported()
         _validate_ranges(self)
@@ -558,6 +560,11 @@ def _validate_mesh(c: Word2VecConfig) -> None:
                 f"cannot exceed or straddle the chunk (snapshot-ring/"
                 f"rollback/preemption saves land on merge boundaries "
                 f"only)")
+
+
+def _validate_layout(c: Word2VecConfig) -> None:
+    """The JAX package's checks of the layout beside the checkpoint format and of the
+    data axis, copied as they stand."""
     if c.embedding_partition == "cols" and c.sharded_checkpoint:
         raise ValueError(
             "embedding_partition='cols' does not support "
@@ -600,17 +607,25 @@ def _validate_ranges(c: Word2VecConfig) -> None:
     positive = ("vector_size", "learning_rate", "num_partitions", "max_sentence_length",
                 "window", "batch_size", "negatives", "unigram_table_size",
                 "pairs_per_batch", "steps_per_dispatch", "heartbeat_every_steps",
-                "producer_workers", "io_workers", "heartbeat_ring",
-                "rollback_history", "num_model_shards", "num_data_shards",
-                "sync_every")
+                "heartbeat_ring", "rollback_history", "num_model_shards",
+                "num_data_shards", "sync_every")
     for name in positive:
         if getattr(c, name) <= 0:
             raise ValueError(f"{name} must be positive but got {getattr(c, name)}")
-    nonnegative = ("num_iterations", "min_count", "prefetch_chunks", "tokens_per_step",
-                   "hot_rows", "hot_flush_every", "max_rollbacks")
+    nonnegative = ("num_iterations", "min_count", "tokens_per_step", "hot_rows",
+                   "hot_flush_every", "max_rollbacks")
     for name in nonnegative:
         if getattr(c, name) < 0:
             raise ValueError(f"{name} must be nonnegative but got {getattr(c, name)}")
+    if c.prefetch_chunks < 0:
+        raise ValueError(f"prefetch_chunks must be nonnegative (0 = synchronous) "
+                         f"but got {c.prefetch_chunks}")
+    if c.producer_workers < 1:
+        raise ValueError(f"producer_workers must be >= 1 (1 = serial producer) "
+                         f"but got {c.producer_workers}")
+    if c.io_workers < 1:
+        raise ValueError(f"io_workers must be >= 1 (1 = serial I/O) "
+                         f"but got {c.io_workers}")
     if c.window > 127:
         raise ValueError(f"window must be <= 127 but got {c.window}")
     if c.sigmoid_mode not in ("exact", "clipped"):
@@ -622,6 +637,7 @@ def _validate_ranges(c: Word2VecConfig) -> None:
             f"but got {c.nonfinite_policy!r}")
     _validate_runtime(c)
     _validate_serving(c)
+    _validate_continual(c)
 
 
 def _validate_runtime(c: Word2VecConfig) -> None:
@@ -746,3 +762,25 @@ def _validate_serving(c: Word2VecConfig) -> None:
         raise ValueError(
             f"serve_fleet_retry_deadline_s must be positive "
             f"but got {c.serve_fleet_retry_deadline_s}")
+
+
+def _validate_continual(c: Word2VecConfig) -> None:
+    """The JAX package's range checks of the continual runner's knobs, copied as they
+    stand."""
+    if c.continual_min_new_words <= 0:
+        raise ValueError(
+            f"continual_min_new_words must be positive "
+            f"but got {c.continual_min_new_words}")
+    if c.continual_lr_rewarm <= 0:
+        raise ValueError(
+            f"continual_lr_rewarm must be positive but got {c.continual_lr_rewarm}")
+    if c.continual_iterations <= 0:
+        raise ValueError(
+            f"continual_iterations must be positive but got {c.continual_iterations}")
+    if c.continual_replay_segments < 0:
+        raise ValueError(
+            f"continual_replay_segments must be nonnegative "
+            f"but got {c.continual_replay_segments}")
+    if c.continual_poll_s <= 0:
+        raise ValueError(
+            f"continual_poll_s must be positive but got {c.continual_poll_s}")

@@ -12,8 +12,9 @@ Usage::
         [--status-port P] [--telemetry PATH] [--duration S] [--device cuda|cpu]
 
     # the fleet-kill drill: a small fit -> N replica processes -> a query storm ->
-    # SIGKILL one replica (its breaker opens, no client query fails, the replica
-    # restarts, its breaker goes half-open then closed) -> a storm of 3 publishes
+    # SIGKILL one replica, stopped until an attempt is in flight on it (its breaker
+    # opens, no client query fails, the replica restarts, its breaker goes half-open
+    # then closed) -> a storm of 3 publishes
     # (capacity never below N-1, every reload issued to a drained replica) -> SIGTERM
     # one replica (a valid flight-recorder dump) -> the SLO within budget -> the
     # collector merges every artifact into one timeline
@@ -30,6 +31,7 @@ import argparse
 import json
 import os
 import shutil
+import signal
 import sys
 import tempfile
 import time
@@ -65,6 +67,43 @@ def _train_checkpoint(workdir: str, n_sentences: int, device: str, seed: int = 4
     ck = os.path.join(workdir, "publish", "ck")
     trainer.save_checkpoint(ck)
     return ck, trainer, vocab
+
+
+# how long the drill waits, with the victim stopped, for the router to send it an
+# attempt; the storm sends one within milliseconds
+KILL_WAIT_S = 5.0
+# the interpreter's thread switch interval while the drill stops and kills the victim:
+# the poll, the kill and the replica reader's end of file must each get the GIL within
+# a fraction of the router's hedge delay (at least 2 ms), where the default is 5 ms
+KILL_SWITCH_S = 1e-4
+
+
+def _kill_with_attempt_in_flight(router, victim) -> int:
+    """SIGSTOP the victim, and SIGKILL it as soon as the router counts an attempt in
+    flight on it (the stopped process cannot answer one): the attempt ends ``failed``
+    and is retried elsewhere under its trace id, the trace the collector leg asserts.
+    The stop, the poll and the kill run at a short thread switch interval, so that the
+    kill lands well inside the router's hedge delay and the attempt is not first lost
+    to a hedge. Returns the attempts in flight at the kill; raises AssertionError, the
+    victim resumed, when no attempt comes in :data:`KILL_WAIT_S`."""
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(KILL_SWITCH_S)
+    try:
+        os.kill(victim.pid, signal.SIGSTOP)
+        deadline = time.monotonic() + KILL_WAIT_S
+        while time.monotonic() < deadline:
+            n = router.in_flight()[victim.name]
+            if n > 0:
+                victim.kill()
+                time.sleep(0.05)  # the replica's reader meets the end of its pipe
+                return n
+            time.sleep(0.0002)
+        os.kill(victim.pid, signal.SIGCONT)
+        raise AssertionError(
+            f"no attempt in flight on the stopped replica {victim.name} within "
+            f"{KILL_WAIT_S:.0f} s: the kill would land on no attempt")
+    finally:
+        sys.setswitchinterval(switch)
 
 
 def run_smoke(workdir: str, n_sentences: int = 300, replicas: int = 3,
@@ -163,12 +202,13 @@ def run_smoke(workdir: str, n_sentences: int = 300, replicas: int = 3,
         time.sleep(1.0)
         assert not query_errs, f"pre-kill failures: {query_errs[0]}"
 
-        # --- 1. the kill: SIGKILL one replica mid-traffic -----------------------------
+        # --- 1. the kill: SIGKILL one replica with an attempt in flight on it ---------
         victim = rs.replicas[0]
         old_pid = victim.pid
-        log(f"[fleet] SIGKILL replica {victim.name} (pid {old_pid})")
         t_kill = time.monotonic()
-        victim.kill()
+        in_flight = _kill_with_attempt_in_flight(router, victim)
+        log(f"[fleet] SIGKILLed replica {victim.name} (pid {old_pid}, stopped with "
+            f"{in_flight} attempt(s) in flight on it)")
         # on the transition history, not the state: the prober can restart and
         # trial-close faster than a poll of the state
         deadline = time.monotonic() + 30

@@ -1,0 +1,200 @@
+"""Candidate enumeration over the knob registry, ported from
+``tools/graftcheck/lattice.py`` as it stands: the four tier families.
+
+- **range**: one candidate per knob with an ``invalid`` sample — the
+  construction-time range checks must refuse every one.
+- **refusal groups**: exhaustive cartesian products over the refusal-relevant
+  knob subsets (the selection matrices in config.py/trainer.py) — every
+  documented refusal combination is EXECUTED, not just parsed.
+- **pairwise**: a greedy covering array over ALL registry knobs — every
+  (knob-a=value, knob-b=value) pair appears in at least one executed config.
+- **sampled**: deterministic seeded mixing of full-width assignments to top
+  the full sweep up past the ≥1,000 executed-config floor (boundary values
+  get double weight).
+
+All orders are deterministic (sorted knob names, seeded Generator) so two
+runs of the same tree produce byte-identical reports.
+"""
+
+from __future__ import annotations
+
+import itertools
+from typing import Dict, Iterator, List, Tuple
+
+import numpy as np
+
+from glint_word2vec_torch.graftcheck.registry import KNOBS, config_defaults
+
+Candidate = Tuple[str, Dict]  # (tier name, kwargs for Word2VecConfig)
+
+
+# Exhaustive refusal-relevant subsets. Keys name the selection matrix they
+# execute; values map knob -> the sub-domain worth crossing exhaustively
+# (full registry domains where small, thinned where the full cross would
+# explode without adding refusal-relevant structure).
+REFUSAL_GROUPS: Dict[str, Dict[str, tuple]] = {
+    "cbow-matrix": {
+        "cbow": (False, True),
+        "cbow_update": ("scatter", "banded"),
+        "duplicate_scaling": (False, True),
+        "negative_pool": (-1, 0, 64),
+        "use_pallas": (False, True),
+        "tokens_per_step": (0, 64),
+        "window": (1, 2),
+    },
+    "lowering-matrix": {
+        "step_lowering": ("gspmd", "shard_map"),
+        "embedding_partition": ("rows", "cols"),
+        "cbow": (False, True),
+        "use_pallas": (False, True),
+        "duplicate_scaling": (False, True),
+        "negative_pool": (-1, 0, 64),
+        "sharded_checkpoint": (False, True),
+    },
+    "pallas-stabilizers": {
+        "use_pallas": (False, True),
+        "max_row_norm": (0.0, 50.0),
+        "update_clip": (0.0, 0.5),
+        "row_l2": (0.0, 1e-4),
+        "norm_watch": ("off", "warn", "recover", "halt"),
+    },
+    "device-feed": {
+        "device_pairgen": (False, True),
+        "cbow": (False, True),
+        "use_pallas": (False, True),
+        "window": (1, 2, 127),
+        "tokens_per_step": (0, 64, 200_000),
+        "shard_input": (True, False),
+    },
+    "auto-markers": {
+        "subsample_ratio": (-1.0, 0.0, 1e-3),
+        "negative_pool": (-1, 0, 64),
+        "pairs_per_batch": (64, 4096),
+        "cbow": (False, True),
+        "duplicate_scaling": (False, True),
+        "allow_unstable": (False, True),
+    },
+}
+
+
+def range_tier() -> Iterator[Candidate]:
+    for name in sorted(KNOBS):
+        knob = KNOBS[name]
+        if knob.invalid is not None:
+            yield ("range", {name: knob.invalid})
+
+
+def refusal_tier(thin: int = 1) -> Iterator[Candidate]:
+    """``thin`` > 1 keeps every thin-th assignment of each group (the smoke
+    tier); 1 = exhaustive (the full sweep)."""
+    for gname in sorted(REFUSAL_GROUPS):
+        group = REFUSAL_GROUPS[gname]
+        names = sorted(group)
+        for i, values in enumerate(itertools.product(
+                *(group[n] for n in names))):
+            if i % thin:
+                continue
+            yield (f"refusal:{gname}", dict(zip(names, values)))
+
+
+def pairwise_tier() -> List[Candidate]:
+    """Greedy pairwise covering array over every registry knob's full domain.
+    Returns full-width assignments (all knobs set). Deterministic."""
+    names = sorted(KNOBS)
+    domains = {n: list(KNOBS[n].domain) for n in names}
+    uncovered = set()
+    for a, b in itertools.combinations(names, 2):
+        for va, vb in itertools.product(domains[a], domains[b]):
+            uncovered.add((a, _freeze(va), b, _freeze(vb)))
+    rows: List[Dict] = []
+    while uncovered:
+        row: Dict = {}
+        # rotate the fill order per row so late-alphabet knobs also get the
+        # high-coverage early slots
+        order = names[len(rows) % len(names):] + names[:len(rows) % len(names)]
+        for name in order:
+            best_v, best_gain = domains[name][0], -1
+            for v in domains[name]:
+                gain = 0
+                for other, ov in row.items():
+                    a, va, b, vb = _pairkey(name, v, other, ov)
+                    if (a, va, b, vb) in uncovered:
+                        gain += 1
+                if gain > best_gain:
+                    best_v, best_gain = v, gain
+            row[name] = best_v
+        newly = set()
+        for (a, b) in itertools.combinations(sorted(row), 2):
+            key = (a, _freeze(row[a]), b, _freeze(row[b]))
+            if key in uncovered:
+                newly.add(key)
+        if not newly:
+            # every remaining pair conflicts with greedy choices; force one
+            a, va, b, vb = sorted(uncovered)[0]
+            row[a] = _thaw(va, domains[a])
+            row[b] = _thaw(vb, domains[b])
+            for (x, y) in itertools.combinations(sorted(row), 2):
+                key = (x, _freeze(row[x]), y, _freeze(row[y]))
+                newly.add(key)
+        uncovered -= newly
+        rows.append(row)
+    return [("pairwise", r) for r in rows]
+
+
+def sampled_tier(n: int, seed: int = 0) -> Iterator[Candidate]:
+    """Deterministic seeded full-width assignments; domain edge values are
+    double-weighted (boundary bias)."""
+    rng = np.random.default_rng(seed)
+    names = sorted(KNOBS)
+    for _ in range(n):
+        row = {}
+        for name in names:
+            dom = list(KNOBS[name].domain)
+            weights = np.ones(len(dom))
+            weights[0] = weights[-1] = 2.0
+            row[name] = dom[int(rng.choice(len(dom), p=weights / weights.sum()))]
+        yield ("sampled", row)
+
+
+def pair_count() -> int:
+    names = sorted(KNOBS)
+    return sum(len(KNOBS[a].domain) * len(KNOBS[b].domain)
+               for a, b in itertools.combinations(names, 2))
+
+
+def candidates(mode: str) -> List[Candidate]:
+    """The full candidate list for one run. ``smoke`` = range + thinned
+    refusal groups + pairwise; ``full`` adds exhaustive groups and the
+    sampled top-up past the 1,000-config floor."""
+    out: List[Candidate] = list(range_tier())
+    out.extend(refusal_tier(thin=1 if mode == "full" else 7))
+    out.extend(pairwise_tier())
+    if mode == "full":
+        floor = 1000
+        deficit = max(300, floor + 50 - len(out))
+        out.extend(sampled_tier(deficit))
+    return out
+
+
+def nondefault(kwargs: Dict) -> Dict:
+    """Project a (possibly full-width) assignment onto its non-default
+    entries — the shrinker's search space and the report's display form."""
+    defaults = config_defaults()
+    return {k: v for k, v in sorted(kwargs.items()) if v != defaults[k]}
+
+
+def _freeze(v):
+    return repr(v)
+
+
+def _thaw(frozen, domain):
+    for v in domain:
+        if repr(v) == frozen:
+            return v
+    raise KeyError(frozen)
+
+
+def _pairkey(n1, v1, n2, v2):
+    if n1 < n2:
+        return n1, _freeze(v1), n2, _freeze(v2)
+    return n2, _freeze(v2), n1, _freeze(v1)

@@ -1,0 +1,262 @@
+"""The executed property families (a)-(d) and the dispatch probe, ported from
+``tools/graftcheck/properties.py`` over the port's config and trainer.
+
+The port refuses an unported knob (``config._UNPORTED``: ``use_pallas``) with
+:class:`NotImplementedError` naming it; construction reports that as a refusal keyed
+``unported: ...``, beside the ``refused: ...`` keys the JAX package's validators give
+(the port runs those first, so a combination of an unported knob with a refused one
+gets the JAX package's key). The dispatch probe builds the port's ``Trainer`` on the
+probe's device.
+
+Every check returns ``None`` (holds) or a ``(key, message)`` pair — ``key`` is
+a stable, digit-normalized identifier the shrinker minimizes against and the
+baseline stores, ``message`` the human finding. Nothing here asserts: the
+checker collects, shrinks, and gates.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+from typing import Dict, Optional, Tuple
+
+Finding = Optional[Tuple[str, str]]
+
+# Dispatch refusals that depend on the RUNTIME environment, not the config —
+# the empirical twin of R8's "conditions referencing non-config state are
+# exempt" rule. The probe environment (single-device plan passed explicitly,
+# one process, uniform 1k-word vocabulary) is constructed so none of these
+# can actually fire; the classifier stays anyway so a future probe-env change
+# degrades to a classified record instead of a phantom parity violation.
+_RUNTIME_REFUSALS = (
+    r"needs \d+ devices",
+    r"divisible by",
+    r"multiple processes",
+    r"process count",
+    r"single-device plans only",
+    r"most frequent word",            # corpus-dependent duplicate channel
+    r"bounded by subsampling",
+)
+
+
+def normalize_message(msg: str, width: int = 90) -> str:
+    """Stable refusal key: numerals and whitespace runs collapsed, clipped.
+    Refusal messages embed the offending values ("got 0", "= 336"), which
+    would make every signature unique; the template is the identity."""
+    out = re.sub(r"-?\d+(?:\.\d+)?(?:e-?\d+)?", "#", msg)
+    out = re.sub(r"\s+", " ", out).strip()
+    return out[:width]
+
+
+def is_runtime_refusal(msg: str) -> bool:
+    return any(re.search(p, msg) for p in _RUNTIME_REFUSALS)
+
+
+def construct(kwargs: Dict):
+    """(config, None) on acceptance, (None, key) on a construction refusal (an
+    unported knob's refusal keyed ``unported``). Any other exception escaping
+    __post_init__ is a finding in itself and is keyed with its exception type."""
+    from glint_word2vec_torch.config import Word2VecConfig
+    try:
+        return Word2VecConfig(**kwargs), None
+    except ValueError as e:
+        return None, "refused: " + normalize_message(str(e))
+    except NotImplementedError as e:
+        return None, "unported: " + normalize_message(str(e))
+    except Exception as e:  # noqa: BLE001 — a non-ValueError IS the finding
+        return None, f"crashed({type(e).__name__}): " + normalize_message(str(e))
+
+
+def construction_key(kwargs: Dict) -> Optional[str]:
+    """The shrinker predicate for construction refusals."""
+    _, key = construct(kwargs)
+    return key
+
+
+# ---------------------------------------------------------------------------
+# (b) serialization fixpoints
+# ---------------------------------------------------------------------------
+
+def check_serialization(cfg) -> Finding:
+    from glint_word2vec_torch.config import Word2VecConfig
+    for markers in (True, False):
+        tag = f"auto_markers={markers}"
+        d1 = cfg.to_dict(auto_markers=markers)
+        try:
+            # the JSON hop is part of the contract: checkpoints/estimator
+            # params travel as JSON, which turns mesh_shape into a list
+            c2 = Word2VecConfig.from_dict(json.loads(json.dumps(d1)))
+        except Exception as e:  # noqa: BLE001 — refusal or crash, same finding
+            return (f"serial_fixpoint[{tag}]: from_dict refused its own "
+                    f"to_dict output ({normalize_message(str(e), 60)})",
+                    f"from_dict(to_dict(c, {tag})) raised "
+                    f"{type(e).__name__}: {e}")
+        d2 = c2.to_dict(auto_markers=markers)
+        if d1 != d2:
+            diff = {k: (d1[k], d2[k]) for k in d1 if d1[k] != d2.get(k)}
+            return (f"serial_fixpoint[{tag}]: to_dict not a fixpoint under "
+                    f"from_dict (fields {sorted(diff)})",
+                    f"round trip changed {diff}")
+        if markers:
+            for flag in ("_auto_pool", "_auto_subsample"):
+                if getattr(c2, flag, False) != getattr(cfg, flag, False):
+                    return (f"serial_fixpoint[{tag}]: {flag} lost in the "
+                            f"round trip",
+                            f"{flag}: {getattr(cfg, flag, False)} -> "
+                            f"{getattr(c2, flag, False)}")
+            if c2 != cfg:
+                return (f"serial_fixpoint[{tag}]: round-tripped config not "
+                        f"equal to the original",
+                        f"{c2} != {cfg}")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# (c) replace() re-resolution parity
+# ---------------------------------------------------------------------------
+
+# one flip per re-resolution input class: path switches (a path flip once froze a pool),
+# geometry changes (the AUTO pool rule's inputs), and a deliberately inert
+# knob (seed — the flip that historically FROZE the resolved pool)
+REPLACE_FLIPS = (
+    ("cbow", True),
+    ("use_pallas", True),
+    ("step_lowering", "shard_map"),
+    ("cbow_update", "banded"),
+    ("duplicate_scaling", True),
+    ("device_pairgen", True),
+    ("pairs_per_batch", 256),
+    ("pairs_per_batch", 8192),
+    ("negatives", 15),
+    ("vector_size", 64),
+    ("seed", 123),
+    ("subsample_ratio", 1e-4),
+)
+
+
+def check_replace(cfg, flips=REPLACE_FLIPS) -> Finding:
+    from glint_word2vec_torch.config import Word2VecConfig
+
+    def outcome(thunk):
+        try:
+            c = thunk()
+        except ValueError as e:
+            return ("refused", normalize_message(str(e), 60))
+        except NotImplementedError as e:
+            return ("unported", normalize_message(str(e), 60))
+        return ("ok", c.to_dict(auto_markers=True), c.to_dict(auto_markers=False),
+                getattr(c, "_auto_pool", False),
+                getattr(c, "_auto_subsample", False))
+
+    base = cfg.to_dict(auto_markers=True)
+    for knob, value in flips:
+        if base.get(knob) == value:
+            continue
+        via_replace = outcome(lambda: cfg.replace(**{knob: value}))
+        # the oracle is the CONSTRUCTOR, not from_dict: from_dict is
+        # deliberately more lenient (it normalizes old-checkpoint dicts —
+        # graftcheck's own first run caught this distinction when the
+        # stored-pool normalization made from_dict accept a flip the
+        # constructor and replace() both refuse)
+        via_fresh = outcome(
+            lambda: Word2VecConfig(**{**base, knob: value}))
+        if via_replace != via_fresh:
+            return (f"replace_parity[{knob}={value!r}]: replace() diverges "
+                    f"from fresh construction",
+                    f"replace -> {via_replace[:2]}, fresh -> {via_fresh[:2]}")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# (d) checkpoint-normalization monotonicity
+# ---------------------------------------------------------------------------
+
+def check_ckpt_normalization(cfg) -> Finding:
+    from glint_word2vec_torch.config import Word2VecConfig
+    d = cfg.to_dict(auto_markers=False)
+    # documented normalization 1: a pre-selection-matrix checkpoint stored a
+    # RESOLVED auto pool beside cbow+duplicate_scaling (the old trainer
+    # warn-ignored it); from_dict must normalize to 0, never refuse — a
+    # refusal would brick the checkpoint
+    if (d.get("cbow") and d.get("duplicate_scaling")
+            and d.get("cbow_update", "scatter") == "scatter"):
+        try:
+            c2 = Word2VecConfig.from_dict({**d, "negative_pool": 64})
+        except ValueError as e:
+            return ("ckpt_norm[stored-pool]: old-checkpoint normalization "
+                    "refused",
+                    f"cbow+duplicate_scaling dict with stored pool raised: {e}")
+        if c2.negative_pool != 0:
+            return ("ckpt_norm[stored-pool]: stored pool not normalized to #",
+                    f"negative_pool came back {c2.negative_pool}, expected 0")
+    # documented normalization 2: unknown keys (newer writers) are filtered
+    try:
+        c3 = Word2VecConfig.from_dict({**d, "knob_from_the_future": 7})
+    except Exception as e:  # noqa: BLE001 — refusal or crash, same finding
+        return ("ckpt_norm[unknown-key]: unknown key not filtered",
+                f"from_dict raised {type(e).__name__}: {e}")
+    if c3 != cfg and c3.to_dict(False) != d:
+        return ("ckpt_norm[unknown-key]: unknown key changed the config",
+                "filtering a foreign key must be value-neutral")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# (a) dispatch parity — the probe
+# ---------------------------------------------------------------------------
+
+class DispatchProbe:
+    """Builds REAL ``Trainer`` objects on ``device`` against a fixed hermetic
+    environment:
+    a uniform 1k-word vocabulary (the duplicate-overload channel's driving
+    share is 1/V — it can never cross the refusal boundary) and an explicit
+    single-device plan (no device-count or divisibility refusal can fire).
+    Results are cached on the projection of the config onto the registry's
+    non-inert knobs."""
+
+    def __init__(self, device="cuda"):
+        import numpy as np
+        from glint_word2vec_torch.data.vocab import Vocabulary
+        from glint_word2vec_torch.device import resolve_device
+        from glint_word2vec_torch.parallel.mesh import make_mesh
+        self.device = resolve_device(device)
+        V = 1000
+        self.vocab = Vocabulary.from_words_and_counts(
+            [f"w{i}" for i in range(V)], np.full(V, 10, np.int64))
+        self.plan = make_mesh(1, 1)
+        self.cache: Dict[tuple, Optional[str]] = {}
+        self.probes_run = 0
+
+    @staticmethod
+    def projection(kwargs: Dict) -> tuple:
+        from glint_word2vec_torch.graftcheck.registry import KNOBS, config_defaults
+        # fill defaults BEFORE projecting so a partial refusal-tier candidate
+        # and a full-width pairwise row with the same effective config share
+        # one cache entry (and one Trainer build)
+        full = {**config_defaults(), **kwargs}
+        return tuple(sorted(
+            (k, repr(v)) for k, v in full.items()
+            if k in KNOBS and not KNOBS[k].dispatch_inert))
+
+    def probe_kwargs(self, kwargs: Dict) -> Optional[str]:
+        """None = dispatch accepts; else the dispatch finding key. The
+        shrinker predicate composes this with construction acceptance."""
+        key = self.projection(kwargs)
+        if key in self.cache:
+            return self.cache[key]
+        from glint_word2vec_torch.config import Word2VecConfig
+        from glint_word2vec_torch.train.trainer import Trainer
+        self.probes_run += 1
+        result: Optional[str] = None
+        try:
+            Trainer(Word2VecConfig(**kwargs), self.vocab, plan=self.plan,
+                    device=self.device)
+        except ValueError as e:
+            kind = ("runtime_refusal" if is_runtime_refusal(str(e))
+                    else "dispatch_refusal")
+            result = f"{kind}: " + normalize_message(str(e))
+        except Exception as e:  # noqa: BLE001 — a dispatch crash IS the finding
+            result = f"dispatch_crash({type(e).__name__}): " + \
+                normalize_message(str(e))
+        self.cache[key] = result
+        return result

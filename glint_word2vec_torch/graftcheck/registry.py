@@ -1,0 +1,227 @@
+"""The declarative knob registry graftcheck enumerates from, ported from
+``tools/graftcheck/registry.py`` over the port's ``Word2VecConfig`` (the same 96 fields,
+defaults and domains).
+
+One entry per ``Word2VecConfig`` field — the checker FAILS (``registry_drift``)
+when the dataclass and this table disagree in either direction, so a new knob
+cannot ship without declaring its sampled domain here (and, via the docs gate,
+without a row in docs/configuration.md). Maintenance rule, enforced:
+
+- ``domain``  — valid sample values, boundary-biased; MUST contain the field's
+  dataclass default (the shrinker resets knobs to defaults, and a default
+  outside its own domain would make minimal counterexamples unreachable).
+- ``auto``    — the AUTO-marker value, when the knob has resolve-later
+  semantics (pool ``-1``, subsample ``-1.0``). Always also in ``domain`` so
+  every tier samples the marker path.
+- ``invalid`` — one out-of-range sample the construction-time validation must
+  refuse (the range tier executes these). ``None`` = the knob has no invalid
+  value (bools, fully-enumerated strings).
+- ``dispatch_inert`` — construction/dispatch refusal logic provably never
+  reads the knob; the dispatch-probe cache projects it away. Marking a
+  refusal-relevant knob inert blinds property (a) to it — when a new refusal
+  reads a knob, FLIP THIS OFF in the same change.
+- ``pinned``  — non-empty reason string when the domain is deliberately a
+  single value (side-effectful at construction, e.g. telemetry_path opens the
+  sink file).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Knob:
+    name: str
+    domain: Tuple[Any, ...]
+    invalid: Optional[Any] = None
+    auto: Optional[Any] = None
+    dispatch_inert: bool = False
+    pinned: str = ""
+
+
+_K = Knob
+
+# NB: domains are chosen so the DISPATCH PROBE stays cheap and hermetic —
+# small vector sizes, a 1k-word uniform probe vocabulary (so the corpus-
+# dependent duplicate-overload refusal can never fire), a single-device plan
+# passed explicitly (so device-count refusals can never fire). Refusals the
+# sweep observes are therefore config-driven, which is exactly the surface
+# properties (a)-(d) model-check.
+KNOBS = {k.name: k for k in [
+    _K("vector_size", (8, 100), invalid=0),
+    _K("learning_rate", (0.01875, 0.5), invalid=0.0, dispatch_inert=True),
+    _K("num_partitions", (1, 4), invalid=0, dispatch_inert=True),
+    _K("num_iterations", (0, 1, 2), invalid=-1, dispatch_inert=True),
+    _K("min_count", (0, 5), invalid=-1, dispatch_inert=True),
+    _K("max_sentence_length", (10, 1000), invalid=0, dispatch_inert=True),
+    _K("window", (1, 2, 5, 127), invalid=0),
+    _K("batch_size", (1, 50), invalid=0, dispatch_inert=True),
+    _K("negatives", (1, 5, 25), invalid=0),
+    _K("subsample_ratio", (-1.0, 0.0, 1e-4, 1e-3, 1.0), invalid=-0.5,
+       auto=-1.0),
+    _K("seed", (0, 1, 2 ** 31), dispatch_inert=True),
+    _K("num_model_shards", (1, 2), invalid=0),
+    _K("num_data_shards", (1, 2), invalid=0),
+    _K("embedding_partition", ("rows", "cols"), invalid="diag"),
+    _K("mesh_shape", (None, (1, 1))),
+    _K("step_lowering", ("gspmd", "shard_map"), invalid="magic"),
+    _K("unigram_table_size", (1, 100_000_000), invalid=0,
+       dispatch_inert=True),
+    _K("sample_power", (0.75, 1.0), dispatch_inert=True),
+    _K("pairs_per_batch", (64, 4096, 8192), invalid=0),
+    _K("sigmoid_mode", ("exact", "clipped"), invalid="lut"),
+    _K("allow_unstable", (False, True)),
+    _K("duplicate_scaling", (False, True)),
+    _K("negative_pool", (-1, 0, 64, 2048), invalid=-2, auto=-1),
+    _K("pad_vector_to_lanes", (True, False)),
+    _K("param_dtype", ("float32", "bfloat16"), invalid="float8"),
+    _K("compute_dtype", ("float32", "bfloat16"), invalid="float8"),
+    _K("logits_dtype", ("float32", "bfloat16"), invalid="float64"),
+    # --- the step restructurings: all three gate
+    # dispatch-path selection and carry multi-knob refusals, so none is
+    # dispatch-inert ---
+    _K("fused_logits", (False, True)),
+    _K("bf16_chain", (False, True)),
+    _K("hot_rows", (0, 8), invalid=-1),
+    _K("hot_flush_every", (0, 2), invalid=-1),
+    _K("use_pallas", (False, True)),
+    _K("sharded_checkpoint", (False, True)),
+    _K("cbow", (False, True)),
+    _K("cbow_update", ("scatter", "banded"), invalid="fused"),
+    _K("shuffle", (True, False), dispatch_inert=True),
+    _K("min_alpha_factor", (1e-4, 1.0), dispatch_inert=True),
+    _K("decay_interval_words", (1, 10_000), dispatch_inert=True),
+    _K("steps_per_dispatch", (1, 16), invalid=0),
+    # local-SGD merge cadence: 2 exercises the window dispatch
+    # path (shard_map-only, must divide steps_per_dispatch — both refusal
+    # twins live in config __post_init__ beside the dispatch guards)
+    _K("sync_every", (1, 2), invalid=0),
+    _K("heartbeat_every_steps", (2, 100), invalid=0, dispatch_inert=True),
+    _K("prefetch_chunks", (0, 8), invalid=-1, dispatch_inert=True),
+    _K("profile_dir", ("",), dispatch_inert=True,
+       pinned="fit-only effect; a non-empty dir would arm the profiler on "
+              "any candidate a later tool fits"),
+    _K("feed_consistency_check", (False, True), dispatch_inert=True),
+    _K("shard_input", (True, False)),
+    _K("device_pairgen", (False, True)),
+    _K("tokens_per_step", (0, 64, 200_000), invalid=-1),
+    _K("producer_workers", (1, 4), invalid=0, dispatch_inert=True),
+    _K("io_workers", (1, 2), invalid=0, dispatch_inert=True),
+    _K("sharded_prefetch", (True, False), dispatch_inert=True),
+    _K("nonfinite_policy", ("halt", "rollback", "none"), invalid="retry",
+       dispatch_inert=True),
+    _K("rollback_history", (1, 2), invalid=0, dispatch_inert=True),
+    _K("max_rollbacks", (0, 8), invalid=-1, dispatch_inert=True),
+    _K("telemetry_path", ("",), dispatch_inert=True,
+       pinned="side-effectful at Trainer construction (opens the JSONL "
+              "sink); the sink contract is tested in tests/test_obs.py"),
+    _K("telemetry_rotate_bytes", (1, 64 << 20), invalid=0,
+       dispatch_inert=True),
+    _K("heartbeat_ring", (1, 512), invalid=0, dispatch_inert=True),
+    _K("norm_watch", ("off", "warn", "recover", "halt"), invalid="auto"),
+    _K("norm_watch_threshold", (1.0, 100.0), invalid=0.0,
+       dispatch_inert=True),
+    _K("norm_watch_frac", (0.01, 1.0), invalid=0.0, dispatch_inert=True),
+    _K("norm_watch_max", (1.0, 1000.0), invalid=0.0, dispatch_inert=True),
+    _K("max_row_norm", (0.0, 50.0), invalid=-1.0),
+    _K("update_clip", (0.0, 0.5), invalid=-1.0),
+    _K("row_l2", (0.0, 1e-4, 0.99), invalid=1.0),
+    _K("recover_lr_backoff", (0.5, 1.0), invalid=0.0, dispatch_inert=True),
+    _K("max_recoveries", (0, 4), invalid=-1, dispatch_inert=True),
+    _K("profile_steps", (0, 10), invalid=-1, dispatch_inert=True),
+    _K("status_port", (0,), invalid=-1, dispatch_inert=True,
+       pinned="side-effectful at fit start (binds a localhost socket + "
+              "serving thread); the statusd contract incl. zero-cost-when-"
+              "off is tested in tests/test_statusd.py"),
+    _K("blackbox_ring", (1, 256), invalid=0, dispatch_inert=True),
+    # --- preemption + training-supervisor knobs (train/supervisor.py,
+    # docs/robustness.md §supervisor): checkpoint_on_preempt/
+    # preempt_deadline_s/peer_beacon_s are read only by the trainer's
+    # signal + round-bookkeeping paths (host-side, after dispatch is
+    # staged); the supervisor_* knobs only by the supervisor process —
+    # dispatch-inert by construction ---
+    _K("checkpoint_on_preempt", (False, True), dispatch_inert=True),
+    _K("preempt_deadline_s", (1.0, 30.0), invalid=0.0, dispatch_inert=True),
+    _K("peer_beacon_s", (0.0, 0.5, 5.0), invalid=-1.0, dispatch_inert=True),
+    _K("supervisor_stall_s", (5.0, 300.0), invalid=0.0, dispatch_inert=True),
+    _K("supervisor_max_restarts", (0, 2, 8), invalid=-1,
+       dispatch_inert=True),
+    _K("supervisor_loop_window", (2, 3), invalid=1, dispatch_inert=True),
+    # --- serving-tier knobs (serve/, docs/serving.md): read only by the
+    # serving process (EmbeddingService), never by trainer construction or
+    # dispatch — dispatch-inert by construction ---
+    _K("serve_max_batch", (1, 16, 64), invalid=0, dispatch_inert=True),
+    _K("serve_max_delay_ms", (0.0, 2.0), invalid=-1.0, dispatch_inert=True),
+    _K("serve_queue_depth", (1, 256), invalid=0, dispatch_inert=True),
+    _K("serve_ann_centroids", (0, 8, 4096), invalid=-1, auto=0,
+       dispatch_inert=True),
+    _K("serve_ann_nprobe", (0, 1, 64), invalid=-1, auto=0,
+       dispatch_inert=True),
+    _K("serve_ann_quant", ("f32", "int8", "pq"), invalid="int4",
+       dispatch_inert=True),
+    _K("serve_ann_pq_m", (0, 8, 16), invalid=-1, auto=0,
+       dispatch_inert=True),
+    _K("serve_ann_rerank", (-1, 0, 64), invalid=-2, auto=0,
+       dispatch_inert=True),
+    _K("serve_ann_recall_floor", (-1.0, 0.0, 0.95), invalid=1.5, auto=-1.0,
+       dispatch_inert=True),
+    _K("serve_ann_max_densify_bytes", (0, 8 << 30), invalid=-1,
+       dispatch_inert=True),
+    _K("serve_reload_poll_s", (0.05, 0.5), invalid=0.0, dispatch_inert=True),
+    # --- serving-fleet knobs (serve/fleet.py, docs/serving.md §5): read
+    # only by the fleet router process (FleetRouter / fleet_run),
+    # never by trainer construction or dispatch — dispatch-inert by
+    # construction, like the serve_* tier ---
+    _K("serve_fleet_replicas", (1, 3, 8), invalid=0, dispatch_inert=True),
+    _K("serve_fleet_probe_s", (0.05, 0.5), invalid=0.0, dispatch_inert=True),
+    _K("serve_fleet_breaker_failures", (1, 3), invalid=0,
+       dispatch_inert=True),
+    _K("serve_fleet_breaker_reset_s", (0.25, 2.0), invalid=0.0,
+       dispatch_inert=True),
+    _K("serve_fleet_hedge_ms", (-1.0, 0.0, 5.0), invalid=-2.0, auto=-1.0,
+       dispatch_inert=True),
+    _K("serve_fleet_retry_deadline_s", (1.0, 10.0), invalid=0.0,
+       dispatch_inert=True),
+    # --- continual-training knobs (continual/, docs/continual.md): read
+    # only by the continual runner (ContinualRunner), never by trainer
+    # construction or dispatch — dispatch-inert by construction, like the
+    # serve_* tier ---
+    _K("continual_min_new_words", (1, 100), invalid=0, dispatch_inert=True),
+    _K("continual_lr_rewarm", (0.5, 1.0), invalid=0.0, dispatch_inert=True),
+    _K("continual_iterations", (1, 3), invalid=0, dispatch_inert=True),
+    _K("continual_replay_segments", (0, 2), invalid=-1,
+       dispatch_inert=True),
+    _K("continual_poll_s", (0.05, 2.0), invalid=0.0, dispatch_inert=True),
+]}
+
+
+def config_defaults() -> dict:
+    """Field -> dataclass default (the lattice's origin point)."""
+    from glint_word2vec_torch.config import Word2VecConfig
+    return {f.name: f.default for f in dataclasses.fields(Word2VecConfig)}
+
+
+def registry_drift() -> list:
+    """Both-direction diff of the registry vs the live dataclass, plus the
+    domain-contains-default invariant the shrinker depends on. Non-empty =
+    the checker fails (the maintenance rule is a gate, not advice)."""
+    defaults = config_defaults()
+    drift = []
+    for name in sorted(set(defaults) - set(KNOBS)):
+        drift.append(f"config field {name!r} missing from the graftcheck "
+                     f"knob registry — declare its sampled domain "
+                     f"(glint_word2vec_torch/graftcheck/registry.py)")
+    for name in sorted(set(KNOBS) - set(defaults)):
+        drift.append(f"registry knob {name!r} no longer exists on "
+                     f"Word2VecConfig — drop the stale entry")
+    for name, knob in sorted(KNOBS.items()):
+        if name in defaults and defaults[name] not in knob.domain:
+            drift.append(f"registry domain for {name!r} does not contain "
+                         f"the dataclass default {defaults[name]!r} — the "
+                         f"shrinker resets knobs to defaults")
+        if len(knob.domain) < 2 and not knob.pinned:
+            drift.append(f"registry domain for {name!r} is a single value "
+                         f"with no pinned reason — widen it or document why")
+    return drift

@@ -1315,6 +1315,11 @@ class FleetRouter:
     def breaker_states(self) -> Dict[str, str]:
         return {r.name: r.breaker.state for r in self._replicas}
 
+    def in_flight(self) -> Dict[str, int]:
+        """Attempts submitted and not yet settled, by replica (hedges included)."""
+        with self._lock:
+            return {r.name: r.in_flight for r in self._replicas}
+
     def breaker_transitions(self, name: str) -> List[Tuple[str, str, str]]:
         for r in self._replicas:
             if r.name == name:

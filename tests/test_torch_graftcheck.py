@@ -1,0 +1,323 @@
+"""graftcheck over the port (``glint_word2vec_torch.graftcheck``, the config-lattice
+model checker over ``glint_word2vec_torch.config.Word2VecConfig``), ported from
+``tests/test_graftcheck.py`` on the CPU: the first run's counterexamples stay refused at
+construction, the shrinker reduces a seeded violation to its three knobs and a real
+refusal to its two, the properties hold on tricky configs, the dispatch probe (the
+port's ``Trainer`` on the CPU) classifies and caches, the registry, docs and baseline
+gates detect drift, and the ``--smoke`` sweep runs clean as a subprocess.
+
+Beside them: the port's one unported knob, ``use_pallas``, is refused by name and sits
+in the port's baseline; the two packages' baselines hold the same refusal signatures
+apart from it; and both packages' ``construct`` give equal refusal keys over one seeded
+sample of the lattice."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+from _torch_mesh_worker import one_torch_thread
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from glint_word2vec_torch.config import Word2VecConfig  # noqa: E402
+from glint_word2vec_torch.graftcheck import (  # noqa: E402
+    checker,
+    lattice,
+    properties,
+    registry,
+)
+from glint_word2vec_torch.graftcheck.shrink import shrink  # noqa: E402
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    yield from one_torch_thread()
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's first-run counterexamples: each was once accepted at
+# construction and refused only at dispatch (or crashed past every refusal);
+# the port copies the fixed validators, so each is refused at construction
+# ---------------------------------------------------------------------------
+
+FIRST_RUN_COUNTEREXAMPLES = [
+    (dict(device_pairgen=True, cbow=True), "skip-gram only"),
+    (dict(device_pairgen=True, use_pallas=True), "use_pallas"),
+    (dict(device_pairgen=True, window=1), "window"),
+    (dict(device_pairgen=True, tokens_per_step=200_000, window=100),
+     "prefix-sum bound"),
+    (dict(embedding_partition="cols", sharded_checkpoint=True), "cols"),
+    (dict(param_dtype="float8"), "param_dtype"),
+    (dict(compute_dtype="float8"), "compute_dtype"),
+    (dict(steps_per_dispatch=0), "steps_per_dispatch"),
+    (dict(heartbeat_every_steps=0), "heartbeat_every_steps"),
+    (dict(prefetch_chunks=-1), "prefetch_chunks"),
+]
+
+
+@pytest.mark.parametrize(
+    "kwargs,match",
+    FIRST_RUN_COUNTEREXAMPLES,
+    ids=[",".join(sorted(kw)) for kw, _ in FIRST_RUN_COUNTEREXAMPLES])
+def test_first_run_counterexample_now_refused_at_construction(kwargs, match):
+    with pytest.raises(ValueError, match=match):
+        Word2VecConfig(**kwargs)
+
+
+def test_first_run_counterexample_replace_preserves_pool_autoness():
+    """The replace_parity finding: flipping an AUTO-pool config on a
+    non-geometry knob (seed) used to freeze the resolved pool, which then
+    read as EXPLICIT — to_dict(auto_markers=True) stored it and the
+    Trainer's vocab-scaled safety rule silently skipped it."""
+    c = Word2VecConfig()
+    assert getattr(c, "_auto_pool") is True
+    c2 = c.replace(seed=123)
+    assert getattr(c2, "_auto_pool") is True
+    assert c2.negative_pool == c.negative_pool  # same geometry, same value
+    assert c2.to_dict(auto_markers=True)["negative_pool"] == -1
+    # and the property itself holds on the flip set
+    assert properties.check_replace(c) is None
+
+
+def test_vocab_scaled_pool_survives_duplicate_channel_lowering():
+    """Review finding on the replace() fix itself: the trainer resolves a
+    still-AUTO pool UPWARD past 500k vocab (load <= 160), then the duplicate-
+    channel auto-lowering calls cfg.replace(subsample_ratio=lo) — whose
+    unconditional pool re-derivation would silently revert the enlargement
+    to the config-level load <= 600 rule (inside the measured large-vocab
+    blowup region). The trainer now re-applies the vocab-scaled rule after
+    the lowering."""
+    import numpy as np
+
+    from glint_word2vec_torch.data.vocab import Vocabulary
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+    from glint_word2vec_torch.train.trainer import Trainer
+
+    V = 600_001
+    counts = np.full(V, 5, np.int64)
+    counts[0] = 5_000_000  # skewed: forces the duplicate-channel lowering
+    vocab = Vocabulary.from_words_and_counts(
+        [f"w{i}" for i in range(V)], counts)
+    cfg = Word2VecConfig(vector_size=8, pad_vector_to_lanes=False,
+                         pairs_per_batch=8192, negatives=25,
+                         prefetch_chunks=0)
+    assert cfg.negative_pool == 384  # config-level load <= 600 resolution
+    trainer = Trainer(cfg, vocab, plan=make_mesh(1, 1), device="cpu")
+    # the subsample auto-lowering fired...
+    assert trainer.config.subsample_ratio < 1e-3
+    # ...and the vocab-scaled pool (load <= 160 -> 1280) survived it
+    assert trainer.config.negative_pool == 1280, trainer.config.negative_pool
+    assert getattr(trainer.config, "_auto_pool") is True
+
+
+# ---------------------------------------------------------------------------
+# shrinker
+# ---------------------------------------------------------------------------
+
+def test_shrinker_reduces_seeded_violation_to_three_knobs():
+    """Acceptance criterion: seed a synthetic violation into a WIDE config
+    (every registry knob set) and the shrinker must come back with exactly
+    the ≤3-knob core."""
+    wide = dict(next(iter(lattice.pairwise_tier()))[1])
+    wide.update(cbow=True, use_pallas=True, window=7)
+    nd = lattice.nondefault(wide)
+    assert len(nd) > 10  # genuinely wide before shrinking
+
+    def seeded_predicate(kwargs):
+        if (kwargs.get("cbow") and kwargs.get("use_pallas")
+                and kwargs.get("window") == 7):
+            return "seeded-violation"
+        return None
+
+    assert seeded_predicate(nd) == "seeded-violation"
+    small = shrink(nd, seeded_predicate, "seeded-violation")
+    assert set(small) == {"cbow", "use_pallas", "window"}
+    assert len(small) <= 3
+
+
+def test_shrinker_finds_real_minimal_combo():
+    """Same machinery against the REAL constructor: a kitchen-sink refused
+    config shrinks to the documented 2-knob combo."""
+    kwargs = dict(cbow=True, use_pallas=True, vector_size=8, seed=9,
+                  negatives=25, shuffle=False, norm_watch="warn")
+    key = properties.construction_key(kwargs)
+    assert key and key.startswith("refused")
+    small = shrink(kwargs, properties.construction_key, key)
+    assert set(small) == {"cbow", "use_pallas"}
+
+
+# ---------------------------------------------------------------------------
+# property units on tricky configs
+# ---------------------------------------------------------------------------
+
+def test_serialization_fixpoint_on_auto_and_resolved_configs():
+    for kwargs in (dict(),                                  # all-AUTO
+                   dict(negative_pool=64, subsample_ratio=1e-4),  # explicit
+                   dict(cbow=True, duplicate_scaling=True),  # pool -> 0
+                   dict(mesh_shape=(1, 1)),                  # tuple via JSON
+                   dict(step_lowering="shard_map")):
+        cfg = Word2VecConfig(**kwargs)
+        assert properties.check_serialization(cfg) is None, kwargs
+        assert properties.check_ckpt_normalization(cfg) is None, kwargs
+
+
+def test_from_dict_is_deliberately_more_lenient_than_replace():
+    """The distinction the first smoke run surfaced: from_dict normalizes
+    old-checkpoint dicts (stored resolved pool beside cbow+duplicate_scaling
+    -> 0), while the constructor and replace() both refuse the same knobs —
+    that asymmetry is the documented contract, not a parity violation."""
+    d = Word2VecConfig(cbow=True, duplicate_scaling=True).to_dict(
+        auto_markers=False)
+    loaded = Word2VecConfig.from_dict({**d, "negative_pool": 64})
+    assert loaded.negative_pool == 0
+    # the normalization is scatter-scoped: a banded dict does not qualify
+    # (no old checkpoint can carry it) and falls through to the refusal
+    with pytest.raises(ValueError, match="banded"):
+        Word2VecConfig.from_dict({**d, "negative_pool": 64,
+                                  "cbow_update": "banded"})
+
+
+def test_dispatch_probe_classifies_and_caches():
+    probe = properties.DispatchProbe("cpu")
+    assert probe.probe_kwargs(dict(vector_size=8)) is None
+    n = probe.probes_run
+    # dispatch-inert knob flips hit the projection cache, not a new Trainer
+    assert probe.probe_kwargs(dict(vector_size=8, seed=5)) is None
+    assert probe.probes_run == n
+
+
+# ---------------------------------------------------------------------------
+# gates
+# ---------------------------------------------------------------------------
+
+def test_registry_covers_all_fields():
+    assert registry.registry_drift() == []
+
+
+def test_docs_gate_clean_and_detects_missing():
+    assert checker.docs_gate(REPO) == []
+    # a knob absent from every doc file must be reported — simulate by
+    # checking against an empty corpus root
+    import tempfile
+    with tempfile.TemporaryDirectory() as td:
+        missing = checker.docs_gate(td)
+        assert "negative_pool" in missing and len(missing) == len(
+            registry.KNOBS)
+
+
+def test_baseline_drift_detected_both_ways(tmp_path):
+    report = {"mode": "full", "refusal_signatures": [
+        {"knobs": ["a", "b"], "values": {}, "key": "refused: combo-one"}],
+        "violations": []}
+    base = tmp_path / "baseline.json"
+    base.write_text(json.dumps({"refusal_signatures": [
+        {"knobs": ["c"], "values": {}, "key": "refused: combo-two"}],
+        "violations": []}))
+    gated = checker.apply_gates(dict(report), REPO, str(base))
+    drift = " ".join(gated["baseline_drift"])
+    assert "NEW refusal signature" in drift
+    assert "no longer observed" in drift
+    assert not gated["ok"]
+    # fail-closed on a missing baseline, like graftlint
+    gated2 = checker.apply_gates(dict(report), REPO,
+                                 str(tmp_path / "nope.json"))
+    assert any("not found" in d for d in gated2["baseline_drift"])
+
+
+def test_unexplained_violation_fails_and_justified_baseline_passes(tmp_path):
+    report = {"mode": "full", "refusal_signatures": [], "violations": [
+        {"property": "replace_parity", "key": "k1", "message": "m",
+         "counterexample": {}, "knobs_in_counterexample": 1}]}
+    base = tmp_path / "baseline.json"
+    base.write_text(json.dumps(
+        {"refusal_signatures": [], "violations": []}))
+    gated = checker.apply_gates(dict(report), REPO, str(base))
+    assert gated["unexplained_violations"] == 1 and not gated["ok"]
+    base.write_text(json.dumps({"refusal_signatures": [], "violations": [
+        {"key": "k1", "justification": "accepted: reviewed"}]}))
+    gated = checker.apply_gates(
+        {"mode": "full", "refusal_signatures": [], "violations": [
+            dict(report["violations"][0])]}, REPO, str(base))
+    assert gated["unexplained_violations"] == 0
+    assert gated["violations"][0]["baselined"]
+
+
+# ---------------------------------------------------------------------------
+# the smoke sweep as a subprocess (the CLI and its one JSON line)
+# ---------------------------------------------------------------------------
+
+def test_smoke_sweep_runs_clean_cli():
+    proc = subprocess.run(
+        [sys.executable, "-m", "glint_word2vec_torch.graftcheck", "--smoke",
+         "--device", "cpu"],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    # exactly one JSON line on stdout
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    assert len(lines) == 1, proc.stdout
+    report = json.loads(lines[0])
+    assert report["ok"] and report["tool"] == "graftcheck"
+    assert report["device"] == "cpu"
+    assert report["knobs"] == 96
+    assert report["unexplained_violations"] == 0
+    assert report["configs_executed"] >= 200   # the thinned lattice
+    assert report["refusal_signatures"], "refusal inventory must be nonempty"
+    # runtime-only refusals cannot fire in the hermetic probe env
+    assert report["runtime_refusals"] == {}
+    # the port's unported knob is among the signatures the smoke sees
+    assert any(s["knobs"] == ["use_pallas"] and s["key"].startswith("unported")
+               for s in report["refusal_signatures"])
+
+
+# ---------------------------------------------------------------------------
+# the port against the JAX package
+# ---------------------------------------------------------------------------
+
+def test_use_pallas_refused_by_name():
+    key = properties.construction_key({"use_pallas": True})
+    assert key.startswith("unported: use_pallas=True is not ported")
+    with open(checker.BASELINE_PATH, encoding="utf-8") as f:
+        base = json.load(f)
+    assert {"knobs": ["use_pallas"], "values": {"use_pallas": "True"},
+            "key": key} in base["refusal_signatures"]
+
+
+def test_baseline_is_the_jax_packages_but_use_pallas():
+    from tools.graftcheck import checker as jchecker
+    with open(jchecker.BASELINE_PATH, encoding="utf-8") as f:
+        want = {s["key"]: s["knobs"] for s in json.load(f)["refusal_signatures"]}
+    with open(checker.BASELINE_PATH, encoding="utf-8") as f:
+        got = {s["key"]: s["knobs"] for s in json.load(f)["refusal_signatures"]}
+    unported = {k: v for k, v in got.items() if k.startswith("unported")}
+    assert list(unported.values()) == [["use_pallas"]]
+    assert {k: v for k, v in got.items() if k not in unported} == want
+
+
+def test_construction_refusals_match_the_jax_package():
+    """Both packages' ``construct`` over one seeded sample of the lattice (the range
+    tier, the thinned refusal groups, and 200 seeded full-width rows): equal keys, the
+    same acceptance, apart from ``use_pallas``: where it is on, the port refuses the
+    config, by that name where the JAX package accepts it (with another refusal, the
+    two packages' validators may name their first finding in another order)."""
+    from tools.graftcheck import properties as jproperties
+    sample = (list(lattice.range_tier()) + list(lattice.refusal_tier(thin=7))
+              + list(lattice.sampled_tier(200, seed=3)))
+    refused = pallas = 0
+    for _, kwargs in sample:
+        _, got = properties.construct(kwargs)
+        _, want = jproperties.construct(kwargs)
+        if kwargs.get("use_pallas"):
+            pallas += 1
+            assert got is not None, kwargs
+            if want is None:
+                assert got.startswith("unported: use_pallas"), (kwargs, got)
+            continue
+        assert got == want, (lattice.nondefault(kwargs), got, want)
+        refused += got is not None
+    assert refused > 50 and pallas > 20

@@ -58,7 +58,13 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.continual.extend, glint_word2vec_torch.continual.stream, "
             "glint_word2vec_torch.continual.loop, glint_word2vec_torch.continual_run, "
             "glint_word2vec_torch.parallel.distributed, glint_word2vec_torch.parallel.mesh, "
-            "glint_word2vec_torch.ops.sgns_shard\n"
+            "glint_word2vec_torch.ops.sgns_shard, glint_word2vec_torch.run_report, "
+            "glint_word2vec_torch.telemetry_tail, glint_word2vec_torch.telemetry_run, "
+            "glint_word2vec_torch.racecheck, glint_word2vec_torch.graftcheck, "
+            "glint_word2vec_torch.graftcheck.checker, glint_word2vec_torch.graftcheck.lattice, "
+            "glint_word2vec_torch.graftcheck.properties, "
+            "glint_word2vec_torch.graftcheck.registry, glint_word2vec_torch.graftcheck.shrink, "
+            "glint_word2vec_torch.graftcheck.__main__\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"
@@ -121,6 +127,19 @@ def test_entry_points_default_to_the_card(tmp_path):
     model.save(str(tmp_path / "m"))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Word2VecModel.load(str(tmp_path / "m"))
+
+
+@pytest.mark.parametrize("tool", ["telemetry_run", "racecheck", "graftcheck"])
+def test_tools_default_to_the_card(tool, tmp_path):
+    """The run-log and checker tools that touch a device take ``--device`` with the card
+    as its default: with no card visible they fail, naming ``device='cpu'``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-m", f"glint_word2vec_torch.{tool}", "--smoke"],
+                       env=env, capture_output=True, text=True, timeout=300,
+                       cwd=str(tmp_path))
+    assert r.returncode != 0
+    assert "device='cpu'" in r.stderr, r.stderr[-2000:]
 
 
 def test_params_from_numpy_defaults_to_the_card(monkeypatch):

@@ -75,15 +75,19 @@ def test_r9_scans_the_port(on_the_port, tmp_path):
 
 
 def test_every_lock_of_the_port_is_registered():
-    """No raw threading primitive in the port outside the registry itself, and each
-    registered site constructs its lock through the factory."""
+    """No raw threading primitive in the port outside the registry itself (but for a
+    line carrying R9's reviewed suppression: racecheck's zero-cost probe compares the
+    factories with the raw primitives), and each registered site constructs its lock
+    through the factory."""
     raw = []
     for path in sorted((REPO / "glint_word2vec_torch").rglob("*.py")):
         if path.name == "lockcheck.py" and path.parent.name == "glint_word2vec_torch":
             continue
+        lines = path.read_text().splitlines()
         for node in ast.walk(ast.parse(path.read_text())):
             if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
-                    and node.func.attr in ("Lock", "RLock", "Condition")):
+                    and node.func.attr in ("Lock", "RLock", "Condition")
+                    and "graftlint: disable=R9 --" not in lines[node.lineno - 1]):
                 raw.append(f"{path.relative_to(REPO)}:{node.lineno}")
     assert raw == []
     for name, entry in lockcheck.LOCK_TABLE.items():

@@ -13,7 +13,11 @@
   validate under both packages' validators.
 - A telemetry fit is observe-only (parameters bit-identical to the plain fit) and its
   heartbeats' norms match the JAX trainer's on the same toy; a probe, a snapshot and a
-  save on a hot-row fit never see a pending slab."""
+  save on a hot-row fit never see a pending slab.
+- ``python -m glint_word2vec_torch.telemetry_run --smoke --device cpu`` (the port of
+  ``tools/telemetry_run.py``, whose counterpart is ``tests/test_obs.py``'s
+  ``test_telemetry_run_smoke``): one JSON line, a schema-valid run log (under both
+  packages' validators) and a Chrome trace with the required spans."""
 
 import json
 import os
@@ -400,3 +404,30 @@ def test_profile_dir_writes_a_trace(tmp_path):
     doc = json.load(open(tmp_path / "prof" / files[0]))
     assert doc["traceEvents"]
     assert t._profiler is None
+
+
+def test_telemetry_run_smoke(tmp_path):
+    """The scripted telemetry fit as a subprocess on the CPU: one JSON line, the run log
+    schema-valid, the trace with the producer, dispatch, probe and checkpoint spans (the
+    staging span is the card's: the port stages chunks only to a card), no dump, and no
+    kernel launch counted (the wrappers count on the card only)."""
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "glint_word2vec_torch.telemetry_run", "--smoke",
+         "--device", "cpu", "--out", str(tmp_path / "art")],
+        env=dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1"), cwd=repo,
+        capture_output=True, timeout=500, text=True)
+    assert proc.returncode == 0, proc.stdout[-1000:] + proc.stderr[-1000:]
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    assert len(lines) == 1
+    res = json.loads(lines[0])
+    assert res["ok"] and res["schema_valid"] and res["device"] == "cpu"
+    assert res["missing_spans"] == []
+    assert {"producer", "dispatch", "health_probe", "checkpoint_save"} <= set(res["spans"])
+    assert "stage_put" not in res["spans"]
+    assert res["blackbox_absent"] and res["steps"] > 0
+    assert set(res["launches"].values()) == {0}
+    assert jschema.validate_file(res["run_log"])["ok"]
+    assert os.path.exists(res["trace"])

@@ -8,11 +8,9 @@ liveness beacons; the injected stall; the ``glint_supervisor_*`` gauges, equal t
 JAX function's text on the same snapshot; the config's three ``supervisor_*`` checks,
 raised by both packages with the same messages; and the three drills of
 ``train_run --smoke --device cpu`` (a real fit of the port, preempted, stalled and
-crash-looped under the supervisor).
-
-Two groups of the JAX file are left out here: the ``run_report`` cases (that report is
-``tools/run_report.py``, which the port has no counterpart of) and the ``chaos_run``
-CLI case, which ``tests/test_torch_chaos.py`` ports."""
+crash-looped under the supervisor); and ``python -m glint_word2vec_torch.run_report``
+over a preempted run's log (the deadline made, and missed). The JAX file's
+``chaos_run`` CLI case is ported by ``tests/test_torch_chaos.py``."""
 
 import json
 import os
@@ -289,6 +287,54 @@ def test_maybe_stall_fires_once_at_step():
     assert faults.maybe_stall(3) == pytest.approx(0.3)
     assert time.monotonic() - t0 >= 0.3
     assert faults.maybe_stall(3) == 0.0  # once: the resume must run
+
+
+# -- run_report: the "preempted" status -------------------------------------------------
+
+
+def _run_report(log):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-m", "glint_word2vec_torch.run_report", log],
+                          cwd=REPO, capture_output=True, text=True, timeout=120, env=env)
+
+
+def test_run_report_preempted_status(tmp_path):
+    """A deadline-checkpointed preemption reports status "preempted" (not
+    "truncated"), carries steps saved and steps lost, and still exits nonzero:
+    resuming is the supervisor's job."""
+    from glint_word2vec_torch.obs.sink import TelemetrySink
+    log = str(tmp_path / "run.jsonl")
+    sink = TelemetrySink(log)
+    sink.emit("run_start", run_id="r1", vocab_size=10, mesh=[1, 1], config={})
+    sink.emit("heartbeat", step=6, words=60, alpha=0.02, loss=0.1, mean_f_pos=0.5,
+              pairs_per_sec=100.0, host_wait_s=0.0, dispatch_s=0.1)
+    sink.emit("preempt", step=6, saved=True, checkpoint="ck", deadline_s=30.0,
+              steps_since_save=0)
+    sink.emit("run_end", run_id="r1", status="preempted", steps=6, pairs_trained=600,
+              host_wait_s_total=0.0, dispatch_s_total=0.1, watchdog_fires=0)
+    sink.close()
+    proc = _run_report(log)
+    assert proc.returncode == 1, proc.stdout + proc.stderr
+    rep = json.loads(proc.stdout)
+    assert rep["schema_valid"], rep["schema_errors"]
+    assert rep["status"] == "preempted" and not rep["ok"]
+    assert rep["preempt"] == {"saved": True, "step": 6, "steps_saved": 6,
+                              "steps_lost": 0, "checkpoint": "ck"}
+
+
+def test_run_report_preempted_deadline_missed(tmp_path):
+    from glint_word2vec_torch.obs.sink import TelemetrySink
+    log = str(tmp_path / "run.jsonl")
+    sink = TelemetrySink(log)
+    sink.emit("run_start", run_id="r1", vocab_size=10, mesh=[1, 1], config={})
+    sink.emit("preempt", step=10, saved=False, checkpoint="ck", deadline_s=5.0,
+              steps_since_save=3)
+    sink.emit("run_end", run_id="r1", status="preempted", steps=10, pairs_trained=0,
+              host_wait_s_total=0.0, dispatch_s_total=0.0, watchdog_fires=0)
+    sink.close()
+    rep = json.loads(_run_report(log).stdout)
+    assert rep["preempt"]["steps_lost"] == 3
+    assert rep["preempt"]["steps_saved"] == 7
 
 
 # -- the gauges -------------------------------------------------------------------------

@@ -1,10 +1,8 @@
 """The port's fleet observability plane on the CPU (``glint_word2vec_torch/obs/slo.py``,
 ``obs/collect.py``, the fleet router's trace spans), held against the JAX package's.
 
-Ported from ``tests/test_trace_collect.py`` (all of it but the two ``run_report`` cases
-and the ``run_report`` tail of the torn-tail case: that report is
-``tools/run_report.py``, which the port has no counterpart of), each case on the port
-with ``device="cpu"``:
+Ported from ``tests/test_trace_collect.py``, each case on the port with
+``device="cpu"``:
 
 - the schema round trip of ``trace_span`` / ``publish`` / ``fleet_slo`` and the clock
   anchor's fields;
@@ -14,7 +12,9 @@ with ``device="cpu"``:
   tracing is off, ``trace_sample`` thinning, a hedge loser ``abandoned`` and never
   ``failed``;
 - the collector over out-of-order, clock-skewed, restart-epoch fixtures, publish chains,
-  the offline SLO recompute, the Perfetto export and the slowest-K exemplars.
+  the offline SLO recompute, the Perfetto export and the slowest-K exemplars;
+- ``glint_word2vec_torch.run_report``'s fleet mode: each process's status, a dump
+  folded in, the verdict reddened by an ``error`` end and not by a torn tail.
 
 Parity with the JAX package: ``burn_rates_from_samples`` and ``SloTracker`` on the same
 seeded samples, and ``collect`` (timeline order, SLO, summary, Perfetto document) on one
@@ -626,6 +626,56 @@ def test_validate_file_tolerates_torn_tail_only(tmp_path):
     with open(midbad, "w", encoding="utf-8") as f:
         f.write(good[: len(good) // 2] + "\n" + good + "\n")
     assert not validate_file(midbad, tolerate_torn_tail=True)["ok"]
+    # fleet-mode run_report rides the same tolerance: a torn-tail replica sink must not
+    # redden the verdict (the drill kills replicas mid-write)
+    from glint_word2vec_torch.run_report import summarize_fleet
+    rep = summarize_fleet([torn])
+    assert rep["ok"] and rep["processes"]["torn"]["schema_valid"]
+
+
+# -- run_report fleet mode --------------------------------------------------------------
+
+
+def test_run_report_fleet_mode(tmp_path):
+    from glint_word2vec_torch.obs.blackbox import FlightRecorder
+    from glint_word2vec_torch.run_report import summarize_fleet
+    ok_log = str(tmp_path / "r0.jsonl")
+    _write(ok_log, [
+        _rec("serve_start", t=1.0, checkpoint="/ck", vocab_size=9, vector_size=4),
+        _rec("serve_end", t=2.0, submitted=5, refused=0, reloads=0),
+    ])
+    dead_log = str(tmp_path / "r1.jsonl")
+    _write(dead_log, [
+        _rec("serve_start", t=1.0, checkpoint="/ck", vocab_size=9, vector_size=4),
+    ])
+    # the dead replica left a flight-recorder dump (the SIGTERM shape)
+    fr = FlightRecorder(dead_log + ".blackbox.json")
+    fr.begin_run("r1")
+    fr.dump(cause=FlightRecorder.signal_cause(15))
+    rep = summarize_fleet([ok_log, dead_log])
+    assert rep["ok"] and rep["mode"] == "fleet"
+    assert rep["processes"]["r0"]["status"] == "ok"
+    assert rep["processes"]["r1"]["status"] == "truncated"
+    assert rep["processes"]["r1"]["dumped"]
+    assert rep["processes"]["r1"]["cause"] == "signal"
+    assert rep["merged"]["logs"] == 2 and rep["merged"]["dumps"] == 1
+    assert rep["merged"]["schema_valid"]
+
+
+def test_run_report_fleet_mode_gates_on_error_status(tmp_path):
+    # a trainer whose run ended "error" reddens the fleet's verdict; "truncated" (the
+    # SIGKILL teardown) is tolerated, an explicit error is not
+    from glint_word2vec_torch.run_report import summarize_fleet
+    bad = str(tmp_path / "trainer.jsonl")
+    _write(bad, [
+        _rec("run_start", t=1.0, run_id="r", vocab_size=9, mesh=[1, 1], config={}),
+        _rec("run_end", t=2.0, run_id="r", status="error", steps=3, pairs_trained=10,
+             wall_seconds=1.0),
+    ])
+    rep = summarize_fleet([bad])
+    assert not rep["ok"]
+    assert not rep["processes"]["trainer"]["ok"]
+    assert rep["processes"]["trainer"]["status"] == "error"
 
 
 def test_collector_keeps_rotated_only_logs(tmp_path):
