@@ -324,9 +324,11 @@ Phases, one line each (or a few); any failure exits non-zero:
                the producer, staging, dispatch, probe and checkpoint spans, a kernel
                launched: its counts join the kernels line under "tools"); graftcheck
                --smoke --device cuda clean (its dispatch probe builds the port's trainer
-               on the card); then, alone, racecheck --smoke --device cuda: no inversion
-               beyond its baseline and the zero-cost probe within 1.25x. Each tool's
-               JSON is printed.
+               on the card); graftlint --json over the checkout (ok, no unsuppressed
+               finding, no baseline drift, at least LINT_FILES files); then, alone,
+               racecheck --smoke --device cuda: no inversion beyond its baseline, the
+               zero-cost probe within 1.25x and its static cross-check's keys. Each
+               tool's JSON is printed (graftlint's summed up).
 Then a line with every fit's captures, replays, chunks, dispatch_s and idle share, one
 JSON line with every phase's seconds ({"phase_seconds": ..., "total_s": ...}), one
 JSON line with the kernels' numbers, the nvidia-smi line, and the result line
@@ -3283,16 +3285,18 @@ def fleet_phase(ck: str, corpus, seed: int, np, device: str = "cuda",
     return rec
 
 
-# the tools phase (18): each child's time limit
+# the tools phase (18): each child's time limit, and the files graftlint must scan at
+# least (the port's modules and this script, as tests/test_torch_graftlint.py counts)
 TOOLS_CHILD_S = 180.0
+LINT_FILES = 85
 
 
 def tools_phase(device: str = "cuda") -> tuple:
     """Phase 18 (see the module docstring): the run-log tools over the logs phases 10
     (a), 12 (c) and 13 (a) left (:data:`KEPT`), the scripted telemetry fit, graftcheck's
-    smoke sweep and racecheck's smoke on ``device``, each a child process; racecheck
-    alone, after the others (its zero-cost A/B times lock loops). Returns (record, the
-    telemetry fit's kernel launches)."""
+    smoke sweep on ``device`` and the port's static lint, each a child process; then
+    racecheck's smoke on ``device`` alone, after the others (its zero-cost A/B times
+    lock loops). Returns (record, the telemetry fit's kernel launches)."""
     d = Path(KEPT["_dir"]) / "tools"
     d.mkdir()
     rt, q1, fl = KEPT["runtime_a"], KEPT["quality_c_first"], KEPT["fleet_a"]
@@ -3306,7 +3310,8 @@ def tools_phase(device: str = "cuda") -> tuple:
         "telemetry_tail 10a": [m + "telemetry_tail", rt["paths"][0]],
         "telemetry_run": [m + "telemetry_run", "--smoke", "--device", device, "--out",
                           str(d / "telemetry")],
-        "graftcheck": [m + "graftcheck", "--smoke", "--device", device]}
+        "graftcheck": [m + "graftcheck", "--smoke", "--device", device],
+        "graftlint": [m + "graftlint", "--json"]}
     children = {name: _module_child(args, str(d / f"{i}.err"))
                 for i, (name, args) in enumerate(started.items())}
     rc_tail, tail = _text_child(*children.pop("telemetry_tail 10a"), TOOLS_CHILD_S,
@@ -3324,6 +3329,7 @@ def tools_phase(device: str = "cuda") -> tuple:
     pre = q1["preempt"]
     lost = 0 if pre["saved"] else int(pre["steps_since_save"])
     tel, gc, rc = rec["telemetry_run"], rec["graftcheck"], rec["racecheck"]
+    gl = rec["graftlint"]
     try:
         with open(tel["trace"]) as f:
             trace_events = len(json.load(f)["traceEvents"])
@@ -3354,8 +3360,13 @@ def tools_phase(device: str = "cuda") -> tuple:
         "graftcheck clean": (gc["rc"] == 0 and gc["ok"]
                              and gc["unexplained_violations"] == 0
                              and gc["device"].startswith(device)),
+        "graftlint clean": (gl["rc"] == 0 and gl["ok"] and gl["unsuppressed"] == []
+                            and gl["baseline_drift"] == []
+                            and gl["files_scanned"] >= LINT_FILES),
         "racecheck ok": (rc["rc"] == 0 and rc["ok"] and rc["zero_cost"]["ok"]
                          and rc["inversions_unbaselined"] == []),
+        "racecheck cross-check": (isinstance(rc.get("static_edges"), list)
+                                  and isinstance(rc.get("edges_unexplained"), list)),
     }
     rec["checks"] = checks
     gc_line = {k: v for k, v in gc.items() if k != "refusal_signatures"}
@@ -3365,13 +3376,17 @@ def tools_phase(device: str = "cuda") -> tuple:
     log("tools", f"telemetry_tail 10a (exit {rc_tail}): {rec['telemetry_tail 10a']['summary']}")
     log("tools", f"telemetry_run: {json.dumps(tel)}")
     log("tools", f"graftcheck: {json.dumps(gc_line)}")
+    gl_line = {"rc": gl["rc"], "ok": gl["ok"], "files_scanned": gl["files_scanned"],
+               "unsuppressed": len(gl["unsuppressed"]), "suppressed": len(gl["suppressed"]),
+               "baseline_drift": gl["baseline_drift"]}
+    log("tools", f"graftlint: {json.dumps(gl_line)}")
     log("tools", f"racecheck: {json.dumps(rc)}")
     log("tools", f"children side by side {rec['children_s']:.1f} s, racecheck alone "
         f"{rec['racecheck_s']:.1f} s; checks {checks}")
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
         raise AssertionError(f"phase 18 (tools) failed: {bad}")
-    rec["graftcheck"] = gc_line
+    rec["graftcheck"], rec["graftlint"] = gc_line, gl_line
     return rec, tel["launches"]
 
 
@@ -4351,7 +4366,7 @@ def _form_replay(name: str, knobs: dict, nd: int, d: Path, vocab, start, seed: i
     from glint_word2vec_torch.ops import sgns
     from glint_word2vec_torch.ops.sgns_shard import _plain_scatter
     from glint_word2vec_torch.train.checkpoint import TrainState
-    from glint_word2vec_torch.train.trainer import Trainer
+    from glint_word2vec_torch.train.trainer import Trainer, segment_base_rows
 
     cfg = form_config(name, knobs, seed)
     token = cfg.device_pairgen or cfg.cbow_update == "banded"
@@ -4368,6 +4383,9 @@ def _form_replay(name: str, knobs: dict, nd: int, d: Path, vocab, start, seed: i
         if token:
             chunk.update(sub_bases=[int(b) for b in rd["sub_bases"][i]],
                          win_bases=[int(b) for b in rd["win_bases"][i]])
+            if nd > 1:  # the one-device feed's chunks carry each row's bases
+                chunk["arrays"].update(segment_base_rows(
+                    chunk, chunk["arrays"]["tokens"].shape[0]))
         tr.global_step = step
         tr._prologue(chunk)
         for k in range(int(real)):

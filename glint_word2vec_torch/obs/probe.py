@@ -77,6 +77,7 @@ def _matrix_stats(m: torch.Tensor, vocab_size: int, threshold: float) -> torch.T
     hist.scatter_add_(0, idx, torch.ones_like(idx))
     hist = hist.view(blocks, _HIST_BUCKETS).sum(0)
     need = -(-vocab_size * 99 // 100)
+    # graftlint: disable=R4 -- hist is int64 (made with dtype=torch.int64 above; its reshaped sum keeps the dtype), exact
     k = (torch.cumsum(hist, 0) < need).sum()  # the first bucket whose CDF reaches need
     over = (norms > threshold).sum()
     return torch.stack([norms.max().double(), norms.mean().double(), over.double(),

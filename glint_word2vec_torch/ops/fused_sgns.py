@@ -181,6 +181,7 @@ def fused_sgns_shared_kernel(
     cd, ld = _dtypes(syn0, compute_dtype, logits_dtype)
     lib = kernels.load("sgns_shared")
     B, P, D = centers.shape[0], negatives.shape[0], syn0.shape[1]
+    # graftlint: disable=R3 -- a ctypes call's host integer (the scratch size), not a device value
     scratch = torch.empty(int(lib.glint_sgns_scratch_floats(B, P, D)),
                           dtype=torch.float32, device=syn0.device)
     out = torch.empty(3, dtype=torch.float32, device=syn0.device)  # loss, f_pos, pairs

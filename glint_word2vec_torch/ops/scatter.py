@@ -123,8 +123,10 @@ def scatter_add_rows_grouped(mat: torch.Tensor, idx: torch.Tensor, upd: torch.Te
     if uniq.numel() == 0:
         return mat
     n_chunks = (counts + chunk - 1) // chunk
+    # graftlint: disable=R4 -- int64 slot counts (unique_consecutive's return_counts), exact
     first_slot = torch.repeat_interleave(torch.cumsum(counts, 0) - counts, counts)
     rank = torch.arange(rows.numel(), device=rows.device) - first_slot
+    # graftlint: disable=R4 -- int64 chunk counts (from the int64 slot counts), exact
     first_chunk = torch.cumsum(n_chunks, 0) - n_chunks
     owner = torch.repeat_interleave(first_chunk, counts) + rank // chunk
     partial = torch.zeros((int(n_chunks.sum()), mat.shape[1]), dtype=mat.dtype,

@@ -19,8 +19,11 @@ scrape, dump and publish threads for a bounded, seeded burst. The full run then 
 the chaos drill's ``serve-reload`` and ``fleet-kill`` phases with checking on, exported
 to the replica processes through the environment.
 
-The JAX tool also reports the edges graftlint's static lock-order graph did not predict;
-graftlint reads the JAX package only, so the port's report leaves that cross-check out.
+The report also carries the static cross-check: ``static_edges``, the acquisition
+graph of the port's graftlint R9 (:mod:`.graftlint.concurrency`), and
+``edges_unexplained``, the edges the schedule executed that the static graph did not
+predict (a nesting through a stored closure, say). It is informational, as in the JAX
+tool: the rank gate judges every executed edge either way.
 
 Stdout carries exactly one JSON line; exit code 0 iff ok. ``--device`` defaults to
 ``cuda`` and fails without a card; the CPU runs only when asked for.
@@ -86,8 +89,13 @@ def _zero_cost_probe() -> dict:
     raw = threading.Lock()  # graftlint: disable=R9 -- raw primitive is the A/B control
     made = lockcheck.make_lock("serve.handle")  # graftlint: disable=R9 -- off-mode probe: off-site construction is the test
     bench(raw), bench(made)  # warm both code paths before timing
-    a = min(bench(raw) for _ in range(7))
-    b = min(bench(made) for _ in range(7))
+    # in turns (raw, made, made, raw, ...), so a change of the host's speed during the
+    # probe (a busy neighbour, a clock step) reaches both sides alike
+    times: dict = {"raw": [], "made": []}
+    for i in range(8):
+        for name in (("raw", "made") if i % 2 == 0 else ("made", "raw")):
+            times[name].append(bench(raw if name == "raw" else made))
+    a, b = min(times["raw"]), min(times["made"])
     ratio = b / a if a else float("inf")
     return {
         "raw_types": raw_types,
@@ -194,6 +202,18 @@ def _chaos_phases(workdir: str, n_sentences: int, device: str) -> dict:
     return out
 
 
+def _static_cross_check(runtime_edges: list) -> dict:
+    """Edges the schedule executed but the static R9 graph did not predict:
+    informational (the rank gate already judged them), reported so that a statically
+    invisible nesting is at least visible in the report."""
+    from glint_word2vec_torch.graftlint.concurrency import R9LockOrder, TreeIndex
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    static = {f"{a}->{b}" for a, b in R9LockOrder().edges(TreeIndex(root))}
+    return {"static_edges": sorted(static),
+            "edges_unexplained": sorted(set(runtime_edges) - static)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m glint_word2vec_torch.racecheck",
                                  description=__doc__.split("\n", 1)[0])
@@ -233,6 +253,8 @@ def main(argv=None) -> int:
         rep = lockcheck.report()  # accumulated across the stack and the phases
         rep["errors"] = []
 
+    cross = _static_cross_check(rep["edges"])
+
     try:
         with open(args.baseline, "r", encoding="utf-8") as f:
             allowed = json.load(f).get("inversions", [])
@@ -254,6 +276,7 @@ def main(argv=None) -> int:
         "inversions_unbaselined": unbaselined,
         "baseline_found": baseline_ok,
         "phases": phases,
+        **cross,
     }))
     return 0 if ok else 1
 

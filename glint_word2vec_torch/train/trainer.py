@@ -219,6 +219,14 @@ def _is_banded(cfg: Word2VecConfig) -> bool:
     return bool(cfg.cbow and cfg.cbow_update == "banded")
 
 
+def segment_base_rows(bases: dict, n: int) -> dict:
+    """The per-row hashrng bases of a one-device token chunk of several segments: its
+    ``sub_bases`` and ``win_bases`` (lists of one int a segment) as [n, Sd] int64 arrays
+    for its n step rows, which ride the chunk's arrays through the staging path."""
+    return {k: np.tile(np.asarray(bases[k], np.int64), (n, 1))
+            for k in ("sub_bases", "win_bases")}
+
+
 def _world_spans_hosts() -> bool:
     """Whether the ranks of this world run on more than one host: one allgather of
     each rank's host name over the world (a collective every rank calls)."""
@@ -498,9 +506,11 @@ class Trainer:
                 f"embedding_partition='cols' needs the padded vector dim "
                 f"{self.padded_dim} divisible by num_model={self.plan.num_model}")
         self.table = build_alias_table(vocab.counts, config.sample_power)
+        # graftlint: disable=R6 -- one placement at construction, before any chunk is fed; the staging path is the per-chunk feed's
         self._table_prob = torch.from_numpy(self.table.prob).to(self.device)
-        self._table_alias = torch.from_numpy(
-            self.table.alias.astype(np.int64)).to(self.device)
+        # graftlint: disable=R6 -- one placement at construction, before any chunk is fed; the staging path is the per-chunk feed's
+        self._table_alias = torch.from_numpy(self.table.alias.astype(np.int64)).to(
+            self.device)
         self.param_dtype = getattr(torch, config.param_dtype)
         self.compute_dtype = getattr(torch, config.compute_dtype)
         self.logits_dtype = getattr(torch, config.logits_dtype)
@@ -900,6 +910,7 @@ class Trainer:
         self._keep_host = keep
         kp = np.zeros(self.padded_vocab, np.float32)
         kp[:self.vocab.size] = keep
+        # graftlint: disable=R6 -- one placement when the token feed is set up (construction or a duplicate-channel resolve), before any chunk is fed
         self._keep_prob_dev = torch.from_numpy(kp).to(self.device)
         self._tokens_per_step = tokens_per_step
         if cfg.device_pairgen and tokens_per_step * (2 * cfg.window - 1) >= 1 << 24:
@@ -1216,6 +1227,9 @@ class Trainer:
                                        cfg.min_alpha_factor)
                         for p in pending], np.float32)
                     arrays["alphas"] = alphas
+                    bases = self._segment_bases(k)
+                    if Sd > 1:
+                        arrays.update(segment_base_rows(bases, real))
                     steps_in_iter += real
                     sprog = [list(seg_state[i]) if skips and skips[i] < 0
                              else [k, counts[i]] for i in range(Sd)]
@@ -1226,8 +1240,7 @@ class Trainer:
                         # the row stream, so the positions are per segment only
                         batches_done=0 if seg_state else steps_in_iter,
                         real_pairs=sum(p[4] for p in pending) * rate,
-                        shard_progress=sprog, shard_feed="tokens",
-                        **self._segment_bases(k))
+                        shard_progress=sprog, shard_feed="tokens", **bases)
                     pending = []
                     return chunk
 
@@ -1400,7 +1413,8 @@ class Trainer:
         """The chunk's [n, Sd, ...] token arrays as the rows this device expands: on a
         mesh its own data segment's ([n, ...], this segment's hashrng bases as ints);
         on one device every segment's, flattened to [n·Sd, ...] (with one segment the
-        bases are ints, with several a [n·Sd] tensor of each row's)."""
+        bases are ints, with several each row's, from the chunk's
+        :func:`segment_base_rows` arrays, staged with the rest)."""
         if self.plan is not None:
             d = self.plan.data_index
             rows = {name: arrays[name][:, d] for name in ("tokens", "starts", "nvalid",
@@ -1408,11 +1422,9 @@ class Trainer:
             return rows, chunk["sub_bases"][d], chunk["win_bases"][d]
         rows = {name: arrays[name].reshape(-1, *arrays[name].shape[2:])
                 for name in ("tokens", "starts", "nvalid", "obase")}
-        n = arrays["tokens"].shape[0]
         if self._token_segments == 1:
             return rows, chunk["sub_bases"][0], chunk["win_bases"][0]
-        return rows, *(torch.from_numpy(np.tile(np.asarray(chunk[k], np.int64), n))
-                       .to(self.device) for k in ("sub_bases", "win_bases"))
+        return rows, arrays["sub_bases"].reshape(-1), arrays["win_bases"].reshape(-1)
 
     def _device_pairs(self, arrays: dict, chunk: dict) -> dict:
         """The chunk's pairs from its token blocks, in one batched call of the device

@@ -398,15 +398,13 @@ def main(argv=None) -> int:
         finally:
             if not args.workdir:
                 shutil.rmtree(workdir, ignore_errors=True)
-        print(json.dumps(out))
-        return 0 if out.get("ok") else 1
-
-    if not args.cmd:
-        ap.error("pass --cmd (with --log per command) to supervise a run, or --smoke / "
-                 "--drill for the drills")
-    if len(args.log) != len(args.cmd):
-        ap.error("need exactly one --log per --cmd")
-    out = run_supervised(args)
+    else:
+        if not args.cmd:
+            ap.error("pass --cmd (with --log per command) to supervise a run, or "
+                     "--smoke / --drill for the drills")
+        if len(args.log) != len(args.cmd):
+            ap.error("need exactly one --log per --cmd")
+        out = run_supervised(args)
     print(json.dumps(out))
     return 0 if out.get("ok") else 1
 

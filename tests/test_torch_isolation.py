@@ -64,7 +64,10 @@ def test_import_leaves_jax_out():
             "glint_word2vec_torch.graftcheck.checker, glint_word2vec_torch.graftcheck.lattice, "
             "glint_word2vec_torch.graftcheck.properties, "
             "glint_word2vec_torch.graftcheck.registry, glint_word2vec_torch.graftcheck.shrink, "
-            "glint_word2vec_torch.graftcheck.__main__\n"
+            "glint_word2vec_torch.graftcheck.__main__, glint_word2vec_torch.graftlint, "
+            "glint_word2vec_torch.graftlint.engine, glint_word2vec_torch.graftlint.rules, "
+            "glint_word2vec_torch.graftlint.concurrency, "
+            "glint_word2vec_torch.graftlint.__main__\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(bad)\n"

@@ -1,10 +1,7 @@
-"""The port's lock discipline (glint_word2vec_torch/lockcheck.py): graftlint's
-concurrency rules R9-R11 run over the port, and the rank order is checked at run time
-under ``GLINT_LOCKCHECK=1`` through a served query, a hot reload and a fit.
-
-graftlint is bound to the JAX package by module constants (``_LIB`` in
-tools/graftlint/concurrency.py and rules.py, and the engine's scan list); the fixture
-below points them at the port for the duration of a test, without editing tools/.
+"""The port's lock discipline (glint_word2vec_torch/lockcheck.py): the port's own
+graftlint (``glint_word2vec_torch/graftlint``) runs its concurrency rules R9-R11 over the
+port, and the rank order is checked at run time under ``GLINT_LOCKCHECK=1`` through a
+served query, a hot reload and a fit.
 """
 
 import ast
@@ -18,7 +15,7 @@ from pathlib import Path
 
 import pytest
 
-from tools.graftlint import concurrency, engine, rules
+from glint_word2vec_torch.graftlint import concurrency, engine
 
 from _torch_mesh_worker import one_torch_thread
 from glint_word2vec_torch import lockcheck
@@ -33,15 +30,6 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = "glint_word2vec_torch/"
 
 
-@pytest.fixture
-def on_the_port(monkeypatch):
-    monkeypatch.setattr(concurrency, "_LIB", PORT)
-    monkeypatch.setattr(concurrency, "_LOCKCHECK", PORT + "lockcheck.py")
-    monkeypatch.setattr(rules, "_LIB", PORT)
-    monkeypatch.setattr(engine, "_SCAN_GLOBS", ("glint_word2vec_torch",))
-    monkeypatch.setattr(engine, "_SCAN_TOP", ("chip_smoke.py",))
-
-
 def _findings(rule, root=str(REPO)):
     if getattr(rule, "repo_rule", False):
         out = rule.check_repo(root)
@@ -53,12 +41,12 @@ def _findings(rule, root=str(REPO)):
 @pytest.mark.parametrize("rule", [concurrency.R9LockOrder, concurrency.R10HandlerSafety,
                                   concurrency.R11SharedMutable],
                          ids=["R9", "R10", "R11"])
-def test_concurrency_rules_pass_on_the_port(on_the_port, rule):
+def test_concurrency_rules_pass_on_the_port(rule):
     found = _findings(rule())
     assert not found, "\n".join(f"{f.path}:{f.line} {f.message}" for f in found)
 
 
-def test_r9_scans_the_port(on_the_port, tmp_path):
+def test_r9_scans_the_port(tmp_path):
     """The rule reads the port's registry and sites: a raw lock added to a copy of the
     port, and a registry entry whose site moved, are findings."""
     shutil.copytree(REPO / "glint_word2vec_torch", tmp_path / "glint_word2vec_torch",

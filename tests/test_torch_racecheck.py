@@ -6,7 +6,8 @@ checking off costs nothing (raw primitive types, no wrapper objects), the racech
 passes end to end as a subprocess, the status scrape, flight-recorder dump and sink
 rotation triple survives three concurrent hammer threads, and shutdown is clean (close
 twice, close with queries in flight, leaked threads surfaced) for the service and the
-fleet."""
+fleet; and the report carries the static cross-check against graftlint's R9 graph of
+the port."""
 
 import json
 import os
@@ -150,6 +151,30 @@ def test_racecheck_smoke_subprocess_one_json_line(tmp_path):
     assert payload["lockcheck"]["inversions"] == []
     assert payload["inversions_unbaselined"] == []
     assert payload["lockcheck"]["reloads_observed"] >= 1
+    # the static cross-check over the port's graftlint R9 graph, in the JAX keys
+    assert isinstance(payload["static_edges"], list)
+    assert payload["edges_unexplained"] == sorted(
+        set(payload["lockcheck"]["edges"]) - set(payload["static_edges"]))
+
+
+def test_static_cross_check_reports_a_nesting_the_graph_cannot_see(checked):
+    """A nesting made through a stored closure runs (the rank gate passes it: the ranks
+    increase) but is no edge of the static R9 graph, so it is reported as unexplained;
+    an edge of the static graph would not be."""
+    from glint_word2vec_torch import racecheck
+
+    outer = checked.make_lock("data.native.load")   # rank 10
+    inner = checked.make_lock("fleet.breaker")      # rank 40
+    callbacks = {"on_load": lambda: inner.acquire() and inner.release()}
+    with outer:
+        callbacks["on_load"]()
+    rep = checked.report()
+    assert rep["inversions"] == [] and "data.native.load->fleet.breaker" in rep["edges"]
+    cross = racecheck._static_cross_check(rep["edges"])
+    assert "data.native.load->fleet.breaker" not in cross["static_edges"]
+    assert "data.native.load->fleet.breaker" in cross["edges_unexplained"]
+    known = racecheck._static_cross_check(cross["static_edges"])
+    assert known["edges_unexplained"] == []
 
 
 # -- satellite 3: the scrape + dump + rotation triple ----------------------------------
